@@ -18,14 +18,15 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      random bf16 weights from a seed) answers completions, chat, a
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
      requests (one streamed) and a seeded sample sent twice — once with
-     the ragged decode kernel and once with the dedicated one. Every
-     kernel's launch counter must rise during these runs.
-The last two lines are the kernels summary and {"ok": true, ...}.
+     the ragged decode kernel and once with the dedicated one, each run
+     with the launch counters zeroed before it. Every kernel of a run's
+     path must launch there, a whole number of times per layer.
+The last two lines are the kernels summary (each kernel's launches in
+the run of its own path, and per path) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -144,13 +145,15 @@ def _paged_case(B, S, kv_lens, H=32, Kv=8, h=128, page=64, seed=0):
     return q, pool, table, lens
 
 
-def _paged_cost(B, S, kv_lens, H, Kv, h):
+def _paged_cost(B, S, kv_lens, H, Kv, h, page=64):
     """(bytes, flops) the paged function needs for these inputs: q and
-    out once, each valid K/V row once, the table and lengths; 4*h flops
-    per (query head, visible key)."""
+    out once, each valid K/V row once, the lengths and the table entries
+    of the pages that hold those rows; 4*h flops per (query head,
+    visible key)."""
     visible = sum(max(0, L - S + s + 1) for L in kv_lens for s in range(S))
     kv_rows = sum(kv_lens)
-    nbytes = 2 * (2 * B * S * H * h) + 2 * (kv_rows * 2 * Kv * h) + 4 * B * (1 + 32)
+    pages = sum(-(-L // page) for L in kv_lens)
+    nbytes = 2 * (2 * B * S * H * h) + 2 * (kv_rows * 2 * Kv * h) + 4 * (B + pages)
     return nbytes, 4.0 * h * H * visible
 
 
@@ -233,7 +236,7 @@ def phase_kernels() -> dict:
     for case, B, S, lens_list, headline in cases:
         q, pool, table, lens = _paged_case(B, S, lens_list)
         want = paged_attention_plain(q.float(), pool.float(), table, lens)
-        nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h)
+        nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h, page=pool.shape[1])
         lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens), iters=5)
         plain_ms = timed_ms(lambda: paged_attention_plain(q, pool, table, lens), iters=5)
         kernels = [("paged_attention", paged_attention_ragged)]
@@ -455,6 +458,10 @@ def _serve_once(params, decode_kernel: str) -> dict:
     missing = [n for n in want if launches[n] == 0]
     if missing:
         raise AssertionError(f"{decode_kernel} run: kernels never launched: {missing}")
+    # A model step calls its attention kernel once per layer.
+    layers = eng.model_config.num_layers
+    if any(n % layers for n in launches.values()):
+        raise AssertionError(f"{decode_kernel} run: launches not whole steps of {layers}: {launches}")
     # TTFT and decode tok/s of the streamed request (one of 8 running
     # together: its inter-token time is one decode step of the batch),
     # and the 7 others' tokens over the batch's wall time (prefills
@@ -464,6 +471,7 @@ def _serve_once(params, decode_kernel: str) -> dict:
         "stream_decode_tok_s": (len(times) - 1) / (times[-1] - times[0]) if len(times) > 1 else None,
         "concurrent_tok_s": tokens / wall,
         "launches": launches,
+        "steps": {n: c // layers for n, c in launches.items()},
     }
     log(f"serving[{decode_kernel}]", json.dumps(stats))
     del eng, srv
@@ -554,22 +562,21 @@ def phase_serving() -> dict:
 # ---------------------------------------------------------------------------
 
 
+# name -> (source, TPU kernel it replaces, wrapper, the serving path it
+# belongs to: the default ragged-decode path, or --decode-kernel dedicated).
 SOURCES = {
     "flash_attention": ("kubeai_tpu_torch/csrc/flash_attention.cu",
-                        "kubeai_tpu/ops/flash_attention.py:27", "flash_attention"),
+                        "kubeai_tpu/ops/flash_attention.py:27", "flash_attention", "ragged"),
     "paged_attention": ("kubeai_tpu_torch/csrc/paged_attention.cu",
-                        "kubeai_tpu/ops/paged_attention.py:55", "paged_attention_ragged"),
+                        "kubeai_tpu/ops/paged_attention.py:55", "paged_attention_ragged",
+                        "ragged"),
     "paged_decode_attention": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
                                "kubeai_tpu/ops/paged_decode_attention.py:66",
-                               "paged_decode_attention"),
+                               "paged_decode_attention", "dedicated"),
 }
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="env,kernels,model,serving")
-    args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -583,25 +590,23 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
-    if "env" in phases:
-        phase_env()
-    kern = phase_kernels() if "kernels" in phases else {}
-    if "model" in phases:
-        phase_model_parity()
-    serving = phase_serving() if "serving" in phases else {}
+    phase_env()
+    kern = phase_kernels()
+    phase_model_parity()
+    serving = phase_serving()
     log(f"total: {time.monotonic() - t0:.1f}s")
-    launches = {}
-    for run in serving.values():
-        for k, n in run["launches"].items():
-            launches[k] = launches.get(k, 0) + n
+    # Each serving path is its own run with the counts zeroed before it:
+    # `launches` is the count from the run of the kernel's own path, and
+    # `launches_by_path` keeps both runs apart.
     summary = []
-    for name, (src, replaces, wrapper) in SOURCES.items():
-        r = kern.get(name, {})
+    for name, (src, replaces, wrapper, path) in SOURCES.items():
+        r = kern[name]
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches.get(wrapper, 0), "max_abs_err": r.get("max_abs_err"),
-            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
-            "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
+            "path": path, "launches": serving[path]["launches"][wrapper],
+            "launches_by_path": {p: run["launches"][wrapper] for p, run in serving.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     log(gpu_line())
     log(json.dumps({"kernels": summary}))

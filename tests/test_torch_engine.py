@@ -26,16 +26,7 @@ from kubeai_tpu_torch.engine.sampling import SamplingParams as TSP
 from kubeai_tpu_torch.models.base import ModelConfig
 from kubeai_tpu_torch.models.convert import params_from_jax
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    # The suite runs in several worker processes: torch's default of one
-    # busy thread per core in each would starve the timing-sensitive tests
-    # running beside these.
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
 TIE_GAP = 1e-5

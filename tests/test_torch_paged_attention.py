@@ -13,16 +13,7 @@ import torch
 from kubeai_tpu.ops.paged_attention import paged_attention_ragged as j_ragged
 from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    # The suite runs in several worker processes: torch's default of one
-    # busy thread per core in each would starve the timing-sensitive tests
-    # running beside these.
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
 TOL = dict(rtol=2e-5, atol=2e-5)

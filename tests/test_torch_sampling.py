@@ -18,16 +18,7 @@ import torch
 from kubeai_tpu.engine import sampling as js
 from kubeai_tpu_torch.engine import sampling as ts
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    # The suite runs in several worker processes: torch's default of one
-    # busy thread per core in each would starve the timing-sensitive tests
-    # running beside these.
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
 def _jax_sample(logits, temp, top_p, top_k, n, seed=0):
