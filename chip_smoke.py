@@ -5,12 +5,14 @@
 
 Phases (any failure exits non-zero; nothing is caught into a pass):
   1. environment: the card's name and power limit, torch/CUDA versions,
-     the kernels' build time and nvcc's per-kernel resource report;
+     the kernels' build time, nvcc's per-kernel resource report and the
+     HGMMA (Hopper tensor-core) instruction count of each library;
   2. kernels: each hand-written CUDA kernel at the main path's shapes
      against its plain PyTorch version (float32 math on the same bf16
      inputs), timed beside the plain version, one PyTorch library call
      that computes the same function (a yardstick the port never calls)
-     and the least time the card could take (bound);
+     and the least time the card could take (bound); decode cases are
+     timed with a cold L2; the ragged decode grid must cover every SM;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
      plain gather path on the same weights, for cold prefill (flash and
      ragged buckets), a chunked prefill and decode steps;
@@ -64,20 +66,54 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# Cold-L2 timing reads this many bytes between launches: well past the
+# H100's 50 MB L2, so a decode case finds its KV pages in device memory,
+# as a real decode step does after ~436 MB of layer weights went through.
+# A read, not a write, evicts: like the weights it leaves clean lines, so
+# the timed kernel pays no write-back of the eviction buffer.
+L2_FLUSH_BYTES = 128 << 20
+_flush_buf = None
+
+
+# Cycles of the spin kernel that holds the card while a timed loop is
+# enqueued (~25 ms): the events then measure device time, not the gaps of
+# a host that enqueues slower than the card runs short kernels.
+HOLD_CYCLES = 40_000_000
+
+
+def timed_ms(fn, iters: int = 20, warmup: int = 3, cold_l2: bool = False) -> float:
+    """Mean device ms per call of *fn* (CUDA events around calls enqueued
+    behind a spin kernel). With *cold_l2* every call is timed alone,
+    right after a 128 MB read that evicts the L2; the read sits outside
+    the timed events."""
+    global _flush_buf
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
+    if not cold_l2:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+    if _flush_buf is None:
+        _flush_buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda._sleep(HOLD_CYCLES)
+    for i in range(iters):
+        _flush_buf.sum()
+        starts[i].record()
         fn()
-    b.record()
+        ends[i].record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
 def compare(got, want, what: str) -> float:
@@ -123,7 +159,32 @@ def phase_env() -> dict:
         for line in r.log.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "smem")):
                 log(f"  ptxas[{name}] {line.strip()}")
+    # Whether the tensor cores are used: Hopper's warpgroup products show
+    # as HGMMA in the SASS. Logged, not gated.
+    tool = _cuobjdump()
+    for name, r in res.items():
+        if tool is None:
+            log(f"  sass[{name}] not inspected: no cuobjdump")
+            continue
+        sass = subprocess.run([tool, "-sass", str(r.path)], capture_output=True, text=True)
+        n = sum("HGMMA" in line for line in sass.stdout.splitlines())
+        log(f"  sass[{name}] HGMMA instructions: {n}")
     return {"build_s": build_s}
+
+
+def _cuobjdump() -> str | None:
+    from pathlib import Path
+
+    from kubeai_tpu_torch.ops import _build
+
+    cands = [Path(_build.nvcc_path()).parent / "cuobjdump"]
+    try:
+        import triton
+
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    return next((str(c) for c in cands if c.exists()), None)
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +253,16 @@ def phase_kernels() -> dict:
     H, Kv, h = 32, 8, 128
     results: dict[str, dict] = {}
 
-    def record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline):
+    def record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline, cold,
+               read_ms=None):
         bound_ms, bound_by = _bound(nbytes, flops)
         line = {
-            "kernel": name, "case": case, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms,
+            "kernel": name, "case": case, "l2": "cold" if cold else "warm",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
         }
+        if read_ms is not None:
+            line["read_ms"] = read_ms
         log("kernel_case", json.dumps(line))
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -206,25 +270,29 @@ def phase_kernels() -> dict:
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=lib_ms, case=case)
 
-    # #1 flash attention: cold prefill bucket 1024.
-    g = torch.Generator(device="cuda").manual_seed(1)
-    S = 1024
-    q = torch.randn((1, S, H, h), generator=g, device="cuda").to(torch.bfloat16)
-    k = torch.randn((1, S, Kv, h), generator=g, device="cuda").to(torch.bfloat16)
-    v = torch.randn((1, S, Kv, h), generator=g, device="cuda").to(torch.bfloat16)
-    got = flash_attention(q, k, v, causal=True)
-    want = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
-    torch.cuda.synchronize()
-    err = compare(got, want, "flash_attention S=1024")
-    ms = timed_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
-    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True))
-    nbytes = 2 * (2 * S * H * h + 2 * S * Kv * h)
-    flops = 4.0 * h * H * S * (S + 1) / 2
-    record("flash_attention", "B=1 S=1024 causal", err, ms, plain_ms, nbytes, flops, lib_ms, True)
+    # #1 flash attention: cold prefill buckets 1024 and 512 (the serving
+    # run's 300-byte prompt takes the 512 bucket).
+    for S, headline in ((1024, True), (512, False)):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        q = torch.randn((1, S, H, h), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((1, S, Kv, h), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((1, S, Kv, h), generator=g, device="cuda").to(torch.bfloat16)
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+        torch.cuda.synchronize()
+        err = compare(got, want, f"flash_attention S={S}")
+        ms = timed_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+        lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True))
+        nbytes = 2 * (2 * S * H * h + 2 * S * Kv * h)
+        flops = 4.0 * h * H * S * (S + 1) / 2
+        record("flash_attention", f"B=1 S={S} causal", err, ms, plain_ms, nbytes, flops,
+               lib_ms, headline, False)
 
-    # #2 and #3 on decode shapes; #2 also on prefill shapes.
+    # #2 and #3 on decode shapes; #2 also on prefill shapes. A real decode
+    # step finds its layer's KV cold, so decode cases are timed cold-L2.
     cases = [
         ("decode B=8 kv_len=1", 8, 1, [1] * 8, False),
         ("decode B=8 kv_len=300", 8, 1, [300] * 8, False),
@@ -234,11 +302,21 @@ def phase_kernels() -> dict:
         ("prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], False),
     ]
     for case, B, S, lens_list, headline in cases:
+        cold = S == 1
         q, pool, table, lens = _paged_case(B, S, lens_list)
         want = paged_attention_plain(q.float(), pool.float(), table, lens)
         nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h, page=pool.shape[1])
-        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens), iters=5)
-        plain_ms = timed_ms(lambda: paged_attention_plain(q, pool, table, lens), iters=5)
+        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens), iters=5, cold_l2=cold)
+        plain_ms = timed_ms(lambda: paged_attention_plain(q, pool, table, lens), iters=5,
+                            cold_l2=cold)
+        # What the memory delivers at this size: one cold sum() over as
+        # many bytes as the case needs (a memory-bound kernel's yardstick
+        # beside its bound).
+        read_ms = None
+        if cold:
+            buf = torch.zeros(nbytes // 4, device="cuda")
+            read_ms = timed_ms(lambda: buf.sum(), cold_l2=True)
+            del buf
         kernels = [("paged_attention", paged_attention_ragged)]
         if S == 1:
             kernels.append(("paged_decode_attention", paged_decode_attention))
@@ -246,13 +324,57 @@ def phase_kernels() -> dict:
             got = fn(q, pool, table, lens)
             torch.cuda.synchronize()
             err = compare(got, want, f"{name} {case}")
-            ms = timed_ms(lambda: fn(q, pool, table, lens))
-            record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline)
+            ms = timed_ms(lambda: fn(q, pool, table, lens), cold_l2=cold)
+            record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline, cold,
+                   read_ms)
+        if case in SWEEP_CASES:
+            _split_sweep(case, q, pool, table, lens)
         del q, pool, table, lens, want
     torch.cuda.empty_cache()
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
     return results
+
+
+SWEEP_CASES = ("decode B=8 kv_len=512", "decode B=8 kv_len=2048")
+
+
+def _split_sweep(case, q, pool, table, lens) -> None:
+    """Cold-L2 ms of the ragged decode kernel under other split counts than
+    the wrapper's own choice (marked), on the same inputs."""
+    import torch
+
+    from kubeai_tpu_torch.ops import paged_attention as pa
+
+    B, Kv, page = q.shape[0], pool.shape[2] // 2, pool.shape[1]
+    chosen = pa.split_kv_plan(B, Kv, table.shape[1], page,
+                              torch.cuda.get_device_properties(0).multi_processor_count)
+    scale = q.shape[-1] ** -0.5
+    ms = {}
+    for n in sorted({2, 4, 8, 16, chosen}):
+        n = min(n, pa.MAX_SPLITS)
+        ms[n] = timed_ms(lambda: pa._launch_ragged(q, pool, table, lens, scale, 0.0, n),
+                         cold_l2=True)
+    log("split_sweep", json.dumps({"case": case, "chosen": chosen, "ms_by_splits": ms}))
+
+
+def check_decode_grid() -> dict:
+    """The ragged kernel's split-KV decode grid at B=8, Kv=8, kv_len 512,
+    for phase 2's table (8 pages) and the serving engine's (32 pages): the
+    live blocks must cover every SM of the card."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import split_chunk, split_kv_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = {}
+    for mp in (8, 32):
+        n = split_kv_plan(8, 8, mp, 64, sms)
+        blocks[mp] = 8 * 8 * -(-512 // split_chunk(512, n))
+    log("decode_grid", json.dumps({"sms": sms, "live_blocks_by_table_pages": blocks}))
+    if min(blocks.values()) < sms:
+        raise AssertionError(f"decode grid at kv_len 512 leaves SMs idle: {blocks} < {sms}")
+    return blocks
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +714,7 @@ def main() -> int:
     t0 = time.monotonic()
     phase_env()
     kern = phase_kernels()
+    check_decode_grid()
     phase_model_parity()
     serving = phase_serving()
     log(f"total: {time.monotonic() - t0:.1f}s")

@@ -155,11 +155,12 @@ template <typename T, int D>
 static int launch(const void* q, const void* pool, const int* table, const int* kv_lens,
                   void* out, int B, int S, int H, int Kv, int page, int max_pages,
                   float scale, float softcap, cudaStream_t stream) {
+  // Once per instance, at the per-block limit: the wrapper refuses shapes
+  // that need more.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return (int)attr;
   const size_t smem = decode_smem_bytes<D>(S * (H / Kv));
-  cudaError_t e = cudaFuncSetAttribute(paged_decode_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
   dim3 grid(Kv, B);
   paged_decode_kernel<T, D><<<grid, DNT, smem, stream>>>(
       (const T*)q, (const T*)pool, table, kv_lens, (T*)out, S, H, Kv, page, max_pages,

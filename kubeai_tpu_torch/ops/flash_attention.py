@@ -8,9 +8,10 @@ float32, key tiles above the diagonal skipped.
 
 Bound on the H100 at the main path's shapes (S=1024, H=32, Kv=8, h=128,
 bf16): ~8.6 GFLOP causal against ~20 MB of I/O, so the tensor-core rate
-bounds it. The first kernel runs its products on the CUDA cores; its
-design (one block per 64 query rows of one KV head, K/V tiles read once
-for the G heads sharing them) is described in the source.
+bounds it. bf16 runs on the tensor cores (wgmma, TMA-fed K/V tiles; one
+block per 64 query rows of one KV head, each K/V tile read once for the
+G heads sharing it); float32 keeps the CUDA-core tile. The source
+describes both.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; there is no fallback between the two.

@@ -12,8 +12,13 @@ kv_len-S .. kv_len-1 and attend causally, reading pages in place.
 
 Bound on the H100: memory for decode (B=8, kv_len 512: ~16.8 MB per
 layer call, ~5 us at 3.35 TB/s), the tensor-core rate for 1024-token
-chunks. The kernel shares the flash kernel's tile core with keys found
-through the page table; its source says what the design does about it.
+chunks. For bf16 the kernel has two regimes, chosen from the rows per
+(slot, KV head), S*G: prefill tiles of 64 rows and more on the tensor
+cores (the flash kernel's tile, keys found through the page table), and
+split-KV decode up to 16 rows, whose number of splits
+:func:`split_kv_plan` chooses here so that the grid fills the card.
+float32 and the rows between keep the CUDA-core tile. Its source says
+what each design does.
 
 ``paged_attention_ragged`` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; there is no fallback between them.
@@ -21,15 +26,83 @@ the plain version for CPU tensors; there is no fallback between them.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.attention import attention
 
 _SIG = {
-    "paged_attention_launch": [_build.PTR] * 5
-    + [_build.INT] * 8 + [_build.FLOAT, _build.FLOAT, _build.PTR],
+    "paged_attention_launch": [_build.PTR] * 8
+    + [_build.INT] * 10 + [_build.FLOAT, _build.FLOAT, _build.PTR],
 }
+
+# bf16 launches with at most this many query rows per (slot, KV head),
+# S*G, take the split-KV decode regime (one m16 tile of mma.sync).
+SPLIT_MAX_ROWS = 16
+# Keys of one 64-row page-sized tile: the table span in tiles bounds the
+# number of splits.
+TILE_KEYS = 64
+# The decode grid aims at this many blocks per SM. Each warp of a block
+# keeps two slices of K/V copies in flight (~67 KB of shared memory a
+# block, three blocks fit an SM), which two blocks per SM already make
+# enough for the memory; more splits only add partials to merge and a
+# second wave. chip_smoke.py times the choice against others
+# ("split_sweep").
+SPLIT_BLOCKS_PER_SM = 2
+# Splits per slot the kernel takes at most (its merge holds every
+# split's (m, l) in shared memory).
+MAX_SPLITS = 64
+
+
+def split_kv_plan(B: int, Kv: int, max_pages: int, page: int, sm_count: int) -> int:
+    """Splits per (slot, KV head) of the decode regime: as many as keep
+    B*Kv*n_splits within SPLIT_BLOCKS_PER_SM * sm_count blocks, at least
+    one, at most one per 64-key tile of the table span and at most
+    MAX_SPLITS. The kernel cuts each slot's own kv_len into that many
+    pieces (split_chunk)."""
+    tiles = max(1, -(-max_pages * page // TILE_KEYS))
+    want = SPLIT_BLOCKS_PER_SM * sm_count // (B * Kv)
+    return max(1, min(tiles, want, MAX_SPLITS))
+
+
+def split_chunk(kv_len: int, n_splits: int) -> int:
+    """Keys per split for a slot of *kv_len* keys: kv_len / n_splits
+    rounded up to a multiple of 16, so a split may end inside a page (the
+    kernel's own rule, csrc/paged_attention.cu::split_chunk). Splits that
+    start past kv_len have no keys and take no part in the merge."""
+    c = -(-kv_len // n_splits)
+    return max(16, -(-c // 16) * 16)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# Per device: the decode regime's scratch. The counters outlive a launch
+# on purpose: each launch leaves them zero again, so they are zeroed once,
+# here, and no launch pays a second kernel to clear them. That holds for
+# launches in stream order (the engine runs its steps on one stream).
+_scratch: dict = {}
+
+
+def _decode_scratch(device, n_out: int, n_rows: int, n_groups: int):
+    """(partials [n_out] f32, (m, l) [2*n_rows] f32, counters [n_groups]
+    int32) for the decode regime, grown on demand."""
+    want = (n_out, 2 * n_rows, n_groups)
+    s = _scratch.get(device)
+    have = (0, 0, 0) if s is None else tuple(t.numel() for t in s)
+    if any(h < n for h, n in zip(have, want)):
+        size = [max(h, n) for h, n in zip(have, want)]
+        s = (
+            torch.empty(size[0], dtype=torch.float32, device=device),
+            torch.empty(size[1], dtype=torch.float32, device=device),
+            torch.zeros(size[2], dtype=torch.int32, device=device),
+        )
+        _scratch[device] = s
+    return s
 
 
 def _no_quant(k_scale, v_scale):
@@ -58,10 +131,10 @@ def paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale=None, softc
     return attention(q, k_att, v_att, mask, scale=scale, softcap=softcap)
 
 
-def launch_paged_kernel(lib, fn: str, what: str, q, kv_pages, page_table, kv_lengths,
-                        scale, softcap):
-    """Shared argument checks and launch for the two paged kernels (the
-    ragged one here and the dedicated decode one)."""
+def check_paged_inputs(what: str, q, kv_pages, page_table, kv_lengths):
+    """Shared argument checks of the two paged kernels (the ragged one
+    here and the dedicated decode one). Returns (int32 lengths, dtype
+    code)."""
     B, S, H, h = q.shape
     P, page, two_kv, h2 = kv_pages.shape
     Kv = two_kv // 2
@@ -77,13 +150,35 @@ def launch_paged_kernel(lib, fn: str, what: str, q, kv_pages, page_table, kv_len
         what, h, {"q": q, "kv_pages": kv_pages},
         {"page_table": page_table, "kv_lengths": lens},
     )
+    return lens, dtype
+
+
+def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None):
+    """One launch of the kernel; *n_splits* overrides the decode regime's
+    split choice (chip_smoke.py times the choice against others)."""
+    lens, dtype = check_paged_inputs("paged_attention_ragged", q, kv_pages, page_table, kv_lengths)
+    B, S, H, h = q.shape
+    P, page, two_kv, _ = kv_pages.shape
+    Kv, max_pages = two_kv // 2, page_table.shape[1]
+    R = S * (H // Kv)
+    part = ml = cnt = lens  # used by the split-KV regime alone
+    if q.dtype != torch.bfloat16 or R > SPLIT_MAX_ROWS:
+        n_splits = 1
+    else:
+        if n_splits is None:
+            dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+            n_splits = split_kv_plan(B, Kv, max_pages, page, _sm_count(dev))
+        part, ml, cnt = _decode_scratch(
+            q.device, B * Kv * n_splits * R * h, B * Kv * n_splits * R, B * Kv)
     out = torch.empty_like(q)
-    err = getattr(lib, fn)(
+    lib = _build.load("paged_attention", _SIG)
+    err = lib.paged_attention_launch(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, S, H, Kv, h, page, page_table.shape[1], dtype,
+        out.data_ptr(), part.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
+        B, S, H, Kv, h, P, page, max_pages, n_splits, dtype,
         float(scale), float(softcap), _build.stream_of(q),
     )
-    _build.check(err, what)
+    _build.check(err, "paged_attention_ragged")
     return out
 
 
@@ -105,11 +200,7 @@ def paged_attention_ragged(
         return paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_ragged: unsupported device {q.device}")
-    lib = _build.load("paged_attention", _SIG)
-    out = launch_paged_kernel(
-        lib, "paged_attention_launch", "paged_attention_ragged",
-        q, kv_pages, page_table, kv_lengths, scale, softcap,
-    )
+    out = _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap)
     paged_attention_ragged.launches += 1
     return out
 

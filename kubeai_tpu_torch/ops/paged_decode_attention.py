@@ -22,7 +22,7 @@ import torch
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.paged_attention import (
     _no_quant,
-    launch_paged_kernel,
+    check_paged_inputs,
     paged_attention_plain,
 )
 
@@ -83,10 +83,15 @@ def paged_decode_attention(
             f"paged_decode_attention: {S} queries x {H // Kv} heads per KV head "
             f"need {smem} bytes of shared memory (> {_MAX_SMEM})"
         )
-    out = launch_paged_kernel(
-        lib, "paged_decode_attention_launch", "paged_decode_attention",
-        q, kv_pages, page_table, kv_lengths, scale, softcap,
+    lens, dtype = check_paged_inputs(
+        "paged_decode_attention", q, kv_pages, page_table, kv_lengths)
+    out = torch.empty_like(q)
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), B, S, H, Kv, h, kv_pages.shape[1], page_table.shape[1], dtype,
+        float(scale), float(softcap), _build.stream_of(q),
     )
+    _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
 

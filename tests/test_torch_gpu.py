@@ -40,7 +40,10 @@ def _assert_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "S,H,Kv,h,causal",
-    [(300, 8, 2, 128, True), (64, 4, 4, 64, False), (256, 4, 2, 32, True), (1024, 32, 8, 128, True)],
+    [
+        (300, 8, 2, 128, True), (64, 4, 4, 64, False), (256, 4, 2, 32, True),
+        (1024, 32, 8, 128, True), (256, 32, 8, 128, True), (768, 32, 8, 128, True),
+    ],
 )
 def test_flash_kernel_matches_plain(cuda, dtype, S, H, Kv, h, causal):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -66,6 +69,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, S, H, Kv, h, causal):
         (1, 128, 32, 8, 128, 64, [128], 0.0),
         (1, 1024, 32, 8, 128, 64, [2048], 0.0),
         (1, 3, 4, 2, 128, 16, [5000], 0.0),  # overrun: clamped to the table span
+        (1, 128, 32, 8, 128, 16, [300], 0.0),  # prefill tile of 4 page-16 boxes
+        (2, 64, 32, 8, 128, 64, [300, 77], 30.0),  # prefill tiles with softcap
     ],
 )
 def test_paged_kernels_match_plain(cuda, dtype, B, S, H, Kv, h, page, lens, softcap):
@@ -83,6 +88,30 @@ def test_paged_kernels_match_plain(cuda, dtype, B, S, H, Kv, h, page, lens, soft
         got = fn(q, pool, table, kv_lens, softcap=softcap)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_decode_uneven_splits(cuda, dtype):
+    """Decode over a 4096-key table at B=8 (bf16: split KV, 4 splits per
+    slot, many slices per split for the long slots, slots whose kv_lens
+    end in different splits; float32: the CUDA-core tile)."""
+    from kubeai_tpu_torch.ops.paged_attention import split_kv_plan
+
+    B, H, Kv, h, page, mp = 8, 32, 8, 128, 64, 64
+    lens = [1, 100, 1000, 2047, 2048, 3000, 4000, 4096]
+    assert split_kv_plan(B, Kv, mp, page, 132) == 4
+    g = torch.Generator(device=cuda).manual_seed(2)
+    P = 1 + B * mp
+    pool = torch.randn((P, page, 2 * Kv, h), generator=g, device=cuda).to(dtype)
+    table = (torch.randperm(P - 1, generator=g, device=cuda) + 1).reshape(B, mp).to(torch.int32)
+    q = torch.randn((B, 1, H, h), generator=g, device=cuda).to(dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want = paged_attention_plain(q.float(), pool.float(), table, kv_lens, h**-0.5)
+    for _ in range(2):  # the second launch finds the counters the first left
+        got = paged_attention_ragged(q, pool, table, kv_lens)
+        torch.cuda.synchronize()
         _assert_close(got, want, dtype)
 
 
