@@ -6,23 +6,29 @@
 Phases (any failure exits non-zero; nothing is caught into a pass):
   1. environment: the card's name and power limit, torch/CUDA versions,
      the kernels' build time, nvcc's per-kernel resource report and the
-     HGMMA (Hopper tensor-core) instruction count of each library;
+     HGMMA / HMMA (tensor-core) instruction count of each library; the
+     dedicated decode kernel must use HMMA and spill nothing;
   2. kernels: each hand-written CUDA kernel at the main path's shapes
      against its plain PyTorch version (float32 math on the same bf16
      inputs), timed beside the plain version, one PyTorch library call
      that computes the same function (a yardstick the port never calls)
-     and the least time the card could take (bound); decode cases are
-     timed with a cold L2; the ragged decode grid must cover every SM;
+     and the least time the card could take (bound); decode cases (S = 1,
+     4 and 8 queries per slot) are timed with a cold L2 beside a cold read
+     of as many bytes, with a split-count sweep of the split-KV decode
+     kernels; the decode grid must cover every SM;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
      plain gather path on the same weights, for cold prefill (flash and
-     ragged buckets), a chunked prefill and decode steps;
+     ragged buckets), a chunked prefill, decode steps and 8-token
+     speculative verify steps under both decode kernels;
   4. serving: the port's OpenAI server over Llama-3.1-8B (32 layers,
      random bf16 weights from a seed) answers completions, chat, a
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
      requests (one streamed) and a seeded sample sent twice — once with
      the ragged decode kernel and once with the dedicated one, each run
      with the launch counters zeroed before it. Every kernel of a run's
-     path must launch there, a whole number of times per layer.
+     path must launch there, a whole number of times per layer. Then a
+     32-layer step profile: decode and verify steps under both decode
+     kernels, prefills.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path) and {"ok": true, ...}.
 """
@@ -30,6 +36,7 @@ the run of its own path, and per path) and {"ok": true, ...}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -155,20 +162,33 @@ def phase_env() -> dict:
     res = _build.build(list(KERNELS), ptxas_verbose=True)
     build_s = time.monotonic() - t0
     log(f"build: {len(res)} kernels in {build_s:.1f}s (parallel nvcc)")
+    spills = {}
     for name, r in res.items():
         for line in r.log.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "smem")):
                 log(f"  ptxas[{name}] {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[name] = spills.get(name, 0) + int(m.group(1)) + int(m.group(2))
     # Whether the tensor cores are used: Hopper's warpgroup products show
-    # as HGMMA in the SASS. Logged, not gated.
+    # as HGMMA in the SASS, mma.sync as HMMA. Logged; the dedicated
+    # kernel's bf16 instances must use them and no instance may spill.
     tool = _cuobjdump()
+    hmma = {}
     for name, r in res.items():
         if tool is None:
             log(f"  sass[{name}] not inspected: no cuobjdump")
             continue
         sass = subprocess.run([tool, "-sass", str(r.path)], capture_output=True, text=True)
-        n = sum("HGMMA" in line for line in sass.stdout.splitlines())
-        log(f"  sass[{name}] HGMMA instructions: {n}")
+        lines = sass.stdout.splitlines()
+        n = sum("HGMMA" in line for line in lines)
+        hmma[name] = sum("HMMA" in line and "HGMMA" not in line for line in lines)
+        log(f"  sass[{name}] HGMMA instructions: {n}, HMMA: {hmma[name]}")
+    log("spill_bytes", json.dumps(spills))
+    if spills.get("paged_decode_attention", 0):
+        raise AssertionError(f"the dedicated decode kernel spills: {spills}")
+    if tool is not None and not hmma.get("paged_decode_attention"):
+        raise AssertionError("no HMMA in the dedicated decode kernel's SASS")
     return {"build_s": build_s}
 
 
@@ -248,7 +268,10 @@ def phase_kernels() -> dict:
 
     from kubeai_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from kubeai_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_ragged
-    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.paged_decode_attention import (
+        MAX_DECODE_QUERY_LEN,
+        paged_decode_attention,
+    )
 
     H, Kv, h = 32, 8, 128
     results: dict[str, dict] = {}
@@ -291,18 +314,22 @@ def phase_kernels() -> dict:
         record("flash_attention", f"B=1 S={S} causal", err, ms, plain_ms, nbytes, flops,
                lib_ms, headline, False)
 
-    # #2 and #3 on decode shapes; #2 also on prefill shapes. A real decode
-    # step finds its layer's KV cold, so decode cases are timed cold-L2.
+    # #2 and #3 on decode shapes (S <= 8: decode, speculative verify); #2
+    # also on prefill shapes. A real decode step finds its layer's KV
+    # cold, so decode cases are timed cold-L2.
     cases = [
         ("decode B=8 kv_len=1", 8, 1, [1] * 8, False),
         ("decode B=8 kv_len=300", 8, 1, [300] * 8, False),
         ("decode B=8 kv_len=512", 8, 1, [512] * 8, True),
         ("decode B=8 kv_len=2048", 8, 1, [2048] * 8, False),
+        ("decode B=8 S=4 kv_len=512", 8, 4, [512] * 8, False),
+        ("decode B=8 S=8 kv_len=512", 8, 8, [512] * 8, False),
+        ("decode B=8 S=8 kv_len=2048", 8, 8, [2048] * 8, False),
         ("prefill B=1 S=128", 1, 128, [128], False),
         ("prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], False),
     ]
     for case, B, S, lens_list, headline in cases:
-        cold = S == 1
+        cold = case.startswith("decode")
         q, pool, table, lens = _paged_case(B, S, lens_list)
         want = paged_attention_plain(q.float(), pool.float(), table, lens)
         nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h, page=pool.shape[1])
@@ -318,7 +345,7 @@ def phase_kernels() -> dict:
             read_ms = timed_ms(lambda: buf.sum(), cold_l2=True)
             del buf
         kernels = [("paged_attention", paged_attention_ragged)]
-        if S == 1:
+        if S <= MAX_DECODE_QUERY_LEN:
             kernels.append(("paged_decode_attention", paged_decode_attention))
         for name, fn in kernels:
             got = fn(q, pool, table, lens)
@@ -336,32 +363,39 @@ def phase_kernels() -> dict:
     return results
 
 
-SWEEP_CASES = ("decode B=8 kv_len=512", "decode B=8 kv_len=2048")
+SWEEP_CASES = ("decode B=8 kv_len=512", "decode B=8 kv_len=2048", "decode B=8 S=8 kv_len=512")
 
 
 def _split_sweep(case, q, pool, table, lens) -> None:
-    """Cold-L2 ms of the ragged decode kernel under other split counts than
-    the wrapper's own choice (marked), on the same inputs."""
+    """Cold-L2 ms of the split-KV decode kernels (ragged where its rows
+    take that regime, and dedicated) under other split counts than the
+    wrappers' own choice (marked), on the same inputs."""
     import torch
 
     from kubeai_tpu_torch.ops import paged_attention as pa
+    from kubeai_tpu_torch.ops import paged_decode_attention as pd
 
-    B, Kv, page = q.shape[0], pool.shape[2] // 2, pool.shape[1]
+    B, S, H = q.shape[:3]
+    Kv, page = pool.shape[2] // 2, pool.shape[1]
     chosen = pa.split_kv_plan(B, Kv, table.shape[1], page,
                               torch.cuda.get_device_properties(0).multi_processor_count)
     scale = q.shape[-1] ** -0.5
-    ms = {}
-    for n in sorted({2, 4, 8, 16, chosen}):
-        n = min(n, pa.MAX_SPLITS)
-        ms[n] = timed_ms(lambda: pa._launch_ragged(q, pool, table, lens, scale, 0.0, n),
-                         cold_l2=True)
-    log("split_sweep", json.dumps({"case": case, "chosen": chosen, "ms_by_splits": ms}))
+    launchers = {"paged_decode_attention": pd._launch_dedicated}
+    if S * (H // Kv) <= pa.SPLIT_MAX_ROWS:
+        launchers["paged_attention"] = pa._launch_ragged
+    for name, launch in launchers.items():
+        ms = {}
+        for n in sorted({2, 4, 8, 16, chosen}):
+            n = min(n, pa.MAX_SPLITS)
+            ms[n] = timed_ms(lambda: launch(q, pool, table, lens, scale, 0.0, n), cold_l2=True)
+        log("split_sweep", json.dumps({"kernel": name, "case": case, "chosen": chosen,
+                                       "ms_by_splits": ms}))
 
 
 def check_decode_grid() -> dict:
-    """The ragged kernel's split-KV decode grid at B=8, Kv=8, kv_len 512,
-    for phase 2's table (8 pages) and the serving engine's (32 pages): the
-    live blocks must cover every SM of the card."""
+    """The split-KV decode grid of both paged kernels at B=8, Kv=8, kv_len
+    512, for phase 2's table (8 pages) and the serving engine's (32
+    pages): the live blocks must cover every SM of the card."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import split_chunk, split_kv_plan
@@ -436,6 +470,15 @@ def phase_model_parity() -> None:
             pool = {"kv": pools[name]["kv"].clone()}
             out[name] = llama.decode_step_paged(params, cfg, d, pool, table, lengths, decode_kernel=dk)[0]
         check(f"decode step ({dk})", out["kernel"], out["plain"])
+    # Speculative verify: 8 candidate tokens per slot (S = G+1 = 8), the
+    # dedicated kernel's largest query block.
+    spec = toks(8)
+    for dk in ("ragged", "dedicated"):
+        for name, cfg in (("kernel", kern), ("plain", mc)):
+            pool = {"kv": pools[name]["kv"].clone()}
+            out[name] = llama.decode_speculative_paged(
+                params, cfg, spec, pool, table, lengths, decode_kernel=dk)[0]
+        check(f"verify step S=8 ({dk})", out["kernel"], out["plain"])
     del params, pools, out
     torch.cuda.empty_cache()
 
@@ -603,9 +646,10 @@ def _serve_once(params, decode_kernel: str) -> dict:
 
 def _step_profile(params) -> None:
     """Where a model step's time goes, at the serving shapes: host-clock
-    time of decode steps (B=8, kv_len 512) under each decode kernel and
-    of cold / chunked prefills, and a torch.profiler breakdown of one
-    decode step's device time by kernel."""
+    time of decode steps (B=8, kv_len 512) and of 8-token speculative
+    verify steps (kv_len 512 after them) under each decode kernel and of
+    cold / chunked prefills, and a torch.profiler breakdown of the decode
+    and verify steps' device time by kernel, under each decode kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -619,6 +663,7 @@ def _step_profile(params) -> None:
     pool = llama.init_paged_cache(mc, P, page, "cuda")
     table = torch.arange(1, P, dtype=torch.int32, device="cuda").reshape(B, mp)
     tok = torch.randint(0, 259, (B, 1), device="cuda")
+    spec = torch.randint(0, 259, (B, 8), device="cuda")
     lengths = torch.full((B,), 512, device="cuda")
 
     def wall_ms(fn, n):
@@ -630,10 +675,29 @@ def _step_profile(params) -> None:
         torch.cuda.synchronize()
         return (time.monotonic() - t0) * 1e3 / n
 
-    res = {}
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+        # Kernel entries only: an operator's entry repeats its kernels' time.
+        dev = [(a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
+               if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+        return {
+            "wall_ms": wall, "device_busy_ms": sum(t for _, t, _ in dev),
+            "device_kernels": sum(c for _, _, c in dev),
+            "top": [{"kernel": k[:60], "ms": t, "count": c}
+                    for k, t, c in sorted(dev, key=lambda x: -x[1])[:6]],
+        }
+
+    steps = {}
     for dk in ("ragged", "dedicated"):
-        res[f"decode_step_ms_{dk}"] = wall_ms(
-            lambda: llama.decode_step_paged(params, mc, tok, pool, table, lengths, decode_kernel=dk), 10)
+        steps[f"decode_{dk}"] = lambda dk=dk: llama.decode_step_paged(
+            params, mc, tok, pool, table, lengths, decode_kernel=dk)
+        steps[f"verify8_{dk}"] = lambda dk=dk: llama.decode_speculative_paged(
+            params, mc, spec, pool, table, lengths - 8, decode_kernel=dk)
+    res = {f"{name}_step_ms": wall_ms(fn, 10) for name, fn in steps.items()}
     t512 = torch.randint(0, 259, (1, 512), device="cuda")
     res["cold_prefill_512_ms"] = wall_ms(lambda: llama.prefill_paged_cold(
         params, mc, t512, pool, table[:1], torch.tensor([512], device="cuda")), 3)
@@ -641,20 +705,7 @@ def _step_profile(params) -> None:
     res["chunk_prefill_1024_at_1024_ms"] = wall_ms(lambda: llama.prefill_paged(
         params, mc, t1024, pool, table[:1], torch.tensor([1024], device="cuda"),
         torch.tensor([1023], device="cuda")), 3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        llama.decode_step_paged(params, mc, tok, pool, table, lengths, decode_kernel="ragged")
-        torch.cuda.synchronize()
-        wall = (time.monotonic() - t0) * 1e3
-    # Kernel entries only: an operator's entry repeats its kernels' time.
-    dev = [(a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
-           if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
-    busy = sum(t for _, t, _ in dev)
-    res["profiled_decode_step"] = {
-        "wall_ms": wall, "device_busy_ms": busy, "device_kernels": sum(c for _, _, c in dev),
-        "top": [{"kernel": k[:60], "ms": t, "count": c}
-                for k, t, c in sorted(dev, key=lambda x: -x[1])[:8]],
-    }
+    res["profiled"] = {name: profiled(fn) for name, fn in steps.items()}
     log("step_profile", gpu_line(), json.dumps(res))
     del pool
     torch.cuda.empty_cache()

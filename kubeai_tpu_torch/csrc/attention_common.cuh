@@ -41,6 +41,22 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// (x0, x1) as a bf16 pair `hi` plus the pair of what it rounded off, `lo`
+// (element 0 in the low half, as an mma A fragment wants it). P enters
+// P V as hi + lo: a single bf16 P costs 2^-9 per weight, which breaks the
+// one-rounding tolerance of the card tests.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // One 16-byte load of VEC<T> consecutive elements, widened to float.
 template <typename T>
 struct Vec;

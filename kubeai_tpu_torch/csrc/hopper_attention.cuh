@@ -43,6 +43,8 @@
 namespace hop {
 
 using kattn::NEG_INF;
+using kattn::smem_u32;
+using kattn::split_bf16;
 typedef __nv_bfloat16 bf16;
 
 constexpr int TQ = 64;          // query rows per block (wgmma M)
@@ -138,10 +140,6 @@ static int tensor_map(CUtensorMap* out, const void* ptr, uint64_t rows, uint64_t
 
 // ---------------------------------------------------------------------------
 // Device: barriers, TMA, wgmma.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -271,16 +269,6 @@ struct PV<128> {
     wgmma_rs_m64n128_tb(o, a, b);
   }
 };
-
-// (x0, x1) as a bf16 pair `hi` plus the pair of what it rounded off, `lo`
-// (element 0 in the low half, as the A fragment wants it).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // ---------------------------------------------------------------------------
 // The tile. Src supplies the K/V boxes of the key tile at k0, 2 * TILE

@@ -1,24 +1,47 @@
 // Dedicated paged-attention kernel for decode (port of the Pallas kernel
-// kubeai_tpu/ops/paged_decode_attention.py::_decode_kernel).
+// kubeai_tpu/ops/paged_decode_attention.py::_decode_kernel, launched by
+// _decode_kernel_call).
 //
-// Same function as paged_attention.cu restricted to S <= 8 queries per
-// slot (decode, or speculative G+1). Bound on the H100: memory — every
-// valid K/V byte of the slot is read once (B=8, kv_len=512: ~16.8 MB per
-// layer call, ~5 us at 3.35 TB/s); the arithmetic is a few FLOP per byte.
-// Design: one block per (KV head, slot) keeps the slot's R = S*G query
-// rows (its S tokens x the G query heads sharing the KV head) resident in
-// shared memory for the whole walk, so each page is read once for all G
-// heads; the block walks page_table[b] in 64-key tiles with 16-byte
-// loads and stops at kv_len. Threads are spread over keys (scores) and
-// over output elements (p V), not over query rows, because R is small.
-// Not yet done: splitting a long walk over several blocks (flash-decoding)
-// to fill the card at small B*Kv.
+// The function: paged_attention.cu's restricted to S <= 8 queries per
+// slot (decode, or speculative verify at S = G+1): the R = S*G query rows
+// of a (slot, KV head), row r = s*G + g at position kv_len - S + s, attend
+// causally to the slot's keys through page_table[b] over the interleaved
+// pool [L*P, page, 2*Kv, D] (K at even heads, V at odd ones; the table
+// carries the layer offset; kv_len includes the S new tokens and is
+// clamped to the table span); softcap before the mask; f32 accumulation.
+//
+// Bound on the H100: bytes. Every valid K/V byte is read once (B=8,
+// kv_len 512: ~16.8 MB per layer call, ~5 us at 3.35 TB/s); a key of one
+// KV head is 512 bytes for 4*D*R <= 64 flops a byte.
+//
+// The Pallas kernel walks a (KV head, slot)'s pages in order on one core,
+// its S*G rows resident. On Hopper that grid, (Kv, B), is 64 blocks at
+// B=8 for 132 SMs, so bf16 runs the split-KV body of split_kv_decode.cuh
+// (which the ragged kernel's decode regime runs too):
+// * split KV: grid (n_splits, Kv, B), each block a piece of its slot's
+//   own kv_len, the wrapper choosing n_splits so the card fills
+//   (ops/paged_attention.py::split_kv_plan), the partials merged by the
+//   last block of each (slot, KV head) in the same launch;
+// * copies in flight: a cp.async ring per key stream, the next slices
+//   in flight while one is computed;
+// * the products on the tensor cores (mma.sync m16n8k16, f32 sums; P as
+//   bf16 hi + lo);
+// * rows: R <= 16, 32 or 64 take one, two or four m16 row tiles. Each
+//   warp holds one tile whatever the count (the warps of a key stream
+//   share its K/V slices and split the tiles), so every instance has the
+//   one-tile register budget and none spills.
+//
+// float32 keeps the simple CUDA-core kernel below (one block per (KV head,
+// slot), f32 shared tiles): its card tests hold it to summation order
+// alone, which the tensor cores' reduced-precision products would break.
 #include "attention_common.cuh"
+#include "split_kv_decode.cuh"
 
 using namespace kattn;
 
-constexpr int DNT = 128;  // threads per block
-constexpr int DKT = 64;   // keys per tile
+constexpr int DNT = 128;  // threads per block of the float32 kernel
+constexpr int DKT = 64;   // keys per tile of the float32 kernel
+constexpr int MAX_ROWS = 64;  // bf16: four m16 row tiles
 
 template <int D>
 static size_t decode_smem_bytes(int R) {
@@ -152,37 +175,57 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 }
 
 template <typename T, int D>
-static int launch(const void* q, const void* pool, const int* table, const int* kv_lens,
-                  void* out, int B, int S, int H, int Kv, int page, int max_pages,
-                  float scale, float softcap, cudaStream_t stream) {
-  // Once per instance, at the per-block limit: the wrapper refuses shapes
-  // that need more.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = decode_smem_bytes<D>(S * (H / Kv));
-  dim3 grid(Kv, B);
-  paged_decode_kernel<T, D><<<grid, DNT, smem, stream>>>(
-      (const T*)q, (const T*)pool, table, kv_lens, (T*)out, S, H, Kv, page, max_pages,
-      scale, softcap);
-  return (int)cudaGetLastError();
+static int launch(const kdec::DecodeArgs& a, cudaStream_t stream) {
+  const int R = a.S * (a.H / a.Kv);
+  if constexpr (sizeof(T) == 2) {
+    if (R <= 16) return kdec::launch_decode_mma<D, 1>(a, stream);
+    if (R <= 32) return kdec::launch_decode_mma<D, 2>(a, stream);
+    if (R <= MAX_ROWS) return kdec::launch_decode_mma<D, 4>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  } else {
+    // Once per instance, at the per-block limit: the wrapper refuses
+    // shapes that need more.
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid(a.Kv, a.B);
+    paged_decode_kernel<T, D><<<grid, DNT, decode_smem_bytes<D>(R), stream>>>(
+        (const T*)a.q, (const T*)a.pool, a.table, a.kv_lens, (T*)a.out, a.S, a.H, a.Kv, a.page,
+        a.max_pages, a.scale, a.softcap);
+    return (int)cudaGetLastError();
+  }
 }
 
-// Shared-memory bytes a launch with R = S*G query rows needs (the wrapper
-// refuses shapes above the card's per-block limit).
-extern "C" int paged_decode_smem_bytes(int R, int D) {
-  if (D == 128) return (int)decode_smem_bytes<128>(R);
-  if (D == 64) return (int)decode_smem_bytes<64>(R);
-  return (int)decode_smem_bytes<32>(R);
+template <int D>
+static size_t smem_bytes(int R, int n_splits, int dtype) {
+  if (dtype == 0) return decode_smem_bytes<D>(R);
+  if (R <= 16) return kdec::DecMma<D, 1>::smem(R, n_splits);
+  if (R <= 32) return kdec::DecMma<D, 2>::smem(R, n_splits);
+  return kdec::DecMma<D, 4>::smem(R, n_splits);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128. Returns a
-// cudaError_t (0 = launched).
+// Shared-memory bytes of a launch with R = S*G query rows (the wrapper
+// refuses shapes above the card's per-block limit, and bf16 R above 64).
+extern "C" int paged_decode_smem_bytes(int R, int D, int n_splits, int dtype) {
+  if (D == 128) return (int)smem_bytes<128>(R, n_splits, dtype);
+  if (D == 64) return (int)smem_bytes<64>(R, n_splits, dtype);
+  return (int)smem_bytes<32>(R, n_splits, dtype);
+}
+
+// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128. bf16 cuts each
+// slot's keys into n_splits (1..64) splits and takes the wrapper's
+// scratch: part_o [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G]
+// float2, counters [B*Kv] int32 (zero, and left zero; the ragged kernel's
+// decode regime shares them). Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention_launch(const void* q, const void* pool,
                                              const void* table, const void* kv_lens,
-                                             void* out, int B, int S, int H, int Kv,
-                                             int D, int page, int max_pages, int dtype,
-                                             float scale, float softcap, void* stream) {
-  KATTN_DISPATCH(launch, dtype, D, q, pool, (const int*)table, (const int*)kv_lens, out, B,
-                 S, H, Kv, page, max_pages, scale, softcap, (cudaStream_t)stream);
+                                             void* out, void* part_o, void* part_ml,
+                                             void* counters, int B, int S, int H, int Kv,
+                                             int D, int page, int max_pages, int n_splits,
+                                             int dtype, float scale, float softcap,
+                                             void* stream) {
+  const kdec::DecodeArgs a{q, pool, (const int*)table, (const int*)kv_lens, out,
+                           (float*)part_o, (float2*)part_ml, (int*)counters, B, S, H, Kv,
+                           page, max_pages, n_splits, scale, softcap};
+  KATTN_DISPATCH(launch, dtype, D, a, (cudaStream_t)stream);
 }

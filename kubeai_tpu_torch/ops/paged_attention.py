@@ -81,34 +81,43 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# Per device: the decode regime's scratch. The counters outlive a launch
-# on purpose: each launch leaves them zero again, so they are zeroed once,
-# here, and no launch pays a second kernel to clear them. That holds for
-# launches in stream order (the engine runs its steps on one stream).
+# Per device: the scratch of the split-KV decode launches, which the
+# ragged kernel's decode regime and the dedicated decode kernel share. The
+# counters outlive a launch on purpose: each launch leaves them zero
+# again, so they are zeroed once, here, and no launch pays a second kernel
+# to clear them. That holds for launches in stream order (the engine runs
+# its steps on one stream).
 _scratch: dict = {}
 
 
-def _decode_scratch(device, n_out: int, n_rows: int, n_groups: int):
-    """(partials [n_out] f32, (m, l) [2*n_rows] f32, counters [n_groups]
-    int32) for the decode regime, grown on demand."""
-    want = (n_out, 2 * n_rows, n_groups)
-    s = _scratch.get(device)
+def _split_kv_setup(q, Kv: int, max_pages: int, page: int, R: int, n_splits=None):
+    """(n_splits, partials, (m, l) pairs, counters) of a split-KV decode
+    launch with R query rows per (slot, KV head): :func:`split_kv_plan`'s
+    choice unless *n_splits* is given, and the device's scratch (f32, f32
+    and int32, at least B*Kv*n_splits*R*h, 2*B*Kv*n_splits*R and B*Kv
+    long), grown on demand."""
+    B, h = q.shape[0], q.shape[-1]
+    if n_splits is None:
+        dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+        n_splits = split_kv_plan(B, Kv, max_pages, page, _sm_count(dev))
+    want = (B * Kv * n_splits * R * h, 2 * B * Kv * n_splits * R, B * Kv)
+    s = _scratch.get(q.device)
     have = (0, 0, 0) if s is None else tuple(t.numel() for t in s)
-    if any(h < n for h, n in zip(have, want)):
-        size = [max(h, n) for h, n in zip(have, want)]
+    if any(got < n for got, n in zip(have, want)):
+        size = [max(got, n) for got, n in zip(have, want)]
         s = (
-            torch.empty(size[0], dtype=torch.float32, device=device),
-            torch.empty(size[1], dtype=torch.float32, device=device),
-            torch.zeros(size[2], dtype=torch.int32, device=device),
+            torch.empty(size[0], dtype=torch.float32, device=q.device),
+            torch.empty(size[1], dtype=torch.float32, device=q.device),
+            torch.zeros(size[2], dtype=torch.int32, device=q.device),
         )
-        _scratch[device] = s
-    return s
+        _scratch[q.device] = s
+    return (n_splits, *s)
 
 
 def _no_quant(k_scale, v_scale):
     if k_scale is not None or v_scale is not None:
         raise NotImplementedError(
-            "quantized KV pools are not ported yet (ROADMAP queue 1, item 8)"
+            "quantized KV pools are not ported yet (ROADMAP queue 1, item 2)"
         )
 
 
@@ -165,11 +174,7 @@ def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits
     if q.dtype != torch.bfloat16 or R > SPLIT_MAX_ROWS:
         n_splits = 1
     else:
-        if n_splits is None:
-            dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-            n_splits = split_kv_plan(B, Kv, max_pages, page, _sm_count(dev))
-        part, ml, cnt = _decode_scratch(
-            q.device, B * Kv * n_splits * R * h, B * Kv * n_splits * R, B * Kv)
+        n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
     out = torch.empty_like(q)
     lib = _build.load("paged_attention", _SIG)
     err = lib.paged_attention_launch(

@@ -5,14 +5,19 @@ Replaces the Pallas kernel
 ``kubeai_tpu/ops/paged_decode_attention.py::_decode_kernel`` (launched by
 ``_decode_kernel_call``) with the hand-written CUDA kernel
 ``csrc/paged_decode_attention.cu``: the same function as
-``paged_attention_ragged`` restricted to S <= 8 queries per slot, with
-one block per (KV head, slot) holding the slot's S*G query rows so each
-page is read once for all G query heads, walking the page table and
-stopping at kv_len.
+``paged_attention_ragged`` restricted to S <= 8 queries per slot (decode,
+or speculative verify). For bf16 it runs split KV on the tensor cores
+(``csrc/split_kv_decode.cuh``, shared with the ragged kernel's decode
+regime): each slot's keys are cut into the splits that
+:func:`~kubeai_tpu_torch.ops.paged_attention.split_kv_plan` chooses here,
+and the S*G <= 64 query rows of a (slot, KV head) sit in one, two or four
+16-row tiles. float32 keeps a simple CUDA-core kernel, one block per (KV
+head, slot). The source says what each design does.
 
 Bound on the H100: memory (every valid K/V byte read once; ~5 us per
 layer call at B=8, kv_len 512). ``paged_decode_attention`` launches the
-kernel for CUDA tensors and runs the plain version for CPU tensors.
+kernel for CUDA tensors and runs the plain version for CPU tensors; there
+is no fallback between them.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.paged_attention import (
     _no_quant,
+    _split_kv_setup,
     check_paged_inputs,
     paged_attention_plain,
 )
@@ -30,13 +36,17 @@ from kubeai_tpu_torch.ops.paged_attention import (
 # dispatch uses the ragged kernel above this.
 MAX_DECODE_QUERY_LEN = 8
 
+# bf16 query rows S*G per (slot, KV head) the kernel takes: four 16-row
+# tiles (S = 8 at G = 8).
+MAX_ROWS = 64
+
 # Shared memory one block may use on Hopper (227 KB).
 _MAX_SMEM = 232448
 
 _SIG = {
-    "paged_decode_attention_launch": [_build.PTR] * 5
-    + [_build.INT] * 8 + [_build.FLOAT, _build.FLOAT, _build.PTR],
-    "paged_decode_smem_bytes": [_build.INT, _build.INT],
+    "paged_decode_attention_launch": [_build.PTR] * 8
+    + [_build.INT] * 9 + [_build.FLOAT, _build.FLOAT, _build.PTR],
+    "paged_decode_smem_bytes": [_build.INT] * 4,
 }
 
 
@@ -49,6 +59,46 @@ def resolve_decode_kernel(mode: str, query_len: int) -> str:
     if mode == "auto":
         return "dedicated" if query_len <= MAX_DECODE_QUERY_LEN else "ragged"
     return "ragged"
+
+
+def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None):
+    """One launch of the kernel; *n_splits* overrides the bf16 split
+    choice (chip_smoke.py times the choice against others)."""
+    B, S, H, h = q.shape
+    if S > MAX_DECODE_QUERY_LEN:
+        raise ValueError(
+            f"paged_decode_attention: S={S} > {MAX_DECODE_QUERY_LEN} queries per slot"
+        )
+    lens, dtype = check_paged_inputs(
+        "paged_decode_attention", q, kv_pages, page_table, kv_lengths)
+    page, Kv, max_pages = kv_pages.shape[1], kv_pages.shape[2] // 2, page_table.shape[1]
+    R = S * (H // Kv)
+    part = ml = cnt = lens  # used by the bf16 kernel alone
+    if q.dtype != torch.bfloat16:
+        n_splits = 1
+    else:
+        if R > MAX_ROWS:
+            raise ValueError(
+                f"paged_decode_attention: {S} queries x {H // Kv} heads per KV head "
+                f"= {R} rows > {MAX_ROWS}"
+            )
+        n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
+    lib = _build.load("paged_decode_attention", _SIG)
+    smem = lib.paged_decode_smem_bytes(R, h, n_splits, dtype)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"paged_decode_attention: {R} rows x {n_splits} splits need {smem} bytes "
+            f"of shared memory (> {_MAX_SMEM})"
+        )
+    out = torch.empty_like(q)
+    err = lib.paged_decode_attention_launch(
+        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), part.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
+        B, S, H, Kv, h, page, max_pages, n_splits, dtype,
+        float(scale), float(softcap), _build.stream_of(q),
+    )
+    _build.check(err, "paged_decode_attention")
+    return out
 
 
 def paged_decode_attention(
@@ -71,27 +121,7 @@ def paged_decode_attention(
         return paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    if S > MAX_DECODE_QUERY_LEN:
-        raise ValueError(
-            f"paged_decode_attention: S={S} > {MAX_DECODE_QUERY_LEN} queries per slot"
-        )
-    lib = _build.load("paged_decode_attention", _SIG)
-    Kv = kv_pages.shape[2] // 2
-    smem = lib.paged_decode_smem_bytes(S * (H // max(Kv, 1)), h)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"paged_decode_attention: {S} queries x {H // Kv} heads per KV head "
-            f"need {smem} bytes of shared memory (> {_MAX_SMEM})"
-        )
-    lens, dtype = check_paged_inputs(
-        "paged_decode_attention", q, kv_pages, page_table, kv_lengths)
-    out = torch.empty_like(q)
-    err = lib.paged_decode_attention_launch(
-        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, S, H, Kv, h, kv_pages.shape[1], page_table.shape[1], dtype,
-        float(scale), float(softcap), _build.stream_of(q),
-    )
-    _build.check(err, "paged_decode_attention")
+    out = _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap)
     paged_decode_attention.launches += 1
     return out
 

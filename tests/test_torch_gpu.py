@@ -115,6 +115,64 @@ def test_ragged_decode_uneven_splits(cuda, dtype):
         _assert_close(got, want, dtype)
 
 
+def _decode_case(cuda, dtype, B, S, H, Kv, lens, seed, h=128, page=64, mp=32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P = 1 + B * mp
+    pool = torch.randn((P, page, 2 * Kv, h), generator=g, device=cuda).to(dtype)
+    table = (torch.randperm(P - 1, generator=g, device=cuda) + 1).reshape(B, mp).to(torch.int32)
+    q = torch.randn((B, S, H, h), generator=g, device=cuda).to(dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want = paged_attention_plain(q.float(), pool.float(), table, kv_lens, h**-0.5)
+    return q, pool, table, kv_lens, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "S,H,lens",
+    [
+        (2, 32, [2, 17, 64, 65, 300, 777, 1500, 2048]),  # 8 rows: one m16 tile
+        (5, 32, [5, 40, 129, 511, 512, 1024, 1999, 2048]),  # 20 rows: two tiles
+        (8, 32, [8, 9, 100, 256, 640, 1300, 2047, 2048]),  # 32 rows: two tiles
+        (8, 64, [8, 70, 300, 2048]),  # G = 8, 64 rows: four tiles
+    ],
+)
+def test_dedicated_decode_main_widths(cuda, dtype, S, H, lens):
+    """The dedicated kernel at the main path's widths (Kv=8, h=128, page
+    64, a 2048-key table) for S up to 8, slots of uneven lengths."""
+    q, pool, table, kv_lens, want = _decode_case(cuda, dtype, len(lens), S, H, 8, lens, seed=3)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, pool, table, kv_lens)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_decode_kernels_share_counters(cuda):
+    """The two split-KV kernels share one scratch: every launch must leave
+    its counters at zero for the next, in stream order. Two dedicated
+    launches back to back, then a ragged launch between two dedicated
+    ones, each checked against its plain version, then the counters."""
+    from kubeai_tpu_torch.ops.paged_attention import _scratch
+
+    dtype = torch.bfloat16
+    lens = [8, 300, 511, 2048, 1000, 64, 65, 1]
+    q8, pool, table, kv_lens, want8 = _decode_case(cuda, dtype, 8, 8, 32, 8,
+                                                   [max(n, 8) for n in lens], seed=4)
+    q1 = q8[:, -1:].contiguous()
+    want1 = paged_attention_plain(q1.float(), pool.float(), table, kv_lens, 128**-0.5)
+    runs = [(paged_decode_attention, q8, want8), (paged_decode_attention, q1, want1),
+            (paged_decode_attention, q8, want8), (paged_attention_ragged, q1, want1),
+            (paged_decode_attention, q8, want8)]
+    outs = [fn(q, pool, table, kv_lens) for fn, q, _ in runs]
+    torch.cuda.synchronize()
+    for got, (_, _, want) in zip(outs, runs):
+        _assert_close(got, want, dtype)
+    counters = _scratch[q8.device][2]
+    assert int(counters.abs().sum().item()) == 0
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     q = torch.zeros((1, 4, 4, 128), device=cuda, dtype=torch.bfloat16)
@@ -128,6 +186,11 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="queries per slot"):
         paged_decode_attention(
             torch.zeros((1, 9, 4, 128), device=cuda, dtype=torch.bfloat16),
+            pool, table.to(torch.int32), torch.tensor([9], device=cuda),
+        )
+    with pytest.raises(ValueError, match="rows > 64"):  # 8 queries x 16 heads per KV head
+        paged_decode_attention(
+            torch.zeros((1, 8, 32, 128), device=cuda, dtype=torch.bfloat16),
             pool, table.to(torch.int32), torch.tensor([9], device=cuda),
         )
 
