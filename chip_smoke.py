@@ -7,35 +7,44 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
   1. environment: the card's name and power limit, torch/CUDA versions,
      the kernels' build time, nvcc's per-kernel resource report and the
      HGMMA / HMMA (tensor-core) instruction count of each library; the
-     dedicated decode kernel must use HMMA and spill nothing;
+     dedicated decode kernel and the W8A16 matmul must use HMMA and spill
+     nothing;
   2. kernels: each hand-written CUDA kernel at the main path's shapes
      against its plain PyTorch version (float32 math on the same bf16
      inputs), timed beside the plain version, one PyTorch library call
      that computes the same function (a yardstick the port never calls)
      and the least time the card could take (bound); decode cases (S = 1,
-     4 and 8 queries per slot) are timed with a cold L2 beside a cold read
-     of as many bytes, with a split-count sweep of the split-KV decode
-     kernels; the decode grid must cover every SM;
+     4 and 8 queries per slot; W8A16 at M = 8 and 64) are timed with a
+     cold L2 beside a cold read of as many bytes, with a split-count
+     sweep of the split-KV decode kernels; the decode grid must cover
+     every SM;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
-     plain gather path on the same weights, for cold prefill (flash and
+     plain path on the same weights (bf16: gather attention; int8: also
+     the W8A16 product in float32 math), for cold prefill (flash and
      ragged buckets), a chunked prefill, decode steps and 8-token
      speculative verify steps under both decode kernels;
   4. serving: the port's OpenAI server over Llama-3.1-8B (32 layers,
      random bf16 weights from a seed) answers completions, chat, a
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
-     requests (one streamed) and a seeded sample sent twice — once with
-     the ragged decode kernel and once with the dedicated one, each run
-     with the launch counters zeroed before it. Every kernel of a run's
-     path must launch there, a whole number of times per layer. Then a
-     32-layer step profile: decode and verify steps under both decode
-     kernels, prefills.
+     requests (one streamed) and a seeded sample sent twice — with the
+     ragged decode kernel, with the dedicated one, and over the same
+     weights quantized to int8 (ragged), each run with the launch
+     counters zeroed before it. Every kernel of a run's path must launch
+     there, a whole number of times per model step. Then a 32-layer step
+     profile: decode and verify steps under both decode kernels and in
+     int8, prefills. Last, the loader: a 2-layer checkpoint at 8B width
+     written by the port's save_hf_checkpoint is served through
+     --model <dir> --quantization int8, and its int8 leaves must equal
+     quantize_model_params of the written weights.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -56,7 +65,7 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 REL_TOL = 2.0**-8
 ABS_TOL = 1e-3
 
-KERNELS = ("flash_attention", "paged_attention", "paged_decode_attention")
+KERNELS = ("flash_attention", "paged_attention", "paged_decode_attention", "w8a16_matmul")
 
 
 def log(*a):
@@ -185,10 +194,11 @@ def phase_env() -> dict:
         hmma[name] = sum("HMMA" in line and "HGMMA" not in line for line in lines)
         log(f"  sass[{name}] HGMMA instructions: {n}, HMMA: {hmma[name]}")
     log("spill_bytes", json.dumps(spills))
-    if spills.get("paged_decode_attention", 0):
-        raise AssertionError(f"the dedicated decode kernel spills: {spills}")
-    if tool is not None and not hmma.get("paged_decode_attention"):
-        raise AssertionError("no HMMA in the dedicated decode kernel's SASS")
+    for name in ("paged_decode_attention", "w8a16_matmul"):
+        if spills.get(name, 0):
+            raise AssertionError(f"{name} spills: {spills}")
+        if tool is not None and not hmma.get(name):
+            raise AssertionError(f"no HMMA in {name}'s SASS")
     return {"build_s": build_s}
 
 
@@ -358,9 +368,72 @@ def phase_kernels() -> dict:
             _split_sweep(case, q, pool, table, lens)
         del q, pool, table, lens, want
     torch.cuda.empty_cache()
+    _w8a16_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
     return results
+
+
+# Llama-3.1-8B's projections (K, N): wq and wo, wk and wv, wg and wu, wd.
+W8A16_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wg", 4096, 14336), ("wd", 14336, 4096))
+VOCAB = 128256
+
+
+def _w8a16_cases(record) -> None:
+    """The W8A16 kernel at the main path's shapes: decode (M = 8), verify
+    (64) and a prefill chunk (1024) rows through each projection, decode
+    through the untied lm_head and, as qmatT, through a tied head over a
+    [128256, 4096] table. Checked against float32 math on the same int8
+    weights and bf16 inputs; M <= 64 timed with a cold L2 (a real step
+    reads its weights from device memory). library_ms is torch.matmul of
+    x with the dequantized bf16 weight, made outside the timed region: the
+    same function up to one rounding, reading twice the weight bytes."""
+    import torch
+
+    from kubeai_tpu_torch.ops.quant import (
+        dequantize,
+        qdot,
+        qdot_plain,
+        qmatT,
+        qmatT_plain,
+        quantize,
+        quantize_rows,
+    )
+
+    cases = [(name, K, N, M, 0) for name, K, N in W8A16_SHAPES for M in (8, 64, 1024)]
+    cases += [("lm_head", 4096, VOCAB, 8, 0), ("tied head", 4096, VOCAB, 8, 1)]
+    for name, K, N, M, layout in cases:
+        g = torch.Generator(device="cuda").manual_seed(K + N + M)
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        if layout == 0:
+            w = quantize(torch.randn((K, N), generator=g, device="cuda") * K**-0.5)
+            fn, plain = qdot, qdot_plain
+        else:
+            w = quantize_rows(torch.randn((N, K), generator=g, device="cuda") * K**-0.5)
+            fn, plain = qmatT, qmatT_plain
+        q, s = w["int8_q"], w["int8_s"]
+        got = fn(x, w)
+        want = (x.float() @ (q.float() if layout == 0 else q.float().T)) * s.reshape(1, -1)
+        torch.cuda.synchronize()
+        err = compare(got, want, f"w8a16 {name} M={M}")
+        del got, want
+        cold = M <= 64
+        ms = timed_ms(lambda: fn(x, w), cold_l2=cold)
+        plain_ms = timed_ms(lambda: plain(x, q, s), iters=5, cold_l2=cold)
+        wb = dequantize(w, torch.bfloat16)
+        wb = wb if layout == 0 else wb.T  # x @ table.T: cuBLAS takes the transpose as is
+        lib_ms = timed_ms(lambda: torch.matmul(x, wb), cold_l2=cold)
+        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+        read_ms = None
+        if cold:  # what the memory delivers at this size, as for attention
+            buf = torch.zeros(nbytes // 4, device="cuda")
+            read_ms = timed_ms(lambda: buf.sum(), cold_l2=True)
+            del buf
+        case = f"{name} M={M} K={K} N={N}" + (" q[N,K] (qmatT)" if layout else "")
+        record("w8a16_matmul", case, err, ms, plain_ms, nbytes, 2.0 * M * N * K, lib_ms,
+               name == "wg" and M == 8, cold, read_ms)
+        del x, w, q, s, wb
+    torch.cuda.empty_cache()
 
 
 SWEEP_CASES = ("decode B=8 kv_len=512", "decode B=8 kv_len=2048", "decode B=8 S=8 kv_len=512")
@@ -418,12 +491,53 @@ def check_decode_grid() -> dict:
 def phase_model_parity() -> None:
     import torch
 
+    from kubeai_tpu_torch.engine.weights import quantize_model_params
     from kubeai_tpu_torch.models import llama
     from kubeai_tpu_torch.models.base import llama_3_1_8b
 
     mc = llama_3_1_8b(num_layers=2)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(mc, gen, device="cuda")
+    _parity(params, mc, "bf16", contextlib.nullcontext)
+    _parity(quantize_model_params(params, mc), mc, "int8", _float32_w8a16)
+    del params
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _float32_w8a16():
+    """The model's int8 products as float32 math on the same int8 weights,
+    rounded once to bf16 (the kernel's function, summed in another order):
+    the plain path of the int8 parity check. No kernel launches in it."""
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.ops import quant
+
+    def dot(x, w):
+        if not quant.is_quantized(w):
+            return x @ w
+        return ((x.float() @ w["int8_q"].float()) * w["int8_s"].squeeze(-2)).to(x.dtype)
+
+    def dot_t(x, w):
+        if not quant.is_quantized(w):
+            return x @ w.to(x.dtype).T
+        return ((x.float() @ w["int8_q"].float().T) * w["int8_s"].squeeze(-1)).to(x.dtype)
+
+    saved = llama.qdot, llama.qmatT
+    llama.qdot, llama.qmatT = dot, dot_t
+    try:
+        yield
+    finally:
+        llama.qdot, llama.qmatT = saved
+
+
+def _parity(params, mc, label, plain_ctx) -> None:
+    """Kernel path (flash, paged kernels and, for int8 weights, the W8A16
+    kernel) against the plain path (gather attention; *plain_ctx* around
+    each plain call) on the same weights and tokens."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
     kern = mc.replace(use_flash_prefill=True, use_paged_kernel=True)
     page, B, mp = 64, 2, 32
     P = 1 + B * mp
@@ -433,53 +547,51 @@ def phase_model_parity() -> None:
     def toks(S):
         return torch.randint(0, 259, (B, S), generator=tok_g, device="cuda")
 
-    pools = {}
-
     def check(what, a, b):
         # Logits leave the bf16 lm_head product, so they differ in whole
         # bf16 steps (ulps, 2^-7 relative) of their magnitude. The paths
-        # differ only in attention's summation order and its bf16 output
-        # rounding: allow 2 ulps of the largest logit at most and half an
-        # ulp on average.
+        # differ only in summation order and the bf16 rounding of
+        # attention's output: allow 2 ulps of the largest logit at most
+        # and half an ulp on average.
         ulp = 2.0 ** (torch.floor(torch.log2(b.abs().max())).item() - 7)
         d = (a - b).abs()
-        log(f"parity {what}: max|dlogit| {d.max().item():.4f} mean {d.mean().item():.5f} "
-            f"(bf16 ulp at max|logit|: {ulp})")
+        log(f"parity {label} {what}: max|dlogit| {d.max().item():.4f} "
+            f"mean {d.mean().item():.5f} (bf16 ulp at max|logit|: {ulp})")
         if not torch.isfinite(a).all() or d.max().item() > 2 * ulp or d.mean().item() > 0.5 * ulp:
-            raise AssertionError(f"model parity {what} outside tolerance")
+            raise AssertionError(f"model parity {label} {what} outside tolerance")
 
-    for cfg_name, cfg in (("kernel", kern), ("plain", mc)):
-        pools[cfg_name] = llama.init_paged_cache(cfg, P, page, "cuda")
-    out = {}
+    pools = {name: llama.init_paged_cache(cfg, P, page, "cuda")
+             for name, cfg in (("kernel", kern), ("plain", mc))}
+
+    def both(what, call):
+        """call(config, pool) on both paths; each keeps its own pool."""
+        kernel = call(kern, pools["kernel"])
+        with plain_ctx():
+            plain = call(mc, pools["plain"])
+        check(what, kernel, plain)
+
     for S, lens in ((512, [300, 512]), (128, [77, 128])):
         t = toks(S)
         L = torch.tensor(lens, device="cuda")
-        for name, cfg in (("kernel", kern), ("plain", mc)):
-            out[name] = llama.prefill_paged_cold(params, cfg, t, pools[name], table, L)[0]
-        check(f"cold prefill S={S}", out["kernel"], out["plain"])
+        both(f"cold prefill S={S}", lambda cfg, pool: llama.prefill_paged_cold(
+            params, cfg, t, pool, table, L)[0])
     t = toks(256)
     start = torch.tensor([128, 128], device="cuda")
     last = torch.tensor([255, 100], device="cuda")
-    for name, cfg in (("kernel", kern), ("plain", mc)):
-        out[name] = llama.prefill_paged(params, cfg, t, pools[name], table, start, last)[0]
-    check("chunked prefill start=128 S=256", out["kernel"], out["plain"])
+    both("chunked prefill start=128 S=256", lambda cfg, pool: llama.prefill_paged(
+        params, cfg, t, pool, table, start, last)[0])
     d = toks(1)
     lengths = torch.tensor([384, 229], device="cuda")
     for dk in ("ragged", "dedicated"):
-        for name, cfg in (("kernel", kern), ("plain", mc)):
-            pool = {"kv": pools[name]["kv"].clone()}
-            out[name] = llama.decode_step_paged(params, cfg, d, pool, table, lengths, decode_kernel=dk)[0]
-        check(f"decode step ({dk})", out["kernel"], out["plain"])
+        both(f"decode step ({dk})", lambda cfg, pool: llama.decode_step_paged(
+            params, cfg, d, {"kv": pool["kv"].clone()}, table, lengths, decode_kernel=dk)[0])
     # Speculative verify: 8 candidate tokens per slot (S = G+1 = 8), the
     # dedicated kernel's largest query block.
     spec = toks(8)
     for dk in ("ragged", "dedicated"):
-        for name, cfg in (("kernel", kern), ("plain", mc)):
-            pool = {"kv": pools[name]["kv"].clone()}
-            out[name] = llama.decode_speculative_paged(
-                params, cfg, spec, pool, table, lengths, decode_kernel=dk)[0]
-        check(f"verify step S=8 ({dk})", out["kernel"], out["plain"])
-    del params, pools, out
+        both(f"verify step S=8 ({dk})", lambda cfg, pool: llama.decode_speculative_paged(
+            params, cfg, spec, {"kv": pool["kv"].clone()}, table, lengths, decode_kernel=dk)[0])
+    del pools
     torch.cuda.empty_cache()
 
 
@@ -543,7 +655,7 @@ def _check_completion(resp, what, chat=False):
     return text
 
 
-def _serve_once(params, decode_kernel: str) -> dict:
+def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
     import torch
 
     from kubeai_tpu_torch.engine.core import Engine, EngineConfig
@@ -553,13 +665,16 @@ def _serve_once(params, decode_kernel: str) -> dict:
     from kubeai_tpu_torch.ops.flash_attention import flash_attention
     from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
     from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.quant import qdot
 
+    run = "int8" if int8 else decode_kernel
     ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=decode_kernel)
     eng = Engine(llama_3_1_8b(), params, ByteTokenizer(), ec, device="cuda")
     srv = EngineServer(eng, "llama-3.1-8b", host="127.0.0.1", port=0)
     srv.start()
     p = srv.port
-    counters = (flash_attention, paged_attention_ragged, paged_decode_attention)
+    attention = (flash_attention, paged_attention_ragged, paged_decode_attention)
+    counters = attention + (qdot,)
     for fn in counters:
         fn.launches = 0
     try:
@@ -620,13 +735,20 @@ def _serve_once(params, decode_kernel: str) -> dict:
     want = ["flash_attention", "paged_attention_ragged"]
     if decode_kernel == "dedicated":
         want.append("paged_decode_attention")
+    if int8:
+        want.append("qdot")
     missing = [n for n in want if launches[n] == 0]
     if missing:
-        raise AssertionError(f"{decode_kernel} run: kernels never launched: {missing}")
-    # A model step calls its attention kernel once per layer.
+        raise AssertionError(f"{run} run: kernels never launched: {missing}")
+    # A model step calls its attention kernel once per layer, and the W8A16
+    # kernel 7 times per layer and once for the head (bf16 weights: never).
     layers = eng.model_config.num_layers
-    if any(n % layers for n in launches.values()):
-        raise AssertionError(f"{decode_kernel} run: launches not whole steps of {layers}: {launches}")
+    per_step = 7 * layers + 1
+    if any(launches[fn.__name__] % layers for fn in attention):
+        raise AssertionError(f"{run} run: launches not whole steps of {layers}: {launches}")
+    if launches["qdot"] % per_step or (launches["qdot"] > 0) != int8:
+        raise AssertionError(f"{run} run: W8A16 launches {launches['qdot']} not whole steps "
+                             f"of {per_step}")
     # TTFT and decode tok/s of the streamed request (one of 8 running
     # together: its inter-token time is one decode step of the batch),
     # and the 7 others' tokens over the batch's wall time (prefills
@@ -636,20 +758,21 @@ def _serve_once(params, decode_kernel: str) -> dict:
         "stream_decode_tok_s": (len(times) - 1) / (times[-1] - times[0]) if len(times) > 1 else None,
         "concurrent_tok_s": tokens / wall,
         "launches": launches,
-        "steps": {n: c // layers for n, c in launches.items()},
+        "steps": {n: c // (per_step if n == "qdot" else layers) for n, c in launches.items()},
     }
-    log(f"serving[{decode_kernel}]", json.dumps(stats))
+    log(f"serving[{run}]", json.dumps(stats))
     del eng, srv
     torch.cuda.empty_cache()
     return stats
 
 
-def _step_profile(params) -> None:
+def _step_profile(params, qparams) -> None:
     """Where a model step's time goes, at the serving shapes: host-clock
     time of decode steps (B=8, kv_len 512) and of 8-token speculative
-    verify steps (kv_len 512 after them) under each decode kernel and of
-    cold / chunked prefills, and a torch.profiler breakdown of the decode
-    and verify steps' device time by kernel, under each decode kernel."""
+    verify steps (kv_len 512 after them) under each decode kernel and with
+    int8 weights (*qparams*: ragged decode, dedicated verify), and of cold
+    / chunked prefills, and a torch.profiler breakdown of the decode and
+    verify steps' device time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -697,6 +820,10 @@ def _step_profile(params) -> None:
             params, mc, tok, pool, table, lengths, decode_kernel=dk)
         steps[f"verify8_{dk}"] = lambda dk=dk: llama.decode_speculative_paged(
             params, mc, spec, pool, table, lengths - 8, decode_kernel=dk)
+    steps["decode_int8"] = lambda: llama.decode_step_paged(
+        qparams, mc, tok, pool, table, lengths, decode_kernel="ragged")
+    steps["verify8_int8"] = lambda: llama.decode_speculative_paged(
+        qparams, mc, spec, pool, table, lengths - 8, decode_kernel="dedicated")
     res = {f"{name}_step_ms": wall_ms(fn, 10) for name, fn in steps.items()}
     t512 = torch.randint(0, 259, (1, 512), device="cuda")
     res["cold_prefill_512_ms"] = wall_ms(lambda: llama.prefill_paged_cold(
@@ -714,6 +841,7 @@ def _step_profile(params) -> None:
 def phase_serving() -> dict:
     import torch
 
+    from kubeai_tpu_torch.engine.weights import quantize_model_params
     from kubeai_tpu_torch.models import llama
     from kubeai_tpu_torch.models.base import llama_3_1_8b
 
@@ -725,18 +853,105 @@ def phase_serving() -> dict:
     out = {}
     for dk in ("ragged", "dedicated"):
         out[dk] = _serve_once(params, dk)
+    t0 = time.monotonic()
+    qparams = quantize_model_params(params, llama_3_1_8b())
+    torch.cuda.synchronize()
+    log(f"weights: quantized to int8 on the card in {time.monotonic() - t0:.1f}s")
+    out["int8"] = _serve_once(qparams, "ragged", int8=True)
     log("serving_summary", gpu_line(), json.dumps(
         {k: {m: v[m] for m in ("ttft_s", "stream_decode_tok_s", "concurrent_tok_s")}
          for k, v in out.items()}))
-    _step_profile(params)
+    _step_profile(params, qparams)
+    del params, qparams
+    torch.cuda.empty_cache()
+    _serve_checkpoint()
     return out
+
+
+def _serve_checkpoint() -> None:
+    """The loader: a 2-layer checkpoint at Llama-3.1-8B width (random bf16
+    weights from seed 1, HF names and [out, in] layouts) written by the
+    port's save_hf_checkpoint under build/, served through the server's
+    own argument path with --model <dir> --quantization int8 (one
+    completion); its int8 leaves must equal quantize_model_params of the
+    written weights, and its config the written one."""
+    import shutil
+
+    import torch
+
+    from kubeai_tpu_torch.engine.server import (
+        EngineServer,
+        build_engine_from_args,
+        make_arg_parser,
+    )
+    from kubeai_tpu_torch.engine.weights import quantize_model_params, save_hf_checkpoint
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    mc = llama_3_1_8b(num_layers=2)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ckpt_8b_width_2_layers")
+    t0 = time.monotonic()
+    p = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    hf = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+          "wo": "self_attn.o_proj", "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
+          "wd": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": p["embed"].cpu(), "model.norm.weight": p["final_norm"].cpu(),
+          "lm_head.weight": p["lm_head"].T.contiguous().cpu()}
+    for li in range(mc.num_layers):
+        sd[f"model.layers.{li}.input_layernorm.weight"] = p["layers"]["ln1"][li].cpu()
+        sd[f"model.layers.{li}.post_attention_layernorm.weight"] = p["layers"]["ln2"][li].cpu()
+        for key, name in hf.items():
+            sd[f"model.layers.{li}.{name}.weight"] = p["layers"][key][li].T.contiguous().cpu()
+    shutil.rmtree(path, ignore_errors=True)
+    save_hf_checkpoint(path, mc, sd)
+    del sd
+    write_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    args = make_arg_parser().parse_args([
+        "--model", path, "--quantization", "int8", "--host", "127.0.0.1", "--port", "0",
+        "--max-slots", "2", "--max-seq-len", "512"])
+    eng, name = build_engine_from_args(args)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    try:
+        if eng.model_config.replace(use_flash_prefill=False, use_paged_kernel=False) != mc:
+            raise AssertionError(f"loaded config differs: {eng.model_config}")
+        want = quantize_model_params(p, mc)
+        bad = []
+
+        def same(a, b, where):
+            if isinstance(b, dict):
+                for k in b:
+                    same(a[k], b[k], f"{where}/{k}")
+            elif a.dtype != b.dtype or not torch.equal(a, b):
+                bad.append(where)
+
+        same(eng.params, want, "")
+        if bad or set(eng.params) != set(want):
+            raise AssertionError(f"loaded leaves differ from quantize_model_params: {bad}")
+        del want, p
+        srv = EngineServer(eng, name, host=args.host, port=args.port)
+        srv.start()
+        try:
+            text = _check_completion(_post(srv.port, "/v1/completions", {
+                "prompt": "Hello", "max_tokens": 8, "temperature": 0}), "checkpoint")
+        finally:
+            srv.stop()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    log("loader", json.dumps({"checkpoint": "2 layers at Llama-3.1-8B width, bf16 safetensors",
+                              "write_s": write_s, "load_quantize_s": load_s,
+                              "completion": text}))
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
 
 
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
-# belongs to: the default ragged-decode path, or --decode-kernel dedicated).
+# belongs to: the default ragged-decode path, --decode-kernel dedicated,
+# or --quantization int8).
 SOURCES = {
     "flash_attention": ("kubeai_tpu_torch/csrc/flash_attention.cu",
                         "kubeai_tpu/ops/flash_attention.py:27", "flash_attention", "ragged"),
@@ -746,6 +961,8 @@ SOURCES = {
     "paged_decode_attention": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
                                "kubeai_tpu/ops/paged_decode_attention.py:66",
                                "paged_decode_attention", "dedicated"),
+    "w8a16_matmul": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu", "kubeai_tpu/ops/quant.py:50",
+                     "qdot", "int8"),
 }
 
 
@@ -771,7 +988,7 @@ def main() -> int:
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path, and
-    # `launches_by_path` keeps both runs apart.
+    # `launches_by_path` keeps the runs apart.
     summary = []
     for name, (src, replaces, wrapper, path) in SOURCES.items():
         r = kern[name]

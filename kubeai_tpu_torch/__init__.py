@@ -3,9 +3,9 @@
 The JAX package ``kubeai_tpu`` is the reference; this package keeps its
 module names (``models/llama.py``, ``ops/paged_attention.py``,
 ``engine/core.py`` ...) so each counterpart is easy to find, and imports
-nothing from it. Attention runs through hand-written CUDA kernels
-(``csrc/*.cu``) built at first use; the other matrix products are
-``torch.matmul``.
+nothing from it. Attention and the int8 weight products run through
+hand-written CUDA kernels (``csrc/*.cu``) built at first use; the bf16
+weight products are ``torch.matmul``.
 
 Device rule: every entry point runs on ``cuda`` unless the caller asks for
 the CPU explicitly (``device="cpu"``, ``--device cpu``). Nothing falls back

@@ -149,7 +149,9 @@ class Engine:
         if self.cfg.speculate_tokens:
             raise NotImplementedError("speculative decoding is not ported yet (ROADMAP queue 1)")
         if self.cfg.kv_cache_dtype:
-            raise NotImplementedError("quantized KV pools are not ported yet (ROADMAP queue 1)")
+            raise NotImplementedError(
+                "quantized KV pools are not ported yet (ROADMAP queue 1 item 2: quantized KV pool)"
+            )
         if self.device.type == "cuda":
             model_config = model_config.replace(use_flash_prefill=True, use_paged_kernel=True)
         llama.check_supported(model_config)
@@ -715,14 +717,23 @@ def build_engine(
     device: torch.device | str | None = None,
     engine_config: EngineConfig | None = None,
     seed: int = 0,
+    quantization: str = "",
 ) -> Engine:
-    """An engine over a preset's full widths and depth with random
-    weights drawn from *seed* (the checkpoint loader is not ported yet).
-    The byte tokenizer drives it; logits past its vocab are masked."""
+    """An engine over a preset's full widths and depth with random bf16
+    weights drawn from *seed* (``--model <dir>`` loads a checkpoint:
+    engine/weights.py). ``quantization="int8"`` quantizes them, one
+    stacked weight at a time. The byte tokenizer drives it; logits past
+    its vocab are masked."""
     if preset not in PRESETS:
         raise ValueError(f"unknown preset {preset!r}; known: {sorted(PRESETS)}")
+    if quantization not in ("", "int8"):
+        raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
     dev = resolve_device(device)
     mc = PRESETS[preset]()
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = llama.init_params(mc, gen, device=dev)
+    if quantization:
+        from kubeai_tpu_torch.engine.weights import quantize_model_params  # imports this module
+
+        params = quantize_model_params(params, mc)
     return Engine(mc, params, ByteTokenizer(), engine_config or EngineConfig(), device=dev)

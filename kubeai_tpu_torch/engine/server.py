@@ -14,6 +14,9 @@ debug routes are not ported yet (ROADMAP queue 1).
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
+``--model <dir>`` serves an HF-format checkpoint directory
+(engine/weights.py), and ``--quantization int8`` serves a preset or a
+checkpoint with int8 weights through the W8A16 kernel.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from kubeai_tpu_torch.engine.core import (
     build_test_engine,
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams
+from kubeai_tpu_torch.engine.weights import load_engine_from_path
 
 log = logging.getLogger("kubeai_tpu_torch.engine.server")
 
@@ -412,12 +416,16 @@ def _make_handler(srv: EngineServer):
 
 def make_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("kubeai-tpu-torch-engine")
-    p.add_argument("--model", required=True, help="test:tiny or preset:llama-3.1-8b")
+    p.add_argument("--model", required=True,
+                   help="an HF checkpoint dir, test:tiny, or preset:llama-3.1-8b (random weights)")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    p.add_argument("--tensor-parallel-size", type=int, default=1, choices=[1])
+    p.add_argument("--quantization", default="", choices=["", "int8"],
+                   help="int8: weight-only int8 (W8A16 kernel on CUDA)")
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=64, help="KV pool tokens per page")
@@ -434,14 +442,15 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
     )
     name = args.served_model_name or args.model
     if args.model.startswith("test:"):
+        if args.quantization:
+            raise SystemExit("--quantization applies to preset: and checkpoint models")
         ec.prefill_buckets = (16, 32, 64, 128)
         return build_test_engine(ec, seed=args.seed, device=args.device), name
     if args.model.startswith("preset:"):
-        return build_engine(args.model[len("preset:"):], args.device, ec, seed=args.seed), name
-    raise SystemExit(
-        f"unsupported --model {args.model!r}: checkpoint loading is not ported yet "
-        "(use test:tiny or preset:llama-3.1-8b)"
-    )
+        return build_engine(args.model[len("preset:"):], args.device, ec, seed=args.seed,
+                            quantization=args.quantization), name
+    return load_engine_from_path(args.model, ec, tp=args.tensor_parallel_size,
+                                 quantization=args.quantization, device=args.device), name
 
 
 def main(argv=None) -> None:

@@ -1,10 +1,15 @@
 """Tokenizers (port of kubeai_tpu/engine/tokenizer.py).
 
 The byte-level tokenizer keeps the whole stack hermetic. The HF tokenizer
-waits for the port's weight loading (ROADMAP queue 1: HF tokenizer).
+is not ported yet (ROADMAP queue 1 item 5): a checkpoint directory that
+carries tokenizer files is refused, never byte-tokenized silently.
 """
 
 from __future__ import annotations
+
+import os
+
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
 
 
 class ByteTokenizer:
@@ -31,6 +36,21 @@ class ByteTokenizer:
         if add_generation_prompt:
             parts.append("<|assistant|>\n")
         return "".join(parts)
+
+
+def load_tokenizer(path: str | None):
+    """The tokenizer of a model directory: the byte tokenizer when *path*
+    is None or "byte" or the directory has no tokenizer files. A directory
+    with tokenizer files raises NotImplementedError."""
+    if path in (None, "byte"):
+        return ByteTokenizer()
+    found = [f for f in TOKENIZER_FILES if os.path.exists(os.path.join(path, f))]
+    if not found:
+        return ByteTokenizer()
+    raise NotImplementedError(
+        f"{path} carries tokenizer files ({', '.join(found)}): the HF tokenizer is not "
+        "ported yet (ROADMAP queue 1 item 5)"
+    )
 
 
 class IncrementalDetokenizer:

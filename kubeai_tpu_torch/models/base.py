@@ -2,12 +2,17 @@
 
 The port keeps its own copy: the JAX module imports ``ops/rope.py`` and
 with it ``jax.numpy``. Field names and defaults are the same, so a
-config converts field by field (``ModelConfig(**dataclasses.asdict(c))``).
+config converts field by field (``ModelConfig(**dataclasses.asdict(c))``),
+and ``from_hf`` / ``from_json_file`` read an HF config.json as the JAX
+package does, variants the port has not taken included (``llama.
+check_supported`` refuses those).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass
 
 
@@ -64,8 +69,89 @@ class ModelConfig:
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    @classmethod
+    def from_hf(cls, config) -> "ModelConfig":
+        """Build from an object with HF config attributes (Llama / Mistral /
+        Mixtral / Gemma / Qwen2 field names), field for field as the JAX
+        package does."""
+        get = lambda k, d=None: getattr(config, k, d)  # noqa: E731
+        scaling = None
+        rs = get("rope_scaling")
+        if isinstance(rs, dict):
+            rope_type = rs.get("rope_type", rs.get("type"))
+            if rope_type == "llama3":
+                scaling = RopeScaling(
+                    factor=rs.get("factor", 8.0),
+                    low_freq_factor=rs.get("low_freq_factor", 1.0),
+                    high_freq_factor=rs.get("high_freq_factor", 4.0),
+                    original_max_position=rs.get("original_max_position_embeddings", 8192),
+                )
+            elif rope_type == "linear":
+                # Every band divided by factor: llama3-style scaling whose
+                # always-scaled low-frequency band covers the spectrum.
+                scaling = RopeScaling(
+                    factor=rs.get("factor", 1.0),
+                    low_freq_factor=1e9,
+                    high_freq_factor=2e9,
+                    original_max_position=get("max_position_embeddings", 8192),
+                )
+            elif rope_type not in ("default", None):
+                raise ValueError(
+                    f"unsupported rope_scaling type {rope_type!r}; supported: llama3, linear"
+                )
+        model_type = get("model_type", "llama")
+        variant = {}
+        if model_type == "qwen2":
+            variant["qkv_bias"] = True  # Qwen2 hardcodes q/k/v biases
+        if model_type in ("gemma", "gemma2"):
+            variant = dict(hidden_act="gelu_tanh", embed_scale=True, rms_one_offset=True)
+            if model_type == "gemma2":
+                variant.update(
+                    post_norms=True,
+                    attn_softcap=get("attn_logit_softcapping", 50.0) or 0.0,
+                    logit_softcap=get("final_logit_softcapping", 30.0) or 0.0,
+                    query_scale=get("query_pre_attn_scalar") ** -0.5
+                    if get("query_pre_attn_scalar")
+                    else None,
+                    # HF Gemma2 applies the window on even layer indices.
+                    sliding_window=get("sliding_window") or 0,
+                    sliding_layers="even",
+                )
+        return cls(
+            **variant,
+            vocab_size=config.vocab_size,
+            hidden_size=config.hidden_size,
+            intermediate_size=get("intermediate_size") or get("ffn_dim"),
+            num_layers=get("num_hidden_layers"),
+            num_heads=get("num_attention_heads"),
+            num_kv_heads=get("num_key_value_heads") or get("num_attention_heads"),
+            head_dim=get("head_dim"),
+            rope_theta=get("rope_theta", 10000.0),
+            rope_scaling=scaling,
+            rms_norm_eps=get("rms_norm_eps", 1e-5),
+            max_position=get("max_position_embeddings", 8192),
+            tie_word_embeddings=bool(get("tie_word_embeddings", False)),
+            num_experts=get("num_local_experts", 0) or 0,
+            num_experts_per_tok=get("num_experts_per_tok", 2) or 2,
+        )
+
+    @classmethod
+    def from_json_file(cls, path: str) -> "ModelConfig":
+        """Load from an HF-format config.json (a file, or the directory
+        holding it)."""
+        with open(os.path.join(path, "config.json") if os.path.isdir(path) else path) as f:
+            raw = json.load(f)
+        return cls.from_hf(_Attrs(raw))
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+class _Attrs:
+    """A config.json dict read through attributes, as from_hf expects."""
+
+    def __init__(self, d: dict):
+        self.__dict__.update(d)
 
 
 def llama_3_1_8b(**overrides) -> ModelConfig:

@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the JAX package's parameter tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 tensors with the same keys, the same [in, out] weight layout and the same
-stacked [L, ...] layer axis. The port imports neither jax nor ml_dtypes:
+stacked [L, ...] layer axis; an int8 weight ``{"int8_q", "int8_s"}``
+(kubeai_tpu/ops/quant.py) becomes the same dict of an int8 and a float32
+tensor. The port imports neither jax nor ml_dtypes:
 bfloat16 leaves arrive as ml_dtypes arrays and move through a uint16 view.
 """
 
@@ -31,13 +33,9 @@ def params_from_jax(tree: dict[str, Any], config: ModelConfig, device) -> dict[s
     """The port's parameter dict for a JAX parameter tree of numpy arrays."""
     check_supported(config)
 
-    def conv(node, path):
-        if isinstance(node, dict):
-            if "int8_q" in node:
-                raise NotImplementedError(
-                    f"int8 weight {path} is not ported yet (ROADMAP queue 2: W8A16 qdot kernel)"
-                )
-            return {k: conv(v, f"{path}/{k}") for k, v in node.items()}
+    def conv(node):
+        if isinstance(node, dict):  # int8 leaves {"int8_q", "int8_s"} convert key by key
+            return {k: conv(v) for k, v in node.items()}
         return _leaf(node, device)
 
-    return conv(tree, "")
+    return conv(tree)

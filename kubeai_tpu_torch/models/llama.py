@@ -11,8 +11,10 @@ of each layer is its trash page. The JAX package donated the pool through
 every jitted step; here ``apply`` writes it IN PLACE and returns the same
 dict. Attention takes one of three hand-written CUDA kernels behind the
 same gates as the JAX package (``use_flash_prefill``, ``use_paged_kernel``,
-``decode_kernel``) or the plain gather path; matrix products outside
-attention are ``torch.matmul``.
+``decode_kernel``) or the plain gather path. Projections and the head go
+through ``ops/quant.py``: ``torch.matmul`` for bf16 weights, the W8A16
+kernel for int8 ones (``{"int8_q", "int8_s"}`` leaves, made from the bf16
+tree by ``engine/weights.py::quantize_model_params``).
 
 Only dense Llama is ported. The variants the JAX package also serves
 raise NotImplementedError naming the ROADMAP item that will port them.
@@ -36,6 +38,7 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
     paged_decode_attention,
     resolve_decode_kernel,
 )
+from kubeai_tpu_torch.ops.quant import qdot, qgather, qmatT
 from kubeai_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -174,7 +177,7 @@ def apply(
     inv_freq = _inv_freq(h, config.rope_theta, config.rope_scaling, dev)
     positions = positions.to(torch.int64)
 
-    x = params["embed"].to(dtype)[tokens.long()]
+    x = qgather(params["embed"], tokens, dtype)
     use_flash = (
         config.use_flash_prefill
         and left_aligned
@@ -205,11 +208,11 @@ def apply(
     mask = key_positions <= positions[:, :, None]  # [B, S, Skv]
 
     for li in range(config.num_layers):
-        w = {k: v[li] for k, v in params["layers"].items()}
+        w = {k: _layer_slice(v, li) for k, v in params["layers"].items()}
         attn_in = rms_norm(x, w["ln1"], config.rms_norm_eps)
-        q = (attn_in @ w["wq"]).reshape(B, S, H, h)
-        k = (attn_in @ w["wk"]).reshape(B, S, Kv, h)
-        v = (attn_in @ w["wv"]).reshape(B, S, Kv, h)
+        q = qdot(attn_in, w["wq"]).reshape(B, S, H, h)
+        k = qdot(attn_in, w["wk"]).reshape(B, S, Kv, h)
+        v = qdot(attn_in, w["wv"]).reshape(B, S, Kv, h)
         q, k = apply_rope(q, k, positions, inv_freq)
 
         if paged:
@@ -234,19 +237,28 @@ def apply(
                 attn_out = attention(q, k_att, v_att, mask, scale=config.query_scale)
         else:
             attn_out = attention(q, k, v, mask, scale=config.query_scale)
-        x = x + attn_out.reshape(B, S, H * h) @ w["wo"]
+        x = x + qdot(attn_out.reshape(B, S, H * h), w["wo"])
 
         mlp_in = rms_norm(x, w["ln2"], config.rms_norm_eps)
-        x = x + (F.silu(mlp_in @ w["wg"]) * (mlp_in @ w["wu"])) @ w["wd"]
+        x = x + qdot(F.silu(qdot(mlp_in, w["wg"])) * qdot(mlp_in, w["wu"]), w["wd"])
 
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if logits_idx is not None:
         x = x[torch.arange(B, device=dev)[:, None], logits_idx.long()[:, None]]  # [B, 1, D]
     if config.tie_word_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = qmatT(x, params["embed"])
     else:
-        logits = x @ params["lm_head"]
+        logits = qdot(x, params["lm_head"])
     return logits.float(), cache
+
+
+def _layer_slice(leaf, li: int):
+    """Layer *li* of a stacked leaf: a view, and for an int8 leaf the
+    views of its values and scales (the kernel takes them without a
+    copy)."""
+    if isinstance(leaf, dict):
+        return {k: v[li] for k, v in leaf.items()}
+    return leaf[li]
 
 
 def _arange(S: int, device) -> torch.Tensor:

@@ -172,13 +172,15 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(kubeai_tpu_torch.__path__, 'kubeai_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'kubeai_tpu.'))"
-        " or m == 'kubeai_tpu']\n"
+        " or m in ('kubeai_tpu', 'safetensors', 'transformers')]\n"
+        "new = ['kubeai_tpu_torch.ops.quant', 'kubeai_tpu_torch.engine.weights']\n"
+        "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 15  # every module really imported
+    assert int(out.stdout.split()[0]) >= 18  # every module really imported
 
 
 def test_page_pool_copy_matches_jax():

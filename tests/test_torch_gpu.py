@@ -15,6 +15,7 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
     MAX_DECODE_QUERY_LEN,
     paged_decode_attention,
 )
+from kubeai_tpu_torch.ops.quant import qdot, qmatT, quantize, quantize_rows
 
 
 @pytest.fixture
@@ -251,3 +252,80 @@ def test_tiny_engine_on_the_card_matches_cpu(cuda, decode_kernel):
     used = {fn.__name__: fn.launches for fn in kernels}
     assert used["flash_attention"] > 0 and used["paged_attention_ragged"] > 0
     assert (used["paged_decode_attention"] > 0) == (decode_kernel == "dedicated")
+
+
+def _w8a16_case(cuda, M, K, N, layout, seed=5, lead=()):
+    """bf16 x [M, K] and an int8 weight quantized from N(0, 1/K) draws:
+    [K, N] per output column (layout 0, qdot) or [N, K] per row (layout
+    1, qmatT); the float32 plain product on the same int8 values."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    if layout == 0:
+        w = quantize(torch.randn(lead + (K, N), generator=g, device=cuda) * K**-0.5)
+    else:
+        w = quantize_rows(torch.randn(lead + (N, K), generator=g, device=cuda) * K**-0.5)
+    return x, w
+
+
+def _w8a16_want(x, q, s, layout):
+    qf = q.float() if layout == 0 else q.float().T
+    return (x.float() @ qf) * s.reshape(1, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [0, 1], ids=["qdot", "qmatT"])
+@pytest.mark.parametrize("M", [1, 7, 8, 64, 65, 1024])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 4096), (4104, 1000)])
+def test_w8a16_kernel_matches_plain(cuda, layout, M, K, N):
+    """Both weight layouts at decode (split-K), verify and prefill rows;
+    K = 4104 and N = 1000 are off the 64 / 128 tiles and off the 16-byte
+    grid (the 4-byte copy path)."""
+    x, w = _w8a16_case(cuda, M, K, N, layout)
+    before = qdot.launches
+    got = (qdot if layout == 0 else qmatT)(x, w)
+    torch.cuda.synchronize()
+    assert qdot.launches == before + 1 and got.shape == (M, N) and got.dtype == torch.bfloat16
+    _assert_close(got, _w8a16_want(x, w["int8_q"], w["int8_s"], layout), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 1024])
+def test_w8a16_stacked_layer_slice(cuda, M):
+    """The model's per-layer slice q[li] of a stacked [L, K, N] weight
+    reaches the kernel as a view (no copy), with its own scales."""
+    x, w = _w8a16_case(cuda, M, 4096, 1024, 0, lead=(3,))
+    for li in range(3):
+        wl = {k: v[li] for k, v in w.items()}
+        assert wl["int8_q"].data_ptr() == w["int8_q"].data_ptr() + li * 4096 * 1024
+        got = qdot(x.reshape(2, M // 2, 4096), wl)  # leading dims kept
+        torch.cuda.synchronize()
+        assert got.shape == (2, M // 2, 1024)
+        _assert_close(got.reshape(M, 1024), _w8a16_want(x, wl["int8_q"], wl["int8_s"], 0),
+                      torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_w8a16_refuses_bad_inputs(cuda):
+    x, w = _w8a16_case(cuda, 8, 256, 128, 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        qdot(x.float(), w)
+    buf = torch.zeros(256 * 128 + 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        qdot(x, {"int8_q": buf[1:].view(256, 128), "int8_s": w["int8_s"]})
+    with pytest.raises(ValueError, match="contiguous"):
+        qdot(x, {"int8_q": w["int8_q"].T.contiguous().T, "int8_s": w["int8_s"]})
+    with pytest.raises(ValueError, match="do not match"):
+        qdot(x[:, :128].contiguous(), w)
+
+
+@pytest.mark.gpu
+def test_quantize_on_the_card_is_bit_identical_to_the_cpu(cuda):
+    """quantize on the card gives the host's (and so the JAX package's)
+    int8 values and scales exactly: the card quantizes preset weights,
+    the loader quantizes checkpoints on the host."""
+    g = torch.Generator().manual_seed(6)
+    w = (torch.randn((3, 512, 384), generator=g) * 0.02).to(torch.bfloat16)
+    for fn in (quantize, quantize_rows):
+        want, got = fn(w), fn(w.to(cuda))
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (fn.__name__, k)

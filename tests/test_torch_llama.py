@@ -105,10 +105,14 @@ def test_params_from_jax_moves_bf16_bits_exactly():
 
 
 def test_params_from_jax_refuses_int8_leaves():
+    """Nothing is refused: an int8 leaf converts key by key to an int8 and
+    a float32 tensor with the same values."""
     jc, tc = _configs()
-    tree = {"embed": {"int8_q": np.zeros((4, 4), np.int8), "int8_s": np.ones((4, 1), np.float32)}}
-    with pytest.raises(NotImplementedError, match="W8A16"):
-        params_from_jax(tree, tc, "cpu")
+    q = np.arange(-8, 8, dtype=np.int8).reshape(4, 4)
+    s = np.linspace(0.5, 2.0, 4, dtype=np.float32).reshape(4, 1)
+    got = params_from_jax({"embed": {"int8_q": q, "int8_s": s}}, tc, "cpu")["embed"]
+    assert got["int8_q"].dtype == torch.int8 and got["int8_s"].dtype == torch.float32
+    assert np.array_equal(got["int8_q"].numpy(), q) and np.array_equal(got["int8_s"].numpy(), s)
 
 
 @pytest.mark.parametrize(

@@ -1,0 +1,225 @@
+"""The port's int8 weight-only quantization (kubeai_tpu_torch.ops.quant)
+against the JAX package's (kubeai_tpu.ops.quant) on the same seeded
+inputs, on the CPU (plain versions; the W8A16 kernel's card tests are in
+test_torch_gpu.py):
+
+- quantize / quantize_rows: int8 values and scales bit-identical, from
+  numpy and from torch input, against the JAX function on numpy (its
+  host path) and on jax arrays;
+- qdot / qmatT / qgather: within 1e-5 in float32 and within one bf16
+  rounding in bf16, stacked per-layer scales included;
+- the model: llama.apply on params_from_jax(quantize_model_params(...))
+  within 1e-4 of the JAX apply on the same int8 tree, untied and tied
+  (qmatT), cache-less and through the paged prefill and decode steps."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from kubeai_tpu.engine.weights import quantize_model_params as j_quantize_model_params
+from kubeai_tpu.models import llama as jl
+from kubeai_tpu.models.base import ModelConfig as JMC
+from kubeai_tpu.ops import quant as jq
+from kubeai_tpu_torch.engine.weights import quantize_model_params as t_quantize_model_params
+from kubeai_tpu_torch.models import llama as tl
+from kubeai_tpu_torch.models.base import ModelConfig as TMC
+from kubeai_tpu_torch.models.convert import params_from_jax
+from kubeai_tpu_torch.ops import quant as tq
+
+from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
+
+
+def _weights(shape, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=shape) * rng.uniform(0.05, 20.0, size=shape[:-2] + (1, 1) if len(shape) > 2 else ())
+    if len(shape) >= 2:
+        w[..., 0, 0] = 0.0  # a zero column entry
+    return w.astype(dtype)
+
+
+def _np(t):
+    return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+@pytest.mark.parametrize("rows", [False, True], ids=["quantize", "quantize_rows"])
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [((64, 48), np.float32), ((3, 40, 24), np.float32), ((48, 32), ml_dtypes.bfloat16),
+     ((256, 64), np.float32)],
+    ids=["2d", "stacked", "bf16", "embed"],
+)
+def test_quantize_bit_identical_to_jax(rows, shape, dtype):
+    w = _weights(shape, seed=len(shape) * 7 + shape[-1], dtype=dtype)
+    if dtype == np.float32:
+        w[..., -1, -1] = 0.0
+    jfn = jq.quantize_rows if rows else jq.quantize
+    tfn = tq.quantize_rows if rows else tq.quantize
+    want_np = jfn(w)
+    want_jax = jfn(jnp.asarray(w))
+    t_in = torch.from_numpy(np.ascontiguousarray(w).view(np.uint16)).view(torch.bfloat16) \
+        if dtype == ml_dtypes.bfloat16 else torch.from_numpy(w)
+    got_np = tfn(w)
+    got_t = tfn(t_in)
+    assert isinstance(got_np[tq.QKEY], np.ndarray) and isinstance(got_t[tq.QKEY], torch.Tensor)
+    for key in (tq.QKEY, tq.SKEY):
+        want = np.asarray(want_np[key])
+        assert want.dtype == (np.int8 if key == tq.QKEY else np.float32)
+        for got in (got_np[key], got_t[key], want_jax[key]):
+            assert np.array_equal(_np(got), want), key
+    assert got_t[tq.SKEY].shape == want_np[tq.SKEY].shape
+
+
+def test_stacked_scales_are_per_layer():
+    """tests/test_quant.py's stacked case: two layers 100x apart keep their
+    own per-channel scales."""
+    rng = np.random.default_rng(1)
+    w = np.stack([rng.normal(size=(16, 8)), 100 * rng.normal(size=(16, 8))]).astype(np.float32)
+    qw = tq.quantize(torch.from_numpy(w))
+    assert tuple(qw[tq.SKEY].shape) == (2, 1, 8)
+    np.testing.assert_allclose(tq.dequantize(qw).numpy(), w, rtol=2e-2, atol=2e-2 * 100)
+
+
+def _inputs(M, K, N, seed, stacked=0):
+    rng = np.random.default_rng(seed)
+    lead = (stacked,) if stacked else ()
+    x = rng.normal(size=lead + (M, K)).astype(np.float32)
+    w = _weights(lead + (K, N), seed + 1)
+    return x, w
+
+
+def _as(x, dtype):
+    if dtype == "float32":
+        return jnp.asarray(x), torch.from_numpy(x)
+    return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _close(got, want, dtype):
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        # One bf16 rounding of either side (2^-8 relative) apart, after the
+        # product and the scale are rounded to bf16 in both frameworks.
+        err = np.abs(got - want) - (2.0**-7 * np.abs(want) + 1e-6)
+        assert err.max() <= 0, err.max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,stacked", [(4, 32, 48, 0), (7, 96, 40, 0), (5, 64, 24, 3)])
+def test_qdot_matches_jax(dtype, M, K, N, stacked):
+    x, w = _inputs(M, K, N, seed=M * K + N, stacked=stacked)
+    jw, tw = jq.quantize(w), tq.quantize(torch.from_numpy(w))
+    jx, tx = _as(x, dtype)
+    if stacked:  # per-layer slices of a stacked weight, as the model takes them
+        for li in range(stacked):
+            _close(tq.qdot(tx[li], {k: v[li] for k, v in tw.items()}),
+                   jq.qdot(jx[li], {k: v[li] for k, v in jw.items()}), dtype)
+    else:
+        _close(tq.qdot(tx, tw), jq.qdot(jx, jw), dtype)
+    # Unquantized weights take the plain product.
+    jwp, twp = _as(w, dtype)
+    _close(tq.qdot(tx, twp), jq.qdot(jx, jwp), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qmatT_and_qgather_match_jax(dtype):
+    rng = np.random.default_rng(2)
+    emb = _weights((40, 16), 3)
+    je, te = jq.quantize_rows(emb), tq.quantize_rows(torch.from_numpy(emb))
+    idx = np.array([[1, 5, 39], [9, 0, 0]])
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    got = tq.qgather(te, torch.from_numpy(idx), tdt)
+    want = jq.qgather(je, jnp.asarray(idx), jdt)
+    assert got.dtype == tdt
+    _close(got, want, dtype)
+    jx, tx = _as(rng.normal(size=(3, 16)).astype(np.float32), dtype)
+    _close(tq.qmatT(tx, te), jq.qmatT(jx, je), dtype)
+    jep, tep = _as(emb, dtype)
+    _close(tq.qmatT(tx, tep), jq.qmatT(jx, jep), dtype)
+    _close(tq.qgather(tep, torch.from_numpy(idx), tdt), jq.qgather(jep, jnp.asarray(idx), jdt), dtype)
+
+
+def test_split_plan_covers_k():
+    """The split-K plan of the decode shapes: pieces of whole 64-deep
+    stages that cover K exactly once, enough blocks for two per SM where
+    K allows, and no split for prefill rows."""
+    for K, N in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256),
+                 (4104, 1000)):
+        for M in (1, 8, 64):
+            splits, k_split = tq.split_plan(M, N, K, 132)
+            assert k_split % tq.BK == 0 and (splits - 1) * k_split < K <= splits * k_split
+            assert k_split >= min(K, 4 * tq.BK) or splits == 1
+        assert tq.split_plan(65, N, K, 132)[0] == 1
+    assert tq.split_plan(8, 1024, 4096, 132) == (16, 256)  # wk / wv: 8 column blocks
+
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _configs(tie):
+    jc = JMC(
+        vocab_size=272, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, dtype="float32", max_position=2048, rope_theta=500000.0,
+        tie_word_embeddings=tie,
+    )
+    return jc, TMC(**{f.name: getattr(jc, f.name) for f in dataclasses.fields(JMC)})
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["untied", "tied"])
+def test_int8_model_matches_jax(tie):
+    jc, tc = _configs(tie)
+    jp = j_quantize_model_params(jl.init_params(jc, jax.random.key(0)), jc)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
+    assert tq.is_quantized(tp["layers"]["wq"]) and tq.is_quantized(tp["embed"])
+    assert ("lm_head" in tp) == (not tie)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 272, (2, 12))
+    pos = np.broadcast_to(np.arange(12)[None], (2, 12)).copy()
+    jlog, _ = jl.apply(jp, jc, jnp.asarray(toks), jnp.asarray(pos))
+    tlog, _ = tl.apply(tp, tc, torch.from_numpy(toks), torch.from_numpy(pos))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+
+    # The serving path: paged cold prefill and a decode step, the port's
+    # kernel gates on (the kernels' plain versions on the CPU) against the
+    # JAX package's gather path (its kernel twins only cost compile time).
+    tc = tc.replace(use_flash_prefill=True, use_paged_kernel=True)
+    B, ps, mp = 2, 16, 4
+    P = 1 + B * mp
+    table = np.arange(1, P, dtype=np.int32).reshape(B, mp)
+    jpool, tpool = jl.init_paged_cache(jc, P, ps), tl.init_paged_cache(tc, P, ps, "cpu")
+    prompt = rng.integers(1, 259, (B, 32)).astype(np.int32)
+    lens = np.array([20, 32], np.int32)
+    jlog, jpool = jl.prefill_paged_cold(jp, jc, jnp.asarray(prompt), jpool, jnp.asarray(table),
+                                        jnp.asarray(lens))
+    tlog, _ = tl.prefill_paged_cold(tp, tc, torch.from_numpy(prompt), tpool,
+                                    torch.from_numpy(table), torch.from_numpy(lens))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    step = rng.integers(1, 259, (B, 1)).astype(np.int32)
+    jlog, _ = jl.decode_step_paged(jp, jc, jnp.asarray(step), jpool, jnp.asarray(table),
+                                   jnp.asarray(lens))
+    tlog, _ = tl.decode_step_paged(tp, tc, torch.from_numpy(step), tpool,
+                                   torch.from_numpy(table), torch.from_numpy(lens))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+
+
+def test_quantize_model_params_matches_jax():
+    """The port's quantize_model_params on the port's tree equals the JAX
+    one's on the JAX tree (same bf16 weights), leaf for leaf."""
+    jc, tc = _configs(False)
+    jc, tc = jc.replace(dtype="bfloat16"), tc.replace(dtype="bfloat16")
+    jp = jl.init_params(jc, jax.random.key(1))
+    want = jax.tree.map(np.asarray, j_quantize_model_params(jp, jc))
+    got = t_quantize_model_params(params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu"), tc)
+    for name in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+        for key in (tq.QKEY, tq.SKEY):
+            assert np.array_equal(got["layers"][name][key].numpy(), want["layers"][name][key])
+    for name in ("embed", "lm_head"):
+        for key in (tq.QKEY, tq.SKEY):
+            assert np.array_equal(got[name][key].numpy(), want[name][key])
+    assert got["layers"]["ln1"].dtype == torch.bfloat16  # norms stay full precision
