@@ -17,10 +17,14 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      4 and 8 queries per slot; W8A16 at M = 8 and 64) are timed with a
      cold L2 beside a cold read of as many bytes, with a split-count
      sweep of the split-KV decode kernels; the decode grid must cover
-     every SM;
+     every SM. The paged kernels again over fp8 and int8 pools (one byte
+     per element) in every regime: split-KV decode at 4, 32 and 64 rows,
+     the TMA prefill tile, the CUDA-core tile, float32; the plain version
+     dequantizes to float32;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
      plain path on the same weights (bf16: gather attention; int8: also
-     the W8A16 product in float32 math), for cold prefill (flash and
+     the W8A16 product in float32 math; an fp8 pool: the same gates with
+     each attention kernel's plain version), for cold prefill (flash and
      ragged buckets), a chunked prefill, decode steps and 8-token
      speculative verify steps under both decode kernels;
   4. serving: the port's OpenAI server over Llama-3.1-8B (32 layers,
@@ -28,11 +32,15 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
      requests (one streamed) and a seeded sample sent twice — with the
      ragged decode kernel, with the dedicated one, and over the same
-     weights quantized to int8 (ragged), each run with the launch
+     weights quantized to int8 (ragged), over an fp8 KV pool (ragged),
+     and over an int8 KV pool with int8 weights (dedicated; the pool's
+     scales from one bf16 prefill's K/V absmax), each run with the launch
      counters zeroed before it. Every kernel of a run's path must launch
-     there, a whole number of times per model step. Then a 32-layer step
-     profile: decode and verify steps under both decode kernels and in
-     int8, prefills. Last, the loader: a 2-layer checkpoint at 8B width
+     there, a whole number of times per model step, the paged kernels on
+     the run's pool dtype alone; a quantized pool has half the bf16
+     pool's bytes. Then a 32-layer step profile: decode and verify steps
+     under both decode kernels, in int8 and over an fp8 pool, prefills.
+     Last, the loader: a 2-layer checkpoint at 8B width
      written by the port's save_hf_checkpoint is served through
      --model <dir> --quantization int8, and its int8 leaves must equal
      quantize_model_params of the written weights.
@@ -236,15 +244,17 @@ def _paged_case(B, S, kv_lens, H=32, Kv=8, h=128, page=64, seed=0):
     return q, pool, table, lens
 
 
-def _paged_cost(B, S, kv_lens, H, Kv, h, page=64):
+def _paged_cost(B, S, kv_lens, H, Kv, h, page=64, q_bytes=2, kv_bytes=2):
     """(bytes, flops) the paged function needs for these inputs: q and
-    out once, each valid K/V row once, the lengths and the table entries
+    out once (q_bytes per element), each valid K/V row once (kv_bytes per
+    element: 1 for a quantized pool), the lengths and the table entries
     of the pages that hold those rows; 4*h flops per (query head,
     visible key)."""
     visible = sum(max(0, L - S + s + 1) for L in kv_lens for s in range(S))
     kv_rows = sum(kv_lens)
     pages = sum(-(-L // page) for L in kv_lens)
-    nbytes = 2 * (2 * B * S * H * h) + 2 * (kv_rows * 2 * Kv * h) + 4 * (B + pages)
+    nbytes = (q_bytes * (2 * B * S * H * h) + kv_bytes * (kv_rows * 2 * Kv * h)
+              + 4 * (B + pages))
     return nbytes, 4.0 * h * H * visible
 
 
@@ -253,8 +263,9 @@ def _bound(nbytes, flops, kind="bf16"):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def _sdpa_paged(q, pool, table, lens):
-    """Library yardstick for paged attention: gather the pages, then one
+def _sdpa_paged(q, pool, table, lens, k_scale=None, v_scale=None):
+    """Library yardstick for paged attention: gather the pages (a
+    quantized pool's then dequantized to q's dtype), then one
     scaled_dot_product_attention call with the position mask."""
     import torch
     import torch.nn.functional as F
@@ -265,6 +276,9 @@ def _sdpa_paged(q, pool, table, lens):
     gathered = pool[table.long()]
     k = gathered[..., 0::2, :].reshape(B, skv, Kv, h).transpose(1, 2)
     v = gathered[..., 1::2, :].reshape(B, skv, Kv, h).transpose(1, 2)
+    if k_scale is not None:
+        k = (k.float() * k_scale).to(q.dtype)
+        v = (v.float() * v_scale).to(q.dtype)
     pos_q = lens.long()[:, None] - S + torch.arange(S, device=q.device)[None, :]
     mask = torch.arange(skv, device=q.device)[None, None, :] <= pos_q[:, :, None]
     return F.scaled_dot_product_attention(
@@ -287,8 +301,8 @@ def phase_kernels() -> dict:
     results: dict[str, dict] = {}
 
     def record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline, cold,
-               read_ms=None):
-        bound_ms, bound_by = _bound(nbytes, flops)
+               read_ms=None, kind="bf16"):
+        bound_ms, bound_by = _bound(nbytes, flops, kind)
         line = {
             "kernel": name, "case": case, "l2": "cold" if cold else "warm",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -368,10 +382,101 @@ def phase_kernels() -> dict:
             _split_sweep(case, q, pool, table, lens)
         del q, pool, table, lens, want
     torch.cuda.empty_cache()
+    for kv in ("fp8", "int8"):
+        _quant_pool_cases(record, kv)
     _w8a16_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
     return results
+
+
+# Quantized pools: int8 with the JAX package's test scales (K 0.05, V
+# 0.02; pool values round(N(0, 1) / scale)), fp8 scale-free (N(0, 1) in
+# e4m3).
+KV_QUANT = {"int8": ("int8", 0.05, 0.02), "fp8": ("float8_e4m3fn", 1.0, 1.0)}
+QUANT_CASES = (
+    # (case, B, S, kv_lens, H, q dtype, headline): B=8 decode at kv 512
+    # and 2048 (4 rows per KV head: one m16 tile), S=8 (32 rows: the
+    # ragged kernel's CUDA-core tile, the dedicated kernel's two tiles),
+    # S=8 at G=8 (64 rows: four tiles; the ragged kernel's TMA tile), the
+    # prefill regime, and float32 (both CUDA-core kernels).
+    ("decode B=8 kv_len=512", 8, 1, [512] * 8, 32, "bf16", True),
+    ("decode B=8 kv_len=2048", 8, 1, [2048] * 8, 32, "bf16", False),
+    ("decode B=8 S=8 kv_len=512", 8, 8, [512] * 8, 32, "bf16", False),
+    ("decode B=8 S=8 G=8 kv_len=512", 8, 8, [512] * 8, 64, "bf16", False),
+    ("prefill B=1 S=128", 1, 128, [128], 32, "bf16", False),
+    ("prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], 32, "bf16", False),
+    ("float32 decode B=8 S=4 kv_len=512", 8, 4, [512] * 8, 32, "f32", False),
+)
+
+
+def _quant_case(B, S, kv_lens, kv, H=32, Kv=8, h=128, page=64, qdtype=None, seed=11):
+    """q (bf16 unless *qdtype*), a one-byte pool of kind *kv* (KV_QUANT)
+    with a shuffled page table, lengths, and the pool's (k, v) scales."""
+    import torch
+
+    dt_name, ks, vs = KV_QUANT[kv]
+    dt = getattr(torch, dt_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    max_pages = -(-max(kv_lens) // page)
+    P = 1 + B * max_pages
+    x = torch.randn((P, page, 2 * Kv, h), generator=g, device="cuda")
+    if dt == torch.int8:
+        sc = torch.tensor([ks, vs] * Kv, device="cuda")[:, None]
+        pool = torch.clamp(torch.round(x / sc), -127, 127).to(dt)
+    else:
+        pool = x.to(dt)
+    del x
+    perm = torch.randperm(P - 1, generator=g, device="cuda")[: B * max_pages] + 1
+    table = perm.reshape(B, max_pages).to(torch.int32).contiguous()
+    q = torch.randn((B, S, H, h), generator=g, device="cuda").to(qdtype or torch.bfloat16)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    return q, pool, table, lens, ks, vs
+
+
+def _quant_pool_cases(record, kv) -> None:
+    """Both paged kernels over a one-byte pool in every regime, against
+    the plain version on float32 q with the pool dequantized to float32
+    (x * scale), timed beside the plain version in q's dtype, gather +
+    dequantize to bf16 + SDPA, and a cold read of the bytes (half the
+    bf16 pool's K/V bytes)."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_ragged
+    from kubeai_tpu_torch.ops.paged_decode_attention import (
+        MAX_DECODE_QUERY_LEN,
+        paged_decode_attention,
+    )
+
+    Kv, h, page = 8, 128, 64
+    for case, B, S, lens_list, H, qdt, headline in QUANT_CASES:
+        cold = "decode" in case
+        q, pool, table, lens, ks, vs = _quant_case(
+            B, S, lens_list, kv, H=H, qdtype=torch.bfloat16 if qdt == "bf16" else torch.float32)
+        want = paged_attention_plain(q.float(), pool, table, lens, None, 0.0, ks, vs)
+        nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h, page, q.element_size(), 1)
+        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens, ks, vs), iters=5,
+                          cold_l2=cold)
+        plain_ms = timed_ms(lambda: paged_attention_plain(q, pool, table, lens, None, 0.0,
+                                                          ks, vs), iters=5, cold_l2=cold)
+        read_ms = None
+        if cold:
+            buf = torch.zeros(nbytes // 4, device="cuda")
+            read_ms = timed_ms(lambda: buf.sum(), cold_l2=True)
+            del buf
+        kernels = [("paged_attention", paged_attention_ragged)]
+        if S <= MAX_DECODE_QUERY_LEN:
+            kernels.append(("paged_decode_attention", paged_decode_attention))
+        for name, fn in kernels:
+            got = fn(q, pool, table, lens, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            err = compare(got, want, f"{name} {kv} pool {case}")
+            ms = timed_ms(lambda: fn(q, pool, table, lens, k_scale=ks, v_scale=vs),
+                          cold_l2=cold)
+            record(f"{name}[{kv} pool]", f"{kv} pool {case}", err, ms, plain_ms, nbytes, flops,
+                   lib_ms, headline, cold, read_ms, "f32" if qdt == "f32" else "bf16")
+        del q, pool, table, lens, want
+    torch.cuda.empty_cache()
 
 
 # Llama-3.1-8B's projections (K, N): wq and wo, wk and wv, wg and wu, wd.
@@ -500,8 +605,32 @@ def phase_model_parity() -> None:
     params = llama.init_params(mc, gen, device="cuda")
     _parity(params, mc, "bf16", contextlib.nullcontext)
     _parity(quantize_model_params(params, mc), mc, "int8", _float32_w8a16)
+    # An fp8 pool: the gather path would attend the dequantized pool where
+    # flash attends the fresh bf16 k/v (as in the JAX package), so the
+    # plain path keeps the kernel path's gates and swaps each attention
+    # kernel for its plain version.
+    _parity(params, mc.replace(kv_cache_dtype="fp8"), "fp8 pool", _plain_attention,
+            plain_gates=True)
     del params
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The model's three attention kernels as their plain versions (same
+    arguments; a quantized pool dequantized to q's dtype, as the JAX CPU
+    twin does). No kernel launches in it."""
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.ops.flash_attention import flash_attention_plain
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_plain
+
+    saved = llama.flash_attention, llama.paged_attention_ragged, llama.paged_decode_attention
+    llama.flash_attention = flash_attention_plain
+    llama.paged_attention_ragged = llama.paged_decode_attention = paged_attention_plain
+    try:
+        yield
+    finally:
+        llama.flash_attention, llama.paged_attention_ragged, llama.paged_decode_attention = saved
 
 
 @contextlib.contextmanager
@@ -530,15 +659,17 @@ def _float32_w8a16():
         llama.qdot, llama.qmatT = saved
 
 
-def _parity(params, mc, label, plain_ctx) -> None:
+def _parity(params, mc, label, plain_ctx, plain_gates=False) -> None:
     """Kernel path (flash, paged kernels and, for int8 weights, the W8A16
-    kernel) against the plain path (gather attention; *plain_ctx* around
-    each plain call) on the same weights and tokens."""
+    kernel) against the plain path (gather attention, or with
+    *plain_gates* the kernel path's gates; *plain_ctx* around each plain
+    call) on the same weights and tokens."""
     import torch
 
     from kubeai_tpu_torch.models import llama
 
     kern = mc.replace(use_flash_prefill=True, use_paged_kernel=True)
+    plain_cfg = kern if plain_gates else mc
     page, B, mp = 64, 2, 32
     P = 1 + B * mp
     table = torch.arange(1, P, dtype=torch.int32, device="cuda").reshape(B, mp)
@@ -561,13 +692,13 @@ def _parity(params, mc, label, plain_ctx) -> None:
             raise AssertionError(f"model parity {label} {what} outside tolerance")
 
     pools = {name: llama.init_paged_cache(cfg, P, page, "cuda")
-             for name, cfg in (("kernel", kern), ("plain", mc))}
+             for name, cfg in (("kernel", kern), ("plain", plain_cfg))}
 
     def both(what, call):
         """call(config, pool) on both paths; each keeps its own pool."""
         kernel = call(kern, pools["kernel"])
         with plain_ctx():
-            plain = call(mc, pools["plain"])
+            plain = call(plain_cfg, pools["plain"])
         check(what, kernel, plain)
 
     for S, lens in ((512, [300, 512]), (128, [77, 128])):
@@ -655,7 +786,13 @@ def _check_completion(resp, what, chat=False):
     return text
 
 
-def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
+def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: str = "",
+                model_config=None, run: str | None = None, cli: list | None = None) -> dict:
+    """One serving run of the port's OpenAI server over the 32-layer model
+    (the launch counters zeroed before it); *model_config* carries an
+    int8 pool's scales. With *cli* the engine comes from the server's own
+    command line (random preset weights from its --seed) instead of
+    *params*."""
     import torch
 
     from kubeai_tpu_torch.engine.core import Engine, EngineConfig
@@ -667,9 +804,18 @@ def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
     from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
     from kubeai_tpu_torch.ops.quant import qdot
 
-    run = "int8" if int8 else decode_kernel
-    ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=decode_kernel)
-    eng = Engine(llama_3_1_8b(), params, ByteTokenizer(), ec, device="cuda")
+    run = run or ("int8" if int8 else decode_kernel)
+    if cli:
+        from kubeai_tpu_torch.engine.server import build_engine_from_args, make_arg_parser
+
+        eng, _ = build_engine_from_args(make_arg_parser().parse_args(cli))
+    else:
+        ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64,
+                          decode_kernel=decode_kernel, kv_cache_dtype=kv_cache_dtype)
+        eng = Engine(model_config or llama_3_1_8b(), params, ByteTokenizer(), ec, device="cuda")
+    pool = eng.cache["kv"]
+    pool_dtype = str(pool.dtype).removeprefix("torch.")
+    log(f"serving[{run}] pool {tuple(pool.shape)} {pool_dtype}: {pool.nbytes} bytes")
     srv = EngineServer(eng, "llama-3.1-8b", host="127.0.0.1", port=0)
     srv.start()
     p = srv.port
@@ -677,6 +823,8 @@ def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
     counters = attention + (qdot,)
     for fn in counters:
         fn.launches = 0
+    for fn in (paged_attention_ragged, paged_decode_attention):
+        fn.launches_by_pool.clear()
     try:
         t = _post(p, "/v1/completions", {"prompt": "Hello", "max_tokens": 8, "temperature": 0})
         _check_completion(t, "short")
@@ -730,8 +878,15 @@ def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
         if a != b:
             raise AssertionError(f"seeded sample not reproducible: {a!r} vs {b!r}")
         launches = {fn.__name__: fn.launches for fn in counters}
+        by_pool = {fn.__name__: dict(fn.launches_by_pool)
+                   for fn in (paged_attention_ragged, paged_decode_attention)}
     finally:
         srv.stop()
+    # The paged kernels read the run's pool alone (one-byte pages in a
+    # quantized run).
+    for name, counts in by_pool.items():
+        if set(counts) - {pool_dtype}:
+            raise AssertionError(f"{run} run: {name} launched on other pools: {counts}")
     want = ["flash_attention", "paged_attention_ragged"]
     if decode_kernel == "dedicated":
         want.append("paged_decode_attention")
@@ -758,6 +913,8 @@ def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
         "stream_decode_tok_s": (len(times) - 1) / (times[-1] - times[0]) if len(times) > 1 else None,
         "concurrent_tok_s": tokens / wall,
         "launches": launches,
+        "launches_by_pool": by_pool,
+        "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
         "steps": {n: c // (per_step if n == "qdot" else layers) for n, c in launches.items()},
     }
     log(f"serving[{run}]", json.dumps(stats))
@@ -769,10 +926,11 @@ def _serve_once(params, decode_kernel: str, int8: bool = False) -> dict:
 def _step_profile(params, qparams) -> None:
     """Where a model step's time goes, at the serving shapes: host-clock
     time of decode steps (B=8, kv_len 512) and of 8-token speculative
-    verify steps (kv_len 512 after them) under each decode kernel and with
-    int8 weights (*qparams*: ragged decode, dedicated verify), and of cold
-    / chunked prefills, and a torch.profiler breakdown of the decode and
-    verify steps' device time by kernel."""
+    verify steps (kv_len 512 after them) under each decode kernel, with
+    int8 weights (*qparams*: ragged decode, dedicated verify) and over an
+    fp8 pool (decode, both kernels), and of cold / chunked prefills, and
+    a torch.profiler breakdown of the decode and verify steps' device
+    time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -822,6 +980,13 @@ def _step_profile(params, qparams) -> None:
             params, mc, spec, pool, table, lengths - 8, decode_kernel=dk)
     steps["decode_int8"] = lambda: llama.decode_step_paged(
         qparams, mc, tok, pool, table, lengths, decode_kernel="ragged")
+    # An fp8 pool: half the K/V bytes, and the quantize-on-write ops of
+    # each layer in the step.
+    mc8 = mc.replace(kv_cache_dtype="fp8")
+    pool8 = llama.init_paged_cache(mc8, P, page, "cuda")
+    for dk in ("ragged", "dedicated"):
+        steps[f"decode_fp8_{dk}"] = lambda dk=dk: llama.decode_step_paged(
+            params, mc8, tok, pool8, table, lengths, decode_kernel=dk)
     steps["verify8_int8"] = lambda: llama.decode_speculative_paged(
         qparams, mc, spec, pool, table, lengths - 8, decode_kernel="dedicated")
     res = {f"{name}_step_ms": wall_ms(fn, 10) for name, fn in steps.items()}
@@ -834,8 +999,39 @@ def _step_profile(params, qparams) -> None:
         torch.tensor([1023], device="cuda")), 3)
     res["profiled"] = {name: profiled(fn) for name, fn in steps.items()}
     log("step_profile", gpu_line(), json.dumps(res))
-    del pool
+    del pool, pool8
     torch.cuda.empty_cache()
+
+
+def _calibrate_int8_pool(qparams) -> tuple[float, float]:
+    """Static int8 pool scales for the serving run (calibration in this
+    harness, not a feature of the port): one bf16-pool cold prefill of a
+    300-byte prompt through the 32-layer model, then the absmax of the K
+    and of the V rows it wrote, over 127."""
+    import torch
+
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    mc = llama_3_1_8b(use_flash_prefill=True, use_paged_kernel=True)
+    page, mp = 64, 8
+    ids = ByteTokenizer().encode(("The quick brown fox jumps over the lazy dog. " * 7)[:300])
+    n = len(ids)
+    toks = torch.zeros((1, mp * page), dtype=torch.int64, device="cuda")
+    toks[0, :n] = torch.tensor(ids, device="cuda")
+    pool = llama.init_paged_cache(mc, 1 + mp, page, "cuda")
+    table = torch.arange(1, 1 + mp, dtype=torch.int32, device="cuda")[None]
+    llama.prefill_paged_cold(qparams, mc, toks, pool, table, torch.tensor([n], device="cuda"))
+    L = mc.num_layers
+    kv = pool["kv"].reshape(L, 1 + mp, page, 2 * mc.num_kv_heads, -1)[:, 1:]
+    kv = kv.reshape(L, mp * page, 2 * mc.num_kv_heads, -1)[:, :n].float()
+    sk = (kv[:, :, 0::2].abs().max() / 127.0).item()
+    sv = (kv[:, :, 1::2].abs().max() / 127.0).item()
+    log("int8_pool_scales", json.dumps({"prompt_tokens": n, "kv_scale_k": sk, "kv_scale_v": sv}))
+    del pool, kv
+    torch.cuda.empty_cache()
+    return sk, sv
 
 
 def phase_serving() -> dict:
@@ -858,6 +1054,20 @@ def phase_serving() -> dict:
     torch.cuda.synchronize()
     log(f"weights: quantized to int8 on the card in {time.monotonic() - t0:.1f}s")
     out["int8"] = _serve_once(qparams, "ragged", int8=True)
+    # The fp8 pool through the server's command line, as a user starts it
+    # (its own seed-0 weights: the same as *params*).
+    out["fp8_pool"] = _serve_once(None, "ragged", run="fp8_pool", cli=[
+        "--model", "preset:llama-3.1-8b", "--kv-cache-dtype", "fp8", "--decode-kernel", "ragged",
+        "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"])
+    sk, sv = _calibrate_int8_pool(qparams)
+    out["int8_pool"] = _serve_once(qparams, "dedicated", int8=True, kv_cache_dtype="int8",
+                                   model_config=llama_3_1_8b(kv_scale_k=sk, kv_scale_v=sv),
+                                   run="int8_pool")
+    bf16_bytes = out["ragged"]["pool"]["bytes"]
+    for run in ("fp8_pool", "int8_pool"):
+        if out[run]["pool"]["bytes"] * 2 != bf16_bytes:
+            raise AssertionError(f"{run}: pool bytes {out[run]['pool']['bytes']} are not half "
+                                 f"of bf16's {bf16_bytes}")
     log("serving_summary", gpu_line(), json.dumps(
         {k: {m: v[m] for m in ("ttft_s", "stream_decode_tok_s", "concurrent_tok_s")}
          for k, v in out.items()}))
@@ -951,18 +1161,31 @@ def _serve_checkpoint() -> None:
 
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
 # belongs to: the default ragged-decode path, --decode-kernel dedicated,
-# or --quantization int8).
+# --quantization int8, --kv-cache-dtype fp8 (ragged), or --kv-cache-dtype
+# int8 with int8 weights and the dedicated kernel; the pool dtype whose
+# launches a paged kernel's entry counts). A "[... pool]" entry is its
+# kernel's one-byte-pool instances, with phase 2's numbers for that pool.
 SOURCES = {
     "flash_attention": ("kubeai_tpu_torch/csrc/flash_attention.cu",
-                        "kubeai_tpu/ops/flash_attention.py:27", "flash_attention", "ragged"),
+                        "kubeai_tpu/ops/flash_attention.py:27", "flash_attention", "ragged",
+                        None),
     "paged_attention": ("kubeai_tpu_torch/csrc/paged_attention.cu",
                         "kubeai_tpu/ops/paged_attention.py:55", "paged_attention_ragged",
-                        "ragged"),
+                        "ragged", "bfloat16"),
     "paged_decode_attention": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
                                "kubeai_tpu/ops/paged_decode_attention.py:66",
-                               "paged_decode_attention", "dedicated"),
+                               "paged_decode_attention", "dedicated", "bfloat16"),
     "w8a16_matmul": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu", "kubeai_tpu/ops/quant.py:50",
-                     "qdot", "int8"),
+                     "qdot", "int8", None),
+    "paged_attention[fp8 pool]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                  "kubeai_tpu/ops/paged_attention.py:31",
+                                  "paged_attention_ragged", "fp8_pool", "float8_e4m3fn"),
+    "paged_attention[int8 pool]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                   "kubeai_tpu/ops/paged_attention.py:31",
+                                   "paged_attention_ragged", "int8_pool", "int8"),
+    "paged_decode_attention[int8 pool]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
+                                          "kubeai_tpu/ops/paged_decode_attention.py:111",
+                                          "paged_decode_attention", "int8_pool", "int8"),
 }
 
 
@@ -987,15 +1210,19 @@ def main() -> int:
     serving = phase_serving()
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
-    # `launches` is the count from the run of the kernel's own path, and
-    # `launches_by_path` keeps the runs apart.
+    # `launches` is the count from the run of the kernel's own path (a
+    # paged kernel's on its entry's pool dtype), and `launches_by_path`
+    # keeps the runs apart.
+    def launched(run, wrapper, pool):
+        return run["launches_by_pool"][wrapper].get(pool, 0) if pool else run["launches"][wrapper]
+
     summary = []
-    for name, (src, replaces, wrapper, path) in SOURCES.items():
+    for name, (src, replaces, wrapper, path, pool) in SOURCES.items():
         r = kern[name]
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "path": path, "launches": serving[path]["launches"][wrapper],
-            "launches_by_path": {p: run["launches"][wrapper] for p, run in serving.items()},
+            "path": path, "launches": launched(serving[path], wrapper, pool),
+            "launches_by_path": {p: launched(run, wrapper, pool) for p, run in serving.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })

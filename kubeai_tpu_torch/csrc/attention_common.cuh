@@ -9,9 +9,21 @@
 //     l >= 1e-30;
 //   * a softcap (tanh capping) is applied before the mask.
 // Element types: float (the card's own f32 checks) and __nv_bfloat16.
+//
+// KV pool elements (KT) beside the compute type T: T itself, or one byte
+// per element, int8_t or __nv_fp8_e4m3 (the JAX package's quantized pool,
+// x / scale stored with static per-tensor scales k_scale and v_scale).
+// The kernels read those bytes, widen them exactly (every int8 and every
+// e4m3 value is a bf16 value) and fold the scales into the arithmetic they
+// already do: k_scale into the softmax scale (s = q.k * scale * k_scale),
+// v_scale into the output's final rescale (o * v_scale / l). Both folds
+// are exact rewrites of (x * scale) . y; the plain version instead
+// rounds x * scale to q's dtype first (the JAX CPU twin's recipe).
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,6 +42,30 @@ constexpr float NEG_INF = -1e30f;
     if ((dtype) == 0 && (D) == 64) return LAUNCH<float, 64>(__VA_ARGS__);           \
     if ((dtype) == 0 && (D) == 32) return LAUNCH<float, 32>(__VA_ARGS__);           \
     return (int)cudaErrorInvalidValue;                                             \
+  } while (0)
+
+// Returns LAUNCH<T, KT, D>(args...) for a runtime (dtype, pool element
+// code, head dim): dtype as above; kv 0 = the pool holds T (head dims 32,
+// 64, 128), 1 = int8 and 2 = fp8 e4m3 (head dims 64 and 128 only: the
+// one-byte instances doubled the build time, so the wrappers refuse a
+// one-byte pool at head dim 32).
+#define KATTN_DISPATCH_D(LAUNCH, T, KT, D, ...)                \
+  do {                                                         \
+    if ((D) == 128) return LAUNCH<T, KT, 128>(__VA_ARGS__);    \
+    if ((D) == 64) return LAUNCH<T, KT, 64>(__VA_ARGS__);      \
+  } while (0)
+#define KATTN_DISPATCH_KV_T(LAUNCH, T, kv, D, ...)                                   \
+  do {                                                                             \
+    if ((kv) == 0 && (D) == 32) return LAUNCH<T, T, 32>(__VA_ARGS__);              \
+    if ((kv) == 0) KATTN_DISPATCH_D(LAUNCH, T, T, D, __VA_ARGS__);                 \
+    if ((kv) == 1) KATTN_DISPATCH_D(LAUNCH, T, int8_t, D, __VA_ARGS__);            \
+    if ((kv) == 2) KATTN_DISPATCH_D(LAUNCH, T, __nv_fp8_e4m3, D, __VA_ARGS__);     \
+  } while (0)
+#define KATTN_DISPATCH_KV(LAUNCH, dtype, kv, D, ...)                                  \
+  do {                                                                              \
+    if ((dtype) == 1) KATTN_DISPATCH_KV_T(LAUNCH, __nv_bfloat16, kv, D, __VA_ARGS__); \
+    if ((dtype) == 0) KATTN_DISPATCH_KV_T(LAUNCH, float, kv, D, __VA_ARGS__);         \
+    return (int)cudaErrorInvalidValue;                                              \
   } while (0)
 
 template <typename T>
@@ -55,6 +91,63 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uin
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ---------------------------------------------------------------------------
+// One-byte pool elements, widened exactly.
+
+// Byte J of w, an int8 biased to unsigned by the caller (w ^ 0x80808080),
+// as a float: the byte is spliced under the exponent of 2^23 (one PRMT)
+// and one FADD removes 2^23 + 128 (no conversion unit; exact).
+template <int J>
+__device__ __forceinline__ float i8f(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + J)) - 8388736.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The two e4m3 values of the low 16 bits of w as floats (the hardware's
+// e4m3x2 -> f16x2 conversion, exact; NaN stays NaN).
+__device__ __forceinline__ float2 e4m3x2_f2(uint32_t w) {
+  uint32_t h;
+  const unsigned short v = (unsigned short)(w & 0xFFFFu);
+  asm("cvt.rn.f16x2.e4m3x2 %0, %1;" : "=r"(h) : "h"(v));
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
+}
+
+// Eight one-byte elements (two words, element 0 in the low byte) as eight
+// bf16 (four words, element 0 in the low half): exact.
+template <typename KT>
+__device__ __forceinline__ uint4 widen8_bf16(uint2 in);
+template <>
+__device__ __forceinline__ uint4 widen8_bf16<int8_t>(uint2 in) {
+  const uint32_t a = in.x ^ 0x80808080u, b = in.y ^ 0x80808080u;
+  return make_uint4(pack_bf16(i8f<0>(a), i8f<1>(a)), pack_bf16(i8f<2>(a), i8f<3>(a)),
+                    pack_bf16(i8f<0>(b), i8f<1>(b)), pack_bf16(i8f<2>(b), i8f<3>(b)));
+}
+template <>
+__device__ __forceinline__ uint4 widen8_bf16<__nv_fp8_e4m3>(uint2 in) {
+  const float2 f0 = e4m3x2_f2(in.x), f1 = e4m3x2_f2(in.x >> 16);
+  const float2 f2 = e4m3x2_f2(in.y), f3 = e4m3x2_f2(in.y >> 16);
+  return make_uint4(pack_bf16(f0.x, f0.y), pack_bf16(f1.x, f1.y), pack_bf16(f2.x, f2.y),
+                    pack_bf16(f3.x, f3.y));
+}
+
+// Four one-byte elements (one word) as floats.
+template <typename KT>
+__device__ __forceinline__ void widen4_f32(uint32_t w, float* dst);
+template <>
+__device__ __forceinline__ void widen4_f32<int8_t>(uint32_t w, float* dst) {
+  const uint32_t a = w ^ 0x80808080u;
+  dst[0] = i8f<0>(a); dst[1] = i8f<1>(a); dst[2] = i8f<2>(a); dst[3] = i8f<3>(a);
+}
+template <>
+__device__ __forceinline__ void widen4_f32<__nv_fp8_e4m3>(uint32_t w, float* dst) {
+  const float2 lo = e4m3x2_f2(w), hi = e4m3x2_f2(w >> 16);
+  dst[0] = lo.x; dst[1] = lo.y; dst[2] = hi.x; dst[3] = hi.y;
 }
 
 // One 16-byte load of VEC<T> consecutive elements, widened to float.
@@ -83,6 +176,25 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// Vec<T>::N consecutive pool elements of type KT, widened to float: one
+// 16-byte load when the pool holds T, one 4- or 8-byte load when it holds
+// one byte per element.
+template <typename T, typename KT>
+struct LoadKV {
+  static constexpr int N = Vec<T>::N;
+  __device__ __forceinline__ static void load(const KT* src, float* dst) {
+    if constexpr (sizeof(KT) == sizeof(T)) {
+      Vec<T>::load(reinterpret_cast<const T*>(src), dst);
+    } else if constexpr (N == 4) {
+      widen4_f32<KT>(*reinterpret_cast<const uint32_t*>(src), dst);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(src);
+      widen4_f32<KT>(u.x, dst);
+      widen4_f32<KT>(u.y, dst + 4);
+    }
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Tile core of the flash and paged-prefill kernels.
 //
@@ -91,8 +203,10 @@ struct Vec<__nv_bfloat16> {
 // share a KV head read each K/V tile once. The block walks key tiles of BK
 // consecutive positions up to the newest query of the tile; each key's
 // K/V row is found through Src::key_off (contiguous for flash, through the
-// page table for paged attention). Query s sits at absolute position
-// qoff + s and sees keys kpos <= qoff + s with kpos < klimit.
+// page table for paged attention; KT is the pool's element type, widened
+// on load). Query s sits at absolute position qoff + s and sees keys
+// kpos <= qoff + s with kpos < klimit. The output is acc / l * out_scale
+// (a quantized pool's v_scale; 1 otherwise).
 constexpr int BQ = 64;
 constexpr int BK = 32;
 constexpr int NT = 256;
@@ -126,11 +240,11 @@ struct PagedSrc {  // pool: [L*P, page, 2*Kv, D]; bases at head 2kv (K), 2kv+1 (
   }
 };
 
-template <typename T, int D, typename Src>
+template <typename T, int D, typename KT = T, typename Src>
 __device__ __forceinline__ void tile_attention(
     const T* __restrict__ q, T* __restrict__ out, const Src& src,
     int S, int H, int G, int b, int kv, int tile, int qoff, int klimit,
-    float scale, float softcap, unsigned char* smem_raw) {
+    float scale, float softcap, unsigned char* smem_raw, float out_scale = 1.f) {
   constexpr int QST = D + 1, KST = D + 1, SST = BK + 1;
   constexpr int VN = Vec<T>::N, NV = D / VN, NC = D / 16;
   long long* koff = reinterpret_cast<long long*>(smem_raw);
@@ -184,8 +298,8 @@ __device__ __forceinline__ void tile_attention(
       const int j = idx / NV, d = (idx % NV) * VN;
       float kt[VN], vt[VN];
       if (j < nk) {
-        Vec<T>::load(src.k + koff[j] + d, kt);
-        Vec<T>::load(src.v + koff[j] + d, vt);
+        LoadKV<T, KT>::load(src.k + koff[j] + d, kt);
+        LoadKV<T, KT>::load(src.v + koff[j] + d, vt);
       } else {
 #pragma unroll
         for (int i = 0; i < VN; ++i) kt[i] = vt[i] = 0.f;
@@ -315,7 +429,7 @@ __device__ __forceinline__ void tile_attention(
       const float l = fmaxf(l_s[r], 1e-30f);
       T* o = out + ((size_t)(b * S + s) * H + kv * G + g) * D;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) o[tx + 16 * c] = from_float<T>(acc[i][c] / l);
+      for (int c = 0; c < NC; ++c) o[tx + 16 * c] = from_float<T>(acc[i][c] / l * out_scale);
     }
   }
 }

@@ -31,6 +31,15 @@
 // float32, and bf16 with 16 < S*G < 64 rows (off the serving path), keep
 // the CUDA-core tile of attention_common.cuh: its card tests hold float32
 // to summation order alone, which the tensor cores' TF32 would break.
+//
+// A quantized pool (one byte per element, int8 or fp8 e4m3, with the
+// static k_scale / v_scale the library kernel dequantizes with in VMEM)
+// takes the same three paths at one byte per element, half the bytes of
+// bf16: the prefill tile TMAs one-byte boxes through a UINT8 map of the
+// pool and widens them to its bf16 stage (hopper_attention.cuh), the
+// decode regime stages and widens its slices (split_kv_decode.cuh), the
+// CUDA-core tile widens on load. Each folds k_scale into the softmax
+// scale and v_scale into the output.
 #include "attention_common.cuh"
 #include "hopper_attention.cuh"
 #include "split_kv_decode.cuh"
@@ -43,19 +52,19 @@ using namespace kattn;
 // float32, and the bf16 shapes the two Hopper paths do not take: the
 // CUDA-core tile of attention_common.cuh.
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(NT)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_attention_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
                        const int* __restrict__ table, const int* __restrict__ kv_lens,
                        T* __restrict__ out, int S, int H, int Kv, int page,
-                       int max_pages, float scale, float softcap) {
+                       int max_pages, float scale, float softcap, float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
   const int kvl = max(0, min(kv_lens[b], max_pages * page));
-  PagedSrc<T> src{pool + (size_t)2 * kv * D, pool + (size_t)(2 * kv + 1) * D,
-                  table + (size_t)b * max_pages, page, 2LL * Kv * D};
-  tile_attention<T, D>(q, out, src, S, H, H / Kv, b, kv, tile, kvl - S, kvl,
-                       scale, softcap, smem);
+  PagedSrc<KT> src{pool + (size_t)2 * kv * D, pool + (size_t)(2 * kv + 1) * D,
+                   table + (size_t)b * max_pages, page, 2LL * Kv * D};
+  tile_attention<T, D, KT>(q, out, src, S, H, H / Kv, b, kv, tile, kvl - S, kvl,
+                           scale, softcap, smem, out_scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -65,7 +74,10 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ pool,
 // table: a box past the table's span repeats its last page. Rows past the
 // last key are then pool rows of the table (finite, as the plain version,
 // which multiplies them by p = 0, assumes too), and the mask drops them.
-template <int D>
+// A bf16 pool's boxes are CW columns wide and land swizzled in the bf16
+// stage; a one-byte pool's span the head dim (D bytes) and land as rows
+// of D bytes in the one-byte stage.
+template <int D, typename KT>
 struct PagedTmaSrc {
   const CUtensorMap* pool;
   const int* trow;  // this slot's table row
@@ -76,29 +88,35 @@ struct PagedTmaSrc {
     for (int j = 0; j < hop::TK / box_rows; ++j) {
       const int kk = k0 + j * box_rows, p = min(kk / page, max_pages - 1);
       const int row = __ldg(trow + p) * page + (kk - p * page);
+      if constexpr (sizeof(KT) == 1) {
+        const uint32_t off = j * box_rows * D;
+        hop::tma_load(k_dst + off, pool, bar, 0, 2 * kv, row);
+        hop::tma_load(v_dst + off, pool, bar, 0, 2 * kv + 1, row);
+      } else {
 #pragma unroll
-      for (int c = 0; c < Gm::NCH; ++c) {
-        const uint32_t off = c * Gm::CHUNK + j * box_rows * Gm::CWB;
-        hop::tma_load(k_dst + off, pool, bar, c * Gm::CW, 2 * kv, row);
-        hop::tma_load(v_dst + off, pool, bar, c * Gm::CW, 2 * kv + 1, row);
+        for (int c = 0; c < Gm::NCH; ++c) {
+          const uint32_t off = c * Gm::CHUNK + j * box_rows * Gm::CWB;
+          hop::tma_load(k_dst + off, pool, bar, c * Gm::CW, 2 * kv, row);
+          hop::tma_load(v_dst + off, pool, bar, c * Gm::CW, 2 * kv + 1, row);
+        }
       }
     }
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(hop::NTHREADS)
+template <int D, typename KT>
+__global__ void __launch_bounds__(hop::tile_threads<KT>())
 paged_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap poolmap, const int* __restrict__ table,
                 const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out, int S, int H,
-                int Kv, int page, int max_pages, float scale, float softcap) {
+                int Kv, int page, int max_pages, float scale, float softcap, float out_scale) {
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   const int kv = blockIdx.x, b = blockIdx.y, tile = gridDim.z - 1 - blockIdx.z;
   const int kvl = max(0, min(kv_lens[b], max_pages * page));
-  PagedTmaSrc<D> src{&poolmap, table + (size_t)b * max_pages, page, min(page, hop::TK), kv,
-                     max_pages};
-  hop::TileArgs a{out, S, H, H / Kv, b, kv, tile, kvl - S, kvl, scale, softcap};
-  hop::tc_tile<D>(&qmap, src, a, tc_smem);
+  PagedTmaSrc<D, KT> src{&poolmap, table + (size_t)b * max_pages, page, min(page, hop::TK), kv,
+                         max_pages};
+  hop::TileArgs a{out, S, H, H / Kv, b, kv, tile, kvl - S, kvl, scale, softcap, out_scale};
+  hop::tc_tile<D, KT>(&qmap, src, a, tc_smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -115,65 +133,77 @@ struct PagedArgs {
   int* counters;
   int B, S, H, Kv, P, page, max_pages, n_splits;
   float scale, softcap;
+  float k_scale, v_scale;  // a quantized pool's dequant scales (1 otherwise)
 };
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 static int launch_core(const PagedArgs& a, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      paged_attention_kernel<T, KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int G = a.H / a.Kv;
   dim3 grid((a.S * G + BQ - 1) / BQ, a.Kv, a.B);
-  paged_attention_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)a.q, (const T*)a.pool, a.table, a.kv_lens, (T*)a.out, a.S, a.H, a.Kv, a.page,
-      a.max_pages, a.scale, a.softcap);
+  paged_attention_kernel<T, KT, D><<<grid, NT, smem, stream>>>(
+      (const T*)a.q, (const KT*)a.pool, a.table, a.kv_lens, (T*)a.out, a.S, a.H, a.Kv, a.page,
+      a.max_pages, a.scale * a.k_scale, a.softcap, a.v_scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename KT>
 static int launch_tc(const PagedArgs& a, cudaStream_t stream) {
   using Gm = hop::Geo<D>;
+  constexpr size_t smem = hop::tile_smem<D, KT>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Gm::SMEM);
+      paged_tc_kernel<D, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const int G = a.H / a.Kv;
   CUtensorMap qm, pm;
   int e = hop::tensor_map(&qm, a.q, (uint64_t)a.B * a.S, a.H, D, hop::TQ / G, G, Gm::CW,
                           Gm::SWIZZLE);
-  if (!e)
-    e = hop::tensor_map(&pm, a.pool, (uint64_t)a.P * a.page, 2 * a.Kv, D,
-                        std::min(a.page, hop::TK), 1, Gm::CW, Gm::SWIZZLE);
+  if (!e) {
+    if constexpr (sizeof(KT) == 1)  // whole one-byte rows, unswizzled
+      e = hop::tensor_map(&pm, a.pool, (uint64_t)a.P * a.page, 2 * a.Kv, D,
+                          std::min(a.page, hop::TK), 1, D, CU_TENSOR_MAP_SWIZZLE_NONE,
+                          CU_TENSOR_MAP_DATA_TYPE_UINT8);
+    else
+      e = hop::tensor_map(&pm, a.pool, (uint64_t)a.P * a.page, 2 * a.Kv, D,
+                          std::min(a.page, hop::TK), 1, Gm::CW, Gm::SWIZZLE);
+  }
   if (e) return e;
   dim3 grid(a.Kv, a.B, (a.S * G + hop::TQ - 1) / hop::TQ);
-  paged_tc_kernel<D><<<grid, hop::NTHREADS, Gm::SMEM, stream>>>(
+  paged_tc_kernel<D, KT><<<grid, hop::tile_threads<KT>(), smem, stream>>>(
       qm, pm, a.table, a.kv_lens, (__nv_bfloat16*)a.out, a.S, a.H, a.Kv, a.page, a.max_pages,
-      a.scale, a.softcap);
+      a.scale * a.k_scale, a.softcap, a.v_scale);
   return (int)cudaGetLastError();
 }
 
 // bf16 rows per (slot, KV head) that take the split-KV decode regime.
 constexpr int MMA_MAX_R = 16;
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 static int launch(const PagedArgs& a, cudaStream_t stream) {
   const int G = a.H / a.Kv, R = a.S * G;
-  if (sizeof(T) == 2 && R <= MMA_MAX_R) {
-    const kdec::DecodeArgs d{a.q, a.pool, a.table, a.kv_lens, a.out, a.part_o, a.part_ml,
-                             a.counters, a.B, a.S, a.H, a.Kv, a.page, a.max_pages,
-                             a.n_splits, a.scale, a.softcap};
-    return kdec::launch_decode_mma<D, 1>(d, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (R <= MMA_MAX_R) {
+      const kdec::DecodeArgs d{a.q, a.pool, a.table, a.kv_lens, a.out, a.part_o, a.part_ml,
+                               a.counters, a.B, a.S, a.H, a.Kv, a.page, a.max_pages,
+                               a.n_splits, a.scale, a.softcap, a.k_scale, a.v_scale};
+      return kdec::launch_decode_mma<D, 1, KT>(d, stream);
+    }
+    // The TMA path takes pages of 8 rows or more that tile 64 keys evenly.
+    const bool tma_pages =
+        a.page % 8 == 0 && (hop::TK % a.page == 0 || a.page % hop::TK == 0);
+    if (R >= hop::TQ && hop::TQ % G == 0 && tma_pages) return launch_tc<D, KT>(a, stream);
   }
-  // The TMA path takes pages of 8 rows or more that tile 64 keys evenly.
-  const bool tma_pages = a.page % 8 == 0 && (hop::TK % a.page == 0 || a.page % hop::TK == 0);
-  if (sizeof(T) == 2 && R >= hop::TQ && hop::TQ % G == 0 && tma_pages)
-    return launch_tc<D>(a, stream);
-  return launch_core<T, D>(a, stream);
+  return launch_core<T, KT, D>(a, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128. P: pages in the pool.
-// bf16 decode (S*G <= 16) cuts each slot's keys into n_splits (1..64)
-// splits and takes the wrapper's scratch: part_o [B*Kv*n_splits*S*G*D] f32,
+// dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same type
+// (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale; D: 32,
+// 64 or 128 (a one-byte pool: 64 or 128). P: pages in the pool. bf16
+// decode (S*G <= 16) cuts each slot's keys into n_splits (1..64) splits
+// and takes the wrapper's scratch: part_o [B*Kv*n_splits*S*G*D] f32,
 // part_ml [B*Kv*n_splits*S*G] float2, counters [B*Kv] int32 (zero, and
 // left zero).
 // Returns a cudaError_t (0 = launched).
@@ -181,10 +211,11 @@ extern "C" int paged_attention_launch(const void* q, const void* pool, const voi
                                       const void* kv_lens, void* out, void* part_o,
                                       void* part_ml, void* counters, int B, int S, int H,
                                       int Kv, int D, int P, int page, int max_pages,
-                                      int n_splits, int dtype,
-                                      float scale, float softcap, void* stream) {
+                                      int n_splits, int dtype, int kv_code, float scale,
+                                      float softcap, float k_scale, float v_scale,
+                                      void* stream) {
   PagedArgs a{q, pool, (const int*)table, (const int*)kv_lens, out, (float*)part_o,
               (float2*)part_ml, (int*)counters, B, S, H, Kv, P, page, max_pages, n_splits,
-              scale, softcap};
-  KATTN_DISPATCH(launch, dtype, D, a, (cudaStream_t)stream);
+              scale, softcap, k_scale, v_scale};
+  KATTN_DISPATCH_KV(launch, dtype, kv_code, D, a, (cudaStream_t)stream);
 }

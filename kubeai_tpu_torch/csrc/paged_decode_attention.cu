@@ -34,6 +34,12 @@
 // float32 keeps the simple CUDA-core kernel below (one block per (KV head,
 // slot), f32 shared tiles): its card tests hold it to summation order
 // alone, which the tensor cores' reduced-precision products would break.
+//
+// A quantized pool (one byte per element, int8 or fp8 e4m3; the Pallas
+// kernel's k_scale / v_scale branch) is read at one byte per element by
+// both: the split-KV body stages the bytes and widens them to its bf16
+// stage, the float32 kernel widens on load; both fold k_scale into the
+// softmax scale and v_scale into the output (attention_common.cuh).
 #include "attention_common.cuh"
 #include "split_kv_decode.cuh"
 
@@ -50,12 +56,12 @@ static size_t decode_smem_bytes(int R) {
                           (size_t)R * D + 3 * R);
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(DNT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
+paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
                     const int* __restrict__ table, const int* __restrict__ kv_lens,
                     T* __restrict__ out, int S, int H, int Kv, int page, int max_pages,
-                    float scale, float softcap) {
+                    float scale, float softcap, float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KST = D + 1, VN = Vec<T>::N, NV = D / VN;
   const int kv = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
@@ -73,8 +79,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   const int kvl = max(0, min(kv_lens[b], max_pages * page));  // overrun clamp
   const int* trow = table + (size_t)b * max_pages;
   const long long rs = 2LL * Kv * D;
-  const T* kb = pool + (size_t)2 * kv * D;
-  const T* vb = kb + D;
+  const KT* kb = pool + (size_t)2 * kv * D;
+  const KT* vb = kb + D;
 
   // Query row r = s*G + g is q[b, s, kv*G + g]: the G heads of one token
   // are contiguous, so the rows of one s are one contiguous run.
@@ -104,8 +110,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
       const int j = idx / NV, d = (idx % NV) * VN;
       float kt[VN], vt[VN];
       if (j < nk) {
-        Vec<T>::load(kb + koff[j] + d, kt);
-        Vec<T>::load(vb + koff[j] + d, vt);
+        LoadKV<T, KT>::load(kb + koff[j] + d, kt);
+        LoadKV<T, KT>::load(vb + koff[j] + d, vt);
       } else {
 #pragma unroll
         for (int i = 0; i < VN; ++i) kt[i] = vt[i] = 0.f;
@@ -170,62 +176,67 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool,
   for (int idx = tid; idx < R * D; idx += DNT) {
     const int r = idx / D, d = idx - r * D, s = r / G, g = r - s * G;
     out[((size_t)(b * S + s) * H + kv * G + g) * D + d] =
-        from_float<T>(acc[idx] / fmaxf(l_s[r], 1e-30f));
+        from_float<T>(acc[idx] / fmaxf(l_s[r], 1e-30f) * out_scale);
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 static int launch(const kdec::DecodeArgs& a, cudaStream_t stream) {
   const int R = a.S * (a.H / a.Kv);
   if constexpr (sizeof(T) == 2) {
-    if (R <= 16) return kdec::launch_decode_mma<D, 1>(a, stream);
-    if (R <= 32) return kdec::launch_decode_mma<D, 2>(a, stream);
-    if (R <= MAX_ROWS) return kdec::launch_decode_mma<D, 4>(a, stream);
+    if (R <= 16) return kdec::launch_decode_mma<D, 1, KT>(a, stream);
+    if (R <= 32) return kdec::launch_decode_mma<D, 2, KT>(a, stream);
+    if (R <= MAX_ROWS) return kdec::launch_decode_mma<D, 4, KT>(a, stream);
     return (int)cudaErrorInvalidValue;
   } else {
     // Once per instance, at the per-block limit: the wrapper refuses
     // shapes that need more.
     static const cudaError_t attr = cudaFuncSetAttribute(
-        paged_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+        paged_decode_kernel<T, KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (attr != cudaSuccess) return (int)attr;
     dim3 grid(a.Kv, a.B);
-    paged_decode_kernel<T, D><<<grid, DNT, decode_smem_bytes<D>(R), stream>>>(
-        (const T*)a.q, (const T*)a.pool, a.table, a.kv_lens, (T*)a.out, a.S, a.H, a.Kv, a.page,
-        a.max_pages, a.scale, a.softcap);
+    paged_decode_kernel<T, KT, D><<<grid, DNT, decode_smem_bytes<D>(R), stream>>>(
+        (const T*)a.q, (const KT*)a.pool, a.table, a.kv_lens, (T*)a.out, a.S, a.H, a.Kv,
+        a.page, a.max_pages, a.scale * a.k_scale, a.softcap, a.v_scale);
     return (int)cudaGetLastError();
   }
 }
 
-template <int D>
-static size_t smem_bytes(int R, int n_splits, int dtype) {
-  if (dtype == 0) return decode_smem_bytes<D>(R);
-  if (R <= 16) return kdec::DecMma<D, 1>::smem(R, n_splits);
-  if (R <= 32) return kdec::DecMma<D, 2>::smem(R, n_splits);
-  return kdec::DecMma<D, 4>::smem(R, n_splits);
+template <typename T, typename KT, int D>
+static int smem_bytes(int R, int n_splits) {
+  if constexpr (sizeof(T) == 4) {
+    return (int)decode_smem_bytes<D>(R);
+  } else {
+    if (R <= 16) return (int)kdec::DecMma<D, 1, KT>::smem(R, n_splits);
+    if (R <= 32) return (int)kdec::DecMma<D, 2, KT>::smem(R, n_splits);
+    return (int)kdec::DecMma<D, 4, KT>::smem(R, n_splits);
+  }
 }
 
-// Shared-memory bytes of a launch with R = S*G query rows (the wrapper
-// refuses shapes above the card's per-block limit, and bf16 R above 64).
-extern "C" int paged_decode_smem_bytes(int R, int D, int n_splits, int dtype) {
-  if (D == 128) return (int)smem_bytes<128>(R, n_splits, dtype);
-  if (D == 64) return (int)smem_bytes<64>(R, n_splits, dtype);
-  return (int)smem_bytes<32>(R, n_splits, dtype);
+// Shared-memory bytes of a launch with R = S*G query rows over a pool of
+// element code kv_code (the wrapper refuses shapes above the card's
+// per-block limit, and bf16 R above 64).
+extern "C" int paged_decode_smem_bytes(int R, int D, int n_splits, int dtype, int kv_code) {
+  KATTN_DISPATCH_KV(smem_bytes, dtype, kv_code, D, R, n_splits);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128. bf16 cuts each
-// slot's keys into n_splits (1..64) splits and takes the wrapper's
-// scratch: part_o [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G]
-// float2, counters [B*Kv] int32 (zero, and left zero; the ragged kernel's
-// decode regime shares them). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same
+// type (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale;
+// D: 32, 64 or 128 (a one-byte pool: 64 or 128). bf16 cuts each slot's
+// keys into n_splits (1..64) splits and takes the wrapper's scratch:
+// part_o [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G] float2,
+// counters [B*Kv] int32 (zero, and left zero; the ragged kernel's decode
+// regime shares them). Returns a cudaError_t (0 = launched).
 extern "C" int paged_decode_attention_launch(const void* q, const void* pool,
                                              const void* table, const void* kv_lens,
                                              void* out, void* part_o, void* part_ml,
                                              void* counters, int B, int S, int H, int Kv,
                                              int D, int page, int max_pages, int n_splits,
-                                             int dtype, float scale, float softcap,
+                                             int dtype, int kv_code, float scale,
+                                             float softcap, float k_scale, float v_scale,
                                              void* stream) {
   const kdec::DecodeArgs a{q, pool, (const int*)table, (const int*)kv_lens, out,
                            (float*)part_o, (float2*)part_ml, (int*)counters, B, S, H, Kv,
-                           page, max_pages, n_splits, scale, softcap};
-  KATTN_DISPATCH(launch, dtype, D, a, (cudaStream_t)stream);
+                           page, max_pages, n_splits, scale, softcap, k_scale, v_scale};
+  KATTN_DISPATCH_KV(launch, dtype, kv_code, D, a, (cudaStream_t)stream);
 }

@@ -52,6 +52,20 @@
 //   at R = 32 (B=8, kv_len 512) a merge that used each load as it came
 //   took ~10 us of the kernel's 33 on the H100; batched, the kernel
 //   takes 28.
+// * A one-byte pool (KT int8_t or __nv_fp8_e4m3: the quantized pool of
+//   the JAX package's _decode_kernel, which multiplies each page by the
+//   static k_scale / v_scale after loading it) halves the bytes, and with
+//   them the bound (~8.4 MB, ~2.5 us at B=8, kv_len 512). The copies move
+//   the one-byte rows (D bytes each) into a staging ring of the same
+//   depth; after a slice lands, the warps of its stream widen it into one
+//   bf16 stage in the swizzled layout of the bf16 ring (exactly: int8 by
+//   PRMT + FADD, e4m3 by the hardware's e4m3x2 -> f16x2 conversion), meet
+//   again, and the mma.sync code reads that stage as it reads the bf16
+//   ring. The scales cost nothing per element: k_scale folds into the
+//   softmax scale and v_scale into the output's final 1 / l (exact
+//   rewrites; attention_common.cuh). Widening in registers while the B
+//   fragments are built would save the bf16 stage and a meeting per
+//   slice; it is left for a later redesign.
 #pragma once
 
 #include "attention_common.cuh"
@@ -119,6 +133,7 @@ struct SplitOut {
   float2* part_ml;
   int* counters;
   int b, kv, S, H, G, R, bk, n_splits, split, live;
+  float out_scale;  // the output's factor: a quantized pool's v_scale, else 1
 };
 
 // The end of a split. O_s [R][D] (shared) holds the split's output before
@@ -138,7 +153,7 @@ __device__ __forceinline__ void split_finish(const SplitOut& so, const float* O_
   if (live == 1) {
     for (int i = tid; i < R * D; i += DEC_T) {
       const int r = i / D;
-      out_row(r)[i - r * D] = from_float<T>(O_s[i] / fmaxf(l_s[r], 1e-30f));
+      out_row(r)[i - r * D] = from_float<T>(O_s[i] / fmaxf(l_s[r], 1e-30f) * so.out_scale);
     }
     return;
   }
@@ -163,7 +178,7 @@ __device__ __forceinline__ void split_finish(const SplitOut& so, const float* O_
     float L = 0.f;
     for (int sp = 0; sp < live; ++sp) L += w_s[sp * R + r].y * expf(w_s[sp * R + r].x - M);
     m_s[r] = M;
-    l_s[r] = 1.f / fmaxf(L, 1e-30f);
+    l_s[r] = so.out_scale / fmaxf(L, 1e-30f);
   }
   __syncthreads();
   for (int i = tid; i < live * R; i += DEC_T) {
@@ -213,18 +228,26 @@ __device__ __forceinline__ void split_finish(const SplitOut& so, const float* O_
   if (tid == 0) so.counters[so.bk] = 0;  // ready for the next launch on this stream
 }
 
-// Geometry of the instance with MT m16 row tiles (R <= 16 * MT).
-template <int D, int MT>
+// Geometry of the instance with MT m16 row tiles (R <= 16 * MT) over a
+// pool of KT (bf16, or one byte per element).
+template <int D, int MT, typename KT = __nv_bfloat16>
 struct DecMma {
+  static constexpr bool Q8 = sizeof(KT) == 1;  // one-byte pool: staged, then widened
   static constexpr int WR = MT;               // warps per key stream, one row tile each
   static constexpr int NS = DEC_NW / WR;      // key streams per block
   static constexpr int NST = 2 * WR;          // ring stages per stream
-  static constexpr int NCHK = D / 8;                     // 16-byte chunks per row
+  static constexpr int NCHK = D / 8;                     // 16-byte bf16 chunks per row
   static constexpr int SWZ = (NCHK < 8 ? NCHK : 8) - 1;  // chunk swizzle mask
   static constexpr int ROWB = D * 2;
-  static constexpr int WBUF = SLICE * ROWB;  // one slice's K (or V) rows
-  static constexpr int STAGE = 2 * WBUF;     // a slice's K and V
-  static constexpr int RING = NS * NST * STAGE;
+  static constexpr int WBUF = SLICE * ROWB;  // one slice's K (or V) rows, bf16
+  static constexpr int STAGE = 2 * WBUF;     // a slice's K and V, bf16
+  static constexpr int ROWB_IN = D * (int)sizeof(KT);  // a pool row's bytes
+  static constexpr int NCHK_IN = ROWB_IN / 16;         // its 16-byte copies
+  static constexpr int WBUF_IN = SLICE * ROWB_IN;
+  static constexpr int STAGE_IN = 2 * WBUF_IN;         // a ring stage
+  // The rings (one per stream) and, for a one-byte pool, one bf16 stage
+  // per stream after them.
+  static constexpr int RING = NS * NST * STAGE_IN + (Q8 ? NS * STAGE : 0);
   // After the walk the rings hold the streams' O [NS][R][D] (NS*R <= 64
   // rows) and the combined O [R][D], both f32.
   static constexpr int OBYTES = (DEC_NW * 16 + 16 * MT) * D * 4;
@@ -236,15 +259,15 @@ struct DecMma {
   }
 };
 
-template <int D, int MT>
+template <int D, int MT, typename KT>
 __global__ void __launch_bounds__(DEC_T)
 paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ pool, const int* __restrict__ table,
+                        const KT* __restrict__ pool, const int* __restrict__ table,
                         const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out,
                         float* __restrict__ part_o, float2* __restrict__ part_ml,
                         int* __restrict__ counters, int S, int H, int Kv, int page,
-                        int max_pages, float scale, float softcap) {
-  using C = DecMma<D, MT>;
+                        int max_pages, float scale, float softcap, float out_scale) {
+  using C = DecMma<D, MT, KT>;
   constexpr int NKS = D / 16, NN = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
@@ -258,7 +281,9 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int stream = warp / C::WR, rt = warp % C::WR;  // key stream, row tile
-  unsigned char* ring = smem + stream * C::NST * C::STAGE;
+  unsigned char* ring = smem + stream * C::NST * C::STAGE_IN;
+  // A one-byte pool's bf16 stage of this stream, after the rings.
+  unsigned char* wide = smem + C::NS * C::NST * C::STAGE_IN + stream * C::STAGE;
   float* O_w = reinterpret_cast<float*>(smem);  // [NS][R][D], over the rings
   float* O_c = O_w + DEC_NW * 16 * D;           // [R][D]
   float* m_w = reinterpret_cast<float*>(smem + C::BIG);  // [NS][R]
@@ -270,25 +295,41 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int* trow = table + (size_t)b * max_pages;
   const long long rs = 2LL * Kv * D;
-  const __nv_bfloat16* kbase = pool + (size_t)2 * kv * D;
+  const KT* kbase = pool + (size_t)2 * kv * D;
 
   // This warp's share of the copy of the stream's i-th slice (K and V
-  // rows) into stage i % NST. Rows past the split's last key are zeros.
+  // rows) into stage i % NST: bf16 rows swizzled by 16-byte chunk, one-byte
+  // rows as they are. Rows past the split's last key are zeros.
   auto issue = [&](int i) {
-    const uint32_t dst = smem_u32(ring) + (i % C::NST) * C::STAGE;
+    const uint32_t dst = smem_u32(ring) + (i % C::NST) * C::STAGE_IN;
     const int k0 = k_lo + (stream + i * C::NS) * SLICE;
-    for (int idx = rt * 32 + lane; idx < SLICE * C::NCHK; idx += 32 * C::WR) {
-      const int j = idx / C::NCHK, c = idx - j * C::NCHK, kpos = k0 + j;
-      const __nv_bfloat16* src = kbase;
+    for (int idx = rt * 32 + lane; idx < SLICE * C::NCHK_IN; idx += 32 * C::WR) {
+      const int j = idx / C::NCHK_IN, c = idx - j * C::NCHK_IN, kpos = k0 + j;
+      const KT* src = kbase;
       int n = 0;
       if (kpos < k_hi) {
         const int p = kpos / page;
-        src = kbase + ((long long)__ldg(trow + p) * page + (kpos - p * page)) * rs + c * 8;
+        src = kbase + ((long long)__ldg(trow + p) * page + (kpos - p * page)) * rs +
+              c * (16 / (int)sizeof(KT));
         n = 16;
       }
-      const uint32_t off = j * C::ROWB + ((c ^ (j & C::SWZ)) * 16);
+      const uint32_t off =
+          C::Q8 ? j * C::ROWB_IN + c * 16 : j * C::ROWB + ((c ^ (j & C::SWZ)) * 16);
       cp_async16(dst + off, src, n);
-      cp_async16(dst + C::WBUF + off, src + D, n);
+      cp_async16(dst + C::WBUF_IN + off, src + D, n);
+    }
+  };
+  // A one-byte pool: this warp's share of widening the stream's landed
+  // slice i into its bf16 stage (the layout issue() gives a bf16 slice).
+  auto widen = [&](int i) {
+    const unsigned char* in = ring + (i % C::NST) * C::STAGE_IN;
+    constexpr int UNITS = SLICE * C::NCHK;  // 8-element units of K (and of V)
+    for (int u = rt * 32 + lane; u < 2 * UNITS; u += 32 * C::WR) {
+      const int kvs = u >= UNITS, w = u - kvs * UNITS, j = w / C::NCHK, c = w - j * C::NCHK;
+      const uint2 bytes =
+          *reinterpret_cast<const uint2*>(in + kvs * C::WBUF_IN + j * C::ROWB_IN + c * 8);
+      *reinterpret_cast<uint4*>(wide + kvs * C::WBUF + j * C::ROWB + ((c ^ (j & C::SWZ)) * 16)) =
+          widen8_bf16<KT>(bytes);
     }
   };
   // The warps of a stream meet once per slice: after it, every share of
@@ -339,8 +380,16 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     stream_sync();
     if (i + C::NST - 1 < my_n) issue(i + C::NST - 1);  // into the stage of slice i-1
     cp_async_commit();
+    if constexpr (C::Q8) {
+      // The stream's bf16 stage is free: every warp passed the meeting
+      // above after its products of slice i-1.
+      widen(i);
+      stream_sync();
+    }
     const int k0 = k_lo + (stream + i * C::NS) * SLICE;
-    const uint32_t kb_a = smem_u32(ring) + (i % C::NST) * C::STAGE, vb_a = kb_a + C::WBUF;
+    const uint32_t kb_a =
+        C::Q8 ? smem_u32(wide) : smem_u32(ring) + (i % C::NST) * C::STAGE;
+    const uint32_t vb_a = kb_a + C::WBUF;
     float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     {
       const int key = (lmat >> 1) * 8 + lrow;
@@ -462,7 +511,8 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     O_c[i] = v;
   }
   __syncthreads();
-  const SplitOut so{out, part_o, part_ml, counters, b, kv, S, H, G, R, bk, n_splits, split, live};
+  const SplitOut so{out, part_o, part_ml, counters, b,     kv,   S,        H,
+                    G,   R,      bk,      n_splits, split, live, out_scale};
   split_finish<__nv_bfloat16, D>(so, O_c, m_s, l_s, w_s, last_flag);
 }
 
@@ -477,25 +527,27 @@ struct DecodeArgs {
   int* counters;    // [B*Kv], zero, and left zero
   int B, S, H, Kv, page, max_pages, n_splits;
   float scale, softcap;
+  float k_scale, v_scale;  // a quantized pool's dequant scales (1 otherwise)
 };
 
 // One launch of the instance with MT row tiles (R <= 16 * MT, 1 <=
-// n_splits <= DEC_MAX_SPLITS). Returns a cudaError_t.
-template <int D, int MT>
+// n_splits <= DEC_MAX_SPLITS) over a pool of KT. Returns a cudaError_t.
+template <int D, int MT, typename KT>
 static int launch_decode_mma(const DecodeArgs& a, cudaStream_t stream) {
   // Once per instance, at the per-block limit: the wrappers refuse shapes
   // that need more.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_mma_kernel<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      paged_decode_mma_kernel<D, MT, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (attr != cudaSuccess) return (int)attr;
   const int R = a.S * (a.H / a.Kv);
   if (R > 16 * MT || a.n_splits < 1 || a.n_splits > DEC_MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   dim3 grid(a.n_splits, a.Kv, a.B);
-  paged_decode_mma_kernel<D, MT><<<grid, DEC_T, DecMma<D, MT>::smem(R, a.n_splits), stream>>>(
-      (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.pool, a.table, a.kv_lens,
-      (__nv_bfloat16*)a.out, a.part_o, a.part_ml, a.counters, a.S, a.H, a.Kv, a.page,
-      a.max_pages, a.scale, a.softcap);
+  paged_decode_mma_kernel<D, MT, KT>
+      <<<grid, DEC_T, DecMma<D, MT, KT>::smem(R, a.n_splits), stream>>>(
+          (const __nv_bfloat16*)a.q, (const KT*)a.pool, a.table, a.kv_lens,
+          (__nv_bfloat16*)a.out, a.part_o, a.part_ml, a.counters, a.S, a.H, a.Kv, a.page,
+          a.max_pages, a.scale * a.k_scale, a.softcap, a.v_scale);
   return (int)cudaGetLastError();
 }
 

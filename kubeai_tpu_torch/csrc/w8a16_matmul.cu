@@ -55,6 +55,8 @@
 
 namespace kw8 {
 
+using kattn::i8f;  // byte J of a biased int8 word as a float (PRMT + FADD)
+using kattn::pack_bf16;
 using kattn::smem_u32;
 using kdec::cp_async_commit;
 using kdec::cp_async_wait;
@@ -103,17 +105,6 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_
 // instruction spans land in distinct banks.
 __device__ __forceinline__ int kn_addr(int r, int off) {
   return r * KN_ROW + ((((off >> 4) ^ (((r >> 2) & 3) << 1))) << 4) + (off & 15);
-}
-
-// Byte J of w (int8 biased to unsigned by the caller) as a float.
-template <int J>
-__device__ __forceinline__ float i8f(uint32_t w) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + J)) - 8388736.f;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <int LAYOUT, int MT, int VEC>

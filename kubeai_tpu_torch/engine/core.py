@@ -149,9 +149,9 @@ class Engine:
         if self.cfg.speculate_tokens:
             raise NotImplementedError("speculative decoding is not ported yet (ROADMAP queue 1)")
         if self.cfg.kv_cache_dtype:
-            raise NotImplementedError(
-                "quantized KV pools are not ported yet (ROADMAP queue 1 item 2: quantized KV pool)"
-            )
+            # Replaces the model config's pool dtype, as in the JAX engine;
+            # the pool keeps engine_dims' page count (half the bytes).
+            model_config = model_config.replace(kv_cache_dtype=self.cfg.kv_cache_dtype)
         if self.device.type == "cuda":
             model_config = model_config.replace(use_flash_prefill=True, use_paged_kernel=True)
         llama.check_supported(model_config)

@@ -17,6 +17,8 @@ Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 ``--model <dir>`` serves an HF-format checkpoint directory
 (engine/weights.py), and ``--quantization int8`` serves a preset or a
 checkpoint with int8 weights through the W8A16 kernel.
+``--kv-cache-dtype fp8|int8`` stores the paged KV pool at one byte per
+element; the paged kernels dequantize it.
 """
 
 from __future__ import annotations
@@ -430,6 +432,10 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=64, help="KV pool tokens per page")
     p.add_argument("--decode-kernel", default="ragged", choices=["ragged", "dedicated", "auto"])
+    p.add_argument("--kv-cache-dtype", default="", choices=["", "fp8", "int8"],
+                   help="store the paged KV pool in fp8 (e4m3) or int8 (static scales, "
+                        "kv_scale_k/v of the model config: 1.0 unless set there); "
+                        "halves the pool's bytes")
     p.add_argument("--prefix-cache-min", type=int, default=16,
                    help="min shared-prefix tokens reused across slots (0 disables)")
     return p
@@ -439,6 +445,7 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
     ec = EngineConfig(
         max_slots=args.max_slots, max_seq_len=args.max_seq_len, page_size=args.page_size,
         decode_kernel=args.decode_kernel, prefix_cache_min=args.prefix_cache_min,
+        kv_cache_dtype=args.kv_cache_dtype,
     )
     name = args.served_model_name or args.model
     if args.model.startswith("test:"):

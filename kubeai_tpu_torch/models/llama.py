@@ -11,10 +11,13 @@ of each layer is its trash page. The JAX package donated the pool through
 every jitted step; here ``apply`` writes it IN PLACE and returns the same
 dict. Attention takes one of three hand-written CUDA kernels behind the
 same gates as the JAX package (``use_flash_prefill``, ``use_paged_kernel``,
-``decode_kernel``) or the plain gather path. Projections and the head go
-through ``ops/quant.py``: ``torch.matmul`` for bf16 weights, the W8A16
-kernel for int8 ones (``{"int8_q", "int8_s"}`` leaves, made from the bf16
-tree by ``engine/weights.py::quantize_model_params``).
+``decode_kernel``) or the plain gather path. A pool in fp8 or int8
+(``kv_cache_dtype``) is quantized on write with static scales and
+dequantized by the kernels (or the gather path) on read. Projections
+and the head go through ``ops/quant.py``: ``torch.matmul`` for bf16
+weights, the W8A16 kernel for int8 ones (``{"int8_q", "int8_s"}``
+leaves, made from the bf16 tree by
+``engine/weights.py::quantize_model_params``).
 
 Only dense Llama is ported. The variants the JAX package also serves
 raise NotImplementedError naming the ROADMAP item that will port them.
@@ -33,7 +36,7 @@ from kubeai_tpu_torch.models.base import ModelConfig
 from kubeai_tpu_torch.ops.attention import attention
 from kubeai_tpu_torch.ops.flash_attention import flash_attention
 from kubeai_tpu_torch.ops.norms import rms_norm
-from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
+from kubeai_tpu_torch.ops.paged_attention import QUANT_POOL_DTYPES, paged_attention_ragged
 from kubeai_tpu_torch.ops.paged_decode_attention import (
     paged_decode_attention,
     resolve_decode_kernel,
@@ -62,8 +65,6 @@ def check_supported(config: ModelConfig) -> None:
          or config.post_norms or config.attn_softcap or config.logit_softcap,
          "Gemma features", "model variants"),
         (config.sliding_window > 0, "sliding-window attention", "model variants"),
-        (config.kv_cache_dtype not in ("", "auto"), "quantized KV pool",
-         "quantized KV pool"),
     ]
     for hit, what, item in unported:
         if hit:
@@ -125,11 +126,26 @@ def init_paged_cache(config: ModelConfig, num_pages: int, page_size: int,
                      device: torch.device | str, dtype: torch.dtype | None = None) -> Params:
     """Paged KV pool: one flat tensor [L*P, page, 2*Kv, h], K at even and V
     at odd head indices (the kernels' native layout). Layer l owns rows
-    [l*P, (l+1)*P); logical page 0 of every layer is its trash page."""
+    [l*P, (l+1)*P); logical page 0 of every layer is its trash page.
+
+    config.kv_cache_dtype "fp8" / "int8" stores the pool in one byte per
+    element (:func:`kv_pool_dtype`): ``apply`` quantizes on write and the
+    attention paths dequantize on read (inside the paged kernels)."""
     check_supported(config)
-    dtype = dtype or torch_dtype(config.dtype)
+    dtype = dtype or kv_pool_dtype(config)
     shape = (config.num_layers * num_pages, page_size, 2 * config.num_kv_heads, config.head_dim_)
     return {"kv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_pool_dtype(config: ModelConfig) -> torch.dtype:
+    """Storage dtype of the paged KV pool (quantization-aware)."""
+    if config.kv_cache_dtype == "fp8":
+        return torch.float8_e4m3fn
+    if config.kv_cache_dtype == "int8":
+        return torch.int8
+    if config.kv_cache_dtype in ("", "auto"):
+        return torch_dtype(config.dtype)
+    return torch_dtype(config.kv_cache_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -189,10 +205,22 @@ def apply(
     use_dedicated = use_paged_kernel and resolve_decode_kernel(decode_kernel, S) == "dedicated"
 
     paged = page_table is not None
+    kv_quant = False
     if paged:
         pool = cache["kv"]
         page = pool.shape[1]
         pool_P = pool.shape[0] // config.num_layers
+        kv_quant = pool.dtype in QUANT_POOL_DTYPES
+        if kv_quant:
+            # Static per-tensor scales: the config's for int8; fp8 is
+            # scale-free (its range covers K/V activations), as in JAX.
+            kq_scale, vq_scale = ((float(config.kv_scale_k), float(config.kv_scale_v))
+                                  if pool.dtype == torch.int8 else (1.0, 1.0))
+            # K (even) and V (odd) heads interleave, so the scales do too.
+            # A float32 tensor: CUDA divides by a Python scalar through its
+            # reciprocal, which is not the JAX package's IEEE division.
+            kv_scale_vec = torch.tensor(
+                [kq_scale, vq_scale] * Kv, dtype=torch.float32, device=dev)[:, None]
         max_pages = page_table.shape[1]
         skv = max_pages * page
         key_positions = torch.arange(skv, device=dev)[None, None, :]
@@ -217,6 +245,16 @@ def apply(
 
         if paged:
             interleaved = torch.stack([k, v], dim=3).reshape(B, S, 2 * Kv, h)
+            if kv_quant:
+                y = interleaved.float() / kv_scale_vec
+                if pool.dtype == torch.int8:
+                    y = torch.clamp(torch.round(y), -127.0, 127.0)
+                else:
+                    # e4m3fn has no infinity: JAX converts an overflow to
+                    # NaN, PyTorch saturates it. Clipping to the finite
+                    # range first makes both give +-448.
+                    y = torch.clamp(y, -448.0, 448.0)
+                interleaved = y
             pool.index_put_((w_pages + li * pool_P, w_offs), interleaved.to(pool.dtype))
             table_l = page_table + li * pool_P
             if use_paged_kernel:
@@ -224,14 +262,19 @@ def apply(
                 attn_out = paged_fn(
                     q, pool, table_l, kv_lengths, scale=config.query_scale,
                     softcap=config.attn_softcap,
+                    k_scale=kq_scale if kv_quant else None,
+                    v_scale=vq_scale if kv_quant else None,
                 )
             elif use_flash:
                 # Positions are arange(S): the pages just written hold
                 # exactly k/v, so plain causal attention over the fresh
-                # tensors equals the position mask over the pool.
+                # tensors equals the position mask over the pool (a
+                # quantized pool is written here and never read).
                 attn_out = flash_attention(q, k, v, causal=True, sm_scale=config.query_scale)
             else:
                 gathered = pool[table_l.long()]  # [B, mp, page, 2Kv, h]
+                if kv_quant:
+                    gathered = (gathered.float() * kv_scale_vec).to(dtype)
                 k_att = gathered[..., 0::2, :].reshape(B, skv, Kv, h)
                 v_att = gathered[..., 1::2, :].reshape(B, skv, Kv, h)
                 attn_out = attention(q, k_att, v_att, mask, scale=config.query_scale)

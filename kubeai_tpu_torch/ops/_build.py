@@ -131,14 +131,24 @@ def stream_of(t) -> PTR:
     return PTR(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None = None) -> int:
+# Element codes of a KV pool beside q (the kernels' kv_code): the
+# compute dtype itself, or one byte per element dequantized in the kernel.
+POOL_SAME, POOL_INT8, POOL_FP8 = 0, 1, 2
+
+
+def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None = None,
+                      pool: dict | None = None) -> tuple[int, int]:
     """Validate a kernel's tensors before their pointers reach native
     code: all on one CUDA device, contiguous, 16-byte aligned; the float
     tensors all float32 or all bfloat16, the index tensors int32; head
-    dim 32, 64 or 128. Returns the kernel's dtype code (0 f32, 1 bf16)."""
+    dim 32, 64 or 128. *pool* (one named tensor) may share the floats'
+    dtype or hold one byte per element (int8 or float8_e4m3fn) beside
+    them; any other mix raises. Returns (the kernel's dtype code, 0 f32
+    or 1 bf16; the pool's element code, POOL_SAME, POOL_INT8 or
+    POOL_FP8)."""
     import torch
 
-    tensors = {**floats, **(ints or {})}
+    tensors = {**floats, **(ints or {}), **(pool or {})}
     dev = next(iter(floats.values())).device
     for name, t in tensors.items():
         if t.device != dev:
@@ -148,14 +158,24 @@ def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None 
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     dtypes = {t.dtype for t in floats.values()}
-    if len(dtypes) != 1 or dtypes.pop() not in (torch.float32, torch.bfloat16):
+    if len(dtypes) != 1 or next(iter(dtypes)) not in (torch.float32, torch.bfloat16):
         raise ValueError(
             f"{what}: {', '.join(floats)} must share dtype float32 or bfloat16, "
             f"got {[t.dtype for t in floats.values()]}"
         )
+    dtype = next(iter(dtypes))
+    pool_code = POOL_SAME
+    codes = {dtype: POOL_SAME, torch.int8: POOL_INT8, torch.float8_e4m3fn: POOL_FP8}
+    for name, t in (pool or {}).items():
+        if t.dtype not in codes:
+            raise ValueError(
+                f"{what}: {name} must be {dtype}, int8 or float8_e4m3fn beside "
+                f"{', '.join(floats)} in {dtype}, got {t.dtype}"
+            )
+        pool_code = codes[t.dtype]
     for name, t in (ints or {}).items():
         if t.dtype != torch.int32:
             raise ValueError(f"{what}: {name} must be int32, got {t.dtype}")
     if head_dim not in (32, 64, 128):
         raise ValueError(f"{what}: head_dim {head_dim} unsupported (32, 64 or 128)")
-    return 1 if next(iter(floats.values())).dtype == torch.bfloat16 else 0
+    return (1 if dtype == torch.bfloat16 else 0), pool_code

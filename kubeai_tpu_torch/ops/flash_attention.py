@@ -47,7 +47,7 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
     Kv = k.shape[2]
     if k.shape != (B, S, Kv, h) or v.shape != k.shape or H % Kv:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
-    dtype = _build.check_cuda_inputs("flash_attention", h, {"q": q, "k": k, "v": v})
+    dtype, _ = _build.check_cuda_inputs("flash_attention", h, {"q": q, "k": k, "v": v})
     scale = h**-0.5 if sm_scale is None else sm_scale
     out = torch.empty_like(q)
     lib = _build.load("flash_attention", _SIG)

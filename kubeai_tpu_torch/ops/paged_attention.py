@@ -20,12 +20,19 @@ split-KV decode up to 16 rows, whose number of splits
 float32 and the rows between keep the CUDA-core tile. Its source says
 what each design does.
 
+A pool in one byte per element (int8 or float8_e4m3fn, the JAX
+package's ``--kv-cache-dtype int8|fp8``) holds K/V divided by the static
+scales ``k_scale`` / ``v_scale``; every regime reads its pages at one
+byte per element and dequantizes on the card. The plain version follows
+the JAX package's CPU twin: (x as float32 * scale) in q's dtype.
+
 ``paged_attention_ragged`` launches the kernel for CUDA tensors and runs
 the plain version for CPU tensors; there is no fallback between them.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -35,8 +42,14 @@ from kubeai_tpu_torch.ops.attention import attention
 
 _SIG = {
     "paged_attention_launch": [_build.PTR] * 8
-    + [_build.INT] * 10 + [_build.FLOAT, _build.FLOAT, _build.PTR],
+    + [_build.INT] * 11 + [_build.FLOAT] * 4 + [_build.PTR],
 }
+
+# Pool dtypes stored at one byte per element and dequantized on read,
+# and the head dims the kernels are built for with them (the one-byte
+# instances at head dim 32 as well doubled the libraries' build time).
+QUANT_POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
+QUANT_HEAD_DIMS = (64, 128)
 
 # bf16 launches with at most this many query rows per (slot, KV head),
 # S*G, take the split-KV decode regime (one m16 tile of mma.sync).
@@ -114,18 +127,14 @@ def _split_kv_setup(q, Kv: int, max_pages: int, page: int, R: int, n_splits=None
     return (n_splits, *s)
 
 
-def _no_quant(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pools are not ported yet (ROADMAP queue 1, item 2)"
-        )
-
-
-def paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale=None, softcap=0.0):
+def paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale=None, softcap=0.0,
+                          k_scale=None, v_scale=None):
     """The plain PyTorch version (the JAX package's ``_cpu_twin``): gather
     the table's pages into a contiguous view and run masked attention with
     queries at positions kv_len - S + s. kv_len is clamped to the table
-    span first (a finished slot's decode overrun)."""
+    span first (a finished slot's decode overrun). A quantized pool (or a
+    given scale) dequantizes as the twin does, (x as float32 * scale) in
+    q's dtype; a one-byte pool without scales reads with 1.0."""
     B, S, H, h = q.shape
     max_pages = page_table.shape[1]
     page = kv_pages.shape[1]
@@ -135,15 +144,24 @@ def paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale=None, softc
     gathered = kv_pages[page_table.long()]  # [B, mp, page, 2Kv, h]
     k_att = gathered[..., 0::2, :].reshape(B, skv, Kv, h)
     v_att = gathered[..., 1::2, :].reshape(B, skv, Kv, h)
+    quant = kv_pages.dtype in QUANT_POOL_DTYPES
+    if quant or k_scale is not None:
+        k_att = (k_att.float() * (1.0 if k_scale is None else k_scale)).to(q.dtype)
+    if quant or v_scale is not None:
+        v_att = (v_att.float() * (1.0 if v_scale is None else v_scale)).to(q.dtype)
     pos_q = kv_lens[:, None] - S + torch.arange(S, device=q.device)[None, :]
     mask = torch.arange(skv, device=q.device)[None, None, :] <= pos_q[:, :, None]
     return attention(q, k_att, v_att, mask, scale=scale, softcap=softcap)
 
 
+def _or_one(scale) -> float:
+    return 1.0 if scale is None else float(scale)
+
+
 def check_paged_inputs(what: str, q, kv_pages, page_table, kv_lengths):
     """Shared argument checks of the two paged kernels (the ragged one
     here and the dedicated decode one). Returns (int32 lengths, dtype
-    code)."""
+    code, pool element code)."""
     B, S, H, h = q.shape
     P, page, two_kv, h2 = kv_pages.shape
     Kv = two_kv // 2
@@ -155,17 +173,22 @@ def check_paged_inputs(what: str, q, kv_pages, page_table, kv_lengths):
     if kv_lengths.shape != (B,):
         raise ValueError(f"{what}: kv_lengths must be [B], got {tuple(kv_lengths.shape)}")
     lens = kv_lengths.to(torch.int32).contiguous()
-    dtype = _build.check_cuda_inputs(
-        what, h, {"q": q, "kv_pages": kv_pages},
-        {"page_table": page_table, "kv_lengths": lens},
+    dtype, pool_code = _build.check_cuda_inputs(
+        what, h, {"q": q}, {"page_table": page_table, "kv_lengths": lens},
+        pool={"kv_pages": kv_pages},
     )
-    return lens, dtype
+    if pool_code != _build.POOL_SAME and h not in QUANT_HEAD_DIMS:
+        raise ValueError(f"{what}: a one-byte pool takes head dim 64 or 128, got {h}")
+    return lens, dtype, pool_code
 
 
-def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None):
+def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None,
+                   k_scale=None, v_scale=None):
     """One launch of the kernel; *n_splits* overrides the decode regime's
-    split choice (chip_smoke.py times the choice against others)."""
-    lens, dtype = check_paged_inputs("paged_attention_ragged", q, kv_pages, page_table, kv_lengths)
+    split choice (chip_smoke.py times the choice against others). A scale
+    not given is 1."""
+    lens, dtype, pool_code = check_paged_inputs(
+        "paged_attention_ragged", q, kv_pages, page_table, kv_lengths)
     B, S, H, h = q.shape
     P, page, two_kv, _ = kv_pages.shape
     Kv, max_pages = two_kv // 2, page_table.shape[1]
@@ -180,8 +203,8 @@ def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits
     err = lib.paged_attention_launch(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
-        B, S, H, Kv, h, P, page, max_pages, n_splits, dtype,
-        float(scale), float(softcap), _build.stream_of(q),
+        B, S, H, Kv, h, P, page, max_pages, n_splits, dtype, pool_code,
+        float(scale), float(softcap), _or_one(k_scale), _or_one(v_scale), _build.stream_of(q),
     )
     _build.check(err, "paged_attention_ragged")
     return out
@@ -197,17 +220,23 @@ def paged_attention_ragged(
     k_scale: float | None = None,
     v_scale: float | None = None,
 ) -> torch.Tensor:
-    """Returns the [B, S, H, h] attention output."""
-    _no_quant(k_scale, v_scale)
+    """Returns the [B, S, H, h] attention output. *k_scale* / *v_scale*
+    dequantize a one-byte pool (static per-tensor scales)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale, softcap)
+        return paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale, softcap,
+                                     k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_ragged: unsupported device {q.device}")
-    out = _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap)
+    out = _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap,
+                         k_scale=k_scale, v_scale=v_scale)
     paged_attention_ragged.launches += 1
+    paged_attention_ragged.launches_by_pool[str(kv_pages.dtype).removeprefix("torch.")] += 1
     return out
 
 
 paged_attention_ragged.launches = 0
+# The same launches by the pool's dtype (a quantized pool's int8 or
+# float8_e4m3fn, else q's dtype).
+paged_attention_ragged.launches_by_pool = collections.Counter()

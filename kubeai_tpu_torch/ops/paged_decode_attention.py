@@ -15,18 +15,22 @@ and the S*G <= 64 query rows of a (slot, KV head) sit in one, two or four
 head, slot). The source says what each design does.
 
 Bound on the H100: memory (every valid K/V byte read once; ~5 us per
-layer call at B=8, kv_len 512). ``paged_decode_attention`` launches the
+layer call at B=8, kv_len 512; half that for a one-byte pool, int8 or
+float8_e4m3fn, which the kernel dequantizes with the static ``k_scale`` /
+``v_scale``). ``paged_decode_attention`` launches the
 kernel for CUDA tensors and runs the plain version for CPU tensors; there
 is no fallback between them.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.paged_attention import (
-    _no_quant,
+    _or_one,
     _split_kv_setup,
     check_paged_inputs,
     paged_attention_plain,
@@ -45,8 +49,8 @@ _MAX_SMEM = 232448
 
 _SIG = {
     "paged_decode_attention_launch": [_build.PTR] * 8
-    + [_build.INT] * 9 + [_build.FLOAT, _build.FLOAT, _build.PTR],
-    "paged_decode_smem_bytes": [_build.INT] * 4,
+    + [_build.INT] * 10 + [_build.FLOAT] * 4 + [_build.PTR],
+    "paged_decode_smem_bytes": [_build.INT] * 5,
 }
 
 
@@ -61,7 +65,8 @@ def resolve_decode_kernel(mode: str, query_len: int) -> str:
     return "ragged"
 
 
-def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None):
+def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None,
+                      k_scale=None, v_scale=None):
     """One launch of the kernel; *n_splits* overrides the bf16 split
     choice (chip_smoke.py times the choice against others)."""
     B, S, H, h = q.shape
@@ -69,7 +74,7 @@ def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_spl
         raise ValueError(
             f"paged_decode_attention: S={S} > {MAX_DECODE_QUERY_LEN} queries per slot"
         )
-    lens, dtype = check_paged_inputs(
+    lens, dtype, pool_code = check_paged_inputs(
         "paged_decode_attention", q, kv_pages, page_table, kv_lengths)
     page, Kv, max_pages = kv_pages.shape[1], kv_pages.shape[2] // 2, page_table.shape[1]
     R = S * (H // Kv)
@@ -84,7 +89,7 @@ def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_spl
             )
         n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
     lib = _build.load("paged_decode_attention", _SIG)
-    smem = lib.paged_decode_smem_bytes(R, h, n_splits, dtype)
+    smem = lib.paged_decode_smem_bytes(R, h, n_splits, dtype, pool_code)
     if smem > _MAX_SMEM:
         raise ValueError(
             f"paged_decode_attention: {R} rows x {n_splits} splits need {smem} bytes "
@@ -94,8 +99,8 @@ def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_spl
     err = lib.paged_decode_attention_launch(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
-        B, S, H, Kv, h, page, max_pages, n_splits, dtype,
-        float(scale), float(softcap), _build.stream_of(q),
+        B, S, H, Kv, h, page, max_pages, n_splits, dtype, pool_code,
+        float(scale), float(softcap), _or_one(k_scale), _or_one(v_scale), _build.stream_of(q),
     )
     _build.check(err, "paged_decode_attention")
     return out
@@ -112,19 +117,25 @@ def paged_decode_attention(
     v_scale: float | None = None,
 ) -> torch.Tensor:
     """Returns the [B, S, H, h] attention output (the same contract as
-    paged_attention_ragged, finished-slot length clamp included)."""
-    _no_quant(k_scale, v_scale)
+    paged_attention_ragged, finished-slot length clamp and one-byte pools
+    included)."""
     B, S, H, h = q.shape
     if scale is None:
         scale = h**-0.5
     if q.device.type == "cpu":
-        return paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale, softcap)
+        return paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale, softcap,
+                                     k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    out = _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap)
+    out = _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap,
+                            k_scale=k_scale, v_scale=v_scale)
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_pool[str(kv_pages.dtype).removeprefix("torch.")] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+# The same launches by the pool's dtype (a quantized pool's int8 or
+# float8_e4m3fn, else q's dtype).
+paged_decode_attention.launches_by_pool = collections.Counter()
 

@@ -8,7 +8,8 @@ kernel ``csrc/w8a16_matmul.cu``, which converts in registers and reads
 each weight byte once (the source says how). On the CPU they run the
 plain versions, which follow the JAX formula literally; there is no
 fallback between the two. ``qgather`` (an embedding row gather, not a
-matrix product) is plain PyTorch on both devices.
+matrix product) is plain PyTorch on both devices, and clamps ids as
+JAX's gather does.
 
 Bound on the H100: bytes at decode and verify shapes (M <= 64: the
 weights, ~2.2 ms per Llama-3.1-8B step), the tensor cores at prefill.
@@ -107,8 +108,14 @@ def qmatT(x: torch.Tensor, w) -> torch.Tensor:
 
 def qgather(w, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Row gather (embedding lookup) for plain or per-row-quantized
-    tables."""
+    tables. Ids follow JAX's gather: a negative id counts from the end,
+    and an id outside the table is clamped to its first or last row (a
+    byte tokenizer's BOS 256 over a 256-row table reads row 255). On the
+    card an out-of-range index would trip a device-side assert, which
+    leaves the process's CUDA context unusable."""
+    rows = (w[QKEY] if is_quantized(w) else w).shape[0]
     idx = idx.long()
+    idx = torch.where(idx < 0, idx + rows, idx).clamp_(0, rows - 1)
     if not is_quantized(w):
         return w.to(dtype)[idx]
     return (w[QKEY][idx].to(torch.float32) * w[SKEY][idx]).to(dtype)

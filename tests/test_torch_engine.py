@@ -102,6 +102,30 @@ def test_penalties_and_bias_match_jax_engine(engines):
     )
 
 
+def test_vocab_256_config_serves_bos_like_jax_engine():
+    """The JAX package's vocab-256 test configuration (its tiny checkpoint's:
+    hidden 64, 2 layers) with the byte tokenizer, whose BOS is 256: the
+    embedding gather clamps that id to row 255 in both engines, and the
+    port serves the JAX engine's greedy tokens on the same weights."""
+    from kubeai_tpu.models.base import ModelConfig as JMC
+
+    jmc = JMC(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+              num_heads=4, num_kv_heads=2, dtype="float32")
+    ec = dict(max_slots=2, max_seq_len=128, prefill_buckets=(16, 32))
+    je = jcore.build_test_engine(jcore.EngineConfig(**ec), seed=3, model_config=jmc)
+    mc = ModelConfig(**{f.name: getattr(jmc, f.name) for f in dataclasses.fields(ModelConfig)})
+    tp = params_from_jax(jax.tree.map(np.asarray, je.params), mc, "cpu")
+    te = tcore.build_test_engine(tcore.EngineConfig(**ec), device="cpu", params=tp,
+                                 model_config=mc)
+    je.start()
+    te.start()
+    try:
+        _assert_same_greedy(je, te, [256] + list(b"vocab 256"), n=12)
+    finally:
+        je.stop()
+        te.stop()
+
+
 def test_seeded_sampling_is_reproducible(engines):
     _, te = engines
     sp = TSP(temperature=0.9, top_p=0.95, max_tokens=12, seed=42)

@@ -194,6 +194,146 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
             torch.zeros((1, 8, 32, 128), device=cuda, dtype=torch.bfloat16),
             pool, table.to(torch.int32), torch.tensor([9], device=cuda),
         )
+    # One-byte pools: no head dim 32 instances; no other pool dtypes.
+    q32 = torch.zeros((1, 1, 4, 32), device=cuda, dtype=torch.bfloat16)
+    pool32 = torch.zeros((5, 16, 4, 32), device=cuda, dtype=torch.int8)
+    for fn in (paged_attention_ragged, paged_decode_attention):
+        with pytest.raises(ValueError, match="head dim 64 or 128"):
+            fn(q32, pool32, table.to(torch.int32), torch.tensor([4], device=cuda))
+        with pytest.raises(ValueError, match="kv_pages must be"):
+            fn(q, pool.to(torch.float16), table.to(torch.int32), torch.tensor([4], device=cuda))
+
+
+# Quantized pools (one byte per element): the JAX package's int8 scales
+# of tests/test_kv_quant.py; fp8 is scale-free.
+KV_QUANT = {"int8": (torch.int8, 0.05, 0.02), "fp8": (torch.float8_e4m3fn, 1.0, 1.0)}
+
+
+def _quant_pool(g, shape, kv, device):
+    """A one-byte pool whose dequantized K/V are ~N(0, 1): int8 values
+    round(N(0, 1) / scale) within +-127 (K and V rows with their own
+    scales), fp8 values N(0, 1) in e4m3."""
+    dt, ks, vs = KV_QUANT[kv]
+    x = torch.randn(shape, generator=g, device=device)
+    if dt == torch.int8:
+        scale = torch.tensor([ks, vs] * (shape[2] // 2), device=device)[:, None]
+        return torch.clamp(torch.round(x / scale), -127, 127).to(dt), ks, vs
+    return x.to(dt), ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,Kv,h,page,lens,softcap",
+    [
+        (8, 1, 32, 8, 128, 64, [1, 63, 64, 65, 300, 511, 700, 2048], 0.0),  # split KV, 8 rows
+        (8, 4, 32, 8, 128, 64, [4, 40, 129, 511, 512, 1024, 1999, 2048], 0.0),  # 32 rows
+        (4, 8, 64, 8, 128, 64, [8, 70, 300, 2048], 0.0),  # 64 rows: four tiles
+        (2, 4, 8, 2, 128, 16, [19, 45], 0.0),  # page 16
+        (2, 2, 4, 2, 64, 16, [30, 61], 30.0),  # softcap, head dim 64
+        (4, 1, 4, 2, 64, 16, [1, 17, 100, 256], 0.0),  # head dim 64, lengths at the edges
+        (1, 6, 32, 8, 128, 64, [700], 0.0),  # ragged 16 < 24 rows < 64: CUDA-core tile
+        (1, 128, 32, 8, 128, 64, [128], 0.0),  # prefill: TMA tile
+        (1, 1024, 32, 8, 128, 64, [2048], 0.0),  # chunk at 1024
+        (1, 128, 32, 8, 128, 16, [300], 0.0),  # prefill tile of 4 page-16 boxes
+        (2, 64, 32, 8, 128, 64, [300, 77], 30.0),  # prefill tiles with softcap
+    ],
+)
+def test_quantized_pool_kernels_match_plain(cuda, kv, dtype, B, S, H, Kv, h, page, lens,
+                                            softcap):
+    """Every regime of both paged kernels over an int8 and an fp8 pool at
+    a shuffled (ragged) page table, against the plain version: the pool
+    dequantized to float32 (x * scale), float32 attention."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    mp = -(-min(max(lens), 2048) // page)
+    P = 1 + B * mp
+    pool, ks, vs = _quant_pool(g, (P, page, 2 * Kv, h), kv, cuda)
+    table = (torch.randperm(P - 1, generator=g, device=cuda)[: B * mp] + 1).reshape(B, mp).to(torch.int32)
+    q = torch.randn((B, S, H, h), generator=g, device=cuda).to(dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want = paged_attention_plain(q.float(), pool, table, kv_lens, h**-0.5, softcap, ks, vs)
+    fns = [paged_attention_ragged] + ([paged_decode_attention] if S <= MAX_DECODE_QUERY_LEN else [])
+    for fn in fns:
+        before = fn.launches
+        got = fn(q, pool, table, kv_lens, softcap=softcap, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 4, 24])
+def test_quantized_pool_edges(cuda, kv, dtype, S):
+    """The widening and the scale folds at the edges. Query 0 of each slot
+    sees key 0 alone, so its output is key 0's V row times v_scale; those
+    rows hold every byte (int8 -128..127; every e4m3 pattern: +-448, the
+    subnormals, NaN), so the output shows each byte's value exactly
+    (float32) or rounded once (bf16). Then, NaN bytes cleared, K rows at
+    the format's ends (+-127, +-448) meet 40 keys through the softmax.
+    S = 1, 4 and 24 take the split-KV, CUDA-core and TMA tiles (G = 8)."""
+    dt, ks, vs = KV_QUANT[kv]
+    B, H, Kv, h, page, mp = 2, 8, 1, 128, 16, 4
+    P = 1 + B * mp
+    g = torch.Generator(device=cuda).manual_seed(8)
+    # Scores of O(1) against the K rows at the format's ends (as real
+    # keys meet queries), where float32 summation order stays below 1e-4.
+    q_std = 2.0 / ((127 * ks) if dt == torch.int8 else 448.0)
+    byte = torch.arange(256, dtype=torch.int32, device=cuda).to(torch.uint8)
+    nan = torch.tensor([0x7F, 0xFF], dtype=torch.uint8, device=cuda)
+    finite = byte if dt == torch.int8 else byte[(byte != nan[0]) & (byte != nan[1])]
+    ends = torch.tensor([127, 129] if dt == torch.int8 else [0x7E, 0xFE], dtype=torch.uint8,
+                        device=cuda)  # +-127 / +-448
+    pool = torch.empty((P, page, 2, h), dtype=torch.uint8, device=cuda)
+    pool[..., 0, :] = ends[torch.randint(0, 2, (P, page, h), generator=g, device=cuda)]
+    pool[..., 1, :] = finite[torch.randint(0, len(finite), (P, page, h), generator=g,
+                                           device=cuda)]
+    pool[1, 0, 1] = byte[:128]  # slot 0's key 0 (its table starts at page 1)
+    pool[1 + mp, 0, 1] = byte[128:]  # slot 1's key 0
+    table = torch.arange(1, P, dtype=torch.int32, device=cuda).reshape(B, mp)
+    q = (torch.randn((B, S, H, h), generator=g, device=cuda) * q_std).to(dtype)
+    fns = [paged_attention_ragged] + ([paged_decode_attention] if S <= MAX_DECODE_QUERY_LEN else [])
+
+    def run(lens):
+        kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        want = paged_attention_plain(q.float(), pool.view(dt), table, kv_lens, h**-0.5, 0.0,
+                                     ks, vs)
+        outs = [fn(q, pool.view(dt), table, kv_lens, k_scale=ks, v_scale=vs) for fn in fns]
+        torch.cuda.synchronize()
+        return want, outs
+
+    want, outs = run([S, S])
+    v_row = want[:, 0]  # [B, H, h]: every head's V row times v_scale
+    for got in outs:
+        first = got[:, 0].float()
+        assert torch.equal(torch.isnan(first), torch.isnan(v_row))
+        ok = ~torch.isnan(v_row)
+        if dtype == torch.float32:
+            assert torch.equal(first[ok], v_row[ok])
+        else:
+            _assert_close(first[ok], v_row[ok], dtype)
+    if dt != torch.int8:
+        pool[(pool == nan[0]) | (pool == nan[1])] = 0
+    want, outs = run([40, 40])
+    assert torch.isfinite(want).all()
+    for got in outs:
+        _assert_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_quantized_pool_smem_fits(cuda):
+    """The one-byte staging fits the card's per-block shared memory at the
+    dedicated kernel's 64 rows and the splits the wrapper may choose."""
+    from kubeai_tpu_torch.ops import _build
+    from kubeai_tpu_torch.ops.paged_decode_attention import _MAX_SMEM, _SIG
+
+    lib = _build.load("paged_decode_attention", _SIG)
+    for code in (_build.POOL_SAME, _build.POOL_INT8, _build.POOL_FP8):
+        for R in (16, 32, 64):
+            for h in (32, 64, 128) if code == _build.POOL_SAME else (64, 128):
+                assert 0 < lib.paged_decode_smem_bytes(R, h, 64, 1, code) <= _MAX_SMEM
 
 
 def _greedy(engine, prompt, n):

@@ -124,9 +124,22 @@ def test_resolve_decode_kernel_keys_on_query_length():
 
 
 def test_quantized_pools_raise():
+    """The kernels take a pool in q's dtype or in one byte per element,
+    int8 or float8_e4m3fn (element codes 0, 1, 2); the wrappers' checks
+    refuse every other pool dtype before a pointer reaches the kernel."""
+    from kubeai_tpu_torch.ops._build import POOL_FP8, POOL_INT8, POOL_SAME
+    from kubeai_tpu_torch.ops.paged_attention import check_paged_inputs
+
     rng = np.random.default_rng(0)
     q, kv, table = _paged_inputs(rng, 1, 1, 4, 2)
     lens = torch.tensor([5], dtype=torch.int32)
-    for fn in (paged_attention_ragged, paged_decode_attention):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(_t(q), _t(kv), _t(table), lens, k_scale=0.1, v_scale=0.1)
+    for qdt in (torch.float32, torch.bfloat16):
+        tq = _t(q).to(qdt)
+        for pdt, code in ((qdt, POOL_SAME), (torch.int8, POOL_INT8),
+                          (torch.float8_e4m3fn, POOL_FP8)):
+            assert check_paged_inputs("t", tq, _t(kv).to(pdt), _t(table), lens)[1:] == (
+                int(qdt == torch.bfloat16), code)
+        other = torch.float32 if qdt == torch.bfloat16 else torch.bfloat16
+        for pdt in (other, torch.float16, torch.uint8, torch.float8_e5m2):
+            with pytest.raises(ValueError, match="kv_pages must be"):
+                check_paged_inputs("t", tq, _t(kv).to(pdt), _t(table), lens)

@@ -118,7 +118,7 @@ def test_params_from_jax_refuses_int8_leaves():
 @pytest.mark.parametrize(
     "kw",
     [dict(qkv_bias=True), dict(num_experts=4), dict(sliding_window=8),
-     dict(attn_softcap=30.0), dict(kv_cache_dtype="int8")],
+     dict(attn_softcap=30.0)],
 )
 def test_unported_variants_raise(kw):
     _, tc = _configs(**kw)

@@ -145,6 +145,24 @@ def test_qmatT_and_qgather_match_jax(dtype):
     _close(tq.qgather(tep, torch.from_numpy(idx), tdt), jq.qgather(jep, jnp.asarray(idx), jdt), dtype)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["plain", "int8"])
+def test_qgather_clamps_ids_like_jax(quantized):
+    """Ids past the table (a byte tokenizer's BOS 256 over a 256-row
+    vocab) and negative ids read the rows JAX's gather reads: a negative
+    id counts from the end, then ids clamp to the first or last row."""
+    emb = _weights((4, 8), 11)
+    if quantized:  # device arrays: numpy's own indexing would raise, not clamp
+        jw = jax.tree.map(jnp.asarray, jq.quantize_rows(emb))
+        tw = tq.quantize_rows(torch.from_numpy(emb))
+    else:
+        jw, tw = jnp.asarray(emb), torch.from_numpy(emb)
+    idx = np.array([[4, 7, 256, 3], [-1, -4, -5, -9], [0, 1, 2, 2**31 - 1]], np.int32)
+    got = tq.qgather(tw, torch.from_numpy(idx), torch.float32)
+    want = np.asarray(jq.qgather(jw, jnp.asarray(idx), jnp.float32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.array_equal(want[0, 0], want[0, 3])  # the row JAX reads for an id past the end
+
+
 def test_split_plan_covers_k():
     """The split-K plan of the decode shapes: pieces of whole 64-deep
     stages that cover K exactly once, enough blocks for two per SM where
