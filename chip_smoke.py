@@ -5,10 +5,12 @@
 
 Phases (any failure exits non-zero; nothing is caught into a pass):
   1. environment: the card's name and power limit, torch/CUDA versions,
-     the kernels' build time, nvcc's per-kernel resource report and the
-     HGMMA / HMMA (tensor-core) instruction count of each library; the
-     dedicated decode kernel and the W8A16 matmul must use HMMA and spill
-     nothing;
+     the kernels' build time (the paged kernels' head-dim-32 one-byte
+     instances in libraries of their own, built beside the others),
+     nvcc's per-kernel resource report and the HGMMA / HMMA (tensor-core)
+     instruction count of each library; the dedicated decode kernel and
+     the W8A16 kernels must use HMMA and spill nothing, and the W8A16
+     library must show HGMMA (its wgmma tile);
   2. kernels: each hand-written CUDA kernel at the main path's shapes
      against its plain PyTorch version (float32 math on the same bf16
      inputs), timed beside the plain version, one PyTorch library call
@@ -19,8 +21,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      sweep of the split-KV decode kernels; the decode grid must cover
      every SM. The paged kernels again over fp8 and int8 pools (one byte
      per element) in every regime: split-KV decode at 4, 32 and 64 rows,
-     the TMA prefill tile, the CUDA-core tile, float32; the plain version
-     dequantizes to float32;
+     the TMA prefill tile, the CUDA-core tile, float32, and at head dim
+     32; the plain version dequantizes to float32. The W8A16 kernels at
+     8, 16, 32, 64 and 1024 rows through each projection (both regimes),
+     the heads, the grouped qkv and gate/up launches (equal byte for byte
+     to separate ones) and the float32 instance; two launches must agree
+     byte for byte;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
      plain path on the same weights (bf16: gather attention; int8: also
      the W8A16 product in float32 math; an fp8 pool: the same gates with
@@ -39,11 +45,14 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      there, a whole number of times per model step, the paged kernels on
      the run's pool dtype alone; a quantized pool has half the bf16
      pool's bytes. Then a 32-layer step profile: decode and verify steps
-     under both decode kernels, in int8 and over an fp8 pool, prefills.
-     Last, the loader: a 2-layer checkpoint at 8B width
-     written by the port's save_hf_checkpoint is served through
+     under both decode kernels, in int8 and over an fp8 pool, prefills
+     with bf16 and int8 weights. Then the loader: a 2-layer checkpoint at
+     8B width written by the port's save_hf_checkpoint is served through
      --model <dir> --quantization int8, and its int8 leaves must equal
-     quantize_model_params of the written weights.
+     quantize_model_params of the written weights. Last, the JAX
+     package's float32 test config, --model test:tiny --quantization int8
+     --kv-cache-dtype fp8, serves through the server's command line, its
+     greedy tokens equal to the same engine's on the CPU.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path) and {"ok": true, ...}.
 """
@@ -74,6 +83,9 @@ REL_TOL = 2.0**-8
 ABS_TOL = 1e-3
 
 KERNELS = ("flash_attention", "paged_attention", "paged_decode_attention", "w8a16_matmul")
+# Libraries built beside them: the paged kernels' one-byte instances at
+# head dim 32 (the float32 test configuration's pools).
+VARIANTS = ("paged_attention_q8d32", "paged_decode_attention_q8d32")
 
 
 def log(*a):
@@ -140,6 +152,21 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3, cold_l2: bool = False) -> flo
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def compare_f32(got, want, what: str) -> float:
+    """Max abs error of a float32 kernel output against the float32 plain
+    version: summation order alone, within 1e-4 absolute plus 1e-4 of
+    |want| (the card tests' float32 tolerance)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = (g - w).abs()
+    if (err - (1e-4 * w.abs() + 1e-4)).max().item() > 0:
+        raise AssertionError(f"{what}: max abs err {err.max().item():.3e} exceeds tolerance")
+    return err.max().item()
+
+
 def compare(got, want, what: str) -> float:
     """Max abs error of a bf16 kernel output against the float32 plain
     version; raises past REL_TOL * |want| + ABS_TOL."""
@@ -176,7 +203,7 @@ def phase_env() -> dict:
     except ImportError:
         log("triton: not installed")
     t0 = time.monotonic()
-    res = _build.build(list(KERNELS), ptxas_verbose=True)
+    res = _build.build(list(KERNELS + VARIANTS), ptxas_verbose=True)
     build_s = time.monotonic() - t0
     log(f"build: {len(res)} kernels in {build_s:.1f}s (parallel nvcc)")
     spills = {}
@@ -191,22 +218,25 @@ def phase_env() -> dict:
     # as HGMMA in the SASS, mma.sync as HMMA. Logged; the dedicated
     # kernel's bf16 instances must use them and no instance may spill.
     tool = _cuobjdump()
-    hmma = {}
+    hmma, hgmma = {}, {}
     for name, r in res.items():
         if tool is None:
             log(f"  sass[{name}] not inspected: no cuobjdump")
             continue
         sass = subprocess.run([tool, "-sass", str(r.path)], capture_output=True, text=True)
         lines = sass.stdout.splitlines()
-        n = sum("HGMMA" in line for line in lines)
+        hgmma[name] = sum("HGMMA" in line for line in lines)
         hmma[name] = sum("HMMA" in line and "HGMMA" not in line for line in lines)
-        log(f"  sass[{name}] HGMMA instructions: {n}, HMMA: {hmma[name]}")
+        log(f"  sass[{name}] HGMMA instructions: {hgmma[name]}, HMMA: {hmma[name]}")
     log("spill_bytes", json.dumps(spills))
+    # The W8A16 library: mma.sync (decode) and wgmma (verify, prefill).
     for name in ("paged_decode_attention", "w8a16_matmul"):
         if spills.get(name, 0):
             raise AssertionError(f"{name} spills: {spills}")
         if tool is not None and not hmma.get(name):
             raise AssertionError(f"no HMMA in {name}'s SASS")
+    if tool is not None and not hgmma.get("w8a16_matmul"):
+        raise AssertionError("no HGMMA in w8a16_matmul's SASS")
     return {"build_s": build_s}
 
 
@@ -301,7 +331,7 @@ def phase_kernels() -> dict:
     results: dict[str, dict] = {}
 
     def record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline, cold,
-               read_ms=None, kind="bf16"):
+               read_ms=None, kind="bf16", extra=None):
         bound_ms, bound_by = _bound(nbytes, flops, kind)
         line = {
             "kernel": name, "case": case, "l2": "cold" if cold else "warm",
@@ -310,6 +340,7 @@ def phase_kernels() -> dict:
         }
         if read_ms is not None:
             line["read_ms"] = read_ms
+        line.update(extra or {})
         log("kernel_case", json.dumps(line))
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -384,6 +415,7 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     for kv in ("fp8", "int8"):
         _quant_pool_cases(record, kv)
+        _quant_pool_cases(record, kv, QUANT_CASES_H32, H32_SHAPE, " h32")
     _w8a16_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
@@ -407,6 +439,18 @@ QUANT_CASES = (
     ("prefill B=1 S=128", 1, 128, [128], 32, "bf16", False),
     ("prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], 32, "bf16", False),
     ("float32 decode B=8 S=4 kv_len=512", 8, 4, [512] * 8, 32, "f32", False),
+)
+# Head dim 32 (the JAX package's float32 test configuration, served with
+# an fp8 pool in phase 4; its one-byte instances are a library of their
+# own): (Kv, h, page), and cases as above: split-KV decode, 16 rows per
+# KV head (verify), the TMA prefill tile, and float32 decode (test:tiny's
+# own path: the headline).
+H32_SHAPE = (2, 32, 16)
+QUANT_CASES_H32 = (
+    ("h=32 decode B=4 kv_len=256", 4, 1, [256] * 4, 4, "bf16", False),
+    ("h=32 verify B=4 S=8 kv_len=256", 4, 8, [256] * 4, 4, "bf16", False),
+    ("h=32 prefill B=1 S=128", 1, 128, [128], 4, "bf16", False),
+    ("h=32 float32 decode B=4 kv_len=256", 4, 1, [256] * 4, 4, "f32", True),
 )
 
 
@@ -434,12 +478,13 @@ def _quant_case(B, S, kv_lens, kv, H=32, Kv=8, h=128, page=64, qdtype=None, seed
     return q, pool, table, lens, ks, vs
 
 
-def _quant_pool_cases(record, kv) -> None:
+def _quant_pool_cases(record, kv, cases=QUANT_CASES, shape=(8, 128, 64), tag="") -> None:
     """Both paged kernels over a one-byte pool in every regime, against
     the plain version on float32 q with the pool dequantized to float32
     (x * scale), timed beside the plain version in q's dtype, gather +
     dequantize to bf16 + SDPA, and a cold read of the bytes (half the
-    bf16 pool's K/V bytes)."""
+    bf16 pool's K/V bytes). *shape* is (Kv, h, page); *tag* marks the
+    kernel entries of another head dim."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_ragged
@@ -448,11 +493,12 @@ def _quant_pool_cases(record, kv) -> None:
         paged_decode_attention,
     )
 
-    Kv, h, page = 8, 128, 64
-    for case, B, S, lens_list, H, qdt, headline in QUANT_CASES:
+    Kv, h, page = shape
+    for case, B, S, lens_list, H, qdt, headline in cases:
         cold = "decode" in case
         q, pool, table, lens, ks, vs = _quant_case(
-            B, S, lens_list, kv, H=H, qdtype=torch.bfloat16 if qdt == "bf16" else torch.float32)
+            B, S, lens_list, kv, H=H, Kv=Kv, h=h, page=page,
+            qdtype=torch.bfloat16 if qdt == "bf16" else torch.float32)
         want = paged_attention_plain(q.float(), pool, table, lens, None, 0.0, ks, vs)
         nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h, page, q.element_size(), 1)
         lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens, ks, vs), iters=5,
@@ -470,11 +516,11 @@ def _quant_pool_cases(record, kv) -> None:
         for name, fn in kernels:
             got = fn(q, pool, table, lens, k_scale=ks, v_scale=vs)
             torch.cuda.synchronize()
-            err = compare(got, want, f"{name} {kv} pool {case}")
+            err = (compare if qdt == "bf16" else compare_f32)(got, want, f"{name} {kv} pool {case}")
             ms = timed_ms(lambda: fn(q, pool, table, lens, k_scale=ks, v_scale=vs),
                           cold_l2=cold)
-            record(f"{name}[{kv} pool]", f"{kv} pool {case}", err, ms, plain_ms, nbytes, flops,
-                   lib_ms, headline, cold, read_ms, "f32" if qdt == "f32" else "bf16")
+            record(f"{name}[{kv} pool{tag}]", f"{kv} pool {case}", err, ms, plain_ms, nbytes,
+                   flops, lib_ms, headline, cold, read_ms, "f32" if qdt == "f32" else "bf16")
         del q, pool, table, lens, want
     torch.cuda.empty_cache()
 
@@ -482,64 +528,124 @@ def _quant_pool_cases(record, kv) -> None:
 # Llama-3.1-8B's projections (K, N): wq and wo, wk and wv, wg and wu, wd.
 W8A16_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wg", 4096, 14336), ("wd", 14336, 4096))
 VOCAB = 128256
+# Rows: a decode step (8 slots), the regime crossover (16 | 32), an
+# 8-slot verify step of 8 tokens (64), a prefill chunk (1024).
+W8A16_ROWS = (8, 16, 32, 64, 1024)
+# The launches that share x (qdot_many), by the model's weight names.
+W8A16_GROUPS = (("qkv", (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024))),
+                ("gate_up", (("wg", 4096, 14336), ("wu", 4096, 14336))))
+
+
+def _w8a16_weight(g, K, N, layout):
+    import torch
+
+    from kubeai_tpu_torch.ops.quant import quantize, quantize_rows
+
+    if layout == 0:
+        return quantize(torch.randn((K, N), generator=g, device="cuda") * K**-0.5)
+    return quantize_rows(torch.randn((N, K), generator=g, device="cuda") * K**-0.5)
+
+
+def _w8a16_want(x, w, layout):
+    q, s = w["int8_q"], w["int8_s"]
+    return (x.float() @ (q.float() if layout == 0 else q.float().T)) * s.reshape(1, -1)
 
 
 def _w8a16_cases(record) -> None:
-    """The W8A16 kernel at the main path's shapes: decode (M = 8), verify
-    (64) and a prefill chunk (1024) rows through each projection, decode
+    """The W8A16 kernels at the main path's shapes: each projection at
+    W8A16_ROWS (decode regime up to 16 rows, the wgmma tile above), decode
     through the untied lm_head and, as qmatT, through a tied head over a
-    [128256, 4096] table. Checked against float32 math on the same int8
-    weights and bf16 inputs; M <= 64 timed with a cold L2 (a real step
-    reads its weights from device memory). library_ms is torch.matmul of
-    x with the dequantized bf16 weight, made outside the timed region: the
-    same function up to one rounding, reading twice the weight bytes."""
+    [128256, 4096] table; the grouped launches of the model (qkv,
+    gate/up) at 8, 64 and 1024 rows, each output equal byte for byte to
+    its own launch; the float32 instance at 8 and 1024 rows. Checked
+    against float32 math on the same int8 weights and inputs, and two
+    launches against each other (determinism); M <= 64 timed with a cold
+    L2 (a real step reads its weights from device memory). library_ms is
+    torch.matmul of x with the dequantized weight (bf16, or float32 for
+    the float32 instance), made outside the timed region: the same
+    function up to one rounding, reading twice (four times) the weight
+    bytes."""
     import torch
 
-    from kubeai_tpu_torch.ops.quant import (
-        dequantize,
-        qdot,
-        qdot_plain,
-        qmatT,
-        qmatT_plain,
-        quantize,
-        quantize_rows,
-    )
+    from kubeai_tpu_torch.ops.quant import dequantize, qdot, qdot_many, qdot_plain, qmatT, qmatT_plain
 
-    cases = [(name, K, N, M, 0) for name, K, N in W8A16_SHAPES for M in (8, 64, 1024)]
-    cases += [("lm_head", 4096, VOCAB, 8, 0), ("tied head", 4096, VOCAB, 8, 1)]
-    for name, K, N, M, layout in cases:
+    def cold_read(nbytes):
+        buf = torch.zeros(nbytes // 4, device="cuda")
+        ms = timed_ms(lambda: buf.sum(), cold_l2=True)
+        del buf
+        return ms
+
+    cases = [(name, K, N, M, 0, torch.bfloat16) for name, K, N in W8A16_SHAPES
+             for M in W8A16_ROWS]
+    cases += [("lm_head", 4096, VOCAB, 8, 0, torch.bfloat16),
+              ("tied head", 4096, VOCAB, 8, 1, torch.bfloat16)]
+    cases += [("float32 wq", 4096, 4096, M, layout, torch.float32) for M in (8, 1024)
+              for layout in (0, 1)]
+    for name, K, N, M, layout, dt in cases:
+        f32 = dt == torch.float32
         g = torch.Generator(device="cuda").manual_seed(K + N + M)
-        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
-        if layout == 0:
-            w = quantize(torch.randn((K, N), generator=g, device="cuda") * K**-0.5)
-            fn, plain = qdot, qdot_plain
-        else:
-            w = quantize_rows(torch.randn((N, K), generator=g, device="cuda") * K**-0.5)
-            fn, plain = qmatT, qmatT_plain
+        x = torch.randn((M, K), generator=g, device="cuda").to(dt)
+        w = _w8a16_weight(g, K, N, layout)
+        fn, plain = (qdot, qdot_plain) if layout == 0 else (qmatT, qmatT_plain)
         q, s = w["int8_q"], w["int8_s"]
         got = fn(x, w)
-        want = (x.float() @ (q.float() if layout == 0 else q.float().T)) * s.reshape(1, -1)
+        again = fn(x, w)
         torch.cuda.synchronize()
-        err = compare(got, want, f"w8a16 {name} M={M}")
-        del got, want
+        if not torch.equal(got, again):
+            raise AssertionError(f"w8a16 {name} M={M}: two launches differ")
+        err = (compare_f32 if f32 else compare)(got, _w8a16_want(x, w, layout),
+                                                f"w8a16 {name} M={M}")
+        del got, again
         cold = M <= 64
         ms = timed_ms(lambda: fn(x, w), cold_l2=cold)
         plain_ms = timed_ms(lambda: plain(x, q, s), iters=5, cold_l2=cold)
-        wb = dequantize(w, torch.bfloat16)
+        wb = dequantize(w, dt)
         wb = wb if layout == 0 else wb.T  # x @ table.T: cuBLAS takes the transpose as is
         lib_ms = timed_ms(lambda: torch.matmul(x, wb), cold_l2=cold)
-        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
-        read_ms = None
-        if cold:  # what the memory delivers at this size, as for attention
-            buf = torch.zeros(nbytes // 4, device="cuda")
-            read_ms = timed_ms(lambda: buf.sum(), cold_l2=True)
-            del buf
+        esize = x.element_size()
+        nbytes = K * N + 4 * N + esize * (M * K + M * N)
+        read_ms = cold_read(nbytes) if cold else None
         case = f"{name} M={M} K={K} N={N}" + (" q[N,K] (qmatT)" if layout else "")
-        record("w8a16_matmul", case, err, ms, plain_ms, nbytes, 2.0 * M * N * K, lib_ms,
-               name == "wg" and M == 8, cold, read_ms)
+        record("w8a16_matmul[float32]" if f32 else "w8a16_matmul", case, err, ms, plain_ms,
+               nbytes, 2.0 * M * N * K, lib_ms,
+               (name, M) in (("wg", 8), ("float32 wq", 8)) and layout == 0, cold, read_ms,
+               "f32" if f32 else "bf16")
         del x, w, q, s, wb
+    for gname, shapes in W8A16_GROUPS:
+        for M in (8, 64, 1024):
+            g = torch.Generator(device="cuda").manual_seed(M + len(shapes))
+            K = shapes[0][1]
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            ws = [_w8a16_weight(g, K, N, 0) for _, K, N in shapes]
+            got = qdot_many(x, ws)
+            sep = [qdot(x, w) for w in ws]
+            torch.cuda.synchronize()
+            err = 0.0
+            for (wname, _, _), y, y1, w in zip(shapes, got, sep, ws):
+                if not torch.equal(y, y1):
+                    raise AssertionError(f"w8a16 {gname} M={M}: {wname} differs from its own launch")
+                err = max(err, compare(y, _w8a16_want(x, w, 0), f"w8a16 {gname} {wname} M={M}"))
+            del got, sep
+            cold = M <= 64
+            ms = timed_ms(lambda: qdot_many(x, ws), cold_l2=cold)
+            sep_ms = timed_ms(lambda: [qdot(x, w) for w in ws], cold_l2=cold)
+            plain_ms = timed_ms(lambda: [qdot_plain(x, w["int8_q"], w["int8_s"]) for w in ws],
+                                iters=5, cold_l2=cold)
+            wbs = [dequantize(w, torch.bfloat16) for w in ws]
+            lib_ms = timed_ms(lambda: [torch.matmul(x, wb) for wb in wbs], cold_l2=cold)
+            nbytes = sum(K * N + 4 * N + 2 * M * N for _, _, N in shapes) + 2 * M * K
+            flops = sum(2.0 * M * N * K for _, _, N in shapes)
+            read_ms = cold_read(nbytes) if cold else None
+            case = f"{gname} M={M} K={K} N=" + "+".join(str(N) for _, _, N in shapes)
+            record("w8a16_matmul[grouped]", case, err, ms, plain_ms, nbytes, flops, lib_ms,
+                   gname == "qkv" and M == 8, cold, read_ms, extra={"separate_ms": sep_ms})
+            del x, ws, wbs
     torch.cuda.empty_cache()
 
+
+# W8A16 launches per layer of a model step: qkv and gate/up grouped
+# (qdot_many), wo and wd.
+W8A16_PER_LAYER = 4
 
 SWEEP_CASES = ("decode B=8 kv_len=512", "decode B=8 kv_len=2048", "decode B=8 S=8 kv_len=512")
 
@@ -651,12 +757,15 @@ def _float32_w8a16():
             return x @ w.to(x.dtype).T
         return ((x.float() @ w["int8_q"].float().T) * w["int8_s"].squeeze(-1)).to(x.dtype)
 
-    saved = llama.qdot, llama.qmatT
-    llama.qdot, llama.qmatT = dot, dot_t
+    def dot_many(x, ws):
+        return [dot(x, w) for w in ws]
+
+    saved = llama.qdot, llama.qdot_many, llama.qmatT
+    llama.qdot, llama.qdot_many, llama.qmatT = dot, dot_many, dot_t
     try:
         yield
     finally:
-        llama.qdot, llama.qmatT = saved
+        llama.qdot, llama.qdot_many, llama.qmatT = saved
 
 
 def _parity(params, mc, label, plain_ctx, plain_gates=False) -> None:
@@ -802,7 +911,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     from kubeai_tpu_torch.ops.flash_attention import flash_attention
     from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
     from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
-    from kubeai_tpu_torch.ops.quant import qdot
+    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
 
     run = run or ("int8" if int8 else decode_kernel)
     if cli:
@@ -820,7 +929,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     srv.start()
     p = srv.port
     attention = (flash_attention, paged_attention_ragged, paged_decode_attention)
-    counters = attention + (qdot,)
+    counters = attention + (qdot, qdot_many)
     for fn in counters:
         fn.launches = 0
     for fn in (paged_attention_ragged, paged_decode_attention):
@@ -896,14 +1005,18 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     if missing:
         raise AssertionError(f"{run} run: kernels never launched: {missing}")
     # A model step calls its attention kernel once per layer, and the W8A16
-    # kernel 7 times per layer and once for the head (bf16 weights: never).
+    # kernels 4 times per layer (wq|wk|wv and wg|wu grouped, wo, wd) and
+    # once for the head (bf16 weights: never).
     layers = eng.model_config.num_layers
-    per_step = 7 * layers + 1
+    per_step = W8A16_PER_LAYER * layers + 1
     if any(launches[fn.__name__] % layers for fn in attention):
         raise AssertionError(f"{run} run: launches not whole steps of {layers}: {launches}")
     if launches["qdot"] % per_step or (launches["qdot"] > 0) != int8:
         raise AssertionError(f"{run} run: W8A16 launches {launches['qdot']} not whole steps "
                              f"of {per_step}")
+    if launches["qdot_many"] * per_step != launches["qdot"] * 2 * layers:
+        raise AssertionError(f"{run} run: grouped W8A16 launches {launches['qdot_many']} are "
+                             f"not 2 per layer of each step")
     # TTFT and decode tok/s of the streamed request (one of 8 running
     # together: its inter-token time is one decode step of the batch),
     # and the 7 others' tokens over the batch's wall time (prefills
@@ -915,7 +1028,8 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         "launches": launches,
         "launches_by_pool": by_pool,
         "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
-        "steps": {n: c // (per_step if n == "qdot" else layers) for n, c in launches.items()},
+        "steps": {n: c // {"qdot": per_step, "qdot_many": 2 * layers}.get(n, layers)
+                  for n, c in launches.items()},
     }
     log(f"serving[{run}]", json.dumps(stats))
     del eng, srv
@@ -928,9 +1042,9 @@ def _step_profile(params, qparams) -> None:
     time of decode steps (B=8, kv_len 512) and of 8-token speculative
     verify steps (kv_len 512 after them) under each decode kernel, with
     int8 weights (*qparams*: ragged decode, dedicated verify) and over an
-    fp8 pool (decode, both kernels), and of cold / chunked prefills, and
-    a torch.profiler breakdown of the decode and verify steps' device
-    time by kernel."""
+    fp8 pool (decode, both kernels), and of cold / chunked prefills with
+    bf16 and int8 weights, and a torch.profiler breakdown of each one's
+    device time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -990,14 +1104,19 @@ def _step_profile(params, qparams) -> None:
     steps["verify8_int8"] = lambda: llama.decode_speculative_paged(
         qparams, mc, spec, pool, table, lengths - 8, decode_kernel="dedicated")
     res = {f"{name}_step_ms": wall_ms(fn, 10) for name, fn in steps.items()}
+    # Prefills, bf16 and int8 weights: a cold 512-token bucket (flash) and
+    # a 1024-token chunk at 1024 (the ragged kernel's prefill tile).
     t512 = torch.randint(0, 259, (1, 512), device="cuda")
-    res["cold_prefill_512_ms"] = wall_ms(lambda: llama.prefill_paged_cold(
-        params, mc, t512, pool, table[:1], torch.tensor([512], device="cuda")), 3)
     t1024 = torch.randint(0, 259, (1, 1024), device="cuda")
-    res["chunk_prefill_1024_at_1024_ms"] = wall_ms(lambda: llama.prefill_paged(
-        params, mc, t1024, pool, table[:1], torch.tensor([1024], device="cuda"),
-        torch.tensor([1023], device="cuda")), 3)
-    res["profiled"] = {name: profiled(fn) for name, fn in steps.items()}
+    L512, start, last = (torch.tensor([n], device="cuda") for n in (512, 1024, 1023))
+    prefills = {}
+    for tag, p in (("", params), ("_int8", qparams)):
+        prefills[f"cold_prefill_512{tag}"] = lambda p=p: llama.prefill_paged_cold(
+            p, mc, t512, pool, table[:1], L512)
+        prefills[f"chunk_prefill_1024_at_1024{tag}"] = lambda p=p: llama.prefill_paged(
+            p, mc, t1024, pool, table[:1], start, last)
+    res.update({f"{name}_ms": wall_ms(fn, 3) for name, fn in prefills.items()})
+    res["profiled"] = {name: profiled(fn) for name, fn in {**steps, **prefills}.items()}
     log("step_profile", gpu_line(), json.dumps(res))
     del pool, pool8
     torch.cuda.empty_cache()
@@ -1075,7 +1194,104 @@ def phase_serving() -> dict:
     del params, qparams
     torch.cuda.empty_cache()
     _serve_checkpoint()
+    out["tiny_int8_fp8"] = _serve_tiny()
     return out
+
+
+def _greedy(engine, prompt, n):
+    """(tokens, top-2 logprob gaps) of a greedy completion through the
+    engine's own queue."""
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    req = engine.submit(prompt, SamplingParams(temperature=0.0, max_tokens=n, logprobs=True))
+    toks, gaps = [], []
+    while True:
+        ev = req.out.get(timeout=300)
+        if ev[0] == "token" and ev[1] >= 0:
+            toks.append(ev[1])
+            gaps.append(ev[4][0][1] - ev[4][1][1])
+        elif ev[0] == "done":
+            return toks, gaps
+        elif ev[0] == "error":
+            raise RuntimeError(ev[1])
+
+
+def _serve_tiny() -> dict:
+    """The JAX package's float32 test configuration with int8 weights over
+    an fp8 pool, as a user starts it (--model test:tiny --quantization int8
+    --kv-cache-dtype fp8: random weights from --seed, quantized on the
+    card): the server answers a completion, and the engine's greedy tokens
+    equal those of the same engine config and int8 weights on the CPU (the
+    plain versions) up to the first step whose top-2 logprobs are within
+    1e-4. The launch counters are zeroed before the card's run; the W8A16
+    kernels (float32 instance) and the ragged kernel (head-dim-32 fp8
+    instances) must launch there, a whole number of times per step."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine
+    from kubeai_tpu_torch.engine.server import (
+        EngineServer,
+        build_engine_from_args,
+        make_arg_parser,
+    )
+    from kubeai_tpu_torch.ops.flash_attention import flash_attention
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+
+    args = make_arg_parser().parse_args([
+        "--model", "test:tiny", "--quantization", "int8", "--kv-cache-dtype", "fp8",
+        "--host", "127.0.0.1", "--port", "0", "--max-slots", "4", "--max-seq-len", "512"])
+    card, name = build_engine_from_args(args)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    cpu = Engine(card.model_config, to_cpu(card.params), card.tokenizer, card.cfg, device="cpu")
+    pool = card.cache["kv"]
+    pool_dtype = str(pool.dtype).removeprefix("torch.")
+    if pool.dtype != torch.float8_e4m3fn or pool.shape[-1] != 32:
+        raise AssertionError(f"tiny: pool {pool.dtype} {tuple(pool.shape)}")
+    counters = (flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many)
+    for fn in counters:
+        fn.launches = 0
+    for fn in (paged_attention_ragged, paged_decode_attention):
+        fn.launches_by_pool.clear()
+    srv = EngineServer(card, name, host=args.host, port=args.port)
+    srv.start()
+    cpu.start()
+    compared = 0
+    try:
+        text = _check_completion(_post(srv.port, "/v1/completions", {
+            "prompt": "Hello", "max_tokens": 8, "temperature": 0}), "tiny")
+        for prompt in ([256] + list(b"short prompt"),
+                       [256] + [(i * 7) % 250 + 1 for i in range(100)],
+                       [256] + [(i * 11) % 250 + 1 for i in range(200)]):  # chunked
+            want, gaps = _greedy(cpu, prompt, 16)
+            got, _ = _greedy(card, prompt, 16)
+            upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(want))
+            if got[:upto] != want[:upto]:
+                raise AssertionError(f"tiny: card tokens {got} differ from the CPU's {want} "
+                                     f"(compared {upto})")
+            compared += upto
+        launches = {fn.__name__: fn.launches for fn in counters}
+        by_pool = {fn.__name__: dict(fn.launches_by_pool)
+                   for fn in (paged_attention_ragged, paged_decode_attention)}
+    finally:
+        srv.stop()
+        cpu.stop()
+    layers = card.model_config.num_layers
+    if (launches["qdot"] == 0 or launches["qdot"] % (W8A16_PER_LAYER * layers + 1)
+            or launches["paged_attention_ragged"] == 0
+            or launches["paged_attention_ragged"] % layers
+            or set(by_pool["paged_attention_ragged"]) != {pool_dtype}):
+        raise AssertionError(f"tiny: launches {launches} {by_pool}")
+    stats = {"completion": text, "greedy_tokens_compared": compared, "launches": launches,
+             "launches_by_pool": by_pool, "pool": {"dtype": pool_dtype, "bytes": pool.nbytes}}
+    log("serving[tiny_int8_fp8]", json.dumps(stats))
+    del card, cpu, srv
+    torch.cuda.empty_cache()
+    return stats
 
 
 def _serve_checkpoint() -> None:
@@ -1186,6 +1402,14 @@ SOURCES = {
     "paged_decode_attention[int8 pool]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
                                           "kubeai_tpu/ops/paged_decode_attention.py:111",
                                           "paged_decode_attention", "int8_pool", "int8"),
+    "w8a16_matmul[grouped]": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu",
+                              "kubeai_tpu/ops/quant.py:50", "qdot_many", "int8", None),
+    "w8a16_matmul[float32]": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu",
+                              "kubeai_tpu/ops/quant.py:50", "qdot", "tiny_int8_fp8", None),
+    "paged_attention[fp8 pool h32]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                      "kubeai_tpu/ops/paged_attention.py:31",
+                                      "paged_attention_ragged", "tiny_int8_fp8",
+                                      "float8_e4m3fn"),
 }
 
 

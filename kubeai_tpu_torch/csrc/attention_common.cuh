@@ -46,14 +46,24 @@ constexpr float NEG_INF = -1e30f;
 
 // Returns LAUNCH<T, KT, D>(args...) for a runtime (dtype, pool element
 // code, head dim): dtype as above; kv 0 = the pool holds T (head dims 32,
-// 64, 128), 1 = int8 and 2 = fp8 e4m3 (head dims 64 and 128 only: the
-// one-byte instances doubled the build time, so the wrappers refuse a
-// one-byte pool at head dim 32).
+// 64, 128), 1 = int8 and 2 = fp8 e4m3. The one-byte instances at head
+// dims 64 and 128 live in each paged library; those at head dim 32 (the
+// JAX package's float32 test configuration) doubled its build time, so a
+// second library built from the same source with KATTN_ONE_BYTE_D32
+// holds them alone (ops/_build.py: the "_q8d32" libraries, built beside
+// the others).
 #define KATTN_DISPATCH_D(LAUNCH, T, KT, D, ...)                \
   do {                                                         \
     if ((D) == 128) return LAUNCH<T, KT, 128>(__VA_ARGS__);    \
     if ((D) == 64) return LAUNCH<T, KT, 64>(__VA_ARGS__);      \
   } while (0)
+#ifdef KATTN_ONE_BYTE_D32
+#define KATTN_DISPATCH_KV_T(LAUNCH, T, kv, D, ...)                                   \
+  do {                                                                             \
+    if ((kv) == 1 && (D) == 32) return LAUNCH<T, int8_t, 32>(__VA_ARGS__);         \
+    if ((kv) == 2 && (D) == 32) return LAUNCH<T, __nv_fp8_e4m3, 32>(__VA_ARGS__);  \
+  } while (0)
+#else
 #define KATTN_DISPATCH_KV_T(LAUNCH, T, kv, D, ...)                                   \
   do {                                                                             \
     if ((kv) == 0 && (D) == 32) return LAUNCH<T, T, 32>(__VA_ARGS__);              \
@@ -61,6 +71,7 @@ constexpr float NEG_INF = -1e30f;
     if ((kv) == 1) KATTN_DISPATCH_D(LAUNCH, T, int8_t, D, __VA_ARGS__);            \
     if ((kv) == 2) KATTN_DISPATCH_D(LAUNCH, T, __nv_fp8_e4m3, D, __VA_ARGS__);     \
   } while (0)
+#endif
 #define KATTN_DISPATCH_KV(LAUNCH, dtype, kv, D, ...)                                  \
   do {                                                                              \
     if ((dtype) == 1) KATTN_DISPATCH_KV_T(LAUNCH, __nv_bfloat16, kv, D, __VA_ARGS__); \

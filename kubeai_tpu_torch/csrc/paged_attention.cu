@@ -201,7 +201,7 @@ static int launch(const PagedArgs& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same type
 // (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale; D: 32,
-// 64 or 128 (a one-byte pool: 64 or 128). P: pages in the pool. bf16
+// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build). P: pages in the pool. bf16
 // decode (S*G <= 16) cuts each slot's keys into n_splits (1..64) splits
 // and takes the wrapper's scratch: part_o [B*Kv*n_splits*S*G*D] f32,
 // part_ml [B*Kv*n_splits*S*G] float2, counters [B*Kv] int32 (zero, and

@@ -222,8 +222,9 @@ extern "C" int paged_decode_smem_bytes(int R, int D, int n_splits, int dtype, in
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same
 // type (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale;
-// D: 32, 64 or 128 (a one-byte pool: 64 or 128). bf16 cuts each slot's
-// keys into n_splits (1..64) splits and takes the wrapper's scratch:
+// D: 32, 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build).
+// bf16 cuts each slot's keys into n_splits (1..64) splits and takes the
+// wrapper's scratch:
 // part_o [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G] float2,
 // counters [B*Kv] int32 (zero, and left zero; the ragged kernel's decode
 // regime shares them). Returns a cudaError_t (0 = launched).

@@ -685,10 +685,14 @@ def build_test_engine(
     model_config: ModelConfig | None = None,
     device: torch.device | str | None = None,
     params=None,
+    quantization: str = "",
 ) -> Engine:
     """A tiny byte-vocab float32 engine (the JAX package's test config).
     *params* replaces the random weights, e.g. the JAX engine's own
-    through models/convert.py::params_from_jax."""
+    through models/convert.py::params_from_jax; ``quantization="int8"``
+    quantizes them (the W8A16 kernels' float32 instance on the card)."""
+    if quantization not in ("", "int8"):
+        raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
     dev = resolve_device(device)
     mc = model_config or ModelConfig(
         vocab_size=272,  # 259 used; padded as in the JAX package
@@ -703,6 +707,10 @@ def build_test_engine(
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = llama.init_params(mc, gen, device=dev)
+    if quantization:
+        from kubeai_tpu_torch.engine.weights import quantize_model_params  # imports this module
+
+        params = quantize_model_params(params, mc)
     ec = engine_config or EngineConfig(
         max_slots=4, max_seq_len=256, prefill_buckets=(16, 32, 64, 128)
     )

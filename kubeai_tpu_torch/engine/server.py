@@ -15,8 +15,8 @@ debug routes are not ported yet (ROADMAP queue 1).
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
 ``--model <dir>`` serves an HF-format checkpoint directory
-(engine/weights.py), and ``--quantization int8`` serves a preset or a
-checkpoint with int8 weights through the W8A16 kernel.
+(engine/weights.py), and ``--quantization int8`` serves a preset, a
+checkpoint or test:tiny with int8 weights through the W8A16 kernels.
 ``--kv-cache-dtype fp8|int8`` stores the paged KV pool at one byte per
 element; the paged kernels dequantize it.
 """
@@ -449,10 +449,9 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
     )
     name = args.served_model_name or args.model
     if args.model.startswith("test:"):
-        if args.quantization:
-            raise SystemExit("--quantization applies to preset: and checkpoint models")
         ec.prefill_buckets = (16, 32, 64, 128)
-        return build_test_engine(ec, seed=args.seed, device=args.device), name
+        return build_test_engine(ec, seed=args.seed, device=args.device,
+                                 quantization=args.quantization), name
     if args.model.startswith("preset:"):
         return build_engine(args.model[len("preset:"):], args.device, ec, seed=args.seed,
                             quantization=args.quantization), name

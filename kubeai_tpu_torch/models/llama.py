@@ -41,7 +41,7 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
     paged_decode_attention,
     resolve_decode_kernel,
 )
-from kubeai_tpu_torch.ops.quant import qdot, qgather, qmatT
+from kubeai_tpu_torch.ops.quant import qdot, qdot_many, qgather, qmatT
 from kubeai_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = dict[str, Any]
@@ -238,9 +238,8 @@ def apply(
     for li in range(config.num_layers):
         w = {k: _layer_slice(v, li) for k, v in params["layers"].items()}
         attn_in = rms_norm(x, w["ln1"], config.rms_norm_eps)
-        q = qdot(attn_in, w["wq"]).reshape(B, S, H, h)
-        k = qdot(attn_in, w["wk"]).reshape(B, S, Kv, h)
-        v = qdot(attn_in, w["wv"]).reshape(B, S, Kv, h)
+        q, k, v = qdot_many(attn_in, (w["wq"], w["wk"], w["wv"]))
+        q, k, v = q.reshape(B, S, H, h), k.reshape(B, S, Kv, h), v.reshape(B, S, Kv, h)
         q, k = apply_rope(q, k, positions, inv_freq)
 
         if paged:
@@ -283,7 +282,8 @@ def apply(
         x = x + qdot(attn_out.reshape(B, S, H * h), w["wo"])
 
         mlp_in = rms_norm(x, w["ln2"], config.rms_norm_eps)
-        x = x + qdot(F.silu(qdot(mlp_in, w["wg"])) * qdot(mlp_in, w["wu"]), w["wd"])
+        gate, up = qdot_many(mlp_in, (w["wg"], w["wu"]))
+        x = x + qdot(F.silu(gate) * up, w["wd"])
 
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if logits_idx is not None:

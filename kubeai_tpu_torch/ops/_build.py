@@ -32,6 +32,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# Libraries built from another library's source with extra flags:
+# name -> (source under csrc/, nvcc flags). The paged kernels' one-byte
+# instances at head dim 32 would double their libraries' build time, so
+# they build apart (in parallel) and load at first use of head dim 32.
+VARIANTS = {
+    "paged_attention_q8d32": ("paged_attention", ("-DKATTN_ONE_BYTE_D32",)),
+    "paged_decode_attention_q8d32": ("paged_decode_attention", ("-DKATTN_ONE_BYTE_D32",)),
+}
+
 # ctypes argument types, named once for the wrappers.
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -60,13 +69,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _library_path(name: str, extra: tuple[str, ...]) -> Path:
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source file and extra nvcc flags of library *name*."""
+    src, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", flags
+
+
+def _library_path(name: str) -> Path:
+    src, flags = _source(name)
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update(src.read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + extra).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -80,13 +96,14 @@ def build(names: list[str], ptxas_verbose: bool = False) -> dict[str, BuildResul
     results: dict[str, BuildResult] = {}
     t0 = time.monotonic()
     for name in names:
-        path = _library_path(name, ())
+        path = _library_path(name)
         if path.exists() and not ptxas_verbose:
             results[name] = BuildResult(name, path, 0.0, "")
             continue
+        src, flags = _source(name)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, *extra, "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
         procs[name] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -103,7 +120,8 @@ def build(names: list[str], ptxas_verbose: bool = False) -> dict[str, BuildResul
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use.
+    """The loaded library for ``csrc/<name>.cu`` (or a VARIANTS entry),
+    built on first use.
     *signatures* maps each launcher to its ctypes argtypes (every pointer
     and the stream are ``c_void_p``; each launcher returns an int)."""
     with _lock:

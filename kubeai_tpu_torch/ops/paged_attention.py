@@ -45,11 +45,19 @@ _SIG = {
     + [_build.INT] * 11 + [_build.FLOAT] * 4 + [_build.PTR],
 }
 
-# Pool dtypes stored at one byte per element and dequantized on read,
-# and the head dims the kernels are built for with them (the one-byte
-# instances at head dim 32 as well doubled the libraries' build time).
+# Pool dtypes stored at one byte per element and dequantized on read.
 QUANT_POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
-QUANT_HEAD_DIMS = (64, 128)
+# Head dim whose one-byte instances live in a library of their own (the
+# same source built with KATTN_ONE_BYTE_D32: in the main library they
+# doubled its build time), loaded at first use.
+SMALL_QUANT_HEAD_DIM = 32
+
+
+def library(name: str, h: int, pool_code: int) -> str:
+    """The library of paged kernel *name* for head dim *h* and a pool of
+    element code *pool_code* (_build.POOL_*)."""
+    return f"{name}_q8d32" if pool_code != _build.POOL_SAME and h == SMALL_QUANT_HEAD_DIM \
+        else name
 
 # bf16 launches with at most this many query rows per (slot, KV head),
 # S*G, take the split-KV decode regime (one m16 tile of mma.sync).
@@ -177,8 +185,6 @@ def check_paged_inputs(what: str, q, kv_pages, page_table, kv_lengths):
         what, h, {"q": q}, {"page_table": page_table, "kv_lengths": lens},
         pool={"kv_pages": kv_pages},
     )
-    if pool_code != _build.POOL_SAME and h not in QUANT_HEAD_DIMS:
-        raise ValueError(f"{what}: a one-byte pool takes head dim 64 or 128, got {h}")
     return lens, dtype, pool_code
 
 
@@ -199,7 +205,7 @@ def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits
     else:
         n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
     out = torch.empty_like(q)
-    lib = _build.load("paged_attention", _SIG)
+    lib = _build.load(library("paged_attention", h, pool_code), _SIG)
     err = lib.paged_attention_launch(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), ml.data_ptr(), cnt.data_ptr(),

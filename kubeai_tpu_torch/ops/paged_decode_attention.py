@@ -33,6 +33,7 @@ from kubeai_tpu_torch.ops.paged_attention import (
     _or_one,
     _split_kv_setup,
     check_paged_inputs,
+    library,
     paged_attention_plain,
 )
 
@@ -88,7 +89,7 @@ def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_spl
                 f"= {R} rows > {MAX_ROWS}"
             )
         n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
-    lib = _build.load("paged_decode_attention", _SIG)
+    lib = _build.load(library("paged_decode_attention", h, pool_code), _SIG)
     smem = lib.paged_decode_smem_bytes(R, h, n_splits, dtype, pool_code)
     if smem > _MAX_SMEM:
         raise ValueError(

@@ -15,7 +15,7 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
     MAX_DECODE_QUERY_LEN,
     paged_decode_attention,
 )
-from kubeai_tpu_torch.ops.quant import qdot, qmatT, quantize, quantize_rows
+from kubeai_tpu_torch.ops.quant import qdot, qdot_many, qmatT, quantize, quantize_rows
 
 
 @pytest.fixture
@@ -194,12 +194,9 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
             torch.zeros((1, 8, 32, 128), device=cuda, dtype=torch.bfloat16),
             pool, table.to(torch.int32), torch.tensor([9], device=cuda),
         )
-    # One-byte pools: no head dim 32 instances; no other pool dtypes.
-    q32 = torch.zeros((1, 1, 4, 32), device=cuda, dtype=torch.bfloat16)
-    pool32 = torch.zeros((5, 16, 4, 32), device=cuda, dtype=torch.int8)
+    # One-byte pools: no other pool dtypes (head dim 32 is served: see
+    # test_quantized_pool_kernels_match_plain).
     for fn in (paged_attention_ragged, paged_decode_attention):
-        with pytest.raises(ValueError, match="head dim 64 or 128"):
-            fn(q32, pool32, table.to(torch.int32), torch.tensor([4], device=cuda))
         with pytest.raises(ValueError, match="kv_pages must be"):
             fn(q, pool.to(torch.float16), table.to(torch.int32), torch.tensor([4], device=cuda))
 
@@ -238,6 +235,11 @@ def _quant_pool(g, shape, kv, device):
         (1, 1024, 32, 8, 128, 64, [2048], 0.0),  # chunk at 1024
         (1, 128, 32, 8, 128, 16, [300], 0.0),  # prefill tile of 4 page-16 boxes
         (2, 64, 32, 8, 128, 64, [300, 77], 30.0),  # prefill tiles with softcap
+        # Head dim 32 (the JAX package's test configuration; a library of
+        # its own): split KV, 32 rows (CUDA-core tile / two tiles), TMA tile.
+        (4, 1, 4, 2, 32, 16, [1, 17, 100, 256], 0.0),
+        (2, 8, 8, 2, 32, 16, [40, 61], 0.0),
+        (1, 128, 4, 2, 32, 16, [300], 0.0),
     ],
 )
 def test_quantized_pool_kernels_match_plain(cuda, kv, dtype, B, S, H, Kv, h, page, lens,
@@ -329,10 +331,12 @@ def test_quantized_pool_smem_fits(cuda):
     from kubeai_tpu_torch.ops import _build
     from kubeai_tpu_torch.ops.paged_decode_attention import _MAX_SMEM, _SIG
 
-    lib = _build.load("paged_decode_attention", _SIG)
+    from kubeai_tpu_torch.ops.paged_attention import library
+
     for code in (_build.POOL_SAME, _build.POOL_INT8, _build.POOL_FP8):
         for R in (16, 32, 64):
-            for h in (32, 64, 128) if code == _build.POOL_SAME else (64, 128):
+            for h in (32, 64, 128):
+                lib = _build.load(library("paged_decode_attention", h, code), _SIG)
                 assert 0 < lib.paged_decode_smem_bytes(R, h, 64, 1, code) <= _MAX_SMEM
 
 
@@ -394,12 +398,52 @@ def test_tiny_engine_on_the_card_matches_cpu(cuda, decode_kernel):
     assert (used["paged_decode_attention"] > 0) == (decode_kernel == "dedicated")
 
 
-def _w8a16_case(cuda, M, K, N, layout, seed=5, lead=()):
-    """bf16 x [M, K] and an int8 weight quantized from N(0, 1/K) draws:
-    [K, N] per output column (layout 0, qdot) or [N, K] per row (layout
-    1, qmatT); the float32 plain product on the same int8 values."""
+@pytest.mark.gpu
+@pytest.mark.parametrize("decode_kernel", ["ragged", "dedicated"])
+def test_tiny_int8_fp8_engine_on_the_card_matches_cpu(cuda, decode_kernel):
+    """test:tiny with int8 weights over an fp8 pool, as the server's
+    command line builds it (--quantization int8 --kv-cache-dtype fp8): the
+    W8A16 kernels' float32 instance and the paged kernels' head-dim-32
+    one-byte instances on the card give the CPU engine's greedy tokens on
+    the same int8 weights, up to the first near-tie."""
+    from kubeai_tpu_torch.engine.core import Engine
+    from kubeai_tpu_torch.engine.server import build_engine_from_args, make_arg_parser
+
+    args = make_arg_parser().parse_args([
+        "--model", "test:tiny", "--quantization", "int8", "--kv-cache-dtype", "fp8",
+        "--decode-kernel", decode_kernel, "--max-slots", "4", "--max-seq-len", "512"])
+    card, _ = build_engine_from_args(args)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    cpu = Engine(card.model_config, to_cpu(card.params), card.tokenizer, card.cfg,
+                 device="cpu")
+    assert card.cache["kv"].dtype == torch.float8_e4m3fn and card.cache["kv"].shape[-1] == 32
+    for fn in (qdot, paged_attention_ragged, paged_decode_attention):
+        fn.launches = 0
+    cpu.start()
+    card.start()
+    try:
+        for prompt in ([256] + list(b"short prompt"),
+                       [256] + [(i * 7) % 250 + 1 for i in range(100)]):
+            want, gaps = _greedy(cpu, prompt, 12)
+            got, _ = _greedy(card, prompt, 12)
+            upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(want))
+            assert got[:upto] == want[:upto]
+    finally:
+        cpu.stop()
+        card.stop()
+    assert qdot.launches > 0 and paged_attention_ragged.launches > 0
+    assert (paged_decode_attention.launches > 0) == (decode_kernel == "dedicated")
+
+
+def _w8a16_case(cuda, M, K, N, layout, seed=5, lead=(), dtype=torch.bfloat16):
+    """x [M, K] (bf16 unless *dtype*) and an int8 weight quantized from
+    N(0, 1/K) draws: [K, N] per output column (layout 0, qdot) or [N, K]
+    per row (layout 1, qmatT)."""
     g = torch.Generator(device=cuda).manual_seed(seed)
-    x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
     if layout == 0:
         w = quantize(torch.randn(lead + (K, N), generator=g, device=cuda) * K**-0.5)
     else:
@@ -414,12 +458,14 @@ def _w8a16_want(x, q, s, layout):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", [0, 1], ids=["qdot", "qmatT"])
-@pytest.mark.parametrize("M", [1, 7, 8, 64, 65, 1024])
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 32, 64, 65, 128, 1024])
 @pytest.mark.parametrize("K,N", [(4096, 1024), (14336, 4096), (4104, 1000)])
 def test_w8a16_kernel_matches_plain(cuda, layout, M, K, N):
-    """Both weight layouts at decode (split-K), verify and prefill rows;
-    K = 4104 and N = 1000 are off the 64 / 128 tiles and off the 16-byte
-    grid (the 4-byte copy path)."""
+    """Both weight layouts in both regimes: decode (M <= 16, mma.sync,
+    split-K) and verify / prefill (the wgmma tile: 64 rows with split-K
+    up to M = 64, 128 rows above). K = 4104 and N = 1000 are off the 64 /
+    128 tiles and, for layout 0, off TMA's 16-byte grid (the mma.sync
+    kernel's 4-byte copy path at every M)."""
     x, w = _w8a16_case(cuda, M, K, N, layout)
     before = qdot.launches
     got = (qdot if layout == 0 else qmatT)(x, w)
@@ -445,10 +491,61 @@ def test_w8a16_stacked_layer_slice(cuda, M):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 64, 1024])
+@pytest.mark.parametrize("shapes", [((4096, 4096), (4096, 1024), (4096, 1024)),
+                                    ((4096, 14336), (4096, 14336)),
+                                    ((4104, 1000), (4104, 1000))], ids=["qkv", "gate_up", "ragged"])
+def test_w8a16_grouped_launch_is_bit_identical(cuda, M, shapes):
+    """qdot_many: one launch for the weights that share x, each output
+    equal byte for byte to its own qdot (same tiles, same split order),
+    and within the tolerance of float32 math."""
+    x, _ = _w8a16_case(cuda, M, shapes[0][0], 8, 0)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    ws = [quantize(torch.randn((K, N), generator=g, device=cuda) * K**-0.5) for K, N in shapes]
+    before = qdot.launches
+    got = qdot_many(x, ws)
+    torch.cuda.synchronize()
+    assert qdot.launches == before + 1
+    for y, w in zip(got, ws):
+        assert torch.equal(y, qdot(x, w))
+        _assert_close(y, _w8a16_want(x, w["int8_q"], w["int8_s"], 0), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [0, 1], ids=["qdot", "qmatT"])
+@pytest.mark.parametrize("M", [8, 64, 1024])
+def test_w8a16_is_deterministic(cuda, layout, M):
+    """Two launches on the same inputs give equal bytes: the split-K sum
+    runs in split order whichever block arrives last."""
+    x, w = _w8a16_case(cuda, M, 4096, 1024, layout)
+    fn = qdot if layout == 0 else qmatT
+    first = fn(x, w)
+    for _ in range(3):
+        assert torch.equal(fn(x, w), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [0, 1], ids=["qdot", "qmatT"])
+@pytest.mark.parametrize("M", [1, 8, 65, 1024])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4104, 1000), (128, 272)])
+def test_w8a16_float32_activations(cuda, layout, M, K, N):
+    """The float32 instance (the JAX package's float32 test configuration:
+    qdot in x's dtype): float32 x and y, FFMA sums, against float32 math
+    on the same int8 values within the float32 kernels' tolerance (1e-4;
+    summation order alone, ~1e-6 relative at these sizes)."""
+    x, w = _w8a16_case(cuda, M, K, N, layout, dtype=torch.float32)
+    before = qdot.launches
+    got = (qdot if layout == 0 else qmatT)(x, w)
+    torch.cuda.synchronize()
+    assert qdot.launches == before + 1 and got.dtype == torch.float32
+    _assert_close(got, _w8a16_want(x, w["int8_q"], w["int8_s"], layout), torch.float32)
+
+
+@pytest.mark.gpu
 def test_w8a16_refuses_bad_inputs(cuda):
     x, w = _w8a16_case(cuda, 8, 256, 128, 0)
-    with pytest.raises(ValueError, match="bfloat16"):
-        qdot(x.float(), w)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        qdot(x.half(), w)
     buf = torch.zeros(256 * 128 + 1, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         qdot(x, {"int8_q": buf[1:].view(256, 128), "int8_s": w["int8_s"]})

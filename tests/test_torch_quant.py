@@ -8,9 +8,15 @@ test_torch_gpu.py):
   host path) and on jax arrays;
 - qdot / qmatT / qgather: within 1e-5 in float32 and within one bf16
   rounding in bf16, stacked per-layer scales included;
+- qdot_many (the grouped projections wq|wk|wv, wg|wu): each output of
+  its plain version against the JAX qdot of that weight;
+- the kernels' regime and split plan at the main path's shapes;
 - the model: llama.apply on params_from_jax(quantize_model_params(...))
   within 1e-4 of the JAX apply on the same int8 tree, untied and tied
-  (qmatT), cache-less and through the paged prefill and decode steps."""
+  (qmatT), cache-less and through the paged prefill and decode steps;
+- test:tiny with int8 weights over an fp8 pool (the server's
+  --quantization int8 --kv-cache-dtype fp8): greedy tokens equal to the
+  JAX engine's on the same weights."""
 
 import dataclasses
 
@@ -124,6 +130,64 @@ def test_qdot_matches_jax(dtype, M, K, N, stacked):
     # Unquantized weights take the plain product.
     jwp, twp = _as(w, dtype)
     _close(tq.qdot(tx, twp), jq.qdot(jx, jwp), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qdot_many_matches_jax(dtype):
+    """The grouped launch's plain version: one output per weight, each the
+    JAX qdot of x with that weight (quantized, and plain weights)."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    ws = [_weights((64, n), seed) for seed, n in ((22, 96), (23, 32), (24, 32))]
+    jx, tx = _as(x, dtype)
+    jws, tws = [jq.quantize(w) for w in ws], [tq.quantize(torch.from_numpy(w)) for w in ws]
+    got = tq.qdot_many(tx, tws)
+    assert len(got) == 3
+    for g, jw in zip(got, jws):
+        assert g.dtype == tx.dtype and g.shape == (2, 5, jw[jq.QKEY].shape[1])
+        _close(g, jq.qdot(jx, jw), dtype)
+    plain = [_as(w, dtype) for w in ws]
+    for g, (jw, tw) in zip(tq.qdot_many(tx, [tw for _, tw in plain]), plain):
+        _close(g, jq.qdot(jx, jw), dtype)
+
+
+# Llama-3.1-8B's weights (K, N): wq / wo, wk / wv, wg / wu, wd, the head.
+MAIN_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256))
+
+
+def test_regime_and_split_plan_on_the_main_path():
+    """The kernel each main-path launch takes on a 132-SM H100, and its
+    split plan: decode (M = 8) streams on mma.sync with split-K filling
+    two blocks per SM where K allows; verify (M = 64) takes the 64-row
+    wgmma tile, split-K held to K / (16 M) pieces so the f32 partials
+    stay within a quarter of the weight's bytes; prefill (M = 1024) the
+    128-row wgmma tile, unsplit. Float32 x takes FFMA, and weights off
+    TMA's grid the mma.sync kernel at every M."""
+    assert tq.regime(1, True) == tq.regime(16, True) == (tq.MMA, 16, 128)
+    assert tq.regime(17, True) == tq.regime(64, True) == (tq.WGMMA, 64, tq.WGMMA_SMALL_BN)
+    # 128 x 256 tiles unless the narrowest weight would leave half the SMs idle.
+    assert tq.regime(65, True) == tq.regime(1024, True) == (tq.WGMMA, 128, 256)
+    assert tq.regime(1024, True, n_cols=4096) == (tq.WGMMA, 128, 256)
+    assert tq.regime(1024, True, n_cols=1024) == (tq.WGMMA, 128, 128)
+    assert tq.regime(32, False) == (tq.MMA, 32, 128) and tq.regime(40, False) == (tq.MMA, 64, 128)
+    assert tq.regime(1024, False) == (tq.MMA, 64, 128)
+    assert tq.regime(8, True, f32=True) == tq.regime(1024, True, f32=True) == (tq.FFMA, 64, 64)
+    for K, N in MAIN_SHAPES:
+        splits, k_split = tq._plan(8, N, K, True, False, 132)[3:]
+        blocks = -(-N // 128) * splits
+        assert blocks >= 132 or k_split == 4 * tq.BK or splits == 1
+        splits64 = tq._plan(64, N, K, True, False, 132)[3]
+        assert splits64 <= max(1, K // (16 * 64))
+        assert tq._plan(1024, N, K, True, False, 132)[3] == 1
+    # wk / wv at decode: 8 column blocks, 16 splits of 256; at 16 rows 8
+    # (64 KB of partials per tile); at verify 4.
+    assert tq._plan(8, 1024, 4096, True, False, 132) == (tq.MMA, 16, 128, 16, 256)
+    assert tq._plan(16, 1024, 4096, True, False, 132)[3] == 8
+    assert tq._plan(64, 1024, 4096, True, False, 132)[3:] == (4, 1024)
+    # The qkv group at a prefill chunk takes wk's 128-column tile for all three.
+    assert tq._plan(1024, 4096, 4096, True, False, 132, 1024)[:3] == (tq.WGMMA, 128, 128)
+    # The head: 1002 column blocks fill the card unsplit.
+    assert tq._plan(8, 128256, 4096, True, False, 132)[3] == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -241,3 +305,57 @@ def test_quantize_model_params_matches_jax():
         for key in (tq.QKEY, tq.SKEY):
             assert np.array_equal(got[name][key].numpy(), want[name][key])
     assert got["layers"]["ln1"].dtype == torch.bfloat16  # norms stay full precision
+
+
+def _greedy(engine, prompt, sp_cls, n=12):
+    req = engine.submit(prompt, sp_cls(temperature=0.0, max_tokens=n))
+    toks = []
+    while True:
+        ev = req.out.get(timeout=120)
+        if ev[0] == "token" and ev[1] >= 0:
+            toks.append(ev[1])
+        elif ev[0] == "done":
+            return toks
+        elif ev[0] == "error":
+            raise RuntimeError(ev[1])
+
+
+def test_tiny_int8_fp8_engine_matches_jax_engine():
+    """test:tiny as `--quantization int8 --kv-cache-dtype fp8` builds it on
+    the CPU (build_test_engine quantizes the JAX engine's float32 weights,
+    handed over by params_from_jax) serves the greedy tokens of the JAX
+    engine over the JAX-quantized weights and an fp8 pool (float32
+    products: qdot in x's dtype)."""
+    from kubeai_tpu.engine import core as jcore
+    from kubeai_tpu.engine.tokenizer import ByteTokenizer as JTok
+    from kubeai_tpu_torch.engine import core as tcore
+    from kubeai_tpu_torch.engine.sampling import SamplingParams as TSP
+    from kubeai_tpu_torch.engine.server import build_engine_from_args, make_arg_parser
+    from kubeai_tpu.engine.sampling import SamplingParams as JSP
+
+    ec = dict(max_slots=2, max_seq_len=256, prefill_buckets=(16, 32, 64), kv_cache_dtype="fp8")
+    jf = jcore.build_test_engine(engine_config=jcore.EngineConfig(**ec), seed=0)
+    jmc = jf.model_config
+    je = jcore.Engine(jmc, j_quantize_model_params(jf.params, jmc), JTok(),
+                      jcore.EngineConfig(**ec))
+    mc = TMC(**{f.name: getattr(jmc, f.name) for f in dataclasses.fields(TMC)})
+    tp = params_from_jax(jax.tree.map(np.asarray, jf.params), mc, "cpu")
+    te = tcore.build_test_engine(tcore.EngineConfig(**ec), device="cpu", params=tp,
+                                 model_config=mc.replace(kv_cache_dtype=""),
+                                 quantization="int8")
+    assert tq.is_quantized(te.params["layers"]["wq"]) and te.cache["kv"].dtype == torch.float8_e4m3fn
+    # The server's command line builds the same configuration.
+    cli, _ = build_engine_from_args(make_arg_parser().parse_args(
+        ["--model", "test:tiny", "--quantization", "int8", "--kv-cache-dtype", "fp8",
+         "--device", "cpu"]))
+    assert tq.is_quantized(cli.params["lm_head"]) and cli.cache["kv"].dtype == torch.float8_e4m3fn
+    assert cli.model_config.replace(kv_cache_dtype="") == mc.replace(kv_cache_dtype="")
+    je.start()
+    te.start()
+    try:
+        for prompt in ([256] + list(b"hello int8 world"),
+                       [256] + [(i * 11) % 250 + 1 for i in range(100)]):
+            assert _greedy(te, prompt, TSP) == _greedy(je, prompt, JSP)
+    finally:
+        je.stop()
+        te.stop()
