@@ -22,7 +22,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      every SM. The paged kernels again over fp8 and int8 pools (one byte
      per element) in every regime: split-KV decode at 4, 32 and 64 rows,
      the TMA prefill tile, the CUDA-core tile, float32, and at head dim
-     32; the plain version dequantizes to float32. The W8A16 kernels at
+     32; the plain version dequantizes to float32. Speculative verify
+     steps: the ragged kernel at S = 5, 8, 12, 16 (20 to 64 rows on its
+     split-KV tile; at 64 rows its prefill tile timed beside it) at kv
+     512 and 2048 over bf16, fp8 and int8 pools and at head dim 32, the
+     dedicated kernel at S = 8, 9, 16, 17 and at 128 rows (row groups). The W8A16 kernels at
      8, 16, 32, 64 and 1024 rows through each projection (both regimes),
      the heads, the grouped qkv and gate/up launches (equal byte for byte
      to separate ones) and the float32 instance; two launches must agree
@@ -31,8 +35,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      plain path on the same weights (bf16: gather attention; int8: also
      the W8A16 product in float32 math; an fp8 pool: the same gates with
      each attention kernel's plain version), for cold prefill (flash and
-     ragged buckets), a chunked prefill, decode steps and 8-token
-     speculative verify steps under both decode kernels;
+     ragged buckets), a chunked prefill, decode steps and 8- and
+     17-token speculative verify steps under both decode kernels;
   4. serving: the port's OpenAI server over Llama-3.1-8B (32 layers,
      random bf16 weights from a seed) answers completions, chat, a
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
@@ -40,7 +44,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      ragged decode kernel, with the dedicated one, and over the same
      weights quantized to int8 (ragged), over an fp8 KV pool (ragged),
      and over an int8 KV pool with int8 weights (dedicated; the pool's
-     scales from one bf16 prefill's K/V absmax), each run with the launch
+     scales from one bf16 prefill's K/V absmax), and with
+     --speculate-tokens 7 on each decode kernel (drafted and accepted
+     drafts; greedy tokens equal to the same engine's at G = 0 up to a
+     near-tie within 2 bf16 ulps of the logits), each run with the launch
      counters zeroed before it. Every kernel of a run's path must launch
      there, a whole number of times per model step, the paged kernels on
      the run's pool dtype alone; a quantized pool has half the bf16
@@ -50,9 +57,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      8B width written by the port's save_hf_checkpoint is served through
      --model <dir> --quantization int8, and its int8 leaves must equal
      quantize_model_params of the written weights. Last, the JAX
-     package's float32 test config, --model test:tiny --quantization int8
-     --kv-cache-dtype fp8, serves through the server's command line, its
-     greedy tokens equal to the same engine's on the CPU.
+     package's float32 test config serves through the server's command
+     line with --quantization int8 --kv-cache-dtype fp8 and then with
+     --speculate-tokens 3, its greedy tokens equal to the same engine's on
+     the CPU.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path) and {"ok": true, ...}.
 """
@@ -60,7 +68,9 @@ the run of its own path, and per path) and {"ok": true, ...}.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -416,6 +426,7 @@ def phase_kernels() -> dict:
     for kv in ("fp8", "int8"):
         _quant_pool_cases(record, kv)
         _quant_pool_cases(record, kv, QUANT_CASES_H32, H32_SHAPE, " h32")
+    _verify_cases(record)
     _w8a16_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
@@ -522,6 +533,83 @@ def _quant_pool_cases(record, kv, cases=QUANT_CASES, shape=(8, 128, 64), tag="")
             record(f"{name}[{kv} pool{tag}]", f"{kv} pool {case}", err, ms, plain_ms, nbytes,
                    flops, lib_ms, headline, cold, read_ms, "f32" if qdt == "f32" else "bf16")
         del q, pool, table, lens, want
+    torch.cuda.empty_cache()
+
+
+# Speculative verify steps (S = G+1 queries per slot) at Llama-3.1-8B's
+# widths, B=8: the ragged kernel at 20 to 64 rows per KV head (S = 5, 8,
+# 12, 16 at G = 4: its split-KV body below 64 rows, its prefill tile at
+# 64; kv 512 and 2048; bf16, fp8 and int8 pools), S = 8 at head dim 32 (32 rows: the q8d32 libraries for one-byte
+# pools), and the dedicated kernel past auto's 8 queries and past 64 rows
+# (row groups). The headline of each entry is S = 8 at kv 512, the
+# --speculate-tokens 7 serving runs' shape.
+VERIFY_S = (5, 8, 12, 16)
+VERIFY_DEDICATED = ((9, 32), (16, 32), (17, 32), (16, 64))  # (S, H) at kv 512
+
+
+def _verify_cases(record) -> None:
+    """The verify cases, each against the plain version (float32 q, the
+    pool in float32 or dequantized to it), timed cold-L2 beside the plain
+    version, gather (+ dequantize) + SDPA and a cold read of the bytes.
+    Each records the ragged kernel's tile (ragged_regime) or the dedicated
+    kernel's row groups; at 64 rows the ragged kernel's split-KV body is
+    timed beside the prefill tile that it runs there (split_kv_ms)."""
+    import torch
+
+    from kubeai_tpu_torch.ops import paged_attention as pa
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention, row_groups
+
+    def run(name, fn, case, B, S, H, Kv, h, page, lens, kv, headline, launch=None):
+        if kv is None:
+            q, pool, table, lens_t = _paged_case(B, S, lens, H=H, Kv=Kv, h=h, page=page, seed=S)
+            ks = vs = None
+            want = pa.paged_attention_plain(q.float(), pool.float(), table, lens_t)
+        else:
+            q, pool, table, lens_t, ks, vs = _quant_case(B, S, lens, kv, H=H, Kv=Kv, h=h,
+                                                          page=page, seed=S)
+            want = pa.paged_attention_plain(q.float(), pool, table, lens_t, None, 0.0, ks, vs)
+        kw = {} if kv is None else {"k_scale": ks, "v_scale": vs}
+        got = fn(q, pool, table, lens_t, **kw)
+        torch.cuda.synchronize()
+        err = compare(got, want, f"{name} {case}")
+        nbytes, flops = _paged_cost(B, S, lens, H, Kv, h, page, 2, 1 if kv else 2)
+        ms = timed_ms(lambda: fn(q, pool, table, lens_t, **kw), cold_l2=True)
+        plain_ms = timed_ms(lambda: pa.paged_attention_plain(q, pool, table, lens_t, None, 0.0,
+                                                             ks, vs), iters=5, cold_l2=True)
+        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens_t, ks, vs), iters=5,
+                          cold_l2=True)
+        buf = torch.zeros(nbytes // 4, device="cuda")
+        read_ms = timed_ms(lambda: buf.sum(), cold_l2=True)
+        del buf
+        R = S * (H // Kv)
+        if fn is paged_decode_attention:
+            extra = {"rows": R, "row_groups": row_groups(R)[0]}
+        else:
+            extra = {"rows": R, "tile": pa.ragged_regime(q, pool)}
+            if R == 64:  # the split-KV body (four row tiles) beside the prefill tile
+                scale = h**-0.5
+                sk = pa._launch_ragged(q, pool, table, lens_t, scale, 0.0, split_kv=True, **kw)
+                torch.cuda.synchronize()
+                compare(sk, want, f"{name} {case} split-KV body")
+                extra["split_kv_ms"] = timed_ms(lambda: pa._launch_ragged(
+                    q, pool, table, lens_t, scale, 0.0, split_kv=True, **kw), cold_l2=True)
+        record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms, headline, True, read_ms,
+               extra=extra)
+        del q, pool, table, lens_t, want, got
+
+    for kv in (None, "fp8", "int8"):
+        tag = "" if kv is None else f" {kv} pool"
+        name = f"paged_attention[verify{tag}]"
+        for S in VERIFY_S:
+            for L in (512, 2048):
+                run(name, pa.paged_attention_ragged, f"verify{tag} B=8 S={S} kv_len={L}",
+                    8, S, 32, 8, 128, 64, [L] * 8, kv, S == 8 and L == 512)
+        run(name, pa.paged_attention_ragged, f"verify{tag} h=32 B=8 S=8 kv_len=512",
+            8, 8, 32, 8, 32, 64, [512] * 8, kv, False)
+    for S, H in ((8, 32),) + VERIFY_DEDICATED:
+        run("paged_decode_attention[verify]", paged_decode_attention,
+            f"verify B=8 S={S} H={H} kv_len=512", 8, S, H, 8, 128, 64, [512] * 8, None,
+            (S, H) == (8, 32))
     torch.cuda.empty_cache()
 
 
@@ -825,12 +913,15 @@ def _parity(params, mc, label, plain_ctx, plain_gates=False) -> None:
     for dk in ("ragged", "dedicated"):
         both(f"decode step ({dk})", lambda cfg, pool: llama.decode_step_paged(
             params, cfg, d, {"kv": pool["kv"].clone()}, table, lengths, decode_kernel=dk)[0])
-    # Speculative verify: 8 candidate tokens per slot (S = G+1 = 8), the
-    # dedicated kernel's largest query block.
-    spec = toks(8)
-    for dk in ("ragged", "dedicated"):
-        both(f"verify step S=8 ({dk})", lambda cfg, pool: llama.decode_speculative_paged(
-            params, cfg, spec, {"kv": pool["kv"].clone()}, table, lengths, decode_kernel=dk)[0])
+    # Speculative verify: 8 candidate tokens per slot (S = G+1 = 8: the
+    # ragged kernel's split-KV tile at 32 rows), and 17 (68 rows: its
+    # prefill tile, and the dedicated kernel's two row groups).
+    for S in (8, 17):
+        spec = toks(S)
+        for dk in ("ragged", "dedicated"):
+            both(f"verify step S={S} ({dk})", lambda cfg, pool: llama.decode_speculative_paged(
+                params, cfg, spec, {"kv": pool["kv"].clone()}, table, lengths,
+                decode_kernel=dk)[0])
     del pools
     torch.cuda.empty_cache()
 
@@ -934,6 +1025,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         fn.launches = 0
     for fn in (paged_attention_ragged, paged_decode_attention):
         fn.launches_by_pool.clear()
+    paged_attention_ragged.launches_by_regime.clear()
     try:
         t = _post(p, "/v1/completions", {"prompt": "Hello", "max_tokens": 8, "temperature": 0})
         _check_completion(t, "short")
@@ -989,6 +1081,8 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         launches = {fn.__name__: fn.launches for fn in counters}
         by_pool = {fn.__name__: dict(fn.launches_by_pool)
                    for fn in (paged_attention_ragged, paged_decode_attention)}
+        by_regime = dict(paged_attention_ragged.launches_by_regime)
+        spec = _spec_parity(eng, run) if eng.cfg.speculate_tokens else None
     finally:
         srv.stop()
     # The paged kernels read the run's pool alone (one-byte pages in a
@@ -1017,6 +1111,12 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     if launches["qdot_many"] * per_step != launches["qdot"] * 2 * layers:
         raise AssertionError(f"{run} run: grouped W8A16 launches {launches['qdot_many']} are "
                              f"not 2 per layer of each step")
+    # A speculative run's decode steps are all verify steps (S = G+1): on
+    # the ragged kernel they take its split-KV tile, which no prefill of
+    # the run takes.
+    if spec and decode_kernel == "ragged" and (
+            by_regime.get("split_kv", 0) == 0 or by_regime["split_kv"] % layers):
+        raise AssertionError(f"{run} run: verify steps not on the split-KV tile: {by_regime}")
     # TTFT and decode tok/s of the streamed request (one of 8 running
     # together: its inter-token time is one decode step of the batch),
     # and the 7 others' tokens over the batch's wall time (prefills
@@ -1027,14 +1127,91 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         "concurrent_tok_s": tokens / wall,
         "launches": launches,
         "launches_by_pool": by_pool,
+        "launches_by_regime": by_regime,
         "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
         "steps": {n: c // {"qdot": per_step, "qdot_many": 2 * layers}.get(n, layers)
                   for n, c in launches.items()},
     }
+    if spec:
+        stats["speculative"] = spec
     log(f"serving[{run}]", json.dumps(stats))
+    # The server and its handler class form a cycle: collect it, or a run
+    # that built its own weights keeps them on the card.
     del eng, srv
+    gc.collect()
     torch.cuda.empty_cache()
     return stats
+
+
+# Greedy prompts of the speculative runs' parity check: text, and a
+# repeating pattern whose continuation the n-gram drafter can find.
+SPEC_PROMPTS = ("The quick brown fox jumps over the lazy dog. The quick brown fox",
+                "one two three four one two three four one two three four one",
+                "Request number 3: tell a story about the sea.")
+
+
+def _spec_parity(eng, run) -> dict:
+    """A speculative engine's greedy tokens against the same engine's
+    config at G = 0 on the same weights (SPEC_PROMPTS, 48 tokens each),
+    and the drafted and accepted drafts of the whole serving run. Where
+    the two first differ, the G = 0 run's top-2 logit gap there must be
+    within 2 bf16 ulps of its largest logit (a near-tie that the verify
+    step's other summation order may break the other way)."""
+    import dataclasses
+
+    from kubeai_tpu_torch.engine.core import Engine
+
+    G = eng.cfg.speculate_tokens
+    base = Engine(eng.model_config, eng.params, eng.tokenizer,
+                  dataclasses.replace(eng.cfg, speculate_tokens=0), device="cuda")
+    base.start()
+    compared, diverged = 0, []
+    try:
+        for text in SPEC_PROMPTS:
+            ids = eng.tokenizer.encode(text)
+            want, gaps = _greedy(base, ids, 48)
+            got, _ = _greedy(eng, ids, 48)
+            i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+            if i is None:
+                compared += len(want)
+                continue
+            ulp = _logit_ulp(eng.params, eng.model_config, ids + want[:i])
+            diverged.append({"prompt": text, "at": i, "gap": gaps[i], "ulp": ulp})
+            if gaps[i] > 2 * ulp:
+                raise AssertionError(f"{run}: greedy token {i} differs from G=0's ({got[i]} vs "
+                                     f"{want[i]}) at a top-2 gap of {gaps[i]} > 2 ulps ({ulp})")
+            compared += i
+    finally:
+        base.stop()
+    del base
+    steps = eng.spec_drafted // G
+    out = {"G": G, "drafted": eng.spec_drafted, "accepted": eng.spec_accepted,
+           "greedy_verify_steps": steps,
+           "tokens_per_greedy_step": (steps + eng.spec_accepted) / steps if steps else None,
+           "greedy_tokens_compared": compared, "diverged_at_near_ties": diverged}
+    log(f"speculative[{run}]", json.dumps(out))
+    return out
+
+
+def _logit_ulp(params, mc, ids) -> float:
+    """One bf16 ulp of the largest valid logit after *ids* (one cold
+    prefill of them through the model)."""
+    import torch
+
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models import llama
+
+    page = 64
+    mp = -(-len(ids) // page)
+    pool = llama.init_paged_cache(mc, 1 + mp, page, "cuda")
+    table = torch.arange(1, 1 + mp, dtype=torch.int32, device="cuda")[None]
+    toks = torch.zeros((1, mp * page), dtype=torch.int64, device="cuda")
+    toks[0, : len(ids)] = torch.tensor(ids, device="cuda")
+    logits, _ = llama.prefill_paged_cold(params, mc, toks, pool, table,
+                                         torch.tensor([len(ids)], device="cuda"))
+    top = logits[0, -1, : ByteTokenizer.vocab_size].abs().max().item()
+    del pool
+    return 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
 def _step_profile(params, qparams) -> None:
@@ -1182,19 +1359,29 @@ def phase_serving() -> dict:
     out["int8_pool"] = _serve_once(qparams, "dedicated", int8=True, kv_cache_dtype="int8",
                                    model_config=llama_3_1_8b(kv_scale_k=sk, kv_scale_v=sv),
                                    run="int8_pool")
+    # Speculative decoding through the server's command line (its own
+    # seed-0 weights, the same as *params*): 7 drafts a step, verify steps
+    # of 8 tokens on each decode kernel.
+    for dk in ("ragged", "dedicated"):
+        out[f"spec_{dk}"] = _serve_once(None, dk, run=f"spec_{dk}", cli=[
+            "--model", "preset:llama-3.1-8b", "--speculate-tokens", "7", "--decode-kernel", dk,
+            "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"])
     bf16_bytes = out["ragged"]["pool"]["bytes"]
     for run in ("fp8_pool", "int8_pool"):
         if out[run]["pool"]["bytes"] * 2 != bf16_bytes:
             raise AssertionError(f"{run}: pool bytes {out[run]['pool']['bytes']} are not half "
                                  f"of bf16's {bf16_bytes}")
     log("serving_summary", gpu_line(), json.dumps(
-        {k: {m: v[m] for m in ("ttft_s", "stream_decode_tok_s", "concurrent_tok_s")}
+        {k: {m: v.get(m) for m in ("ttft_s", "stream_decode_tok_s", "concurrent_tok_s",
+                                   "speculative")}
          for k, v in out.items()}))
     _step_profile(params, qparams)
     del params, qparams
     torch.cuda.empty_cache()
     _serve_checkpoint()
-    out["tiny_int8_fp8"] = _serve_tiny()
+    out["tiny_int8_fp8"] = _serve_tiny("tiny_int8_fp8", ["--quantization", "int8",
+                                                         "--kv-cache-dtype", "fp8"])
+    out["tiny_spec"] = _serve_tiny("tiny_spec", ["--speculate-tokens", "3"])
     return out
 
 
@@ -1216,16 +1403,19 @@ def _greedy(engine, prompt, n):
             raise RuntimeError(ev[1])
 
 
-def _serve_tiny() -> dict:
-    """The JAX package's float32 test configuration with int8 weights over
-    an fp8 pool, as a user starts it (--model test:tiny --quantization int8
-    --kv-cache-dtype fp8: random weights from --seed, quantized on the
-    card): the server answers a completion, and the engine's greedy tokens
-    equal those of the same engine config and int8 weights on the CPU (the
-    plain versions) up to the first step whose top-2 logprobs are within
-    1e-4. The launch counters are zeroed before the card's run; the W8A16
-    kernels (float32 instance) and the ragged kernel (head-dim-32 fp8
-    instances) must launch there, a whole number of times per step."""
+def _serve_tiny(run: str, extra: list) -> dict:
+    """The JAX package's float32 test configuration as a user starts it
+    (--model test:tiny with *extra* flags; random weights from --seed):
+    with int8 weights over an fp8 pool (quantized on the card), or with
+    speculative decoding (--speculate-tokens 3: verify steps of 4
+    tokens). The server answers a completion, and the engine's greedy
+    tokens equal those of the same engine config and weights on the CPU
+    (the plain versions) up to the first step whose top-2 logprobs are
+    within 1e-4. The launch counters are zeroed before the card's run;
+    the ragged kernel (the head-dim-32 fp8 instances for an fp8 pool)
+    and, with int8 weights, the W8A16 kernels' float32 instance must
+    launch there, a whole number of times per step; a speculative run
+    must accept drafts."""
     import torch
 
     from kubeai_tpu_torch.engine.core import Engine
@@ -1240,7 +1430,7 @@ def _serve_tiny() -> dict:
     from kubeai_tpu_torch.ops.quant import qdot, qdot_many
 
     args = make_arg_parser().parse_args([
-        "--model", "test:tiny", "--quantization", "int8", "--kv-cache-dtype", "fp8",
+        "--model", "test:tiny", *extra,
         "--host", "127.0.0.1", "--port", "0", "--max-slots", "4", "--max-seq-len", "512"])
     card, name = build_engine_from_args(args)
 
@@ -1250,8 +1440,9 @@ def _serve_tiny() -> dict:
     cpu = Engine(card.model_config, to_cpu(card.params), card.tokenizer, card.cfg, device="cpu")
     pool = card.cache["kv"]
     pool_dtype = str(pool.dtype).removeprefix("torch.")
-    if pool.dtype != torch.float8_e4m3fn or pool.shape[-1] != 32:
-        raise AssertionError(f"tiny: pool {pool.dtype} {tuple(pool.shape)}")
+    want_pool = torch.float8_e4m3fn if args.kv_cache_dtype == "fp8" else torch.float32
+    if pool.dtype != want_pool or pool.shape[-1] != 32:
+        raise AssertionError(f"{run}: pool {pool.dtype} {tuple(pool.shape)}")
     counters = (flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many)
     for fn in counters:
         fn.launches = 0
@@ -1263,15 +1454,16 @@ def _serve_tiny() -> dict:
     compared = 0
     try:
         text = _check_completion(_post(srv.port, "/v1/completions", {
-            "prompt": "Hello", "max_tokens": 8, "temperature": 0}), "tiny")
+            "prompt": "Hello", "max_tokens": 8, "temperature": 0}), run)
         for prompt in ([256] + list(b"short prompt"),
+                       [256] + [1, 2, 3, 4] * 10,  # its greedy output accepts drafts
                        [256] + [(i * 7) % 250 + 1 for i in range(100)],
                        [256] + [(i * 11) % 250 + 1 for i in range(200)]):  # chunked
-            want, gaps = _greedy(cpu, prompt, 16)
-            got, _ = _greedy(card, prompt, 16)
+            want, gaps = _greedy(cpu, prompt, 48)
+            got, _ = _greedy(card, prompt, 48)
             upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(want))
             if got[:upto] != want[:upto]:
-                raise AssertionError(f"tiny: card tokens {got} differ from the CPU's {want} "
+                raise AssertionError(f"{run}: card tokens {got} differ from the CPU's {want} "
                                      f"(compared {upto})")
             compared += upto
         launches = {fn.__name__: fn.launches for fn in counters}
@@ -1281,15 +1473,21 @@ def _serve_tiny() -> dict:
         srv.stop()
         cpu.stop()
     layers = card.model_config.num_layers
-    if (launches["qdot"] == 0 or launches["qdot"] % (W8A16_PER_LAYER * layers + 1)
+    int8 = bool(args.quantization)
+    if ((launches["qdot"] > 0) != int8 or launches["qdot"] % (W8A16_PER_LAYER * layers + 1)
             or launches["paged_attention_ragged"] == 0
             or launches["paged_attention_ragged"] % layers
             or set(by_pool["paged_attention_ragged"]) != {pool_dtype}):
-        raise AssertionError(f"tiny: launches {launches} {by_pool}")
+        raise AssertionError(f"{run}: launches {launches} {by_pool}")
     stats = {"completion": text, "greedy_tokens_compared": compared, "launches": launches,
              "launches_by_pool": by_pool, "pool": {"dtype": pool_dtype, "bytes": pool.nbytes}}
-    log("serving[tiny_int8_fp8]", json.dumps(stats))
+    if card.cfg.speculate_tokens:
+        if card.spec_accepted == 0:
+            raise AssertionError(f"{run}: no draft accepted ({card.spec_drafted} drafted)")
+        stats["speculative"] = {"drafted": card.spec_drafted, "accepted": card.spec_accepted}
+    log(f"serving[{run}]", json.dumps(stats))
     del card, cpu, srv
+    gc.collect()
     torch.cuda.empty_cache()
     return stats
 
@@ -1377,10 +1575,13 @@ def _serve_checkpoint() -> None:
 
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
 # belongs to: the default ragged-decode path, --decode-kernel dedicated,
-# --quantization int8, --kv-cache-dtype fp8 (ragged), or --kv-cache-dtype
-# int8 with int8 weights and the dedicated kernel; the pool dtype whose
-# launches a paged kernel's entry counts). A "[... pool]" entry is its
-# kernel's one-byte-pool instances, with phase 2's numbers for that pool.
+# --quantization int8, --kv-cache-dtype fp8 (ragged), --kv-cache-dtype
+# int8 with int8 weights and the dedicated kernel, test:tiny, or
+# --speculate-tokens 7 on either decode kernel; the pool dtype whose
+# launches a paged kernel's entry counts; optionally the ragged kernel's
+# tile whose launches it counts instead). A "[... pool]" entry is its
+# kernel's one-byte-pool instances, with phase 2's numbers for that pool;
+# a "[verify]" entry the verify shapes, with phase 2's verify cases.
 SOURCES = {
     "flash_attention": ("kubeai_tpu_torch/csrc/flash_attention.cu",
                         "kubeai_tpu/ops/flash_attention.py:27", "flash_attention", "ragged",
@@ -1410,6 +1611,15 @@ SOURCES = {
                                       "kubeai_tpu/ops/paged_attention.py:31",
                                       "paged_attention_ragged", "tiny_int8_fp8",
                                       "float8_e4m3fn"),
+    # Speculative verify steps (--speculate-tokens 7: 8 queries a slot, 32
+    # rows per KV head): the ragged kernel's split-KV tile (its launches
+    # of that tile in the run) and the dedicated kernel.
+    "paged_attention[verify]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                "kubeai_tpu/ops/paged_attention.py:55", "paged_attention_ragged",
+                                "spec_ragged", "bfloat16", "split_kv"),
+    "paged_decode_attention[verify]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
+                                       "kubeai_tpu/ops/paged_decode_attention.py:66",
+                                       "paged_decode_attention", "spec_dedicated", "bfloat16"),
 }
 
 
@@ -1437,16 +1647,19 @@ def main() -> int:
     # `launches` is the count from the run of the kernel's own path (a
     # paged kernel's on its entry's pool dtype), and `launches_by_path`
     # keeps the runs apart.
-    def launched(run, wrapper, pool):
+    def launched(run, wrapper, pool, regime=None):
+        if regime:
+            return run.get("launches_by_regime", {}).get(regime, 0)
         return run["launches_by_pool"][wrapper].get(pool, 0) if pool else run["launches"][wrapper]
 
     summary = []
-    for name, (src, replaces, wrapper, path, pool) in SOURCES.items():
+    for name, (src, replaces, wrapper, path, pool, *regime) in SOURCES.items():
         r = kern[name]
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "path": path, "launches": launched(serving[path], wrapper, pool),
-            "launches_by_path": {p: launched(run, wrapper, pool) for p, run in serving.items()},
+            "path": path, "launches": launched(serving[path], wrapper, pool, *regime),
+            "launches_by_path": {p: launched(run, wrapper, pool, *regime)
+                                 for p, run in serving.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })

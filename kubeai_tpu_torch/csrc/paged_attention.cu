@@ -18,19 +18,25 @@
 //   [L*P*page, 2*Kv, D] per page (several boxes when pages are smaller
 //   than a tile), so the table is read once per box, not once per key.
 //
-// * Decode (S*G <= 16: one token per slot, or up to 4 at G = 4). Bound:
-//   memory, every valid K/V byte once (B=8, kv_len 512: ~16.8 MB per
-//   layer call, ~5 us at 3.35 TB/s). Split KV on the tensor cores
-//   (split_kv_decode.cuh, one m16 row tile; the dedicated decode kernel
-//   runs the same body with up to four): block (split, kv, b) streams its
-//   piece of the slot's keys with cp.async, products by mma.sync, and the
-//   last block of a (slot, KV head) merges the splits' partials in the
-//   same launch. The wrapper chooses n_splits so that the grid fills the
-//   card (ops/paged_attention.py::split_kv_plan).
+// * Decode and speculative verify (S*G < 64: one token per slot, or a
+//   verify step of S = G+1 <= 15 tokens at 4 query heads per KV head;
+//   from 64 rows the wrapper takes the prefill tile, which at 64 rows
+//   took under half this regime's time on the H100).
+//   Bound: memory, every valid K/V byte once (B=8, kv_len 512: ~16.8 MB
+//   per layer call, ~5 us at 3.35 TB/s). Split KV on the tensor cores
+//   (split_kv_decode.cuh, which the dedicated decode kernel runs too):
+//   one, two or four m16 row tiles by S*G, block (split, kv, b) streams
+//   its piece of the slot's keys with cp.async, products by mma.sync, and
+//   the last block of a (slot, KV head) merges the splits' partials in
+//   the same launch. The wrapper takes this regime by passing n_splits >
+//   0, chosen so that the grid fills the card
+//   (ops/paged_attention.py::split_kv_plan).
 //
-// float32, and bf16 with 16 < S*G < 64 rows (off the serving path), keep
-// the CUDA-core tile of attention_common.cuh: its card tests hold float32
-// to summation order alone, which the tensor cores' TF32 would break.
+// float32 keeps the CUDA-core tile of attention_common.cuh: its card
+// tests hold float32 to summation order alone, which the tensor cores'
+// TF32 would break. bf16 takes it only where neither Hopper path does
+// (more than 64 rows that the prefill tile cannot take: G not dividing
+// 64, or pages off TMA's grid).
 //
 // A quantized pool (one byte per element, int8 or fp8 e4m3, with the
 // static k_scale / v_scale the library kernel dequantizes with in VMEM)
@@ -178,18 +184,15 @@ static int launch_tc(const PagedArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// bf16 rows per (slot, KV head) that take the split-KV decode regime.
-constexpr int MMA_MAX_R = 16;
-
 template <typename T, typename KT, int D>
 static int launch(const PagedArgs& a, cudaStream_t stream) {
   const int G = a.H / a.Kv, R = a.S * G;
   if constexpr (sizeof(T) == 2) {
-    if (R <= MMA_MAX_R) {
+    if (a.n_splits > 0) {  // the split-KV regime: R <= 64, one group of rows
       const kdec::DecodeArgs d{a.q, a.pool, a.table, a.kv_lens, a.out, a.part_o, a.part_ml,
                                a.counters, a.B, a.S, a.H, a.Kv, a.page, a.max_pages,
-                               a.n_splits, a.scale, a.softcap, a.k_scale, a.v_scale};
-      return kdec::launch_decode_mma<D, 1, KT>(d, stream);
+                               a.n_splits, R, a.scale, a.softcap, a.k_scale, a.v_scale};
+      return kdec::launch_split_kv<D, KT>(d, stream);
     }
     // The TMA path takes pages of 8 rows or more that tile 64 keys evenly.
     const bool tma_pages =
@@ -201,12 +204,12 @@ static int launch(const PagedArgs& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same type
 // (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale; D: 32,
-// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build). P: pages in the pool. bf16
-// decode (S*G <= 16) cuts each slot's keys into n_splits (1..64) splits
-// and takes the wrapper's scratch: part_o [B*Kv*n_splits*S*G*D] f32,
-// part_ml [B*Kv*n_splits*S*G] float2, counters [B*Kv] int32 (zero, and
-// left zero).
-// Returns a cudaError_t (0 = launched).
+// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build). P: pages in the pool.
+// n_splits > 0 takes bf16's split-KV regime (S*G <= 64): each slot's keys
+// in n_splits (1..64) splits, with the wrapper's scratch: part_o
+// [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G] float2, counters
+// [B*Kv] int32 (zero, and left zero). n_splits = 0: the prefill tile or
+// the CUDA-core tile. Returns a cudaError_t (0 = launched).
 extern "C" int paged_attention_launch(const void* q, const void* pool, const void* table,
                                       const void* kv_lens, void* out, void* part_o,
                                       void* part_ml, void* counters, int B, int S, int H,
@@ -218,4 +221,15 @@ extern "C" int paged_attention_launch(const void* q, const void* pool, const voi
               (float2*)part_ml, (int*)counters, B, S, H, Kv, P, page, max_pages, n_splits,
               scale, softcap, k_scale, v_scale};
   KATTN_DISPATCH_KV(launch, dtype, kv_code, D, a, (cudaStream_t)stream);
+}
+
+template <typename T, typename KT, int D>
+static int split_smem(int R, int n_splits) {
+  return (int)kdec::split_kv_smem<D, KT>(R, n_splits);
+}
+
+// Shared-memory bytes of one block of the split-KV regime at R rows (the
+// wrapper refuses launches above the card's per-block limit).
+extern "C" int paged_attention_split_smem_bytes(int R, int D, int n_splits, int kv_code) {
+  KATTN_DISPATCH_KV(split_smem, 1, kv_code, D, R, n_splits);
 }

@@ -2,10 +2,11 @@
 // kubeai_tpu/ops/paged_decode_attention.py::_decode_kernel, launched by
 // _decode_kernel_call).
 //
-// The function: paged_attention.cu's restricted to S <= 8 queries per
-// slot (decode, or speculative verify at S = G+1): the R = S*G query rows
-// of a (slot, KV head), row r = s*G + g at position kv_len - S + s, attend
-// causally to the slot's keys through page_table[b] over the interleaved
+// The function: paged_attention.cu's for the few queries per slot of a
+// decode (S = 1) or speculative verify step (S = G+1, any G): the R = S*G
+// query rows of a (slot, KV head), row r = s*G + g at position
+// kv_len - S + s, attend causally to the slot's keys through
+// page_table[b] over the interleaved
 // pool [L*P, page, 2*Kv, D] (K at even heads, V at odd ones; the table
 // carries the layer offset; kv_len includes the S new tokens and is
 // clamped to the table span); softcap before the mask; f32 accumulation.
@@ -29,11 +30,14 @@
 // * rows: R <= 16, 32 or 64 take one, two or four m16 row tiles. Each
 //   warp holds one tile whatever the count (the warps of a key stream
 //   share its K/V slices and split the tiles), so every instance has the
-//   one-tile register budget and none spills.
+//   one-tile register budget and none spills. More rows (the Pallas
+//   kernel takes any S) are cut into groups of group_rows <= 64
+//   consecutive rows, each its own set of blocks in the same launch.
 //
 // float32 keeps the simple CUDA-core kernel below (one block per (KV head,
-// slot), f32 shared tiles): its card tests hold it to summation order
-// alone, which the tensor cores' reduced-precision products would break.
+// slot, row group), f32 shared tiles): its card tests hold it to
+// summation order alone, which the tensor cores' reduced-precision
+// products would break.
 //
 // A quantized pool (one byte per element, int8 or fp8 e4m3; the Pallas
 // kernel's k_scale / v_scale branch) is read at one byte per element by
@@ -47,7 +51,6 @@ using namespace kattn;
 
 constexpr int DNT = 128;  // threads per block of the float32 kernel
 constexpr int DKT = 64;   // keys per tile of the float32 kernel
-constexpr int MAX_ROWS = 64;  // bf16: four m16 row tiles
 
 template <int D>
 static size_t decode_smem_bytes(int R) {
@@ -61,11 +64,11 @@ __global__ void __launch_bounds__(DNT)
 paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
                     const int* __restrict__ table, const int* __restrict__ kv_lens,
                     T* __restrict__ out, int S, int H, int Kv, int page, int max_pages,
-                    float scale, float softcap, float out_scale) {
+                    int group_rows, float scale, float softcap, float out_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int KST = D + 1, VN = Vec<T>::N, NV = D / VN;
   const int kv = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int G = H / Kv, R = S * G;
+  const int G = H / Kv, r0 = blockIdx.z * group_rows, R = min(group_rows, S * G - r0);
   long long* koff = reinterpret_cast<long long*>(smem);
   float* Qs = reinterpret_cast<float*>(koff + DKT);  // [R][D], pre-scaled
   float* Ks = Qs + R * D;                            // [DKT][KST]
@@ -82,10 +85,10 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
   const KT* kb = pool + (size_t)2 * kv * D;
   const KT* vb = kb + D;
 
-  // Query row r = s*G + g is q[b, s, kv*G + g]: the G heads of one token
-  // are contiguous, so the rows of one s are one contiguous run.
+  // Query row r0 + r = s*G + g is q[b, s, kv*G + g]: the G heads of one
+  // token are contiguous, so the rows of one s are one contiguous run.
   for (int idx = tid; idx < R * NV; idx += DNT) {
-    const int r = idx / NV, d = (idx % NV) * VN, s = r / G, g = r - s * G;
+    const int r = idx / NV, d = (idx % NV) * VN, s = (r0 + r) / G, g = r0 + r - s * G;
     float t[VN];
     Vec<T>::load(q + ((size_t)(b * S + s) * H + kv * G + g) * D + d, t);
 #pragma unroll
@@ -124,10 +127,10 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
     }
     __syncthreads();
 
-    // Scores: query row r sits at kvl - S + r/G; key j at k0 + j.
+    // Scores: query row r sits at kvl - S + (r0 + r)/G; key j at k0 + j.
     for (int idx = tid; idx < R * DKT; idx += DNT) {
       const int r = idx / DKT, j = idx - r * DKT;
-      const int qpos = kvl - S + r / G, kpos = k0 + j;
+      const int qpos = kvl - S + (r0 + r) / G, kpos = k0 + j;
       float s = NEG_INF;
       if (j < nk && kpos <= qpos) {
         float a = 0.f;
@@ -174,7 +177,7 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
   }
 
   for (int idx = tid; idx < R * D; idx += DNT) {
-    const int r = idx / D, d = idx - r * D, s = r / G, g = r - s * G;
+    const int r = idx / D, d = idx - r * D, s = (r0 + r) / G, g = r0 + r - s * G;
     out[((size_t)(b * S + s) * H + kv * G + g) * D + d] =
         from_float<T>(acc[idx] / fmaxf(l_s[r], 1e-30f) * out_scale);
   }
@@ -182,62 +185,61 @@ paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ pool,
 
 template <typename T, typename KT, int D>
 static int launch(const kdec::DecodeArgs& a, cudaStream_t stream) {
-  const int R = a.S * (a.H / a.Kv);
   if constexpr (sizeof(T) == 2) {
-    if (R <= 16) return kdec::launch_decode_mma<D, 1, KT>(a, stream);
-    if (R <= 32) return kdec::launch_decode_mma<D, 2, KT>(a, stream);
-    if (R <= MAX_ROWS) return kdec::launch_decode_mma<D, 4, KT>(a, stream);
-    return (int)cudaErrorInvalidValue;
+    return kdec::launch_split_kv<D, KT>(a, stream);
   } else {
     // Once per instance, at the per-block limit: the wrapper refuses
     // shapes that need more.
     static const cudaError_t attr = cudaFuncSetAttribute(
         paged_decode_kernel<T, KT, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (attr != cudaSuccess) return (int)attr;
-    dim3 grid(a.Kv, a.B);
-    paged_decode_kernel<T, KT, D><<<grid, DNT, decode_smem_bytes<D>(R), stream>>>(
+    const int R = a.S * (a.H / a.Kv), RG = a.group_rows;
+    if (RG < 1) return (int)cudaErrorInvalidValue;
+    dim3 grid(a.Kv, a.B, (R + RG - 1) / RG);
+    paged_decode_kernel<T, KT, D><<<grid, DNT, decode_smem_bytes<D>(RG), stream>>>(
         (const T*)a.q, (const KT*)a.pool, a.table, a.kv_lens, (T*)a.out, a.S, a.H, a.Kv,
-        a.page, a.max_pages, a.scale * a.k_scale, a.softcap, a.v_scale);
+        a.page, a.max_pages, RG, a.scale * a.k_scale, a.softcap, a.v_scale);
     return (int)cudaGetLastError();
   }
 }
 
 template <typename T, typename KT, int D>
-static int smem_bytes(int R, int n_splits) {
-  if constexpr (sizeof(T) == 4) {
-    return (int)decode_smem_bytes<D>(R);
-  } else {
-    if (R <= 16) return (int)kdec::DecMma<D, 1, KT>::smem(R, n_splits);
-    if (R <= 32) return (int)kdec::DecMma<D, 2, KT>::smem(R, n_splits);
-    return (int)kdec::DecMma<D, 4, KT>::smem(R, n_splits);
-  }
+static int smem_bytes(int group_rows, int n_splits) {
+  if constexpr (sizeof(T) == 4)
+    return (int)decode_smem_bytes<D>(group_rows);
+  else
+    return (int)kdec::split_kv_smem<D, KT>(group_rows, n_splits);
 }
 
-// Shared-memory bytes of a launch with R = S*G query rows over a pool of
-// element code kv_code (the wrapper refuses shapes above the card's
-// per-block limit, and bf16 R above 64).
-extern "C" int paged_decode_smem_bytes(int R, int D, int n_splits, int dtype, int kv_code) {
-  KATTN_DISPATCH_KV(smem_bytes, dtype, kv_code, D, R, n_splits);
+// Shared-memory bytes of one block of a launch with group_rows query rows
+// per block over a pool of element code kv_code (the wrapper refuses
+// shapes above the card's per-block limit).
+extern "C" int paged_decode_smem_bytes(int group_rows, int D, int n_splits, int dtype,
+                                       int kv_code) {
+  KATTN_DISPATCH_KV(smem_bytes, dtype, kv_code, D, group_rows, n_splits);
 }
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same
 // type (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale;
 // D: 32, 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build).
-// bf16 cuts each slot's keys into n_splits (1..64) splits and takes the
-// wrapper's scratch:
-// part_o [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G] float2,
-// counters [B*Kv] int32 (zero, and left zero; the ragged kernel's decode
-// regime shares them). Returns a cudaError_t (0 = launched).
+// The R = S*G rows of a (slot, KV head) go in groups of group_rows
+// (1..64) consecutive rows, one set of blocks each. bf16 cuts each slot's
+// keys into n_splits (1..64) splits and takes the wrapper's scratch, per
+// group of rows: part_o [B*Kv*n_splits*group_rows*D] f32, part_ml
+// [B*Kv*n_splits*group_rows] float2, counters [B*Kv] int32 (zero, and
+// left zero; the ragged kernel's split-KV regime shares them). Returns a
+// cudaError_t (0 = launched).
 extern "C" int paged_decode_attention_launch(const void* q, const void* pool,
                                              const void* table, const void* kv_lens,
                                              void* out, void* part_o, void* part_ml,
                                              void* counters, int B, int S, int H, int Kv,
                                              int D, int page, int max_pages, int n_splits,
-                                             int dtype, int kv_code, float scale,
-                                             float softcap, float k_scale, float v_scale,
-                                             void* stream) {
+                                             int group_rows, int dtype, int kv_code,
+                                             float scale, float softcap, float k_scale,
+                                             float v_scale, void* stream) {
   const kdec::DecodeArgs a{q, pool, (const int*)table, (const int*)kv_lens, out,
                            (float*)part_o, (float2*)part_ml, (int*)counters, B, S, H, Kv,
-                           page, max_pages, n_splits, scale, softcap, k_scale, v_scale};
+                           page, max_pages, n_splits, group_rows, scale, softcap, k_scale,
+                           v_scale};
   KATTN_DISPATCH_KV(launch, dtype, kv_code, D, a, (cudaStream_t)stream);
 }

@@ -1,6 +1,6 @@
-// Split-KV decode on the tensor cores, shared by the decode regime of the
-// ragged paged kernel (paged_attention.cu: one row tile) and the dedicated
-// decode kernel (paged_decode_attention.cu: one, two or four row tiles).
+// Split-KV decode on the tensor cores, shared by the decode and verify
+// regime of the ragged paged kernel (paged_attention.cu) and the dedicated
+// decode kernel (paged_decode_attention.cu): one, two or four row tiles.
 //
 // The function: the R = S*G query rows of one (slot b, KV head kv), row
 // r = s*G + g being query s of head kv*G + g at position kv_len - S + s,
@@ -15,6 +15,13 @@
 // under the ~295 at which the tensor cores would bound it.
 //
 // Design, and what each part does about the bound:
+// * Row groups. A block takes at most 64 of the R rows (four m16 tiles):
+//   a verify step with more rows (S*G > 64: S > 16 at G = 4, any S at
+//   G > 64) cuts them into groups of group_rows consecutive rows, each a
+//   set of blocks of its own (grid.x = n_splits * groups) with its own
+//   scratch region. Each group reads the slot's keys again; at 64 rows
+//   per group a key is reused 64 times from shared memory, and verify
+//   shapes above it (S > 16) are off the serving path's defaults.
 // * Split KV (flash-decoding): block (split, kv, b) takes the split-th of
 //   n_splits pieces of its slot's own kv_len (split_chunk: multiples of
 //   16 keys, so a split may end inside a page), so the grid fills the
@@ -132,7 +139,7 @@ struct SplitOut {
   float* part_o;
   float2* part_ml;
   int* counters;
-  int b, kv, S, H, G, R, bk, n_splits, split, live;
+  int b, kv, S, H, G, R, r0, bk, n_splits, split, live;  // rows r0 .. r0+R-1
   float out_scale;  // the output's factor: a quantized pool's v_scale, else 1
 };
 
@@ -147,7 +154,7 @@ __device__ __forceinline__ void split_finish(const SplitOut& so, const float* O_
                                              float* l_s, float2* w_s, int* last_flag) {
   const int tid = threadIdx.x, R = so.R, G = so.G, live = so.live;
   auto out_row = [&](int r) {
-    const int s = r / G, g = r - s * G;
+    const int s = (so.r0 + r) / G, g = so.r0 + r - s * G;
     return reinterpret_cast<T*>(so.out) + ((size_t)(so.b * so.S + s) * so.H + so.kv * G + g) * D;
   };
   if (live == 1) {
@@ -266,12 +273,15 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out,
                         float* __restrict__ part_o, float2* __restrict__ part_ml,
                         int* __restrict__ counters, int S, int H, int Kv, int page,
-                        int max_pages, float scale, float softcap, float out_scale) {
+                        int max_pages, int n_splits, int group_rows, float scale,
+                        float softcap, float out_scale) {
   using C = DecMma<D, MT, KT>;
   constexpr int NKS = D / 16, NN = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int n_splits = gridDim.x, G = H / Kv, R = S * G, bk = b * Kv + kv;
+  const int grp = blockIdx.x / n_splits, split = blockIdx.x - grp * n_splits;
+  const int kv = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int G = H / Kv, r0 = grp * group_rows, R = min(group_rows, S * G - r0);
+  const int bk = b * Kv + kv;
   const int kvl = max(0, min(kv_lens[b], max_pages * page));
   const int chunk = split_chunk(kvl, n_splits);
   const int live = max(1, (kvl + chunk - 1) / chunk);
@@ -358,10 +368,10 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   int qp[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = rt * 16 + g + 8 * h;
-    qp[h] = r < R ? kvl - S + r / G : -1;  // -1: a padding row sees no key
+    const int r = rt * 16 + g + 8 * h, rr = r0 + r;
+    qp[h] = r < R ? kvl - S + rr / G : -1;  // -1: a padding row sees no key
     const __nv_bfloat16* qr =
-        q + ((size_t)(b * S + r / G) * H + kv * G + r % G) * D + 2 * t4;
+        q + ((size_t)(b * S + rr / G) * H + kv * G + rr % G) * D + 2 * t4;
 #pragma unroll
     for (int kk = 0; kk < NKS; ++kk) {
       qa[kk][h] = r < R ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
@@ -511,8 +521,13 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     O_c[i] = v;
   }
   __syncthreads();
-  const SplitOut so{out, part_o, part_ml, counters, b,     kv,   S,        H,
-                    G,   R,      bk,      n_splits, split, live, out_scale};
+  // This row group's scratch region, offset here, after the walk: the
+  // pointers stay kernel parameters through it.
+  const int grp_end = blockIdx.x / n_splits;
+  const size_t g_rows = (size_t)grp_end * gridDim.z * Kv * n_splits * group_rows;
+  const SplitOut so{out, part_o + g_rows * D, part_ml + g_rows, counters + grp_end * gridDim.z * Kv,
+                    b,   kv,     S,      H,      G,    R,    grp_end * group_rows, bk,
+                    n_splits, split, live, out_scale};
   split_finish<__nv_bfloat16, D>(so, O_c, m_s, l_s, w_s, last_flag);
 }
 
@@ -522,16 +537,17 @@ struct DecodeArgs {
   const int* table;
   const int* kv_lens;
   void* out;
-  float* part_o;    // [B*Kv*n_splits*R*D]
-  float2* part_ml;  // [B*Kv*n_splits*R]
-  int* counters;    // [B*Kv], zero, and left zero
+  float* part_o;    // [groups*B*Kv*n_splits*group_rows*D]
+  float2* part_ml;  // [groups*B*Kv*n_splits*group_rows]
+  int* counters;    // [groups*B*Kv], zero, and left zero
   int B, S, H, Kv, page, max_pages, n_splits;
+  int group_rows;  // rows per block's group (R = S*G when R <= 64)
   float scale, softcap;
   float k_scale, v_scale;  // a quantized pool's dequant scales (1 otherwise)
 };
 
-// One launch of the instance with MT row tiles (R <= 16 * MT, 1 <=
-// n_splits <= DEC_MAX_SPLITS) over a pool of KT. Returns a cudaError_t.
+// One launch of the instance with MT row tiles (group_rows <= 16 * MT, 1
+// <= n_splits <= DEC_MAX_SPLITS) over a pool of KT. Returns a cudaError_t.
 template <int D, int MT, typename KT>
 static int launch_decode_mma(const DecodeArgs& a, cudaStream_t stream) {
   // Once per instance, at the per-block limit: the wrappers refuse shapes
@@ -539,16 +555,32 @@ static int launch_decode_mma(const DecodeArgs& a, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       paged_decode_mma_kernel<D, MT, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
   if (attr != cudaSuccess) return (int)attr;
-  const int R = a.S * (a.H / a.Kv);
-  if (R > 16 * MT || a.n_splits < 1 || a.n_splits > DEC_MAX_SPLITS)
+  const int R = a.S * (a.H / a.Kv), RG = a.group_rows;
+  if (RG < 1 || RG > 16 * MT || a.n_splits < 1 || a.n_splits > DEC_MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(a.n_splits, a.Kv, a.B);
+  dim3 grid(a.n_splits * ((R + RG - 1) / RG), a.Kv, a.B);
   paged_decode_mma_kernel<D, MT, KT>
-      <<<grid, DEC_T, DecMma<D, MT, KT>::smem(R, a.n_splits), stream>>>(
+      <<<grid, DEC_T, DecMma<D, MT, KT>::smem(RG, a.n_splits), stream>>>(
           (const __nv_bfloat16*)a.q, (const KT*)a.pool, a.table, a.kv_lens,
           (__nv_bfloat16*)a.out, a.part_o, a.part_ml, a.counters, a.S, a.H, a.Kv, a.page,
-          a.max_pages, a.scale * a.k_scale, a.softcap, a.v_scale);
+          a.max_pages, a.n_splits, RG, a.scale * a.k_scale, a.softcap, a.v_scale);
   return (int)cudaGetLastError();
+}
+
+// The instance for group_rows rows: one, two or four m16 tiles.
+template <int D, typename KT>
+static int launch_split_kv(const DecodeArgs& a, cudaStream_t stream) {
+  if (a.group_rows <= 16) return launch_decode_mma<D, 1, KT>(a, stream);
+  if (a.group_rows <= 32) return launch_decode_mma<D, 2, KT>(a, stream);
+  return launch_decode_mma<D, 4, KT>(a, stream);
+}
+
+// Shared-memory bytes of that instance.
+template <int D, typename KT>
+static size_t split_kv_smem(int group_rows, int n_splits) {
+  if (group_rows <= 16) return DecMma<D, 1, KT>::smem(group_rows, n_splits);
+  if (group_rows <= 32) return DecMma<D, 2, KT>::smem(group_rows, n_splits);
+  return DecMma<D, 4, KT>::smem(group_rows, n_splits);
 }
 
 }  // namespace kdec

@@ -15,11 +15,17 @@ A slim port of the JAX engine's serving path:
   slot with its temperature / top-k / top-p, presence and frequency
   penalties, logit bias, the chosen token's logprob and top-N logprobs;
   one host sync per chunk;
+- **speculative decoding** (``speculate_tokens`` G > 0): each step
+  feeds every slot its next token and G drafts from an n-gram lookup in
+  the device token history (:func:`ngram_drafts`), verifies them in one
+  forward, and emits the longest draft prefix the model's argmax agrees
+  with plus the model's own next token. Only greedy slots without
+  penalties or bias accept drafts, so greedy output equals G = 0's;
 - one scheduler thread owns the device state; callers talk to it through
   per-request queues. Stop strings, EOS and ``max_tokens`` are handled on
   the host over the incrementally detokenized stream.
 
-Left for later slices (ROADMAP queue 1): speculative decoding, LoRA,
+Left for later slices (ROADMAP queue 1): LoRA,
 KV park/restore, gangs, QoS classes, fault injection, metrics, tracing
 and the pipelined dispatch of the JAX scheduler (here each chunk is
 dispatched and read back before the next).
@@ -146,8 +152,8 @@ class Engine:
                 f"decode_kernel must be 'ragged', 'dedicated' or 'auto', "
                 f"got {self.cfg.decode_kernel!r}"
             )
-        if self.cfg.speculate_tokens:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP queue 1)")
+        if self.cfg.speculate_tokens < 0:
+            raise ValueError(f"speculate_tokens must be >= 0, got {self.cfg.speculate_tokens}")
         if self.cfg.kv_cache_dtype:
             # Replaces the model config's pool dtype, as in the JAX engine;
             # the pool keeps engine_dims' page count (half the bytes).
@@ -158,7 +164,13 @@ class Engine:
         self.model_config = model_config
         self.params = params
         self.tokenizer = tokenizer
-        self.decode_kernel = resolve_decode_kernel(self.cfg.decode_kernel, 1)
+        # A decode step runs 1 + G queries per slot, as in the JAX engine.
+        self.decode_kernel = resolve_decode_kernel(
+            self.cfg.decode_kernel, 1 + self.cfg.speculate_tokens)
+        # Drafts proposed and accepted for greedy slots (the JAX engine's
+        # kubeai_engine_speculative_{drafted,accepted}_total).
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         # The model vocab may be padded past the tokenizer's; padded
         # logits are masked so they are never sampled.
         self.n_valid_vocab = min(
@@ -533,6 +545,11 @@ class Engine:
         self._n_active += 1
         self._kv_history[slot_idx] = list(ids)
         self._kv_pending[slot_idx] = None
+        if self.cfg.speculate_tokens > 0:
+            # The drafter looks bigrams up in the prompt too.
+            row = np.zeros((self._tok_hist.shape[1],), np.int64)
+            row[: len(ids)] = ids
+            self._tok_hist[slot_idx] = self._t(row)
         self._h_active[slot_idx] = True
         self._h_lengths[slot_idx] = len(ids)
         self._h_seed[slot_idx] = seed
@@ -556,12 +573,16 @@ class Engine:
 
     def _decode_chunk(self) -> None:
         """decode_chunk fused steps over every slot, then one host sync.
+        Each step verifies G = speculate_tokens drafts per slot (none at
+        G = 0); the host then emits drafts[:a] + [corr] per slot and step,
+        a being the accepted drafts and corr the device's next token.
         Slots that finish mid-chunk keep stepping to the chunk's end, as in
         the JAX engine: their extra tokens are dropped, and their writes
         land past the emitted tokens, in pages that are released without
         content registration (or in the trash page)."""
         mc = self.model_config
         K = self.cfg.decode_chunk
+        G = self.cfg.speculate_tokens
         topn = max(1, self.cfg.top_logprobs_k)
         active = self._t(self._h_active)
         tables = self._t(self._page_table)
@@ -577,32 +598,60 @@ class Engine:
         bias_ids = self._t(self._h_bias_ids)
         bias_vals = self._t(self._h_bias_vals)
         hist = self._tok_hist
-        rows = torch.arange(self.cfg.max_slots, device=self.device)
+        rows = torch.arange(self.cfg.max_slots, device=self.device)[:, None]
         w_idx = torch.arange(hist.shape[1], device=self.device)[None, :]
+        offs = torch.arange(G + 1, device=self.device)[None, :]
+        if G:
+            # Drafts are exact only against the raw argmax of the verify
+            # positions: sampled slots and slots with a penalty or a bias
+            # accept none.
+            may_accept = ((temp <= 0.0) & active & (presence == 0.0) & (freq == 0.0)
+                          & (bias_vals == 0.0).all(1))
         outs = []
         for _ in range(K):
-            # The history records this step's input at position `lengths`
-            # before penalties read it: every emitted token counts.
-            hist[rows, lengths] = torch.where(active, last, hist[rows, lengths])
-            logits, _ = llama.decode_step_paged(
-                self.params, mc, last[:, None], self.cache, tables, lengths,
+            drafts = ngram_drafts(hist, lengths, last, G) if G else last[:, None][:, :0]
+            inputs = torch.cat([last[:, None], drafts], dim=1) if G else last[:, None]
+            # The history records this step's inputs at positions
+            # lengths .. lengths+G before penalties read it: every emitted
+            # token counts, and rejected drafts sit past the window.
+            pos = lengths[:, None] + offs
+            hist[rows, pos] = torch.where(active[:, None], inputs, hist[rows, pos])
+            logits, _ = llama.decode_speculative_paged(
+                self.params, mc, inputs, self.cache, tables, lengths,
                 decode_kernel=self.decode_kernel,
             )
-            logits = self._mask_pad(logits[:, 0])
-            pen = logits
+            logits = self._mask_pad(logits)  # [B, G+1, V]
+            # Penalties and bias steer position 0's choice only.
+            pen0 = logits[:, 0]
             if self.cfg.enable_penalties:
                 valid = (w_idx >= gen_start[:, None]) & (w_idx <= lengths[:, None])
-                pen = apply_penalties(logits, hist, valid, presence, freq)
-            pen = apply_logit_bias(pen, bias_ids, bias_vals)
-            corr = sample(pen, seeds, lengths + 1, temp, top_p, top_k, self.cfg.max_top_k)
+                pen0 = apply_penalties(pen0, hist, valid, presence, freq)
+            pen0 = apply_logit_bias(pen0, bias_ids, bias_vals)
+            corr = sample(pen0, seeds, lengths + 1, temp, top_p, top_k, self.cfg.max_top_k)
+            lse = torch.logsumexp(logits, dim=-1)  # [B, G+1]
+            if G:
+                # Greedy slots accept the longest draft prefix the model's
+                # argmax agrees with; their next token is the argmax
+                # after it (position 0's penalised choice when none).
+                yhat = logits.argmax(dim=-1)
+                acc = torch.cumprod((yhat[:, :G] == drafts).long(), dim=1).sum(1)
+                acc = torch.where(may_accept, acc, 0)
+                corr = torch.where(acc > 0, yhat.gather(1, acc[:, None])[:, 0], corr)
+                lp_d = logits[:, :G].gather(2, drafts[:, :, None])[:, :, 0] - lse[:, :G]
+                at_a = logits.gather(1, acc[:, None, None].expand(-1, 1, logits.shape[-1]))[:, 0]
+                lse_a = lse.gather(1, acc[:, None])[:, 0]
+            else:
+                acc = torch.zeros_like(lengths)
+                lp_d = lse[:, :0]
+                at_a, lse_a = logits[:, 0], lse[:, 0]
             corr = torch.where(active, corr, last)
-            lse = torch.logsumexp(logits, dim=-1)
-            lp = logits.gather(1, corr[:, None])[:, 0] - lse
+            lp_c = at_a.gather(1, corr[:, None])[:, 0] - lse_a
+            # Top-N at every position: the raw model distribution.
             t_raw, t_ids = torch.topk(logits, topn, dim=-1)
-            outs.append((corr, lp, t_ids, t_raw - lse[:, None]))
-            lengths = torch.where(active, lengths + 1, lengths)
+            outs.append((drafts, corr, acc, lp_d, lp_c, t_ids, t_raw - lse[..., None]))
+            lengths = torch.where(active, lengths + acc + 1, lengths)
             last = corr
-        toks, lps, t_ids, t_lps = (
+        drafts, toks, accs, lp_d, lp_c, t_ids, t_lps = (
             torch.stack(x).cpu().numpy() for x in zip(*outs)
         )
         self._h_lengths = lengths.cpu().numpy()
@@ -610,17 +659,24 @@ class Engine:
         snapshot = [(i, s) for i, s in enumerate(self._slots) if s is not None]
         for k in range(K):
             for i, slot_obj in snapshot:
-                tok = int(toks[k, i])
                 if self._slots[i] is not slot_obj:
                     continue  # finished earlier in this chunk
-                if self._kv_pending[i] is not None:
-                    self._kv_history[i].append(self._kv_pending[i])
-                self._kv_pending[i] = tok
-                top = (
-                    list(zip(t_ids[k, i].tolist(), t_lps[k, i].tolist()))
-                    if slot_obj.req.params.logprobs else None
-                )
-                self._emit_token(i, tok, float(lps[k, i]), top)
+                a = int(accs[k, i])
+                if G and slot_obj.req.params.temperature <= 0.0:
+                    self.spec_drafted += G
+                    self.spec_accepted += a
+                want_top = slot_obj.req.params.logprobs
+                emitted = [(int(drafts[k, i, j]), float(lp_d[k, i, j]), j) for j in range(a)]
+                emitted.append((int(toks[k, i]), float(lp_c[k, i]), a))
+                for tok, lp, j in emitted:
+                    if self._slots[i] is not slot_obj:
+                        break  # finished on an earlier token of this step
+                    if self._kv_pending[i] is not None:
+                        self._kv_history[i].append(self._kv_pending[i])
+                    self._kv_pending[i] = tok
+                    top = list(zip(t_ids[k, i, j].tolist(), t_lps[k, i, j].tolist())) \
+                        if want_top else None
+                    self._emit_token(i, tok, lp, top)
 
     # -- emission ----------------------------------------------------------
 
@@ -677,6 +733,25 @@ class Engine:
             if tail:
                 slot.req.out.put(("token", -1, tail, None, None))
         slot.req.out.put(("done", FinishInfo(reason, slot.prompt_len, slot.generated)))
+
+
+def ngram_drafts(hist: torch.Tensor, lengths: torch.Tensor, last: torch.Tensor,
+                 G: int) -> torch.Tensor:
+    """[B, G] drafts from the device token history [B, W] (the JAX
+    engine's n-gram lookup): per slot the latest earlier occurrence of
+    the bigram (hist[L-1], last), L = lengths, and the G tokens that
+    followed it; zeros where there is no match or the tail is short
+    (they fail verification)."""
+    B, W = hist.shape
+    idx = torch.arange(W, device=hist.device)[None, :]
+    L = lengths[:, None]
+    prev = hist.gather(1, torch.clamp(L - 1, min=0))
+    nxt = torch.roll(hist, -1, dims=1)  # nxt[j] = hist[j+1]
+    ok = (hist == prev) & (nxt == last[:, None]) & (idx < L - 1) & (L > 0)
+    j = torch.where(ok, idx, -1).amax(dim=1, keepdim=True)  # -1: no match
+    didx = j + 2 + torch.arange(G, device=hist.device)[None, :]
+    valid = (j >= 0) & (didx < L)
+    return torch.where(valid, hist.gather(1, torch.clamp(didx, 0, W - 1)), 0)
 
 
 def build_test_engine(

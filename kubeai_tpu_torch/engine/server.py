@@ -431,6 +431,9 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=64, help="KV pool tokens per page")
+    p.add_argument("--speculate-tokens", type=int, default=0,
+                   help="draft tokens verified per decode step via n-gram prompt "
+                        "lookup (greedy-exact; 0 disables)")
     p.add_argument("--decode-kernel", default="ragged", choices=["ragged", "dedicated", "auto"])
     p.add_argument("--kv-cache-dtype", default="", choices=["", "fp8", "int8"],
                    help="store the paged KV pool in fp8 (e4m3) or int8 (static scales, "
@@ -444,7 +447,8 @@ def make_arg_parser() -> argparse.ArgumentParser:
 def build_engine_from_args(args) -> tuple[Engine, str]:
     ec = EngineConfig(
         max_slots=args.max_slots, max_seq_len=args.max_seq_len, page_size=args.page_size,
-        decode_kernel=args.decode_kernel, prefix_cache_min=args.prefix_cache_min,
+        decode_kernel=args.decode_kernel, speculate_tokens=args.speculate_tokens,
+        prefix_cache_min=args.prefix_cache_min,
         kv_cache_dtype=args.kv_cache_dtype,
     )
     name = args.served_model_name or args.model

@@ -12,13 +12,14 @@ kv_len-S .. kv_len-1 and attend causally, reading pages in place.
 
 Bound on the H100: memory for decode (B=8, kv_len 512: ~16.8 MB per
 layer call, ~5 us at 3.35 TB/s), the tensor-core rate for 1024-token
-chunks. For bf16 the kernel has two regimes, chosen from the rows per
-(slot, KV head), S*G: prefill tiles of 64 rows and more on the tensor
-cores (the flash kernel's tile, keys found through the page table), and
-split-KV decode up to 16 rows, whose number of splits
-:func:`split_kv_plan` chooses here so that the grid fills the card.
-float32 and the rows between keep the CUDA-core tile. Its source says
-what each design does.
+chunks. For bf16 the kernel has two regimes, chosen here from the rows
+per (slot, KV head), S*G (:func:`ragged_regime`): split-KV decode on the
+tensor cores below 64 rows (a decode step, or a speculative verify step
+of up to 15 tokens at 4 query heads per KV head), whose number of splits
+:func:`split_kv_plan` chooses so that the grid fills the card, and from
+64 rows the prefill tile (the flash kernel's, keys found through the
+page table).
+float32 keeps a CUDA-core tile. Its source says what each design does.
 
 A pool in one byte per element (int8 or float8_e4m3fn, the JAX
 package's ``--kv-cache-dtype int8|fp8``) holds K/V divided by the static
@@ -43,7 +44,11 @@ from kubeai_tpu_torch.ops.attention import attention
 _SIG = {
     "paged_attention_launch": [_build.PTR] * 8
     + [_build.INT] * 11 + [_build.FLOAT] * 4 + [_build.PTR],
+    "paged_attention_split_smem_bytes": [_build.INT] * 4,
 }
+
+# Shared memory one block may use on Hopper (227 KB).
+MAX_SMEM = 232448
 
 # Pool dtypes stored at one byte per element and dequantized on read.
 QUANT_POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
@@ -60,8 +65,8 @@ def library(name: str, h: int, pool_code: int) -> str:
         else name
 
 # bf16 launches with at most this many query rows per (slot, KV head),
-# S*G, take the split-KV decode regime (one m16 tile of mma.sync).
-SPLIT_MAX_ROWS = 16
+# S*G, take the split-KV decode regime (up to four m16 tiles of mma.sync).
+SPLIT_MAX_ROWS = 64
 # Keys of one 64-row page-sized tile: the table span in tiles bounds the
 # number of splits.
 TILE_KEYS = 64
@@ -111,17 +116,20 @@ def _sm_count(index: int) -> int:
 _scratch: dict = {}
 
 
-def _split_kv_setup(q, Kv: int, max_pages: int, page: int, R: int, n_splits=None):
+def _split_kv_setup(q, Kv: int, max_pages: int, page: int, R: int, n_splits=None,
+                    groups: int = 1):
     """(n_splits, partials, (m, l) pairs, counters) of a split-KV decode
-    launch with R query rows per (slot, KV head): :func:`split_kv_plan`'s
-    choice unless *n_splits* is given, and the device's scratch (f32, f32
-    and int32, at least B*Kv*n_splits*R*h, 2*B*Kv*n_splits*R and B*Kv
-    long), grown on demand."""
+    launch with *groups* groups of R query rows per (slot, KV head), each
+    its own set of blocks: :func:`split_kv_plan`'s choice for that many
+    blocks unless *n_splits* is given, and the device's scratch (f32, f32
+    and int32, at least groups times B*Kv*n_splits*R*h, 2*B*Kv*n_splits*R
+    and B*Kv long), grown on demand."""
     B, h = q.shape[0], q.shape[-1]
     if n_splits is None:
         dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-        n_splits = split_kv_plan(B, Kv, max_pages, page, _sm_count(dev))
-    want = (B * Kv * n_splits * R * h, 2 * B * Kv * n_splits * R, B * Kv)
+        n_splits = split_kv_plan(B * groups, Kv, max_pages, page, _sm_count(dev))
+    n = groups * B * Kv
+    want = (n * n_splits * R * h, 2 * n * n_splits * R, n)
     s = _scratch.get(q.device)
     have = (0, 0, 0) if s is None else tuple(t.numel() for t in s)
     if any(got < n for got, n in zip(have, want)):
@@ -188,24 +196,51 @@ def check_paged_inputs(what: str, q, kv_pages, page_table, kv_lengths):
     return lens, dtype, pool_code
 
 
+def ragged_regime(q, kv_pages) -> str:
+    """The tile the kernel runs for these inputs: "prefill_tile" (bf16
+    from 64 rows per (slot, KV head), G dividing 64, pages of 8 rows or
+    more that tile 64 keys evenly: csrc/paged_attention.cu's rule; at 64
+    rows it took under half the split-KV body's time on the H100, PERF.md
+    §6), else "split_kv" (bf16 up to SPLIT_MAX_ROWS rows), else
+    "cuda_core"."""
+    _, S, H, _ = q.shape
+    page, G = kv_pages.shape[1], H // (kv_pages.shape[2] // 2)
+    if q.dtype == torch.bfloat16:
+        tma_pages = page % 8 == 0 and (TILE_KEYS % page == 0 or page % TILE_KEYS == 0)
+        if S * G >= 64 and 64 % G == 0 and tma_pages:
+            return "prefill_tile"
+        if S * G <= SPLIT_MAX_ROWS:
+            return "split_kv"
+    return "cuda_core"
+
+
 def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits=None,
-                   k_scale=None, v_scale=None):
-    """One launch of the kernel; *n_splits* overrides the decode regime's
-    split choice (chip_smoke.py times the choice against others). A scale
-    not given is 1."""
+                   k_scale=None, v_scale=None, split_kv=None):
+    """One launch of the kernel; *n_splits* overrides the split-KV
+    regime's split choice and *split_kv* the choice of that regime
+    (chip_smoke.py times both against others). A scale not given is 1."""
     lens, dtype, pool_code = check_paged_inputs(
         "paged_attention_ragged", q, kv_pages, page_table, kv_lengths)
     B, S, H, h = q.shape
     P, page, two_kv, _ = kv_pages.shape
     Kv, max_pages = two_kv // 2, page_table.shape[1]
     R = S * (H // Kv)
+    if split_kv is None:
+        split_kv = ragged_regime(q, kv_pages) == "split_kv"
     part = ml = cnt = lens  # used by the split-KV regime alone
-    if q.dtype != torch.bfloat16 or R > SPLIT_MAX_ROWS:
-        n_splits = 1
-    else:
-        n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
-    out = torch.empty_like(q)
     lib = _build.load(library("paged_attention", h, pool_code), _SIG)
+    if q.dtype != torch.bfloat16 or not split_kv:
+        n_splits = 0  # the prefill tile or the CUDA-core tile
+    else:
+        if R > SPLIT_MAX_ROWS:
+            raise ValueError(f"paged_attention_ragged: split KV takes at most "
+                             f"{SPLIT_MAX_ROWS} rows, got {R}")
+        n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, R, n_splits)
+        smem = lib.paged_attention_split_smem_bytes(R, h, n_splits, pool_code)
+        if smem > MAX_SMEM:
+            raise ValueError(f"paged_attention_ragged: {R} rows x {n_splits} splits need "
+                             f"{smem} bytes of shared memory (> {MAX_SMEM})")
+    out = torch.empty_like(q)
     err = lib.paged_attention_launch(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(), lens.data_ptr(),
         out.data_ptr(), part.data_ptr(), ml.data_ptr(), cnt.data_ptr(),
@@ -235,10 +270,12 @@ def paged_attention_ragged(
                                      k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_ragged: unsupported device {q.device}")
+    regime = ragged_regime(q, kv_pages)
     out = _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap,
-                         k_scale=k_scale, v_scale=v_scale)
+                         k_scale=k_scale, v_scale=v_scale, split_kv=regime == "split_kv")
     paged_attention_ragged.launches += 1
     paged_attention_ragged.launches_by_pool[str(kv_pages.dtype).removeprefix("torch.")] += 1
+    paged_attention_ragged.launches_by_regime[regime] += 1
     return out
 
 
@@ -246,3 +283,5 @@ paged_attention_ragged.launches = 0
 # The same launches by the pool's dtype (a quantized pool's int8 or
 # float8_e4m3fn, else q's dtype).
 paged_attention_ragged.launches_by_pool = collections.Counter()
+# The same launches by the tile they ran (ragged_regime).
+paged_attention_ragged.launches_by_regime = collections.Counter()

@@ -4,8 +4,10 @@ plain PyTorch: the CUDA kernel runs only on the card
 (tests/test_torch_gpu.py), but its arithmetic is the one below, and its
 split choice is the wrapper's (``split_kv_plan``, ``split_chunk``).
 
-Per (slot, KV head) the R = S*G query rows sit in 1, 2 or 4 tiles of 16
-rows (padding rows are zero and see no key). A block takes one split of
+Per (slot, KV head) the R = S*G query rows go in groups of at most 64
+consecutive rows (``row_groups``: a verify step of S > 16 tokens at G =
+4), each group its own blocks, and a group's rows sit in 1, 2 or 4 tiles
+of 16 rows (padding rows are zero and see no key). A block takes one split of
 the slot's clamped kv_len; its four warps form 4 / tiles key streams,
 stream j walking 16-key slices j, j + streams, ... with an online
 softmax (keys past the split's end are zero rows, masked); the streams'
@@ -23,9 +25,9 @@ import torch
 from kubeai_tpu.ops.paged_decode_attention import _cpu_twin
 from kubeai_tpu_torch.ops.paged_attention import MAX_SPLITS, split_chunk, split_kv_plan
 from kubeai_tpu_torch.ops.paged_decode_attention import (
-    MAX_DECODE_QUERY_LEN,
     MAX_ROWS,
     paged_decode_attention,
+    row_groups,
 )
 
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
@@ -79,7 +81,8 @@ def dedicated_mirror(q, kv_pages, page_table, kv_lengths, n_splits, scale, softc
     page, Kv = kv_pages.shape[1], kv_pages.shape[2] // 2
     G, skv = H // Kv, page_table.shape[1] * page
     R = S * G
-    tiles = row_tiles(R)
+    groups, RG = row_groups(R)
+    tiles = row_tiles(RG)
     streams = WARPS // tiles
     gathered = kv_pages[page_table.long()]  # [B, mp, page, 2Kv, h]
     k = gathered[..., 0::2, :].reshape(B, skv, Kv, h)
@@ -89,11 +92,13 @@ def dedicated_mirror(q, kv_pages, page_table, kv_lengths, n_splits, scale, softc
         kvl = min(int(kv_lengths[b]), skv)
         chunk = split_chunk(kvl, n_splits)
         live = max(1, -(-kvl // chunk))
-        for kv in range(Kv):
+        for kv, grp in ((kv, grp) for kv in range(Kv) for grp in range(groups)):
+            r0 = grp * RG
+            n = min(RG, R - r0)
             rows = torch.zeros(16 * tiles, h)
-            rows[:R] = q[b, :, kv * G:(kv + 1) * G].reshape(R, h)  # row s*G + g
+            rows[:n] = q[b, :, kv * G:(kv + 1) * G].reshape(R, h)[r0:r0 + n]  # row s*G + g
             qpos = torch.full((16 * tiles,), -1)  # padding rows see no key
-            qpos[:R] = kvl - S + torch.arange(R) // G
+            qpos[:n] = kvl - S + torch.arange(r0, r0 + n) // G
             splits = []
             for i in range(live):
                 lo, hi = i * chunk, min((i + 1) * chunk, kvl)
@@ -110,7 +115,8 @@ def dedicated_mirror(q, kv_pages, page_table, kv_lengths, n_splits, scale, softc
                 M, L, _ = _rescale(splits)
                 res = sum(o * (torch.exp(m - M) / L.clamp(min=1e-30))[:, None]
                           for m, _, o in splits)
-            out[b, :, kv * G:(kv + 1) * G] = res[:R].reshape(S, G, h)
+            rr = torch.arange(r0, r0 + n)
+            out[b, rr // G, kv * G + rr % G] = res[:n]
     return out
 
 
@@ -125,6 +131,15 @@ CASES = {
     "s2_softcap": (2, 2, 4, 2, 16, 4, [30, 61], 30.0, None),
     "main_path_s8_kv512": (8, 8, 32, 8, 64, 8, [512] * 8, 0.0, None),
     "uneven_s4": (4, 4, 32, 8, 64, 32, [4, 300, 777, 2048], 0.0, None),
+    # Verify steps past 8 tokens and 64 rows (the Pallas kernel takes any
+    # S): S = 9 and 16 at G = 4 (36, 64 rows), S = 17 (68 rows: a group
+    # of 64 and one of 4), S = 12 at G = 8 (96 rows), and S = 3 at G = 24
+    # (72 rows: one token's heads across two groups).
+    "s9_g4_36_rows": (2, 9, 8, 2, 16, 4, [9, 50], 0.0, None),
+    "s16_g4_64_rows": (2, 16, 8, 2, 64, 4, [16, 200], 0.0, 3),
+    "s17_g4_two_groups": (2, 17, 8, 2, 16, 8, [17, 100], 30.0, None),
+    "s12_g8_two_groups_uneven": (3, 12, 16, 2, 16, 8, [12, 40, 5000], 0.0, 4),
+    "s3_g24_heads_split_across_groups": (1, 3, 48, 2, 16, 4, [40], 0.0, None),
 }
 
 
@@ -132,9 +147,10 @@ CASES = {
 def test_dedicated_mirror_matches_plain_and_jax(case):
     B, S, H, Kv, page, mp, lens, softcap, n_splits = CASES[case]
     h = 32
-    assert S <= MAX_DECODE_QUERY_LEN and S * (H // Kv) <= MAX_ROWS
+    groups, rows = row_groups(S * (H // Kv))
+    assert rows <= MAX_ROWS and groups * rows >= S * (H // Kv)
     if n_splits is None:
-        n_splits = split_kv_plan(B, Kv, mp, page, H100_SMS)
+        n_splits = split_kv_plan(B * groups, Kv, mp, page, H100_SMS)
     assert 1 <= n_splits <= MAX_SPLITS
     rng = np.random.default_rng(11)
     P = 1 + B * mp

@@ -174,6 +174,75 @@ def test_decode_kernels_share_counters(cuda):
     assert int(counters.abs().sum().item()) == 0
 
 
+def _verify_case(cuda, dtype, kv, B, S, H, Kv, h, page, lens, seed):
+    """q, a pool (bf16/float32 in q's dtype, or one byte per element:
+    KV_QUANT), a shuffled table, lengths, the pool's scales and the plain
+    version's output in float32."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mp = -(-max(lens) // page)
+    P = 1 + B * mp
+    if kv is None:
+        pool = torch.randn((P, page, 2 * Kv, h), generator=g, device=cuda).to(dtype)
+        ks = vs = None
+    else:
+        pool, ks, vs = _quant_pool(g, (P, page, 2 * Kv, h), kv, cuda)
+    table = (torch.randperm(P - 1, generator=g, device=cuda)[: B * mp] + 1).reshape(B, mp).to(torch.int32)
+    q = torch.randn((B, S, H, h), generator=g, device=cuda).to(dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want = paged_attention_plain(q.float(), pool if kv else pool.float(), table, kv_lens,
+                                 h**-0.5, 0.0, ks, vs)
+    return q, pool, table, kv_lens, ks, vs, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "fp8", "int8"], ids=["bf16", "fp8", "int8"])
+@pytest.mark.parametrize("kv_len", [512, 2048])
+@pytest.mark.parametrize("S,h", [(5, 128), (8, 128), (12, 128), (16, 128), (8, 32)])
+def test_ragged_verify_rows_on_split_kv(cuda, kv, kv_len, S, h):
+    """A speculative verify step of S = G+1 tokens on the ragged kernel at
+    Llama-3.1-8B's 32 query and 8 KV heads (S*4 = 20 to 64 rows per KV
+    head, and 32 at head dim 32: the q8d32 library for one-byte pools):
+    the split-KV body with two or four row tiles below 64 rows, the
+    prefill tile at 64, against the plain version, for a bf16, fp8 and
+    int8 pool, 8 slots of uneven lengths."""
+    from kubeai_tpu_torch.ops.paged_attention import ragged_regime
+
+    lens = [kv_len - 3 * i for i in range(8)]
+    q, pool, table, kv_lens, ks, vs, want = _verify_case(
+        cuda, torch.bfloat16, kv, 8, S, 32, 8, h, 64, lens, seed=S + h)
+    assert ragged_regime(q, pool) == ("prefill_tile" if S * 4 == 64 else "split_kv")
+    before = paged_attention_ragged.launches
+    for _ in range(2):  # the second launch finds the counters the first left
+        got = paged_attention_ragged(q, pool, table, kv_lens, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        _assert_close(got, want, torch.bfloat16)
+    assert paged_attention_ragged.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [None, "fp8", "int8"], ids=["same", "fp8", "int8"])
+@pytest.mark.parametrize(
+    "S,H,lens",
+    [
+        (9, 32, [9, 100, 511, 2048]),  # 36 rows: past auto's threshold of 8
+        (16, 32, [16, 300, 1024, 2048]),  # 64 rows: four tiles
+        (17, 32, [17, 64, 700, 2048]),  # 68 rows: groups of 64 and 4
+        (16, 64, [16, 77, 512, 1500]),  # G = 8, 128 rows: two groups of 64
+    ],
+)
+def test_dedicated_verify_any_rows(cuda, dtype, kv, S, H, lens):
+    """The dedicated kernel takes every S the Pallas kernel takes: rows
+    past 64 per (slot, KV head) run in groups of 64, one launch."""
+    q, pool, table, kv_lens, ks, vs, want = _verify_case(
+        cuda, dtype, kv, len(lens), S, H, 8, 128, 64, lens, seed=S + H)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, pool, table, kv_lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    _assert_close(got, want, dtype)
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_bad_inputs(cuda):
     q = torch.zeros((1, 4, 4, 128), device=cuda, dtype=torch.bfloat16)
@@ -184,17 +253,8 @@ def test_kernel_wrappers_refuse_bad_inputs(cuda):
     table = torch.ones((1, 4), device=cuda, dtype=torch.int64)
     with pytest.raises(ValueError, match="int32"):
         paged_attention_ragged(q, pool, table, torch.tensor([4], device=cuda))
-    with pytest.raises(ValueError, match="queries per slot"):
-        paged_decode_attention(
-            torch.zeros((1, 9, 4, 128), device=cuda, dtype=torch.bfloat16),
-            pool, table.to(torch.int32), torch.tensor([9], device=cuda),
-        )
-    with pytest.raises(ValueError, match="rows > 64"):  # 8 queries x 16 heads per KV head
-        paged_decode_attention(
-            torch.zeros((1, 8, 32, 128), device=cuda, dtype=torch.bfloat16),
-            pool, table.to(torch.int32), torch.tensor([9], device=cuda),
-        )
-    # One-byte pools: no other pool dtypes (head dim 32 is served: see
+    # (The dedicated kernel takes any S and any number of rows: see
+    # test_dedicated_verify_any_rows.) One-byte pools: no other pool dtypes (head dim 32 is served: see
     # test_quantized_pool_kernels_match_plain).
     for fn in (paged_attention_ragged, paged_decode_attention):
         with pytest.raises(ValueError, match="kv_pages must be"):
@@ -230,7 +290,7 @@ def _quant_pool(g, shape, kv, device):
         (2, 4, 8, 2, 128, 16, [19, 45], 0.0),  # page 16
         (2, 2, 4, 2, 64, 16, [30, 61], 30.0),  # softcap, head dim 64
         (4, 1, 4, 2, 64, 16, [1, 17, 100, 256], 0.0),  # head dim 64, lengths at the edges
-        (1, 6, 32, 8, 128, 64, [700], 0.0),  # ragged 16 < 24 rows < 64: CUDA-core tile
+        (1, 6, 32, 8, 128, 64, [700], 0.0),  # 24 rows: the ragged kernel's split KV too
         (1, 128, 32, 8, 128, 64, [128], 0.0),  # prefill: TMA tile
         (1, 1024, 32, 8, 128, 64, [2048], 0.0),  # chunk at 1024
         (1, 128, 32, 8, 128, 16, [300], 0.0),  # prefill tile of 4 page-16 boxes
@@ -326,18 +386,20 @@ def test_quantized_pool_edges(cuda, kv, dtype, S):
 
 @pytest.mark.gpu
 def test_quantized_pool_smem_fits(cuda):
-    """The one-byte staging fits the card's per-block shared memory at the
-    dedicated kernel's 64 rows and the splits the wrapper may choose."""
+    """The one-byte staging fits the card's per-block shared memory at
+    both kernels' 64 rows per block and the splits the wrapper may
+    choose."""
     from kubeai_tpu_torch.ops import _build
-    from kubeai_tpu_torch.ops.paged_decode_attention import _MAX_SMEM, _SIG
-
-    from kubeai_tpu_torch.ops.paged_attention import library
+    from kubeai_tpu_torch.ops import paged_attention as pa
+    from kubeai_tpu_torch.ops import paged_decode_attention as pd
 
     for code in (_build.POOL_SAME, _build.POOL_INT8, _build.POOL_FP8):
         for R in (16, 32, 64):
             for h in (32, 64, 128):
-                lib = _build.load(library("paged_decode_attention", h, code), _SIG)
-                assert 0 < lib.paged_decode_smem_bytes(R, h, 64, 1, code) <= _MAX_SMEM
+                lib = _build.load(pa.library("paged_decode_attention", h, code), pd._SIG)
+                assert 0 < lib.paged_decode_smem_bytes(R, h, 64, 1, code) <= pa.MAX_SMEM
+                lib = _build.load(pa.library("paged_attention", h, code), pa._SIG)
+                assert 0 < lib.paged_attention_split_smem_bytes(R, h, 64, code) <= pa.MAX_SMEM
 
 
 def _greedy(engine, prompt, n):
@@ -396,6 +458,51 @@ def test_tiny_engine_on_the_card_matches_cpu(cuda, decode_kernel):
     used = {fn.__name__: fn.launches for fn in kernels}
     assert used["flash_attention"] > 0 and used["paged_attention_ragged"] > 0
     assert (used["paged_decode_attention"] > 0) == (decode_kernel == "dedicated")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decode_kernel", ["ragged", "dedicated"])
+def test_tiny_speculative_engine_on_the_card_matches_cpu(cuda, decode_kernel):
+    """test:tiny at --speculate-tokens 3 through the server's command line:
+    the card's greedy tokens (verify steps of 4 tokens through the paged
+    kernels) equal the CPU engine's at G = 3 and at G = 0 on the same
+    weights, up to the first near-tie, and the card accepts drafts."""
+    import dataclasses
+
+    from kubeai_tpu_torch.engine.core import Engine
+    from kubeai_tpu_torch.engine.server import build_engine_from_args, make_arg_parser
+
+    args = make_arg_parser().parse_args([
+        "--model", "test:tiny", "--speculate-tokens", "3", "--decode-kernel", decode_kernel,
+        "--max-slots", "4", "--max-seq-len", "512"])
+    card, _ = build_engine_from_args(args)
+    assert card.cfg.speculate_tokens == 3
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+    params = to_cpu(card.params)
+    cpus = [Engine(card.model_config, params, card.tokenizer, card.cfg, device="cpu"),
+            Engine(card.model_config, params, card.tokenizer,
+                   dataclasses.replace(card.cfg, speculate_tokens=0), device="cpu")]
+    for fn in (paged_attention_ragged, paged_decode_attention):
+        fn.launches = 0
+    for e in (card, *cpus):
+        e.start()
+    try:
+        for prompt in ([256] + [1, 2, 3, 4] * 10, [256] + list(b"short prompt"),
+                       [256] + [(i * 7) % 250 + 1 for i in range(100)]):
+            got, _ = _greedy(card, prompt, 24)
+            for cpu in cpus:
+                want, gaps = _greedy(cpu, prompt, 24)
+                upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(want))
+                assert got[:upto] == want[:upto]
+    finally:
+        for e in (card, *cpus):
+            e.stop()
+    assert card.spec_accepted > 0 and card.spec_drafted > card.spec_accepted
+    used = paged_decode_attention if decode_kernel == "dedicated" else paged_attention_ragged
+    assert used.launches > 0
 
 
 @pytest.mark.gpu

@@ -83,6 +83,8 @@ def _paged_inputs(rng, B, S, H, Kv, h=128, P=13, ps=16, mp=4):
         (2, 1, 4, 2, [17, 42], 25.0),
         (2, 8, 8, 2, [19, 45], 0.0),  # S=8 at G=4: speculative verify, 32 rows
         (2, 8, 16, 2, [23, 50], 30.0),  # S=8 at G=8: 64 rows, softcap
+        (2, 9, 8, 2, [19, 45], 0.0),  # S=9: past auto's 8, which the Pallas kernel takes
+        (1, 17, 8, 2, [40], 0.0),  # S=17 at G=4: 68 rows (two row groups on the card)
     ],
 )
 def test_decode_plain_matches_pallas_interpret(B, S, H, Kv, lens, softcap):

@@ -1,6 +1,7 @@
 """The split-KV decode regime of the ragged paged kernel
-(kubeai_tpu_torch/csrc/paged_attention.cu: bf16, S*G <= 16 rows per
-slot and KV head), mirrored in plain PyTorch: the CUDA kernel runs only
+(kubeai_tpu_torch/csrc/paged_attention.cu: bf16, S*G < 64 rows per
+slot and KV head: decode, and verify steps of up to 15 tokens at G = 4;
+64 rows where the pages are off the prefill tile's TMA grid), mirrored in plain PyTorch: the CUDA kernel runs only
 on the card (tests/test_torch_gpu.py), but its split choice lives in the
 wrapper (``split_kv_plan``, ``split_chunk``) and its arithmetic is the
 rescale rule below. The mirror takes the wrapper's own choice, forms one
@@ -77,6 +78,12 @@ CASES = {
     "kv_len_past_table": (1, 3, 4, 2, 16, 4, [5000], 0.0, None),
     "main_path_b8_kv512": (8, 1, 32, 8, 64, 8, [512] * 8, 0.0, None),
     "uneven_slots": (4, 1, 32, 8, 64, 32, [1, 300, 777, 2048], 0.0, None),
+    # Verify steps of S = G+1 tokens at Llama-3.1-8B's G = 4 (20, 32 and
+    # 48 rows: two and four m16 tiles; 64 rows over pages of 4 keys).
+    "verify_s5_20_rows": (2, 5, 8, 2, 16, 4, [5, 61], 0.0, None),
+    "verify_s8_32_rows_softcap": (2, 8, 8, 2, 64, 8, [100, 300], 30.0, 4),
+    "verify_s12_48_rows": (1, 12, 8, 2, 16, 8, [5000], 0.0, None),
+    "verify_s16_64_rows_page4": (2, 16, 8, 2, 4, 32, [100, 128], 0.0, None),
 }
 
 
@@ -116,3 +123,27 @@ def test_split_choice_fills_the_h100_at_decode(mp):
     live = -(-512 // split_chunk(512, n))
     assert 8 * 8 * live >= H100_SMS
     assert split_chunk(300, 4) == 80  # a multiple of 16 that ends inside a 64-row page
+
+
+@pytest.mark.parametrize(
+    "S,G,page,dtype,want",
+    [
+        (1, 4, 64, torch.bfloat16, "split_kv"),
+        (8, 4, 64, torch.bfloat16, "split_kv"),  # a G = 7 verify step: 32 rows
+        (15, 4, 64, torch.bfloat16, "split_kv"),  # 60 rows
+        (16, 4, 64, torch.bfloat16, "prefill_tile"),  # 64 rows: the faster tile there
+        (16, 4, 4, torch.bfloat16, "split_kv"),  # 64 rows over pages off TMA's grid
+        (12, 8, 64, torch.bfloat16, "prefill_tile"),  # 96 rows
+        (3, 24, 64, torch.bfloat16, "cuda_core"),  # 72 rows, G not dividing 64
+        (1, 4, 64, torch.float32, "cuda_core"),
+    ],
+)
+def test_ragged_regime_by_rows(S, G, page, dtype, want):
+    """The ragged kernel's tile by rows per (slot, KV head): split KV
+    below 64 rows (the verify steps of --speculate-tokens up to 14), the
+    prefill tile from 64 rows where its TMA takes the pages."""
+    from kubeai_tpu_torch.ops.paged_attention import ragged_regime
+
+    q = torch.zeros((1, S, 2 * G, 32), dtype=dtype)
+    pool = torch.zeros((3, page, 4, 32), dtype=dtype)
+    assert ragged_regime(q, pool) == want
