@@ -51,7 +51,19 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      counters zeroed before it. Every kernel of a run's path must launch
      there, a whole number of times per model step, the paged kernels on
      the run's pool dtype alone; a quantized pool has half the bf16
-     pool's bytes. Then a 32-layer step profile: decode and verify steps
+     pool's bytes. Every decode chunk of every serving run is one CUDA
+     graph replay (the engine's chunk log), and the fp8-pool run starts
+     with --warmup (its shapes, seconds and capture seconds printed).
+     After the bf16 runs, eager and graphed engines in turns (eager,
+     graphed, graphed, eager) on the same weights, bf16 ragged at G = 0
+     and G = 7: 3 rounds of 8 concurrent greedy requests of 128 tokens
+     each (wall per step of a chunk, aggregate and per-stream tok/s,
+     TTFT, the chunk's host segments), the greedy tokens equal across
+     turns up to near-ties. After the last timed serving run (a
+     profiler session slows a process's later launches), one eager and
+     one graphed engine per G serve a round with a torch.profiler window
+     over 6 chunks (device busy ms of a chunk, idle share). Then a
+     32-layer step profile: decode and verify steps
      under both decode kernels, in int8 and over an fp8 pool, prefills
      with bf16 and int8 weights. Then the loader: a 2-layer checkpoint at
      8B width written by the port's save_hf_checkpoint is served through
@@ -68,6 +80,7 @@ the run of its own path, and per path) and {"ok": true, ...}.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import gc
 import json
 import math
@@ -91,6 +104,10 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # plain version on the same inputs.
 REL_TOL = 2.0**-8
 ABS_TOL = 1e-3
+
+# Seconds after which a run that has not finished dumps its threads'
+# stacks and exits (the whole run must end within 1200 s).
+DEADLINE_S = 1140
 
 KERNELS = ("flash_attention", "paged_attention", "paged_decode_attention", "w8a16_matmul")
 # Libraries built beside them: the paged kernels' one-byte instances at
@@ -1082,6 +1099,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         by_pool = {fn.__name__: dict(fn.launches_by_pool)
                    for fn in (paged_attention_ragged, paged_decode_attention)}
         by_regime = dict(paged_attention_ragged.launches_by_regime)
+        chunks = _check_graphed(eng, run)
         spec = _spec_parity(eng, run) if eng.cfg.speculate_tokens else None
     finally:
         srv.stop()
@@ -1131,6 +1149,9 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
         "steps": {n: c // {"qdot": per_step, "qdot_many": 2 * layers}.get(n, layers)
                   for n, c in launches.items()},
+        "graph_replays": chunks,
+        "capture_s": dict(eng.graph_capture_seconds),
+        "warmup": eng.warmup_result,
     }
     if spec:
         stats["speculative"] = spec
@@ -1141,6 +1162,16 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     gc.collect()
     torch.cuda.empty_cache()
     return stats
+
+
+def _check_graphed(eng, run) -> int:
+    """Every decode chunk the engine ran was one replay of its CUDA graph
+    (the engine's chunk log), and there were some. Returns how many."""
+    chunks = list(eng.chunk_log)
+    if not chunks or not all(c["graph"] for c in chunks) or not eng.graph_capture_seconds:
+        raise AssertionError(f"{run}: decode chunks not all graph replays: "
+                             f"{sum(bool(c['graph']) for c in chunks)} of {len(chunks)}")
+    return len(chunks)
 
 
 # Greedy prompts of the speculative runs' parity check: text, and a
@@ -1181,6 +1212,7 @@ def _spec_parity(eng, run) -> dict:
                 raise AssertionError(f"{run}: greedy token {i} differs from G=0's ({got[i]} vs "
                                      f"{want[i]}) at a top-2 gap of {gaps[i]} > 2 ulps ({ulp})")
             compared += i
+        _check_graphed(base, f"{run} (G=0 base)")
     finally:
         base.stop()
     del base
@@ -1346,15 +1378,25 @@ def phase_serving() -> dict:
     for dk in ("ragged", "dedicated"):
         out[dk] = _serve_once(params, dk)
     t0 = time.monotonic()
+    _graph_turns(params)
+    log(f"graph turns: {time.monotonic() - t0:.1f}s")
+    t0 = time.monotonic()
     qparams = quantize_model_params(params, llama_3_1_8b())
     torch.cuda.synchronize()
     log(f"weights: quantized to int8 on the card in {time.monotonic() - t0:.1f}s")
     out["int8"] = _serve_once(qparams, "ragged", int8=True)
     # The fp8 pool through the server's command line, as a user starts it
     # (its own seed-0 weights: the same as *params*).
+    # It starts with --warmup: every step shape, the decode chunk's capture
+    # included, before the first request.
     out["fp8_pool"] = _serve_once(None, "ragged", run="fp8_pool", cli=[
         "--model", "preset:llama-3.1-8b", "--kv-cache-dtype", "fp8", "--decode-kernel", "ragged",
-        "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"])
+        "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64", "--warmup"])
+    warm = out["fp8_pool"]["warmup"]
+    if not warm or warm["shapes"] != 1 + 3 * 6:
+        raise AssertionError(f"fp8_pool: --warmup ran {warm}")
+    log("warmup[fp8_pool]", gpu_line(), json.dumps(
+        {**warm, "capture_s": out["fp8_pool"]["capture_s"]}))
     sk, sv = _calibrate_int8_pool(qparams)
     out["int8_pool"] = _serve_once(qparams, "dedicated", int8=True, kv_cache_dtype="int8",
                                    model_config=llama_3_1_8b(kv_scale_k=sk, kv_scale_v=sv),
@@ -1375,6 +1417,8 @@ def phase_serving() -> dict:
         {k: {m: v.get(m) for m in ("ttft_s", "stream_decode_tok_s", "concurrent_tok_s",
                                    "speculative")}
          for k, v in out.items()}))
+    # Profiler sessions after every timed serving run.
+    _graph_profiles(params)
     _step_profile(params, qparams)
     del params, qparams
     torch.cuda.empty_cache()
@@ -1382,6 +1426,107 @@ def phase_serving() -> dict:
     out["tiny_int8_fp8"] = _serve_tiny("tiny_int8_fp8", ["--quantization", "int8",
                                                          "--kv-cache-dtype", "fp8"])
     out["tiny_spec"] = _serve_tiny("tiny_spec", ["--speculate-tokens", "3"])
+    return out
+
+
+def _graph_turns(params) -> None:
+    """Eager and graphed engines in turns (eager, graphed, graphed, eager)
+    on the same 32-layer weights, bf16 with the ragged kernel at G = 0 and
+    at G = 7: each warms up, then serves 3 rounds of 8 concurrent greedy
+    requests of 128 tokens (tools/time_decode_variants.py serve_rounds).
+    Prints per engine each round's wall per step of a chunk (chunk wall /
+    K), aggregate and per-stream tok/s, the streamed request's TTFT and
+    the chunk's host segments. Every graphed engine's chunks must be
+    replays, and its greedy tokens the eager engine's (up to near-ties of
+    differently grouped prefills)."""
+    for G in (0, 7):
+        ref = None
+        for turn, graphs in enumerate((False, True, True, False)):
+            res = _serve_traffic(params, G, graphs, profile=False)
+            diverged = []
+            for r in res["rounds"]:
+                ids, gaps = r.pop("ids"), r.pop("gaps")
+                if ref is None:
+                    ref = (ids, gaps)
+                    continue
+                diverged += _near_tie_divergence(params, ids, *ref, f"turns G={G} #{turn}")
+            res["diverged_at_near_ties"] = diverged
+            log(f"graph_turns[G={G} #{turn} {res['mode']}]", gpu_line(), json.dumps(res))
+
+
+def _graph_profiles(params) -> None:
+    """One eager and one graphed engine per G (0 and 7, bf16 ragged)
+    serve a round of 64 tokens a stream with a torch.profiler window over
+    6 chunks: device busy ms per chunk and the window's idle share. Run
+    after the timed serving runs: a profiler session slows the launches
+    a process makes after it."""
+    for G in (0, 7):
+        for graphs in (False, True):
+            res = _serve_traffic(params, G, graphs, profile=True)
+            for r in res["rounds"]:
+                del r["ids"], r["gaps"]
+            log(f"graph_profile[G={G} {res['mode']}]", gpu_line(), json.dumps(res))
+
+
+def _serve_traffic(params, G: int, graphs: bool, profile: bool) -> dict:
+    """A warmed-up engine (bf16 ragged, 8 slots, speculate_tokens G,
+    graphed or eager) serving the turns' traffic: 3 rounds, or with
+    *profile* one round of 64 tokens a stream with a profiled window."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.tools.time_decode_variants import serve_rounds
+
+    ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, speculate_tokens=G)
+    eng = Engine(llama_3_1_8b(), params, ByteTokenizer(), ec, device="cuda",
+                 cuda_graphs=graphs)
+    warm = eng.warmup()
+    eng.start()
+    try:
+        rounds = (serve_rounds(eng, rounds=1, max_tokens=64, profile=True) if profile
+                  else serve_rounds(eng))
+    finally:
+        eng.stop()
+    if graphs:
+        _check_graphed(eng, f"turns G={G}")
+    elif any(c["graph"] for c in eng.chunk_log):
+        raise AssertionError(f"turns G={G}: an eager engine replayed a graph")
+    res = {"mode": "graphed" if graphs else "eager", "warmup": warm,
+           "capture_s": dict(eng.graph_capture_seconds), "rounds": rounds}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _near_tie_divergence(params, ids, ref_ids, ref_gaps, what) -> list:
+    """Greedy token lists of the turns' requests against the first
+    round's. Requests admitted together prefill as one group, whose size
+    depends on timing and may round a logit the other way: where a
+    request first differs, the reference's top-2 gap must be within 2
+    bf16 ulps of its largest logit (as _spec_parity allows). Returns the
+    divergences."""
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.tools.time_decode_variants import SERVE_PROMPTS
+
+    out = []
+    for i, (got, want) in enumerate(zip(ids, ref_ids)):
+        j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), None)
+        if j is None:
+            if len(got) != len(want):
+                raise AssertionError(f"{what}: request {i} has {len(got)} tokens, not "
+                                     f"{len(want)}")
+            continue
+        prompt = ByteTokenizer().encode(SERVE_PROMPTS[i % len(SERVE_PROMPTS)])
+        ulp = _logit_ulp(params, llama_3_1_8b(), prompt + want[:j])
+        out.append({"request": i, "at": j, "gap": ref_gaps[i][j], "ulp": ulp})
+        if ref_gaps[i][j] > 2 * ulp:
+            raise AssertionError(f"{what}: request {i}'s greedy token {j} differs from the "
+                                 f"first round's at a top-2 gap of {ref_gaps[i][j]} > 2 ulps "
+                                 f"({ulp})")
     return out
 
 
@@ -1469,6 +1614,7 @@ def _serve_tiny(run: str, extra: list) -> dict:
         launches = {fn.__name__: fn.launches for fn in counters}
         by_pool = {fn.__name__: dict(fn.launches_by_pool)
                    for fn in (paged_attention_ragged, paged_decode_attention)}
+        graph_replays = _check_graphed(card, run)
     finally:
         srv.stop()
         cpu.stop()
@@ -1480,7 +1626,8 @@ def _serve_tiny(run: str, extra: list) -> dict:
             or set(by_pool["paged_attention_ragged"]) != {pool_dtype}):
         raise AssertionError(f"{run}: launches {launches} {by_pool}")
     stats = {"completion": text, "greedy_tokens_compared": compared, "launches": launches,
-             "launches_by_pool": by_pool, "pool": {"dtype": pool_dtype, "bytes": pool.nbytes}}
+             "launches_by_pool": by_pool, "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
+             "graph_replays": graph_replays, "capture_s": dict(card.graph_capture_seconds)}
     if card.cfg.speculate_tokens:
         if card.spec_accepted == 0:
             raise AssertionError(f"{run}: no draft accepted ({card.spec_drafted} drafted)")
@@ -1636,11 +1783,16 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # A hang prints every thread's stack and exits non-zero inside the
+    # 1200 s the run is given.
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     t0 = time.monotonic()
     phase_env()
     kern = phase_kernels()
     check_decode_grid()
+    log(f"elapsed after phases 1-2: {time.monotonic() - t0:.1f}s")
     phase_model_parity()
+    log(f"elapsed after phase 3: {time.monotonic() - t0:.1f}s")
     serving = phase_serving()
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:

@@ -10,33 +10,52 @@ A slim port of the JAX engine's serving path:
 - **prefill**: cold prompts up to the largest bucket are padded to their
   bucket and batched (at most ``prefill_group_cap`` per call); longer
   prompts and prompts resuming after a shared-prefix hit are prefilled in
-  chunks of the largest bucket;
+  chunks of the largest bucket. Each prefill samples its first token into
+  a device staging vector (``adm_toks``);
 - **decode**: ``decode_chunk`` steps per dispatch, each sampling every
   slot with its temperature / top-k / top-p, presence and frequency
-  penalties, logit bias, the chosen token's logprob and top-N logprobs;
-  one host sync per chunk;
+  penalties, logit bias, the chosen token's logprob and top-N logprobs.
+  The decode state (lengths, next tokens, seeds, token history) lives on
+  the device and the chunk updates it in place; slots admitted since the
+  last dispatch are merged in by the chunk itself from the admission
+  arrays (the JAX ``decode_fn``'s rebase). On CUDA each chunk is ONE
+  CUDA graph replay (the counterpart of the JAX engine's jitted scan),
+  captured once per resolved decode kernel;
+- **pipelined scheduler** (the JAX ``_loop``): admit, dispatch chunk
+  N+1, emit the admitted first tokens, then fetch and emit chunk N. A
+  snapshot of (slot, request, epoch) taken at each dispatch decides
+  which of a chunk's tokens still reach a request;
 - **speculative decoding** (``speculate_tokens`` G > 0): each step
   feeds every slot its next token and G drafts from an n-gram lookup in
   the device token history (:func:`ngram_drafts`), verifies them in one
   forward, and emits the longest draft prefix the model's argmax agrees
   with plus the model's own next token. Only greedy slots without
   penalties or bias accept drafts, so greedy output equals G = 0's;
-- one scheduler thread owns the device state; callers talk to it through
+- :meth:`Engine.warmup` runs every step shape before serving (the
+  server's ``--warmup``);
+- one scheduler thread owns the device state and runs every device call
+  on the engine's own CUDA stream; callers talk to it through
   per-request queues. Stop strings, EOS and ``max_tokens`` are handled on
   the host over the incrementally detokenized stream.
 
-Left for later slices (ROADMAP queue 1): LoRA,
-KV park/restore, gangs, QoS classes, fault injection, metrics, tracing
-and the pipelined dispatch of the JAX scheduler (here each chunk is
-dispatched and read back before the next).
+On the CPU the same loop runs the chunk eagerly (the tests), and on CUDA
+too when the caller passes ``cuda_graphs=False``.
+
+Left for later slices (ROADMAP queue 1): LoRA, KV park/restore, gangs,
+QoS classes, fault injection, metrics, tracing and CUDA graphs for
+prefill.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import gc
 import logging
 import queue
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -54,7 +73,14 @@ from kubeai_tpu_torch.engine.sampling import (
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
 from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.base import ModelConfig, llama_3_1_8b
-from kubeai_tpu_torch.ops.paged_decode_attention import resolve_decode_kernel
+from kubeai_tpu_torch.ops import _build
+from kubeai_tpu_torch.ops.flash_attention import flash_attention
+from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
+from kubeai_tpu_torch.ops.paged_decode_attention import (
+    paged_decode_attention,
+    resolve_decode_kernel,
+)
+from kubeai_tpu_torch.ops.quant import qdot, qdot_many
 
 log = logging.getLogger("kubeai_tpu_torch.engine")
 
@@ -129,13 +155,131 @@ class _Slot:
         return max((len(s) for s in self.req.params.stop), default=1) - 1
 
 
+class _HostInputs:
+    """The per-slot arrays the host owns and the decode chunk reads (page
+    table, active mask, sampling rows, admission arrays). The host's
+    mirrors are numpy views of one flat array per dtype; the device holds
+    static buffers of the same layout. :meth:`upload` copies the mirrors
+    into one of two pinned staging sets and from there, in stream order,
+    into the device buffers: the host may change its mirrors while a copy
+    is still queued behind the chunk in flight, and never waits on it."""
+
+    def __init__(self, specs: dict, device: torch.device):
+        offs: dict = {}
+        totals: dict = collections.Counter()
+        for name, (shape, dtype) in specs.items():
+            dt = np.dtype(dtype)
+            offs[name] = (dt, totals[dt], int(np.prod(shape)), shape)
+            totals[dt] += int(np.prod(shape))
+        self.host = {dt: np.zeros(n, dt) for dt, n in totals.items()}
+        self.dev_flat = {dt: torch.zeros(n, dtype=torch.from_numpy(self.host[dt]).dtype,
+                                         device=device) for dt, n in totals.items()}
+        self.views = {k: self.host[dt][o:o + n].reshape(shape)
+                      for k, (dt, o, n, shape) in offs.items()}
+        self.dev = {k: self.dev_flat[dt][o:o + n].view(shape)
+                    for k, (dt, o, n, shape) in offs.items()}
+        self.cuda = device.type == "cuda"
+        self._pinned = [{dt: torch.empty(n, dtype=self.dev_flat[dt].dtype, pin_memory=True)
+                         for dt, n in totals.items()} for _ in range(2)] if self.cuda else []
+        self._done: list = [None, None]
+        self._turn = 0
+
+    def upload(self) -> None:
+        if not self.cuda:
+            for dt, a in self.host.items():
+                self.dev_flat[dt].copy_(torch.from_numpy(a))
+            return
+        j, self._turn = self._turn, self._turn ^ 1
+        if self._done[j] is not None:
+            self._done[j].synchronize()  # the copy two dispatches back: long done
+        for dt, a in self.host.items():
+            self._pinned[j][dt].numpy()[:] = a
+            self.dev_flat[dt].copy_(self._pinned[j][dt], non_blocking=True)
+        self._done[j] = torch.cuda.Event()
+        self._done[j].record()
+
+    def make_inert(self) -> None:
+        """Device inputs of a chunk that changes no slot: none active,
+        none admitted, every table row the trash page."""
+        for t in self.dev_flat.values():
+            t.zero_()
+
+
+# The kernel wrappers whose launch counters (attributes named launches*,
+# ints or Counters) a CUDA graph's replays must keep counting.
+_COUNTED = (flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many)
+
+
+def _counts() -> dict:
+    return {(fn, k): (v.copy() if isinstance(v, collections.Counter) else v)
+            for fn in _COUNTED for k, v in vars(fn).items() if k.startswith("launches")}
+
+
+def _set_counts(counts: dict) -> None:
+    for (fn, k), v in counts.items():
+        cur = getattr(fn, k)
+        if isinstance(cur, collections.Counter):
+            cur.clear()
+            cur.update(v)
+        else:
+            setattr(fn, k, v)
+
+
+def _add_counts(delta: dict) -> None:
+    for (fn, k), d in delta.items():
+        cur = getattr(fn, k)
+        if isinstance(cur, collections.Counter):
+            cur.update(d)
+        else:
+            setattr(fn, k, cur + d)
+
+
+class _ChunkGraph:
+    """A decode chunk captured as one CUDA graph: its static outputs and
+    the launches its capture counted, which every replay counts again
+    (capture itself launches nothing)."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, outputs: tuple, launches: dict):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+
+    def replay(self) -> tuple:
+        self.graph.replay()
+        _add_counts(self.launches)
+        return self.outputs
+
+
+# (device index, raw handle) of the CUDA streams that live engines own.
+# torch hands out pooled streams, which repeat after 32 draws, and two
+# engines on one stream would share its kernel scratch (_build.scratch).
+_owned_streams: set = set()
+
+
+def _own_stream(device: torch.device) -> torch.cuda.Stream:
+    """A pooled CUDA stream no other live engine owns (released when the
+    owning engine is collected)."""
+    for collect in (False, True):
+        if collect:
+            gc.collect()  # engines no longer referenced give theirs back
+        for _ in range(64):
+            s = torch.cuda.Stream(device)
+            key = (s.device.index, s.cuda_stream)
+            if key not in _owned_streams:
+                _owned_streams.add(key)
+                return s
+    raise RuntimeError("every pooled CUDA stream is owned by a live engine")
+
+
 class Engine:
     """Single-model engine; one instance per replica.
 
     Runs on ``device`` (default ``cuda``; pass ``"cpu"`` explicitly to run
     on the CPU). On CUDA the model's kernel gates are turned on, as the
     JAX engine turns them on for the TPU: flash prefill and the paged
-    attention kernels."""
+    attention kernels; every device call runs on the engine's own stream,
+    and each decode chunk replays a CUDA graph unless ``cuda_graphs`` is
+    False (the same chunk eagerly: for comparisons on the card)."""
 
     def __init__(
         self,
@@ -144,6 +288,7 @@ class Engine:
         tokenizer,
         engine_config: EngineConfig | None = None,
         device: torch.device | str | None = None,
+        cuda_graphs: bool = True,
     ):
         self.cfg = engine_config or EngineConfig()
         self.device = resolve_device(device)
@@ -158,7 +303,8 @@ class Engine:
             # Replaces the model config's pool dtype, as in the JAX engine;
             # the pool keeps engine_dims' page count (half the bytes).
             model_config = model_config.replace(kv_cache_dtype=self.cfg.kv_cache_dtype)
-        if self.device.type == "cuda":
+        self._cuda = self.device.type == "cuda"
+        if self._cuda:
             model_config = model_config.replace(use_flash_prefill=True, use_paged_kernel=True)
         llama.check_supported(model_config)
         self.model_config = model_config
@@ -176,39 +322,94 @@ class Engine:
         self.n_valid_vocab = min(
             getattr(tokenizer, "vocab_size", model_config.vocab_size), model_config.vocab_size
         )
+        self.cuda_graphs = bool(cuda_graphs) and self._cuda
+        # Every device call of the engine (prefill, upload, replay, host
+        # copies) runs on this stream, in the order the scheduler issues
+        # it; a graph is captured on a stream of its own, whose kernel
+        # scratch only the graph uses.
+        self._stream = _own_stream(self.device) if self._cuda else None
+        self._capture_stream = _own_stream(self.device) if self.cuda_graphs else None
+        weakref.finalize(self, _owned_streams.difference_update,
+                         {(s.device.index, s.cuda_stream)
+                          for s in (self._stream, self._capture_stream) if s is not None})
+        self._graphs: dict[str, _ChunkGraph] = {}
+        self._graph_pool = None
+        # Seconds each graph's capture took (eager run included), by kernel.
+        self.graph_capture_seconds: dict[str, float] = {}
+        # Recent decode chunks: host-clock segments (the JAX engine's
+        # flight-recorder step records) and the device span between CUDA
+        # events around the chunk.
+        self.chunk_log: collections.deque = collections.deque(maxlen=4096)
+        self.warmup_result: dict | None = None  # the last warmup()'s
         self._queue: "queue.Queue[Request]" = queue.Queue(maxsize=self.cfg.max_queue)
         self._running = False
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
-        self._init_state()
+        if self._cuda:
+            # The caller's stream made the weights.
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            self._init_state()
 
     # -- state -------------------------------------------------------------
 
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) if self._cuda else contextlib.nullcontext()
+
     def _init_state(self) -> None:
+        self._drop_graphs()
         B = self.cfg.max_slots
+        G = self.cfg.speculate_tokens
+        Kb = self.cfg.max_logit_bias
         self._max_pages, P, hist_width = engine_dims(self.cfg)
         self._pool = PagePool(P, self.cfg.page_size)
         self.cache = llama.init_paged_cache(
             self.model_config, P, self.cfg.page_size, self.device
         )
         self._slots: list[_Slot | None] = [None] * B
+        self._slot_epoch = [0] * B  # bumped at each admission (JAX _slot_epoch)
         self._n_active = 0
-        self._page_table = np.zeros((B, self._max_pages), np.int32)
-        self._tok_hist = torch.zeros((B, hist_width), dtype=torch.int64, device=self.device)
-        # Host-authoritative per-slot state, uploaded with every decode chunk.
-        self._h_active = np.zeros((B,), bool)
-        self._h_lengths = np.zeros((B,), np.int64)  # position of the next input
-        self._h_last = np.zeros((B,), np.int64)  # next input token
-        self._h_seed = np.zeros((B,), np.int64)
-        self._h_temp = np.ones((B,), np.float32)
-        self._h_top_p = np.ones((B,), np.float32)
-        self._h_top_k = np.zeros((B,), np.int64)
-        self._h_presence = np.zeros((B,), np.float32)
-        self._h_freq = np.zeros((B,), np.float32)
-        self._h_gen_start = np.zeros((B,), np.int64)
-        Kb = self.cfg.max_logit_bias
-        self._h_bias_ids = np.zeros((B, Kb), np.int64)
-        self._h_bias_vals = np.zeros((B, Kb), np.float32)
+        specs = {
+            "table": ((B, self._max_pages), np.int32),
+            "active": ((B,), np.bool_),
+            "temp": ((B,), np.float32),
+            "top_p": ((B,), np.float32),
+            "top_k": ((B,), np.int64),
+            "presence": ((B,), np.float32),
+            "freq": ((B,), np.float32),
+            "gen_start": ((B,), np.int64),
+            "bias_ids": ((B, Kb), np.int64),
+            "bias_vals": ((B, Kb), np.float32),
+            # Admission merge for the next dispatch (JAX _adm_*).
+            "adm_mask": ((B,), np.bool_),
+            "adm_len": ((B,), np.int64),
+            "adm_seed": ((B,), np.int64),
+        }
+        if G:
+            specs["adm_hist"] = ((B, hist_width), np.int64)
+        self._inputs = _HostInputs(specs, self.device)
+        h = self._inputs.views
+        self._page_table = h["table"]
+        self._h_active, self._h_temp, self._h_top_p = h["active"], h["temp"], h["top_p"]
+        self._h_top_k, self._h_presence, self._h_freq = h["top_k"], h["presence"], h["freq"]
+        self._h_gen_start = h["gen_start"]
+        self._h_bias_ids, self._h_bias_vals = h["bias_ids"], h["bias_vals"]
+        self._adm_mask, self._adm_len, self._adm_seed = h["adm_mask"], h["adm_len"], h["adm_seed"]
+        self._adm_hist = h.get("adm_hist")
+        self._h_temp[:] = 1.0
+        self._h_top_p[:] = 1.0
+        # Device-resident decode state (the JAX decode jit's carries): the
+        # chunk reads and updates it in place; the host never reads it.
+        dev = self.device
+        self._lengths = torch.zeros((B,), dtype=torch.int64, device=dev)  # next input's position
+        self._last = torch.zeros((B,), dtype=torch.int64, device=dev)  # next input token
+        self._seeds = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self._tok_hist = torch.zeros((B, hist_width), dtype=torch.int64, device=dev)
+        self._adm_toks = torch.zeros((B,), dtype=torch.int64, device=dev)  # first tokens
+        # Two pinned sets of chunk outputs: chunk N+1's copy is queued
+        # while the host still reads chunk N's.
+        self._out_sets: list = [None, None]
+        self._out_turn = 0
         self._slot_pages: list[list[int]] = [[] for _ in range(B)]
         self._slot_fresh: list[list[int]] = [[] for _ in range(B)]
         self._slot_budget = [0] * B
@@ -218,6 +419,15 @@ class Engine:
         self._kv_history: list[list[int]] = [[] for _ in range(B)]
         self._kv_pending: list[int | None] = [None] * B
         self._deferred: list[Request] = []  # fit a slot but not the pool
+
+    def _drop_graphs(self) -> None:
+        """Free the captured graphs, their memory pool and their scratch."""
+        for g in self._graphs.values():
+            g.graph.reset()
+        self._graphs.clear()
+        self._graph_pool = None
+        if self._capture_stream is not None:
+            _build.release_stream(self._capture_stream)
 
     # -- public API --------------------------------------------------------
 
@@ -238,6 +448,12 @@ class Engine:
                 log.warning("engine loop did not exit; skipping in-flight cleanup")
                 return
         self._fail_inflight("engine shutting down")
+        # The graphs and their pool die with the engine's serving life (a
+        # later start() captures anew), once the last chunk has run.
+        if self._cuda:
+            self._stream.synchronize()
+        self._drop_graphs()
+        self._out_sets = [None, None]
 
     def is_ready(self) -> bool:
         return bool(self._running and self._thread is not None and self._thread.is_alive())
@@ -290,22 +506,93 @@ class Engine:
             else:
                 raise RuntimeError(ev[1])
 
+    def warmup(self, include_group: bool = True) -> dict:
+        """Run every step shape the serving path hits before the first
+        request (JAX ``Engine.warmup``): the decode chunk (on CUDA its
+        graph's capture), batch-1 and, with *include_group*, group-cap
+        cold prefill for every bucket, and one chunked-prefill shape per
+        bucket. Builds and loads the kernels and fills the allocator's
+        and libraries' caches. Every write goes to the KV pool's trash
+        page (tables all zero) and no slot bookkeeping changes. Call it
+        before start(). Returns {"shapes", "seconds"}."""
+        if self.is_ready():
+            raise RuntimeError("warmup() runs before start()")
+        t0 = time.monotonic()
+        shapes = 0
+        B, Kb, mp = self.cfg.max_slots, self.cfg.max_logit_bias, self._max_pages
+        with self._on_stream():
+            if self.cuda_graphs:
+                if self.decode_kernel not in self._graphs:
+                    self._capture()
+            else:
+                self._inputs.make_inert()
+                self._chunk_body()
+            shapes += 1
+
+            def first(logits, n):
+                z, zf = np.zeros((n,), np.int64), np.zeros((n,), np.float32)
+                self._sample_first(logits[:, -1], np.zeros((n, Kb), np.int64),
+                                   np.zeros((n, Kb), np.float32), z, z, zf, zf, z)
+
+            cap = max(1, min(self.cfg.prefill_group_cap, B))
+            sizes = (1, cap) if include_group and cap > 1 else (1,)
+            for bucket in self.cfg.prefill_buckets:
+                for n in sizes:
+                    logits, _ = llama.prefill_paged_cold(
+                        self.params, self.model_config, self._t(np.zeros((n, bucket), np.int64)),
+                        self.cache, self._t(np.zeros((n, mp), np.int32)),
+                        self._t(np.full((n,), bucket, np.int64)),
+                    )
+                    first(logits, n)
+                    shapes += 1
+            for bucket in self.cfg.prefill_buckets:
+                logits, _ = llama.prefill_paged(
+                    self.params, self.model_config, self._t(np.zeros((1, bucket), np.int64)),
+                    self.cache, self._t(np.zeros((1, mp), np.int32)),
+                    self._t([0]), self._t([bucket - 1]),
+                )
+                first(logits, 1)
+                shapes += 1
+            if self._cuda:
+                self._stream.synchronize()
+        dur = time.monotonic() - t0
+        log.info("engine warmup: %d shapes in %.1fs", shapes, dur)
+        self.warmup_result = {"shapes": shapes, "seconds": round(dur, 3)}
+        return self.warmup_result
+
     # -- scheduler loop ----------------------------------------------------
 
     def _loop(self) -> None:
-        log.info("engine loop started (slots=%d, device=%s)", self.cfg.max_slots, self.device)
-        while self._running:
-            try:
-                admitted = self._admit_waiting()
-                if self._n_active > 0:
-                    self._decode_chunk()
-                elif not admitted:
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-            except Exception:
-                log.exception("engine step failed; resetting device state")
-                self._fail_inflight("engine reset after device error")
-                self._init_state()
+        """Pipelined scheduler (JAX ``_loop``): dispatch decode chunk N+1
+        before fetching chunk N's tokens, so the host's work overlaps the
+        device's. Admissions merge into the next dispatch on the device;
+        a chunk dispatched while a slot still held an earlier request is
+        reconciled through the dispatch's slot snapshot."""
+        log.info("engine loop started (slots=%d, device=%s, graphs=%s)",
+                 self.cfg.max_slots, self.device, self.cuda_graphs)
+        pending = None
+        with self._on_stream():
+            while self._running:
+                try:
+                    admitted = self._admit_waiting()
+                    dispatched = self._dispatch_chunk() if self._n_active > 0 else None
+                    # First-token sync AFTER the dispatch: the chunk reads
+                    # them from the device staging vector.
+                    self._emit_admitted(admitted)
+                    if pending is not None:
+                        self._process_chunk(*pending)
+                    pending = dispatched
+                    if pending is None and not admitted and self._n_active == 0:
+                        self._wake.wait(timeout=0.05)
+                        self._wake.clear()
+                except Exception:
+                    # A failed capture, replay or step: fail everything in
+                    # flight and rebuild the device state (no eager
+                    # fallback).
+                    log.exception("engine step failed; resetting device state")
+                    self._fail_inflight("engine reset after device error")
+                    self._init_state()
+                    pending = None
 
     def _fail_inflight(self, message: str) -> None:
         for i, slot in enumerate(self._slots):
@@ -314,6 +601,7 @@ class Engine:
                 slot.req.out.put(("error", message))
         self._n_active = 0
         self._h_active[:] = False
+        self._adm_mask[:] = False
         for req in self._deferred:
             req.out.put(("error", message))
         self._deferred.clear()
@@ -331,9 +619,11 @@ class Engine:
                 return b
         return self.cfg.prefill_buckets[-1]
 
-    def _admit_waiting(self) -> int:
-        """Admit queued requests into free slots, run their prefills and
-        emit their first tokens. Returns the number admitted."""
+    def _admit_waiting(self) -> list:
+        """Admit queued requests into free slots and run their prefills.
+        Returns the admitted entries for _emit_admitted: the first-token
+        host sync happens after the next decode chunk's dispatch."""
+        admitted: list = []
         groups: dict[int, list[tuple[int, Request]]] = {}
         singles: list[tuple[int, Request, int]] = []
         taken: set[int] = set()
@@ -374,7 +664,7 @@ class Engine:
             ))
         for w, (items, thunk) in enumerate(work):
             try:
-                thunk()
+                admitted.extend(thunk())
             except Exception as e:
                 log.exception("prefill failed")
                 poisoned = False
@@ -396,7 +686,7 @@ class Engine:
                         for slot_idx, req in later:
                             req.out.put(("error", f"prefill failed: {e}"))
                     raise
-        return len(taken)
+        return admitted
 
     def _plan_admission(self, req: Request, taken: set[int]) -> tuple[int, int] | None:
         """Reserve a slot and KV pages for prompt + budget, claiming
@@ -440,7 +730,8 @@ class Engine:
             return
         if register and self.cfg.prefix_cache_min:
             # Content-register every full page this slot wrote (prompt and
-            # generated tokens) so a follow-up turn can reuse them.
+            # emitted tokens) so a follow-up turn can reuse them. A chunk
+            # still in flight writes only past them.
             self._pool.register_chain(self._kv_history[slot_idx], (0, 0), row)
         self._pool.release(row)
         self._slot_pages[slot_idx] = []
@@ -461,7 +752,12 @@ class Engine:
         return ids, vals
 
     def _t(self, a) -> torch.Tensor:
-        return torch.as_tensor(a).to(self.device, non_blocking=True)
+        """A host array on the device. On CUDA through pinned memory: a
+        copy from pageable memory may wait for the chunk in flight."""
+        t = torch.as_tensor(a)
+        if self._cuda:
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
         if self.n_valid_vocab < logits.shape[-1]:
@@ -469,28 +765,48 @@ class Engine:
             logits[..., self.n_valid_vocab :] = float("-inf")
         return logits
 
-    def _first_tokens(self, logits, reqs, seeds, positions):
-        """Sample first tokens from prefill logits [N, V]: (tokens,
-        logprobs, top-N ids, top-N logprobs) as numpy."""
+    def _sample_first(self, logits, bias_ids, bias_vals, seeds, positions, temp, top_p, top_k):
+        """First tokens from prefill logits [N, V] (host rows for the
+        rest): device (tokens, logprobs, top-N ids, top-N logprobs)."""
         masked = self._mask_pad(logits)
-        bias = [self._bias_rows(r.params) for r in reqs]
-        biased = apply_logit_bias(
-            masked, self._t(np.stack([b[0] for b in bias])), self._t(np.stack([b[1] for b in bias]))
-        )
-        sp = [r.params for r in reqs]
-        toks = sample(
-            biased, self._t(np.asarray(seeds, np.int64)), self._t(np.asarray(positions, np.int64)),
-            self._t(np.array([p.temperature for p in sp], np.float32)),
-            self._t(np.array([p.top_p for p in sp], np.float32)),
-            self._t(np.array([p.top_k for p in sp], np.int64)),
-            max_top_k=self.cfg.max_top_k,
-        )
+        biased = apply_logit_bias(masked, self._t(bias_ids), self._t(bias_vals))
+        toks = sample(biased, self._t(seeds), self._t(positions), self._t(temp),
+                      self._t(top_p), self._t(top_k), max_top_k=self.cfg.max_top_k)
         logp = torch.log_softmax(masked, dim=-1)
         lps = logp.gather(1, toks[:, None])[:, 0]
         t_lp, t_ids = torch.topk(logp, max(1, self.cfg.top_logprobs_k), dim=-1)
-        return tuple(x.cpu().numpy() for x in (toks, lps, t_ids, t_lp))
+        return toks, lps, t_ids, t_lp
 
-    def _prefill_group(self, items: list[tuple[int, Request]], bucket: int) -> None:
+    def _first_tokens(self, logits, slots, reqs, seeds, positions) -> tuple:
+        """Sample the first tokens of *slots* from prefill logits [N, V]
+        into the device staging vector adm_toks[slots], which the next
+        chunk merges in (JAX ``prefill_batch_fn``), and queue their copy
+        to the host. Returns (host tensors, event) for _emit_admitted."""
+        sp = [r.params for r in reqs]
+        bias = [self._bias_rows(p) for p in sp]
+        out = self._sample_first(
+            logits, np.stack([b[0] for b in bias]), np.stack([b[1] for b in bias]),
+            np.asarray(seeds, np.int64), np.asarray(positions, np.int64),
+            np.array([p.temperature for p in sp], np.float32),
+            np.array([p.top_p for p in sp], np.float32),
+            np.array([p.top_k for p in sp], np.int64),
+        )
+        self._adm_toks[self._t(np.asarray(slots, np.int64))] = out[0]
+        return self._to_host(out)
+
+    def _to_host(self, tensors) -> tuple:
+        """Queue the copy of *tensors* to pinned host memory: (host
+        tensors, the event after the copy; None on the CPU)."""
+        if not self._cuda:
+            return tensors, None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _prefill_group(self, items: list[tuple[int, Request]], bucket: int) -> list:
         """One cold prefill call for up to prefill_group_cap prompts of
         the same bucket."""
         n = len(items)
@@ -506,12 +822,14 @@ class Engine:
         )
         reqs = [r for _, r in items]
         seeds = [self._seed32(r.params, j) for j, r in enumerate(reqs)]
-        out = self._first_tokens(logits[:, -1], reqs, seeds, lengths)
+        host, ev = self._first_tokens(logits[:, -1], [s for s, _ in items], reqs, seeds, lengths)
+        out = []
         for j, (slot_idx, req) in enumerate(items):
             self._register(slot_idx, req, seeds[j])
-            self._emit_first(slot_idx, *(o[j] for o in out))
+            out.append((slot_idx, self._slot_epoch[slot_idx], host, j, ev))
+        return out
 
-    def _prefill_chunked(self, slot_idx: int, req: Request, reuse: int) -> None:
+    def _prefill_chunked(self, slot_idx: int, req: Request, reuse: int) -> list:
         """Chunk-prefill a prompt from offset *reuse* (its first *reuse*
         tokens live in claimed shared pages): largest-bucket chunks, the
         last one padded to its bucket; only the last chunk is sampled."""
@@ -530,11 +848,15 @@ class Engine:
                 self._t([start]), self._t([len(chunk) - 1]),
             )
         seed = self._seed32(req.params)
-        out = self._first_tokens(logits[:, -1], [req], [seed], [len(ids)])
+        host, ev = self._first_tokens(logits[:, -1], [slot_idx], [req], [seed], [len(ids)])
         self._register(slot_idx, req, seed)
-        self._emit_first(slot_idx, *(o[0] for o in out))
+        return [(slot_idx, self._slot_epoch[slot_idx], host, 0, ev)]
 
     def _register(self, slot_idx: int, req: Request, seed: int) -> None:
+        """Host bookkeeping of a prefilled slot, and its admission arrays:
+        the next dispatch merges it into the device state (position
+        prompt_len, first token from adm_toks, seed, and the prompt into
+        the history row at G > 0, where the drafter looks bigrams up)."""
         ids = req.prompt_ids
         sp = req.params
         self._slot_fresh[slot_idx] = []  # prefill succeeded; content valid
@@ -544,15 +866,9 @@ class Engine:
         )
         self._n_active += 1
         self._kv_history[slot_idx] = list(ids)
-        self._kv_pending[slot_idx] = None
-        if self.cfg.speculate_tokens > 0:
-            # The drafter looks bigrams up in the prompt too.
-            row = np.zeros((self._tok_hist.shape[1],), np.int64)
-            row[: len(ids)] = ids
-            self._tok_hist[slot_idx] = self._t(row)
+        self._kv_pending[slot_idx] = None  # set once the token id is known
+        self._slot_epoch[slot_idx] += 1
         self._h_active[slot_idx] = True
-        self._h_lengths[slot_idx] = len(ids)
-        self._h_seed[slot_idx] = seed
         self._h_temp[slot_idx] = sp.temperature
         self._h_top_p[slot_idx] = sp.top_p
         self._h_top_k[slot_idx] = sp.top_k
@@ -560,44 +876,60 @@ class Engine:
         self._h_freq[slot_idx] = sp.frequency_penalty
         self._h_gen_start[slot_idx] = len(ids)
         self._h_bias_ids[slot_idx], self._h_bias_vals[slot_idx] = self._bias_rows(sp)
+        self._adm_mask[slot_idx] = True
+        self._adm_len[slot_idx] = len(ids)
+        self._adm_seed[slot_idx] = seed
+        if self._adm_hist is not None:
+            self._adm_hist[slot_idx] = 0
+            self._adm_hist[slot_idx, : len(ids)] = ids
 
-    def _emit_first(self, slot_idx, tok, lp, t_ids, t_lp) -> None:
-        tok = int(tok)
-        self._kv_pending[slot_idx] = tok
-        self._h_last[slot_idx] = tok
-        slot = self._slots[slot_idx]
-        top = list(zip(t_ids.tolist(), t_lp.tolist())) if slot.req.params.logprobs else None
-        self._emit_token(slot_idx, tok, float(lp), top)
+    def _emit_admitted(self, admitted: list) -> None:
+        """One host sync for the first tokens of an admission round,
+        after the next chunk's dispatch (JAX ``_emit_admitted``): the
+        event follows the prefill, not the chunk queued behind it."""
+        if not admitted:
+            return
+        for ev in {id(a[4]): a[4] for a in admitted if a[4] is not None}.values():
+            ev.synchronize()
+        for slot_idx, epoch, (toks, lps, t_ids, t_lp), j, _ in admitted:
+            tok = int(toks[j])
+            if self._slot_epoch[slot_idx] == epoch:
+                # This token is what the next decode step writes.
+                self._kv_pending[slot_idx] = tok
+            slot = self._slots[slot_idx]
+            if slot is not None and self._slot_epoch[slot_idx] == epoch:
+                top = (list(zip(t_ids[j].tolist(), t_lp[j].tolist()))
+                       if slot.req.params.logprobs else None)
+                self._emit_token(slot_idx, tok, float(lps[j]), top)
 
     # -- decode ------------------------------------------------------------
 
-    def _decode_chunk(self) -> None:
-        """decode_chunk fused steps over every slot, then one host sync.
-        Each step verifies G = speculate_tokens drafts per slot (none at
-        G = 0); the host then emits drafts[:a] + [corr] per slot and step,
-        a being the accepted drafts and corr the device's next token.
-        Slots that finish mid-chunk keep stepping to the chunk's end, as in
-        the JAX engine: their extra tokens are dropped, and their writes
-        land past the emitted tokens, in pages that are released without
-        content registration (or in the trash page)."""
+    def _chunk_body(self) -> tuple:
+        """decode_chunk fused steps over every slot, reading and updating
+        the static device buffers in place; the function a CUDA graph
+        captures. First the admission merge (JAX ``decode_fn``'s rebase);
+        then each step verifies G = speculate_tokens drafts per slot (none
+        at G = 0). Returns (drafts [K, B, G], corr [K, B], acc [K, B],
+        lp_d [K, B, G], lp_c [K, B], t_ids [K, B, G+1, N], t_lp
+        [K, B, G+1, N]); the host emits drafts[:a] + [corr] per slot and
+        step. Slots that finish mid-chunk keep stepping to the chunk's
+        end, as in the JAX engine: their extra tokens are dropped, and
+        their writes land past the emitted tokens, in pages that are
+        released without content registration (or in the trash page)."""
         mc = self.model_config
         K = self.cfg.decode_chunk
         G = self.cfg.speculate_tokens
         topn = max(1, self.cfg.top_logprobs_k)
-        active = self._t(self._h_active)
-        tables = self._t(self._page_table)
-        lengths = self._t(self._h_lengths)
-        last = self._t(self._h_last)
-        seeds = self._t(self._h_seed)
-        temp = self._t(self._h_temp)
-        top_p = self._t(self._h_top_p)
-        top_k = self._t(self._h_top_k)
-        presence = self._t(self._h_presence)
-        freq = self._t(self._h_freq)
-        gen_start = self._t(self._h_gen_start)
-        bias_ids = self._t(self._h_bias_ids)
-        bias_vals = self._t(self._h_bias_vals)
+        d = self._inputs.dev
+        active, tables = d["active"], d["table"]
+        temp, top_p, top_k = d["temp"], d["top_p"], d["top_k"]
+        presence, freq, gen_start = d["presence"], d["freq"], d["gen_start"]
+        bias_ids, bias_vals = d["bias_ids"], d["bias_vals"]
         hist = self._tok_hist
+        lengths, last, seeds = merge_admissions(
+            d["adm_mask"], d["adm_len"], d["adm_seed"], self._adm_toks, d.get("adm_hist"),
+            self._lengths, self._last, self._seeds, hist)
+        self._seeds.copy_(seeds)
         rows = torch.arange(self.cfg.max_slots, device=self.device)[:, None]
         w_idx = torch.arange(hist.shape[1], device=self.device)[None, :]
         offs = torch.arange(G + 1, device=self.device)[None, :]
@@ -651,32 +983,132 @@ class Engine:
             outs.append((drafts, corr, acc, lp_d, lp_c, t_ids, t_raw - lse[..., None]))
             lengths = torch.where(active, lengths + acc + 1, lengths)
             last = corr
-        drafts, toks, accs, lp_d, lp_c, t_ids, t_lps = (
-            torch.stack(x).cpu().numpy() for x in zip(*outs)
-        )
-        self._h_lengths = lengths.cpu().numpy()
-        self._h_last = last.cpu().numpy()
-        snapshot = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        self._lengths.copy_(lengths)
+        self._last.copy_(last)
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    def _capture(self) -> _ChunkGraph:
+        """Capture the decode chunk as one CUDA graph for the resolved
+        decode kernel (JAX ``_decode_jit_for`` builds one program per
+        flavour). The chunk first runs once eagerly on the capture stream
+        over inert inputs (no slot active: the state stays as it is and
+        writes go to the trash page), so every kernel instance is built,
+        loaded and configured and the stream's split-KV scratch and W8A16
+        workspace are reserved; the capture then holds that scratch. The
+        counts the capture added are taken back and added at each replay.
+        Any failure raises: there is no eager fallback."""
+        t0 = time.monotonic()
+        cs = self._capture_stream
+        self._inputs.make_inert()
+        cs.wait_stream(self._stream)
+        with torch.cuda.stream(cs):
+            self._chunk_body()
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=cs,
+                                  capture_error_mode="thread_local"):
+                outputs = self._chunk_body()
+        finally:
+            after = _counts()
+            _set_counts(before)
+        _build.hold_stream(cs)
+        self._stream.wait_stream(cs)
+        delta = {}
+        for key, v in after.items():
+            d = v - before[key]
+            if d:
+                delta[key] = d
+        g = self._graphs[self.decode_kernel] = _ChunkGraph(graph, outputs, delta)
+        self.graph_capture_seconds[self.decode_kernel] = time.monotonic() - t0
+        log.info("decode chunk captured (%s) in %.2fs", self.decode_kernel,
+                 self.graph_capture_seconds[self.decode_kernel])
+        return g
+
+    def _dispatch_chunk(self) -> tuple:
+        """Dispatch one decode chunk and snapshot which request occupied
+        each slot (JAX ``_dispatch_chunk``): upload the host inputs
+        (admission arrays included, then cleared: this dispatch consumes
+        them), replay the graph (or run the chunk eagerly), and queue the
+        outputs' copy into a pinned set with an event behind it."""
+        t_start = time.monotonic()
+        graph = None
+        if self.cuda_graphs:
+            graph = self._graphs.get(self.decode_kernel) or self._capture()
+        ev0 = None
+        if self._cuda:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        self._inputs.upload()
+        self._adm_mask[:] = False
+        outs = graph.replay() if graph is not None else self._chunk_body()
+        if self._cuda:
+            j, self._out_turn = self._out_turn, self._out_turn ^ 1
+            if self._out_sets[j] is None:
+                self._out_sets[j] = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                                     for t in outs]
+            host = self._out_sets[j]
+            for h, t in zip(host, outs):
+                h.copy_(t, non_blocking=True)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        else:
+            host, ev = outs, None
+        snapshot = [(i, s, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
+        return host, (ev0, ev), snapshot, t_start, time.monotonic()
+
+    def _process_chunk(self, host, events, snapshot, t_start: float, t_disp: float) -> None:
+        """Wait for a dispatched chunk's outputs and emit its tokens (JAX
+        ``_process_chunk``): a token reaches a request only while its slot
+        still holds the request it held at dispatch; the slot's KV history
+        advances only while its epoch is the dispatch's."""
+        t_fetch = time.monotonic()
+        ev0, ev = events
+        if ev is not None:
+            ev.synchronize()
+        t_fetched = time.monotonic()
+        drafts, corr, acc, lp_d, lp_c, t_ids, t_lp = (x.numpy() for x in host)
+        K, G = acc.shape[0], drafts.shape[2]
+        n_emitted = 0
         for k in range(K):
-            for i, slot_obj in snapshot:
-                if self._slots[i] is not slot_obj:
-                    continue  # finished earlier in this chunk
-                a = int(accs[k, i])
-                if G and slot_obj.req.params.temperature <= 0.0:
+            for i, slot_obj, epoch in snapshot:
+                owned = self._slots[i] is slot_obj
+                a = int(acc[k, i])
+                if G and owned and slot_obj.req.params.temperature <= 0.0:
                     self.spec_drafted += G
                     self.spec_accepted += a
-                want_top = slot_obj.req.params.logprobs
+                want_top = owned and slot_obj.req.params.logprobs
                 emitted = [(int(drafts[k, i, j]), float(lp_d[k, i, j]), j) for j in range(a)]
-                emitted.append((int(toks[k, i]), float(lp_c[k, i]), a))
+                emitted.append((int(corr[k, i]), float(lp_c[k, i]), a))
                 for tok, lp, j in emitted:
-                    if self._slots[i] is not slot_obj:
-                        break  # finished on an earlier token of this step
-                    if self._kv_pending[i] is not None:
-                        self._kv_history[i].append(self._kv_pending[i])
-                    self._kv_pending[i] = tok
-                    top = list(zip(t_ids[k, i, j].tolist(), t_lps[k, i, j].tolist())) \
-                        if want_top else None
-                    self._emit_token(i, tok, lp, top)
+                    # Each step wrote its pending (input) token; each
+                    # emitted token becomes the next write. Skip when a
+                    # new occupant reset the slot.
+                    if self._slot_epoch[i] == epoch:
+                        if self._kv_pending[i] is not None:
+                            self._kv_history[i].append(self._kv_pending[i])
+                        self._kv_pending[i] = tok
+                    # Emit only while the slot still holds the request it
+                    # held at dispatch (it may have finished mid-chunk, or
+                    # been freed and re-admitted since).
+                    if self._slots[i] is slot_obj:
+                        top = list(zip(t_ids[k, i, j].tolist(), t_lp[k, i, j].tolist())) \
+                            if want_top else None
+                        self._emit_token(i, tok, lp, top)
+                        n_emitted += 1
+        now = time.monotonic()
+        self.chunk_log.append({
+            "steps": K, "slots": len(snapshot), "tokens": n_emitted,
+            "graph": self.cuda_graphs,
+            "dispatch_ms": (t_disp - t_start) * 1e3,  # upload + replay (or eager launches)
+            "fetch_wait_ms": (t_fetched - t_fetch) * 1e3,  # host blocked on the chunk
+            "emit_ms": (now - t_fetched) * 1e3,
+            "dur_ms": (t_fetched - t_disp) * 1e3,  # dispatched -> fetched
+            "fetched_at": t_fetched,
+            "device_ms": ev0.elapsed_time(ev) if ev is not None else None,
+        })
 
     # -- emission ----------------------------------------------------------
 
@@ -733,6 +1165,19 @@ class Engine:
             if tail:
                 slot.req.out.put(("token", -1, tail, None, None))
         slot.req.out.put(("done", FinishInfo(reason, slot.prompt_len, slot.generated)))
+
+
+def merge_admissions(adm_mask, adm_len, adm_seed, adm_toks, adm_hist,
+                     lengths, last, seeds, hist) -> tuple:
+    """Rebase the slots admitted since the last dispatch (the JAX
+    ``decode_fn``'s admission merge): each admitted slot's position, its
+    first token from the device staging vector *adm_toks*, its seed and,
+    at G > 0 (*adm_hist* given), its history row, written into *hist* in
+    place. Returns the merged (lengths, last, seeds)."""
+    if adm_hist is not None:
+        hist.copy_(torch.where(adm_mask[:, None], adm_hist, hist))
+    return (torch.where(adm_mask, adm_len, lengths), torch.where(adm_mask, adm_toks, last),
+            torch.where(adm_mask, adm_seed, seeds))
 
 
 def ngram_drafts(hist: torch.Tensor, lengths: torch.Tensor, last: torch.Tensor,

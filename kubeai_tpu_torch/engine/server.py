@@ -18,7 +18,9 @@ Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (engine/weights.py), and ``--quantization int8`` serves a preset, a
 checkpoint or test:tiny with int8 weights through the W8A16 kernels.
 ``--kv-cache-dtype fp8|int8`` stores the paged KV pool at one byte per
-element; the paged kernels dequantize it.
+element; the paged kernels dequantize it. ``--warmup`` (default on with
+KUBEAI_ENGINE_WARMUP=1, as in the JAX server) runs every step shape,
+the decode chunk's CUDA graph capture included, before serving.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -441,10 +444,23 @@ def make_arg_parser() -> argparse.ArgumentParser:
                         "halves the pool's bytes")
     p.add_argument("--prefix-cache-min", type=int, default=16,
                    help="min shared-prefix tokens reused across slots (0 disables)")
+    p.add_argument("--warmup", action="store_true",
+                   default=os.environ.get("KUBEAI_ENGINE_WARMUP", "0") == "1",
+                   help="run every step shape (on CUDA: capture the decode chunk's graph) "
+                        "before serving, so the first request pays for none")
     return p
 
 
 def build_engine_from_args(args) -> tuple[Engine, str]:
+    """The engine and served name of a command line; with ``--warmup`` the
+    engine has run Engine.warmup (its result in ``engine.warmup_result``)."""
+    eng, name = _engine_from_args(args)
+    if getattr(args, "warmup", False):
+        eng.warmup()
+    return eng, name
+
+
+def _engine_from_args(args) -> tuple[Engine, str]:
     ec = EngineConfig(
         max_slots=args.max_slots, max_seq_len=args.max_seq_len, page_size=args.page_size,
         decode_kernel=args.decode_kernel, speculate_tokens=args.speculate_tokens,

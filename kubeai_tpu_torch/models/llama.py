@@ -157,6 +157,17 @@ def _inv_freq(head_dim: int, theta: float, scaling, device: torch.device) -> tor
     return torch.from_numpy(rope_frequencies(head_dim, theta, scaling)).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def _kv_scale_vec(k_scale: float, v_scale: float, Kv: int, device: torch.device) -> torch.Tensor:
+    """[2*Kv, 1] float32 quantize-on-write divisors, built once per
+    (scales, heads, device): a copy from host memory inside a step would
+    stop a CUDA graph's capture. K (even) and V (odd) heads interleave, so
+    the scales do too. A tensor, not a Python scalar: CUDA divides by a
+    scalar through its reciprocal, which is not the JAX package's IEEE
+    division."""
+    return torch.tensor([k_scale, v_scale] * Kv, dtype=torch.float32, device=device)[:, None]
+
+
 def apply(
     params: Params,
     config: ModelConfig,
@@ -216,11 +227,7 @@ def apply(
             # scale-free (its range covers K/V activations), as in JAX.
             kq_scale, vq_scale = ((float(config.kv_scale_k), float(config.kv_scale_v))
                                   if pool.dtype == torch.int8 else (1.0, 1.0))
-            # K (even) and V (odd) heads interleave, so the scales do too.
-            # A float32 tensor: CUDA divides by a Python scalar through its
-            # reciprocal, which is not the JAX package's IEEE division.
-            kv_scale_vec = torch.tensor(
-                [kq_scale, vq_scale] * Kv, dtype=torch.float32, device=dev)[:, None]
+            kv_scale_vec = _kv_scale_vec(kq_scale, vq_scale, Kv, dev)
         max_pages = page_table.shape[1]
         skv = max_pages * page
         key_positions = torch.arange(skv, device=dev)[None, None, :]

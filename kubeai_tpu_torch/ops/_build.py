@@ -149,6 +149,58 @@ def stream_of(t) -> PTR:
     return PTR(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+# Scratch of the launches on one stream, by (device index, raw stream
+# handle) and then by name: the split-KV decode partials and counters,
+# the W8A16 split-K workspace. Launches on one stream run in order, so
+# the counters each launch leaves at zero are zero for the next, and a
+# stream of its own keeps other streams' launches off them. A captured
+# CUDA graph keeps the pointers it saw: once hold_stream() marks its
+# capture stream, a growth of that stream's scratch raises instead of
+# freeing memory the graph still writes.
+_stream_scratch: dict = {}
+_held: set = set()
+
+
+def stream_key(device) -> tuple[int, int]:
+    """(device index, raw handle of the current stream) of *device*."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return index, (raw(index) if raw is not None else
+                   torch.cuda.current_stream(index).cuda_stream)
+
+
+def scratch(device, name: str, sizes: tuple, make):
+    """The current stream's scratch *name* on *device*: a tuple of flat
+    tensors holding at least *sizes* elements each, made by
+    ``make(sizes)`` and grown (to the larger of old and new) on demand."""
+    key = stream_key(device)
+    bufs = _stream_scratch.setdefault(key, {})
+    have = bufs.get(name)
+    if have is None or any(t.numel() < n for t, n in zip(have, sizes)):
+        if key in _held:
+            raise RuntimeError(
+                f"{name}: a CUDA graph holds this stream's scratch; growing it to {sizes} "
+                f"would free memory the graph still writes (reserve it before capture)"
+            )
+        old = [0] * len(sizes) if have is None else [t.numel() for t in have]
+        have = bufs[name] = make(tuple(max(n, o) for n, o in zip(sizes, old)))
+    return have
+
+
+def hold_stream(stream) -> None:
+    """Freeze the scratch of a CUDA *stream*: a captured graph holds it."""
+    _held.add((stream.device.index, stream.cuda_stream))
+
+
+def release_stream(stream) -> None:
+    """Drop the hold and the scratch of *stream* (its graphs are gone)."""
+    key = (stream.device.index, stream.cuda_stream)
+    _held.discard(key)
+    _stream_scratch.pop(key, None)
+
+
 # Element codes of a KV pool beside q (the kernels' kv_code): the
 # compute dtype itself, or one byte per element dequantized in the kernel.
 POOL_SAME, POOL_INT8, POOL_FP8 = 0, 1, 2

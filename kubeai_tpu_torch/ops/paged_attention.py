@@ -107,40 +107,34 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# Per device: the scratch of the split-KV decode launches, which the
-# ragged kernel's decode regime and the dedicated decode kernel share. The
-# counters outlive a launch on purpose: each launch leaves them zero
-# again, so they are zeroed once, here, and no launch pays a second kernel
-# to clear them. That holds for launches in stream order (the engine runs
-# its steps on one stream).
-_scratch: dict = {}
-
-
 def _split_kv_setup(q, Kv: int, max_pages: int, page: int, R: int, n_splits=None,
                     groups: int = 1):
     """(n_splits, partials, (m, l) pairs, counters) of a split-KV decode
     launch with *groups* groups of R query rows per (slot, KV head), each
     its own set of blocks: :func:`split_kv_plan`'s choice for that many
-    blocks unless *n_splits* is given, and the device's scratch (f32, f32
-    and int32, at least groups times B*Kv*n_splits*R*h, 2*B*Kv*n_splits*R
-    and B*Kv long), grown on demand."""
+    blocks unless *n_splits* is given, and the current stream's scratch
+    (f32, f32 and int32, at least groups times B*Kv*n_splits*R*h,
+    2*B*Kv*n_splits*R and B*Kv long), which the ragged kernel's decode
+    regime and the dedicated decode kernel share. The counters outlive a
+    launch on purpose: each launch leaves them zero again, in stream
+    order, so they are zeroed once, when allocated, and no launch pays a
+    second kernel to clear them. The scratch grows on demand, except on
+    a stream whose CUDA graph holds it (_build.scratch)."""
     B, h = q.shape[0], q.shape[-1]
     if n_splits is None:
         dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
         n_splits = split_kv_plan(B * groups, Kv, max_pages, page, _sm_count(dev))
     n = groups * B * Kv
     want = (n * n_splits * R * h, 2 * n * n_splits * R, n)
-    s = _scratch.get(q.device)
-    have = (0, 0, 0) if s is None else tuple(t.numel() for t in s)
-    if any(got < n for got, n in zip(have, want)):
-        size = [max(got, n) for got, n in zip(have, want)]
-        s = (
+
+    def make(size):
+        return (
             torch.empty(size[0], dtype=torch.float32, device=q.device),
             torch.empty(size[1], dtype=torch.float32, device=q.device),
             torch.zeros(size[2], dtype=torch.int32, device=q.device),
         )
-        _scratch[q.device] = s
-    return (n_splits, *s)
+
+    return (n_splits, *_build.scratch(q.device, "split_kv", want, make))
 
 
 def paged_attention_plain(q, kv_pages, page_table, kv_lengths, scale=None, softcap=0.0,

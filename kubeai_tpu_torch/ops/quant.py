@@ -227,36 +227,21 @@ def _plan(M: int, N: int, K: int, tma: bool, f32: bool, sms: int, n_cols: int = 
 # step names the same per-layer views every step, so each is checked once.
 _weights: dict = {}
 
-# Per (device, stream): the split-K workspace (f32 partials, int32
-# counters). The counters are zeroed when allocated and every launch
-# leaves them zero, in stream order. A CUDA graph that captures launches
-# must call reserve_workspace first: growing inside a capture allocates.
-_workspace: dict = {}
-
 _lib = None
-# The current stream's raw handle, by the fast path where torch has it.
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def reserve_workspace(device: torch.device, parts: int, counters: int) -> tuple:
-    """The current stream's split-K workspace on *device*, grown to hold
-    at least *parts* floats and *counters* counters."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, _stream_handle(index))
-    ws = _workspace.get(key)
-    if ws is None or ws[0].numel() < parts or ws[1].numel() < counters:
-        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
-        dev = torch.device("cuda", index)
-        ws = (torch.empty(max(parts, have[0], 1), dtype=torch.float32, device=dev),
-              torch.zeros(max(counters, have[1], 1), dtype=torch.int32, device=dev))
-        _workspace[key] = ws
-    return ws
+    """The current stream's split-K workspace on *device* (f32 partials,
+    int32 counters), grown to hold at least *parts* floats and *counters*
+    counters. The counters are zeroed when allocated and every launch
+    leaves them zero, in stream order. A CUDA graph that captures
+    launches reserves its capture stream's workspace first (an eager run
+    on that stream) and then holds it: _build.scratch refuses to grow it."""
+    def make(size):
+        return (torch.empty(max(size[0], 1), dtype=torch.float32, device=device),
+                torch.zeros(max(size[1], 1), dtype=torch.int32, device=device))
 
-
-def _stream_handle(index: int) -> int:
-    if _raw_stream is not None:
-        return _raw_stream(index)
-    return torch.cuda.current_stream(index).cuda_stream
+    return _build.scratch(device, "w8a16", (parts, counters), make)
 
 
 def _check_weight(q, s, layout: int, K: int, device, what: str):
@@ -337,7 +322,7 @@ def _launch(x: torch.Tensor, pairs, layout: int, what: str) -> list[torch.Tensor
     if _lib is None:
         _lib = _build.load("w8a16_matmul", _SIG)
     err = _lib.w8a16_launch(xp, M, K, layout, kernel, bm, bn, vec, len(infos), *args, part, cnt,
-                            _stream_handle(index))
+                            _build.stream_key(dev)[1])
     _build.check(err, what)
     qdot.launches += 1
     if len(infos) > 1:

@@ -1,43 +1,33 @@
 """End to end on the CPU: the port's engine and server against the JAX
 engine on the same weights (kubeai_tpu.engine.core.build_test_engine's,
-converted by params_from_jax), plus the port's device rule and its
-freedom from JAX.
+converted by params_from_jax: tests/_torch_parity.py), plus the port's
+device rule and its freedom from JAX.
 
 Greedy completions must be token-identical. Where the JAX engine's top
 two logprobs at a step are closer than 1e-5, float32 summation order may
 legitimately pick the other token, so the comparison stops before that
 step (and the test says so in its assertion message)."""
 
-import dataclasses
 import json
 import subprocess
 import sys
 import urllib.request
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from kubeai_tpu.engine import core as jcore
 from kubeai_tpu.engine.sampling import SamplingParams as JSP
 from kubeai_tpu_torch.engine import core as tcore
 from kubeai_tpu_torch.engine.sampling import SamplingParams as TSP
-from kubeai_tpu_torch.models.base import ModelConfig
-from kubeai_tpu_torch.models.convert import params_from_jax
 
+from _torch_parity import TIE_GAP, parity_engines
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
-
-
-TIE_GAP = 1e-5
 
 
 @pytest.fixture(scope="module")
 def engines():
-    je = jcore.build_test_engine(seed=0)
-    mc = ModelConfig(**{f.name: getattr(je.model_config, f.name) for f in dataclasses.fields(ModelConfig)})
-    tp = params_from_jax(jax.tree.map(np.asarray, je.params), mc, "cpu")
-    te = tcore.build_test_engine(seed=0, device="cpu", params=tp, model_config=mc)
+    je, te = parity_engines()
     je.start()
     te.start()
     yield je, te
@@ -112,11 +102,7 @@ def test_vocab_256_config_serves_bos_like_jax_engine():
     jmc = JMC(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
               num_heads=4, num_kv_heads=2, dtype="float32")
     ec = dict(max_slots=2, max_seq_len=128, prefill_buckets=(16, 32))
-    je = jcore.build_test_engine(jcore.EngineConfig(**ec), seed=3, model_config=jmc)
-    mc = ModelConfig(**{f.name: getattr(jmc, f.name) for f in dataclasses.fields(ModelConfig)})
-    tp = params_from_jax(jax.tree.map(np.asarray, je.params), mc, "cpu")
-    te = tcore.build_test_engine(tcore.EngineConfig(**ec), device="cpu", params=tp,
-                                 model_config=mc)
+    je, te = parity_engines(ec, seed=3, jax_model_config=jmc)
     je.start()
     te.start()
     try:

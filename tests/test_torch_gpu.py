@@ -151,11 +151,12 @@ def test_dedicated_decode_main_widths(cuda, dtype, S, H, lens):
 
 @pytest.mark.gpu
 def test_decode_kernels_share_counters(cuda):
-    """The two split-KV kernels share one scratch: every launch must leave
-    its counters at zero for the next, in stream order. Two dedicated
-    launches back to back, then a ragged launch between two dedicated
-    ones, each checked against its plain version, then the counters."""
-    from kubeai_tpu_torch.ops.paged_attention import _scratch
+    """The two split-KV kernels share one scratch per stream: every launch
+    must leave its counters at zero for the next, in stream order. Two
+    dedicated launches back to back, then a ragged launch between two
+    dedicated ones, each checked against its plain version, then the
+    counters."""
+    from kubeai_tpu_torch.ops import _build
 
     dtype = torch.bfloat16
     lens = [8, 300, 511, 2048, 1000, 64, 65, 1]
@@ -170,7 +171,7 @@ def test_decode_kernels_share_counters(cuda):
     torch.cuda.synchronize()
     for got, (_, _, want) in zip(outs, runs):
         _assert_close(got, want, dtype)
-    counters = _scratch[q8.device][2]
+    counters = _build._stream_scratch[_build.stream_key(q8.device)]["split_kv"][2]
     assert int(counters.abs().sum().item()) == 0
 
 
@@ -673,3 +674,192 @@ def test_quantize_on_the_card_is_bit_identical_to_the_cpu(cuda):
         want, got = fn(w), fn(w.to(cuda))
         for k in want:
             assert torch.equal(got[k].cpu(), want[k]), (fn.__name__, k)
+
+
+# -- The graphed, pipelined engine -------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """A 2-layer model at Llama-3.1-8B's widths: (config, bf16 params,
+    int8 params), random weights from seed 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from kubeai_tpu_torch.engine.weights import quantize_model_params
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    mc = llama_3_1_8b(num_layers=2)
+    params = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    yield mc, params, quantize_model_params(params, mc)
+    torch.cuda.empty_cache()
+
+
+def _staggered_greedy(engine, prompts, n):
+    """Greedy tokens of *prompts*, each submitted once the one before it
+    has its first token (single admissions: each prefills alone, so its
+    numbers do not depend on timing)."""
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    reqs = []
+    for p in prompts:
+        reqs.append(engine.submit(p, SamplingParams(temperature=0.0, max_tokens=n)))
+        first = reqs[-1].out.get(timeout=300)
+        assert first[0] == "token", first
+        reqs[-1].first = first[1]
+    out = []
+    for r in reqs:
+        ids = [r.first]
+        while True:
+            ev = r.out.get(timeout=300)
+            if ev[0] == "token" and ev[1] >= 0:
+                ids.append(ev[1])
+            elif ev[0] == "done":
+                break
+            elif ev[0] == "error":
+                raise RuntimeError(ev[1])
+        out.append(ids)
+    return out
+
+
+GRAPH_PROMPTS = [list(b"The quick brown fox jumps over the lazy dog. The quick brown fox"),
+                 list(b"one two three four one two three four one two three four one"),
+                 [(i * 11) % 250 + 1 for i in range(1100)]]  # chunked: 1024 + 128
+
+
+GRAPH_CASES = {
+    "bf16_ragged": dict(decode_kernel="ragged"),
+    "bf16_dedicated": dict(decode_kernel="dedicated"),
+    "int8_weights": dict(decode_kernel="ragged", int8=True),
+    "fp8_pool": dict(decode_kernel="ragged", kv_cache_dtype="fp8"),
+    "int8_pool": dict(decode_kernel="dedicated", kv_cache_dtype="int8", int8=True),
+    "spec7_ragged": dict(decode_kernel="ragged", speculate_tokens=7),
+    "spec7_dedicated": dict(decode_kernel="dedicated", speculate_tokens=7),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_graphed_engine_matches_eager(wide, case):
+    """Each decode chunk one CUDA graph replay: the greedy tokens equal an
+    eager engine's (cuda_graphs=False) on the same weights, token for
+    token (the same kernels on the same inputs), under staggered
+    arrivals; every chunk of the graphed engine was a replay."""
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    mc, params, qparams = wide
+    kw = dict(GRAPH_CASES[case])
+    p = qparams if kw.pop("int8", False) else params
+    ec = EngineConfig(max_slots=4, max_seq_len=2048, page_size=64, **kw)
+    got = {}
+    for graphs in (True, False):
+        eng = Engine(mc, p, ByteTokenizer(), ec, device="cuda", cuda_graphs=graphs)
+        eng.start()
+        try:
+            got[graphs] = _staggered_greedy(eng, GRAPH_PROMPTS, 40)
+        finally:
+            eng.stop()
+        chunks = list(eng.chunk_log)
+        assert chunks and all(c["graph"] == graphs for c in chunks), case
+        assert bool(eng.graph_capture_seconds) == graphs
+    assert got[True] == got[False], case
+
+
+@pytest.mark.gpu
+def test_tiny_graphed_engine_matches_eager(cuda):
+    """test:tiny (float32, head dim 32): graphed and eager engines on the
+    same weights give the same greedy tokens."""
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig, build_test_engine
+
+    ec = EngineConfig(max_slots=4, max_seq_len=512, prefill_buckets=(16, 32, 64, 128),
+                      speculate_tokens=3)
+    graphed = build_test_engine(ec, seed=0, device=cuda)
+    eager = Engine(graphed.model_config, graphed.params, graphed.tokenizer, ec, device=cuda,
+                   cuda_graphs=False)
+    got = {}
+    for eng in (graphed, eager):
+        eng.start()
+        try:
+            got[eng is graphed] = _staggered_greedy(
+                eng, [[256] + list(b"short"), [256] + [1, 2, 3, 4] * 10,
+                      [256] + [(i * 7) % 250 + 1 for i in range(200)]], 40)
+        finally:
+            eng.stop()
+    assert got[True] == got[False]
+    assert all(c["graph"] for c in graphed.chunk_log)
+
+
+@pytest.mark.gpu
+def test_graph_replays_count_whole_32_layer_steps(cuda):
+    """A 32-layer model (narrow widths), int8 weights, dedicated decode
+    kernel: with the counts zeroed before serving, the dedicated kernel's
+    launches are whole steps of 32 layers, exactly K steps per replay
+    plus the capture's one eager chunk, and the W8A16 counts whole steps
+    of 4 launches a layer + 1."""
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.engine.weights import quantize_model_params
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import ModelConfig
+
+    mc = ModelConfig(vocab_size=512, hidden_size=512, intermediate_size=1024, num_layers=32,
+                     num_heads=4, num_kv_heads=2, dtype="bfloat16", max_position=4096)
+    params = quantize_model_params(
+        llama.init_params(mc, torch.Generator(device=cuda).manual_seed(0), device=cuda), mc)
+    ec = EngineConfig(max_slots=4, max_seq_len=512, page_size=64, decode_kernel="dedicated")
+    eng = Engine(mc, params, ByteTokenizer(), ec, device=cuda)
+    for fn in (paged_decode_attention, qdot, qdot_many):
+        fn.launches = 0
+    eng.start()
+    try:
+        _staggered_greedy(eng, [list(b"count the launches"), list(b"of every replay")], 30)
+    finally:
+        eng.stop()
+    replays = len(eng.chunk_log)
+    assert replays > 0 and all(c["graph"] for c in eng.chunk_log)
+    L, K = mc.num_layers, ec.decode_chunk
+    assert paged_decode_attention.launches == (replays + 1) * K * L
+    assert qdot.launches % (4 * L + 1) == 0 and qdot.launches > (replays + 1) * K * (4 * L + 1)
+    assert qdot_many.launches % (2 * L) == 0
+
+
+@pytest.mark.gpu
+def test_scratch_growth_after_capture_raises(wide):
+    """Once a graph holds its capture stream's scratch, a split-KV launch
+    (or a W8A16 reservation) there that needs more raises instead of
+    freeing memory the graph writes; stop() releases the hold."""
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.ops.paged_attention import _split_kv_setup
+    from kubeai_tpu_torch.ops.quant import reserve_workspace
+
+    mc, params, _ = wide
+    eng = Engine(mc, params, ByteTokenizer(), EngineConfig(max_slots=4, max_seq_len=1024),
+                 device="cuda")
+    eng.warmup()
+    assert eng.graph_capture_seconds
+    q = torch.zeros((64, 1, 32, 128), dtype=torch.bfloat16, device="cuda")
+    with torch.cuda.stream(eng._capture_stream):
+        _split_kv_setup(q[:4], 8, 16, 64, 4)  # what the graph reserved: fine
+        with pytest.raises(RuntimeError, match="CUDA graph holds"):
+            _split_kv_setup(q, 8, 32, 64, 64)
+        with pytest.raises(RuntimeError, match="CUDA graph holds"):
+            reserve_workspace(q.device, 1 << 28, 1 << 20)
+    eng.stop()
+    with torch.cuda.stream(eng._capture_stream):
+        assert _split_kv_setup(q, 8, 32, 64, 64)[0] >= 1
+
+
+@pytest.mark.gpu
+def test_live_engines_never_share_a_stream(cuda):
+    """torch's pooled streams repeat after 32 draws: an engine built 30
+    draws after another still gets streams of its own (sharing one would
+    share its kernel scratch between their graphs)."""
+    from kubeai_tpu_torch.engine.core import build_test_engine
+
+    a = build_test_engine(device=cuda)
+    fillers = [torch.cuda.Stream(cuda) for _ in range(30)]
+    b = build_test_engine(device=cuda)
+    own = [{e._stream.cuda_stream, e._capture_stream.cuda_stream} for e in (a, b)]
+    assert len(own[0]) == len(own[1]) == 2 and not own[0] & own[1], (own, len(fillers))
