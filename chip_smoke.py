@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      the kernels' build time (the paged kernels' head-dim-32 one-byte
      instances in libraries of their own, built beside the others),
      nvcc's per-kernel resource report and the HGMMA / HMMA (tensor-core)
-     instruction count of each library; the dedicated decode kernel and
+     instruction count of each library (the three attention kernels'
+     bf16 instances at head dim 256, Gemma's, also in libraries of their
+     own); the dedicated decode kernel (its head-dim-256 library too) and
      the W8A16 kernels must use HMMA and spill nothing, and the W8A16
      library must show HGMMA (its wgmma tile);
   2. kernels: each hand-written CUDA kernel at the main path's shapes
@@ -30,13 +32,26 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      8, 16, 32, 64 and 1024 rows through each projection (both regimes),
      the heads, the grouped qkv and gate/up launches (equal byte for byte
      to separate ones) and the float32 instance; two launches must agree
-     byte for byte;
+     byte for byte. The families' instances and regimes: flash at
+     Gemma-2B's head dim 256 (8 heads over 1) and at Qwen2.5-7B's G = 7
+     (28 heads over 4, 63-row tiles), both on the tensor-core tile; the
+     paged kernels at h 256 (decode at kv 512 and 2048 over bf16 and fp8
+     pools, an 8-token verify, a 1024 chunk at 1024) and at G = 7
+     (decode, verify at 56 rows on split KV and 70 on the prefill tile,
+     the chunk); W8A16 at Qwen's and Gemma's projections and heads
+     (Gemma's tied 256000 x 2048 head as qmatT); the decode grid must
+     cover every SM with 8, 4 and 1 KV heads;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
      plain path on the same weights (bf16: gather attention; int8: also
      the W8A16 product in float32 math; an fp8 pool: the same gates with
      each attention kernel's plain version), for cold prefill (flash and
      ragged buckets), a chunked prefill, decode steps and 8- and
-     17-token speculative verify steps under both decode kernels;
+     17-token speculative verify steps under both decode kernels; the
+     same for 2-layer full-width Qwen2.5-7B (bf16, int8), Gemma-2B (bf16,
+     fp8 pool), Mixtral-8x7B (bf16; the plain path takes the kernel
+     path's expert choices, and the choices it would have made otherwise
+     are counted) and Gemma2-2B (bf16 and int8 on the gather path: no
+     attention kernel may launch);
   4. serving: the port's OpenAI server over Llama-3.1-8B (32 layers,
      random bf16 weights from a seed) answers completions, chat, a
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
@@ -65,7 +80,14 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      over 6 chunks (device busy ms of a chunk, idle share). Then a
      32-layer step profile: decode and verify steps
      under both decode kernels, in int8 and over an fp8 pool, prefills
-     with bf16 and int8 weights. Then the loader: a 2-layer checkpoint at
+     with bf16 and int8 weights. Then the other families, each served
+     with the same request set (FAMILY_RUNS: Qwen2.5-7B at 28 layers,
+     bf16 ragged and int8 weights with the dedicated kernel; Gemma-2B at
+     18, bf16 ragged and an fp8 pool with the dedicated kernel; Gemma2-2B
+     at 26, bf16, with zero flash and paged launches; Mixtral-8x7B at 16
+     of its 32 layers, full width, bf16 ragged), no CUDA-core tile in any
+     of them, and a step profile of each (decode, 8-token verify, cold
+     512 prefill). Then the loader: a 2-layer checkpoint at
      8B width written by the port's save_hf_checkpoint is served through
      --model <dir> --quantization int8, and its int8 leaves must equal
      quantize_model_params of the written weights. Last, the JAX
@@ -74,7 +96,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      --speculate-tokens 3, its greedy tokens equal to the same engine's on
      the CPU.
 The last two lines are the kernels summary (each kernel's launches in
-the run of its own path, and per path) and {"ok": true, ...}.
+the run of its own path, and per path; every entry must have launched
+there) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -111,8 +134,10 @@ DEADLINE_S = 1140
 
 KERNELS = ("flash_attention", "paged_attention", "paged_decode_attention", "w8a16_matmul")
 # Libraries built beside them: the paged kernels' one-byte instances at
-# head dim 32 (the float32 test configuration's pools).
-VARIANTS = ("paged_attention_q8d32", "paged_decode_attention_q8d32")
+# head dim 32 (the float32 test configuration's pools), and the three
+# attention kernels' bf16 instances at head dim 256 (Gemma's).
+VARIANTS = ("paged_attention_q8d32", "paged_decode_attention_q8d32", "flash_attention_d256",
+            "paged_attention_d256", "paged_decode_attention_d256")
 
 
 def log(*a):
@@ -257,7 +282,7 @@ def phase_env() -> dict:
         log(f"  sass[{name}] HGMMA instructions: {hgmma[name]}, HMMA: {hmma[name]}")
     log("spill_bytes", json.dumps(spills))
     # The W8A16 library: mma.sync (decode) and wgmma (verify, prefill).
-    for name in ("paged_decode_attention", "w8a16_matmul"):
+    for name in ("paged_decode_attention", "paged_decode_attention_d256", "w8a16_matmul"):
         if spills.get(name, 0):
             raise AssertionError(f"{name} spills: {spills}")
         if tool is not None and not hmma.get(name):
@@ -445,6 +470,7 @@ def phase_kernels() -> dict:
         _quant_pool_cases(record, kv, QUANT_CASES_H32, H32_SHAPE, " h32")
     _verify_cases(record)
     _w8a16_cases(record)
+    _family_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
     return results
@@ -630,6 +656,142 @@ def _verify_cases(record) -> None:
     torch.cuda.empty_cache()
 
 
+# The model families' attention shapes (H, Kv, h): Gemma-2B's head dim
+# 256 over one KV head, Qwen2.5-7B's groups of G = 7.
+GEMMA_ATTN = (8, 1, 256)
+QWEN_ATTN = (28, 4, 128)
+# (entry, case, B, S, kv_lens, pool, kernels, headline): the ragged
+# kernel ("r") and/or the dedicated one ("d") on Gemma's and Qwen's
+# shapes; an entry's headline is the case its family's serving path runs
+# most. Decode and verify cases are timed cold-L2.
+FAMILY_PAGED = (
+    ("h256", "decode B=8 kv_len=512", 8, 1, [512] * 8, None, "rd", True),
+    ("h256", "decode B=8 kv_len=2048", 8, 1, [2048] * 8, None, "rd", False),
+    ("h256", "verify B=8 S=8 kv_len=512", 8, 8, [512] * 8, None, "rd", False),
+    ("h256", "prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], None, "r", False),
+    ("h256 fp8 pool", "fp8 pool decode B=8 kv_len=512", 8, 1, [512] * 8, "fp8", "rd", True),
+    ("h256 fp8 pool", "fp8 pool decode B=8 kv_len=2048", 8, 1, [2048] * 8, "fp8", "rd", False),
+    ("h256 fp8 pool", "fp8 pool prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], "fp8",
+     "r", False),
+    ("G7", "decode B=8 kv_len=512", 8, 1, [512] * 8, None, "rd", True),
+    ("G7", "verify B=8 S=8 kv_len=512 (56 rows)", 8, 8, [512] * 8, None, "rd", False),
+    ("G7 prefill tile", "prefill chunk B=1 S=1024 start=1024", 1, 1024, [2048], None, "r", True),
+    ("G7 prefill tile", "verify B=8 S=10 kv_len=512 (70 rows)", 8, 10, [512] * 8, None, "r",
+     False),
+)
+# W8A16 at the families' shapes: (name, K, N, M, layout): Qwen2.5-7B's
+# grouped q|k|v (3584 -> 3584 + 512 + 512), gate|up (18944 each), wo,
+# wd and untied head; Gemma-2B's q, gate and down and its tied head
+# (qmatT over the [256000, 2048] table). The headline is Qwen's gate at
+# M = 8, its int8 serving run's decode.
+FAMILY_W8A16 = (
+    ("qwen wqkv", 3584, 4608, 8, 0), ("qwen wg", 3584, 18944, 8, 0),
+    ("qwen wo", 3584, 3584, 8, 0), ("qwen wd", 18944, 3584, 8, 0),
+    ("qwen wg", 3584, 18944, 1024, 0), ("qwen lm_head", 3584, 152064, 8, 0),
+    ("gemma wq", 2048, 2048, 8, 0), ("gemma wg", 2048, 16384, 8, 0),
+    ("gemma wd", 16384, 2048, 8, 0), ("gemma tied head", 2048, 256000, 8, 1),
+)
+
+
+def _family_cases(record) -> None:
+    """The kernel instances and regimes the model families add, each
+    against its plain version (float32 q; a pool in float32 or
+    dequantized to it), timed beside the plain version, one library call
+    (SDPA, or gather + SDPA) and its bound: flash at Gemma-2B's head dim
+    256 and at Qwen2.5-7B's G = 7 (S = 1024), the paged kernels at both
+    (FAMILY_PAGED), and W8A16 at their projection and head shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops import paged_attention as pa
+    from kubeai_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_regime,
+    )
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.quant import dequantize, qdot, qdot_plain, qmatT, qmatT_plain
+
+    for tag, (H, Kv, h) in (("h256", GEMMA_ATTN), ("G7", QWEN_ATTN)):
+        S = 1024
+        g = torch.Generator(device="cuda").manual_seed(31)
+        q, k, v = (torch.randn((1, S, n, h), generator=g, device="cuda").to(torch.bfloat16)
+                   for n in (H, Kv, Kv))
+        if flash_regime(q, k) != "tensor_core":
+            raise AssertionError(f"flash_attention[{tag}] not on the tensor-core tile")
+        got = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = compare(got, flash_attention_plain(q.float(), k.float(), v.float()),
+                      f"flash_attention[{tag}]")
+        ms = timed_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+        lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True))
+        record(f"flash_attention[{tag}]", f"B=1 S={S} H={H} Kv={Kv} h={h} causal", err, ms,
+               plain_ms, 2 * (2 * S * H * h + 2 * S * Kv * h), 4.0 * h * H * S * (S + 1) / 2,
+               lib_ms, True, False)
+        del q, k, v, got
+
+    for tag, case, B, S, lens, kv, which, headline in FAMILY_PAGED:
+        H, Kv, h = GEMMA_ATTN if tag.startswith("h256") else QWEN_ATTN
+        cold = S <= 10
+        if kv is None:
+            q, pool, table, lens_t = _paged_case(B, S, lens, H=H, Kv=Kv, h=h, seed=S + h)
+            ks = vs = None
+            want = pa.paged_attention_plain(q.float(), pool.float(), table, lens_t)
+        else:
+            q, pool, table, lens_t, ks, vs = _quant_case(B, S, lens, kv, H=H, Kv=Kv, h=h,
+                                                          seed=S + h)
+            want = pa.paged_attention_plain(q.float(), pool, table, lens_t, None, 0.0, ks, vs)
+        kw = {} if kv is None else {"k_scale": ks, "v_scale": vs}
+        nbytes, flops = _paged_cost(B, S, lens, H, Kv, h, 64, 2, 1 if kv else 2)
+        plain_ms = timed_ms(lambda: pa.paged_attention_plain(q, pool, table, lens_t, None, 0.0,
+                                                             ks, vs), iters=5, cold_l2=cold)
+        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens_t, ks, vs), iters=5,
+                          cold_l2=cold)
+        regime = pa.ragged_regime(q, pool)
+        if regime == "cuda_core":
+            raise AssertionError(f"paged_attention[{tag}] {case}: on the CUDA-core tile")
+        fns = [("paged_attention", pa.paged_attention_ragged)] * ("r" in which)
+        fns += [("paged_decode_attention", paged_decode_attention)] * ("d" in which)
+        for name, fn in fns:
+            got = fn(q, pool, table, lens_t, **kw)
+            torch.cuda.synchronize()
+            err = compare(got, want, f"{name}[{tag}] {case}")
+            ms = timed_ms(lambda: fn(q, pool, table, lens_t, **kw), cold_l2=cold)
+            extra = {"rows": S * (H // Kv), "H": H, "Kv": Kv, "h": h}
+            if name == "paged_attention":
+                extra["tile"] = regime
+            record(f"{name}[{tag}]", case, err, ms, plain_ms, nbytes, flops, lib_ms, headline,
+                   cold, extra=extra)
+            del got
+        del q, pool, table, lens_t, want
+    torch.cuda.empty_cache()
+
+    for name, K, N, M, layout in FAMILY_W8A16:
+        g = torch.Generator(device="cuda").manual_seed(K + N + M)
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        w = _w8a16_weight(g, K, N, layout)
+        fn, plain = (qdot, qdot_plain) if layout == 0 else (qmatT, qmatT_plain)
+        got = fn(x, w)
+        torch.cuda.synchronize()
+        err = compare(got, _w8a16_want(x, w, layout), f"w8a16 {name} M={M}")
+        cold = M <= 64
+        ms = timed_ms(lambda: fn(x, w), cold_l2=cold)
+        plain_ms = timed_ms(lambda: plain(x, w["int8_q"], w["int8_s"]), iters=5, cold_l2=cold)
+        wb = dequantize(w, torch.bfloat16)
+        wb = wb if layout == 0 else wb.T
+        lib_ms = timed_ms(lambda: torch.matmul(x, wb), cold_l2=cold)
+        nbytes = K * N + 4 * N + 2 * (M * K + M * N)
+        record("w8a16_matmul[families]", f"{name} M={M} K={K} N={N}" + (" (qmatT)" if layout
+                                                                          else ""),
+               err, ms, plain_ms, nbytes, 2.0 * M * N * K, lib_ms, (name, M) == ("qwen wg", 8),
+               cold)
+        del x, w, wb, got
+    torch.cuda.empty_cache()
+
+
 # Llama-3.1-8B's projections (K, N): wq and wo, wk and wv, wg and wu, wd.
 W8A16_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wg", 4096, 14336), ("wd", 14336, 4096))
 VOCAB = 128256
@@ -782,18 +944,20 @@ def _split_sweep(case, q, pool, table, lens) -> None:
 
 
 def check_decode_grid() -> dict:
-    """The split-KV decode grid of both paged kernels at B=8, Kv=8, kv_len
-    512, for phase 2's table (8 pages) and the serving engine's (32
-    pages): the live blocks must cover every SM of the card."""
+    """The split-KV decode grid of both paged kernels at B=8, kv_len 512,
+    for Llama's 8 KV heads, Qwen2.5's 4 and Gemma-2B's one, over phase
+    2's table (8 pages) and the serving engine's (32 pages): the live
+    blocks must cover every SM of the card."""
     import torch
 
     from kubeai_tpu_torch.ops.paged_attention import split_chunk, split_kv_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = {}
-    for mp in (8, 32):
-        n = split_kv_plan(8, 8, mp, 64, sms)
-        blocks[mp] = 8 * 8 * -(-512 // split_chunk(512, n))
+    for Kv in (8, 4, 1):
+        for mp in (8, 32):
+            n = split_kv_plan(8, Kv, mp, 64, sms)
+            blocks[f"Kv={Kv} pages={mp}"] = 8 * Kv * -(-512 // split_chunk(512, n))
     log("decode_grid", json.dumps({"sms": sms, "live_blocks_by_table_pages": blocks}))
     if min(blocks.values()) < sms:
         raise AssertionError(f"decode grid at kv_len 512 leaves SMs idle: {blocks} < {sms}")
@@ -824,6 +988,107 @@ def phase_model_parity() -> None:
             plain_gates=True)
     del params
     torch.cuda.empty_cache()
+    _family_parity()
+
+
+def _family_parity() -> None:
+    """The same check for 2-layer full-width models of the other
+    families: Qwen2.5-7B (G = 7, biases; bf16 and int8), Gemma-2B (head
+    dim 256, one KV head; bf16 and an fp8 pool) and Mixtral-8x7B (MoE;
+    bf16), and Gemma2-2B, whose window keeps every call on the gather
+    path (bf16, and int8 for the W8A16 kernel at its shapes): its
+    attention kernels must not launch at all."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import PRESETS
+    from kubeai_tpu_torch.engine.weights import quantize_model_params
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.ops.flash_attention import flash_attention
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+
+    attention = (flash_attention, paged_attention_ragged, paged_decode_attention)
+    for preset, runs in (("qwen2.5-7b", ("bf16", "int8")), ("gemma-2b", ("bf16", "fp8 pool")),
+                         ("mixtral-8x7b", ("bf16",)), ("gemma2-2b", ("bf16", "int8"))):
+        mc = PRESETS[preset](num_layers=2)
+        params = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda")
+        before = [fn.launches for fn in attention]
+        for run in runs:
+            label = f"{preset} {run}"
+            if run == "int8":
+                _parity(quantize_model_params(params, mc), mc, label, _float32_w8a16)
+            elif run == "fp8 pool":
+                _parity(params, mc.replace(kv_cache_dtype="fp8"), label, _plain_attention,
+                        plain_gates=True)
+            elif mc.num_experts:
+                routes = _SharedRoutes(label)
+                _parity(params, mc, label, routes.replay, kernel_ctx=routes.record)
+                routes.report()
+            else:
+                _parity(params, mc, label, contextlib.nullcontext)
+        launched = [fn.launches - b for fn, b in zip(attention, before)]
+        log(f"parity {preset}: attention kernel launches (flash, ragged, dedicated) {launched}")
+        if (mc.sliding_window > 0) != (sum(launched) == 0):
+            raise AssertionError(f"parity {preset}: attention kernel launches {launched}")
+        del params
+        torch.cuda.empty_cache()
+
+
+class _SharedRoutes:
+    """MoE routing is a discrete function of the router logits: a near-tie
+    between two experts flips with the last bit of a hidden state, and a
+    flipped token's FFN output is another expert's. So the MoE parity
+    check gives the plain path the kernel path's expert choices (each
+    layer's top-k, recorded in the kernel call and replayed, in order, in
+    the plain call; the weights are the plain path's own softmax over
+    them) and counts the choices the plain path would have made
+    otherwise."""
+
+    def __init__(self, label):
+        self.label, self.routes, self.choices, self.flips = label, [], 0, 0
+
+    @contextlib.contextmanager
+    def _patched(self, route):
+        from kubeai_tpu_torch.models import llama
+
+        saved = llama.moe_route
+        llama.moe_route = route
+        try:
+            yield
+        finally:
+            llama.moe_route = saved
+
+    def record(self):
+        from kubeai_tpu_torch.models import llama
+
+        self.routes.clear()
+        own = llama.moe_route
+
+        def route(xt, wr, k):
+            out = own(xt, wr, k)
+            self.routes.append(out[1])
+            return out
+
+        return self._patched(route)
+
+    def replay(self):
+        from kubeai_tpu_torch.models import llama
+
+        own, it = llama.moe_route, iter(list(self.routes))
+
+        def route(xt, wr, k):
+            router, mine = own(xt, wr, k)
+            theirs = next(it)
+            self.choices += mine.numel()
+            self.flips += int((mine.sort(dim=-1)[0] != theirs.sort(dim=-1)[0]).sum().item())
+            return router, theirs
+
+        return self._patched(route)
+
+    def report(self):
+        log(f"parity {self.label}: plain-path expert choices that differ from the kernel "
+            f"path's (replaced by them): {self.flips} of {self.choices}")
 
 
 @contextlib.contextmanager
@@ -873,11 +1138,13 @@ def _float32_w8a16():
         llama.qdot, llama.qdot_many, llama.qmatT = saved
 
 
-def _parity(params, mc, label, plain_ctx, plain_gates=False) -> None:
+def _parity(params, mc, label, plain_ctx, plain_gates=False,
+            kernel_ctx=contextlib.nullcontext) -> None:
     """Kernel path (flash, paged kernels and, for int8 weights, the W8A16
     kernel) against the plain path (gather attention, or with
     *plain_gates* the kernel path's gates; *plain_ctx* around each plain
-    call) on the same weights and tokens."""
+    call, *kernel_ctx* around each kernel call) on the same weights and
+    tokens."""
     import torch
 
     from kubeai_tpu_torch.models import llama
@@ -910,7 +1177,8 @@ def _parity(params, mc, label, plain_ctx, plain_gates=False) -> None:
 
     def both(what, call):
         """call(config, pool) on both paths; each keeps its own pool."""
-        kernel = call(kern, pools["kernel"])
+        with kernel_ctx():
+            kernel = call(kern, pools["kernel"])
         with plain_ctx():
             plain = call(plain_cfg, pools["plain"])
         check(what, kernel, plain)
@@ -1004,12 +1272,15 @@ def _check_completion(resp, what, chat=False):
 
 
 def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: str = "",
-                model_config=None, run: str | None = None, cli: list | None = None) -> dict:
+                model_config=None, run: str | None = None, cli: list | None = None,
+                engine=None) -> dict:
     """One serving run of the port's OpenAI server over the 32-layer model
     (the launch counters zeroed before it); *model_config* carries an
     int8 pool's scales. With *cli* the engine comes from the server's own
     command line (random preset weights from its --seed) instead of
-    *params*."""
+    *params*; *engine* serves a model the caller built (another family).
+    A model with a sliding window (Gemma2) must launch no attention
+    kernel: it gathers its pages, as in the JAX package."""
     import torch
 
     from kubeai_tpu_torch.engine.core import Engine, EngineConfig
@@ -1022,7 +1293,9 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     from kubeai_tpu_torch.ops.quant import qdot, qdot_many
 
     run = run or ("int8" if int8 else decode_kernel)
-    if cli:
+    if engine is not None:
+        eng = engine
+    elif cli:
         from kubeai_tpu_torch.engine.server import build_engine_from_args, make_arg_parser
 
         eng, _ = build_engine_from_args(make_arg_parser().parse_args(cli))
@@ -1033,7 +1306,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     pool = eng.cache["kv"]
     pool_dtype = str(pool.dtype).removeprefix("torch.")
     log(f"serving[{run}] pool {tuple(pool.shape)} {pool_dtype}: {pool.nbytes} bytes")
-    srv = EngineServer(eng, "llama-3.1-8b", host="127.0.0.1", port=0)
+    srv = EngineServer(eng, run, host="127.0.0.1", port=0)
     srv.start()
     p = srv.port
     attention = (flash_attention, paged_attention_ragged, paged_decode_attention)
@@ -1043,6 +1316,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     for fn in (paged_attention_ragged, paged_decode_attention):
         fn.launches_by_pool.clear()
     paged_attention_ragged.launches_by_regime.clear()
+    flash_attention.launches_by_regime.clear()
     try:
         t = _post(p, "/v1/completions", {"prompt": "Hello", "max_tokens": 8, "temperature": 0})
         _check_completion(t, "short")
@@ -1099,6 +1373,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         by_pool = {fn.__name__: dict(fn.launches_by_pool)
                    for fn in (paged_attention_ragged, paged_decode_attention)}
         by_regime = dict(paged_attention_ragged.launches_by_regime)
+        flash_by_regime = dict(flash_attention.launches_by_regime)
         chunks = _check_graphed(eng, run)
         spec = _spec_parity(eng, run) if eng.cfg.speculate_tokens else None
     finally:
@@ -1108,14 +1383,22 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     for name, counts in by_pool.items():
         if set(counts) - {pool_dtype}:
             raise AssertionError(f"{run} run: {name} launched on other pools: {counts}")
-    want = ["flash_attention", "paged_attention_ragged"]
-    if decode_kernel == "dedicated":
+    windowed = eng.model_config.sliding_window > 0
+    want = [] if windowed else ["flash_attention", "paged_attention_ragged"]
+    if decode_kernel == "dedicated" and not windowed:
         want.append("paged_decode_attention")
     if int8:
         want.append("qdot")
     missing = [n for n in want if launches[n] == 0]
     if missing:
         raise AssertionError(f"{run} run: kernels never launched: {missing}")
+    if windowed and any(launches[fn.__name__] for fn in attention):
+        raise AssertionError(f"{run} run: a sliding-window model launched attention "
+                             f"kernels: {launches}")
+    # Every bf16 shape of these models takes a tensor-core tile (G <= 64).
+    if flash_by_regime.get("cuda_core") or by_regime.get("cuda_core"):
+        raise AssertionError(f"{run} run: CUDA-core tiles launched: {flash_by_regime}, "
+                             f"{by_regime}")
     # A model step calls its attention kernel once per layer, and the W8A16
     # kernels 4 times per layer (wq|wk|wv and wg|wu grouped, wo, wd) and
     # once for the head (bf16 weights: never).
@@ -1146,6 +1429,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         "launches": launches,
         "launches_by_pool": by_pool,
         "launches_by_regime": by_regime,
+        "flash_launches_by_regime": flash_by_regime,
         "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
         "steps": {n: c // {"qdot": per_step, "qdot_many": 2 * layers}.get(n, layers)
                   for n, c in launches.items()},
@@ -1158,7 +1442,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     log(f"serving[{run}]", json.dumps(stats))
     # The server and its handler class form a cycle: collect it, or a run
     # that built its own weights keeps them on the card.
-    del eng, srv
+    del eng, srv, engine
     gc.collect()
     torch.cuda.empty_cache()
     return stats
@@ -1246,6 +1530,42 @@ def _logit_ulp(params, mc, ids) -> float:
     return 2.0 ** (math.floor(math.log2(top)) - 7)
 
 
+def _wall_ms(fn, n):
+    """Host-clock ms of one call of *fn* (after one untimed), synchronized."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3 / n
+
+
+def _profiled(fn) -> dict:
+    """One call of *fn* under torch.profiler: its wall, the device's busy
+    ms and kernel count, and the six kernels that took longest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    # Kernel entries only: an operator's entry repeats its kernels' time.
+    dev = [(a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
+           if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
+    return {
+        "wall_ms": wall, "device_busy_ms": sum(t for _, t, _ in dev),
+        "device_kernels": sum(c for _, _, c in dev),
+        "top": [{"kernel": k[:60], "ms": t, "count": c}
+                for k, t, c in sorted(dev, key=lambda x: -x[1])[:6]],
+    }
+
+
 def _step_profile(params, qparams) -> None:
     """Where a model step's time goes, at the serving shapes: host-clock
     time of decode steps (B=8, kv_len 512) and of 8-token speculative
@@ -1255,8 +1575,6 @@ def _step_profile(params, qparams) -> None:
     bf16 and int8 weights, and a torch.profiler breakdown of each one's
     device time by kernel."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kubeai_tpu_torch.models import llama
     from kubeai_tpu_torch.models.base import llama_3_1_8b
@@ -1270,31 +1588,7 @@ def _step_profile(params, qparams) -> None:
     spec = torch.randint(0, 259, (B, 8), device="cuda")
     lengths = torch.full((B,), 512, device="cuda")
 
-    def wall_ms(fn, n):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        return (time.monotonic() - t0) * 1e3 / n
-
-    def profiled(fn):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.monotonic() - t0) * 1e3
-        # Kernel entries only: an operator's entry repeats its kernels' time.
-        dev = [(a.key, a.self_device_time_total / 1e3, a.count) for a in prof.key_averages()
-               if a.device_type == DeviceType.CUDA and a.self_device_time_total > 0]
-        return {
-            "wall_ms": wall, "device_busy_ms": sum(t for _, t, _ in dev),
-            "device_kernels": sum(c for _, _, c in dev),
-            "top": [{"kernel": k[:60], "ms": t, "count": c}
-                    for k, t, c in sorted(dev, key=lambda x: -x[1])[:6]],
-        }
-
+    wall_ms, profiled = _wall_ms, _profiled
     steps = {}
     for dk in ("ragged", "dedicated"):
         steps[f"decode_{dk}"] = lambda dk=dk: llama.decode_step_paged(
@@ -1422,11 +1716,91 @@ def phase_serving() -> dict:
     _step_profile(params, qparams)
     del params, qparams
     torch.cuda.empty_cache()
+    out.update(_serve_families())
     _serve_checkpoint()
     out["tiny_int8_fp8"] = _serve_tiny("tiny_int8_fp8", ["--quantization", "int8",
                                                          "--kv-cache-dtype", "fp8"])
     out["tiny_spec"] = _serve_tiny("tiny_spec", ["--speculate-tokens", "3"])
     return out
+
+
+# The other families' serving runs: (run, preset, layers (None: the
+# preset's), decode kernel, weight quantization, KV pool dtype).
+# Mixtral-8x7B's 32 bf16 layers (93 GB) do not fit one 80 GB card: 16 of
+# them at full width (47 GB) until tensor parallelism.
+FAMILY_RUNS = (
+    ("qwen_bf16", "qwen2.5-7b", None, "ragged", "", ""),
+    ("qwen_int8", "qwen2.5-7b", None, "dedicated", "int8", ""),
+    ("gemma_bf16", "gemma-2b", None, "ragged", "", ""),
+    ("gemma_fp8", "gemma-2b", None, "dedicated", "", "fp8"),
+    ("gemma2_bf16", "gemma2-2b", None, "ragged", "", ""),
+    ("mixtral_bf16", "mixtral-8x7b", 16, "ragged", "", ""),
+)
+
+
+def _serve_families() -> dict:
+    """Each FAMILY_RUNS entry: the preset's engine (random weights from
+    seed 0, build_engine) serves _serve_once's request set through the
+    server, then its model steps are profiled (_family_step_profile);
+    the engine is freed before the next run."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import PRESETS, EngineConfig, build_engine
+
+    out = {}
+    for run, preset, layers, dk, quant, kv in FAMILY_RUNS:
+        t0 = time.monotonic()
+        ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=dk,
+                          kv_cache_dtype=kv)
+        eng = build_engine(preset, "cuda", ec, seed=0, quantization=quant, num_layers=layers)
+        torch.cuda.synchronize()
+        mc = eng.model_config
+        log(f"weights[{run}]: {preset} {mc.num_layers} of {PRESETS[preset]().num_layers} layers, "
+            f"{'int8' if quant else mc.dtype}, built in {time.monotonic() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        out[run] = _serve_once(None, dk, int8=bool(quant), run=run, engine=eng)
+        out[run]["layers"] = mc.num_layers
+        _family_step_profile(run, eng.params, mc, dk)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _family_step_profile(run, params, mc, decode_kernel) -> None:
+    """A family's model steps at the serving shapes (B=8, kv_len 512,
+    page 64): host-clock ms of a decode step and an 8-token verify step
+    on the run's decode kernel and of a cold 512-token prefill, and each
+    one under torch.profiler (device busy ms, kernel count)."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+
+    B, page, mp = 8, 64, 32
+    P = 1 + B * mp
+    pool = llama.init_paged_cache(mc, P, page, "cuda")
+    table = torch.arange(1, P, dtype=torch.int32, device="cuda").reshape(B, mp)
+    tok = torch.randint(0, 259, (B, 1), device="cuda")
+    spec = torch.randint(0, 259, (B, 8), device="cuda")
+    lengths = torch.full((B,), 512, device="cuda")
+    t512 = torch.randint(0, 259, (1, 512), device="cuda")
+    L512 = torch.tensor([512], device="cuda")
+    steps = {
+        "decode": lambda: llama.decode_step_paged(params, mc, tok, pool, table, lengths,
+                                                  decode_kernel=decode_kernel),
+        "verify8": lambda: llama.decode_speculative_paged(params, mc, spec, pool, table,
+                                                          lengths - 8,
+                                                          decode_kernel=decode_kernel),
+        "cold_prefill_512": lambda: llama.prefill_paged_cold(params, mc, t512, pool, table[:1],
+                                                             L512),
+    }
+    res = {"layers": mc.num_layers, "decode_kernel": decode_kernel,
+           "pool": str(pool["kv"].dtype).removeprefix("torch.")}
+    res.update({f"{name}_ms": _wall_ms(fn, 5) for name, fn in steps.items()})
+    res["profiled"] = {name: _profiled(fn) for name, fn in steps.items()}
+    log(f"step_profile[{run}]", gpu_line(), json.dumps(res))
+    del pool
+    torch.cuda.empty_cache()
 
 
 def _graph_turns(params) -> None:
@@ -1655,7 +2029,11 @@ def _serve_checkpoint() -> None:
         build_engine_from_args,
         make_arg_parser,
     )
-    from kubeai_tpu_torch.engine.weights import quantize_model_params, save_hf_checkpoint
+    from kubeai_tpu_torch.engine.weights import (
+        hf_state_dict,
+        quantize_model_params,
+        save_hf_checkpoint,
+    )
     from kubeai_tpu_torch.models import llama
     from kubeai_tpu_torch.models.base import llama_3_1_8b
 
@@ -1663,16 +2041,7 @@ def _serve_checkpoint() -> None:
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ckpt_8b_width_2_layers")
     t0 = time.monotonic()
     p = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(1), device="cuda")
-    hf = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
-          "wo": "self_attn.o_proj", "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
-          "wd": "mlp.down_proj"}
-    sd = {"model.embed_tokens.weight": p["embed"].cpu(), "model.norm.weight": p["final_norm"].cpu(),
-          "lm_head.weight": p["lm_head"].T.contiguous().cpu()}
-    for li in range(mc.num_layers):
-        sd[f"model.layers.{li}.input_layernorm.weight"] = p["layers"]["ln1"][li].cpu()
-        sd[f"model.layers.{li}.post_attention_layernorm.weight"] = p["layers"]["ln2"][li].cpu()
-        for key, name in hf.items():
-            sd[f"model.layers.{li}.{name}.weight"] = p["layers"][key][li].T.contiguous().cpu()
+    sd = hf_state_dict(p, mc)
     shutil.rmtree(path, ignore_errors=True)
     save_hf_checkpoint(path, mc, sd)
     del sd
@@ -1767,6 +2136,37 @@ SOURCES = {
     "paged_decode_attention[verify]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
                                        "kubeai_tpu/ops/paged_decode_attention.py:66",
                                        "paged_decode_attention", "spec_dedicated", "bfloat16"),
+    # The other families (FAMILY_RUNS): head dim 256 (Gemma-2B, the _d256
+    # libraries) and Qwen2.5-7B's G = 7 on the tensor-core tiles, and
+    # W8A16 at Qwen's shapes.
+    "flash_attention[h256]": ("kubeai_tpu_torch/csrc/flash_attention.cu",
+                              "kubeai_tpu/ops/flash_attention.py:27", "flash_attention",
+                              "gemma_bf16", None, "tensor_core"),
+    "paged_attention[h256]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                              "kubeai_tpu/ops/paged_attention.py:55", "paged_attention_ragged",
+                              "gemma_bf16", "bfloat16"),
+    "paged_attention[h256 fp8 pool]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                       "kubeai_tpu/ops/paged_attention.py:31",
+                                       "paged_attention_ragged", "gemma_fp8", "float8_e4m3fn"),
+    "paged_decode_attention[h256 fp8 pool]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
+                                              "kubeai_tpu/ops/paged_decode_attention.py:111",
+                                              "paged_decode_attention", "gemma_fp8",
+                                              "float8_e4m3fn"),
+    "flash_attention[G7]": ("kubeai_tpu_torch/csrc/flash_attention.cu",
+                            "kubeai_tpu/ops/flash_attention.py:27", "flash_attention",
+                            "qwen_bf16", None, "tensor_core"),
+    "paged_attention[G7]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                            "kubeai_tpu/ops/paged_attention.py:55", "paged_attention_ragged",
+                            "qwen_bf16", "bfloat16", "split_kv"),
+    "paged_attention[G7 prefill tile]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                         "kubeai_tpu/ops/paged_attention.py:55",
+                                         "paged_attention_ragged", "qwen_bf16", "bfloat16",
+                                         "prefill_tile"),
+    "paged_decode_attention[G7]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
+                                   "kubeai_tpu/ops/paged_decode_attention.py:66",
+                                   "paged_decode_attention", "qwen_int8", "bfloat16"),
+    "w8a16_matmul[families]": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu",
+                               "kubeai_tpu/ops/quant.py:50", "qdot", "qwen_int8", None),
 }
 
 
@@ -1801,7 +2201,9 @@ def main() -> int:
     # keeps the runs apart.
     def launched(run, wrapper, pool, regime=None):
         if regime:
-            return run.get("launches_by_regime", {}).get(regime, 0)
+            key = "flash_launches_by_regime" if wrapper == "flash_attention" else \
+                "launches_by_regime"
+            return run.get(key, {}).get(regime, 0)
         return run["launches_by_pool"][wrapper].get(pool, 0) if pool else run["launches"][wrapper]
 
     summary = []
@@ -1815,6 +2217,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    idle = [e["name"] for e in summary if not e["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on their own serving path: {idle}")
     log(gpu_line())
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

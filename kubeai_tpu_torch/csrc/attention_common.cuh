@@ -32,7 +32,18 @@ namespace kattn {
 constexpr float NEG_INF = -1e30f;
 
 // Returns LAUNCH<T, D>(args...) for a runtime (dtype, head dim) pair:
-// dtype 0 = float32, 1 = bfloat16; head dims 32, 64 and 128.
+// dtype 0 = float32, 1 = bfloat16; head dims 32, 64 and 128. Head dim 256
+// (Gemma's) is bf16 only and lives in a library of its own: the same
+// source built with KATTN_D256 holds those instances alone
+// (ops/_build.py: the "_d256" libraries, built beside the others, so the
+// other models' build time does not grow).
+#ifdef KATTN_D256
+#define KATTN_DISPATCH(LAUNCH, dtype, D, ...)                                       \
+  do {                                                                             \
+    if ((dtype) == 1 && (D) == 256) return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__); \
+    return (int)cudaErrorInvalidValue;                                             \
+  } while (0)
+#else
 #define KATTN_DISPATCH(LAUNCH, dtype, D, ...)                                       \
   do {                                                                             \
     if ((dtype) == 1 && (D) == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); \
@@ -43,6 +54,7 @@ constexpr float NEG_INF = -1e30f;
     if ((dtype) == 0 && (D) == 32) return LAUNCH<float, 32>(__VA_ARGS__);           \
     return (int)cudaErrorInvalidValue;                                             \
   } while (0)
+#endif
 
 // Returns LAUNCH<T, KT, D>(args...) for a runtime (dtype, pool element
 // code, head dim): dtype as above; kv 0 = the pool holds T (head dims 32,
@@ -51,13 +63,21 @@ constexpr float NEG_INF = -1e30f;
 // JAX package's float32 test configuration) doubled its build time, so a
 // second library built from the same source with KATTN_ONE_BYTE_D32
 // holds them alone (ops/_build.py: the "_q8d32" libraries, built beside
-// the others).
+// the others). The KATTN_D256 library holds bf16 at head dim 256 over
+// every pool element type.
 #define KATTN_DISPATCH_D(LAUNCH, T, KT, D, ...)                \
   do {                                                         \
     if ((D) == 128) return LAUNCH<T, KT, 128>(__VA_ARGS__);    \
     if ((D) == 64) return LAUNCH<T, KT, 64>(__VA_ARGS__);      \
   } while (0)
-#ifdef KATTN_ONE_BYTE_D32
+#if defined(KATTN_D256)
+#define KATTN_DISPATCH_KV_T(LAUNCH, T, kv, D, ...)                                    \
+  do {                                                                              \
+    if ((kv) == 0 && (D) == 256) return LAUNCH<T, T, 256>(__VA_ARGS__);             \
+    if ((kv) == 1 && (D) == 256) return LAUNCH<T, int8_t, 256>(__VA_ARGS__);        \
+    if ((kv) == 2 && (D) == 256) return LAUNCH<T, __nv_fp8_e4m3, 256>(__VA_ARGS__); \
+  } while (0)
+#elif defined(KATTN_ONE_BYTE_D32)
 #define KATTN_DISPATCH_KV_T(LAUNCH, T, kv, D, ...)                                   \
   do {                                                                             \
     if ((kv) == 1 && (D) == 32) return LAUNCH<T, int8_t, 32>(__VA_ARGS__);         \
@@ -72,12 +92,20 @@ constexpr float NEG_INF = -1e30f;
     if ((kv) == 2) KATTN_DISPATCH_D(LAUNCH, T, __nv_fp8_e4m3, D, __VA_ARGS__);     \
   } while (0)
 #endif
+#ifdef KATTN_D256
+#define KATTN_DISPATCH_KV(LAUNCH, dtype, kv, D, ...)                                  \
+  do {                                                                              \
+    if ((dtype) == 1) KATTN_DISPATCH_KV_T(LAUNCH, __nv_bfloat16, kv, D, __VA_ARGS__); \
+    return (int)cudaErrorInvalidValue;                                              \
+  } while (0)
+#else
 #define KATTN_DISPATCH_KV(LAUNCH, dtype, kv, D, ...)                                  \
   do {                                                                              \
     if ((dtype) == 1) KATTN_DISPATCH_KV_T(LAUNCH, __nv_bfloat16, kv, D, __VA_ARGS__); \
     if ((dtype) == 0) KATTN_DISPATCH_KV_T(LAUNCH, float, kv, D, __VA_ARGS__);         \
     return (int)cudaErrorInvalidValue;                                              \
   } while (0)
+#endif
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);

@@ -15,10 +15,15 @@
 // never loaded, and the mask is applied only on tiles that cross the
 // diagonal. Blocks are issued heaviest (last query tile) first.
 //
+// A tile holds 64/G whole positions: with G query heads per KV head not
+// dividing 64 (Qwen2.5's 7) it takes G*floor(64/G) rows and pads the
+// rest, so every bf16 shape with G <= 64 runs on the tensor cores.
+// Head dim 256 (Gemma's) is the same tile at 4 swizzle chunks.
+//
 // float32 stays on the CUDA-core tile of attention_common.cuh: the card
 // tests hold f32 kernels to summation order alone, which the tensor
 // cores' TF32 would break, and f32 is not on the main path. So does bf16
-// with G query heads per KV head where G does not divide 64.
+// with more than 64 query heads per KV head.
 #include "attention_common.cuh"
 #include "hopper_attention.cuh"
 
@@ -98,7 +103,8 @@ static int launch_tc(const void* q, const void* k, const void* v, void* out, int
   if (!e) e = hop::tensor_map(&km, k, (uint64_t)B * S, Kv, D, hop::TK, 1, Gm::CW, Gm::SWIZZLE);
   if (!e) e = hop::tensor_map(&vm, v, (uint64_t)B * S, Kv, D, hop::TK, 1, Gm::CW, Gm::SWIZZLE);
   if (e) return e;
-  dim3 grid(Kv, B, (S * G + hop::TQ - 1) / hop::TQ);
+  const int pq = hop::TQ / G;  // whole positions per tile
+  dim3 grid(Kv, B, (S + pq - 1) / pq);
   flash_tc_kernel<D><<<grid, hop::NTHREADS, Gm::SMEM, stream>>>(
       qm, km, vm, (__nv_bfloat16*)out, S, H, Kv, causal, scale);
   return (int)cudaGetLastError();
@@ -108,13 +114,13 @@ template <typename T, int D>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                   int Kv, int causal, float scale, cudaStream_t stream) {
   const int G = H / Kv;
-  if (sizeof(T) == 2 && hop::TQ % G == 0)
+  if (sizeof(T) == 2 && G <= hop::TQ)
     return launch_tc<D>(q, k, v, out, B, S, H, Kv, causal, scale, stream);
   return launch_core<T, D>(q, k, v, out, B, S, H, Kv, causal, scale, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128. Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128 (bf16 at 256: the
+// KATTN_D256 build). Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int S, int H, int Kv,
                                       int D, int causal, int dtype, float scale,

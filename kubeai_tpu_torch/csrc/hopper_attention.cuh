@@ -8,7 +8,9 @@
 // one (batch, KV head): row r = s*G + g is query s of head kv*G + g, so a
 // K/V tile is read once for the G heads that share it, and the 64 rows are
 // the M of every wgmma. Q arrives once as one 3-D TMA box over q viewed as
-// [B*S, H, D] (box [64/G, G, D]). K and V arrive in tiles of TK = 64 keys,
+// [B*S, H, D] (box [64/G, G, D]: 64/G whole positions; where G does not
+// divide 64, G*floor(64/G) rows and the rest of the 64 is padding, so
+// Qwen2.5's G = 7 takes 63 rows of 9 positions a tile). K and V arrive in tiles of TK = 64 keys,
 // bf16, through a ring of STAGES shared-memory stages: the producer's one
 // thread waits for a free stage (mbarrier "empty"), announces the bytes
 // ("full", expect_tx) and issues the TMA boxes; the consumer waits on
@@ -20,7 +22,11 @@
 // registers (the accumulator layout of S is the A-fragment layout of the
 // second product; P goes in as two bf16 terms, hi + lo, see below) and V
 // read MN-major. Shared tiles are 128-byte (D >= 64) or 64-byte (D = 32)
-// swizzled by TMA, and the wgmma descriptors name the same swizzle.
+// swizzled by TMA, and the wgmma descriptors name the same swizzle. Head
+// dim 256 (Gemma): 4 chunks of 64 columns a tile (32 KB; Q plus two K/V
+// stages 161 KB, 225 KB with a one-byte pool's staging ring), the
+// 64 x 256 f32 output in 128 registers a thread, O += P V as two N = 128
+// products.
 // Conventions are the Pallas kernels': NEG_INF masking, p only for
 // s > NEG_INF/2, l clamped at 1e-30, so a row with no visible key is 0.
 //
@@ -295,6 +301,17 @@ struct PV<128> {
     wgmma_rs_m64n128_tb(o, a, b);
   }
 };
+// Head dim 256: two N = 128 products, columns 0-127 and 128-255 (the
+// accumulator layout of N = 256 is the two N = 128 layouts in turn; the
+// second half of V starts two 64-column chunks, 2 * CHUNK bytes, on).
+template <>
+struct PV<256> {
+  __device__ __forceinline__ static void mma(float (&o)[128], const uint32_t (&a)[4], uint64_t b) {
+    wgmma_rs_m64n128_tb(*reinterpret_cast<float(*)[64]>(o), a, b);
+    wgmma_rs_m64n128_tb(*reinterpret_cast<float(*)[64]>(o + 64), a,
+                        b + ((2 * Geo<256>::CHUNK) >> 4));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // The tile. Src supplies the K/V boxes of the key tile at k0, 2 * TILE
@@ -362,10 +379,15 @@ __device__ __forceinline__ void tc_tile(const CUtensorMap* qmap, const Src& src,
   const uint32_t q_bar = bars + 8u * (2 * STAGES);
   auto landed = [&](int s) { return bars + 8u * (2 * STAGES + 1 + s); };  // Q8: TMA done
 
+  // A tile holds PQ = 64 / G whole positions, RQ = PQ * G <= 64 rows (G
+  // not dividing 64: 63 rows at G = 7, the last wgmma row padding; its Q
+  // row is left as it was, its scores, softmax and output stay in that
+  // row and are never stored).
   const int G = a.G, S = a.S;
-  const int r0 = a.tile * TQ;  // first packed row
-  const int s_first = r0 / G;
-  const int s_last = min(S - 1, (r0 + TQ - 1) / G);
+  const int PQ = TQ / G, RQ = PQ * G;
+  const int r0 = a.tile * RQ;  // first packed row
+  const int s_first = a.tile * PQ;
+  const int s_last = min(S - 1, s_first + PQ - 1);
   const int n_keys = max(0, min(a.klimit, a.qoff + s_last + 1));
   const int n_kt = (n_keys + TK - 1) / TK;
 
@@ -396,7 +418,7 @@ __device__ __forceinline__ void tc_tile(const CUtensorMap* qmap, const Src& src,
         src.load(t * TK, in, in + IN_TILE, landed(st));
       };
       if (pt == 0) {
-        mbar_expect_tx(q_bar, Gm::TILE);
+        mbar_expect_tx(q_bar, RQ * D * 2);
 #pragma unroll
         for (int c = 0; c < Gm::NCH; ++c)
           tma_load(q_s + c * Gm::CHUNK, qmap, q_bar, c * Gm::CW, a.kv * G, a.b * S + s_first);
@@ -420,7 +442,7 @@ __device__ __forceinline__ void tc_tile(const CUtensorMap* qmap, const Src& src,
     if (threadIdx.x >= 128) {
       // Producer: one thread issues every copy.
       if (threadIdx.x == 128) {
-        mbar_expect_tx(q_bar, Gm::TILE);
+        mbar_expect_tx(q_bar, RQ * D * 2);
 #pragma unroll
         for (int c = 0; c < Gm::NCH; ++c)
           tma_load(q_s + c * Gm::CHUNK, qmap, q_bar, c * Gm::CW, a.kv * G, a.b * S + s_first);
@@ -565,7 +587,7 @@ __device__ __forceinline__ void tc_tile(const CUtensorMap* qmap, const Src& src,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int rg = r0 + row_lo + 8 * h, sq = rg / G, g = rg - sq * G;
-    if (sq >= S) continue;
+    if (row_lo + 8 * h >= RQ || sq >= S) continue;
     const float inv = h ? inv_hi : inv_lo;
     bf16* dst = a.out + ((size_t)(a.b * S + sq) * a.H + a.kv * G + g) * D + (lane & 3) * 2;
 #pragma unroll

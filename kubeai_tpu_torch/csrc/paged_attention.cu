@@ -32,11 +32,16 @@
 //   0, chosen so that the grid fills the card
 //   (ops/paged_attention.py::split_kv_plan).
 //
+// The prefill tile takes 64/G whole positions a tile, G*floor(64/G)
+// rows (63 at Qwen2.5's G = 7, the last row padding), so G need not
+// divide 64. Head dim 256 (Gemma's) runs every regime at 4 swizzle
+// chunks of 64 columns (the KATTN_D256 library).
+//
 // float32 keeps the CUDA-core tile of attention_common.cuh: its card
 // tests hold float32 to summation order alone, which the tensor cores'
 // TF32 would break. bf16 takes it only where neither Hopper path does
-// (more than 64 rows that the prefill tile cannot take: G not dividing
-// 64, or pages off TMA's grid).
+// (more than 64 rows that the prefill tile cannot take: more than 64
+// query heads per KV head, or pages off TMA's grid).
 //
 // A quantized pool (one byte per element, int8 or fp8 e4m3, with the
 // static k_scale / v_scale the library kernel dequantizes with in VMEM)
@@ -177,7 +182,8 @@ static int launch_tc(const PagedArgs& a, cudaStream_t stream) {
                           std::min(a.page, hop::TK), 1, Gm::CW, Gm::SWIZZLE);
   }
   if (e) return e;
-  dim3 grid(a.Kv, a.B, (a.S * G + hop::TQ - 1) / hop::TQ);
+  const int pq = hop::TQ / G;  // whole positions per tile
+  dim3 grid(a.Kv, a.B, (a.S + pq - 1) / pq);
   paged_tc_kernel<D, KT><<<grid, hop::tile_threads<KT>(), smem, stream>>>(
       qm, pm, a.table, a.kv_lens, (__nv_bfloat16*)a.out, a.S, a.H, a.Kv, a.page, a.max_pages,
       a.scale * a.k_scale, a.softcap, a.v_scale);
@@ -197,14 +203,15 @@ static int launch(const PagedArgs& a, cudaStream_t stream) {
     // The TMA path takes pages of 8 rows or more that tile 64 keys evenly.
     const bool tma_pages =
         a.page % 8 == 0 && (hop::TK % a.page == 0 || a.page % hop::TK == 0);
-    if (R >= hop::TQ && hop::TQ % G == 0 && tma_pages) return launch_tc<D, KT>(a, stream);
+    if (R >= hop::TQ && G <= hop::TQ && tma_pages) return launch_tc<D, KT>(a, stream);
   }
   return launch_core<T, KT, D>(a, stream);
 }
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same type
 // (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale; D: 32,
-// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build). P: pages in the pool.
+// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build; bf16 at
+// 256: the KATTN_D256 build). P: pages in the pool.
 // n_splits > 0 takes bf16's split-KV regime (S*G <= 64): each slot's keys
 // in n_splits (1..64) splits, with the wrapper's scratch: part_o
 // [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G] float2, counters

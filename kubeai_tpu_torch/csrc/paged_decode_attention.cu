@@ -221,7 +221,8 @@ extern "C" int paged_decode_smem_bytes(int group_rows, int D, int n_splits, int 
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same
 // type (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale;
-// D: 32, 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build).
+// D: 32, 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build;
+// bf16 at 256: the KATTN_D256 build).
 // The R = S*G rows of a (slot, KV head) go in groups of group_rows
 // (1..64) consecutive rows, one set of blocks each. bf16 cuts each slot's
 // keys into n_splits (1..64) splits and takes the wrapper's scratch, per

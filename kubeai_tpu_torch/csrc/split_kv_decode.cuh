@@ -32,7 +32,9 @@
 //   of the split, and the MT warps of a stream share each slice, warp w
 //   owning m16 row tile w % MT. Every warp thus holds one tile's state,
 //   whatever the tile count: Q as A fragments (32 registers at D = 128),
-//   O as accumulators (64), so no instance spills. Measured on the H100
+//   O as accumulators (64), so no instance spills. At D = 256 (Gemma) O
+//   alone takes 128 registers, and Q's fragments wait in shared memory
+//   (32 KB a block), read back once per slice. Measured on the H100
 //   at R = 32: warps that each held both tiles over four streams used 255
 //   registers, spilled, and were 7% slower than two warps per stream;
 //   four tiles per warp do not fit at all.
@@ -259,10 +261,16 @@ struct DecMma {
   // rows) and the combined O [R][D], both f32.
   static constexpr int OBYTES = (DEC_NW * 16 + 16 * MT) * D * 4;
   static constexpr int BIG = RING > OBYTES ? RING : OBYTES;
-  // Rings, the streams' (m, l), m/l per row, the merge's (m, l) per
-  // split, a flag.
+  // Head dim 256: Q's A fragments (64 registers a thread) wait in shared
+  // memory, one 16-byte word per (k step, warp, lane), beside O's 128
+  // accumulator registers, so the instance does not spill.
+  static constexpr bool QSM = D >= 256;
+  static constexpr int QBYTES = QSM ? (D / 16) * DEC_NW * 32 * 16 : 0;
+  // Rings, Q (QSM), the streams' (m, l), m/l per row, the merge's (m, l)
+  // per split, a flag.
   static size_t smem(int R, int n_splits) {
-    return (size_t)BIG + sizeof(float) * 4 * 64 + sizeof(float2) * (size_t)n_splits * R + 16;
+    return (size_t)BIG + QBYTES + sizeof(float) * 4 * 64 + sizeof(float2) * (size_t)n_splits * R +
+           16;
   }
 };
 
@@ -296,7 +304,8 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   unsigned char* wide = smem + C::NS * C::NST * C::STAGE_IN + stream * C::STAGE;
   float* O_w = reinterpret_cast<float*>(smem);  // [NS][R][D], over the rings
   float* O_c = O_w + DEC_NW * 16 * D;           // [R][D]
-  float* m_w = reinterpret_cast<float*>(smem + C::BIG);  // [NS][R]
+  uint4* q_sm = reinterpret_cast<uint4*>(smem + C::BIG) + warp * 32 + lane;  // + kk * 128
+  float* m_w = reinterpret_cast<float*>(smem + C::BIG + C::QBYTES);  // [NS][R]
   float* l_w = m_w + 64;
   float* m_s = l_w + 64;
   float* l_s = m_s + 64;
@@ -364,18 +373,29 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   // Q as A fragments: a0 (row g, k 2t), a1 (row g+8, k 2t), a2 (row g,
   // k 2t+8), a3 (row g+8, k 2t+8) of every 16-column step.
-  uint32_t qa[NKS][4];
+  // (QSM: in this thread's words of q_sm, read back at each slice.)
+  uint32_t qa[C::QSM ? 1 : NKS][4];
   int qp[2];
+  const __nv_bfloat16* qr[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = rt * 16 + g + 8 * h, rr = r0 + r;
     qp[h] = r < R ? kvl - S + rr / G : -1;  // -1: a padding row sees no key
-    const __nv_bfloat16* qr =
-        q + ((size_t)(b * S + rr / G) * H + kv * G + rr % G) * D + 2 * t4;
+    qr[h] = r < R ? q + ((size_t)(b * S + rr / G) * H + kv * G + rr % G) * D + 2 * t4 : nullptr;
+  }
 #pragma unroll
-    for (int kk = 0; kk < NKS; ++kk) {
-      qa[kk][h] = r < R ? *reinterpret_cast<const uint32_t*>(qr + kk * 16) : 0u;
-      qa[kk][2 + h] = r < R ? *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8) : 0u;
+  for (int kk = 0; kk < NKS; ++kk) {
+    uint32_t f[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      f[h] = qr[h] ? *reinterpret_cast<const uint32_t*>(qr[h] + kk * 16) : 0u;
+      f[2 + h] = qr[h] ? *reinterpret_cast<const uint32_t*>(qr[h] + kk * 16 + 8) : 0u;
+    }
+    if constexpr (C::QSM) {
+      q_sm[kk * DEC_T] = make_uint4(f[0], f[1], f[2], f[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[kk][i] = f[i];
     }
   }
 
@@ -408,8 +428,15 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int c = 2 * kk + (lmat & 1);
         uint32_t bk4[4];
         ldsm_x4(kb_a + key * C::ROWB + ((c ^ (key & C::SWZ)) * 16), bk4);
-        mma_bf16(sc[0], qa[kk], bk4[0], bk4[1]);
-        mma_bf16(sc[1], qa[kk], bk4[2], bk4[3]);
+        if constexpr (C::QSM) {
+          const uint4 w = q_sm[kk * DEC_T];
+          const uint32_t a[4] = {w.x, w.y, w.z, w.w};
+          mma_bf16(sc[0], a, bk4[0], bk4[1]);
+          mma_bf16(sc[1], a, bk4[2], bk4[3]);
+        } else {
+          mma_bf16(sc[0], qa[kk], bk4[0], bk4[1]);
+          mma_bf16(sc[1], qa[kk], bk4[2], bk4[3]);
+        }
       }
     }
 

@@ -72,7 +72,14 @@ from kubeai_tpu_torch.engine.sampling import (
 )
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
 from kubeai_tpu_torch.models import llama
-from kubeai_tpu_torch.models.base import ModelConfig, llama_3_1_8b
+from kubeai_tpu_torch.models.base import (
+    ModelConfig,
+    gemma2_2b,
+    gemma_2b,
+    llama_3_1_8b,
+    mixtral_8x7b,
+    qwen2_5_7b,
+)
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.flash_attention import flash_attention
 from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
@@ -276,8 +283,8 @@ class Engine:
 
     Runs on ``device`` (default ``cuda``; pass ``"cpu"`` explicitly to run
     on the CPU). On CUDA the model's kernel gates are turned on, as the
-    JAX engine turns them on for the TPU: flash prefill and the paged
-    attention kernels; every device call runs on the engine's own stream,
+    JAX engine turns them on for the TPU: flash prefill and, without a
+    sliding window, the paged attention kernels; every device call runs on the engine's own stream,
     and each decode chunk replays a CUDA graph unless ``cuda_graphs`` is
     False (the same chunk eagerly: for comparisons on the card)."""
 
@@ -305,7 +312,10 @@ class Engine:
             model_config = model_config.replace(kv_cache_dtype=self.cfg.kv_cache_dtype)
         self._cuda = self.device.type == "cuda"
         if self._cuda:
-            model_config = model_config.replace(use_flash_prefill=True, use_paged_kernel=True)
+            # The JAX package's apply_backend_flags: flash prefill, and the
+            # paged kernels unless a sliding window rules them out.
+            model_config = model_config.replace(
+                use_flash_prefill=True, use_paged_kernel=model_config.sliding_window == 0)
         llama.check_supported(model_config)
         self.model_config = model_config
         self.params = params
@@ -1237,7 +1247,14 @@ def build_test_engine(
     return Engine(mc, params, ByteTokenizer(), ec, device=dev)
 
 
-PRESETS = {"llama-3.1-8b": llama_3_1_8b}
+# The catalog's model families at their published widths (models/base.py).
+PRESETS = {
+    "llama-3.1-8b": llama_3_1_8b,
+    "qwen2.5-7b": qwen2_5_7b,
+    "gemma-2b": gemma_2b,
+    "gemma2-2b": gemma2_2b,
+    "mixtral-8x7b": mixtral_8x7b,
+}
 
 
 def build_engine(
@@ -1246,18 +1263,24 @@ def build_engine(
     engine_config: EngineConfig | None = None,
     seed: int = 0,
     quantization: str = "",
+    num_layers: int | None = None,
 ) -> Engine:
-    """An engine over a preset's full widths and depth with random bf16
-    weights drawn from *seed* (``--model <dir>`` loads a checkpoint:
-    engine/weights.py). ``quantization="int8"`` quantizes them, one
-    stacked weight at a time. The byte tokenizer drives it; logits past
-    its vocab are masked."""
+    """An engine over a preset's full widths with random weights in the
+    preset's dtype drawn from *seed* (``--model <dir>`` loads a
+    checkpoint: engine/weights.py), at the preset's depth unless
+    *num_layers* cuts it (Mixtral-8x7B's 32 layers do not fit one 80 GB
+    card in bf16). ``quantization="int8"`` quantizes them, one stacked
+    weight at a time (a MoE model's experts and router stay in full
+    precision, as in the JAX package). The byte tokenizer drives it;
+    logits past its vocab are masked."""
     if preset not in PRESETS:
         raise ValueError(f"unknown preset {preset!r}; known: {sorted(PRESETS)}")
     if quantization not in ("", "int8"):
         raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
     dev = resolve_device(device)
     mc = PRESETS[preset]()
+    if num_layers is not None:
+        mc = mc.replace(num_layers=num_layers)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = llama.init_params(mc, gen, device=dev)
     if quantization:

@@ -14,6 +14,10 @@ debug routes are not ported yet (ROADMAP queue 1).
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
+The presets, random weights at published widths: ``llama-3.1-8b``,
+``qwen2.5-7b``, ``gemma-2b``, ``gemma2-2b`` and ``mixtral-8x7b``
+(Mixtral's 32 bf16 layers need more than one 80 GB card; chip_smoke.py
+serves 16 of them through ``build_engine(..., num_layers=16)``).
 ``--model <dir>`` serves an HF-format checkpoint directory
 (engine/weights.py), and ``--quantization int8`` serves a preset, a
 checkpoint or test:tiny with int8 weights through the W8A16 kernels.
@@ -422,7 +426,8 @@ def _make_handler(srv: EngineServer):
 def make_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("kubeai-tpu-torch-engine")
     p.add_argument("--model", required=True,
-                   help="an HF checkpoint dir, test:tiny, or preset:llama-3.1-8b (random weights)")
+                   help="an HF checkpoint dir, test:tiny, or preset:NAME (random weights; NAME "
+                        "llama-3.1-8b, qwen2.5-7b, gemma-2b, gemma2-2b or mixtral-8x7b)")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     p.add_argument("--host", default="0.0.0.0")

@@ -5,7 +5,10 @@
 layer weight, the embedding, the head), converts it to the model dtype,
 pads the vocab and, with ``quantization="int8"``, quantizes it on the
 host before it moves to the device, so full-precision weights never fill
-the card. ``load_engine_from_path`` drives it for ``--model <dir>``.
+the card. ``load_engine_from_path`` drives it for ``--model <dir>``. Every model
+family's HF names are read (Qwen2's q/k/v biases, Gemma2's four norms,
+Mixtral's router and experts, a tied head with no ``lm_head.weight``);
+``hf_state_dict`` and ``save_hf_checkpoint`` write them back.
 
 The card's machine has no ``safetensors`` package, so this module reads
 and writes the format itself: an 8-byte little-endian header length, a
@@ -185,6 +188,62 @@ def quantize_model_params(params: dict, config: ModelConfig) -> dict:
     return out
 
 
+def _hf_layer_names(config: ModelConfig) -> list[tuple[str, str, bool]]:
+    """(port key, HF name under model.layers.{i}., transposed) of every
+    per-layer tensor but Mixtral's experts, for each family as the JAX
+    loader names them: Qwen2's q/k/v biases, Gemma2's four norms (its
+    post_attention_layernorm is the post-attention norm ln1b,
+    pre_feedforward_layernorm the MLP's input norm ln2), Mixtral's
+    router."""
+    names = [
+        ("ln1", "input_layernorm.weight", False),
+        ("wq", "self_attn.q_proj.weight", True),
+        ("wk", "self_attn.k_proj.weight", True),
+        ("wv", "self_attn.v_proj.weight", True),
+        ("wo", "self_attn.o_proj.weight", True),
+    ]
+    if config.qkv_bias:
+        names += [("b" + t, f"self_attn.{t}_proj.bias", False) for t in "qkv"]
+    if config.post_norms:
+        names += [("ln1b", "post_attention_layernorm.weight", False),
+                  ("ln2", "pre_feedforward_layernorm.weight", False),
+                  ("ln2b", "post_feedforward_layernorm.weight", False)]
+    else:
+        names.append(("ln2", "post_attention_layernorm.weight", False))
+    if config.num_experts > 0:
+        names.append(("wr", "block_sparse_moe.gate.weight", True))
+    else:
+        names += [("wg", "mlp.gate_proj.weight", True), ("wu", "mlp.up_proj.weight", True),
+                  ("wd", "mlp.down_proj.weight", True)]
+    return names
+
+
+def _expert_name(li: int, e: int, which: str) -> str:
+    return f"model.layers.{li}.block_sparse_moe.experts.{e}.{which}.weight"
+
+
+def hf_state_dict(params: dict, config: ModelConfig) -> dict[str, torch.Tensor]:
+    """The HF state dict (names and [out, in] layouts, CPU tensors) of a
+    bf16 or float32 parameter dict: the inverse of stream_params_from_hf
+    for every family (a tied model has no lm_head.weight)."""
+    def cpu(t):
+        return t.contiguous().cpu()
+
+    lay = params["layers"]
+    sd = {"model.embed_tokens.weight": cpu(params["embed"]),
+          "model.norm.weight": cpu(params["final_norm"])}
+    if not config.tie_word_embeddings:
+        sd["lm_head.weight"] = cpu(params["lm_head"].T)
+    for li in range(config.num_layers):
+        for key, name, transpose in _hf_layer_names(config):
+            sd[f"model.layers.{li}.{name}"] = cpu(lay[key][li].T if transpose else lay[key][li])
+        if config.num_experts > 0:
+            for key, which in (("wg", "w1"), ("wu", "w3"), ("wd", "w2")):
+                for e in range(config.num_experts):
+                    sd[_expert_name(li, e, which)] = cpu(lay[key][li, e].T)
+    return sd
+
+
 def stream_params_from_hf(
     source,
     config: ModelConfig,
@@ -231,18 +290,16 @@ def stream_params_from_hf(
     }
     del embed
     layers: dict = {}
-    for key, fmt, transpose in (
-        ("ln1", "model.layers.{}.input_layernorm.weight", False),
-        ("wq", "model.layers.{}.self_attn.q_proj.weight", True),
-        ("wk", "model.layers.{}.self_attn.k_proj.weight", True),
-        ("wv", "model.layers.{}.self_attn.v_proj.weight", True),
-        ("wo", "model.layers.{}.self_attn.o_proj.weight", True),
-        ("ln2", "model.layers.{}.post_attention_layernorm.weight", False),
-        ("wg", "model.layers.{}.mlp.gate_proj.weight", True),
-        ("wu", "model.layers.{}.mlp.up_proj.weight", True),
-        ("wd", "model.layers.{}.mlp.down_proj.weight", True),
-    ):
-        layers[key] = put(stack(fmt, transpose), "layers", key)
+    for key, name, transpose in _hf_layer_names(config):
+        layers[key] = put(stack("model.layers.{}." + name, transpose), "layers", key)
+    if config.num_experts > 0:
+        # Mixtral: experts.{e}.w1 / w3 / w2 (gate / up / down), stacked
+        # to [L, E, in, out]; one stacked weight at a time.
+        for key, which in (("wg", "w1"), ("wu", "w3"), ("wd", "w2")):
+            layers[key] = put(torch.stack([
+                torch.stack([source.get(_expert_name(li, e, which)).T
+                             for e in range(config.num_experts)])
+                for li in range(L)]).to(dtype), "layers", key)
     params["layers"] = layers
     if not out_config.tie_word_embeddings:
         head = source.get("lm_head.weight").T.to(dtype)
@@ -287,15 +344,38 @@ def load_engine_from_path(
     return Engine(config, params, tokenizer, engine_config or EngineConfig(), device=dev)
 
 
+def _hf_family(config: ModelConfig) -> tuple[str, str, dict]:
+    """(architecture, model_type, the family's own config.json fields)
+    that ModelConfig.from_hf reads back into *config*."""
+    if config.num_experts > 0:
+        return "MixtralForCausalLM", "mixtral", {
+            "num_local_experts": config.num_experts,
+            "num_experts_per_tok": config.num_experts_per_tok}
+    if config.post_norms:
+        return "Gemma2ForCausalLM", "gemma2", {
+            "hidden_act": "gelu_pytorch_tanh",
+            "attn_logit_softcapping": config.attn_softcap or None,
+            "final_logit_softcapping": config.logit_softcap or None,
+            "query_pre_attn_scalar": (round(config.query_scale**-2)
+                                      if config.query_scale else None),
+            "sliding_window": config.sliding_window or None}
+    if config.rms_one_offset:
+        return "GemmaForCausalLM", "gemma", {"hidden_act": "gelu_pytorch_tanh"}
+    if config.qkv_bias:
+        return "Qwen2ForCausalLM", "qwen2", {}
+    return "LlamaForCausalLM", "llama", {}
+
+
 def save_hf_checkpoint(path: str, config: ModelConfig, state_dict: dict[str, Any]) -> None:
-    """Write a minimal HF-format checkpoint directory: config.json (with
-    head_dim and llama3 rope scaling where the config sets them) and one
-    model.safetensors (HF names and [out, in] layouts, torch tensors or
-    numpy arrays)."""
+    """Write a minimal HF-format checkpoint directory: config.json (the
+    family's model_type and fields, head_dim and llama3 rope scaling
+    where the config sets them) and one model.safetensors (HF names and
+    [out, in] layouts, torch tensors or numpy arrays: hf_state_dict's)."""
     os.makedirs(path, exist_ok=True)
+    arch, model_type, family = _hf_family(config)
     cfg = {
-        "architectures": ["LlamaForCausalLM"],
-        "model_type": "llama",
+        "architectures": [arch],
+        "model_type": model_type,
         "vocab_size": config.vocab_size,
         "hidden_size": config.hidden_size,
         "intermediate_size": config.intermediate_size,
@@ -306,6 +386,7 @@ def save_hf_checkpoint(path: str, config: ModelConfig, state_dict: dict[str, Any
         "rms_norm_eps": config.rms_norm_eps,
         "max_position_embeddings": config.max_position,
         "tie_word_embeddings": config.tie_word_embeddings,
+        **family,
     }
     if config.head_dim:
         cfg["head_dim"] = config.head_dim

@@ -4,8 +4,8 @@ The port keeps its own copy: the JAX module imports ``ops/rope.py`` and
 with it ``jax.numpy``. Field names and defaults are the same, so a
 config converts field by field (``ModelConfig(**dataclasses.asdict(c))``),
 and ``from_hf`` / ``from_json_file`` read an HF config.json as the JAX
-package does, variants the port has not taken included (``llama.
-check_supported`` refuses those).
+package does. The presets below are the published config.json of each
+model family the catalog serves, read through ``from_hf``.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ class ModelConfig:
     rms_norm_eps: float = 1e-5
     max_position: int = 8192
     tie_word_embeddings: bool = False
-    # Variants the JAX package serves; the port raises NotImplementedError
-    # on each until its ROADMAP item lands (see models/llama.py).
+    # Model-family variants: MoE (Mixtral), q/k/v biases (Qwen2), Gemma's
+    # gelu, embedding scale, 1 + w norms, post norms, softcaps, query
+    # scale and sliding window (Gemma2: even layers).
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 2.0
@@ -176,3 +177,68 @@ def llama_3_1_8b(**overrides) -> ModelConfig:
         dtype="bfloat16",
     )
     return cfg.replace(**overrides) if overrides else cfg
+
+
+# The published config.json fields of each family's preset model, by
+# preset name (read through from_hf, as a checkpoint's config.json is).
+HF_CONFIGS = {
+    # Qwen/Qwen2.5-7B-Instruct: q/k/v biases (Qwen2 always has them); 28
+    # query heads over 4 KV heads, groups of 7.
+    "qwen2.5-7b": dict(
+        model_type="qwen2", vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+        rope_theta=1000000.0, rms_norm_eps=1e-6, max_position_embeddings=32768,
+        tie_word_embeddings=False,
+    ),
+    # google/gemma-2b-it: head dim 256, one KV head; the tied head is
+    # GemmaConfig's default.
+    "gemma-2b": dict(
+        model_type="gemma", vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+        num_hidden_layers=18, num_attention_heads=8, num_key_value_heads=1, head_dim=256,
+        rope_theta=10000.0, rms_norm_eps=1e-6, max_position_embeddings=8192,
+        hidden_act="gelu", tie_word_embeddings=True,
+    ),
+    # google/gemma-2-2b-it: attention softcap 50, final softcap 30,
+    # query_pre_attn_scalar 256, a 4096-token window on even layers.
+    "gemma2-2b": dict(
+        model_type="gemma2", vocab_size=256000, hidden_size=2304, intermediate_size=9216,
+        num_hidden_layers=26, num_attention_heads=8, num_key_value_heads=4, head_dim=256,
+        rope_theta=10000.0, rms_norm_eps=1e-6, max_position_embeddings=8192,
+        hidden_activation="gelu_pytorch_tanh", attn_logit_softcapping=50.0,
+        final_logit_softcapping=30.0, query_pre_attn_scalar=256, sliding_window=4096,
+        tie_word_embeddings=True,
+    ),
+    # mistralai/Mixtral-8x7B-Instruct-v0.1: 8 experts, top 2 (capacity
+    # factor 2.0: the JAX package's default).
+    "mixtral-8x7b": dict(
+        model_type="mixtral", vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        rope_theta=1000000.0, rms_norm_eps=1e-5, max_position_embeddings=32768,
+        num_local_experts=8, num_experts_per_tok=2, tie_word_embeddings=False,
+    ),
+}
+
+
+def _preset(name: str, overrides: dict) -> ModelConfig:
+    cfg = ModelConfig.from_hf(_Attrs(HF_CONFIGS[name]))
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def qwen2_5_7b(**overrides) -> ModelConfig:
+    """Qwen2.5-7B widths (HF_CONFIGS: Qwen/Qwen2.5-7B-Instruct)."""
+    return _preset("qwen2.5-7b", overrides)
+
+
+def gemma_2b(**overrides) -> ModelConfig:
+    """Gemma-2B widths (HF_CONFIGS: google/gemma-2b-it)."""
+    return _preset("gemma-2b", overrides)
+
+
+def gemma2_2b(**overrides) -> ModelConfig:
+    """Gemma2-2B widths (HF_CONFIGS: google/gemma-2-2b-it)."""
+    return _preset("gemma2-2b", overrides)
+
+
+def mixtral_8x7b(**overrides) -> ModelConfig:
+    """Mixtral-8x7B widths (HF_CONFIGS: mistralai/Mixtral-8x7B-Instruct-v0.1)."""
+    return _preset("mixtral-8x7b", overrides)

@@ -19,8 +19,12 @@ weights, the W8A16 kernel for int8 ones (``{"int8_q", "int8_s"}``
 leaves, made from the bf16 tree by
 ``engine/weights.py::quantize_model_params``).
 
-Only dense Llama is ported. The variants the JAX package also serves
-raise NotImplementedError naming the ROADMAP item that will port them.
+The model families of the JAX package's catalog run through the same
+forward: Qwen2 (q/k/v biases), Gemma (gelu with tanh, the embedding
+scaled by sqrt(hidden), 1 + w norms, head dim 256), Gemma2 (post norms,
+attention and final softcaps, a query scale, a sliding window on even
+layers) and Mixtral (:func:`moe_mlp`). LoRA and ring attention raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,20 +61,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(config: ModelConfig) -> None:
-    """Raise for the model variants this slice has not ported."""
-    unported = [
-        (config.qkv_bias, "qkv bias (Qwen2)", "model variants"),
-        (config.num_experts > 0, "MoE", "model variants"),
-        (config.hidden_act != "silu" or config.embed_scale or config.rms_one_offset
-         or config.post_norms or config.attn_softcap or config.logit_softcap,
-         "Gemma features", "model variants"),
-        (config.sliding_window > 0, "sliding-window attention", "model variants"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1: {item})"
-            )
+    """Raise for a configuration the forward does not compute (as the JAX
+    package's, whose activation and window flags take these values)."""
+    if config.hidden_act not in ("silu", "gelu_tanh"):
+        raise ValueError(f"unsupported hidden_act {config.hidden_act!r} (silu or gelu_tanh)")
+    if config.sliding_layers not in ("all", "even"):
+        raise ValueError(f"unsupported sliding_layers {config.sliding_layers!r} (all or even)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +80,17 @@ def init_params(
     dtype: torch.dtype | None = None,
 ) -> Params:
     """Random-normal parameters drawn from *generator* (tests, benches).
-    Scales follow the JAX package: 1/sqrt(fan_in) for projections, 0.02
-    for embed and lm_head, ones for norms. Drawn one layer at a time, so
-    the float32 temporaries stay one layer wide."""
+    Scales follow the JAX package: 1/sqrt(fan_in) for projections, the
+    router and the experts, 0.02 for embed and lm_head, ones for norms.
+    q/k/v biases (zeros in the JAX package) are drawn at 0.02, so a
+    random-weight run exercises them. Drawn one layer at a time, so the
+    float32 temporaries stay one layer wide."""
     check_supported(config)
     device = torch.device(device) if device is not None else generator.device
     dtype = dtype or torch_dtype(config.dtype)
     D, Fi, L = config.hidden_size, config.intermediate_size, config.num_layers
     H, Kv, h = config.num_heads, config.num_kv_heads, config.head_dim_
-    V = config.vocab_size
+    V, E = config.vocab_size, config.num_experts
 
     def w(*shape, scale=None, stacked=True):
         scale = scale or (1.0 / np.sqrt(shape[-2] if len(shape) > 1 else shape[-1]))
@@ -101,20 +99,36 @@ def init_params(
             part.copy_(torch.randn(part.shape, generator=generator, device=device) * scale)
         return out
 
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
     layers: Params = {
-        "ln1": torch.ones((L, D), dtype=dtype, device=device),
-        "ln2": torch.ones((L, D), dtype=dtype, device=device),
+        "ln1": ones(L, D),
+        "ln2": ones(L, D),
         "wq": w(L, D, H * h),
         "wk": w(L, D, Kv * h),
         "wv": w(L, D, Kv * h),
         "wo": w(L, H * h, D),
-        "wg": w(L, D, Fi),
-        "wu": w(L, D, Fi),
-        "wd": w(L, Fi, D),
     }
+    if config.qkv_bias:
+        layers["bq"] = w(L, H * h, scale=0.02)
+        layers["bk"] = w(L, Kv * h, scale=0.02)
+        layers["bv"] = w(L, Kv * h, scale=0.02)
+    if config.post_norms:
+        layers["ln1b"] = ones(L, D)
+        layers["ln2b"] = ones(L, D)
+    if E > 0:
+        layers["wr"] = w(L, D, E)
+        layers["wg"] = w(L, E, D, Fi)
+        layers["wu"] = w(L, E, D, Fi)
+        layers["wd"] = w(L, E, Fi, D)
+    else:
+        layers["wg"] = w(L, D, Fi)
+        layers["wu"] = w(L, D, Fi)
+        layers["wd"] = w(L, Fi, D)
     params: Params = {
         "embed": w(V, D, scale=0.02, stacked=False),
-        "final_norm": torch.ones((D,), dtype=dtype, device=device),
+        "final_norm": ones(D),
         "layers": layers,
     }
     if not config.tie_word_embeddings:
@@ -168,6 +182,58 @@ def _kv_scale_vec(k_scale: float, v_scale: float, Kv: int, device: torch.device)
     return torch.tensor([k_scale, v_scale] * Kv, dtype=torch.float32, device=device)[:, None]
 
 
+def moe_route(xt, wr, k: int):
+    """(router logits [T, E] float32, the top *k* experts [T, k]) of
+    tokens xt [T, D]: a stable descending sort, so ties go to the lower
+    expert index, as jax.lax.top_k breaks them (torch.topk on CUDA does
+    not promise an order for ties)."""
+    router = (xt @ wr).float()
+    return router, torch.sort(router, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def moe_mlp(x, wr, wg, wu, wd, num_experts_per_tok: int, capacity_factor: float = 2.0):
+    """Mixtral's sparse MoE FFN with the JAX package's GShard
+    static-capacity dispatch (kubeai_tpu/models/llama.py::moe_mlp).
+
+    x [B, S, D]; wr [D, E]; wg/wu [E, D, F]; wd [E, F, D]. Top-k routing
+    (:func:`moe_route`) with softmax-over-top-k weights; the (token, choice)
+    pairs, token-major, fill each expert's capacity C = ceil(k*T/E *
+    factor) in order, and pairs past it are dropped (contribute zero).
+    The JAX package dispatches and combines with one-hot einsums, each
+    output a sum of exactly one term; here index scatters and gathers
+    move the same values, and the expert products are batched matmuls
+    over [E, C, D] (as in the JAX package, outside any kernel)."""
+    B, S, D = x.shape
+    E = wr.shape[-1]
+    k = num_experts_per_tok
+    T = B * S
+    C = max(int(np.ceil(k * T / E * capacity_factor)), 1)
+    dev = x.device
+
+    xt = x.reshape(T, D)
+    router, top_idx = moe_route(xt, wr, k)
+    weights = torch.softmax(router.gather(1, top_idx), dim=-1)  # over the chosen experts
+
+    expert = top_idx.reshape(T * k)  # (token, choice), token-major
+    onehot = F.one_hot(expert, E)  # [T*k, E]
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, expert[:, None])[:, 0]
+    keep = pos < C
+    # Kept pairs have distinct (expert, position) rows; dropped ones go
+    # to one spare row past the E*C real ones.
+    row = torch.where(keep, expert * C + pos, E * C)
+    src = torch.arange(T * k, device=dev) // k  # the token of each pair
+    xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    xe[row] = xt[src]
+    xe = xe[: E * C].reshape(E, C, D)
+    hid = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    ye = torch.bmm(hid, wd).reshape(E * C, D)  # [E*C, D]
+
+    w_flat = torch.where(keep, weights.reshape(T * k), 0.0)
+    picked = ye[torch.clamp(row, max=E * C - 1)].float()
+    y = torch.where(keep[:, None], picked, 0.0) * w_flat[:, None]
+    return y.reshape(T, k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)
+
+
 def apply(
     params: Params,
     config: ModelConfig,
@@ -190,7 +256,7 @@ def apply(
     Without a cache: attention is causal over the S new tokens only."""
     check_supported(config)
     if lora is not None:
-        raise NotImplementedError("LoRA is not ported yet (ROADMAP queue 1: LoRA, MoE and Gemma variants)")
+        raise NotImplementedError("LoRA is not ported yet (ROADMAP queue 1: LoRA)")
     if ring_mesh is not None:
         raise NotImplementedError("ring attention is not ported yet (ROADMAP queue 1: training)")
     if cache is not None and page_table is None:
@@ -198,21 +264,41 @@ def apply(
             "the dense slot cache is not ported; pass a paged pool and page_table"
         )
     B, S = tokens.shape
-    H, Kv, h = config.num_heads, config.num_kv_heads, config.head_dim_
+    H, Kv, h, L = config.num_heads, config.num_kv_heads, config.head_dim_, config.num_layers
     dtype = torch_dtype(config.dtype)
     dev = tokens.device
     inv_freq = _inv_freq(h, config.rope_theta, config.rope_scaling, dev)
     positions = positions.to(torch.int64)
 
     x = qgather(params["embed"], tokens, dtype)
+    if config.embed_scale:
+        # Gemma scales the embedding by sqrt(hidden) rounded to the
+        # compute dtype (the JAX package's jnp.asarray(..., x.dtype)); a
+        # Python float of that rounded value keeps the step capturable.
+        x = x * float(torch.tensor(config.hidden_size**0.5, dtype=dtype))
+    act = F.silu if config.hidden_act == "silu" else functools.partial(F.gelu, approximate="tanh")
+    norm_offset = 1.0 if config.rms_one_offset else 0.0
+
+    def norm(inp, weight):
+        return rms_norm(inp, weight, config.rms_norm_eps, offset=norm_offset)
+
+    # The kernel gates are the JAX package's: flash only without a softcap
+    # or a window, the paged kernels only without a window. A sliding-window
+    # model (Gemma2) therefore gathers its pages and runs plain attention
+    # with the per-layer window mask, the JAX package's own XLA path for
+    # it, not a fallback (ROADMAP: the window inside the paged kernels).
+    windowed = config.sliding_window > 0
     use_flash = (
         config.use_flash_prefill
         and left_aligned
         and cache is not None
         and S >= 256
         and S % 256 == 0
+        and config.attn_softcap == 0.0
+        and not windowed
     )
-    use_paged_kernel = config.use_paged_kernel and page_table is not None and not use_flash
+    use_paged_kernel = (config.use_paged_kernel and page_table is not None
+                        and not windowed and not use_flash)
     use_dedicated = use_paged_kernel and resolve_decode_kernel(decode_kernel, S) == "dedicated"
 
     paged = page_table is not None
@@ -220,7 +306,7 @@ def apply(
     if paged:
         pool = cache["kv"]
         page = pool.shape[1]
-        pool_P = pool.shape[0] // config.num_layers
+        pool_P = pool.shape[0] // L
         kv_quant = pool.dtype in QUANT_POOL_DTYPES
         if kv_quant:
             # Static per-tensor scales: the config's for int8; fp8 is
@@ -241,11 +327,20 @@ def apply(
     else:
         key_positions = positions[:, None, :]
     mask = key_positions <= positions[:, :, None]  # [B, S, Skv]
+    if windowed:
+        # Gemma2's interleave: the window on every layer, or on the even
+        # ones ("even"), the global causal mask elsewhere.
+        window_mask = mask & (key_positions > positions[:, :, None] - config.sliding_window)
 
-    for li in range(config.num_layers):
+    for li in range(L):
         w = {k: _layer_slice(v, li) for k, v in params["layers"].items()}
-        attn_in = rms_norm(x, w["ln1"], config.rms_norm_eps)
+        layer_mask = mask
+        if windowed and (config.sliding_layers != "even" or li % 2 == 0):
+            layer_mask = window_mask
+        attn_in = norm(x, w["ln1"])
         q, k, v = qdot_many(attn_in, (w["wq"], w["wk"], w["wv"]))
+        if config.qkv_bias:
+            q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
         q, k, v = q.reshape(B, S, H, h), k.reshape(B, S, Kv, h), v.reshape(B, S, Kv, h)
         q, k = apply_rope(q, k, positions, inv_freq)
 
@@ -283,23 +378,38 @@ def apply(
                     gathered = (gathered.float() * kv_scale_vec).to(dtype)
                 k_att = gathered[..., 0::2, :].reshape(B, skv, Kv, h)
                 v_att = gathered[..., 1::2, :].reshape(B, skv, Kv, h)
-                attn_out = attention(q, k_att, v_att, mask, scale=config.query_scale)
+                attn_out = attention(q, k_att, v_att, layer_mask, scale=config.query_scale,
+                                     softcap=config.attn_softcap)
         else:
-            attn_out = attention(q, k, v, mask, scale=config.query_scale)
-        x = x + qdot(attn_out.reshape(B, S, H * h), w["wo"])
+            attn_out = attention(q, k, v, layer_mask, scale=config.query_scale,
+                                 softcap=config.attn_softcap)
+        o = qdot(attn_out.reshape(B, S, H * h), w["wo"])
+        if config.post_norms:
+            o = norm(o, w["ln1b"])
+        x = x + o
 
-        mlp_in = rms_norm(x, w["ln2"], config.rms_norm_eps)
-        gate, up = qdot_many(mlp_in, (w["wg"], w["wu"]))
-        x = x + qdot(F.silu(gate) * up, w["wd"])
+        mlp_in = norm(x, w["ln2"])
+        if config.num_experts > 0:
+            m = moe_mlp(mlp_in, w["wr"], w["wg"], w["wu"], w["wd"],
+                        config.num_experts_per_tok, config.moe_capacity_factor)
+        else:
+            gate, up = qdot_many(mlp_in, (w["wg"], w["wu"]))
+            m = qdot(act(gate) * up, w["wd"])
+        if config.post_norms:
+            m = norm(m, w["ln2b"])
+        x = x + m
 
-    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    x = norm(x, params["final_norm"])
     if logits_idx is not None:
         x = x[torch.arange(B, device=dev)[:, None], logits_idx.long()[:, None]]  # [B, 1, D]
     if config.tie_word_embeddings:
         logits = qmatT(x, params["embed"])
     else:
         logits = qdot(x, params["lm_head"])
-    return logits.float(), cache
+    logits = logits.float()
+    if config.logit_softcap > 0.0:
+        logits = config.logit_softcap * torch.tanh(logits / config.logit_softcap)
+    return logits, cache
 
 
 def _layer_slice(leaf, li: int):

@@ -35,11 +35,25 @@ NVCC_FLAGS = (
 # Libraries built from another library's source with extra flags:
 # name -> (source under csrc/, nvcc flags). The paged kernels' one-byte
 # instances at head dim 32 would double their libraries' build time, so
-# they build apart (in parallel) and load at first use of head dim 32.
+# they build apart (in parallel) and load at first use of head dim 32;
+# so do the three attention kernels' bf16 instances at head dim 256
+# (Gemma's), the "_d256" libraries.
 VARIANTS = {
     "paged_attention_q8d32": ("paged_attention", ("-DKATTN_ONE_BYTE_D32",)),
     "paged_decode_attention_q8d32": ("paged_decode_attention", ("-DKATTN_ONE_BYTE_D32",)),
+    "flash_attention_d256": ("flash_attention", ("-DKATTN_D256",)),
+    "paged_attention_d256": ("paged_attention", ("-DKATTN_D256",)),
+    "paged_decode_attention_d256": ("paged_decode_attention", ("-DKATTN_D256",)),
 }
+# The head dim whose instances are the "_d256" libraries (bf16 only).
+WIDE_HEAD_DIM = 256
+
+
+def attention_library(name: str, head_dim: int) -> str:
+    """The library holding attention kernel *name*'s instances at
+    *head_dim* (the one-byte pools at head dim 32 are the paged wrappers'
+    own choice)."""
+    return f"{name}_d256" if head_dim == WIDE_HEAD_DIM else name
 
 # ctypes argument types, named once for the wrappers.
 PTR = ctypes.c_void_p
@@ -211,7 +225,8 @@ def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None 
     """Validate a kernel's tensors before their pointers reach native
     code: all on one CUDA device, contiguous, 16-byte aligned; the float
     tensors all float32 or all bfloat16, the index tensors int32; head
-    dim 32, 64 or 128. *pool* (one named tensor) may share the floats'
+    dim 32, 64 or 128, or 256 in bfloat16 (float32 at 256 is refused:
+    ROADMAP queue 3, "float32 attention at head dim 256"). *pool* (one named tensor) may share the floats'
     dtype or hold one byte per element (int8 or float8_e4m3fn) beside
     them; any other mix raises. Returns (the kernel's dtype code, 0 f32
     or 1 bf16; the pool's element code, POOL_SAME, POOL_INT8 or
@@ -246,6 +261,11 @@ def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None 
     for name, t in (ints or {}).items():
         if t.dtype != torch.int32:
             raise ValueError(f"{what}: {name} must be int32, got {t.dtype}")
-    if head_dim not in (32, 64, 128):
-        raise ValueError(f"{what}: head_dim {head_dim} unsupported (32, 64 or 128)")
+    if head_dim == WIDE_HEAD_DIM and dtype != torch.bfloat16:
+        raise ValueError(
+            f"{what}: head_dim {WIDE_HEAD_DIM} runs in bfloat16 only, got {dtype} "
+            f"(ROADMAP queue 3: float32 attention at head dim 256)"
+        )
+    if head_dim not in (32, 64, 128, WIDE_HEAD_DIM):
+        raise ValueError(f"{what}: head_dim {head_dim} unsupported (32, 64, 128 or 256)")
     return (1 if dtype == torch.bfloat16 else 0), pool_code

@@ -60,16 +60,20 @@ SMALL_QUANT_HEAD_DIM = 32
 
 def library(name: str, h: int, pool_code: int) -> str:
     """The library of paged kernel *name* for head dim *h* and a pool of
-    element code *pool_code* (_build.POOL_*)."""
-    return f"{name}_q8d32" if pool_code != _build.POOL_SAME and h == SMALL_QUANT_HEAD_DIM \
-        else name
+    element code *pool_code* (_build.POOL_*): the "_q8d32" one for a
+    one-byte pool at head dim 32, the "_d256" one at head dim 256."""
+    if pool_code != _build.POOL_SAME and h == SMALL_QUANT_HEAD_DIM:
+        return f"{name}_q8d32"
+    return _build.attention_library(name, h)
 
 # bf16 launches with at most this many query rows per (slot, KV head),
 # S*G, take the split-KV decode regime (up to four m16 tiles of mma.sync).
 SPLIT_MAX_ROWS = 64
-# Keys of one 64-row page-sized tile: the table span in tiles bounds the
-# number of splits.
+# Keys of one 64-row page-sized tile of the prefill tile.
 TILE_KEYS = 64
+# Keys of the shortest split (split_chunk's multiple of 16): the table
+# span in such pieces bounds the number of splits.
+SPLIT_KEYS = 16
 # The decode grid aims at this many blocks per SM. Each warp of a block
 # keeps two slices of K/V copies in flight (~67 KB of shared memory a
 # block, three blocks fit an SM), which two blocks per SM already make
@@ -85,10 +89,11 @@ MAX_SPLITS = 64
 def split_kv_plan(B: int, Kv: int, max_pages: int, page: int, sm_count: int) -> int:
     """Splits per (slot, KV head) of the decode regime: as many as keep
     B*Kv*n_splits within SPLIT_BLOCKS_PER_SM * sm_count blocks, at least
-    one, at most one per 64-key tile of the table span and at most
-    MAX_SPLITS. The kernel cuts each slot's own kv_len into that many
-    pieces (split_chunk)."""
-    tiles = max(1, -(-max_pages * page // TILE_KEYS))
+    one, at most one per SPLIT_KEYS keys of the table span (the shortest
+    split the kernel takes) and at most MAX_SPLITS. The kernel cuts each
+    slot's own kv_len into that many pieces (split_chunk). With one KV
+    head (Gemma-2B) a short table still fills the card."""
+    tiles = max(1, -(-max_pages * page // SPLIT_KEYS))
     want = SPLIT_BLOCKS_PER_SM * sm_count // (B * Kv)
     return max(1, min(tiles, want, MAX_SPLITS))
 
@@ -192,16 +197,17 @@ def check_paged_inputs(what: str, q, kv_pages, page_table, kv_lengths):
 
 def ragged_regime(q, kv_pages) -> str:
     """The tile the kernel runs for these inputs: "prefill_tile" (bf16
-    from 64 rows per (slot, KV head), G dividing 64, pages of 8 rows or
-    more that tile 64 keys evenly: csrc/paged_attention.cu's rule; at 64
-    rows it took under half the split-KV body's time on the H100, PERF.md
-    §6), else "split_kv" (bf16 up to SPLIT_MAX_ROWS rows), else
-    "cuda_core"."""
+    from 64 rows per (slot, KV head), at most 64 query heads per KV head
+    (a tile takes 64/G whole positions, G*floor(64/G) rows), pages of 8
+    rows or more that tile 64 keys evenly: csrc/paged_attention.cu's
+    rule; at 64 rows it took under half the split-KV body's time on the
+    H100, PERF.md §6), else "split_kv" (bf16 up to SPLIT_MAX_ROWS rows),
+    else "cuda_core"."""
     _, S, H, _ = q.shape
     page, G = kv_pages.shape[1], H // (kv_pages.shape[2] // 2)
     if q.dtype == torch.bfloat16:
         tma_pages = page % 8 == 0 and (TILE_KEYS % page == 0 or page % TILE_KEYS == 0)
-        if S * G >= 64 and 64 % G == 0 and tma_pages:
+        if S * G >= 64 and G <= 64 and tma_pages:
             return "prefill_tile"
         if S * G <= SPLIT_MAX_ROWS:
             return "split_kv"

@@ -863,3 +863,110 @@ def test_live_engines_never_share_a_stream(cuda):
     b = build_test_engine(device=cuda)
     own = [{e._stream.cuda_stream, e._capture_stream.cuda_stream} for e in (a, b)]
     assert len(own[0]) == len(own[1]) == 2 and not own[0] & own[1], (own, len(fillers))
+
+
+# ---------------------------------------------------------------------------
+# Head dim 256 (Gemma's; the "_d256" libraries) and query groups that do not
+# divide 64 (Qwen2.5's G = 7): -k h256, -k g7.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,S,H,Kv,causal",
+    [(1, 1024, 8, 1, True), (2, 300, 8, 1, True), (1, 256, 8, 4, True), (2, 64, 8, 1, False)],
+)
+def test_h256_flash_matches_plain(cuda, B, S, H, Kv, causal):
+    """Flash at head dim 256 on the tensor-core tile (4 swizzle chunks,
+    O += P V as two N = 128 products): Gemma-2B's 8 heads over 1, and
+    Gemma2's over 4."""
+    from kubeai_tpu_torch.ops.flash_attention import flash_regime
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    q, k, v = (torch.randn((B, S, n, 256), generator=g, device=cuda).to(torch.bfloat16)
+               for n in (H, Kv, Kv))
+    assert flash_regime(q, k) == "tensor_core"
+    before = flash_attention.launches_by_regime["tensor_core"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_regime["tensor_core"] == before + 1
+    _assert_close(got, flash_attention_plain(q.float(), k.float(), v.float(), causal),
+                  torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "fp8", "int8"], ids=["bf16", "fp8", "int8"])
+@pytest.mark.parametrize(
+    "B,S,H,Kv,page,lens,regime",
+    [
+        (8, 1, 8, 1, 64, [1, 63, 64, 65, 300, 511, 700, 2048], "split_kv"),  # decode, 8 rows
+        (8, 4, 8, 1, 64, [4, 40, 129, 511, 512, 1024, 1999, 2048], "split_kv"),  # 32 rows
+        (4, 8, 8, 1, 64, [8, 70, 300, 2048], "prefill_tile"),  # verify S=8: 64 rows
+        (1, 1024, 8, 1, 64, [2048], "prefill_tile"),  # a 1024 chunk at 1024
+        (2, 64, 8, 4, 16, [300, 77], "prefill_tile"),  # Gemma2's G = 2, page-16 boxes
+        (2, 3, 8, 4, 16, [19, 45], "split_kv"),
+    ],
+)
+def test_h256_paged_kernels_match_plain(cuda, kv, B, S, H, Kv, page, lens, regime):
+    """Both paged kernels at head dim 256 in every regime, over bf16, fp8
+    and int8 pools: split-KV decode (Q fragments in shared memory), the
+    prefill tile, and the dedicated kernel up to S = 8."""
+    from kubeai_tpu_torch.ops.paged_attention import ragged_regime
+
+    q, pool, table, kv_lens, ks, vs, want = _verify_case(
+        cuda, torch.bfloat16, kv, B, S, H, Kv, 256, page, lens, seed=S + Kv)
+    assert ragged_regime(q, pool) == regime
+    fns = [paged_attention_ragged] + ([paged_decode_attention] if S <= MAX_DECODE_QUERY_LEN else [])
+    for fn in fns:
+        for _ in range(2):  # the second launch finds the counters the first left
+            got = fn(q, pool, table, kv_lens, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            _assert_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_h256_float32_is_refused(cuda):
+    q = torch.zeros((1, 256, 8, 256), device=cuda)
+    k = torch.zeros((1, 256, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP queue 3"):
+        flash_attention(q, k, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Kv", [(28, 4), (20, 4)], ids=["g7", "g5"])
+@pytest.mark.parametrize("S", [1024, 300, 9])
+def test_g7_flash_runs_the_tensor_core_tile(cuda, H, Kv, S):
+    """G = 7 (Qwen2.5-7B) and G = 5: 63- and 60-row tiles of whole
+    positions on the tensor cores, not the CUDA-core tile."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v = (torch.randn((1, S, n, 128), generator=g, device=cuda).to(torch.bfloat16)
+               for n in (H, Kv, Kv))
+    before = dict(flash_attention.launches_by_regime)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_regime["tensor_core"] == before.get("tensor_core", 0) + 1
+    assert flash_attention.launches_by_regime["cuda_core"] == before.get("cuda_core", 0)
+    _assert_close(got, flash_attention_plain(q.float(), k.float(), v.float()), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Kv", [(28, 4), (20, 4)], ids=["g7", "g5"])
+@pytest.mark.parametrize("kv", [None, "fp8"], ids=["bf16", "fp8"])
+@pytest.mark.parametrize(
+    "B,S,page,lens",
+    [(1, 1024, 64, [2048]), (2, 10, 64, [10, 700]), (2, 64, 16, [300, 77]), (8, 8, 64, [8] * 8)],
+)
+def test_g7_ragged_prefill_tile_matches_plain(cuda, H, Kv, kv, B, S, page, lens):
+    """The ragged kernel at G = 7 and G = 5: from 64 rows (S = 10 at G = 7:
+    70 rows) the prefill tile on the tensor cores, below them (S = 8: 56
+    and 40 rows) split KV; never the CUDA-core tile."""
+    from kubeai_tpu_torch.ops.paged_attention import ragged_regime
+
+    q, pool, table, kv_lens, ks, vs, want = _verify_case(
+        cuda, torch.bfloat16, kv, B, S, H, Kv, 128, page, lens, seed=S + H)
+    regime = ragged_regime(q, pool)
+    assert regime == ("prefill_tile" if S * H // Kv >= 64 else "split_kv")
+    before = paged_attention_ragged.launches_by_regime[regime]
+    got = paged_attention_ragged(q, pool, table, kv_lens, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged_attention_ragged.launches_by_regime[regime] == before + 1
+    _assert_close(got, want, torch.bfloat16)

@@ -125,6 +125,14 @@ def test_split_choice_fills_the_h100_at_decode(mp):
     assert split_chunk(300, 4) == 80  # a multiple of 16 that ends inside a 64-row page
 
 
+def test_split_choice_fills_the_h100_with_one_kv_head():
+    """Gemma-2B's one KV head at B=8, kv_len 512 over chip_smoke's table of
+    8 pages: splits of 16 keys, not 64-key tiles, fill the card."""
+    n = split_kv_plan(8, 1, 8, 64, H100_SMS)
+    live = -(-512 // split_chunk(512, n))
+    assert 8 * 1 * live >= H100_SMS and n <= MAX_SPLITS
+
+
 @pytest.mark.parametrize(
     "S,G,page,dtype,want",
     [
@@ -134,14 +142,17 @@ def test_split_choice_fills_the_h100_at_decode(mp):
         (16, 4, 64, torch.bfloat16, "prefill_tile"),  # 64 rows: the faster tile there
         (16, 4, 4, torch.bfloat16, "split_kv"),  # 64 rows over pages off TMA's grid
         (12, 8, 64, torch.bfloat16, "prefill_tile"),  # 96 rows
-        (3, 24, 64, torch.bfloat16, "cuda_core"),  # 72 rows, G not dividing 64
+        (3, 24, 64, torch.bfloat16, "prefill_tile"),  # 72 rows, G not dividing 64: 48-row tiles
+        (10, 7, 64, torch.bfloat16, "prefill_tile"),  # Qwen2.5's G = 7: 70 rows, 63-row tiles
+        (1, 72, 64, torch.bfloat16, "cuda_core"),  # 72 heads per KV head: past a 64-row tile
         (1, 4, 64, torch.float32, "cuda_core"),
     ],
 )
 def test_ragged_regime_by_rows(S, G, page, dtype, want):
     """The ragged kernel's tile by rows per (slot, KV head): split KV
     below 64 rows (the verify steps of --speculate-tokens up to 14), the
-    prefill tile from 64 rows where its TMA takes the pages."""
+    prefill tile from 64 rows where its TMA takes the pages and a tile
+    holds at least one position's G rows."""
     from kubeai_tpu_torch.ops.paged_attention import ragged_regime
 
     q = torch.zeros((1, S, 2 * G, 32), dtype=dtype)

@@ -11,7 +11,10 @@ the JAX package's (kubeai_tpu.engine.weights), on the CPU:
   greedy tokens (test_torch_engine.py's near-tie rule), and so does the
   server started with --model <dir> --quantization int8;
 - tp = 2, an unknown quantization and a directory with tokenizer files
-  raise.
+  raise;
+- each model family (Qwen2, Gemma, Gemma2, Mixtral) round-trips: the
+  port's save_hf_checkpoint then --model <dir>, bf16 and int8, equals the
+  JAX package's params_from_hf of the same state dict.
 
 Checkpoints have save_tiny_test_checkpoint's names and shapes (vocab 256,
 hidden 64, 2 layers, 4 heads, 2 KV heads) with seeded numpy weights,
@@ -256,3 +259,42 @@ def test_loader_refusals(ckpt, tmp_path):
     assert type(tw.load_tokenizer(str(with_tok))).__name__ == "ByteTokenizer"
     with pytest.raises(SystemExit):
         make_arg_parser().parse_args(["--model", ckpt, "--tensor-parallel-size", "2"])
+
+
+@pytest.mark.parametrize("quantization", ["", "int8"], ids=["bf16", "int8"])
+@pytest.mark.parametrize("family", ["qwen2", "gemma", "gemma2", "mixtral"])
+def test_family_checkpoint_round_trip_matches_jax(tmp_path, family, quantization):
+    """Each family's weights written by the port's save_hf_checkpoint (HF
+    names from hf_state_dict: Qwen2's biases, Gemma2's four norms,
+    Mixtral's router and experts, no lm_head when tied) and served by
+    --model <dir> equal the JAX package's params_from_hf of the same
+    state dict (vocab padded, int8-quantized as its loader does: experts
+    and router stay full precision), through params_from_jax."""
+    import _torch_families as fam
+    from kubeai_tpu.models import llama as jl
+    from kubeai_tpu_torch.models.convert import params_from_jax
+
+    _, tc, _, tp = fam.model(family)
+    path = str(tmp_path / family)
+    sd = tw.hf_state_dict(tp, tc)
+    assert ("lm_head.weight" in sd) == (not tc.tie_word_embeddings)
+    tw.save_hf_checkpoint(path, tc, sd)
+    argv = ["--model", path, "--device", "cpu", "--max-slots", "2", "--max-seq-len", "128"]
+    eng, _ = build_engine_from_args(make_arg_parser().parse_args(
+        argv + (["--quantization", quantization] if quantization else [])))
+    jc = JMC.from_json_file(path).replace(dtype="bfloat16")
+    assert dataclasses.asdict(jc) == dataclasses.asdict(
+        tc.replace(dtype="bfloat16", tie_word_embeddings=jc.tie_word_embeddings))
+    jp = jl.params_from_hf({k: v.numpy() for k, v in sd.items()}, jc, to_device=False)
+    jp, jc = jw.pad_vocab(jp, jc, 128)
+    if quantization:
+        jp = jw.quantize_model_params(jp, jc)
+    want = params_from_jax(jax.tree.map(np.asarray, jp), TMC(**dataclasses.asdict(jc)), "cpu")
+    assert eng.model_config.vocab_size == jc.vocab_size == 384
+    la = jax.tree_util.tree_leaves_with_path(want)
+    lb = jax.tree_util.tree_leaves_with_path(eng.params)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (p, a), (_, b) in zip(la, lb):
+        assert a.dtype == b.dtype and torch.equal(a, b), jax.tree_util.keystr(p)
+    if family == "mixtral" and quantization:
+        assert eng.params["layers"]["wg"].dtype == torch.bfloat16  # experts stay bf16
