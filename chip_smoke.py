@@ -51,7 +51,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      fp8 pool), Mixtral-8x7B (bf16; the plain path takes the kernel
      path's expert choices, and the choices it would have made otherwise
      are counted) and Gemma2-2B (bf16 and int8 on the gather path: no
-     attention kernel may launch);
+     attention kernel may launch); the 2-layer Llama model with a LoRA
+     bank (adapters a and b, rank 16 on all seven targets) and rows
+     [1, 0, 2] in one batch, the same bank on the plain path;
   4. serving: the port's OpenAI server over Llama-3.1-8B (32 layers,
      random bf16 weights from a seed) answers completions, chat, a
      flash-sized prompt, a chunked prompt, a shared prefix, 8 concurrent
@@ -63,7 +65,17 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      --speculate-tokens 7 on each decode kernel (drafted and accepted
      drafts; greedy tokens equal to the same engine's at G = 0 up to a
      near-tie within 2 bf16 ulps of the logits), each run with the launch
-     counters zeroed before it. Every kernel of a run's path must launch
+     counters zeroed before it. Then LoRA (LORA_RUNS: ragged, dedicated,
+     int8 weights, --speculate-tokens 7): two PEFT adapters written by the
+     port's writer load through /v1/load_lora_adapter, /v1/models lists
+     them, and 8 requests (3 on a, 3 on b, 2 base; staggered arrivals,
+     decoding together) are served: base tokens equal those of the same
+     engine before it had a bank, adapter tokens differ, and an eager
+     engine gives the graphed engine's tokens; in the ragged run an
+     adapter is unloaded while its requests decode and another loaded into
+     its row, and the follow-up turn claims none of the row's old pages.
+     A LoRA run's counts are the graphed engine's alone: they are read
+     before the eager engine starts. Every kernel of a run's path must launch
      there, a whole number of times per model step, the paged kernels on
      the run's pool dtype alone; a quantized pool has half the bf16
      pool's bytes. Every decode chunk of every serving run is one CUDA
@@ -80,17 +92,21 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      over 6 chunks (device busy ms of a chunk, idle share). Then a
      32-layer step profile: decode and verify steps
      under both decode kernels, in int8 and over an fp8 pool, prefills
-     with bf16 and int8 weights. Then the other families, each served
+     with bf16 and int8 weights, and a decode step without a bank and with
+     one (all rows 0, one adapter, two mixed). Then the other families, each served
      with the same request set (FAMILY_RUNS: Qwen2.5-7B at 28 layers,
      bf16 ragged and int8 weights with the dedicated kernel; Gemma-2B at
      18, bf16 ragged and an fp8 pool with the dedicated kernel; Gemma2-2B
      at 26, bf16, with zero flash and paged launches; Mixtral-8x7B at 16
      of its 32 layers, full width, bf16 ragged), no CUDA-core tile in any
      of them, and a step profile of each (decode, 8-token verify, cold
-     512 prefill). Then the loader: a 2-layer checkpoint at
-     8B width written by the port's save_hf_checkpoint is served through
-     --model <dir> --quantization int8, and its int8 leaves must equal
-     quantize_model_params of the written weights. Last, the JAX
+     512 prefill). Then the loader: a 2-layer checkpoint at 8B width
+     written by the port's save_hf_checkpoint, with a Llama-3-style
+     tokenizer.json and chat template built here, is served through
+     --model <dir> --quantization int8; its int8 leaves must equal
+     quantize_model_params of the written weights, and a chat completion's
+     text must equal the checkpoint tokenizer's decode of the greedy ids
+     (and the host's encode time of a 4,096-token prompt is printed). Last, the JAX
      package's float32 test config serves through the server's command
      line with --quantization int8 --kv-cache-dtype fp8 and then with
      --speculate-tokens 3, its greedy tokens equal to the same engine's on
@@ -109,6 +125,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -986,7 +1003,16 @@ def phase_model_parity() -> None:
     # kernel for its plain version.
     _parity(params, mc.replace(kv_cache_dtype="fp8"), "fp8 pool", _plain_attention,
             plain_gates=True)
-    del params
+    # LoRA: adapters a and b (rank 16 on all seven targets) and the base
+    # model in one batch, the same bank on both paths.
+    from kubeai_tpu_torch.engine.lora import AdapterRuntime
+
+    rt = AdapterRuntime(mc, device="cuda")
+    for name, path in zip("ab", _adapter_dirs()):
+        rt.load(name, path)
+    _parity(params, mc, "bf16 lora rows [1, 0, 2]", _plain_attention, plain_gates=True,
+            lora=(rt.bank, torch.tensor([1, 0, 2], device="cuda")))
+    del params, rt
     torch.cuda.empty_cache()
     _family_parity()
 
@@ -1139,19 +1165,21 @@ def _float32_w8a16():
 
 
 def _parity(params, mc, label, plain_ctx, plain_gates=False,
-            kernel_ctx=contextlib.nullcontext) -> None:
+            kernel_ctx=contextlib.nullcontext, lora=None) -> None:
     """Kernel path (flash, paged kernels and, for int8 weights, the W8A16
     kernel) against the plain path (gather attention, or with
     *plain_gates* the kernel path's gates; *plain_ctx* around each plain
     call, *kernel_ctx* around each kernel call) on the same weights and
-    tokens."""
+    tokens; with *lora* (bank, rows) every call takes the bank with one
+    adapter row per batch row (3 rows then, 2 otherwise)."""
     import torch
 
     from kubeai_tpu_torch.models import llama
 
     kern = mc.replace(use_flash_prefill=True, use_paged_kernel=True)
     plain_cfg = kern if plain_gates else mc
-    page, B, mp = 64, 2, 32
+    lk = {} if lora is None else {"lora": lora[0], "lora_rows": lora[1]}
+    page, B, mp = 64, 2 if lora is None else len(lora[1]), 32
     P = 1 + B * mp
     table = torch.arange(1, P, dtype=torch.int32, device="cuda").reshape(B, mp)
     tok_g = torch.Generator(device="cuda").manual_seed(7)
@@ -1183,21 +1211,22 @@ def _parity(params, mc, label, plain_ctx, plain_gates=False,
             plain = call(plain_cfg, pools["plain"])
         check(what, kernel, plain)
 
-    for S, lens in ((512, [300, 512]), (128, [77, 128])):
+    for S, lens in ((512, [300, 512, 400]), (128, [77, 128, 100])):
         t = toks(S)
-        L = torch.tensor(lens, device="cuda")
+        L = torch.tensor(lens[:B], device="cuda")
         both(f"cold prefill S={S}", lambda cfg, pool: llama.prefill_paged_cold(
-            params, cfg, t, pool, table, L)[0])
+            params, cfg, t, pool, table, L, **lk)[0])
     t = toks(256)
-    start = torch.tensor([128, 128], device="cuda")
-    last = torch.tensor([255, 100], device="cuda")
+    start = torch.tensor([128] * B, device="cuda")
+    last = torch.tensor([255, 100, 200][:B], device="cuda")
     both("chunked prefill start=128 S=256", lambda cfg, pool: llama.prefill_paged(
-        params, cfg, t, pool, table, start, last)[0])
+        params, cfg, t, pool, table, start, last, **lk)[0])
     d = toks(1)
-    lengths = torch.tensor([384, 229], device="cuda")
+    lengths = torch.tensor([384, 229, 300][:B], device="cuda")
     for dk in ("ragged", "dedicated"):
         both(f"decode step ({dk})", lambda cfg, pool: llama.decode_step_paged(
-            params, cfg, d, {"kv": pool["kv"].clone()}, table, lengths, decode_kernel=dk)[0])
+            params, cfg, d, {"kv": pool["kv"].clone()}, table, lengths, decode_kernel=dk,
+            **lk)[0])
     # Speculative verify: 8 candidate tokens per slot (S = G+1 = 8: the
     # ragged kernel's split-KV tile at 32 rows), and 17 (68 rows: its
     # prefill tile, and the dedicated kernel's two row groups).
@@ -1206,7 +1235,7 @@ def _parity(params, mc, label, plain_ctx, plain_gates=False,
         for dk in ("ragged", "dedicated"):
             both(f"verify step S={S} ({dk})", lambda cfg, pool: llama.decode_speculative_paged(
                 params, cfg, spec, {"kv": pool["kv"].clone()}, table, lengths,
-                decode_kernel=dk)[0])
+                decode_kernel=dk, **lk)[0])
     del pools
     torch.cuda.empty_cache()
 
@@ -1290,7 +1319,6 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     from kubeai_tpu_torch.ops.flash_attention import flash_attention
     from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
     from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
-    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
 
     run = run or ("int8" if int8 else decode_kernel)
     if engine is not None:
@@ -1310,13 +1338,7 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     srv.start()
     p = srv.port
     attention = (flash_attention, paged_attention_ragged, paged_decode_attention)
-    counters = attention + (qdot, qdot_many)
-    for fn in counters:
-        fn.launches = 0
-    for fn in (paged_attention_ragged, paged_decode_attention):
-        fn.launches_by_pool.clear()
-    paged_attention_ragged.launches_by_regime.clear()
-    flash_attention.launches_by_regime.clear()
+    _zero_launches()
     try:
         t = _post(p, "/v1/completions", {"prompt": "Hello", "max_tokens": 8, "temperature": 0})
         _check_completion(t, "short")
@@ -1369,11 +1391,10 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
         b = _check_completion(_post(p, "/v1/completions", seeded), "seeded again")
         if a != b:
             raise AssertionError(f"seeded sample not reproducible: {a!r} vs {b!r}")
-        launches = {fn.__name__: fn.launches for fn in counters}
-        by_pool = {fn.__name__: dict(fn.launches_by_pool)
-                   for fn in (paged_attention_ragged, paged_decode_attention)}
-        by_regime = dict(paged_attention_ragged.launches_by_regime)
-        flash_by_regime = dict(flash_attention.launches_by_regime)
+        counts = _read_launches()
+        launches, by_pool = counts["launches"], counts["launches_by_pool"]
+        by_regime = counts["launches_by_regime"]
+        flash_by_regime = counts["flash_launches_by_regime"]
         chunks = _check_graphed(eng, run)
         spec = _spec_parity(eng, run) if eng.cfg.speculate_tokens else None
     finally:
@@ -1702,6 +1723,7 @@ def phase_serving() -> dict:
         out[f"spec_{dk}"] = _serve_once(None, dk, run=f"spec_{dk}", cli=[
             "--model", "preset:llama-3.1-8b", "--speculate-tokens", "7", "--decode-kernel", dk,
             "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"])
+    out.update(_serve_lora(params, qparams))
     bf16_bytes = out["ragged"]["pool"]["bytes"]
     for run in ("fp8_pool", "int8_pool"):
         if out[run]["pool"]["bytes"] * 2 != bf16_bytes:
@@ -1714,6 +1736,8 @@ def phase_serving() -> dict:
     # Profiler sessions after every timed serving run.
     _graph_profiles(params)
     _step_profile(params, qparams)
+    _lora_step_profile(params)
+    shutil.rmtree(os.path.dirname(_ADAPTERS[0]), ignore_errors=True)
     del params, qparams
     torch.cuda.empty_cache()
     out.update(_serve_families())
@@ -1722,6 +1746,372 @@ def phase_serving() -> dict:
                                                          "--kv-cache-dtype", "fp8"])
     out["tiny_spec"] = _serve_tiny("tiny_spec", ["--speculate-tokens", "3"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (phase 3's parity, phase 4's serving runs and step profile)
+
+_ADAPTERS: list = []
+
+
+def _adapter_dirs() -> list:
+    """Three PEFT adapters (a, b, c) for Llama-3.1-8B, written once by the
+    port's writer under build/: rank 16 on all seven targets of all 32
+    layers, alpha 32, N(0, 0.02) A and B from seeds 1-3 (each delta a
+    fraction of its projection)."""
+    if not _ADAPTERS:
+        from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
+        from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+        t0 = time.monotonic()
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "lora_adapters")
+        for i, name in enumerate("abc"):
+            path = os.path.join(root, name)
+            write_peft_checkpoint(path, llama_3_1_8b(), rank=16, alpha=32, seed=i + 1, std=0.02)
+            _ADAPTERS.append(path)
+        log(f"adapters: 3 PEFT checkpoints (rank 16, 7 targets, 32 layers) written in "
+            f"{time.monotonic() - t0:.1f}s")
+    return _ADAPTERS
+
+
+LORA_PROMPTS = tuple(f"Adapter request {i}: write two lines about the {w}."
+                     for i, w in enumerate(("sea", "moon", "forest", "city", "desert", "river",
+                                            "storm", "mountain")))
+# 3 requests on adapter a, 3 on b, 2 on the base model.
+LORA_MIX = ("a", "b", "a", None, "b", "a", None, "b")
+# (run, decode kernel, int8 weights, speculate_tokens)
+LORA_RUNS = (("lora_ragged", "ragged", False, 0), ("lora_dedicated", "dedicated", False, 0),
+             ("lora_int8", "ragged", True, 0), ("lora_spec", "ragged", False, 7))
+NO_EOS = {"257": -100}  # the byte tokenizer's EOS, banned: full-length runs
+
+
+def _zero_launches():
+    from kubeai_tpu_torch.ops.flash_attention import flash_attention
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+
+    for fn in (flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many):
+        fn.launches = 0
+    for fn in (paged_attention_ragged, paged_decode_attention):
+        fn.launches_by_pool.clear()
+    paged_attention_ragged.launches_by_regime.clear()
+    flash_attention.launches_by_regime.clear()
+
+
+def _read_launches() -> dict:
+    """The launch counts as _serve_once reports them."""
+    from kubeai_tpu_torch.ops.flash_attention import flash_attention
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+
+    return {
+        "launches": {fn.__name__: fn.launches for fn in (
+            flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many)},
+        "launches_by_pool": {fn.__name__: dict(fn.launches_by_pool)
+                             for fn in (paged_attention_ragged, paged_decode_attention)},
+        "launches_by_regime": dict(paged_attention_ragged.launches_by_regime),
+        "flash_launches_by_regime": dict(flash_attention.launches_by_regime),
+    }
+
+
+def _staggered(eng, prompts, adapters, n=32):
+    """Greedy token ids and texts of *prompts* through the engine's queue,
+    each with its adapter and EOS banned, each submitted once the one
+    before it has its first token: every prefill runs alone (its numbers
+    do not depend on timing), and all decode together."""
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    reqs = []
+    for prompt, adapter in zip(prompts, adapters):
+        sp = SamplingParams(temperature=0.0, max_tokens=n, logit_bias=((257, -100.0),))
+        reqs.append((eng.submit(eng.tokenizer.encode(prompt), sp, adapter=adapter), [], []))
+        ev = reqs[-1][0].out.get(timeout=300)
+        if ev[0] != "token":
+            raise AssertionError(f"no first token: {ev}")
+        reqs[-1][1].append(ev[1])
+        reqs[-1][2].append(ev[2])
+    for req, ids, text in reqs:
+        while True:
+            ev = req.out.get(timeout=300)
+            if ev[0] == "token":
+                if ev[1] >= 0:
+                    ids.append(ev[1])
+                text.append(ev[2])
+            elif ev[0] == "done":
+                break
+            else:
+                raise AssertionError(f"request failed: {ev}")
+    return [ids for _, ids, _ in reqs], ["".join(t) for _, _, t in reqs]
+
+
+def _stream_http_staggered(port, prompts, models, n=32):
+    """The same requests through the server (SSE streams, "model" naming
+    the adapter or the served model): each starts once the one before it
+    has streamed its first token, then all decode together. Returns each
+    one's text."""
+    results: list = [None] * len(prompts)
+    started = [threading.Event() for _ in prompts]
+    errors: list = []
+
+    def worker(i):
+        try:
+            body = {"model": models[i], "prompt": prompts[i], "max_tokens": n,
+                    "temperature": 0, "logit_bias": NO_EOS, "stream": True}
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/completions", data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            text = []
+            with urllib.request.urlopen(req, timeout=600) as r:
+                for raw in r:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    ev = json.loads(line[len("data: "):])
+                    if "error" in ev:
+                        raise AssertionError(ev["error"])
+                    text.append(ev["choices"][0].get("text") or "")
+                    started[i].set()
+            results[i] = "".join(text)
+        except Exception as e:  # reported below
+            errors.append(f"{i}: {e!r}")
+        finally:
+            started[i].set()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
+    for i, th in enumerate(threads):
+        th.start()
+        started[i].wait(timeout=300)
+    for th in threads:
+        th.join(timeout=600)
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"adapter requests failed: {errors}")
+    return results
+
+
+def _serve_lora(params, qparams) -> dict:
+    """LORA_RUNS: the 32-layer model served with two PEFT adapters loaded
+    through the server's routes (bf16 ragged and dedicated, int8 weights,
+    --speculate-tokens 7), the launch counters zeroed before each run.
+    Before the first load the engine (no bank) serves LORA_PROMPTS alone
+    (staggered): the reference. Then /v1/load_lora_adapter a and b (the
+    bank is allocated, the chunk graph dropped and captured again with the
+    deltas), /v1/models, and LORA_PROMPTS with LORA_MIX through the server
+    (3 on a, 3 on b, 2 base; staggered, decoding together): base texts
+    equal the reference, adapter texts differ. The same through the
+    engine's queue: base token ids equal the reference's, and an eager
+    engine (cuda_graphs=False) with the same adapters gives the graphed
+    engine's ids token for token. The first run also unloads a while its
+    requests decode and loads c into the recycled row: the follow-up turn
+    under c finds none of the row's old pages and gives the eager
+    engine's tokens. The run's launch counts are the graphed engine's
+    alone, read before the eager engine starts. Records bank bytes, the
+    routes' load seconds, the capture seconds before and after the first
+    load."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.server import EngineServer
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    paths = dict(zip("abc", _adapter_dirs()))
+    out = {}
+    for run, dk, int8, G in LORA_RUNS:
+        ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=dk,
+                          speculate_tokens=G)
+        w = qparams if int8 else params
+        eng = Engine(llama_3_1_8b(), w, ByteTokenizer(), ec, device="cuda")
+        srv = EngineServer(eng, run, host="127.0.0.1", port=0)
+        _zero_launches()
+        srv.start()
+        p = srv.port
+        try:
+            ref_ids, ref_text = _staggered(eng, LORA_PROMPTS, [None] * 8)
+            capture_before = dict(eng.graph_capture_seconds)
+            load_s = {}
+            for name in "ab":
+                t0 = time.monotonic()
+                r = _post(p, "/v1/load_lora_adapter", {"lora_name": name, "lora_path": paths[name]})
+                load_s[name] = time.monotonic() - t0
+                if r != {"status": "ok"}:
+                    raise AssertionError(f"{run}: load {name}: {r}")
+            with urllib.request.urlopen(f"http://127.0.0.1:{p}/v1/models", timeout=60) as r:
+                models = json.loads(r.read())["data"]
+            if [(m["id"], m.get("parent")) for m in models] != [(run, None), ("a", run),
+                                                                 ("b", run)]:
+                raise AssertionError(f"{run}: /v1/models {models}")
+            texts = _stream_http_staggered(p, LORA_PROMPTS, [a or run for a in LORA_MIX])
+            capture_after = dict(eng.graph_capture_seconds)
+            ids, _ = _staggered(eng, LORA_PROMPTS, LORA_MIX)
+            for i, a in enumerate(LORA_MIX):
+                if a is None and (texts[i] != ref_text[i] or ids[i] != ref_ids[i]):
+                    raise AssertionError(f"{run}: base request {i} changed by the bank")
+                if a is not None and (texts[i] == ref_text[i] or ids[i] == ref_ids[i]):
+                    raise AssertionError(f"{run}: adapter request {i} ({a}) equals base")
+            recycle = _unload_under_load(eng, p, paths) if run == "lora_ragged" else None
+            # The run's counts: the graphed engine's traffic alone, read
+            # before the eager engine below launches anything.
+            stats = _read_launches()
+            _check_lora_launches(run, stats["launches"], eng.model_config.num_layers, dk, int8)
+            _zero_launches()
+            eager = Engine(llama_3_1_8b(), w, ByteTokenizer(), ec, device="cuda",
+                           cuda_graphs=False)
+            eager.start()
+            try:
+                for name in "ab":
+                    eager.load_adapter(name, paths[name])
+                eager_ids, _ = _staggered(eager, LORA_PROMPTS, LORA_MIX)
+                if eager_ids != ids:
+                    bad = [i for i, (x, y) in enumerate(zip(ids, eager_ids)) if x != y]
+                    raise AssertionError(f"{run}: graphed ids differ from eager for {bad}")
+                if recycle:
+                    eager.unload_adapter("a")
+                    eager.load_adapter("c", paths["c"])  # a's row, as in the served engine
+                    if _greedy_ids(eager, recycle["follow"], "c") != recycle.pop("got"):
+                        raise AssertionError("follow-up under c differs from the eager engine's")
+                    del recycle["follow"]
+            finally:
+                eager.stop()
+            # The eager engine's counts, kept apart from the run's.
+            eager_launches = _read_launches()["launches"]
+            chunks = _check_graphed(eng, run)
+        finally:
+            srv.stop()
+        bank = eng._adapters.bank
+        res = {**stats, "eager_engine_launches": eager_launches, "graph_replays": chunks,
+               "bank_bytes": sum(t.nbytes for t in bank.values()),
+               "load_adapter_s": load_s, "capture_s_before_load": capture_before,
+               "capture_s_after_load": capture_after}
+        if G:
+            res["speculative"] = {"drafted": eng.spec_drafted, "accepted": eng.spec_accepted}
+        if recycle:
+            res["unload_reload"] = recycle
+        log(f"serving[{run}]", gpu_line(), json.dumps(res))
+        out[run] = res
+        del eng, eager, srv, bank
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _check_lora_launches(run, launches, layers, dk, int8) -> None:
+    """Every kernel of the run's path launched, the paged ones in whole
+    model steps."""
+    want = ["paged_attention_ragged"] + (["paged_decode_attention"] if dk == "dedicated"
+                                         else []) + (["qdot"] if int8 else [])
+    if [n for n in want if launches[n] == 0] or any(
+            launches[n] % layers for n in ("paged_attention_ragged", "paged_decode_attention")):
+        raise AssertionError(f"{run}: launches {launches}")
+
+
+def _unload_under_load(eng, port, paths) -> dict:
+    """Three greedy requests on adapter a decode (96 tokens, EOS banned);
+    /v1/unload_lora_adapter a and /v1/load_lora_adapter c while they do
+    (c takes a's row, one generation later); the requests finish. The
+    follow-up turn (a request's prompt and output) under c must claim
+    none of the pages the a requests registered, which do match under
+    a's old (row, generation). Returns the record, with the follow-up's
+    prompt ("follow") and greedy ids ("got") for the eager engine to
+    match."""
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=96, logit_bias=((257, -100.0),))
+    sig_a = eng._lora_sig("a")
+    prompts = [eng.tokenizer.encode(t) for t in LORA_PROMPTS[:3]]
+    reqs = [eng.submit(ids, sp, adapter="a") for ids in prompts]
+    first = [r.out.get(timeout=300) for r in reqs]
+    if any(ev[0] != "token" for ev in first):
+        raise AssertionError(f"unload under load: {first}")
+    if _post(port, "/v1/unload_lora_adapter", {"lora_name": "a"}) != {"status": "ok"}:
+        raise AssertionError("unload a failed")
+    decoding = eng.active_slots()
+    if _post(port, "/v1/load_lora_adapter", {"lora_name": "c", "lora_path": paths["c"]}) != \
+            {"status": "ok"}:
+        raise AssertionError("load c failed")
+    if decoding != len(reqs):
+        raise AssertionError(f"{decoding} of {len(reqs)} requests decoding at the unload")
+    outs = []
+    for r, ev in zip(reqs, first):
+        ids = [ev[1]]
+        while True:
+            ev = r.out.get(timeout=300)
+            if ev[0] == "done":
+                break
+            if ev[0] != "token":
+                raise AssertionError(f"a request failed after the unload: {ev}")
+            if ev[1] >= 0:
+                ids.append(ev[1])
+        outs.append(ids)
+    sig_c = eng._lora_sig("c")
+    if sig_c[0] != sig_a[0] or sig_c[1] != sig_a[1] + 2:
+        raise AssertionError(f"c did not take a's row one generation on: {sig_a} -> {sig_c}")
+    follow = prompts[0] + outs[0] + eng.tokenizer.encode(" And then?", add_bos=False)
+
+    def claims():
+        pool = eng._pool
+        got = {}
+        for name, sig in (("old_a", sig_a), ("c", sig_c)):
+            pages = pool.match_prefix(follow, sig)
+            pool.release(pages)
+            got[name] = len(pages)
+        return got
+
+    claimed = eng._run_on_scheduler(claims, "prefix probe")
+    if claimed["c"] or not claimed["old_a"]:
+        raise AssertionError(f"follow-up under c: pages matched {claimed}")
+    got = _greedy_ids(eng, follow, "c")
+    res = {"decoding_at_unload": decoding, "sig_a": sig_a, "sig_c": sig_c,
+           "pages_matched": claimed, "follow_up_tokens": len(got)}
+    log("lora_unload_reload", json.dumps(res))
+    return {**res, "follow": follow, "got": got}
+
+
+def _greedy_ids(eng, ids, adapter, n=32):
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=n, logit_bias=((257, -100.0),))
+    return eng.generate(ids, sp, adapter=adapter)[0]
+
+
+def _lora_step_profile(params) -> None:
+    """A decode step (B=8, kv_len 512, ragged) of the 32-layer model
+    without a bank, and with a bank holding adapters a and b (rank 16,
+    max rank 64, 9 rows) for: every row 0, every slot on a, and a and b
+    alternating: host-clock ms and a torch.profiler breakdown of each."""
+    import torch
+
+    from kubeai_tpu_torch.engine.lora import AdapterRuntime
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    mc = llama_3_1_8b(use_flash_prefill=True, use_paged_kernel=True)
+    B, page, mp = 8, 64, 32
+    P = 1 + B * mp
+    pool = llama.init_paged_cache(mc, P, page, "cuda")
+    table = torch.arange(1, P, dtype=torch.int32, device="cuda").reshape(B, mp)
+    tok = torch.randint(0, 259, (B, 1), device="cuda")
+    lengths = torch.full((B,), 512, device="cuda")
+    rt = AdapterRuntime(mc, device="cuda")
+    t0 = time.monotonic()
+    for name, path in zip("ab", _adapter_dirs()):
+        rt.load(name, path)
+    torch.cuda.synchronize()
+    load_s = (time.monotonic() - t0) / 2
+    rows = {"bank_rows_0": [0] * B, "one_adapter": [1] * B, "two_adapters": [1, 2] * (B // 2)}
+    steps = {"no_bank": lambda: llama.decode_step_paged(params, mc, tok, pool, table, lengths)}
+    for name, r in rows.items():
+        rr = torch.tensor(r, device="cuda")
+        steps[name] = lambda rr=rr: llama.decode_step_paged(params, mc, tok, pool, table,
+                                                            lengths, lora=rt.bank, lora_rows=rr)
+    res = {"bank_bytes": sum(t.nbytes for t in rt.bank.values()),
+           "runtime_load_s_per_adapter": load_s}
+    res.update({f"{name}_step_ms": _wall_ms(fn, 10) for name, fn in steps.items()})
+    res["profiled"] = {name: _profiled(fn) for name, fn in steps.items()}
+    log("step_profile[lora]", gpu_line(), json.dumps(res))
+    del pool, rt
+    torch.cuda.empty_cache()
 
 
 # The other families' serving runs: (run, preset, layers (None: the
@@ -2013,14 +2403,144 @@ def _serve_tiny(run: str, extra: list) -> dict:
     return stats
 
 
+# Llama-3's pre-tokenizer pattern (its tokenizer.json's Split regex).
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_CHAT = (
+    "{{ bos_token }}{% for message in messages %}"
+    "{{ '<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n' "
+    "+ message['content'] | trim + '<|eot_id|>' }}{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}"
+    "{% endif %}")
+TOKENIZER_CORPUS = (
+    "The quick brown fox jumps over the lazy dog. It's a dog's life, isn't it? "
+    "Operators serve open-weight models to users who pay for time to first token. "
+    "Héllo wörld, café au lait; naïve façade. 日本語のテキスト。 Numbers 1234567 and 3.14159, "
+    "x² + Ⅻ. We'll see; they're here, you've done it, I'm sure.\n\nNew paragraph\twith tabs. "
+    "def serve(request):\n    return engine.generate(request.prompt, max_tokens=256)\n"
+    "Adapters load through /v1/load_lora_adapter while requests keep decoding; the prefix "
+    "cache never shares pages across adapters. Gradually, the tokenizer learns frequent pairs: "
+    "th, he, in, er, an, re, on, at, en, nd, ti, es, or, te, of, ed, is, it, al, ar, st, to.\n")
+
+
+def _write_tokenizer(path: str, merges: int = 300) -> dict:
+    """A Llama-3-style tokenizer.json and tokenizer_config.json in *path*,
+    built here: a byte-level BPE over the 256 byte symbols with *merges*
+    merges learned from TOKENIZER_CORPUS (most frequent pair first, ties
+    to the smaller pair) under Llama-3's Split pattern, five special
+    tokens after them, and a Llama-3 chat template."""
+    import collections
+
+    from kubeai_tpu_torch.engine.tokenizer import _bytes_to_unicode, translate_regex
+
+    table = _bytes_to_unicode()
+    vocab = {table[b]: b for b in range(256)}
+    words = collections.Counter(
+        tuple(table[b] for b in w.encode("utf-8"))
+        for w in re.findall(translate_regex(LLAMA3_SPLIT), TOKENIZER_CORPUS))
+    learned = []
+    for _ in range(merges):
+        pairs = collections.Counter()
+        for w, n in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = min(pairs, key=lambda pr: (-pairs[pr], pr))
+        learned.append(list(best))
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        merged = collections.Counter()
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    specials = ["<|begin_of_text|>", "<|end_of_text|>", "<|start_header_id|>",
+                "<|end_header_id|>", "<|eot_id|>"]
+    added = [{"id": len(vocab) + i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, t in enumerate(specials)]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": learned},
+    }
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+                   "clean_up_tokenization_spaces": False, "chat_template": LLAMA3_CHAT,
+                   "tokenizer_class": "PreTrainedTokenizerFast"}, f)
+    return {"merges": len(learned), "vocab": len(vocab) + len(specials)}
+
+
+def _tokenizer_checks(eng, path, port) -> dict:
+    """The served checkpoint's own tokenizer (engine *eng* from the
+    directory *path*): a round trip of the corpus, a chat completion
+    through the server whose text equals decode of the engine's greedy
+    ids for the templated prompt, and the host's encode time of a
+    4,096-token prompt, by a fresh tokenizer (its word cache empty), then
+    again (warm)."""
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import HFTokenizer
+
+    tok = eng.tokenizer
+    if not isinstance(tok, HFTokenizer) or eng.n_valid_vocab != tok.vocab_size:
+        raise AssertionError(f"checkpoint tokenizer {type(tok).__name__}, "
+                             f"n_valid_vocab {eng.n_valid_vocab}")
+    if tok.decode(tok.encode(TOKENIZER_CORPUS)) != TOKENIZER_CORPUS:
+        raise AssertionError("tokenizer round trip failed")
+    messages = [{"role": "system", "content": "Answer briefly."},
+                {"role": "user", "content": "Name a prime number larger than 10."}]
+    templated = tok.apply_chat_template(messages)
+    if not templated.startswith("<|begin_of_text|><|start_header_id|>system"):
+        raise AssertionError(f"chat template not applied: {templated!r}")
+    resp = _post(port, "/v1/chat/completions", {"messages": messages, "max_tokens": 24,
+                                                 "temperature": 0})
+    text = resp["choices"][0]["message"]["content"]
+    ids, gen_text, _ = eng.generate(tok.encode(templated),
+                                    SamplingParams(temperature=0.0, max_tokens=24))
+    if not (text == gen_text == tok.decode(ids)):
+        raise AssertionError(f"chat text {text!r} != decode of the greedy ids {tok.decode(ids)!r}")
+    long_text = TOKENIZER_CORPUS
+    while len(tok.encode(long_text, add_bos=False)) < 4096:
+        long_text += TOKENIZER_CORPUS
+    fresh = HFTokenizer(path)
+    timings = {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        n = len(fresh.encode(long_text, add_bos=False))
+        timings[f"encode_{n}_tokens_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    return {"chat_prompt_tokens": len(tok.encode(templated)), "chat_completion_tokens": len(ids),
+            "chat_text": text, **timings}
+
+
 def _serve_checkpoint() -> None:
     """The loader: a 2-layer checkpoint at Llama-3.1-8B width (random bf16
     weights from seed 1, HF names and [out, in] layouts) written by the
-    port's save_hf_checkpoint under build/, served through the server's
-    own argument path with --model <dir> --quantization int8 (one
-    completion); its int8 leaves must equal quantize_model_params of the
-    written weights, and its config the written one."""
-    import shutil
+    port's save_hf_checkpoint under build/, with a tokenizer.json and chat
+    template built here (_write_tokenizer), served through the server's
+    own argument path with --model <dir> --quantization int8 (a completion
+    and a chat completion through the checkpoint's tokenizer); its int8
+    leaves must equal quantize_model_params of the written weights, and
+    its config the written one."""
 
     import torch
 
@@ -2044,6 +2564,7 @@ def _serve_checkpoint() -> None:
     sd = hf_state_dict(p, mc)
     shutil.rmtree(path, ignore_errors=True)
     save_hf_checkpoint(path, mc, sd)
+    tok_files = _write_tokenizer(path)
     del sd
     write_s = time.monotonic() - t0
     t0 = time.monotonic()
@@ -2075,6 +2596,7 @@ def _serve_checkpoint() -> None:
         try:
             text = _check_completion(_post(srv.port, "/v1/completions", {
                 "prompt": "Hello", "max_tokens": 8, "temperature": 0}), "checkpoint")
+            tok_stats = _tokenizer_checks(eng, path, srv.port)
         finally:
             srv.stop()
     finally:
@@ -2082,6 +2604,7 @@ def _serve_checkpoint() -> None:
     log("loader", json.dumps({"checkpoint": "2 layers at Llama-3.1-8B width, bf16 safetensors",
                               "write_s": write_s, "load_quantize_s": load_s,
                               "completion": text}))
+    log("tokenizer", gpu_line(), json.dumps({**tok_files, **tok_stats}))
     del eng
     torch.cuda.empty_cache()
 

@@ -31,6 +31,12 @@ A slim port of the JAX engine's serving path:
   forward, and emits the longest draft prefix the model's argmax agrees
   with plus the model's own next token. Only greedy slots without
   penalties or bias accept drafts, so greedy output equals G = 0's;
+- **multi-LoRA** (:meth:`Engine.load_adapter`): PEFT adapters in one
+  bank (engine/lora.py), allocated at the first load; every request
+  names its adapter or none, and each prefill and decode step gives each
+  row its adapter's delta. Loads and unloads run on the scheduler thread
+  between dispatches and write the bank in place; the prefix cache keys
+  pages on the adapter's (row, generation);
 - :meth:`Engine.warmup` runs every step shape before serving (the
   server's ``--warmup``);
 - one scheduler thread owns the device state and runs every device call
@@ -41,7 +47,7 @@ A slim port of the JAX engine's serving path:
 On the CPU the same loop runs the chunk eagerly (the tests), and on CUDA
 too when the caller passes ``cuda_graphs=False``.
 
-Left for later slices (ROADMAP queue 1): LoRA, KV park/restore, gangs,
+Left for later slices (ROADMAP queue 1): KV park/restore, gangs,
 QoS classes, fault injection, metrics, tracing and CUDA graphs for
 prefill.
 """
@@ -143,6 +149,7 @@ class Request:
     # | ("error", message). id -1 = text-only flush (held-back chars).
     out: "queue.Queue[Any]" = field(default_factory=queue.Queue)
     cancelled: threading.Event = field(default_factory=threading.Event)
+    adapter: str | None = None  # a loaded LoRA adapter's name
 
 
 @dataclass
@@ -352,6 +359,10 @@ class Engine:
         self.chunk_log: collections.deque = collections.deque(maxlen=4096)
         self.warmup_result: dict | None = None  # the last warmup()'s
         self._queue: "queue.Queue[Request]" = queue.Queue(maxsize=self.cfg.max_queue)
+        # Thunks the scheduler thread runs between dispatches (adapter
+        # loads and unloads), each with its reply queue.
+        self._aux: "queue.Queue[tuple]" = queue.Queue()
+        self._adapters = None  # engine/lora.py AdapterRuntime, made at the first load
         self._running = False
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
@@ -394,6 +405,7 @@ class Engine:
             "adm_mask": ((B,), np.bool_),
             "adm_len": ((B,), np.int64),
             "adm_seed": ((B,), np.int64),
+            "lora_rows": ((B,), np.int64),  # each slot's adapter row (0: none)
         }
         if G:
             specs["adm_hist"] = ((B, hist_width), np.int64)
@@ -406,6 +418,7 @@ class Engine:
         self._h_bias_ids, self._h_bias_vals = h["bias_ids"], h["bias_vals"]
         self._adm_mask, self._adm_len, self._adm_seed = h["adm_mask"], h["adm_len"], h["adm_seed"]
         self._adm_hist = h.get("adm_hist")
+        self._h_lora_rows = h["lora_rows"]
         self._h_temp[:] = 1.0
         self._h_top_p[:] = 1.0
         # Device-resident decode state (the JAX decode jit's carries): the
@@ -428,6 +441,9 @@ class Engine:
         # decode step writes.
         self._kv_history: list[list[int]] = [[] for _ in range(B)]
         self._kv_pending: list[int | None] = [None] * B
+        # The adapter (row, generation) the slot's KV was computed under:
+        # the prefix-cache signature its pages register with.
+        self._kv_lora_sig: list[tuple[int, int]] = [(0, 0)] * B
         self._deferred: list[Request] = []  # fit a slot but not the pool
 
     def _drop_graphs(self) -> None:
@@ -474,9 +490,11 @@ class Engine:
     def active_slots(self) -> int:
         return self._n_active
 
-    def submit(self, prompt_ids: list[int], params: SamplingParams) -> Request:
-        """Enqueue a request; raises queue.Full when saturated, ValueError
-        for a prompt that cannot fit, RuntimeError when not running."""
+    def submit(self, prompt_ids: list[int], params: SamplingParams,
+               adapter: str | None = None) -> Request:
+        """Enqueue a request (with the LoRA *adapter* of that name); raises
+        queue.Full when saturated, ValueError for a prompt that cannot fit
+        or an adapter that is not loaded, RuntimeError when not running."""
         max_prompt = min(
             self.cfg.max_seq_len, (self._pool.num_pages - 1) * self.cfg.page_size
         ) - 1
@@ -484,18 +502,21 @@ class Engine:
             raise ValueError("prompt must not be empty")
         if len(prompt_ids) > max_prompt:
             raise ValueError(f"prompt too long: {len(prompt_ids)} tokens > {max_prompt}")
+        if adapter and self._adapter_row(adapter) == 0:
+            raise ValueError(f"adapter {adapter!r} is not loaded")
         if not self._running:
             raise RuntimeError("engine is not running")
-        req = Request(prompt_ids=list(prompt_ids), params=params)
+        req = Request(prompt_ids=list(prompt_ids), params=params, adapter=adapter or None)
         self._queue.put_nowait(req)
         if not self._running:  # raced stop(): never strand the caller
             req.out.put(("error", "engine shutting down"))
         self._wake.set()
         return req
 
-    def generate(self, prompt_ids: list[int], params: SamplingParams, timeout: float = 300):
+    def generate(self, prompt_ids: list[int], params: SamplingParams, timeout: float = 300,
+                 adapter: str | None = None):
         """Blocking wrapper: returns (token_ids, text, FinishInfo)."""
-        req = self.submit(prompt_ids, params)
+        req = self.submit(prompt_ids, params, adapter=adapter)
         ids: list[int] = []
         chunks: list[str] = []
         deadline = time.monotonic() + timeout
@@ -515,6 +536,98 @@ class Engine:
                 return ids, "".join(chunks), ev[1]
             else:
                 raise RuntimeError(ev[1])
+
+    # -- LoRA adapters -----------------------------------------------------
+
+    def load_adapter(self, name: str, path: str) -> None:
+        """Install the PEFT adapter at *path* (a local directory or
+        file://) as *name*, or reload it. Staged on the caller's thread;
+        installed on the scheduler thread between dispatches, so the bank
+        changes in stream order: the chunk in flight runs with the old
+        rows, the next with the new ones. The first load allocates the
+        bank and drops the captured chunk graphs: the next dispatch
+        captures the chunk with the adapter deltas."""
+        from kubeai_tpu_torch.engine.lora import stage_remote
+
+        staged = stage_remote(path)
+        self._run_on_scheduler(lambda: self._install_adapter(name, staged), "adapter load")
+
+    def _install_adapter(self, name: str, path: str) -> None:
+        from kubeai_tpu_torch.engine.lora import AdapterRuntime
+
+        if self._adapters is None:
+            if self._cuda:
+                # The graphs read no bank: retire them (and the memory
+                # their replays in flight still use) before the next
+                # dispatch captures the chunk with the deltas.
+                self._stream.synchronize()
+            self._drop_graphs()
+            self._adapters = AdapterRuntime(
+                self.model_config, max_adapters=self.cfg.max_adapters,
+                max_rank=self.cfg.max_lora_rank, device=self.device)
+        self._adapters.load(name, path)
+
+    def unload_adapter(self, name: str) -> bool:
+        """Zero adapter *name*'s row (on the scheduler thread); False when
+        it was not loaded. Requests still decoding with it go on with the
+        zeroed row."""
+        if self._adapters is None:
+            return False
+        return self._run_on_scheduler(lambda: self._adapters.unload(name), "adapter unload")
+
+    def loaded_adapters(self) -> list[str]:
+        return self._adapters.names() if self._adapters else []
+
+    def _adapter_row(self, name: str | None) -> int:
+        return self._adapters.row_for(name) if self._adapters is not None else 0
+
+    def _lora_sig(self, name: str | None) -> tuple[int, int]:
+        return self._adapters.row_sig(name) if self._adapters is not None else (0, 0)
+
+    def _lora_args(self, rows) -> dict:
+        """The model's lora keywords for batch *rows* (host ints), or none
+        before the first adapter load."""
+        if self._adapters is None:
+            return {}
+        return {"lora": self._adapters.bank, "lora_rows": self._t(np.asarray(rows, np.int64))}
+
+    def _run_on_scheduler(self, thunk, what: str, timeout: float = 600):
+        """Run *thunk* on the scheduler thread (between dispatches, on the
+        engine's stream) and return its result; before start(), here on
+        the engine's stream."""
+        if not self.is_ready():
+            with self._on_stream():
+                return thunk()
+        rq: "queue.Queue" = queue.Queue()
+        self._aux.put((thunk, rq))
+        self._wake.set()
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                ok, val = rq.get(timeout=1.0)
+                break
+            except queue.Empty:
+                if not self._running:
+                    raise RuntimeError("engine shutting down") from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{what} produced no result within {timeout}s") from None
+        if not ok:
+            raise val
+        return val
+
+    def _run_aux(self) -> None:
+        """Run the queued scheduler thunks; a thunk's exception goes back
+        to its caller."""
+        while True:
+            try:
+                thunk, rq = self._aux.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                rq.put((True, thunk()))
+            except Exception as e:  # the caller raises it
+                log.exception("scheduler thunk failed")
+                rq.put((False, e))
 
     def warmup(self, include_group: bool = True) -> dict:
         """Run every step shape the serving path hits before the first
@@ -551,7 +664,7 @@ class Engine:
                     logits, _ = llama.prefill_paged_cold(
                         self.params, self.model_config, self._t(np.zeros((n, bucket), np.int64)),
                         self.cache, self._t(np.zeros((n, mp), np.int32)),
-                        self._t(np.full((n,), bucket, np.int64)),
+                        self._t(np.full((n,), bucket, np.int64)), **self._lora_args([0] * n),
                     )
                     first(logits, n)
                     shapes += 1
@@ -559,7 +672,7 @@ class Engine:
                 logits, _ = llama.prefill_paged(
                     self.params, self.model_config, self._t(np.zeros((1, bucket), np.int64)),
                     self.cache, self._t(np.zeros((1, mp), np.int32)),
-                    self._t([0]), self._t([bucket - 1]),
+                    self._t([0]), self._t([bucket - 1]), **self._lora_args([0]),
                 )
                 first(logits, 1)
                 shapes += 1
@@ -584,6 +697,7 @@ class Engine:
         with self._on_stream():
             while self._running:
                 try:
+                    self._run_aux()
                     admitted = self._admit_waiting()
                     dispatched = self._dispatch_chunk() if self._n_active > 0 else None
                     # First-token sync AFTER the dispatch: the chunk reads
@@ -592,7 +706,8 @@ class Engine:
                     if pending is not None:
                         self._process_chunk(*pending)
                     pending = dispatched
-                    if pending is None and not admitted and self._n_active == 0:
+                    if (pending is None and not admitted and self._n_active == 0
+                            and self._aux.empty()):
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
                 except Exception:
@@ -647,6 +762,11 @@ class Engine:
                 except queue.Empty:
                     break
             if req.cancelled.is_set():
+                continue
+            if req.adapter and self._adapter_row(req.adapter) == 0:
+                # Checked at submit(), but unloaded while the request
+                # waited: the base model's answer would be silently wrong.
+                req.out.put(("error", f"adapter {req.adapter!r} is not loaded"))
                 continue
             plan = self._plan_admission(req, taken)
             if plan is None:
@@ -715,7 +835,7 @@ class Engine:
             0,
         )
         n_total = pages_for(len(ids) + budget, ps)
-        sig = (0, 0)  # adapter signature: no LoRA in this port yet
+        sig = self._lora_sig(req.adapter)
         claimed: list[int] = []
         if self.cfg.prefix_cache_min:
             claimed = self._pool.match_prefix(ids, sig)
@@ -742,7 +862,8 @@ class Engine:
             # Content-register every full page this slot wrote (prompt and
             # emitted tokens) so a follow-up turn can reuse them. A chunk
             # still in flight writes only past them.
-            self._pool.register_chain(self._kv_history[slot_idx], (0, 0), row)
+            self._pool.register_chain(self._kv_history[slot_idx], self._kv_lora_sig[slot_idx],
+                                      row)
         self._pool.release(row)
         self._slot_pages[slot_idx] = []
         self._page_table[slot_idx, :] = 0
@@ -829,6 +950,7 @@ class Engine:
         logits, _ = llama.prefill_paged_cold(
             self.params, self.model_config, self._t(tokens), self.cache,
             self._t(tables), self._t(lengths),
+            **self._lora_args([self._adapter_row(r.adapter) for _, r in items]),
         )
         reqs = [r for _, r in items]
         seeds = [self._seed32(r.params, j) for j, r in enumerate(reqs)]
@@ -846,6 +968,7 @@ class Engine:
         ids = req.prompt_ids
         table = self._t(self._page_table[slot_idx : slot_idx + 1])
         max_bucket = max(self.cfg.prefill_buckets)
+        lora = self._lora_args([self._adapter_row(req.adapter)])
         logits = None
         for start in range(reuse, len(ids), max_bucket):
             chunk = ids[start : start + max_bucket]
@@ -855,7 +978,7 @@ class Engine:
             padded[0, : len(chunk)] = chunk
             logits, _ = llama.prefill_paged(
                 self.params, self.model_config, self._t(padded), self.cache, table,
-                self._t([start]), self._t([len(chunk) - 1]),
+                self._t([start]), self._t([len(chunk) - 1]), **lora,
             )
         seed = self._seed32(req.params)
         host, ev = self._first_tokens(logits[:, -1], [slot_idx], [req], [seed], [len(ids)])
@@ -877,6 +1000,8 @@ class Engine:
         self._n_active += 1
         self._kv_history[slot_idx] = list(ids)
         self._kv_pending[slot_idx] = None  # set once the token id is known
+        self._kv_lora_sig[slot_idx] = self._lora_sig(req.adapter)
+        self._h_lora_rows[slot_idx] = self._adapter_row(req.adapter)
         self._slot_epoch[slot_idx] += 1
         self._h_active[slot_idx] = True
         self._h_temp[slot_idx] = sp.temperature
@@ -936,6 +1061,8 @@ class Engine:
         presence, freq, gen_start = d["presence"], d["freq"], d["gen_start"]
         bias_ids, bias_vals = d["bias_ids"], d["bias_vals"]
         hist = self._tok_hist
+        lora = ({"lora": self._adapters.bank, "lora_rows": d["lora_rows"]}
+                if self._adapters is not None else {})
         lengths, last, seeds = merge_admissions(
             d["adm_mask"], d["adm_len"], d["adm_seed"], self._adm_toks, d.get("adm_hist"),
             self._lengths, self._last, self._seeds, hist)
@@ -960,7 +1087,7 @@ class Engine:
             hist[rows, pos] = torch.where(active[:, None], inputs, hist[rows, pos])
             logits, _ = llama.decode_speculative_paged(
                 self.params, mc, inputs, self.cache, tables, lengths,
-                decode_kernel=self.decode_kernel,
+                decode_kernel=self.decode_kernel, **lora,
             )
             logits = self._mask_pad(logits)  # [B, G+1, V]
             # Penalties and bias steer position 0's choice only.

@@ -2,15 +2,19 @@
 kubeai_tpu/engine/server.py).
 
     GET  /health                 liveness (+ engine readiness)
-    GET  /v1/models              the served model
+    GET  /v1/models              the served model + loaded adapters
     POST /v1/completions         (+ SSE streaming)
     POST /v1/chat/completions    (+ SSE streaming)
+    POST /v1/load_lora_adapter   {lora_name, lora_path}
+    POST /v1/unload_lora_adapter {lora_name}
 
 Responses keep the JAX server's shapes: the same ``usage`` block, the
 completions ``logprobs`` object (tokens / token_logprobs / top_logprobs)
-and the chat ``logprobs.content`` list. One choice per request (``n`` > 1
-is refused); LoRA, embeddings, KV handoff, QoS headers, metrics and the
-debug routes are not ported yet (ROADMAP queue 1).
+and the chat ``logprobs.content`` list. A request whose ``model`` names a
+loaded adapter runs with it; any other ``model`` serves the base model,
+as in the JAX server. One choice per request (``n`` > 1 is refused);
+embeddings, KV handoff, QoS headers, metrics and the debug routes are not
+ported yet (ROADMAP queue 1).
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
@@ -19,7 +23,8 @@ The presets, random weights at published widths: ``llama-3.1-8b``,
 (Mixtral's 32 bf16 layers need more than one 80 GB card; chip_smoke.py
 serves 16 of them through ``build_engine(..., num_layers=16)``).
 ``--model <dir>`` serves an HF-format checkpoint directory
-(engine/weights.py), and ``--quantization int8`` serves a preset, a
+(engine/weights.py) with its own ``tokenizer.json`` and chat template
+where it has them (engine/tokenizer.py), and ``--quantization int8`` serves a preset, a
 checkpoint or test:tiny with int8 weights through the W8A16 kernels.
 ``--kv-cache-dtype fp8|int8`` stores the paged KV pool at one byte per
 element; the paged kernels dequantize it. ``--warmup`` (default on with
@@ -34,6 +39,7 @@ import json
 import logging
 import os
 import queue
+import re
 import threading
 import time
 import uuid
@@ -62,6 +68,8 @@ class EngineServer:
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_port
         self._thread: threading.Thread | None = None
+        self.adapters: dict[str, str] = {}  # name -> path
+        self._adapters_lock = threading.Lock()
 
     def start(self) -> None:
         self.engine.start()
@@ -79,6 +87,34 @@ class EngineServer:
             self.httpd.server_close()
             if self._thread is not None:
                 self._thread.join(timeout=10)
+
+    _ADAPTER_NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,128}$")
+
+    def load_adapter(self, name: str, path: str) -> tuple[bool, str]:
+        """(ok, status) of loading adapter *name* from *path* (the JAX
+        server's route: a name loaded from another path is refused, a
+        failed load forgets the name)."""
+        if not self._ADAPTER_NAME_RE.match(name or ""):
+            return False, f"invalid adapter name {name!r}"
+        with self._adapters_lock:
+            if name in self.adapters and self.adapters[name] != path:
+                return False, f"adapter {name} already loaded from {self.adapters[name]}"
+            self.adapters[name] = path
+        try:
+            self.engine.load_adapter(name, path)
+        except Exception as e:  # reported to the caller
+            with self._adapters_lock:
+                self.adapters.pop(name, None)
+            return False, str(e)
+        return True, "ok"
+
+    def unload_adapter(self, name: str) -> tuple[bool, str]:
+        """Idempotent, as the reference's client expects."""
+        with self._adapters_lock:
+            existed = self.adapters.pop(name, None) is not None
+        if existed:
+            self.engine.unload_adapter(name)
+        return True, "ok" if existed else "adapter was not loaded"
 
 
 def _make_handler(srv: EngineServer):
@@ -110,9 +146,11 @@ def _make_handler(srv: EngineServer):
                     "model": srv.model_name,
                 })
             elif path == "/v1/models":
-                self._json(200, {"object": "list", "data": [
-                    {"id": srv.model_name, "object": "model", "owned_by": "kubeai-tpu"},
-                ]})
+                models = [{"id": srv.model_name, "object": "model", "owned_by": "kubeai-tpu"}]
+                for name in sorted(srv.adapters):
+                    models.append({"id": name, "object": "model", "owned_by": "kubeai-tpu",
+                                   "parent": srv.model_name})
+                self._json(200, {"object": "list", "data": models})
             else:
                 self._error(404, f"no route {path}")
 
@@ -130,6 +168,13 @@ def _make_handler(srv: EngineServer):
                     self._completions(body, chat=False)
                 elif path == "/v1/chat/completions":
                     self._completions(body, chat=True)
+                elif path == "/v1/load_lora_adapter":
+                    ok, msg = srv.load_adapter(str(body.get("lora_name", "")),
+                                               str(body.get("lora_path", "")))
+                    self._json(200 if ok else 400, {"status": msg})
+                elif path == "/v1/unload_lora_adapter":
+                    ok, msg = srv.unload_adapter(str(body.get("lora_name", "")))
+                    self._json(200, {"status": msg})
                 else:
                     self._error(404, f"no route {path}")
             except (BrokenPipeError, ConnectionResetError):
@@ -251,8 +296,11 @@ def _make_handler(srv: EngineServer):
             so = body.get("stream_options")
             if so is not None and (not isinstance(so, dict) or not body.get("stream")):
                 return self._error(400, "stream_options must be an object and requires stream: true")
+            # A model field that names a loaded adapter runs with it.
+            requested = str(body.get("model", ""))
+            adapter = requested if requested in srv.adapters else None
             try:
-                req = srv.engine.submit(prompt_ids, params)
+                req = srv.engine.submit(prompt_ids, params, adapter=adapter)
             except ValueError as e:
                 return self._error(400, str(e))
             except queue.Full:

@@ -23,8 +23,14 @@ The model families of the JAX package's catalog run through the same
 forward: Qwen2 (q/k/v biases), Gemma (gelu with tanh, the embedding
 scaled by sqrt(hidden), 1 + w norms, head dim 256), Gemma2 (post norms,
 attention and final softcaps, a query scale, a sliding window on even
-layers) and Mixtral (:func:`moe_mlp`). LoRA and ring attention raise
-NotImplementedError naming their ROADMAP item.
+layers) and Mixtral (:func:`moe_mlp`). Ring attention raises
+NotImplementedError naming its ROADMAP item.
+
+Batched multi-LoRA (``apply(..., lora=, lora_rows=)``): a bank from
+:func:`init_lora_bank` holds every adapter's A and B per target, and each
+batch row picks its adapter by index (row 0: none). Each target's delta
+is added after its projection (after Qwen2's bias), as in the JAX
+package; Mixtral's experts take none.
 """
 
 from __future__ import annotations
@@ -163,6 +169,82 @@ def kv_pool_dtype(config: ModelConfig) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
+# LoRA bank
+
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def lora_dims(config: ModelConfig) -> dict[str, tuple[int, int]]:
+    """(in, out) features of each LoRA target."""
+    D, Fi = config.hidden_size, config.intermediate_size
+    H, Kv, h = config.num_heads, config.num_kv_heads, config.head_dim_
+    return {"wq": (D, H * h), "wk": (D, Kv * h), "wv": (D, Kv * h), "wo": (H * h, D),
+            "wg": (D, Fi), "wu": (D, Fi), "wd": (Fi, D)}
+
+
+def init_lora_bank(config: ModelConfig, n_adapters: int, rank: int,
+                   dtype: torch.dtype | None = None,
+                   device: torch.device | str = "cpu") -> Params:
+    """Zeroed stacked adapter bank (the JAX package's init_lora_bank): per
+    target, A [L, N, in, r] and B [L, N, r, out], and ``scale`` [N]
+    float32. *n_adapters* is the TOTAL row count INCLUDING row 0, the
+    identity (all-zero) adapter of requests without one. Installing an
+    adapter writes its rows in place (engine/lora.py), so a captured CUDA
+    graph that reads the bank sees every later load."""
+    dtype = dtype or torch_dtype(config.dtype)
+    L = config.num_layers
+    bank: Params = {"scale": torch.zeros((n_adapters,), dtype=torch.float32, device=device)}
+    for t, (din, dout) in lora_dims(config).items():
+        bank[t + "_A"] = torch.zeros((L, n_adapters, din, rank), dtype=dtype, device=device)
+        bank[t + "_B"] = torch.zeros((L, n_adapters, rank, dout), dtype=dtype, device=device)
+    return bank
+
+
+def _lora_delta(x, A_l, B_l, rows, scale):
+    """Per-row LoRA delta (the JAX package's _lora_delta): x [B, S, din],
+    A_l [N, din, r], B_l [N, r, dout], rows [B] adapter indices, scale [N]
+    -> [B, S, dout] in x's dtype, computed at the promoted precision of x
+    and the bank."""
+    cdt = torch.promote_types(x.dtype, A_l.dtype)
+    return _lora_add(None, x, A_l, B_l, lora_weights(rows, scale, cdt)).to(x.dtype)
+
+
+def lora_weights(rows, scale, dtype) -> torch.Tensor:
+    """[B, N] in *dtype*: row b's adapter scale in column rows[b], zeros
+    elsewhere (what :func:`_lora_add` mixes the bank's rows with)."""
+    N = scale.shape[0]
+    pick = rows.reshape(-1, 1) == torch.arange(N, device=rows.device)[None, :]
+    return pick.to(dtype) * scale.to(dtype)
+
+
+def _lora_add(out, x, A_l, B_l, weights):
+    """*out* [B, S, dout] plus each batch row's LoRA delta of x [B, S, din]
+    (*out* None: the delta alone), in the dtype of *weights* [B, N] from
+    :func:`lora_weights`, which *out* must have.
+
+    The JAX package gathers each batch row's A and B, a copy of B rows of
+    the bank per layer. Here x goes through every row's A in one batched
+    product (N small [B*S, r] outputs), each batch row keeps its own
+    (scaled) and zeroes the others, and one product over the rows' B
+    stacked as [N*r, dout] (a view) adds the delta to *out*: the bank is
+    read once per call and never copied, in four kernels (addmm first
+    copies *out* into its result). The scale
+    multiplies the rank-r product before B (the JAX package scales after
+    it; the same up to rounding)."""
+    cdt = weights.dtype
+    Bn, S, din = x.shape
+    N, _, r = A_l.shape
+    low = torch.matmul(x.reshape(1, Bn * S, din).to(cdt), A_l.to(cdt))  # [N, B*S, r]
+    picked = torch.empty((Bn, S, N, r), dtype=cdt, device=x.device)
+    torch.mul(low.reshape(N, Bn, S, r).permute(1, 2, 0, 3), weights[:, None, :, None], out=picked)
+    picked = picked.reshape(Bn * S, N * r)
+    B_flat = B_l.to(cdt).reshape(N * r, -1)
+    if out is None:
+        return (picked @ B_flat).reshape(Bn, S, -1)
+    return torch.addmm(out.reshape(Bn * S, -1), picked, B_flat).reshape(out.shape)
+
+
+# ---------------------------------------------------------------------------
 # Forward
 
 
@@ -244,7 +326,8 @@ def apply(
     left_aligned: bool = False,  # caller guarantees positions == arange(S)
     page_table: torch.Tensor | None = None,  # [B, max_pages] int32 pool page per seq page
     decode_kernel: str = "ragged",  # paged kernel: "ragged" | "dedicated" | "auto"
-    lora: Params | None = None,
+    lora: Params | None = None,  # adapter bank from init_lora_bank
+    lora_rows: torch.Tensor | None = None,  # [B] adapter row per batch row
     ring_mesh=None,
 ):
     """Run the decoder. Returns (logits [B, S or 1, V] float32, cache).
@@ -255,8 +338,8 @@ def apply(
     kernel in place or gathers the rows' pages into a contiguous view.
     Without a cache: attention is causal over the S new tokens only."""
     check_supported(config)
-    if lora is not None:
-        raise NotImplementedError("LoRA is not ported yet (ROADMAP queue 1: LoRA)")
+    if lora is not None and lora_rows is None:
+        raise ValueError("lora needs lora_rows (one adapter row per batch row)")
     if ring_mesh is not None:
         raise NotImplementedError("ring attention is not ported yet (ROADMAP queue 1: training)")
     if cache is not None and page_table is None:
@@ -332,8 +415,21 @@ def apply(
         # ones ("even"), the global causal mask elsewhere.
         window_mask = mask & (key_positions > positions[:, :, None] - config.sliding_window)
 
+    if lora is not None:
+        if lora["wq_A"].dtype != dtype:
+            raise ValueError(f"the LoRA bank is {lora['wq_A'].dtype}; the model computes in "
+                             f"{dtype} (init_lora_bank's default)")
+        lora_w = lora_weights(lora_rows.long(), lora["scale"], dtype)
+
     for li in range(L):
         w = {k: _layer_slice(v, li) for k, v in params["layers"].items()}
+
+        def delta(out, inp, name):
+            """*out* (the projection of *inp*) plus its LoRA delta."""
+            if lora is None:
+                return out
+            return _lora_add(out, inp, lora[name + "_A"][li], lora[name + "_B"][li], lora_w)
+
         layer_mask = mask
         if windowed and (config.sliding_layers != "even" or li % 2 == 0):
             layer_mask = window_mask
@@ -341,6 +437,7 @@ def apply(
         q, k, v = qdot_many(attn_in, (w["wq"], w["wk"], w["wv"]))
         if config.qkv_bias:
             q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+        q, k, v = delta(q, attn_in, "wq"), delta(k, attn_in, "wk"), delta(v, attn_in, "wv")
         q, k, v = q.reshape(B, S, H, h), k.reshape(B, S, Kv, h), v.reshape(B, S, Kv, h)
         q, k = apply_rope(q, k, positions, inv_freq)
 
@@ -383,7 +480,8 @@ def apply(
         else:
             attn_out = attention(q, k, v, layer_mask, scale=config.query_scale,
                                  softcap=config.attn_softcap)
-        o = qdot(attn_out.reshape(B, S, H * h), w["wo"])
+        attn_flat = attn_out.reshape(B, S, H * h)
+        o = delta(qdot(attn_flat, w["wo"]), attn_flat, "wo")
         if config.post_norms:
             o = norm(o, w["ln1b"])
         x = x + o
@@ -394,7 +492,8 @@ def apply(
                         config.num_experts_per_tok, config.moe_capacity_factor)
         else:
             gate, up = qdot_many(mlp_in, (w["wg"], w["wu"]))
-            m = qdot(act(gate) * up, w["wd"])
+            hid = act(delta(gate, mlp_in, "wg")) * delta(up, mlp_in, "wu")
+            m = delta(qdot(hid, w["wd"]), hid, "wd")
         if config.post_norms:
             m = norm(m, w["ln2b"])
         x = x + m
@@ -425,7 +524,8 @@ def _arange(S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device, dtype=torch.int64)
 
 
-def prefill_paged_cold(params, config, tokens, pool, page_table, lengths):
+def prefill_paged_cold(params, config, tokens, pool, page_table, lengths, lora=None,
+                       lora_rows=None):
     """Whole-prompt paged prefill (positions arange(S)); eligible for the
     flash kernel. Returns (logits [B, 1, V] at lengths-1, pool)."""
     B, S = tokens.shape
@@ -433,11 +533,12 @@ def prefill_paged_cold(params, config, tokens, pool, page_table, lengths):
     return apply(
         params, config, tokens, pos, pool,
         logits_idx=lengths.reshape(-1).long() - 1,
-        page_table=page_table, left_aligned=True,
+        page_table=page_table, left_aligned=True, lora=lora, lora_rows=lora_rows,
     )
 
 
-def prefill_paged(params, config, tokens, pool, page_table, start, last_idx):
+def prefill_paged(params, config, tokens, pool, page_table, start, last_idx, lora=None,
+                  lora_rows=None):
     """Prefill [B, S] chunks at absolute offsets *start* [B] (chunked
     continuation or a shared-prefix resume). Returns (logits [B, 1, V] at
     *last_idx* [B] within the chunk, pool)."""
@@ -446,19 +547,22 @@ def prefill_paged(params, config, tokens, pool, page_table, start, last_idx):
     return apply(
         params, config, tokens, pos, pool,
         logits_idx=last_idx.reshape(-1).long(), page_table=page_table,
+        lora=lora, lora_rows=lora_rows,
     )
 
 
-def decode_step_paged(params, config, tokens, pool, page_table, lengths, decode_kernel="ragged"):
+def decode_step_paged(params, config, tokens, pool, page_table, lengths, decode_kernel="ragged",
+                      lora=None, lora_rows=None):
     """One paged decode step for [B, 1] tokens at positions *lengths* [B].
     Returns (logits [B, 1, V], pool)."""
     return apply(
         params, config, tokens, lengths.reshape(-1, 1).long(), pool,
-        page_table=page_table, decode_kernel=decode_kernel,
+        page_table=page_table, decode_kernel=decode_kernel, lora=lora, lora_rows=lora_rows,
     )
 
 
-def decode_speculative_paged(params, config, tokens, pool, page_table, lengths, decode_kernel="ragged"):
+def decode_speculative_paged(params, config, tokens, pool, page_table, lengths,
+                             decode_kernel="ragged", lora=None, lora_rows=None):
     """[B, S] candidate tokens (next token + S-1 drafts) at positions
     lengths .. lengths+S-1; returns logits for all S positions
     ([B, S, V]) and the pool."""
@@ -466,5 +570,5 @@ def decode_speculative_paged(params, config, tokens, pool, page_table, lengths, 
     pos = lengths.reshape(-1, 1).long() + _arange(S, tokens.device)[None, :]
     return apply(
         params, config, tokens, pos, pool,
-        page_table=page_table, decode_kernel=decode_kernel,
+        page_table=page_table, decode_kernel=decode_kernel, lora=lora, lora_rows=lora_rows,
     )

@@ -147,10 +147,13 @@ IDLE_S = 0.5
 
 
 def serve_rounds(engine, rounds: int = ROUNDS, streams: int = STREAMS,
-                 max_tokens: int = MAX_TOKENS, profile: bool = False) -> list[dict]:
+                 max_tokens: int = MAX_TOKENS, profile: bool = False,
+                 adapters: tuple = (None,)) -> list[dict]:
     """*rounds* rounds of *streams* concurrent greedy requests of
     *max_tokens* tokens through ``engine.submit`` (a started engine of
-    any copy of the port), each round after IDLE_S of quiet. Per round: wall seconds, completion tokens,
+    any copy of the port; request i on LoRA adapter adapters[i %
+    len(adapters)], None: the base model), each round after IDLE_S of
+    quiet. Per round: wall seconds, completion tokens,
     aggregate tok/s; request 0's TTFT, per-stream tok/s and its chunk
     wall (median interval between its bursts of tokens: a chunk's tokens
     arrive together) over the chunk's steps; every request's token ids
@@ -199,8 +202,9 @@ def serve_rounds(engine, rounds: int = ROUNDS, streams: int = STREAMS,
         log0 = len(getattr(engine, "chunk_log", ()))
         t0 = time.monotonic()
         reqs = [engine.submit(p, SamplingParams(temperature=0.0, max_tokens=max_tokens,
-                                                logprobs=True))
-                for p in prompts]
+                                                logprobs=True),
+                              **({"adapter": a} if (a := adapters[i % len(adapters)]) else {}))
+                for i, p in enumerate(prompts)]
         threads = [threading.Thread(target=drain, args=(i, r, t0)) for i, r in enumerate(reqs)]
         for th in threads:
             th.start()

@@ -695,15 +695,17 @@ def wide():
     torch.cuda.empty_cache()
 
 
-def _staggered_greedy(engine, prompts, n):
-    """Greedy tokens of *prompts*, each submitted once the one before it
-    has its first token (single admissions: each prefills alone, so its
+def _staggered_greedy(engine, prompts, n, adapters=None, bias=()):
+    """Greedy tokens of *prompts* (each with its LoRA adapter from
+    *adapters*, or none; logit *bias*), each submitted once the one before
+    it has its first token (single admissions: each prefills alone, so its
     numbers do not depend on timing)."""
     from kubeai_tpu_torch.engine.sampling import SamplingParams
 
     reqs = []
-    for p in prompts:
-        reqs.append(engine.submit(p, SamplingParams(temperature=0.0, max_tokens=n)))
+    for p, a in zip(prompts, adapters or [None] * len(prompts)):
+        reqs.append(engine.submit(p, SamplingParams(temperature=0.0, max_tokens=n,
+                                                    logit_bias=bias), adapter=a))
         first = reqs[-1].out.get(timeout=300)
         assert first[0] == "token", first
         reqs[-1].first = first[1]
@@ -970,3 +972,145 @@ def test_g7_ragged_prefill_tile_matches_plain(cuda, H, Kv, kv, B, S, page, lens)
     torch.cuda.synchronize()
     assert paged_attention_ragged.launches_by_regime[regime] == before + 1
     _assert_close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters in the graphed decode chunk: -k lora.
+
+LORA_CASES = {k: GRAPH_CASES[k] for k in ("bf16_ragged", "bf16_dedicated", "int8_weights",
+                                            "spec7_ragged")}
+
+
+def _write_adapters(tmp_path, mc, n=2):
+    """n PEFT adapters of rank 16 on all seven targets (the port's writer),
+    scaled so each delta is a fraction of its projection."""
+    from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
+
+    paths = [str(tmp_path / f"adapter{i}") for i in range(n)]
+    for i, p in enumerate(paths):
+        write_peft_checkpoint(p, mc, rank=16, alpha=32, seed=i + 1, std=0.02)
+    return paths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(LORA_CASES))
+def test_lora_graphed_engine_matches_eager(wide, case, tmp_path):
+    """Two adapters and base requests decoding together: a graphed engine
+    (the chunk captured again with the deltas after the first load) gives
+    an eager engine's greedy tokens, token for token; the base requests
+    give an engine's with no bank; adapter requests differ from base."""
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    mc, params, qparams = wide
+    kw = dict(LORA_CASES[case])
+    p = qparams if kw.pop("int8", False) else params
+    ec = EngineConfig(max_slots=4, max_seq_len=2048, page_size=64, **kw)
+    paths = _write_adapters(tmp_path, mc)
+    prompts = GRAPH_PROMPTS + [GRAPH_PROMPTS[0]]
+    adapters = ["a", "b", None, None]
+    got = {}
+    for mode in ("graphed", "eager", "no_bank"):
+        eng = Engine(mc, p, ByteTokenizer(), ec, device="cuda", cuda_graphs=mode != "eager")
+        eng.start()
+        try:
+            if mode != "no_bank":
+                _staggered_greedy(eng, prompts[:1], 8, bias=NO_EOS)  # a graph before the bank
+                eng.load_adapter("a", paths[0])
+                eng.load_adapter("b", paths[1])
+            got[mode] = _staggered_greedy(eng, prompts, 40,
+                                          adapters if mode != "no_bank" else None, NO_EOS)
+        finally:
+            eng.stop()
+        assert all(c["graph"] == (mode != "eager") for c in eng.chunk_log), case
+    assert got["graphed"] == got["eager"], case
+    assert got["graphed"][2:] == got["no_bank"][2:], case
+    assert got["graphed"][0] != got["graphed"][3] and got["graphed"][1] != got["no_bank"][1]
+
+
+@pytest.mark.gpu
+def test_lora_load_after_capture_reaches_the_next_chunk(cuda, tmp_path):
+    """An adapter reloaded while its request decodes, after the chunk was
+    captured with the bank: the bank's tensors stay where the graph reads
+    them, and the new weights take effect at a chunk boundary k. The
+    tokens equal those of a plain greedy loop over the model's step
+    functions that decodes with the old rows before token k and the new
+    ones from it (float32 test config; up to a near-tie)."""
+    from kubeai_tpu_torch.engine.core import EngineConfig, build_test_engine
+    from kubeai_tpu_torch.engine.lora import AdapterRuntime
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    ec = EngineConfig(max_slots=2, max_seq_len=512, prefill_buckets=(16, 32, 64, 128))
+    eng = build_test_engine(ec, seed=0, device=cuda)
+    old, new = _write_adapters(tmp_path, eng.model_config)
+    banks = []
+    for path in (old, new):
+        rt = AdapterRuntime(eng.model_config, ec.max_adapters, ec.max_lora_rank, device=cuda)
+        rt.load("x", path)  # row 1, as in the engine
+        banks.append(rt.bank)
+    prompt = [256] + list(b"switch the adapter while it decodes")
+    n, K = 200, ec.decode_chunk
+    eng.start()
+    try:
+        eng.load_adapter("x", old)
+        ptrs = {k: t.data_ptr() for k, t in eng._adapters.bank.items()}
+        req = eng.submit(prompt, SamplingParams(temperature=0.0, max_tokens=n,
+                                                logit_bias=NO_EOS), adapter="x")
+        toks = [req.out.get(timeout=300)[1]]
+        eng.load_adapter("x", new)  # installed between two dispatches
+        while True:
+            ev = req.out.get(timeout=300)
+            if ev[0] == "done":
+                break
+            assert ev[0] == "token", ev
+            if ev[1] >= 0:
+                toks.append(ev[1])
+    finally:
+        eng.stop()
+    assert len(toks) == n
+    assert {k: t.data_ptr() for k, t in eng._adapters.bank.items()} == ptrs
+    want_old, _ = _greedy_switching(eng, prompt, n, n, banks)
+    d = next(i for i, (a, b) in enumerate(zip(toks, want_old)) if a != b)
+    # The boundary is at or before the first token that differs.
+    for k in reversed(range(1 + K, d + 1, K)):
+        want, gaps = _greedy_switching(eng, prompt, n, k, banks)
+        upto = next((i for i, g in enumerate(gaps) if g < 1e-4), n)
+        if toks[:upto] == want[:upto]:
+            break
+    else:
+        raise AssertionError(f"no chunk boundary before token {d} explains the switch")
+
+
+def _greedy_switching(eng, prompt, n, k, banks):
+    """(tokens, top-2 gaps) of greedy decoding with the engine's model and
+    shapes (bucketed cold prefill, one slot), EOS banned, LoRA row 1 of
+    banks[0] for tokens before *k* and of banks[1] from it."""
+    from kubeai_tpu_torch.models import llama
+
+    mc, dev = eng.model_config, eng.device
+    mp, page = eng._max_pages, eng.cfg.page_size
+    pool = llama.init_paged_cache(mc, 1 + mp, page, dev)
+    table = torch.arange(1, 1 + mp, dtype=torch.int32, device=dev)[None]
+    rows = torch.ones((1,), dtype=torch.int64, device=dev)
+    padded = torch.zeros((1, eng._bucket(len(prompt))), dtype=torch.int64, device=dev)
+    padded[0, : len(prompt)] = torch.tensor(prompt, device=dev)
+    logits, _ = llama.prefill_paged_cold(eng.params, mc, padded, pool, table,
+                                         torch.tensor([len(prompt)], device=dev),
+                                         lora=banks[0], lora_rows=rows)
+    toks, gaps = [], []
+    for i in range(n):
+        if i:
+            step = torch.tensor([[toks[-1]]], device=dev)
+            pos = torch.tensor([len(prompt) + i - 1], device=dev)
+            logits, _ = llama.decode_step_paged(eng.params, mc, step, pool, table, pos,
+                                                decode_kernel=eng.decode_kernel,
+                                                lora=banks[int(i >= k)], lora_rows=rows)
+        lg = logits[0, -1, : eng.n_valid_vocab].double()
+        lg[NO_EOS[0][0]] += NO_EOS[0][1]
+        top = torch.topk(lg, 2)
+        toks.append(int(top.indices[0]))
+        gaps.append(float(top.values[0] - top.values[1]))
+    return toks, gaps
+
+
+NO_EOS = ((257, -100.0),)  # the byte tokenizer's EOS, banned: runs of full length

@@ -147,9 +147,13 @@ def test_init_params_is_seeded():
 
 
 def test_lora_and_ring_attention_raise(model):
+    """Ring attention is not ported (it names its ROADMAP item); a LoRA
+    bank without the batch rows' adapter indices is refused (LoRA itself:
+    tests/test_torch_lora.py)."""
     _, tc, _, tp = model
     toks = torch.zeros((1, 4), dtype=torch.int64)
     pos = torch.arange(4)[None]
-    for kw in (dict(lora={}), dict(ring_mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.apply(tp, tc, toks, pos, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tl.apply(tp, tc, toks, pos, ring_mesh=object())
+    with pytest.raises(ValueError, match="lora_rows"):
+        tl.apply(tp, tc, toks, pos, lora={})

@@ -10,8 +10,8 @@ the JAX package's (kubeai_tpu.engine.weights), on the CPU:
 - load_engine_from_path(..., quantization="int8") gives the JAX engine's
   greedy tokens (test_torch_engine.py's near-tie rule), and so does the
   server started with --model <dir> --quantization int8;
-- tp = 2, an unknown quantization and a directory with tokenizer files
-  raise;
+- tp = 2 and an unknown quantization raise; a directory with a
+  tokenizer.json serves it, and a malformed one raises;
 - each model family (Qwen2, Gemma, Gemma2, Mixtral) round-trips: the
   port's save_hf_checkpoint then --model <dir>, bf16 and int8, equals the
   JAX package's params_from_hf of the same state dict.
@@ -250,12 +250,21 @@ def test_loader_refusals(ckpt, tmp_path):
         tw.load_engine_from_path(ckpt, tp=2, device="cpu")
     with pytest.raises(ValueError, match="unsupported quantization"):
         tw.load_engine_from_path(ckpt, quantization="int4", device="cpu")
+    # A valid tokenizer.json is the engine's tokenizer; a malformed one raises.
     with_tok = tmp_path / "with_tok"
     _checkpoint(with_tok)
+    (with_tok / "tokenizer.json").write_text(json.dumps({"model": {
+        "type": "BPE", "vocab": {"a": 0, "b": 1, "ab": 2, "<s>": 3}, "merges": ["a b"]},
+        "added_tokens": [{"id": 3, "content": "<s>", "special": True}]}))
+    (with_tok / "tokenizer_config.json").write_text(json.dumps({"bos_token": "<s>"}))
+    eng = tw.load_engine_from_path(str(with_tok), device="cpu")
+    assert type(eng.tokenizer).__name__ == "HFTokenizer"
+    assert eng.tokenizer.encode("abab") == [3, 2, 2] and eng.n_valid_vocab == 4
     (with_tok / "tokenizer.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(ValueError, match="no model"):
         tw.load_engine_from_path(str(with_tok), device="cpu")
     os.remove(with_tok / "tokenizer.json")
+    os.remove(with_tok / "tokenizer_config.json")
     assert type(tw.load_tokenizer(str(with_tok))).__name__ == "ByteTokenizer"
     with pytest.raises(SystemExit):
         make_arg_parser().parse_args(["--model", ckpt, "--tensor-parallel-size", "2"])
