@@ -2610,6 +2610,281 @@ def _serve_checkpoint() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the disaggregated handoff and QoS preemption (KV park and restore)
+
+HANDOFF_BUDGET = 16
+# (run, decode kernel, KV pool dtype, prompt lengths): the bf16 pool on the
+# ragged kernel, and an fp8 pool on the dedicated kernel; the bf16 run
+# also at 1024 tokens, a second point of the restore's cost.
+HANDOFF_RUNS = (("handoff_bf16_ragged", "ragged", "", (512, 1024)),
+                ("handoff_fp8_dedicated", "dedicated", "fp8", (512,)))
+
+
+def _sse(port, body, headers=None, timeout=300):
+    """[(text, finish_reason, kv offer, seconds since the request, whether
+    it is a token's event)] of an SSE completion (the [DONE] line
+    excluded). With logprobs on, every token sends an event with its
+    logprob; a text-only event is the detokenizer's held-back tail."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    out = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: ") or line == "data: [DONE]":
+                continue
+            ev = json.loads(line[len("data: "):])
+            if "error" in ev:
+                raise AssertionError(f"stream error: {ev['error']}")
+            ch = ev["choices"][0]
+            out.append((ch.get("text") or "", ch.get("finish_reason"), ev.get("kubeai_kv"),
+                        time.monotonic() - t0, bool(ch.get("logprobs"))))
+    return out
+
+
+def _texts(events):
+    """The events' texts (the finish chunk dropped)."""
+    return [e[0] for e in events if not e[1]]
+
+
+def _tokens(events) -> int:
+    return sum(e[4] for e in events)
+
+
+def _resume_headers(offer, forwarded, priority=None):
+    h = {"X-Resume-Tokens": str(forwarded), "X-KV-Key": offer["key"],
+         "X-KV-Source": offer["source"], "X-KV-Tokens": str(offer["tokens"])}
+    if priority:
+        h["X-Priority"] = priority
+    return h
+
+
+def _kv_import_ok() -> float:
+    from kubeai_tpu_torch.metrics import default_registry
+
+    return default_registry.get("kubeai_kv_import_total").value(labels={"outcome": "ok"})
+
+
+def phase_handoff() -> dict:
+    """The resume protocol on Llama-3.1-8B at its published widths (32
+    layers, random bf16 weights from seed 0, shared by a prefill-role
+    server with --handoff-budget 16 and a decode-role server), once with a
+    bf16 pool on the ragged kernel and once with an fp8 pool on the
+    dedicated kernel: a 512-token greedy stream of 128 tokens sent with
+    X-Handoff-Planned to the prefill server parks 527 tokens at its
+    "handoff" finish; the decode server resumes it from the X-KV-* offer,
+    fetching the blob over /v1/kv (527 >= the 256-token break-even) and
+    importing it. The joined stream must equal the unbroken one byte for
+    byte and the decode server's kubeai_kv_import_total{outcome="ok"}
+    must rise by one. Timed: the blob's bytes, park, acquire and import
+    ms, and the same resume replayed (KUBEAI_KV_RESTORE=0: a 512-token
+    prefill and 16 decode steps). In the bf16 run, eight preemptible
+    batch streams fill the decode server's slots and an interactive
+    request seizes one: the victim ends "preempted" and resumes by unpark,
+    byte-identical to its uninterrupted run."""
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    t0 = time.monotonic()
+    mc = llama_3_1_8b()
+    params = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    log(f"handoff: Llama-3.1-8B random bf16 weights in {time.monotonic() - t0:.1f}s")
+    out = {}
+    for run, dk, kv, lengths in HANDOFF_RUNS:
+        out[run] = _handoff_run(run, params, mc, dk, kv, lengths,
+                                preempt=(run == HANDOFF_RUNS[0][0]))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _handoff_run(run, params, mc, decode_kernel, kv_cache_dtype, lengths, preempt) -> dict:
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.server import EngineServer
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=decode_kernel,
+                      kv_cache_dtype=kv_cache_dtype)
+    prefill = EngineServer(Engine(mc, params, ByteTokenizer(), ec, device="cuda"), run,
+                           host="127.0.0.1", port=0, role="prefill",
+                           handoff_budget=HANDOFF_BUDGET)
+    decode = EngineServer(Engine(mc, params, ByteTokenizer(), ec, device="cuda"), run,
+                          host="127.0.0.1", port=0, role="decode")
+    pool = decode.engine.cache["kv"]
+    pool_dtype = str(pool.dtype).removeprefix("torch.")
+    t_run = time.monotonic()
+    prefill.start()
+    decode.start()
+    try:
+        # Capture both engines' decode chunk before anything is timed.
+        for srv in (prefill, decode):
+            _sse(srv.port, {"prompt": [256, 1, 2, 3], "max_tokens": 4, "temperature": 0,
+                            "stream": True})
+        _zero_launches()
+        by_len = {plen: _handoff_once(prefill, decode, run, plen) for plen in lengths}
+        victim = _preempt_and_unpark(decode, run) if preempt else None
+        counts = _read_launches()
+    finally:
+        prefill.stop()
+        decode.stop()
+    launches, by_pool = counts["launches"], counts["launches_by_pool"]
+    want = ["flash_attention",
+            "paged_decode_attention" if decode_kernel == "dedicated" else "paged_attention_ragged"]
+    missing = [k for k in want if not launches[k]]
+    if missing:
+        raise AssertionError(f"{run}: kernels never launched: {missing} ({launches})")
+    for name, per_pool in by_pool.items():
+        if set(per_pool) - {pool_dtype}:
+            raise AssertionError(f"{run}: {name} launched on other pools: {per_pool}")
+    stats = {**counts, "pool": {"dtype": pool_dtype, "bytes": pool.nbytes},
+             "by_prompt_len": by_len, "preempt_victim": victim,
+             "phase_s": time.monotonic() - t_run}
+    log(f"handoff[{run}]", gpu_line(), json.dumps({k: v for k, v in stats.items()
+                                                    if k not in ("launches_by_regime",
+                                                                 "flash_launches_by_regime")}))
+    del prefill, decode, pool
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _handoff_once(prefill, decode, run, plen) -> dict:
+    """One greedy stream of 128 tokens on a *plen*-token prompt: handed off
+    after HANDOFF_BUDGET tokens and resumed on the decode server from the
+    blob it fetches, against the unbroken stream; then a fresh prompt of
+    the same length resumed by replay (KUBEAI_KV_RESTORE=0). Times: park,
+    acquire and import, and the first token past the handed-off prefix."""
+    import torch
+
+    # EOS (token 257) banned so every stream runs its length; one event a
+    # token (logprobs on). Each length's prompts share no page with
+    # another's: every leg prefills cold.
+    prompt = [256] + [(i * 37 + plen) % 250 + 1 for i in range(plen - 1)]
+    body = {"prompt": prompt, "max_tokens": 128, "temperature": 0, "stream": True,
+            "logprobs": 0, "logit_bias": {"257": -100}}
+    reference = _sse(decode.port, body)
+    if _tokens(reference) != 128 or reference[-1][1] != "length":
+        raise AssertionError(f"{run}: reference stream malformed: {reference[-1]}")
+    leg1 = _sse(prefill.port, body, headers={"X-Handoff-Planned": "1"})
+    offer = leg1[-1][2]
+    if leg1[-1][1] != "handoff" or not offer:
+        raise AssertionError(f"{run}: no handoff offer: {leg1[-1]}")
+    # A capped stream holds its text-only tail back: n token events.
+    n = len(_texts(leg1))
+    if n != _tokens(leg1):
+        raise AssertionError(f"{run}: the handoff leg sent a text-only event")
+    if n != HANDOFF_BUDGET or offer["tokens"] != plen + HANDOFF_BUDGET - 1 \
+            or offer["source"] != prefill.kv_advertise:
+        raise AssertionError(f"{run}: offer {offer} after {n} events")
+    ok_before = _kv_import_ok()
+    resumed = _sse(decode.port, body, headers=_resume_headers(offer, n))
+    # The proxy suppresses the first n events of the resume.
+    joined = _texts(leg1) + _texts(resumed)[n:]
+    if "".join(joined) != "".join(_texts(reference)) or joined != _texts(reference):
+        raise AssertionError(f"{run}: the joined stream differs from the unbroken one")
+    if _kv_import_ok() != ok_before + 1:
+        raise AssertionError(f"{run}: kubeai_kv_import_total{{outcome=ok}} rose by "
+                             f"{_kv_import_ok() - ok_before}, not 1")
+    park = [e for e in prefill.engine.kv_log if e["event"] == "park"][-1]
+    acquire = [e for e in decode.engine.kv_log if e["event"] == "acquire"][-1]
+    imp = [e for e in decode.engine.kv_log if e["event"] == "import"][-1]
+    if not acquire["fetched"] or imp["how"] != "uploaded" or park["bytes"] != offer["bytes"]:
+        raise AssertionError(f"{run}: not a remote fetch and upload: {acquire}, {imp}")
+    torch.cuda.synchronize()
+    ev0, ev1 = imp["device_events"]
+    # The first token past the handed-off prefix: restored, and replayed
+    # (a fresh prompt of the same length: no prefix-cache hit).
+    os.environ["KUBEAI_KV_RESTORE"] = "0"
+    try:
+        fresh = [256] + [(i * 53 + plen) % 250 + 1 for i in range(plen - 1)]
+        replay = _sse(decode.port, {**body, "prompt": fresh, "max_tokens": n + 1},
+                      headers={"X-Resume-Tokens": str(n)})
+    finally:
+        del os.environ["KUBEAI_KV_RESTORE"]
+    return {"blob_bytes": park["bytes"], "parked_tokens": park["tokens"],
+            "pages": park["pages"], "park_ms": park["ms"],
+            "park_gather_d2h_ms": park["gather_ms"], "park_encode_ms": park["encode_ms"],
+            "acquire_ms": acquire["ms"], "import_host_ms": imp["host_ms"],
+            "import_device_ms": ev0.elapsed_time(ev1),
+            "resume_first_token_s": resumed[n][3], "replay_first_token_s": replay[n][3]}
+
+
+def _preempt_and_unpark(srv, run) -> dict:
+    """Eight preemptible batch streams (short prompts: no prefix-cache hit,
+    each prefilled alone) fill the server's slots, first uninterrupted,
+    then again with one interactive request arriving once all eight
+    decode: one victim ends "preempted" with an offer and resumes on this
+    server by unpark, byte-identical to its uninterrupted stream."""
+    eng = srv.engine
+    prompts = [[256] + list(f"Batch job {i}: summarize the ledger.".encode()) for i in range(8)]
+    # 256 tokens (~32 chunks): every stream still decodes when the eighth
+    # is admitted.
+    batch = {"max_tokens": 256, "temperature": 0, "stream": True, "logprobs": 0,
+             "logit_bias": {"257": -100}}
+    hdrs = {"X-Priority": "batch", "X-Preemptible": "1"}
+
+    def wave(interactive: bool):
+        results: list = [None] * 8
+        errors: list = []
+
+        def worker(i):
+            try:
+                results[i] = _sse(srv.port, {**batch, "prompt": prompts[i]}, headers=hdrs)
+            except Exception as e:  # reported below
+                errors.append(f"{i}: {e!r}")
+
+        threads = []
+        for i in range(8):
+            threads.append(threading.Thread(target=worker, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 10
+            while eng.active_slots() < i + 1 and not errors and time.monotonic() < deadline:
+                time.sleep(0.002)
+            if eng.active_slots() != i + 1:
+                raise AssertionError(f"{run}: {eng.active_slots()} slots busy after admitting "
+                                     f"{i + 1} batch streams ({errors})")
+        if interactive:
+            inter = _sse(srv.port, {**batch, "prompt": [256] + list(b"Quick question?"),
+                                    "max_tokens": 8}, headers={"X-Priority": "interactive"})
+            if inter[-1][1] != "length":
+                raise AssertionError(f"{run}: interactive request ended {inter[-1][1]}")
+        for th in threads:
+            th.join(timeout=300)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"{run}: batch streams failed: {errors}")
+        return results
+
+    reference = wave(False)
+    contended = wave(True)
+    victims = [i for i, r in enumerate(contended) if r[-1][1] == "preempted"]
+    if len(victims) != 1:
+        raise AssertionError(f"{run}: {len(victims)} streams preempted")
+    i = victims[0]
+    leg, offer = contended[i], contended[i][-1][2]
+    n = len(_texts(leg))
+    if not offer or _texts(leg) != _texts(reference[i])[:n]:
+        raise AssertionError(f"{run}: preempted stream {i} malformed or without an offer")
+    ok_before = _kv_import_ok()
+    resumed = _sse(srv.port, {**batch, "prompt": prompts[i]},
+                   headers=_resume_headers(offer, n, "batch"))
+    how = [e for e in eng.kv_log if e["event"] == "import"][-1]["how"]
+    if _texts(resumed) != _texts(reference[i]) or _kv_import_ok() != ok_before + 1 \
+            or how != "unparked":
+        raise AssertionError(f"{run}: the preempted stream did not resume by unpark "
+                             f"byte-identically ({how})")
+    return {"stream": i, "preempted_after_tokens": n, "parked_tokens": offer["tokens"],
+            "blob_bytes": offer["bytes"], "how": how}
+
+
+# ---------------------------------------------------------------------------
 
 
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
@@ -2717,6 +2992,10 @@ def main() -> int:
     phase_model_parity()
     log(f"elapsed after phase 3: {time.monotonic() - t0:.1f}s")
     serving = phase_serving()
+    log(f"elapsed after phase 4: {time.monotonic() - t0:.1f}s")
+    t5 = time.monotonic()
+    serving.update(phase_handoff())
+    log(f"handoff phase: {time.monotonic() - t5:.1f}s")
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

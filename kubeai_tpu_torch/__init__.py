@@ -14,6 +14,8 @@ to the CPU silently.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -30,3 +32,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def env_float(name: str, default: float) -> float:
+    """A float knob from the environment; unset, blank or junk values give
+    *default* (a mistyped knob never stops a serving process)."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except (TypeError, ValueError):
+        return default

@@ -37,6 +37,17 @@ A slim port of the JAX engine's serving path:
   row its adapter's delta. Loads and unloads run on the scheduler thread
   between dispatches and write the bank in place; the prefix cache keys
   pages on the adapter's (row, generation);
+- **QoS** (kubeai_tpu_torch/qos): the admission queue serves classes in
+  strict order with fair tenant lanes and sheds batch first; an
+  interactive request finding every slot busy seizes a preemptible batch
+  slot, whose stream ends ``"preempted"``;
+- **KV park and restore** (engine/kvstate.py): a preempted stream, or a
+  stream a prefill-role server capped for its handoff, parks its pages
+  at the finish (a blob in the park store, the pages pinned on the
+  device) and offers them on the finish; a resume carrying the blob
+  imports it instead of re-running the prefill, and enters the decode
+  chunk through the admission merge, as a prefill does. Any failure
+  falls back to the deterministic replay;
 - :meth:`Engine.warmup` runs every step shape before serving (the
   server's ``--warmup``);
 - one scheduler thread owns the device state and runs every device call
@@ -47,9 +58,14 @@ A slim port of the JAX engine's serving path:
 On the CPU the same loop runs the chunk eagerly (the tests), and on CUDA
 too when the caller passes ``cuda_graphs=False``.
 
-Left for later slices (ROADMAP queue 1): KV park/restore, gangs,
-QoS classes, fault injection, metrics, tracing and CUDA graphs for
-prefill.
+Metrics: the scheduling gauges the operator's autoscaler scrapes
+(``kubeai_engine_queue_depth``, ``kubeai_engine_active_slots``), the
+slot and page gauges and the ``kubeai_kv_*`` and ``kubeai_qos_*``
+series, in kubeai_tpu_torch/metrics.py's registry.
+
+Left for later slices (ROADMAP queue 1): embeddings, gangs, deadlines,
+draining, fault injection, tracing, the debug routes, n > 1 and CUDA
+graphs for prefill.
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ import logging
 import queue
 import threading
 import time
+import uuid
 import weakref
 from dataclasses import dataclass, field
 from typing import Any
@@ -69,6 +86,7 @@ import numpy as np
 import torch
 
 from kubeai_tpu_torch import resolve_device
+from kubeai_tpu_torch.engine import kvstate
 from kubeai_tpu_torch.engine.paging import PagePool, pages_for
 from kubeai_tpu_torch.engine.sampling import (
     SamplingParams,
@@ -77,6 +95,7 @@ from kubeai_tpu_torch.engine.sampling import (
     sample,
 )
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
+from kubeai_tpu_torch.metrics import default_registry
 from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.base import (
     ModelConfig,
@@ -94,6 +113,7 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
     resolve_decode_kernel,
 )
 from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+from kubeai_tpu_torch.qos import QoSQueue, record_admitted, record_preemption
 
 log = logging.getLogger("kubeai_tpu_torch.engine")
 
@@ -136,9 +156,12 @@ def engine_dims(cfg: EngineConfig) -> tuple[int, int, int]:
 
 @dataclass
 class FinishInfo:
-    reason: str  # "stop" | "length"
+    reason: str  # "stop" | "length" | "preempted"
     prompt_tokens: int
     completion_tokens: int
+    # The restore offer ({key, source, tokens, bytes}) when the finish
+    # parked the request's KV; the server puts it on the marker chunk.
+    kv: dict | None = None
 
 
 @dataclass
@@ -150,6 +173,23 @@ class Request:
     out: "queue.Queue[Any]" = field(default_factory=queue.Queue)
     cancelled: threading.Event = field(default_factory=threading.Event)
     adapter: str | None = None  # a loaded LoRA adapter's name
+    arrival: float = field(default_factory=time.monotonic)
+    # The proxy's hashed tenant id: the queue's fair lane ("" = anonymous).
+    tenant: str = ""
+    # QoS class: queue lane, shedding and preemption.
+    priority: str = "standard"
+    # The slot may be seized mid-decode for a waiting interactive request
+    # (replayable batch streams with no planned handoff).
+    preemptible: bool = False
+    # Park the KV at the finish: "preempt" at a "preempted" finish,
+    # "handoff" at the budget-capped "length" finish; "" never.
+    park_kv: str = ""
+    # Validated restore state (kvstate.RestoreState): admitted by page
+    # import instead of prefill; cleared on any failure (then replayed).
+    restore: Any = None
+    # The park-store key of a same-replica restore: its pinned pages are
+    # taken back instead of uploading the payload.
+    restore_key: str = ""
 
 
 @dataclass
@@ -161,6 +201,13 @@ class _Slot:
     committed_text: str = ""  # decodable text so far
     delivered_chars: int = 0  # prefix of committed_text already sent
     budget: int = 0  # max new tokens
+    # The emitted ("token", ...) events of a request that may park: a
+    # restore re-emits exactly these. None = not recording.
+    event_log: list | None = None
+    # The slot's sampling seed. The port's noise is a function of (seed,
+    # position, rank), so a park needs no key evolution (the JAX engine
+    # evolves a PRNG key per step): the seed is the whole key.
+    kv_seed: int = 0
 
     @property
     def holdback(self) -> int:
@@ -358,7 +405,17 @@ class Engine:
         # events around the chunk.
         self.chunk_log: collections.deque = collections.deque(maxlen=4096)
         self.warmup_result: dict | None = None  # the last warmup()'s
-        self._queue: "queue.Queue[Request]" = queue.Queue(maxsize=self.cfg.max_queue)
+        # Class-aware admission queue (qos/queue.py): queue.Queue's surface.
+        self._queue = QoSQueue(maxsize=self.cfg.max_queue)
+        # The host park store of serialized KV state and the address its
+        # offers point peers at (EngineServer.start() stamps it).
+        self.kv_park = kvstate.ParkStore()
+        self.kv_advertise = ""
+        self._kv_fp = kvstate.model_fingerprint(self.model_config, self.cfg.page_size)
+        self._kv_park_sweep_at = 0.0
+        # Recent park, acquire and import events with their milliseconds.
+        self.kv_log: collections.deque = collections.deque(maxlen=256)
+        self._init_metrics()
         # Thunks the scheduler thread runs between dispatches (adapter
         # loads and unloads), each with its reply queue.
         self._aux: "queue.Queue[tuple]" = queue.Queue()
@@ -371,6 +428,36 @@ class Engine:
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._on_stream():
             self._init_state()
+
+    def _init_metrics(self) -> None:
+        """The engine's gauges (the JAX engine's names and help strings).
+        Occupancy gauges are callback gauges, evaluated at render; stop()
+        unbinds them so the process-wide registry does not pin this
+        engine's pool."""
+        self.m_queue = default_registry.gauge(
+            "kubeai_engine_queue_depth", "requests waiting for a slot")
+        self.m_active = default_registry.gauge(
+            "kubeai_engine_active_slots", "decode slots in use")
+        self.m_slots_total = default_registry.gauge(
+            "kubeai_engine_slots_total", "configured decode slot capacity")
+        self.m_slots_total.set(self.cfg.max_slots)
+        self.m_queue.set(0)
+        self.m_active.set(0)
+        pages = (
+            ("kubeai_engine_kv_pages_used", "KV pool pages referenced by live slots",
+             lambda: float(self._pool.used())),
+            ("kubeai_engine_kv_pages_cached", "free KV pages retaining reusable prefixes",
+             lambda: float(self._pool.cached_pages())),
+            ("kubeai_engine_kv_pages_total", "allocatable KV pool pages",
+             lambda: float(self._pool.num_pages - 1)),
+            ("kubeai_engine_kv_pages_parked",
+             "device pages pinned by parked (preempted/handed-off) request "
+             "state awaiting restore — reclaimable, excluded from "
+             "kubeai_engine_kv_pages_used so parked state never reads as "
+             "live KV pressure", lambda: float(self._pool.parked_pages())),
+        )
+        self._gauge_callbacks = [(default_registry.callback_gauge(name, help_, fn), fn)
+                                 for name, help_, fn in pages]
 
     # -- state -------------------------------------------------------------
 
@@ -474,6 +561,8 @@ class Engine:
                 log.warning("engine loop did not exit; skipping in-flight cleanup")
                 return
         self._fail_inflight("engine shutting down")
+        for gauge, fn in self._gauge_callbacks:
+            gauge.clear_callback(fn)
         # The graphs and their pool die with the engine's serving life (a
         # later start() captures anew), once the last chunk has run.
         if self._cuda:
@@ -491,10 +580,16 @@ class Engine:
         return self._n_active
 
     def submit(self, prompt_ids: list[int], params: SamplingParams,
-               adapter: str | None = None) -> Request:
+               adapter: str | None = None, tenant: str = "", priority: str = "standard",
+               preemptible: bool = False, park_kv: str = "", restore: Any = None,
+               restore_key: str = "") -> Request:
         """Enqueue a request (with the LoRA *adapter* of that name); raises
-        queue.Full when saturated, ValueError for a prompt that cannot fit
-        or an adapter that is not loaded, RuntimeError when not running."""
+        queue.Full when its class is shed, ValueError for a prompt that
+        cannot fit or an adapter that is not loaded, RuntimeError when not
+        running. *priority*, *tenant* and *preemptible* place it in the QoS
+        queue; *park_kv* parks its KV at a preempted or handoff-capped
+        finish; *restore* (a kvstate.RestoreState, from the park store
+        under *restore_key* on this replica) admits it by page import."""
         max_prompt = min(
             self.cfg.max_seq_len, (self._pool.num_pages - 1) * self.cfg.page_size
         ) - 1
@@ -506,10 +601,15 @@ class Engine:
             raise ValueError(f"adapter {adapter!r} is not loaded")
         if not self._running:
             raise RuntimeError("engine is not running")
-        req = Request(prompt_ids=list(prompt_ids), params=params, adapter=adapter or None)
+        if not self._kv_enabled():
+            park_kv, restore, restore_key = "", None, ""
+        req = Request(prompt_ids=list(prompt_ids), params=params, adapter=adapter or None,
+                      tenant=tenant, priority=priority, preemptible=preemptible,
+                      park_kv=park_kv, restore=restore, restore_key=restore_key)
         self._queue.put_nowait(req)
         if not self._running:  # raced stop(): never strand the caller
             req.out.put(("error", "engine shutting down"))
+        self.m_queue.set(self.queue_depth())
         self._wake.set()
         return req
 
@@ -698,6 +798,8 @@ class Engine:
             while self._running:
                 try:
                     self._run_aux()
+                    self._sweep_qos_budgets()
+                    self._sweep_kv_park()
                     admitted = self._admit_waiting()
                     dispatched = self._dispatch_chunk() if self._n_active > 0 else None
                     # First-token sync AFTER the dispatch: the chunk reads
@@ -718,6 +820,14 @@ class Engine:
                     self._fail_inflight("engine reset after device error")
                     self._init_state()
                     pending = None
+            if pending is not None:
+                # The chunk dispatched last, still in flight at stop(): its
+                # replay counted its launches, so it is fetched and logged
+                # too (chunk_log then holds every dispatched chunk).
+                try:
+                    self._process_chunk(*pending)
+                except Exception:
+                    log.exception("the last decode chunk failed at stop")
 
     def _fail_inflight(self, message: str) -> None:
         for i, slot in enumerate(self._slots):
@@ -725,6 +835,7 @@ class Engine:
                 self._slots[i] = None
                 slot.req.out.put(("error", message))
         self._n_active = 0
+        self.m_active.set(0)
         self._h_active[:] = False
         self._adm_mask[:] = False
         for req in self._deferred:
@@ -735,6 +846,7 @@ class Engine:
                 self._queue.get_nowait().out.put(("error", message))
             except queue.Empty:
                 break
+        self.m_queue.set(0)
 
     # -- admission ---------------------------------------------------------
 
@@ -753,14 +865,22 @@ class Engine:
         singles: list[tuple[int, Request, int]] = []
         taken: set[int] = set()
         max_bucket = max(self.cfg.prefill_buckets)
-        while self._n_active + len(taken) < self.cfg.max_slots:
-            if self._deferred:
+        while True:
+            if self._n_active + len(taken) >= self.cfg.max_slots:
+                # Every slot is busy: an interactive request at the head
+                # of the line may seize a preemptible batch slot.
+                if self._peek_priority() != "interactive" or not self._preempt_one(taken):
+                    break
+            # A request waiting for pages keeps the head of the line
+            # unless a strictly higher class queued behind it.
+            if self._deferred and not self._queue.outranks(self._deferred[0].priority):
                 req = self._deferred.pop(0)
             else:
                 try:
                     req = self._queue.get_nowait()
                 except queue.Empty:
                     break
+                self.m_queue.set(self.queue_depth())
             if req.cancelled.is_set():
                 continue
             if req.adapter and self._adapter_row(req.adapter) == 0:
@@ -768,12 +888,29 @@ class Engine:
                 # waited: the base model's answer would be silently wrong.
                 req.out.put(("error", f"adapter {req.adapter!r} is not loaded"))
                 continue
+            if req.restore is not None:
+                res = self._admit_restored(req, taken)
+                if isinstance(res, int):
+                    # Joins the next dispatch through the admission merge:
+                    # no prefill, no first-token sync.
+                    taken.add(res)
+                    continue
+                if res == "defer":
+                    self._deferred.insert(0, req)
+                    self.m_queue.set(self.queue_depth())
+                    break
+                # None: the restore failed and was cleared; replay below.
             plan = self._plan_admission(req, taken)
+            if plan is None and req.priority == "interactive" and self._preempt_one(taken):
+                # The seized slot released its pages: plan once more.
+                plan = self._plan_admission(req, taken)
             if plan is None:
                 self._deferred.insert(0, req)  # wait for pages
+                self.m_queue.set(self.queue_depth())
                 break
             slot_idx, reuse = plan
             taken.add(slot_idx)
+            record_admitted(req.priority, time.monotonic() - req.arrival)
             if reuse == 0 and len(req.prompt_ids) <= max_bucket:
                 groups.setdefault(self._bucket(len(req.prompt_ids)), []).append((slot_idx, req))
             else:
@@ -817,6 +954,54 @@ class Engine:
                             req.out.put(("error", f"prefill failed: {e}"))
                     raise
         return admitted
+
+    QOS_BUDGET_MSG = "queue-wait budget exceeded for priority class"
+
+    def _sweep_qos_budgets(self) -> None:
+        """Error the queued requests past their class's queue-wait budget
+        (KUBEAI_QOS_BUDGET_*; the queue rate-limits the scan)."""
+        dropped = self._queue.sweep_budgets()
+        for req in dropped:
+            req.out.put(("error", self.QOS_BUDGET_MSG))
+        if dropped:
+            self.m_queue.set(self.queue_depth())
+
+    def _peek_priority(self) -> str | None:
+        """Class of the next request admission would serve (the deferred
+        head, unless the queue holds a strictly higher class)."""
+        if self._deferred:
+            head = self._deferred[0].priority
+            return self._queue.peek_priority() if self._queue.outranks(head) else head
+        return self._queue.peek_priority()
+
+    def _preempt_one(self, taken: set) -> bool:
+        """Seize one preemptible batch slot for a waiting interactive
+        request: the victim (fewest tokens generated) finishes
+        "preempted" with no tail flush (flushed text would desync the
+        proxy's event-count resume cursor), parking its KV when it asked
+        to. True when a slot was freed."""
+        victim, best = -1, None
+        for i, slot in enumerate(self._slots):
+            if slot is None or i in taken:
+                continue
+            r = slot.req
+            if not r.preemptible or r.priority != "batch":
+                continue
+            if best is None or slot.generated < best:
+                victim, best = i, slot.generated
+        if victim < 0:
+            return False
+        log.info("preempting slot %d (batch, %d tokens generated) for interactive admission",
+                 victim, best)
+        record_preemption(best)
+        self._free(victim, "preempted", flush=False)
+        return True
+
+    def qos_retry_after(self, priority: str) -> int:
+        """Retry-After seconds for a shed request of this class, scaled by
+        the backlog it would wait behind."""
+        backlog = self._queue.backlog_at_or_above(priority)
+        return int(min(max(1 + backlog // max(self.cfg.max_slots, 1), 1), 30))
 
     def _plan_admission(self, req: Request, taken: set[int]) -> tuple[int, int] | None:
         """Reserve a slot and KV pages for prompt + budget, claiming
@@ -996,8 +1181,10 @@ class Engine:
         self._slots[slot_idx] = _Slot(
             req=req, detok=IncrementalDetokenizer(self.tokenizer),
             prompt_len=len(ids), budget=self._slot_budget[slot_idx],
+            event_log=[] if req.park_kv else None, kv_seed=seed,
         )
         self._n_active += 1
+        self.m_active.set(self._n_active)
         self._kv_history[slot_idx] = list(ids)
         self._kv_pending[slot_idx] = None  # set once the token id is known
         self._kv_lora_sig[slot_idx] = self._lora_sig(req.adapter)
@@ -1270,22 +1457,37 @@ class Engine:
             if pos != -1:
                 tail = text[slot.delivered_chars : pos]
                 slot.delivered_chars = pos
-                req.out.put(("token", token_id, tail, logprob, top))
+                self._put_event(slot, ("token", token_id, tail, logprob, top))
                 self._free(slot_idx, "stop", flush=False)
                 return
         emit_upto = max(len(text) - slot.holdback, slot.delivered_chars)
         delta = text[slot.delivered_chars : emit_upto]
         slot.delivered_chars = emit_upto
-        req.out.put(("token", token_id, delta, logprob, top))
+        self._put_event(slot, ("token", token_id, delta, logprob, top))
         if slot.generated >= slot.budget:
             self._free(slot_idx, "length")
+
+    @staticmethod
+    def _put_event(slot: _Slot, ev: tuple) -> None:
+        if slot.event_log is not None:
+            slot.event_log.append(ev)
+        slot.req.out.put(ev)
 
     def _free(self, slot_idx: int, reason: str, deliver: bool = True, flush: bool = True):
         slot = self._slots[slot_idx]
         self._slots[slot_idx] = None
         self._n_active -= 1
+        self.m_active.set(self._n_active)
         self._h_active[slot_idx] = False
-        self._release_slot_pages(slot_idx, register=True)
+        # A finish the request asked to park at (a preempted batch stream,
+        # a handoff-capped "length") serializes its KV before the pages
+        # are released; any failure releases them and the resume replays.
+        offer = None
+        want = {"preempt": "preempted", "handoff": "length"}.get(slot.req.park_kv)
+        if deliver and reason == want and self._kv_enabled():
+            offer = self._park_slot(slot_idx, slot)
+        if offer is None:
+            self._release_slot_pages(slot_idx, register=True)
         if not deliver:
             return
         if flush:
@@ -1301,7 +1503,257 @@ class Engine:
             tail = text[slot.delivered_chars : end]
             if tail:
                 slot.req.out.put(("token", -1, tail, None, None))
-        slot.req.out.put(("done", FinishInfo(reason, slot.prompt_len, slot.generated)))
+        slot.req.out.put(("done", FinishInfo(reason, slot.prompt_len, slot.generated, kv=offer)))
+
+    # -- KV park / restore (engine/kvstate.py) -----------------------------
+
+    def _kv_enabled(self) -> bool:
+        """KUBEAI_KV_RESTORE=0 turns parking, offers and imports off."""
+        return kvstate.restore_enabled()
+
+    def _pool_rows(self, pages: list[int]) -> torch.Tensor:
+        """Rows of the flat [L*P, ...] pool holding *pages* in every
+        layer, page-major: [len(pages) * L] on the device."""
+        P, L = self._pool.num_pages, self.model_config.num_layers
+        idx = np.arange(L, dtype=np.int64)[None, :] * P + np.asarray(pages, np.int64)[:, None]
+        return self._t(idx.reshape(-1))
+
+    def _gather_pages(self, pages: list[int]) -> torch.Tensor:
+        """The [n, L, page, 2*Kv, h] contents of *pages*, on the host. The
+        gather runs on the engine's stream, so it waits for the chunk in
+        flight (which writes only past the parked history)."""
+        kv = self.cache["kv"]
+        raw = kv.view(torch.uint8).index_select(0, self._pool_rows(pages))
+        return raw.cpu().view(kv.dtype).reshape(len(pages), self.model_config.num_layers,
+                                                *kv.shape[1:])
+
+    def _import_pages(self, pages: list[int], payload: torch.Tensor) -> None:
+        """Write a blob's [n, L, ...] payload into *pages* of the pool in
+        place, on the engine's stream: the captured decode graphs hold the
+        pool's address, so it is never rebound."""
+        kv = self.cache["kv"]
+        src = payload.reshape(-1, *kv.shape[1:]).view(torch.uint8)
+        kv.view(torch.uint8).index_copy_(0, self._pool_rows(pages), self._t(src))
+
+    def _park_slot(self, slot_idx: int, slot: _Slot) -> dict | None:
+        """Serialize a finishing slot's KV state into the park store and
+        pin its history pages for a same-replica restore. Returns the offer
+        the finish carries, or None (any failure or unsettled state: the
+        caller releases the pages and the resume replays)."""
+        history = list(self._kv_history[slot_idx])
+        pending = self._kv_pending[slot_idx]
+        row = self._slot_pages[slot_idx]
+        if (pending is None or not row
+                or len(history) - slot.prompt_len != slot.generated - 1
+                or slot.event_log is None or len(slot.event_log) != slot.generated):
+            return None  # e.g. preempted before its first token reached the host
+        n_hist = pages_for(len(history), self.cfg.page_size)
+        if n_hist > len(row):
+            return None
+        hist_pages = row[:n_hist]
+        t0 = time.monotonic()
+        try:
+            payload = self._gather_pages(hist_pages)
+            t_gathered = time.monotonic()
+            blob = kvstate.encode_state(
+                model_fp=self._kv_fp,
+                request_fp=kvstate.request_fingerprint(slot.req.prompt_ids, slot.req.params,
+                                                       slot.req.adapter),
+                history=history, pending=int(pending), prompt_len=slot.prompt_len,
+                generated=slot.generated, committed_text=slot.committed_text,
+                delivered_chars=slot.delivered_chars,
+                key_data=np.array([slot.kv_seed], np.uint32), events=slot.event_log,
+                adapter=slot.req.adapter, payload=payload,
+            )
+        except Exception:
+            log.exception("KV export failed; the resume will replay")
+            kvstate.M_KV_EXPORT.inc(labels={"outcome": "error"})
+            return None
+        if self.cfg.prefix_cache_min:
+            # As the plain release does: follow-up turns still hit these pages.
+            self._pool.register_chain(history, self._kv_lora_sig[slot_idx], row)
+        key = uuid.uuid4().hex
+        if all(not self._pool.is_parked(p) for p in hist_pages):
+            # The slot's reference to its history pages passes to the park.
+            self._pool.park(key, hist_pages)
+            self._pool.release(row[n_hist:])
+        else:
+            # A page is pinned under another key (a shared prefix of parked
+            # content): the blob alone; a restore uploads it.
+            self._pool.release(row)
+        self._slot_pages[slot_idx] = []
+        self._page_table[slot_idx, :] = 0
+        for evicted in self.kv_park.put(key, blob, len(history)):
+            self._pool.drop_park(evicted)
+        kvstate.M_KV_EXPORT.inc(labels={"outcome": "ok"})
+        t1 = time.monotonic()
+        self.kv_log.append({"event": "park", "ms": (t1 - t0) * 1e3,
+                            "gather_ms": (t_gathered - t0) * 1e3,
+                            "encode_ms": (t1 - t_gathered) * 1e3, "bytes": len(blob),
+                            "tokens": len(history), "pages": n_hist, "kind": slot.req.park_kv})
+        log.info("parked KV of slot %d: %d tokens, %d pages, %d bytes (%s)",
+                 slot_idx, len(history), n_hist, len(blob), slot.req.park_kv)
+        return {"key": key, "source": self.kv_advertise, "tokens": len(history),
+                "bytes": len(blob)}
+
+    def _admit_restored(self, req: Request, taken: set[int]) -> int | str | None:
+        """Admit a resume carrying validated KV state: take its pinned
+        pages back (same replica) or upload the payload into fresh pages,
+        stage the slot for the next dispatch's admission merge (position,
+        pending token, seed, history row), and re-emit the parked events
+        so the stream is the replay's. Returns the slot, "defer" when the
+        pool cannot back prompt + budget yet, or None on any failure (the
+        restore is cleared and the request replays)."""
+        state = req.restore
+        t0 = time.monotonic()
+        ps = self.cfg.page_size
+        ids = req.prompt_ids
+        row: list[int] | None = None
+        pinned: list[int] | None = None
+        outcome = "error"
+        try:
+            n_hist = pages_for(len(state.history), ps)
+            kv = self.cache["kv"]
+            L = self.model_config.num_layers
+            if (state.prompt_len != len(ids) or state.history[: len(ids)] != list(ids)
+                    or len(state.history) - len(ids) != state.generated - 1
+                    or len(state.events) != state.generated):
+                raise kvstate.KVFormatError("restore state does not match request")
+            # The key data is the port's 32-bit seed, shape (1,): a JAX
+            # blob (threefry key data) is refused here, and a port blob by
+            # the JAX engine's own check.
+            if (tuple(state.payload.shape) != (n_hist, L, *kv.shape[1:])
+                    or state.payload.dtype != kv.dtype
+                    or tuple(np.asarray(state.key_data).shape) != (1,)):
+                raise kvstate.KVFormatError("restore payload layout mismatch")
+            usable_tokens = (self._pool.num_pages - 1) * ps
+            budget = max(min(req.params.max_tokens or self.cfg.default_max_tokens,
+                             self.cfg.max_seq_len - len(ids) - 1, usable_tokens - len(ids)), 0)
+            if state.generated >= budget:
+                raise ValueError("parked request has no budget left to resume")
+            # Rebuild the detokenizer from the emitted ids; a mismatch with
+            # the parked cursors means the stream could not continue
+            # byte-identically: refuse before touching the device.
+            detok = IncrementalDetokenizer(self.tokenizer)
+            committed = ""
+            for t in state.history[len(ids):] + [state.pending]:
+                committed += detok.push(t)
+            if committed != state.committed_text or not (
+                    0 <= state.delivered_chars <= len(committed)):
+                raise kvstate.KVFormatError("detokenizer replay mismatch")
+            n_total = pages_for(len(ids) + budget, ps)
+            pinned = self._pool.unpark(req.restore_key) if req.restore_key else None
+            if pinned is not None and len(pinned) != n_hist:
+                self._pool.release(pinned)
+                pinned = None
+            if n_total - (len(pinned) if pinned is not None else 0) > self._pool.available():
+                if pinned is not None:
+                    self._pool.park(req.restore_key, pinned)  # put back untouched
+                return "defer"
+            slot_idx = next(i for i, s in enumerate(self._slots) if s is None and i not in taken)
+            t_dev = None
+            if pinned is not None:
+                row, pinned = pinned + self._pool.allocate(n_total - len(pinned)), None
+                how = "unparked"
+            else:
+                row = self._pool.allocate(n_total)
+                how = "uploaded"
+                t_dev = self._event()
+                self._import_pages(row[:n_hist], state.payload)
+            # The slot's device row, staged for the next dispatch's merge:
+            # its pending token into the staging vector, its history row.
+            self._adm_toks[slot_idx] = int(state.pending)
+            hist_row = np.zeros((self._tok_hist.shape[1],), np.int64)
+            hist_row[: len(state.history)] = state.history
+            if self._adm_hist is not None:
+                self._adm_hist[slot_idx] = hist_row
+            else:
+                # No merge of the history at G = 0: the penalties read the
+                # generated tokens from the row itself.
+                self._tok_hist[slot_idx].copy_(self._t(hist_row))
+            t_end = self._event()
+            seed = int(np.asarray(state.key_data).reshape(-1)[0])
+        except kvstate.KVFormatError as e:
+            outcome = "corrupt"
+            log.warning("KV restore rejected (%s); falling back to replay", e)
+        except Exception as e:
+            log.warning("KV restore failed (%s); falling back to replay", e)
+        else:
+            sp = req.params
+            sig = self._lora_sig(req.adapter)
+            slot = _Slot(req=req, detok=detok, prompt_len=len(ids), budget=budget,
+                         committed_text=committed, delivered_chars=int(state.delivered_chars),
+                         generated=int(state.generated),
+                         event_log=list(state.events) if req.park_kv else None, kv_seed=seed)
+            self._slots[slot_idx] = slot
+            self._n_active += 1
+            self.m_active.set(self._n_active)
+            self._slot_fresh[slot_idx] = []
+            self._slot_budget[slot_idx] = budget
+            self._slot_pages[slot_idx] = row
+            self._page_table[slot_idx, :] = 0
+            self._page_table[slot_idx, : len(row)] = row
+            self._kv_history[slot_idx] = list(state.history)
+            self._kv_pending[slot_idx] = int(state.pending)
+            self._kv_lora_sig[slot_idx] = sig
+            self._slot_epoch[slot_idx] += 1
+            self._h_active[slot_idx] = True
+            self._h_temp[slot_idx] = sp.temperature
+            self._h_top_p[slot_idx] = sp.top_p
+            self._h_top_k[slot_idx] = sp.top_k
+            self._h_presence[slot_idx] = sp.presence_penalty
+            self._h_freq[slot_idx] = sp.frequency_penalty
+            self._h_gen_start[slot_idx] = len(ids)
+            self._h_bias_ids[slot_idx], self._h_bias_vals[slot_idx] = self._bias_rows(sp)
+            self._h_lora_rows[slot_idx] = self._adapter_row(req.adapter)
+            self._adm_mask[slot_idx] = True
+            self._adm_len[slot_idx] = len(state.history)
+            self._adm_seed[slot_idx] = seed
+            if self.cfg.prefix_cache_min:
+                self._pool.register_chain(state.history, sig, row)
+            # The parked events again, verbatim: the stream is the one the
+            # replay would have regenerated.
+            for ev in state.events:
+                req.out.put(ev)
+            self.kv_park.drop(req.restore_key)
+            dur = time.monotonic() - t0
+            kvstate.M_KV_IMPORT.inc(labels={"outcome": "ok"})
+            kvstate.M_KV_RESTORE_SECONDS.observe(dur, labels={"phase": "import"})
+            record_admitted(req.priority, time.monotonic() - req.arrival)
+            self.kv_log.append({"event": "import", "how": how, "host_ms": dur * 1e3,
+                                "device_events": (t_dev, t_end) if t_dev is not None else None,
+                                "tokens": len(state.history), "pages": n_hist})
+            log.info("restored KV into slot %d: %d tokens (%s)", slot_idx,
+                     len(state.history), how)
+            req.restore = None
+            return slot_idx
+        kvstate.M_KV_IMPORT.inc(labels={"outcome": outcome})
+        if row:
+            self._pool.release(row)
+        if pinned:
+            self._pool.release(pinned)
+        req.restore = None
+        return None
+
+    def _event(self):
+        """A CUDA event recorded on the current stream (None on the CPU)."""
+        if not self._cuda:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _sweep_kv_park(self) -> None:
+        """Release the pinned pages of park entries whose blob expired
+        (TTL or byte cap); throttled to once per 5 s."""
+        now = time.monotonic()
+        if now - self._kv_park_sweep_at < 5.0:
+            return
+        self._kv_park_sweep_at = now
+        self.kv_park.sweep()
+        for key in self._pool.parked_keys():
+            if self.kv_park.get(key) is None:
+                self._pool.drop_park(key)
 
 
 def merge_admissions(adm_mask, adm_len, adm_seed, adm_toks, adm_hist,

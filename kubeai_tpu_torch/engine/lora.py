@@ -168,9 +168,9 @@ class AdapterRuntime:
 
     def load(self, name: str, path: str) -> None:
         """Install (or reload) adapter *name* from the PEFT directory
-        *path*. Every target of the row is written: those the checkpoint
-        lacks are zeroed, so a reload never keeps a target of the adapter
-        it replaces."""
+        *path*. Only the targets the checkpoint holds are written, as in
+        the JAX runtime: a reload from fewer targets keeps the replaced
+        adapter's other targets (ROADMAP queue 3)."""
         cfg, targets, scale = load_peft_checkpoint(path)
         rank = cfg.get("r", 8)
         if rank > self.max_rank:
@@ -188,12 +188,12 @@ class AdapterRuntime:
             # raises before the bank is touched.
             L = self.config.num_layers
             updates = {}
-            for target in llama.LORA_TARGETS:
+            for target, layers in targets.items():
                 din = self.bank[target + "_A"].shape[2]
                 dout = self.bank[target + "_B"].shape[3]
                 A = np.zeros((L, din, self.max_rank), np.float32)
                 Bm = np.zeros((L, self.max_rank, dout), np.float32)
-                for li, (a, b) in targets.get(target, {}).items():
+                for li, (a, b) in layers.items():
                     if a is None or b is None or li >= L:
                         continue
                     # PEFT stores A [r, in], B [out, r]; the bank wants

@@ -1,8 +1,7 @@
 """Host-side paged-KV allocator: block tables, refcounts, prefix cache.
 
 The port's own copy of kubeai_tpu/engine/paging.py (the port imports
-nothing of the JAX package). The parked-page API is left out until KV
-park and restore are ported (ROADMAP queue 1, item 8).
+nothing of the JAX package).
 
 The KV pool is one flat [L*P, page, 2*Kv, h] tensor; this module keeps
 the host bookkeeping in LOGICAL pages 0..P-1 (layer-agnostic):
@@ -16,6 +15,13 @@ the host bookkeeping in LOGICAL pages 0..P-1 (layer-agnostic):
 - **Eviction**: refcount-0 pages with registered content stay in an LRU
   "cached" set for future prefix hits; allocation evicts the oldest when
   the free list is empty.
+- **Parked pages** (engine/kvstate.py): a preempted or handed-off
+  request's pages stay on the device, pinned by the park entry's own
+  reference, so a same-replica restore skips the upload. They are
+  reclaimable, not occupancy: they count toward available() and not
+  used(). Allocation evicts whole park entries, oldest first, once the
+  free list and the cached set are dry (the host blob still restores by
+  upload).
 
 Thread model: called only from the engine scheduler thread.
 """
@@ -43,18 +49,34 @@ class PagePool:
         self._digest_of: dict[int, bytes] = {}
         self._cached: "OrderedDict[int, None]" = OrderedDict()  # LRU, oldest first
         self.evictions = 0
+        # Parked rows (key -> pages, oldest first): each entry pins one
+        # reference per page, handed over by the slot that parked it.
+        self._parked: "OrderedDict[str, list[int]]" = OrderedDict()
+        self._parked_pages: dict[int, str] = {}
+        self.park_evictions = 0  # entries reclaimed under allocation pressure
 
     # -- capacity ----------------------------------------------------------
 
     def available(self) -> int:
-        """Pages allocatable right now (free + evictable)."""
-        return len(self._free) + len(self._cached)
+        """Pages allocatable right now (free + evictable). A parked page
+        counts only while the park holds its sole reference."""
+        return len(self._free) + len(self._cached) + sum(
+            1 for p in self._parked_pages if self._ref[p] == 1)
 
     def used(self) -> int:
         return self.num_pages - 1 - self.available()
 
     def cached_pages(self) -> int:
         return len(self._cached)
+
+    def parked_pages(self) -> int:
+        return len(self._parked_pages)
+
+    def is_parked(self, page: int) -> bool:
+        return page in self._parked_pages
+
+    def parked_keys(self) -> list[str]:
+        return list(self._parked)
 
     # -- digests -----------------------------------------------------------
 
@@ -107,6 +129,16 @@ class PagePool:
             raise RuntimeError(f"KV pool exhausted: need {n}, have {self.available()}")
         out = []
         for _ in range(n):
+            while not self._free and not self._cached:
+                # Reclaim the oldest park entry whole (pages a live slot
+                # also claims stay referenced).
+                if not self._parked:
+                    raise RuntimeError("KV pool exhausted mid-allocation")
+                _, pages = self._parked.popitem(last=False)
+                for p in pages:
+                    self._parked_pages.pop(p, None)
+                self.release(pages)
+                self.park_evictions += 1
             if self._free:
                 page = self._free.pop()
             else:
@@ -145,6 +177,39 @@ class PagePool:
     def refcount(self, page: int) -> int:
         return self._ref[page]
 
+    # -- parking -----------------------------------------------------------
+
+    def park(self, key: str, pages: list[int]) -> None:
+        """Pin *pages* under *key*: the caller's reference (one per page)
+        passes to the park entry. Registered full pages may stay
+        registered: they are read-only."""
+        if not key or key in self._parked:
+            raise RuntimeError(f"duplicate park key {key!r}")
+        for p in pages:
+            if self._ref[p] <= 0 or p in self._parked_pages:
+                raise RuntimeError(f"page {p} cannot be parked (refcount {self._ref[p]})")
+        self._parked[key] = list(pages)
+        for p in pages:
+            self._parked_pages[p] = key
+
+    def unpark(self, key: str) -> list[int] | None:
+        """Take a parked row back (its references pass to the caller);
+        None when the entry was reclaimed or never existed."""
+        pages = self._parked.pop(key, None)
+        if pages is None:
+            return None
+        for p in pages:
+            self._parked_pages.pop(p, None)
+        return pages
+
+    def drop_park(self, key: str) -> bool:
+        """Release a park entry; True if the key was parked."""
+        pages = self.unpark(key)
+        if pages is None:
+            return False
+        self.release(pages)
+        return True
+
     # -- release -----------------------------------------------------------
 
     def release(self, pages: list[int]) -> None:
@@ -155,6 +220,8 @@ class PagePool:
             if self._ref[page] < 0:
                 raise RuntimeError(f"double release of page {page}")
             if self._ref[page] == 0:
+                if page in self._parked_pages:
+                    raise RuntimeError(f"page {page} hit refcount 0 while parked")
                 if page in self._digest_of:
                     self._cached[page] = None
                     self._cached.move_to_end(page)

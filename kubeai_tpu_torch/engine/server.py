@@ -1,8 +1,10 @@
 """OpenAI-compatible HTTP server over the port's engine (slim port of
 kubeai_tpu/engine/server.py).
 
-    GET  /health                 liveness (+ engine readiness)
+    GET  /health                 liveness (+ engine readiness, role)
+    GET  /metrics                Prometheus text (queue depth, slots, pages, kv, qos)
     GET  /v1/models              the served model + loaded adapters
+    GET  /v1/kv/<key>            a parked request's KV blob (peer transfer)
     POST /v1/completions         (+ SSE streaming)
     POST /v1/chat/completions    (+ SSE streaming)
     POST /v1/load_lora_adapter   {lora_name, lora_path}
@@ -12,9 +14,21 @@ Responses keep the JAX server's shapes: the same ``usage`` block, the
 completions ``logprobs`` object (tokens / token_logprobs / top_logprobs)
 and the chat ``logprobs.content`` list. A request whose ``model`` names a
 loaded adapter runs with it; any other ``model`` serves the base model,
-as in the JAX server. One choice per request (``n`` > 1 is refused);
-embeddings, KV handoff, QoS headers, metrics and the debug routes are not
-ported yet (ROADMAP queue 1).
+as in the JAX server.
+
+The engine's side of the operator's resume protocol, as the JAX server
+speaks it: ``X-Priority``, ``X-Preemptible`` and the tenant header place
+a request in the QoS queue (a shed request gets 429 with a Retry-After
+scaled by its class's backlog); ``--role prefill --handoff-budget N``
+caps a stream the proxy planned to hand off (``X-Handoff-Planned: 1``)
+at N tokens and finishes it ``"handoff"``; a preempted or handed-off
+stream parks its KV and carries the offer on its marker chunk as
+``kubeai_kv``; a resume (``X-Resume-Tokens``) carrying the ``X-KV-*``
+offer imports the blob (from this replica's park store, or fetched from
+the source's ``/v1/kv/<key>``) instead of re-running the prefill.
+
+Not ported yet (ROADMAP queue 1): ``/readyz``, draining, embeddings,
+``/debug*``, tracing, deadlines, failpoints and ``n`` > 1 (refused).
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
@@ -45,6 +59,7 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from kubeai_tpu_torch.engine import kvstate
 from kubeai_tpu_torch.engine.core import (
     Engine,
     EngineConfig,
@@ -53,25 +68,56 @@ from kubeai_tpu_torch.engine.core import (
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.weights import load_engine_from_path
+from kubeai_tpu_torch.metrics import default_registry
+from kubeai_tpu_torch.qos import (
+    DEFAULT_CLASS,
+    PREEMPTIBLE_HEADER,
+    PRIORITY_HEADER,
+    normalize_priority,
+)
+from kubeai_tpu_torch.qos.classes import TENANT_HEADER, sanitize_tenant
 
 log = logging.getLogger("kubeai_tpu_torch.engine.server")
 
-RETRY_AFTER_HINT = "1"
 STREAM_WAIT_S = 600.0
+
+M_HANDOFF_CAPPED = default_registry.counter(
+    "kubeai_engine_handoff_capped_total",
+    "streamed generations a prefill-role replica capped at its handoff "
+    "budget (finish_reason rewritten to 'handoff' for the proxy cutover)",
+)
+M_RESUMED = default_registry.counter(
+    "kubeai_engine_resumed_requests_total",
+    "requests arriving with X-Resume-Tokens (decode-side of a handoff, "
+    "or a mid-stream crash replay): the deterministic prefix is "
+    "regenerated here and the proxy suppresses it",
+)
 
 
 class EngineServer:
-    def __init__(self, engine: Engine, model_name: str, host: str = "0.0.0.0", port: int = 8000):
+    def __init__(self, engine: Engine, model_name: str, host: str = "0.0.0.0", port: int = 8000,
+                 role: str = "", handoff_budget: int = 0):
         self.engine = engine
         self.model_name = model_name
+        # Disaggregated role ("prefill" | "decode" | "" unified): a prefill
+        # replica caps planned handoff streams at handoff_budget tokens.
+        self.role = role
+        self.handoff_budget = handoff_budget if role == "prefill" else 0
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_port
+        # The address peers fetch parked KV from (GET /v1/kv/<key>): a
+        # wildcard bind falls back to loopback; pods set
+        # KUBEAI_KV_ADVERTISE to their own address.
+        host_adv = os.environ.get("KUBEAI_KV_ADVERTISE", "") or (
+            "127.0.0.1" if host in ("", "0.0.0.0", "::") else host)
+        self.kv_advertise = f"{host_adv}:{self.port}"
         self._thread: threading.Thread | None = None
         self.adapters: dict[str, str] = {}  # name -> path
         self._adapters_lock = threading.Lock()
 
     def start(self) -> None:
+        self.engine.kv_advertise = self.kv_advertise
         self.engine.start()
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
@@ -137,14 +183,33 @@ def _make_handler(srv: EngineServer):
         def _error(self, code: int, msg: str, etype: str = "invalid_request_error", headers=None):
             self._json(code, {"error": {"message": msg, "type": etype}}, headers=headers)
 
+        def _raw(self, code: int, ctype: str, body: bytes):
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def do_GET(self):
             path = self.path.split("?")[0]
             if path in ("/health", "/healthz"):
                 ready = srv.engine.is_ready()
-                self._json(200 if ready else 503, {
-                    "status": "ok" if ready else "engine not ready",
-                    "model": srv.model_name,
-                })
+                body = {"status": "ok" if ready else "engine not ready",
+                        "model": srv.model_name}
+                if srv.role:
+                    body["role"] = srv.role
+                self._json(200 if ready else 503, body)
+            elif path == "/metrics":
+                self._raw(200, "text/plain; version=0.0.4", default_registry.render().encode())
+            elif path.startswith("/v1/kv/"):
+                # A peer pulls a parked request's blob; a miss is definitive
+                # (the caller replays), so this never blocks or retries.
+                key = path[len("/v1/kv/"):]
+                entry = srv.engine.kv_park.get(key)
+                if entry is None:
+                    return self._error(404, f"no parked KV under {key!r}")
+                kvstate.M_KV_TRANSFER.inc(len(entry.blob), labels={"direction": "tx"})
+                self._raw(200, "application/octet-stream", entry.blob)
             elif path == "/v1/models":
                 models = [{"id": srv.model_name, "object": "model", "owned_by": "kubeai-tpu"}]
                 for name in sorted(srv.adapters):
@@ -206,6 +271,16 @@ def _make_handler(srv: EngineServer):
                 max_tokens = 16 if not chat else eng.cfg.default_max_tokens
             elif not isinstance(max_tokens, int) or isinstance(max_tokens, bool) or max_tokens < 1:
                 return self._error(400, "max_tokens must be a positive integer")
+            # A prefill-role replica caps a stream the proxy planned to hand
+            # off at the handoff budget; the capped finish becomes
+            # "handoff", the proxy's cutover marker. A stream that ends
+            # within the budget, and any other request, serves whole.
+            handoff_cap = False
+            if (srv.handoff_budget > 0 and body.get("stream")
+                    and self.headers.get("X-Handoff-Planned") == "1"
+                    and max_tokens > srv.handoff_budget):
+                max_tokens = srv.handoff_budget
+                handoff_cap = True
             bias_raw = body.get("logit_bias") or {}
             if not isinstance(bias_raw, dict):
                 return self._error(400, "logit_bias must be an object")
@@ -255,7 +330,7 @@ def _make_handler(srv: EngineServer):
                 )
             except (TypeError, ValueError) as e:
                 return self._error(400, f"invalid sampling parameter: {e}")
-            return params, top_n, want_logprobs
+            return params, top_n, want_logprobs, handoff_cap
 
         def _prompt(self, body: dict, chat: bool):
             """(prompt_ids, prompt_text or None) or None after an error."""
@@ -287,7 +362,21 @@ def _make_handler(srv: EngineServer):
             got = self._params(body, chat)
             if got is None:
                 return
-            params, top_n, want_logprobs = got
+            params, top_n, want_logprobs, handoff_cap = got
+            # The proxy's stamps (it strips client copies): tenant lane,
+            # class (an unknown value serves as standard), and whether the
+            # slot may be seized, never together with a planned handoff,
+            # and only for a stream, which the resume cursor can replay.
+            tenant = sanitize_tenant(self.headers.get(TENANT_HEADER, ""))
+            priority = normalize_priority(self.headers.get(PRIORITY_HEADER, "")) or DEFAULT_CLASS
+            preemptible = (self.headers.get(PREEMPTIBLE_HEADER) == "1"
+                           and self.headers.get("X-Handoff-Planned") != "1"
+                           and bool(body.get("stream")))
+            try:
+                if int(self.headers.get("X-Resume-Tokens", "") or 0) > 0:
+                    M_RESUMED.inc()
+            except ValueError:
+                pass
             if body.get("n") not in (None, 1):
                 return self._error(400, "n > 1 is not supported by this engine")
             echo = body.get("echo")
@@ -299,14 +388,25 @@ def _make_handler(srv: EngineServer):
             # A model field that names a loaded adapter runs with it.
             requested = str(body.get("model", ""))
             adapter = requested if requested in srv.adapters else None
+            # A stream the proxy may preempt or hand off parks its KV at
+            # the cut; a resume carrying the X-KV-* offer imports it. Both
+            # are best-effort: any failure replays the same stream.
+            park_kv, restore, restore_key = "", None, ""
+            if body.get("stream"):
+                park_kv = "handoff" if handoff_cap else "preempt" if preemptible else ""
+                restore, restore_key = self._acquire_restore(prompt_ids, params, adapter)
             try:
-                req = srv.engine.submit(prompt_ids, params, adapter=adapter)
+                req = srv.engine.submit(prompt_ids, params, adapter=adapter, tenant=tenant,
+                                        priority=priority, preemptible=preemptible,
+                                        park_kv=park_kv, restore=restore,
+                                        restore_key=restore_key)
             except ValueError as e:
                 return self._error(400, str(e))
             except queue.Full:
+                # Retry-After scaled by the backlog at or above the class.
                 return self._error(
                     429, "engine saturated; retry after backoff", "rate_limit_error",
-                    headers={"Retry-After": RETRY_AFTER_HINT},
+                    headers={"Retry-After": str(srv.engine.qos_retry_after(priority))},
                 )
             except RuntimeError as e:
                 return self._error(503, str(e), "service_unavailable")
@@ -319,11 +419,53 @@ def _make_handler(srv: EngineServer):
             try:
                 if body.get("stream"):
                     self._stream(req, include_usage=bool((so or {}).get("include_usage")),
-                                 prompt_tokens=len(prompt_ids), **ctx)
+                                 prompt_tokens=len(prompt_ids), handoff_cap=handoff_cap, **ctx)
                 else:
                     self._full(req, **ctx)
             finally:
                 req.cancelled.set()  # a no-op once the request finished
+
+        def _acquire_restore(self, prompt_ids, params, adapter):
+            """The proxy's X-KV-* offer as a decoded RestoreState and its
+            park key, or (None, "") to replay. Every failure is soft."""
+            eng = srv.engine
+            key = self.headers.get(kvstate.KV_KEY_HEADER, "")
+            if not key or not eng._kv_enabled():
+                return None, ""
+            source = self.headers.get(kvstate.KV_SOURCE_HEADER, "")
+            try:
+                tokens = int(self.headers.get(kvstate.KV_TOKENS_HEADER, "") or 0)
+            except ValueError:
+                tokens = 0
+            t0 = time.monotonic()
+            entry = eng.kv_park.get(key)
+            blob = entry.blob if entry is not None else None
+            if blob is None:
+                if not source or source == eng.kv_advertise:
+                    # A same-replica resume whose park expired or was evicted.
+                    kvstate.M_KV_IMPORT.inc(labels={"outcome": "miss"})
+                    return None, ""
+                if tokens < kvstate.breakeven_tokens():
+                    # Below break-even a replay costs less than the fetch and
+                    # upload: a decision, not a miss.
+                    return None, ""
+                blob = kvstate.fetch_blob(source, key)
+                if blob is None:
+                    kvstate.M_KV_IMPORT.inc(labels={"outcome": "miss"})
+                    return None, ""
+            try:
+                state = kvstate.decode_state(
+                    blob, expect_model_fp=eng._kv_fp,
+                    expect_request_fp=kvstate.request_fingerprint(prompt_ids, params, adapter))
+            except kvstate.KVFormatError as e:
+                kvstate.M_KV_IMPORT.inc(labels={"outcome": "corrupt"})
+                log.warning("parked KV %s rejected (%s); resuming by replay", key, e)
+                return None, ""
+            dur = time.monotonic() - t0
+            kvstate.M_KV_RESTORE_SECONDS.observe(dur, labels={"phase": "acquire"})
+            eng.kv_log.append({"event": "acquire", "ms": dur * 1e3, "bytes": len(blob),
+                               "fetched": entry is None})
+            return state, key
 
         # ---- responses ----
 
@@ -397,7 +539,7 @@ def _make_handler(srv: EngineServer):
             })
 
         def _stream(self, req, rid, created, chat, want_logprobs, top_n, echo_text,
-                    include_usage, prompt_tokens):
+                    include_usage, prompt_tokens, handoff_cap=False):
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -420,6 +562,10 @@ def _make_handler(srv: EngineServer):
                 self.wfile.flush()
 
             emitted = 0
+            # A capped stream holds its text-only tail flush until the
+            # finish: at a handoff the decode replica delivers those bytes
+            # inside its own chunks, so flushing here would duplicate them.
+            held = ""
             if chat:
                 chunk({"index": 0, "delta": {"role": "assistant"}, "finish_reason": None})
             elif echo_text:
@@ -434,6 +580,9 @@ def _make_handler(srv: EngineServer):
                     has_lp = want_logprobs and ev[1] >= 0 and ev[3] is not None
                     if not ev[2] and not has_lp:
                         continue
+                    if handoff_cap and ev[1] < 0:
+                        held += ev[2]
+                        continue
                     pieces = [(ev[1], ev[3], ev[4])] if has_lp else []
                     if chat:
                         choice = {"index": 0, "delta": {"content": ev[2]}, "finish_reason": None}
@@ -446,8 +595,19 @@ def _make_handler(srv: EngineServer):
                     chunk(choice)
                 elif ev[0] == "done":
                     fin = ev[1]
-                    chunk({"index": 0, "delta": {}, "finish_reason": fin.reason} if chat
-                          else {"index": 0, "text": "", "finish_reason": fin.reason})
+                    reason = fin.reason
+                    if handoff_cap and reason == "length":
+                        # The handoff budget ran out, not the client's.
+                        reason = "handoff"
+                        M_HANDOFF_CAPPED.inc()
+                    if held and reason != "handoff":
+                        chunk({"index": 0, "delta": {"content": held}, "finish_reason": None}
+                              if chat else {"index": 0, "text": held, "finish_reason": None})
+                    # A parked-KV offer rides the marker chunk: the proxy
+                    # stamps it on the resume; clients ignore the field.
+                    chunk({"index": 0, "delta": {}, "finish_reason": reason} if chat
+                          else {"index": 0, "text": "", "finish_reason": reason},
+                          **({"kubeai_kv": fin.kv} if fin.kv else {}))
                     if include_usage:
                         emitted = fin.completion_tokens
                         send(json.dumps({
@@ -497,6 +657,14 @@ def make_arg_parser() -> argparse.ArgumentParser:
                         "halves the pool's bytes")
     p.add_argument("--prefix-cache-min", type=int, default=16,
                    help="min shared-prefix tokens reused across slots (0 disables)")
+    p.add_argument("--role", default="", choices=["", "prefill", "decode"],
+                   help="disaggregated role: prefill replicas cap planned handoff streams at "
+                        "the handoff budget and finish them 'handoff'; decode replicas serve "
+                        "the resumes; empty = unified serving")
+    p.add_argument("--handoff-budget", type=int,
+                   default=int(os.environ.get("KUBEAI_HANDOFF_BUDGET", "8")),
+                   help="max tokens a prefill-role replica streams before the 'handoff' "
+                        "finish (ignored unless --role prefill)")
     p.add_argument("--warmup", action="store_true",
                    default=os.environ.get("KUBEAI_ENGINE_WARMUP", "0") == "1",
                    help="run every step shape (on CUDA: capture the decode chunk's graph) "
@@ -536,7 +704,8 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s %(message)s")
     args = make_arg_parser().parse_args(argv)
     engine, name = build_engine_from_args(args)
-    srv = EngineServer(engine, name, host=args.host, port=args.port)
+    srv = EngineServer(engine, name, host=args.host, port=args.port, role=args.role,
+                       handoff_budget=args.handoff_budget)
     srv.start()
     try:
         while True:

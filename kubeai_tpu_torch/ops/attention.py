@@ -21,17 +21,23 @@ def attention(
     scale: float | None = None,
     softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Scaled dot-product attention with GQA, softmax in float32.
+    """Scaled dot-product attention with GQA, softmax in float32 (float64
+    on the CPU).
 
     *mask* is boolean, broadcastable to [B, Sq, Sk]; True = attend.
-    *softcap* > 0 applies tanh capping to the logits before the mask."""
+    *softcap* > 0 applies tanh capping to the logits before the mask.
+
+    On the CPU both products and the softmax run in float64 and the
+    output rounds once, so the result does not depend on how the CPU BLAS
+    blocks and orders a reduction (thread count, buffer alignment)."""
     B, Sq, H, h = q.shape
     Kv = k.shape[2]
     G = H // Kv
     if scale is None:
         scale = h**-0.5
+    acc = torch.float64 if q.device.type == "cpu" else torch.float32
     qg = q.reshape(B, Sq, Kv, G, h)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float())
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.to(acc), k.to(acc))
     logits = logits * scale
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
@@ -39,7 +45,7 @@ def attention(
         logits = torch.where(mask[:, None, None, :, :], logits, _NEG_INF)
     weights = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     weights = weights / weights.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bkgqs,bskh->bqkgh", weights, v.float())
+    out = torch.einsum("bkgqs,bskh->bqkgh", weights, v.to(acc))
     return out.reshape(B, Sq, H, h).to(q.dtype)
 
 

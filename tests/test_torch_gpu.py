@@ -1114,3 +1114,111 @@ def _greedy_switching(eng, prompt, n, k, banks):
 
 
 NO_EOS = ((257, -100.0),)  # the byte tokenizer's EOS, banned: runs of full length
+
+
+# KV park and restore on the card: -k park.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["", "fp8"], ids=["bf16", "fp8"])
+@pytest.mark.parametrize("h", [128, 256])
+def test_kv_park_import_round_trip_on_the_card(cuda, kv, h):
+    """Pages gathered from a CUDA pool, through the KVPG blob, and
+    imported into other pages come back bit-identical, and the import
+    writes the pool in place (its address, which captured graphs hold,
+    does not move)."""
+    import numpy as np
+
+    from kubeai_tpu_torch.engine import kvstate
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import ModelConfig
+
+    mc = ModelConfig(vocab_size=272, hidden_size=512, intermediate_size=512, num_layers=3,
+                     num_heads=4, num_kv_heads=2, head_dim=h, max_position=2048)
+    params = llama.init_params(mc, torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    eng = Engine(mc, params, ByteTokenizer(), EngineConfig(max_slots=4, max_seq_len=1024,
+                                                           kv_cache_dtype=kv), device=cuda)
+    pool = eng.cache["kv"]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    with torch.cuda.stream(eng._stream):
+        pool.view(torch.uint8).copy_(torch.randint(0, 256, pool.view(torch.uint8).shape,
+                                                   generator=g, device=cuda,
+                                                   dtype=torch.uint8))
+        src, dst = [3, 7, 8, 20, 2], [11, 5, 30, 31, 9]
+        payload = eng._gather_pages(src)
+        blob = kvstate.encode_state(
+            model_fp=eng._kv_fp, request_fp="r", history=[1], pending=2, prompt_len=1,
+            generated=1, committed_text="", delivered_chars=0,
+            key_data=np.array([5], np.uint32), events=[("token", 2, "", 0.0)],
+            adapter=None, payload=payload)
+        st = kvstate.decode_state(blob, expect_model_fp=eng._kv_fp)
+        ptr = pool.data_ptr()
+        eng._import_pages(dst, st.payload)
+        eng._stream.synchronize()
+    assert pool.data_ptr() == ptr and eng.cache["kv"] is pool
+    P, L = eng._pool.num_pages, mc.num_layers
+    raw = pool.view(torch.uint8).view(L, P, *pool.view(torch.uint8).shape[1:])
+    assert torch.equal(raw[:, dst], raw[:, src])
+    assert payload.dtype == pool.dtype and tuple(payload.shape[:2]) == (len(src), L)
+
+
+@pytest.mark.gpu
+def test_graphed_chunk_decodes_a_restored_slot_as_eager(wide):
+    """A stream parked at a 16-token handoff and restored, by unpark on
+    the same engine and by upload into a fresh one, decodes in the
+    captured chunk (the slot enters through the admission merge) to the
+    eager engine's tokens and to the unbroken stream's."""
+    from kubeai_tpu_torch.engine import kvstate
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    mc, params, _ = wide
+    ids = list(b"The quick brown fox jumps over the lazy dog. " * 3)
+    full = SamplingParams(temperature=0.0, max_tokens=48)
+
+    def drain(req):
+        out, fin = [], None
+        while fin is None:
+            ev = req.out.get(timeout=300)
+            if ev[0] == "token" and ev[1] >= 0:
+                out.append(ev[1])
+            elif ev[0] == "done":
+                fin = ev[1]
+            elif ev[0] == "error":
+                raise RuntimeError(ev[1])
+        return out, fin
+
+    got = {}
+    for graphs in (True, False):
+        engines = [Engine(mc, params, ByteTokenizer(), EngineConfig(max_slots=4,
+                                                                    max_seq_len=2048),
+                          device="cuda", cuda_graphs=graphs) for _ in range(2)]
+        for e in engines:
+            e.start()
+        try:
+            a, b = engines
+            unbroken, _ = drain(a.submit(ids, full))
+            runs = []
+            for target in (a, b):
+                head, fin = drain(a.submit(ids, SamplingParams(temperature=0.0, max_tokens=16),
+                                           park_kv="handoff"))
+                assert fin.reason == "length" and fin.kv, fin
+                st = kvstate.decode_state(
+                    a.kv_park.get(fin.kv["key"]).blob, expect_model_fp=target._kv_fp,
+                    expect_request_fp=kvstate.request_fingerprint(ids, full, None))
+                key = fin.kv["key"] if target is a else ""
+                resumed, _ = drain(target.submit(ids, full, restore=st, restore_key=key))
+                assert resumed[:16] == head
+                how = [e for e in target.kv_log if e["event"] == "import"][-1]["how"]
+                assert how == ("unparked" if target is a else "uploaded")
+                runs.append(resumed)
+            assert runs == [unbroken, unbroken], graphs
+            got[graphs] = unbroken
+            assert all(c["graph"] == graphs for e in engines for c in e.chunk_log)
+        finally:
+            for e in engines:
+                e.stop()
+    assert got[True] == got[False]

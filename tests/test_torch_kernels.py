@@ -62,6 +62,14 @@ def test_flash_plain_matches_pallas_interpret(B, S, H, Kv, h, causal, bq, bk):
     got = flash_attention(_t(q), _t(k), _t(v), causal=causal)
     assert flash_attention.launches == before  # CPU tensors: no kernel launch
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # And against float64 math on the same inputs.
+    q64, k64, v64 = (_t(x.astype(np.float64)) for x in (q, k, v))
+    G = H // Kv
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q64.reshape(B, S, Kv, G, h), k64) * h**-0.5
+    if causal:
+        logits = logits.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), float("-inf"))
+    ref = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(logits, -1), v64).reshape(B, S, H, h)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **TOL)
 
 
 def _paged_inputs(rng, B, S, H, Kv, h=128, P=13, ps=16, mp=4):

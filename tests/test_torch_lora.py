@@ -72,11 +72,11 @@ def test_bank_matches_jax_runtime_through_load_reload_unload(tmp_path):
     assert trt.row_for("c") == 1 and trt.row_sig("c") == (1, 4)
 
 
-def test_reload_from_fewer_targets_zeroes_the_rest(tmp_path):
+def test_reload_from_fewer_targets_equals_jax_on_all_targets(tmp_path):
     """Reloading an all-seven-target adapter from a q/v-only checkpoint:
-    q, v and the scale equal the JAX runtime's. Here the port departs
-    from the JAX bank on purpose: it zeroes the five targets the new
-    checkpoint lacks, where the JAX runtime keeps the old adapter's."""
+    the scale and all seven targets equal the JAX runtime's. Both write
+    only the targets the new checkpoint holds, so q and v are the new
+    adapter's and the other five keep the old adapter's weights."""
     jc, tc = configs("qwen2")
     tlora.write_peft_checkpoint(str(tmp_path / "all"), tc, rank=4, alpha=8, seed=1)
     jax_write_peft(str(tmp_path / "qv"), jc, rank=2, alpha=4, seed=2)
@@ -88,14 +88,12 @@ def test_reload_from_fewer_targets_zeroes_the_rest(tmp_path):
     row = trt.row_for("a")
     assert row == jrt.row_for("a") == 1 and trt.row_sig("a") == jrt.row_sig("a") == (1, 2)
     np.testing.assert_array_equal(trt.bank["scale"].numpy(), np.asarray(jrt.bank["scale"]))
+    assert len(tl.LORA_TARGETS) == 7
     for t in tl.LORA_TARGETS:
         for key in (t + "_A", t + "_B"):
-            got, kept = trt.bank[key][:, row].numpy(), np.asarray(jrt.bank[key][:, row])
-            if t in ("wq", "wv"):
-                np.testing.assert_array_equal(got, kept, err_msg=key)
-            else:
-                assert not got.any(), key  # the port: zeroed
-                assert kept.any(), key  # the JAX bank: the old adapter's, kept
+            got, want = trt.bank[key][:, row].numpy(), np.asarray(jrt.bank[key][:, row])
+            assert want.any(), key
+            np.testing.assert_array_equal(got, want, err_msg=key)
 
 
 @pytest.mark.parametrize("x_dtype,bank_dtype", [("float32", "float32"),
