@@ -29,9 +29,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      split-KV tile; at 64 rows its prefill tile timed beside it) at kv
      512 and 2048 over bf16, fp8 and int8 pools and at head dim 32, the
      dedicated kernel at S = 8, 9, 16, 17 and at 128 rows (row groups). The W8A16 kernels at
-     8, 16, 32, 64 and 1024 rows through each projection (both regimes),
-     the heads, the grouped qkv and gate/up launches (equal byte for byte
-     to separate ones) and the float32 instance; two launches must agree
+     8, 16, 32, 64, 256, 1024, 2048 and 8192 rows through each projection
+     (both regimes; 256-8192 are the embeddings' groups), the heads, the
+     grouped qkv and gate/up launches at 8, 64, 1024, 2048 and 8192 rows
+     (equal byte for byte to separate ones) and the float32 instance; two launches must agree
      byte for byte. The families' instances and regimes: flash at
      Gemma-2B's head dim 256 (8 heads over 1) and at Qwen2.5-7B's G = 7
      (28 heads over 4, 63-row tiles), both on the tensor-core tile; the
@@ -110,7 +111,23 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      package's float32 test config serves through the server's command
      line with --quantization int8 --kv-cache-dtype fp8 and then with
      --speculate-tokens 3, its greedy tokens equal to the same engine's on
-     the CPU.
+     the CPU;
+  5. handoff (phase_handoff): the resume protocol between a prefill-role
+     and a decode-role server on Llama-3.1-8B (bf16 ragged, fp8
+     dedicated), and a preemption resumed by unpark;
+  6. serving ops (phase_serving_ops): the engine's operational surface on
+     Llama-3.1-8B (32 layers, 8 slots), bf16 then int8 weights:
+     /v1/embeddings of 8 inputs of 16-1,000 tokens (unit norm, equal to
+     the direct path idle and under 6 decode streams; ms per group,
+     tokens/s, the allocator's peak, in int8 the W8A16 launches the embed
+     added and its vectors against the plain int8 products), a 512-token
+     request past X-Request-Deadline: 0.2 answering 504 beside 3 streams
+     that stay token-identical, a failpoint armed over /debug/faults,
+     n = 4 (seed + i equal to the singles on a float32 test:tiny server),
+     /debug/pipeline's MFU and roofline fraction under load, a 2 s
+     /debug/profile naming the decode kernel (the decode step timed
+     before and after it), and the drain (/readyz 200 -> 503, the stream
+     in flight completes, new work gets 429).
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -130,6 +147,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
@@ -813,8 +831,11 @@ def _family_cases(record) -> None:
 W8A16_SHAPES = (("wq", 4096, 4096), ("wk", 4096, 1024), ("wg", 4096, 14336), ("wd", 14336, 4096))
 VOCAB = 128256
 # Rows: a decode step (8 slots), the regime crossover (16 | 32), an
-# 8-slot verify step of 8 tokens (64), a prefill chunk (1024).
-W8A16_ROWS = (8, 16, 32, 64, 1024)
+# 8-slot verify step of 8 tokens (64), a prefill chunk (1024), and the
+# embeddings' groups (8 x bucket: 256 at bucket 32, 2048 at 256, 8192 at
+# 1024, where the grouped qkv launch takes the 256-column tile).
+W8A16_ROWS = (8, 16, 32, 64, 256, 1024, 2048, 8192)
+W8A16_GROUP_ROWS = (8, 64, 1024, 2048, 8192)
 # The launches that share x (qdot_many), by the model's weight names.
 W8A16_GROUPS = (("qkv", (("wq", 4096, 4096), ("wk", 4096, 1024), ("wv", 4096, 1024))),
                 ("gate_up", (("wg", 4096, 14336), ("wu", 4096, 14336))))
@@ -840,7 +861,7 @@ def _w8a16_cases(record) -> None:
     W8A16_ROWS (decode regime up to 16 rows, the wgmma tile above), decode
     through the untied lm_head and, as qmatT, through a tied head over a
     [128256, 4096] table; the grouped launches of the model (qkv,
-    gate/up) at 8, 64 and 1024 rows, each output equal byte for byte to
+    gate/up) at W8A16_GROUP_ROWS, each output equal byte for byte to
     its own launch; the float32 instance at 8 and 1024 rows. Checked
     against float32 math on the same int8 weights and inputs, and two
     launches against each other (determinism); M <= 64 timed with a cold
@@ -896,7 +917,7 @@ def _w8a16_cases(record) -> None:
                "f32" if f32 else "bf16")
         del x, w, q, s, wb
     for gname, shapes in W8A16_GROUPS:
-        for M in (8, 64, 1024):
+        for M in W8A16_GROUP_ROWS:
             g = torch.Generator(device="cuda").manual_seed(M + len(shapes))
             K = shapes[0][1]
             x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
@@ -1136,17 +1157,25 @@ def _plain_attention():
 
 
 @contextlib.contextmanager
-def _float32_w8a16():
+def _float32_w8a16(halves: bool = False):
     """The model's int8 products as float32 math on the same int8 weights,
     rounded once to bf16 (the kernel's function, summed in another order):
-    the plain path of the int8 parity check. No kernel launches in it."""
+    the plain path of the int8 parity check. With *halves* the untransposed
+    products sum K's two halves apart and then add them (the same
+    function, summed in a third order). No kernel launches in it."""
     from kubeai_tpu_torch.models import llama
     from kubeai_tpu_torch.ops import quant
 
     def dot(x, w):
         if not quant.is_quantized(w):
             return x @ w
-        return ((x.float() @ w["int8_q"].float()) * w["int8_s"].squeeze(-2)).to(x.dtype)
+        q = w["int8_q"]
+        if halves:
+            k = q.shape[0] // 2
+            acc = x[..., :k].float() @ q[:k].float() + x[..., k:].float() @ q[k:].float()
+        else:
+            acc = x.float() @ q.float()
+        return (acc * w["int8_s"].squeeze(-2)).to(x.dtype)
 
     def dot_t(x, w):
         if not quant.is_quantized(w):
@@ -1821,6 +1850,12 @@ def _staggered(eng, prompts, adapters, n=32):
     each with its adapter and EOS banned, each submitted once the one
     before it has its first token: every prefill runs alone (its numbers
     do not depend on timing), and all decode together."""
+    return _collect(_start_staggered(eng, prompts, adapters, n))
+
+
+def _start_staggered(eng, prompts, adapters, n=32) -> list:
+    """_staggered's submissions: [(request, ids, texts)], each with its
+    first token, all still decoding."""
     from kubeai_tpu_torch.engine.sampling import SamplingParams
 
     reqs = []
@@ -1832,6 +1867,11 @@ def _staggered(eng, prompts, adapters, n=32):
             raise AssertionError(f"no first token: {ev}")
         reqs[-1][1].append(ev[1])
         reqs[-1][2].append(ev[2])
+    return reqs
+
+
+def _collect(reqs) -> tuple:
+    """(ids, texts) of _start_staggered's requests, once they finish."""
     for req, ids, text in reqs:
         while True:
             ev = req.out.get(timeout=300)
@@ -2887,6 +2927,452 @@ def _preempt_and_unpark(srv, run) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# The embeddings' 8 inputs (tokens): one of each bucket from 32 to 1024.
+EMBED_LENGTHS = (16, 40, 100, 200, 300, 500, 700, 1000)
+OPS_PROMPTS = ("Tell me a story about a lighthouse keeper.",
+               "List the planets of the solar system in order.",
+               "Explain how a paged KV cache works, briefly.")
+
+
+def _http(port, path, body=None, headers=None, timeout=300) -> tuple:
+    """(status, headers, parsed body or raw SSE text) of a GET (no body)
+    or a POST; HTTP errors are returned, not raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read().decode()
+            return r.status, dict(r.headers), raw if (body or {}).get("stream") else json.loads(raw)
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _embed_checks(srv, run, prompts, direct) -> dict:
+    """/v1/embeddings of *prompts* on the idle running engine: unit
+    norms, equal to the *direct* result (the engine before start); ms per
+    group (8 inputs, one group at bucket 1024, and each input alone, one
+    group at its own bucket), embedded tokens/s, the allocator's peak
+    across the embed and the W8A16 launches the 8-input embed added."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.ops.quant import qdot
+
+    eng = srv.engine
+    st, _, body = _http(srv.port, "/v1/embeddings", {"input": prompts})
+    vecs = np.asarray([d["embedding"] for d in body["data"]], np.float32)
+    if st != 200 or vecs.shape != (len(prompts), eng.model_config.hidden_size):
+        raise AssertionError(f"{run}: /v1/embeddings answered {st}: {vecs.shape}")
+    norms = np.linalg.norm(vecs, axis=1)
+    if not np.all(np.isfinite(vecs)) or np.abs(norms - 1).max() > 1e-4:
+        raise AssertionError(f"{run}: embeddings not of unit norm: {norms}")
+    if not np.allclose(vecs, direct, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"{run}: the running engine's embeddings differ from the direct "
+                             f"path's by {np.abs(vecs - direct).max()}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches0 = qdot.launches
+    t0 = time.monotonic()
+    eng.embed(prompts)
+    wall = time.monotonic() - t0
+    launched = qdot.launches - launches0
+    peak = torch.cuda.max_memory_allocated() - base
+    per_bucket = {}
+    for p in prompts:
+        t0 = time.monotonic()
+        eng.embed([p])
+        per_bucket[eng._bucket(len(p))] = (time.monotonic() - t0) * 1e3
+    tokens = sum(len(p) for p in prompts)
+    return {"group_ms": wall * 1e3, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "group_ms_by_bucket": per_bucket, "single_tokens_per_s": tokens / (
+                sum(per_bucket.values()) / 1e3),
+            "peak_bytes_over_resident": peak, "w8a16_launches": launched}
+
+
+def phase_serving_ops() -> dict:
+    """The engine's operational surface on Llama-3.1-8B at its published
+    widths (32 layers, random weights from seed 0, byte tokenizer, 8
+    slots, the ragged decode kernel), bf16 and then the same weights in
+    int8: /v1/embeddings of 8 inputs of 16-1,000 tokens (unit norm, equal
+    to the engine's direct path before start, idle and under 6 decode
+    streams; ms per group, tokens/s, the allocator's peak; in int8 the
+    W8A16 launches the embed added: 4 a layer, and the kernel's vectors
+    against the plain int8 products'); a 512-token request with
+    X-Request-Deadline: 0.2 answers 504 while 3 greedy streams decode,
+    which stay token-identical to their undisturbed run and leave no
+    page behind; engine.step=delay:0.02 armed over /debug/faults and
+    cleared; n = 4 (four distinct seeded choices, four identical greedy
+    ones, a seeded single the same twice; equality to the singles
+    counted beside the bf16 batch-rounding witness, and required of the
+    float32 test:tiny server); /debug/pipeline under load (MFU and
+    roofline fraction in (0, 1]); a 2 s /debug/profile naming the decode
+    kernel, with the decode step timed before and after it; and the
+    drain (/readyz 200 -> 503, the stream in flight completes, new work
+    is refused)."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch import faults
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.server import EngineServer
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.engine.weights import quantize_model_params
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    t_phase = time.monotonic()
+    os.environ["KUBEAI_DEBUG_FAULTS"] = "1"
+    os.environ["KUBEAI_DEBUG_PROFILE"] = "1"
+    mc = llama_3_1_8b()
+    params = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    g = np.random.default_rng(0)
+    prompts = [[int(t) for t in g.integers(1, 256, n)] for n in EMBED_LENGTHS]
+    ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64)
+    out = {}
+    for run in ("bf16", "int8"):
+        if run == "int8":
+            params = quantize_model_params(params, mc)
+        eng = Engine(mc, params, ByteTokenizer(), ec, device="cuda")
+        direct = eng.embed(prompts)  # the loop is not running: on this thread
+        pre = _int8_embed_parity(eng, prompts, direct) if run == "int8" else \
+            {"batch_rounding": _batch_rounding_witness(eng, N4_BODY)}
+        srv = EngineServer(eng, f"ops-{run}", host="127.0.0.1", port=0)
+        srv.start()
+        try:
+            # The decode chunk's capture before anything is timed.
+            _http(srv.port, "/v1/completions", {"prompt": "warm", "max_tokens": 4})
+            res = {"embed": _embed_checks(srv, run, prompts, direct), **pre}
+            if run == "int8" and res["embed"]["w8a16_launches"] != 4 * mc.num_layers:
+                raise AssertionError(f"int8 embeds launched W8A16 "
+                                     f"{res['embed']['w8a16_launches']} times, not 4 a layer")
+            if run == "bf16":
+                res.update(_ops_under_load(srv, prompts, direct))
+            else:
+                res.update(_ops_profile_and_drain(srv))
+        finally:
+            faults.clear_all()
+            srv.stop()
+        if eng._pool.used():
+            raise AssertionError(f"{run}: {eng._pool.used()} pages still used after the run")
+        out[run] = res
+        log(f"serving_ops[{run}]", gpu_line(), json.dumps(res))
+        del eng, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tiny_n4"] = _tiny_n4()
+    log("serving_ops[tiny_n4]", gpu_line(), json.dumps(out["tiny_n4"]))
+    out["phase_s"] = time.monotonic() - t_phase
+    return out
+
+
+def _int8_embed_parity(eng, prompts, direct) -> dict:
+    """The int8 embeddings (every projection through the W8A16 kernel, at
+    8 x bucket rows) against the same int8 weights through float32 math
+    rounded once to bf16 (_float32_w8a16), and that plain path against
+    itself summed in a third order (K in halves): the kernel may stand
+    no further from the plain path than twice the plain path's own
+    spread under reordering (per vector, the L2 norm of the difference
+    of unit vectors; 32 random layers carry one bf16 rounding's
+    difference to ~1e-2 at the output)."""
+    import numpy as np
+
+    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+
+    t0 = time.monotonic()
+    launches = qdot.launches, qdot_many.launches
+    with _float32_w8a16():
+        plain = eng.embed(prompts)
+    with _float32_w8a16(halves=True):
+        halves = eng.embed(prompts)
+    if (qdot.launches, qdot_many.launches) != launches:
+        raise AssertionError("the plain int8 embed launched the W8A16 kernel")
+    kern = float(np.linalg.norm(direct - plain, axis=1).max())
+    spread = float(np.linalg.norm(halves - plain, axis=1).max())
+    if not np.all(np.isfinite(plain)) or kern > 2 * spread:
+        raise AssertionError(f"int8 embeddings: kernel vs plain {kern}, plain vs plain in "
+                             f"halves {spread}")
+    return {"int8_embed_vs_plain": {"kernel_l2_max": kern, "plain_halves_l2_max": spread,
+                                    "seconds": time.monotonic() - t0}}
+
+
+N4_BODY = {"prompt": "Once upon a time", "max_tokens": 16, "temperature": 0.8, "seed": 5,
+           "logit_bias": {"257": -100}}
+
+
+def _batch_rounding_witness(eng, body) -> dict:
+    """The n = 4 check's first sampled token, outside the engine: the
+    prompt's last logits from one row and from row 0 of four identical
+    rows (the prefill of 4 choices: the same bf16 projections at 4x the
+    rows), then sample()'s token for the body's seed + i, i < 4. The
+    sampling noise is keyed by candidate rank among the top 128, so two
+    candidates that trade places take each other's noise. Reports
+    max|dlogit|, the ranks whose token changed, and how many of the 4
+    sampled tokens and whether the greedy one changed."""
+    import torch
+
+    from kubeai_tpu_torch.engine.sampling import sample
+    from kubeai_tpu_torch.models import llama
+
+    ids = eng.tokenizer.encode(body["prompt"])
+    S = eng._bucket(len(ids))
+    row = torch.zeros((1, S), dtype=torch.int64, device="cuda")
+    row[0, :len(ids)] = torch.tensor(ids, device="cuda")
+    got = {}
+    for B in (1, 4):
+        pos = torch.arange(S, device="cuda")[None, :].expand(B, S)
+        with torch.no_grad():
+            logits, _ = llama.apply(eng.params, eng.model_config, row.expand(B, S), pos,
+                                    logits_idx=torch.full((B,), len(ids) - 1, device="cuda"))
+        lg = logits[:1, -1].float()
+        top = float(lg.abs().max()) if B == 1 else top
+        for t, b in body["logit_bias"].items():
+            lg[:, int(t)] += b
+        toks = sample(lg.expand(4, -1), body["seed"] + torch.arange(4, device="cuda"),
+                      torch.full((4,), len(ids), device="cuda"),
+                      torch.full((4,), body["temperature"], device="cuda"),
+                      torch.ones(4, device="cuda"), torch.zeros(4, dtype=torch.int64,
+                                                                device="cuda"))
+        got[B] = (lg[0], torch.topk(lg[0], 128).indices, toks, int(lg[0].argmax()))
+    (l1, r1, s1, g1), (l4, r4, s4, g4) = got[1], got[4]
+    return {"max_abs_dlogit": float((l1 - l4).abs().max()),
+            "max_abs_logit": top,
+            "top128_ranks_changed": int((r1 != r4).sum()),
+            "sampled_tokens_changed": int((s1 != s4).sum()), "greedy_token_changed": g1 != g4}
+
+
+def _tiny_n4() -> dict:
+    """n = 4 on the float32 test configuration served on the card
+    (--model test:tiny): choice i equals a single request with seed + i,
+    as it does on the CPU, and the greedy choices equal a greedy single."""
+    import torch
+
+    from kubeai_tpu_torch.engine.server import (
+        EngineServer,
+        build_engine_from_args,
+        make_arg_parser,
+    )
+
+    t0 = time.monotonic()
+    args = make_arg_parser().parse_args([
+        "--model", "test:tiny", "--host", "127.0.0.1", "--port", "0", "--max-slots", "4",
+        "--max-seq-len", "512"])
+    eng, name = build_engine_from_args(args)
+    srv = EngineServer(eng, name, host=args.host, port=args.port)
+    srv.start()
+    try:
+        body = {**N4_BODY, "max_tokens": 32}
+        _, _, multi = _http(srv.port, "/v1/completions", {**body, "n": 4})
+        singles = [_http(srv.port, "/v1/completions", {**body, "seed": body["seed"] + i})[2]
+                   ["choices"][0]["text"] for i in range(4)]
+        seeded = [c["text"] for c in multi["choices"]]
+        greedy = {**body, "temperature": 0}
+        _, _, gmulti = _http(srv.port, "/v1/completions", {**greedy, "n": 4})
+        gsingle = _http(srv.port, "/v1/completions", greedy)[2]["choices"][0]["text"]
+    finally:
+        srv.stop()
+    gtexts = [c["text"] for c in gmulti["choices"]]
+    if seeded != singles or len(set(seeded)) != 4 or gtexts != [gsingle] * 4:
+        raise AssertionError(f"test:tiny n = 4: seeded {seeded} singles {singles}; "
+                             f"greedy {gtexts} single {gsingle!r}")
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seeded_equal_to_singles": 4, "greedy_equal_to_single": True,
+            "seconds": time.monotonic() - t0}
+
+
+def _ops_under_load(srv, prompts, direct) -> dict:
+    """The bf16 run's checks with streams decoding (see phase_serving_ops)."""
+    import numpy as np
+
+    eng = srv.engine
+    res = {}
+    # Embeddings under 6 decode streams: equal to the direct path.
+    streams = _start_staggered(eng, [OPS_PROMPTS[i % 3] + f" ({i})" for i in range(6)],
+                               [None] * 6, n=256)
+    st, _, body = _http(srv.port, "/v1/embeddings", {"input": prompts})
+    loaded = np.asarray([d["embedding"] for d in body["data"]], np.float32)
+    # The X-ray under the same load: MFU and the roofline fraction.
+    time.sleep(0.5)
+    _, _, pipe = _http(srv.port, "/debug/pipeline")
+    _collect(streams)
+    if st != 200 or not np.allclose(loaded, direct, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"embeddings under load differ: {st}")
+    if not (0 < pipe["mfu"] <= 1 and 0 < pipe["roofline_fraction"] <= 1):
+        raise AssertionError(f"/debug/pipeline under load: {pipe}")
+    res["pipeline"] = {k: pipe[k] for k in ("mfu", "roofline_fraction", "tokens_per_second",
+                                            "dominant_cause", "coverage") if k in pipe}
+    res["pipeline"]["causes"] = {k: v["fraction"] for k, v in pipe["causes"].items()}
+    # Deadline: 3 streams undisturbed, then again beside a 512-token
+    # request whose 0.2 s budget ends in a 504.
+    three = list(OPS_PROMPTS)
+    ref_ids, _ = _collect(_start_staggered(eng, three, [None] * 3, n=192))
+    streams = _start_staggered(eng, three, [None] * 3, n=192)
+    t0 = time.monotonic()
+    st, _, body = _http(srv.port, "/v1/completions",
+                        {"prompt": [int(t) for t in np.random.default_rng(1).integers(1, 256, 512)],
+                         "max_tokens": 1000, "temperature": 0},
+                        headers={"X-Request-Deadline": "0.2"})
+    t_504 = time.monotonic() - t0
+    freed = _await_cond(lambda: eng.requests_in_system() == 3, 30)
+    used = eng._pool.used()
+    held = sum(len(eng._slot_pages[i]) for i, s in enumerate(eng._slots) if s is not None)
+    ids, _ = _collect(streams)
+    if st != 504 or body["error"]["type"] != "timeout_error":
+        raise AssertionError(f"deadline request answered {st}: {body}")
+    if not freed or used != held or ids != ref_ids:
+        raise AssertionError(f"deadline abort disturbed the others: freed={freed} used={used} "
+                             f"held={held} same_tokens={ids == ref_ids}")
+    res["deadline"] = {"status": st, "seconds_to_504": t_504, "pool_used_beside": used,
+                       "pages_of_the_others": held, "others_identical": True}
+    # A failpoint over /debug/faults: armed, fired, cleared; serving resumes.
+    t0 = time.monotonic()
+    _http(srv.port, "/v1/completions", {"prompt": "ping", "max_tokens": 16, "temperature": 0})
+    clean_s = time.monotonic() - t0
+    st, _, doc = _http(srv.port, "/debug/faults?set=engine.step=delay:0.02")
+    t0 = time.monotonic()
+    _http(srv.port, "/v1/completions", {"prompt": "ping", "max_tokens": 16, "temperature": 0})
+    slowed_s = time.monotonic() - t0
+    fired = [f for f in _http(srv.port, "/debug/faults")[2]["faults"]
+             if f["name"] == "engine.step"]
+    st2, _, cleared = _http(srv.port, "/debug/faults?clear=all")
+    after = _http(srv.port, "/v1/completions", {"prompt": "ping", "max_tokens": 16,
+                                                "temperature": 0})
+    if st != 200 or not fired or fired[0]["fired"] < 1 or cleared["faults"] or after[0] != 200:
+        raise AssertionError(f"failpoint over /debug/faults: {st} {fired} {cleared} {after[0]}")
+    res["failpoint"] = {"fired": fired[0]["fired"], "request_s_clean": clean_s,
+                        "request_s_delayed": slowed_s}
+    # n = 4: four seeded choices (seed + i: distinct streams), four
+    # identical greedy ones. Choice i equals a single request with
+    # seed + i on the CPU (tests/test_torch_containment.py) and on the
+    # card in float32 (_tiny_n4); here the 4 choices' prefill runs the
+    # bf16 projections at 4x the rows, so equality to the singles, and a
+    # greedy single's to the greedy choices, is only counted, beside the
+    # witness of that rounding (_batch_rounding_witness).
+    body = {**N4_BODY, "logprobs": 1}
+    _, _, multi = _http(srv.port, "/v1/completions", {**body, "n": 4})
+    single_choices = [_http(srv.port, "/v1/completions", {**body, "seed": 5 + i})[2]["choices"][0]
+                      for i in range(4)]
+    singles = [c["text"] for c in single_choices]
+    again = _http(srv.port, "/v1/completions", body)[2]["choices"][0]["text"]
+    seeded = [c["text"] for c in multi["choices"]]
+    # The first position: the token each got, and its logprob (the
+    # prefill's logits, batched or alone).
+    firsts = [(c["logprobs"]["tokens"][0], c["logprobs"]["token_logprobs"][0])
+              for c in multi["choices"]]
+    single_firsts = [(c["logprobs"]["tokens"][0], c["logprobs"]["token_logprobs"][0])
+                     for c in single_choices]
+    same_first = [abs(a[1] - b[1]) for a, b in zip(firsts, single_firsts) if a[0] == b[0]]
+    _, _, greedy = _http(srv.port, "/v1/completions", {**body, "temperature": 0, "n": 4})
+    gtexts = [c["text"] for c in greedy["choices"]]
+    gsingle_choice = _http(srv.port, "/v1/completions", {**body, "temperature": 0})[2]["choices"][0]
+    gsingle = gsingle_choice["text"]
+    if ([c["index"] for c in multi["choices"]] != [0, 1, 2, 3] or len(set(seeded)) != 4
+            or multi["usage"]["completion_tokens"] != 64 or len(set(gtexts)) != 1
+            or greedy["usage"]["completion_tokens"] != 64 or again != singles[0]):
+        raise AssertionError(f"n = 4: seeded {seeded}; greedy {gtexts}; a single twice "
+                             f"{[singles[0], again]}")
+    res["n4"] = {"seeded_distinct": len(set(seeded)), "greedy_identical": True,
+                 "single_repeated_identical": True,
+                 "seeded_equal_to_singles": sum(a == b for a, b in zip(seeded, singles)),
+                 "first_token_equal_to_singles": len(same_first),
+                 "first_logprob_max_abs_diff": max(same_first, default=None),
+                 "greedy_equal_to_single": gtexts[0] == gsingle,
+                 "greedy_first_logprob_abs_diff": abs(
+                     greedy["choices"][0]["logprobs"]["token_logprobs"][0]
+                     - gsingle_choice["logprobs"]["token_logprobs"][0])}
+    return res
+
+
+def _await_cond(cond, timeout) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.01)
+    return cond()
+
+
+def _decode_step_ms(srv, n=64) -> dict:
+    """One greedy *n*-token stream alone: the median, over its graphed
+    chunks in chunk_log, of the wall (dispatch to fetch) and the device
+    time per decode step."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    _stream(srv.port, {"prompt": "step timing", "max_tokens": n, "temperature": 0})
+    log_ = [e for e in list(srv.engine.chunk_log)
+            if e["fetched_at"] > t0 and e["graph"] and e["slots"] == 1]
+    if not log_:
+        raise AssertionError("no graphed chunk of the timing stream in chunk_log")
+    dev = [e["device_ms"] / e["steps"] for e in log_ if e["device_ms"] is not None]
+    return {"chunks": len(log_),
+            "wall_ms": float(np.median([e["dur_ms"] / e["steps"] for e in log_])),
+            "device_ms": float(np.median(dev)) if dev else None}
+
+
+def _ops_profile_and_drain(srv) -> dict:
+    """The int8 run's end (see phase_serving_ops): a torch.profiler
+    session slows a process's later launches, so it comes last, then the
+    drain, which stops the server."""
+    from kubeai_tpu_torch.obs.perf import default_profiler
+
+    res = {"decode_step_before_profile": _decode_step_ms(srv)}
+    # The window opens on an idle engine; a 32-token stream then decodes
+    # inside it (4 chunks: a trace of a few tens of MB, where 2 s of
+    # decode write ~285 MB and take ~20 s to export).
+    got = {}
+    prof = threading.Thread(target=lambda: got.setdefault(
+        "p", _http(srv.port, "/debug/profile?seconds=2")), daemon=True)
+    t0 = time.monotonic()
+    prof.start()
+    _await_cond(default_profiler._lock.locked, 10)
+    time.sleep(0.5)
+    _stream(srv.port, {"prompt": "profile me", "max_tokens": 32})
+    prof.join(timeout=120)
+    wall = time.monotonic() - t0
+    st, _, doc = got["p"]
+    with open(doc["trace"], "rb") as f:
+        trace = f.read()
+    if st != 200 or doc["activities"] != ["cpu", "cuda"] or b"paged_decode_mma_kernel" not in trace:
+        raise AssertionError(f"/debug/profile: {st} {doc}")
+    res["profile"] = {"wall_s": wall, "trace_bytes": len(trace),
+                      "decode_kernel_events": trace.count(b"paged_decode_mma_kernel")}
+    shutil.rmtree(doc["trace_dir"], ignore_errors=True)
+    # What the capture costs the process's later decode (reported).
+    res["decode_step_after_profile"] = _decode_step_ms(srv)
+    # The drain: /readyz 200 -> 503, the stream in flight completes, new
+    # work is refused with the JAX server's 429.
+    ready = _http(srv.port, "/readyz")[0]
+    got = {}
+    stream = threading.Thread(target=lambda: got.setdefault("r", _stream(
+        srv.port, {"prompt": "drain me", "max_tokens": 64})), daemon=True)
+    stream.start()
+    _await_cond(lambda: srv.engine.active_slots() == 1, 30)
+    t0 = time.monotonic()
+    drain = threading.Thread(target=srv.drain, args=(60.0,), daemon=True)
+    drain.start()
+    _await_cond(srv.draining.is_set, 10)
+    draining = _http(srv.port, "/readyz")[0]
+    refused = _http(srv.port, "/v1/completions", {"prompt": "late", "max_tokens": 4})
+    stream.join(timeout=120)
+    drain.join(timeout=120)
+    text, reason, times = got.get("r", ("", None, []))
+    if (ready, draining, refused[0]) != (200, 503, 429) or reason != "length" \
+            or len(times) != 64 or drain.is_alive() or not srv.stopped_event.is_set():
+        raise AssertionError(f"drain: readyz {ready}->{draining}, new work {refused[0]}, "
+                             f"stream {reason} after {len(times)} tokens")
+    res["drain"] = {"readyz": [ready, draining], "new_request": refused[0],
+                    "inflight_tokens": len(times), "drain_s": time.monotonic() - t0}
+    return res
+
+
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
 # belongs to: the default ragged-decode path, --decode-kernel dedicated,
 # --quantization int8, --kv-cache-dtype fp8 (ragged), --kv-cache-dtype
@@ -2996,6 +3482,9 @@ def main() -> int:
     t5 = time.monotonic()
     serving.update(phase_handoff())
     log(f"handoff phase: {time.monotonic() - t5:.1f}s")
+    t6 = time.monotonic()
+    phase_serving_ops()
+    log(f"serving_ops phase: {time.monotonic() - t6:.1f}s")
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

@@ -48,6 +48,21 @@ A slim port of the JAX engine's serving path:
   imports it instead of re-running the prefill, and enters the decode
   chunk through the admission merge, as a prefill does. Any failure
   falls back to the deterministic replay;
+- **embeddings** (:meth:`Engine.embed`): mean-pooled, L2-normalised
+  final hidden states of up to ``max_slots`` prompts a group, each group
+  run on the scheduler thread between decode chunks (eagerly, on the
+  engine's stream; it touches no pool page and no decode state);
+- **deadlines**: a request past its end-to-end deadline never takes a
+  slot, and a decoding one is aborted through the cancel path (its
+  chunk in flight is dropped by the dispatch snapshot, its pages return
+  after that chunk is fetched);
+- **failpoints** (kubeai_tpu_torch/faults.py) at the JAX sites:
+  ``engine.submit``, ``engine.step``, ``engine.kv_export``,
+  ``engine.kv_import``;
+- every request carries a trace (obs/trace.py); its terminal accounting
+  (``_finish_request``) feeds the latency histograms and the flight
+  recorder, which also keeps one step record per decode chunk and
+  prefill; the stall tracker and rate window feed ``pipeline_report``;
 - :meth:`Engine.warmup` runs every step shape before serving (the
   server's ``--warmup``);
 - one scheduler thread owns the device state and runs every device call
@@ -58,14 +73,17 @@ A slim port of the JAX engine's serving path:
 On the CPU the same loop runs the chunk eagerly (the tests), and on CUDA
 too when the caller passes ``cuda_graphs=False``.
 
-Metrics: the scheduling gauges the operator's autoscaler scrapes
-(``kubeai_engine_queue_depth``, ``kubeai_engine_active_slots``), the
-slot and page gauges and the ``kubeai_kv_*`` and ``kubeai_qos_*``
-series, in kubeai_tpu_torch/metrics.py's registry.
+Metrics: the JAX engine's families under its names, types and buckets
+(queue, slot, page and HBM gauges, the TTFT / queue-wait / prefill /
+TPOT / e2e / step histograms, token, request, prefix and slot-step
+counters, goodput, MFU and roofline gauges), with the ``kubeai_kv_*``
+and ``kubeai_qos_*`` series, in kubeai_tpu_torch/metrics.py's registry.
+``kubeai_engine_jit_recompiles_total`` has no counterpart: the port
+counts decode-graph captures as ``kubeai_engine_graph_captures_total``.
 
-Left for later slices (ROADMAP queue 1): embeddings, gangs, deadlines,
-draining, fault injection, tracing, the debug routes, n > 1 and CUDA
-graphs for prefill.
+Left for later slices (ROADMAP queue 1): gangs (and the profile
+fan-out, ``broadcast_profile``), the tenant accountant, CUDA graphs for
+prefill.
 """
 
 from __future__ import annotations
@@ -73,7 +91,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
-import logging
 import queue
 import threading
 import time
@@ -95,6 +112,7 @@ from kubeai_tpu_torch.engine.sampling import (
     sample,
 )
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer, IncrementalDetokenizer
+from kubeai_tpu_torch.faults import FaultError, fault, set_thread_scope
 from kubeai_tpu_torch.metrics import default_registry
 from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.base import (
@@ -105,6 +123,14 @@ from kubeai_tpu_torch.models.base import (
     mixtral_8x7b,
     qwen2_5_7b,
 )
+from kubeai_tpu_torch.obs import perf as perf_obs
+from kubeai_tpu_torch.obs.logs import get_logger, trace_extra
+from kubeai_tpu_torch.obs.recorder import (
+    default_recorder,
+    register_engine_debug_section,
+    unregister_engine_debug_section,
+)
+from kubeai_tpu_torch.obs.trace import RequestTrace, TraceContext
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.flash_attention import flash_attention
 from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
@@ -114,8 +140,11 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
 )
 from kubeai_tpu_torch.ops.quant import qdot, qdot_many
 from kubeai_tpu_torch.qos import QoSQueue, record_admitted, record_preemption
+from kubeai_tpu_torch.qos.stats import install_queue, uninstall_queue
 
-log = logging.getLogger("kubeai_tpu_torch.engine")
+# The scheduler thread serves many requests, so its per-request log
+# lines stamp the request's trace explicitly (extra=trace_extra(...)).
+log = get_logger("kubeai_tpu_torch.engine")
 
 
 @dataclass
@@ -174,6 +203,15 @@ class Request:
     cancelled: threading.Event = field(default_factory=threading.Event)
     adapter: str | None = None  # a loaded LoRA adapter's name
     arrival: float = field(default_factory=time.monotonic)
+    # Absolute end-to-end deadline (time.monotonic()): a request past it
+    # never takes a slot, and a decoding one is aborted (outcome
+    # cancelled) instead of decoding for a caller that gave up.
+    deadline: float | None = None
+    # Lifecycle stamps (obs/trace.py), assembled by the flight recorder.
+    trace: RequestTrace | None = None
+    # Set once by _finish_request (under the engine's lock): a request
+    # two threads finish at once is accounted once.
+    finished: bool = False
     # The proxy's hashed tenant id: the queue's fair lane ("" = anonymous).
     tenant: str = ""
     # QoS class: queue lane, shedding and preemption.
@@ -295,6 +333,18 @@ def _add_counts(delta: dict) -> None:
             setattr(fn, k, cur + d)
 
 
+def _param_bytes(tree) -> int:
+    """Bytes of every tensor in a parameter tree (int8 values and their
+    scales as stored)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.nbytes
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_param_bytes(v) for v in tree)
+    return 0
+
+
 class _ChunkGraph:
     """A decode chunk captured as one CUDA graph: its static outputs and
     the launches its capture counted, which every replay counts again
@@ -387,6 +437,13 @@ class Engine:
             getattr(tokenizer, "vocab_size", model_config.vocab_size), model_config.vocab_size
         )
         self.cuda_graphs = bool(cuda_graphs) and self._cuda
+        # Set by EngineServer.start(): the scheduler thread's failpoint
+        # scope (engine.step@PORT and the other sites' twins).
+        self.fault_scope: str | None = None
+        # Requests submit() accepted with no terminal accounting yet:
+        # drain's idle signal (queue + slots misses mid-admission).
+        self._in_system = 0
+        self._in_system_lock = threading.Lock()
         # Every device call of the engine (prefill, upload, replay, host
         # copies) runs on this stream, in the order the scheduler issues
         # it; a graph is captured on a stream of its own, whose kernel
@@ -430,20 +487,106 @@ class Engine:
             self._init_state()
 
     def _init_metrics(self) -> None:
-        """The engine's gauges (the JAX engine's names and help strings).
-        Occupancy gauges are callback gauges, evaluated at render; stop()
-        unbinds them so the process-wide registry does not pin this
-        engine's pool."""
-        self.m_queue = default_registry.gauge(
-            "kubeai_engine_queue_depth", "requests waiting for a slot")
-        self.m_active = default_registry.gauge(
-            "kubeai_engine_active_slots", "decode slots in use")
-        self.m_slots_total = default_registry.gauge(
+        """The engine's metrics: the JAX engine's names, types, help
+        strings and buckets. Occupancy, HBM, MFU and roofline gauges are
+        callback gauges, evaluated at render; stop() unbinds them so the
+        process-wide registry does not pin this engine's pool."""
+        reg = default_registry
+        self.m_queue = reg.gauge("kubeai_engine_queue_depth", "requests waiting for a slot")
+        self.m_active = reg.gauge("kubeai_engine_active_slots", "decode slots in use")
+        self.m_slots_total = reg.gauge(
             "kubeai_engine_slots_total", "configured decode slot capacity")
         self.m_slots_total.set(self.cfg.max_slots)
         self.m_queue.set(0)
         self.m_active.set(0)
-        pages = (
+        self.m_gen = reg.counter("kubeai_engine_generated_tokens_total", "tokens generated")
+        self.m_prefill = reg.counter(
+            "kubeai_engine_prefill_tokens_total", "prompt tokens prefilled")
+        self.m_ttft = reg.histogram(
+            "kubeai_engine_ttft_seconds",
+            "submit to first emitted token (true TTFT: queue wait + prefill "
+            "+ first-token round-trip)")
+        self.m_requests = reg.counter(
+            "kubeai_engine_requests_total",
+            "terminal request events by outcome (ok|error|cancelled)")
+        self.m_queue_wait = reg.histogram(
+            "kubeai_engine_queue_wait_seconds",
+            "submit to prefill dispatch (slot + KV page wait)")
+        self.m_prefill_s = reg.histogram(
+            "kubeai_engine_prefill_seconds", "prefill dispatch to first emitted token")
+        self.m_tpot = reg.histogram(
+            "kubeai_engine_tpot_seconds", "inter-token latency during decode",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5))
+        self.m_e2e = reg.histogram(
+            "kubeai_request_e2e_seconds", "request end-to-end latency by terminal outcome",
+            buckets=(0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120))
+        self.m_prefix_cached = reg.counter(
+            "kubeai_engine_prefix_cached_tokens_total",
+            "prompt tokens skipped via shared-prefix page reuse")
+        self.m_prefix_lookup = reg.counter(
+            "kubeai_engine_prefix_lookup_tokens_total",
+            "prompt tokens offered to the shared-prefix cache lookup at "
+            "admission (denominator for the prefix hit ratio; 0 growth = "
+            "prefix caching disabled)")
+        self.m_cached_evictions = reg.counter(
+            "kubeai_engine_kv_cached_evictions_total",
+            "reusable cached KV pages evicted by allocation pressure "
+            "(LRU; sustained growth means the prefix cache is thrashing)")
+        self._evictions_seen = 0
+        self.m_step = reg.histogram(
+            "kubeai_engine_step_seconds",
+            "scheduler step wall time by phase. decode_chunk = chunk TURNAROUND "
+            "(dispatch to results consumed — the pipelined loop overlaps host "
+            "work, admissions, and the next dispatch inside it; the pure host "
+            "wait is the step record's fetch_wait_ms); prefill_* = dispatch call")
+        self.m_slot_steps = reg.counter(
+            "kubeai_engine_slot_steps_total",
+            "fused decode slot-steps by state; batch utilization = "
+            "active / (active + idle)")
+        self.m_pad_prefill = reg.counter(
+            "kubeai_engine_prefill_padded_tokens_total",
+            "prompt positions computed as bucket/batch padding (prefill waste; "
+            "compare against kubeai_engine_prefill_tokens_total)")
+        self.m_tok_rate = reg.gauge(
+            "kubeai_engine_tokens_per_second",
+            "decode goodput over the most recent chunks (0 when idle)")
+        # The counterpart of kubeai_engine_jit_recompiles_total: the port
+        # compiles no step function; what it builds per shape is the
+        # decode chunk's CUDA graph, so it counts those captures.
+        self.m_captures = reg.counter(
+            "kubeai_engine_graph_captures_total",
+            "decode-chunk CUDA graph captures (warmup's included; growth after "
+            "warmup means the graphs were dropped and captured again)")
+        self.m_spec_drafted = reg.counter(
+            "kubeai_engine_speculative_drafted_total", "draft tokens proposed")
+        self.m_spec_accepted = reg.counter(
+            "kubeai_engine_speculative_accepted_total", "draft tokens accepted")
+        weight_bytes = _param_bytes(self.params)
+        # One process, tp = 1: every parameter byte is resident here.
+        reg.gauge("kubeai_engine_param_bytes_global", "total model parameter bytes"
+                  ).set(weight_bytes)
+        reg.gauge("kubeai_engine_param_bytes_local", "parameter bytes resident on this rank"
+                  ).set(weight_bytes)
+        # Live roofline / MFU accounting (obs/perf.py): FLOPs per token
+        # from the config, weight bytes measured off the parameters (int8
+        # values and their scales as stored), the card's peaks.
+        self.perf = perf_obs.PerfModel.from_model_config(
+            self.model_config, weight_bytes=weight_bytes)
+        self.perf_env = perf_obs.detect_device(self.device)
+        self._rate_window = perf_obs.TokenRateWindow(span=10.0)
+        self._stall = perf_obs.PipelineStallTracker()
+        gauges = (
+            ("kubeai_engine_hbm_used_bytes", "accelerator memory in use",
+             lambda: float(self._hbm_stats()[0])),
+            ("kubeai_engine_hbm_limit_bytes", "accelerator memory capacity",
+             lambda: float(self._hbm_stats()[1])),
+            ("kubeai_engine_mfu",
+             "model FLOPs utilization (fraction of device peak) at the "
+             "current decode rate window; 0 on unknown devices/CPU", lambda: self._mfu()),
+            ("kubeai_engine_roofline_fraction",
+             "current decode rate as a fraction of the weight-read "
+             "roofline at the configured slot count; 0 on unknown devices",
+             lambda: self._roofline_fraction()),
             ("kubeai_engine_kv_pages_used", "KV pool pages referenced by live slots",
              lambda: float(self._pool.used())),
             ("kubeai_engine_kv_pages_cached", "free KV pages retaining reusable prefixes",
@@ -456,8 +599,89 @@ class Engine:
              "kubeai_engine_kv_pages_used so parked state never reads as "
              "live KV pressure", lambda: float(self._pool.parked_pages())),
         )
-        self._gauge_callbacks = [(default_registry.callback_gauge(name, help_, fn), fn)
-                                 for name, help_, fn in pages]
+        self._gauge_callbacks = [(reg.callback_gauge(name, help_, fn), fn)
+                                 for name, help_, fn in gauges]
+        # One bound method kept for the register / unregister identity.
+        self._perf_section_fn = self._perf_debug_section
+        register_engine_debug_section("perf", self._perf_section_fn)
+
+    def _hbm_stats(self) -> tuple[int, int]:
+        """(used, capacity) bytes of the engine's card (cudaMemGetInfo:
+        every process's allocations); (0, 0) on the CPU."""
+        if not self._cuda:
+            return 0, 0
+        free, total = torch.cuda.mem_get_info(self.device)
+        return total - free, total
+
+    # -- perf X-ray --------------------------------------------------------
+
+    def _mfu(self) -> float:
+        return self.perf.mfu(self.m_tok_rate.value(), self.perf_env.peak_flops)
+
+    def _roofline_fraction(self) -> float:
+        roof = self.perf.roofline_tokens_per_sec(self.cfg.max_slots, self.perf_env.hbm_gbps)
+        return self.m_tok_rate.value() / roof if roof else 0.0
+
+    def _perf_debug_section(self) -> dict:
+        """The ``perf`` block of /debug/engine: live rate, MFU, roofline
+        context and the windowed stall summary."""
+        env = self.perf_env
+        roof = self.perf.roofline_tokens_per_sec(self.cfg.max_slots, env.hbm_gbps)
+        return {
+            "tokens_per_second": self.m_tok_rate.value(),
+            "mfu": round(self._mfu(), 5),
+            "roofline_fraction": round(self._roofline_fraction(), 5),
+            "roofline_toks_per_sec": round(roof, 1) if roof else None,
+            "flops_per_token": self.perf.flops_per_token,
+            "weight_bytes": self.perf.weight_bytes,
+            "device": env.kind,
+            "devices": 1,
+            "peak_flops": env.peak_flops,
+            "hbm_gbps": env.hbm_gbps,
+            "stall": self._stall.report(),
+        }
+
+    def pipeline_report(self) -> dict:
+        """The GET /debug/pipeline payload: windowed stall attribution
+        with the live MFU and roofline context."""
+        report = self._stall.report()
+        report["mfu"] = round(self._mfu(), 5)
+        report["roofline_fraction"] = round(self._roofline_fraction(), 5)
+        report["tokens_per_second"] = self.m_tok_rate.value()
+        return report
+
+    # -- terminal accounting -----------------------------------------------
+
+    def _finish_request(self, req: Request, outcome: str, **attrs) -> None:
+        """Terminal accounting of every request submit() accepted: the
+        outcome counter, the per-phase histograms from its trace and the
+        flight recorder's handoff (spans are assembled on the recorder's
+        thread). A request is accounted once, whichever thread gets here
+        first."""
+        with self._in_system_lock:
+            if req.finished:
+                return
+            req.finished = True
+            self._in_system -= 1
+        self.m_requests.inc(labels={"outcome": outcome})
+        tr = req.trace
+        if tr is None:
+            return
+        tr.finish(outcome, **attrs)
+        end = tr.end_mono
+        t_prefill = tr.first_mark("prefill")
+        # Queue wait ends at the prefill call; a request that never
+        # reached a slot waited its whole life.
+        self.m_queue_wait.observe((t_prefill if t_prefill is not None else end) - tr.t0_mono)
+        if t_prefill is not None:
+            self.m_prefill_s.observe((tr.tokens[0] if tr.tokens else end) - t_prefill)
+        self.m_e2e.observe(end - tr.t0_mono, labels={"outcome": outcome})
+        # TPOT is O(tokens) observes: the recorder's thread does them.
+        default_recorder.submit(tr, observe=self._observe_tpot)
+
+    def _observe_tpot(self, tr: RequestTrace) -> None:
+        for a, b in zip(tr.tokens, tr.tokens[1:]):
+            self.m_tpot.observe(b - a)
 
     # -- state -------------------------------------------------------------
 
@@ -549,6 +773,7 @@ class Engine:
             self._running = True
             return
         self._running = True
+        install_queue(self._queue)  # /debug/qos reads the live queue
         self._thread = threading.Thread(target=self._loop, name="engine-loop", daemon=True)
         self._thread.start()
 
@@ -561,8 +786,12 @@ class Engine:
                 log.warning("engine loop did not exit; skipping in-flight cleanup")
                 return
         self._fail_inflight("engine shutting down")
+        # Unbind this engine from the process-wide registries (only where
+        # it is still the owner): they must not pin its pool.
         for gauge, fn in self._gauge_callbacks:
             gauge.clear_callback(fn)
+        unregister_engine_debug_section("perf", self._perf_section_fn)
+        uninstall_queue(self._queue)
         # The graphs and their pool die with the engine's serving life (a
         # later start() captures anew), once the last chunk has run.
         if self._cuda:
@@ -576,20 +805,31 @@ class Engine:
     def queue_depth(self) -> int:
         return self._queue.qsize() + len(self._deferred)
 
+    def requests_in_system(self) -> int:
+        """Requests submit() accepted with no terminal event yet: queued,
+        deferred, mid-admission or decoding (drain's idle signal)."""
+        with self._in_system_lock:
+            return self._in_system
+
     def active_slots(self) -> int:
         return self._n_active
 
     def submit(self, prompt_ids: list[int], params: SamplingParams,
-               adapter: str | None = None, tenant: str = "", priority: str = "standard",
+               adapter: str | None = None, trace_ctx: TraceContext | None = None,
+               deadline: float | None = None, tenant: str = "", priority: str = "standard",
                preemptible: bool = False, park_kv: str = "", restore: Any = None,
                restore_key: str = "") -> Request:
         """Enqueue a request (with the LoRA *adapter* of that name); raises
         queue.Full when its class is shed, ValueError for a prompt that
         cannot fit or an adapter that is not loaded, RuntimeError when not
-        running. *priority*, *tenant* and *preemptible* place it in the QoS
-        queue; *park_kv* parks its KV at a preempted or handoff-capped
-        finish; *restore* (a kvstate.RestoreState, from the park store
-        under *restore_key* on this replica) admits it by page import."""
+        running. *trace_ctx* joins the request to an inbound trace (a
+        fresh one otherwise); *deadline* (time.monotonic()) aborts it,
+        queued or decoding, once passed. *priority*, *tenant* and
+        *preemptible* place it in the QoS queue; *park_kv* parks its KV
+        at a preempted or handoff-capped finish; *restore* (a
+        kvstate.RestoreState, from the park store under *restore_key* on
+        this replica) admits it by page import."""
+        fault("engine.submit")
         max_prompt = min(
             self.cfg.max_seq_len, (self._pool.num_pages - 1) * self.cfg.page_size
         ) - 1
@@ -604,19 +844,40 @@ class Engine:
         if not self._kv_enabled():
             park_kv, restore, restore_key = "", None, ""
         req = Request(prompt_ids=list(prompt_ids), params=params, adapter=adapter or None,
-                      tenant=tenant, priority=priority, preemptible=preemptible,
-                      park_kv=park_kv, restore=restore, restore_key=restore_key)
-        self._queue.put_nowait(req)
-        if not self._running:  # raced stop(): never strand the caller
+                      deadline=deadline, tenant=tenant, priority=priority,
+                      preemptible=preemptible, park_kv=park_kv, restore=restore,
+                      restore_key=restore_key)
+        req.trace = RequestTrace(ctx=trace_ctx, component="engine", t0_mono=req.arrival)
+        req.trace.attrs["prompt_tokens"] = len(prompt_ids)
+        req.trace.attrs["priority"] = priority
+        if tenant:
+            req.trace.attrs["tenant"] = tenant
+        with self._in_system_lock:
+            self._in_system += 1
+        try:
+            self._queue.put_nowait(req)
+        except queue.Full:
+            with self._in_system_lock:
+                self._in_system -= 1
+            raise
+        if not self._running:
+            # Raced stop(): its queue drain may have run before the put.
+            # Never strand the caller (a doubled terminal is harmless:
+            # consumers take the first, _finish_request dedupes).
             req.out.put(("error", "engine shutting down"))
+            self._finish_request(req, "error", error="engine shutting down")
+            return req
         self.m_queue.set(self.queue_depth())
         self._wake.set()
         return req
 
     def generate(self, prompt_ids: list[int], params: SamplingParams, timeout: float = 300,
                  adapter: str | None = None):
-        """Blocking wrapper: returns (token_ids, text, FinishInfo)."""
-        req = self.submit(prompt_ids, params, adapter=adapter)
+        """Blocking wrapper: returns (token_ids, text, FinishInfo). The
+        *timeout* is also the request's deadline: a timed-out generate()
+        frees its slot."""
+        req = self.submit(prompt_ids, params, adapter=adapter,
+                          deadline=time.monotonic() + timeout)
         ids: list[int] = []
         chunks: list[str] = []
         deadline = time.monotonic() + timeout
@@ -636,6 +897,57 @@ class Engine:
                 return ids, "".join(chunks), ev[1]
             else:
                 raise RuntimeError(ev[1])
+
+    # -- embeddings --------------------------------------------------------
+
+    def embed(self, prompts: list[list[int]]) -> np.ndarray:
+        """[N, hidden] float32: each prompt's final hidden states (after
+        the final norm), mean-pooled over its tokens and L2-normalised
+        (the JAX ``Engine.embed``; the catalog's TextEmbedding feature).
+        Prompts go in groups of ``max_slots``, each padded to its bucket
+        and to ``max_slots`` rows. While the loop runs, each group is a
+        scheduler thunk between decode chunks (queued together, run one
+        an iteration); otherwise it runs here. Raises ValueError for a
+        prompt longer than the largest bucket."""
+        max_prompt = max(self.cfg.prefill_buckets)
+        B = self.cfg.max_slots
+        groups = []
+        for start in range(0, len(prompts), B):
+            group = prompts[start : start + B]
+            longest = max(len(p) for p in group)
+            if longest > max_prompt:
+                raise ValueError(f"embedding input too long: {longest} > {max_prompt}")
+            # Padding rows (length 0) pool to zeros and are sliced off.
+            tokens = np.zeros((B, self._bucket(longest)), np.int64)
+            lengths = np.zeros((B,), np.int64)
+            for i, p in enumerate(group):
+                tokens[i, : len(p)] = p
+                lengths[i] = len(p)
+            groups.append((len(group), tokens, lengths))
+        pending = [(n, self._submit_aux(lambda t=tokens, ln=lengths: self._embed_group(t, ln)))
+                   for n, tokens, lengths in groups]
+        out = []
+        for n, rq in pending:
+            (vecs,), ev = self._await_aux(rq, "embedding")
+            if ev is not None:
+                ev.synchronize()
+            out.append(vecs.numpy()[:n])
+        return np.concatenate(out, axis=0)
+
+    def _embed_group(self, tokens: np.ndarray, lengths: np.ndarray) -> tuple:
+        """One padded group through the model without a cache (no pool
+        page, no decode state: plain attention, as the JAX embed_fn's
+        cache-less apply), pooled on the device; the result's copy to
+        pinned host memory is queued (host tensors, event)."""
+        B, S = tokens.shape
+        tok = self._t(tokens)
+        pos = torch.arange(S, device=self.device)[None, :].expand(B, S)
+        hidden, _ = llama.apply(self.params, self.model_config, tok, pos, return_hidden=True)
+        valid = (pos < self._t(lengths)[:, None]).float()[..., None]
+        pooled = (hidden * valid).sum(1) / torch.clamp(valid.sum(1), min=1.0)
+        vecs = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),
+                                    min=1e-12)
+        return self._to_host((vecs,))
 
     # -- LoRA adapters -----------------------------------------------------
 
@@ -695,12 +1007,27 @@ class Engine:
         """Run *thunk* on the scheduler thread (between dispatches, on the
         engine's stream) and return its result; before start(), here on
         the engine's stream."""
-        if not self.is_ready():
-            with self._on_stream():
-                return thunk()
+        return self._await_aux(self._submit_aux(thunk), what, timeout)
+
+    def _submit_aux(self, thunk) -> "queue.Queue":
+        """Queue *thunk* for the scheduler thread; its reply queue. When
+        the loop is not running the thunk runs here at once, on the
+        engine's stream."""
         rq: "queue.Queue" = queue.Queue()
+        if not self.is_ready():
+            try:
+                with self._on_stream():
+                    rq.put((True, thunk()))
+            except Exception as e:  # raised by _await_aux
+                rq.put((False, e))
+            return rq
         self._aux.put((thunk, rq))
         self._wake.set()
+        return rq
+
+    def _await_aux(self, rq: "queue.Queue", what: str, timeout: float = 600):
+        """The result of a thunk queued by _submit_aux (its exception
+        raised here)."""
         deadline = time.monotonic() + timeout
         while True:
             try:
@@ -716,18 +1043,18 @@ class Engine:
         return val
 
     def _run_aux(self) -> None:
-        """Run the queued scheduler thunks; a thunk's exception goes back
-        to its caller."""
-        while True:
-            try:
-                thunk, rq = self._aux.get_nowait()
-            except queue.Empty:
-                return
-            try:
-                rq.put((True, thunk()))
-            except Exception as e:  # the caller raises it
-                log.exception("scheduler thunk failed")
-                rq.put((False, e))
+        """Run one queued scheduler thunk (one an iteration, so a batch of
+        embedding groups interleaves with decode chunks); its exception
+        goes back to its caller."""
+        try:
+            thunk, rq = self._aux.get_nowait()
+        except queue.Empty:
+            return
+        try:
+            rq.put((True, thunk()))
+        except Exception as e:  # the caller raises it
+            log.exception("scheduler thunk failed")
+            rq.put((False, e))
 
     def warmup(self, include_group: bool = True) -> dict:
         """Run every step shape the serving path hits before the first
@@ -793,23 +1120,42 @@ class Engine:
         reconciled through the dispatch's slot snapshot."""
         log.info("engine loop started (slots=%d, device=%s, graphs=%s)",
                  self.cfg.max_slots, self.device, self.cuda_graphs)
+        # This replica's failpoint scope (EngineServer.start stamps it):
+        # the scheduler's sites also fire their name@PORT twins.
+        set_thread_scope(self.fault_scope)
         pending = None
         with self._on_stream():
             while self._running:
                 try:
+                    # Failpoint: an injected error takes the reset path
+                    # below, as a failed step would.
+                    fault("engine.step")
+                    t_aux = time.monotonic()
                     self._run_aux()
+                    aux_ms = (time.monotonic() - t_aux) * 1e3
+                    self._sweep_deadlines()
                     self._sweep_qos_budgets()
                     self._sweep_kv_park()
                     admitted = self._admit_waiting()
                     dispatched = self._dispatch_chunk() if self._n_active > 0 else None
                     # First-token sync AFTER the dispatch: the chunk reads
                     # them from the device staging vector.
+                    t_host = time.monotonic()
                     self._emit_admitted(admitted)
+                    # The host work chunk N's device time hid: this
+                    # iteration's thunk and first-token emission.
+                    host_ms = (time.monotonic() - t_host) * 1e3 + aux_ms
                     if pending is not None:
-                        self._process_chunk(*pending)
+                        self._process_chunk(*pending, host_overlap_ms=host_ms)
                     pending = dispatched
+                    self._poll_evictions()
                     if (pending is None and not admitted and self._n_active == 0
                             and self._aux.empty()):
+                        # Idle: the goodput gauge reads 0, and the next busy
+                        # chunk re-anchors the window.
+                        if len(self._rate_window):
+                            self._rate_window.reset()
+                            self.m_tok_rate.set(0.0)
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
                 except Exception:
@@ -818,6 +1164,11 @@ class Engine:
                     # fallback).
                     log.exception("engine step failed; resetting device state")
                     self._fail_inflight("engine reset after device error")
+                    if self._cuda:
+                        # The chunk in flight still reads the state about
+                        # to be rebuilt (a device error may be sticky).
+                        with contextlib.suppress(RuntimeError):
+                            self._stream.synchronize()
                     self._init_state()
                     pending = None
             if pending is not None:
@@ -829,24 +1180,64 @@ class Engine:
                 except Exception:
                     log.exception("the last decode chunk failed at stop")
 
+    def _poll_evictions(self) -> None:
+        """kubeai_engine_kv_cached_evictions_total from the pool's count."""
+        ev = self._pool.evictions
+        if ev > self._evictions_seen:
+            self.m_cached_evictions.inc(ev - self._evictions_seen)
+        self._evictions_seen = ev  # also re-anchors after a rebuilt pool
+
     def _fail_inflight(self, message: str) -> None:
+        """Error every slotted, deferred, queued and thunk-waiting request
+        (shutdown and the reset after a failed step)."""
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._slots[i] = None
                 slot.req.out.put(("error", message))
+                self._finish_request(slot.req, "error", error=message,
+                                     completion_tokens=slot.generated)
+                self._release_slot_pages(i)
         self._n_active = 0
         self.m_active.set(0)
         self._h_active[:] = False
         self._adm_mask[:] = False
         for req in self._deferred:
             req.out.put(("error", message))
+            self._finish_request(req, "error", error=message)
         self._deferred.clear()
         while True:
             try:
-                self._queue.get_nowait().out.put(("error", message))
+                req = self._queue.get_nowait()
             except queue.Empty:
                 break
+            req.out.put(("error", message))
+            self._finish_request(req, "error", error=message)
+        while True:
+            try:
+                _, rq = self._aux.get_nowait()
+            except queue.Empty:
+                break
+            rq.put((False, RuntimeError(message)))
         self.m_queue.set(0)
+
+    DEADLINE_MSG = "deadline exceeded"
+
+    def _sweep_deadlines(self) -> None:
+        """Abort the decoding requests past their deadline: the caller (or
+        the proxy for it) gave up. The abort is a cancel: the request gets
+        its error now, and the slot frees when its next token reaches the
+        host (``_emit_token``), after the chunk that wrote it was
+        fetched; a later chunk still in flight is dropped by its
+        dispatch snapshot. Outcome: cancelled."""
+        now = time.monotonic()
+        for slot in self._slots:
+            if slot is None or slot.req.deadline is None or slot.req.cancelled.is_set():
+                continue
+            if now > slot.req.deadline:
+                slot.req.out.put(("error", self.DEADLINE_MSG))
+                slot.req.cancelled.set()
+                log.info("aborting a slot past its deadline (%d tokens generated)",
+                         slot.generated, extra=trace_extra(slot.req.trace))
 
     # -- admission ---------------------------------------------------------
 
@@ -882,11 +1273,19 @@ class Engine:
                     break
                 self.m_queue.set(self.queue_depth())
             if req.cancelled.is_set():
+                self._finish_request(req, "cancelled")
+                continue
+            if req.deadline is not None and time.monotonic() > req.deadline:
+                # Expired while queued or deferred: never takes a slot.
+                req.out.put(("error", self.DEADLINE_MSG))
+                self._finish_request(req, "cancelled", error=self.DEADLINE_MSG)
                 continue
             if req.adapter and self._adapter_row(req.adapter) == 0:
                 # Checked at submit(), but unloaded while the request
                 # waited: the base model's answer would be silently wrong.
-                req.out.put(("error", f"adapter {req.adapter!r} is not loaded"))
+                msg = f"adapter {req.adapter!r} is not loaded"
+                req.out.put(("error", msg))
+                self._finish_request(req, "error", error=msg)
                 continue
             if req.restore is not None:
                 res = self._admit_restored(req, taken)
@@ -938,6 +1337,7 @@ class Engine:
                 for slot_idx, req in items:
                     if self._slots[slot_idx] is None:
                         req.out.put(("error", f"prefill failed: {e}"))
+                        self._finish_request(req, "error", error=f"prefill failed: {e}")
                         # Pages registered at plan time were never written:
                         # unregister them. If a same-round request already
                         # claimed one, its prefill would read garbage.
@@ -952,6 +1352,7 @@ class Engine:
                     for later, _ in work[w + 1 :]:
                         for slot_idx, req in later:
                             req.out.put(("error", f"prefill failed: {e}"))
+                            self._finish_request(req, "error", error=f"prefill failed: {e}")
                     raise
         return admitted
 
@@ -963,6 +1364,7 @@ class Engine:
         dropped = self._queue.sweep_budgets()
         for req in dropped:
             req.out.put(("error", self.QOS_BUDGET_MSG))
+            self._finish_request(req, "cancelled", error=self.QOS_BUDGET_MSG)
         if dropped:
             self.m_queue.set(self.queue_depth())
 
@@ -985,16 +1387,17 @@ class Engine:
             if slot is None or i in taken:
                 continue
             r = slot.req
-            if not r.preemptible or r.priority != "batch":
+            if not r.preemptible or r.priority != "batch" or r.finished:
                 continue
             if best is None or slot.generated < best:
                 victim, best = i, slot.generated
         if victim < 0:
             return False
         log.info("preempting slot %d (batch, %d tokens generated) for interactive admission",
-                 victim, best)
+                 victim, best, extra=trace_extra(self._slots[victim].req.trace,
+                                                 qos_class="batch"))
         record_preemption(best)
-        self._free(victim, "preempted", flush=False)
+        self._free(victim, "preempted", flush=False, outcome="preempted")
         return True
 
     def qos_retry_after(self, priority: str) -> int:
@@ -1037,7 +1440,14 @@ class Engine:
         self._slot_pages[slot_idx] = row
         self._page_table[slot_idx, :] = 0
         self._page_table[slot_idx, : len(row)] = row
-        return slot_idx, len(claimed) * ps
+        reuse = len(claimed) * ps
+        if self.cfg.prefix_cache_min:
+            # Counted at admission, not per lookup: a deferred request
+            # looks up again every round.
+            self.m_prefix_lookup.inc(len(ids))
+        if reuse:
+            self.m_prefix_cached.inc(reuse)
+        return slot_idx, reuse
 
     def _release_slot_pages(self, slot_idx: int, register: bool = False) -> None:
         row = self._slot_pages[slot_idx]
@@ -1126,11 +1536,13 @@ class Engine:
         """One cold prefill call for up to prefill_group_cap prompts of
         the same bucket."""
         n = len(items)
+        t_disp = time.monotonic()
         tokens = np.zeros((n, bucket), np.int64)
         lengths = np.zeros((n,), np.int64)
         for j, (slot_idx, req) in enumerate(items):
             tokens[j, : len(req.prompt_ids)] = req.prompt_ids
             lengths[j] = len(req.prompt_ids)
+            req.trace.mark("prefill")
         tables = self._page_table[[s for s, _ in items]]
         logits, _ = llama.prefill_paged_cold(
             self.params, self.model_config, self._t(tokens), self.cache,
@@ -1142,23 +1554,43 @@ class Engine:
         host, ev = self._first_tokens(logits[:, -1], [s for s, _ in items], reqs, seeds, lengths)
         out = []
         for j, (slot_idx, req) in enumerate(items):
-            self._register(slot_idx, req, seeds[j])
+            self._register(slot_idx, req, seeds[j], reuse=0)
             out.append((slot_idx, self._slot_epoch[slot_idx], host, j, ev))
+        real = int(lengths.sum())
+        self._record_prefill("prefill_group", t_disp, n * bucket - real, bucket=bucket, batch=n,
+                             slots=[s for s, _ in items], prompt_tokens=real)
         return out
+
+    def _record_prefill(self, kind: str, t_disp: float, pad_tokens: int, **fields) -> None:
+        """A prefill call's step histogram, stall record, padding count and
+        flight-recorder step (host time of the call: its launches, the
+        device's work runs on behind them)."""
+        dur = time.monotonic() - t_disp
+        self.m_step.observe(dur, labels={"phase": kind})
+        self._stall.record_prefill(kind, dur * 1e3)
+        if pad_tokens > 0:
+            self.m_pad_prefill.inc(pad_tokens)
+        default_recorder.record_step(kind=kind, pad_tokens=pad_tokens,
+                                     dur_ms=round(dur * 1e3, 3), **fields)
 
     def _prefill_chunked(self, slot_idx: int, req: Request, reuse: int) -> list:
         """Chunk-prefill a prompt from offset *reuse* (its first *reuse*
         tokens live in claimed shared pages): largest-bucket chunks, the
         last one padded to its bucket; only the last chunk is sampled."""
         ids = req.prompt_ids
+        t_disp = time.monotonic()
+        req.trace.mark("prefill")
+        req.trace.attrs["reuse_tokens"] = reuse
         table = self._t(self._page_table[slot_idx : slot_idx + 1])
         max_bucket = max(self.cfg.prefill_buckets)
         lora = self._lora_args([self._adapter_row(req.adapter)])
         logits = None
+        pad_tokens = 0
         for start in range(reuse, len(ids), max_bucket):
             chunk = ids[start : start + max_bucket]
             is_last = start + max_bucket >= len(ids)
             bucket = max_bucket if not is_last else self._bucket(len(chunk))
+            pad_tokens += bucket - len(chunk)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, : len(chunk)] = chunk
             logits, _ = llama.prefill_paged(
@@ -1167,10 +1599,12 @@ class Engine:
             )
         seed = self._seed32(req.params)
         host, ev = self._first_tokens(logits[:, -1], [slot_idx], [req], [seed], [len(ids)])
-        self._register(slot_idx, req, seed)
+        self._register(slot_idx, req, seed, reuse)
+        self._record_prefill("prefill_chunked", t_disp, pad_tokens, slot=slot_idx,
+                             prompt_tokens=len(ids), reuse_tokens=reuse)
         return [(slot_idx, self._slot_epoch[slot_idx], host, 0, ev)]
 
-    def _register(self, slot_idx: int, req: Request, seed: int) -> None:
+    def _register(self, slot_idx: int, req: Request, seed: int, reuse: int) -> None:
         """Host bookkeeping of a prefilled slot, and its admission arrays:
         the next dispatch merges it into the device state (position
         prompt_len, first token from adm_toks, seed, and the prompt into
@@ -1185,6 +1619,7 @@ class Engine:
         )
         self._n_active += 1
         self.m_active.set(self._n_active)
+        self.m_prefill.inc(len(ids) - reuse)  # the prefill work done
         self._kv_history[slot_idx] = list(ids)
         self._kv_pending[slot_idx] = None  # set once the token id is known
         self._kv_lora_sig[slot_idx] = self._lora_sig(req.adapter)
@@ -1347,6 +1782,7 @@ class Engine:
                 delta[key] = d
         g = self._graphs[self.decode_kernel] = _ChunkGraph(graph, outputs, delta)
         self.graph_capture_seconds[self.decode_kernel] = time.monotonic() - t0
+        self.m_captures.inc()
         log.info("decode chunk captured (%s) in %.2fs", self.decode_kernel,
                  self.graph_capture_seconds[self.decode_kernel])
         return g
@@ -1383,7 +1819,8 @@ class Engine:
         snapshot = [(i, s, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
         return host, (ev0, ev), snapshot, t_start, time.monotonic()
 
-    def _process_chunk(self, host, events, snapshot, t_start: float, t_disp: float) -> None:
+    def _process_chunk(self, host, events, snapshot, t_start: float, t_disp: float,
+                       host_overlap_ms: float = 0.0) -> None:
         """Wait for a dispatched chunk's outputs and emit its tokens (JAX
         ``_process_chunk``): a token reaches a request only while its slot
         still holds the request it held at dispatch; the slot's KV history
@@ -1395,14 +1832,22 @@ class Engine:
         t_fetched = time.monotonic()
         drafts, corr, acc, lp_d, lp_c, t_ids, t_lp = (x.numpy() for x in host)
         K, G = acc.shape[0], drafts.shape[2]
+        # Saturation accounting before emission: a client unblocked by a
+        # terminal event below already sees these.
+        self.m_step.observe(t_fetched - t_disp, labels={"phase": "decode_chunk"})
+        self.m_slot_steps.inc(K * len(snapshot), labels={"state": "active"})
+        if self.cfg.max_slots > len(snapshot):
+            self.m_slot_steps.inc(K * (self.cfg.max_slots - len(snapshot)),
+                                  labels={"state": "idle"})
         n_emitted = 0
+        drafted = accepted = 0
         for k in range(K):
             for i, slot_obj, epoch in snapshot:
                 owned = self._slots[i] is slot_obj
                 a = int(acc[k, i])
                 if G and owned and slot_obj.req.params.temperature <= 0.0:
-                    self.spec_drafted += G
-                    self.spec_accepted += a
+                    drafted += G
+                    accepted += a
                 want_top = owned and slot_obj.req.params.logprobs
                 emitted = [(int(drafts[k, i, j]), float(lp_d[k, i, j]), j) for j in range(a)]
                 emitted.append((int(corr[k, i]), float(lp_c[k, i]), a))
@@ -1422,8 +1867,15 @@ class Engine:
                             if want_top else None
                         self._emit_token(i, tok, lp, top)
                         n_emitted += 1
+        if G:
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+            self.m_spec_drafted.inc(drafted)
+            self.m_spec_accepted.inc(accepted)
         now = time.monotonic()
-        self.chunk_log.append({
+        self._rate_window.add(n_emitted, now)
+        self.m_tok_rate.set(round(self._rate_window.rate(now), 3))
+        entry = {
             "steps": K, "slots": len(snapshot), "tokens": n_emitted,
             "graph": self.cuda_graphs,
             "dispatch_ms": (t_disp - t_start) * 1e3,  # upload + replay (or eager launches)
@@ -1432,7 +1884,27 @@ class Engine:
             "dur_ms": (t_fetched - t_disp) * 1e3,  # dispatched -> fetched
             "fetched_at": t_fetched,
             "device_ms": ev0.elapsed_time(ev) if ev is not None else None,
-        })
+        }
+        self.chunk_log.append(entry)
+        self._stall.record_decode(dispatch_ms=entry["dispatch_ms"],
+                                  host_overlap_ms=host_overlap_ms,
+                                  fetch_wait_ms=entry["fetch_wait_ms"],
+                                  emit_ms=entry["emit_ms"], now=now)
+        # The flight recorder's step record (the JAX engine's fields):
+        # one per chunk, a graph replay on the card.
+        step = {
+            "kind": "decode_chunk", "steps": K, "slots": [i for i, _, _ in snapshot],
+            "tokens": n_emitted, "kernel": self.decode_kernel, "graph": self.cuda_graphs,
+            "pages_used": self._pool.used(), "pages_total": self._pool.num_pages - 1,
+            "queue_depth": self.queue_depth(),
+            "host_overlap_ms": round(max(host_overlap_ms, 0.0), 3),
+            **{k: round(entry[k], 3) for k in ("dur_ms", "fetch_wait_ms", "dispatch_ms",
+                                                "emit_ms")},
+            "device_ms": entry["device_ms"],
+        }
+        if G:
+            step["spec_drafted"], step["spec_accepted"] = drafted, accepted
+        default_recorder.record_step(**step)
 
     # -- emission ----------------------------------------------------------
 
@@ -1445,6 +1917,11 @@ class Engine:
             self._free(slot_idx, "stop", deliver=False)
             return
         slot.generated += 1
+        self.m_gen.inc()
+        if slot.generated == 1:
+            # True TTFT: the first token reached emission.
+            self.m_ttft.observe(time.monotonic() - req.arrival)
+        req.trace.tok()
         eos = self.tokenizer.eos_id
         if eos is not None and token_id == eos:
             self._free(slot_idx, "stop")
@@ -1473,7 +1950,8 @@ class Engine:
             slot.event_log.append(ev)
         slot.req.out.put(ev)
 
-    def _free(self, slot_idx: int, reason: str, deliver: bool = True, flush: bool = True):
+    def _free(self, slot_idx: int, reason: str, deliver: bool = True, flush: bool = True,
+              outcome: str | None = None):
         slot = self._slots[slot_idx]
         self._slots[slot_idx] = None
         self._n_active -= 1
@@ -1489,6 +1967,8 @@ class Engine:
         if offer is None:
             self._release_slot_pages(slot_idx, register=True)
         if not deliver:
+            self._finish_request(slot.req, outcome or "cancelled", finish_reason=reason,
+                                 completion_tokens=slot.generated)
             return
         if flush:
             # Deliver held-back chars (stop-checked: they never were).
@@ -1504,6 +1984,8 @@ class Engine:
             if tail:
                 slot.req.out.put(("token", -1, tail, None, None))
         slot.req.out.put(("done", FinishInfo(reason, slot.prompt_len, slot.generated, kv=offer)))
+        self._finish_request(slot.req, outcome or "ok", finish_reason=reason,
+                             completion_tokens=slot.generated)
 
     # -- KV park / restore (engine/kvstate.py) -----------------------------
 
@@ -1565,6 +2047,12 @@ class Engine:
                 key_data=np.array([slot.kv_seed], np.uint32), events=slot.event_log,
                 adapter=slot.req.adapter, payload=payload,
             )
+            # Failpoint: error aborts the park (the resume replays);
+            # corrupt parks a mangled blob the import's checksums reject.
+            blob = fault("engine.kv_export", payload=blob)
+        except FaultError:
+            kvstate.M_KV_EXPORT.inc(labels={"outcome": "error"})
+            return None
         except Exception:
             log.exception("KV export failed; the resume will replay")
             kvstate.M_KV_EXPORT.inc(labels={"outcome": "error"})
@@ -1612,6 +2100,9 @@ class Engine:
         pinned: list[int] | None = None
         outcome = "error"
         try:
+            # Failpoint: the scheduler-side import fails after the serving
+            # thread validated the blob (the deepest replay fallback).
+            fault("engine.kv_import")
             n_hist = pages_for(len(state.history), ps)
             kv = self.cache["kv"]
             L = self.model_config.num_layers
@@ -1719,6 +2210,7 @@ class Engine:
             dur = time.monotonic() - t0
             kvstate.M_KV_IMPORT.inc(labels={"outcome": "ok"})
             kvstate.M_KV_RESTORE_SECONDS.observe(dur, labels={"phase": "import"})
+            self._stall.record_kv_transfer(dur * 1e3)
             record_admitted(req.priority, time.monotonic() - req.arrival)
             self.kv_log.append({"event": "import", "how": how, "host_ms": dur * 1e3,
                                 "device_events": (t_dev, t_end) if t_dev is not None else None,

@@ -1,12 +1,24 @@
-"""OpenAI-compatible HTTP server over the port's engine (slim port of
+"""OpenAI-compatible HTTP server over the port's engine (port of
 kubeai_tpu/engine/server.py).
 
-    GET  /health                 liveness (+ engine readiness, role)
-    GET  /metrics                Prometheus text (queue depth, slots, pages, kv, qos)
+    GET  /health /healthz        liveness (+ engine readiness, role)
+    GET  /readyz                 readiness: 200 once the engine runs, 503
+                                 "draining" from the start of a drain
+    GET  /metrics                Prometheus text (the JAX engine's families)
+    GET  /debug                  index of the debug routes below
+    GET  /debug/requests         request timelines (?limit=&id=&tenant=)
+    GET  /debug/engine           scheduler step records (?limit=)
+    GET  /debug/trace            Chrome trace-event JSON (?limit=)
+    GET  /debug/faults           failpoints (?set=NAME=SPEC, ?clear=NAME|all)
+    GET  /debug/pipeline         stall attribution, MFU, roofline
+    GET  /debug/profile          torch.profiler trace (?seconds=)
+    GET  /debug/qos              the QoS queue's classes and lanes
+    GET  /debug/logs             recent WARNING+ records (?level=&since=&trace=)
     GET  /v1/models              the served model + loaded adapters
     GET  /v1/kv/<key>            a parked request's KV blob (peer transfer)
-    POST /v1/completions         (+ SSE streaming)
-    POST /v1/chat/completions    (+ SSE streaming)
+    POST /v1/completions         (+ SSE streaming; n from 1 to 16)
+    POST /v1/chat/completions    (+ SSE streaming; n from 1 to 16)
+    POST /v1/embeddings          mean-pooled, normalised hidden states
     POST /v1/load_lora_adapter   {lora_name, lora_path}
     POST /v1/unload_lora_adapter {lora_name}
 
@@ -14,21 +26,30 @@ Responses keep the JAX server's shapes: the same ``usage`` block, the
 completions ``logprobs`` object (tokens / token_logprobs / top_logprobs)
 and the chat ``logprobs.content`` list. A request whose ``model`` names a
 loaded adapter runs with it; any other ``model`` serves the base model,
-as in the JAX server.
+as in the JAX server. ``n`` > 1 submits one engine request per choice
+(the prefix cache shares the prompt; choice i samples with ``seed + i``).
 
-The engine's side of the operator's resume protocol, as the JAX server
-speaks it: ``X-Priority``, ``X-Preemptible`` and the tenant header place
-a request in the QoS queue (a shed request gets 429 with a Retry-After
-scaled by its class's backlog); ``--role prefill --handoff-budget N``
-caps a stream the proxy planned to hand off (``X-Handoff-Planned: 1``)
-at N tokens and finishes it ``"handoff"``; a preempted or handed-off
-stream parks its KV and carries the offer on its marker chunk as
+The engine's side of the operator's contracts, as the JAX server speaks
+them: ``X-Request-Deadline`` (seconds left) becomes the request's
+deadline and a spent one answers 504; SIGTERM drains (``--drain-grace``:
+``/readyz`` turns 503, new ``/v1/*`` work gets 429, requests in flight
+finish or are failed at the grace's end); ``X-Request-ID`` and
+``traceparent`` join the engine's timeline to the proxy's; chaos drills
+arm ``engine.*`` failpoints over ``/debug/faults`` (``KUBEAI_DEBUG_FAULTS=1``).
+``X-Priority``, ``X-Preemptible`` and the tenant header place a request
+in the QoS queue (a shed request gets 429 with a Retry-After scaled by
+its class's backlog); ``--role prefill --handoff-budget N`` caps a
+stream the proxy planned to hand off (``X-Handoff-Planned: 1``) at N
+tokens and finishes it ``"handoff"``; a preempted or handed-off stream
+parks its KV and carries the offer on its marker chunk as
 ``kubeai_kv``; a resume (``X-Resume-Tokens``) carrying the ``X-KV-*``
 offer imports the blob (from this replica's park store, or fetched from
 the source's ``/v1/kv/<key>``) instead of re-running the prefill.
 
-Not ported yet (ROADMAP queue 1): ``/readyz``, draining, embeddings,
-``/debug*``, tracing, deadlines, failpoints and ``n`` > 1 (refused).
+Not ported yet (ROADMAP queue 1): parked replicas and ``/v1/attach``,
+``/debug/tenants`` (the tenant accountant) and the OTLP exporter. The
+operator-side surfaces (``/debug/incidents``, ``/canary``, ``/history``,
+``/forecast``) answer 404 "not installed", as on a JAX engine.
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
@@ -41,19 +62,23 @@ serves 16 of them through ``build_engine(..., num_layers=16)``).
 where it has them (engine/tokenizer.py), and ``--quantization int8`` serves a preset, a
 checkpoint or test:tiny with int8 weights through the W8A16 kernels.
 ``--kv-cache-dtype fp8|int8`` stores the paged KV pool at one byte per
-element; the paged kernels dequantize it. ``--warmup`` (default on with
-KUBEAI_ENGINE_WARMUP=1, as in the JAX server) runs every step shape,
-the decode chunk's CUDA graph capture included, before serving.
+element; the paged kernels dequantize it; ``--kv-pages`` sizes the pool.
+``--warmup`` (default on with KUBEAI_ENGINE_WARMUP=1, as in the JAX
+server) runs every step shape, the decode chunk's CUDA graph capture
+included, before serving.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
+import dataclasses
 import json
-import logging
 import os
 import queue
 import re
+import signal
+import socket
 import threading
 import time
 import uuid
@@ -68,7 +93,23 @@ from kubeai_tpu_torch.engine.core import (
 )
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.weights import load_engine_from_path
-from kubeai_tpu_torch.metrics import default_registry
+from kubeai_tpu_torch.faults import FaultError, fault, handle_faults_request, set_thread_scope
+from kubeai_tpu_torch.metrics import default_registry, set_build_info
+from kubeai_tpu_torch.obs.logs import (
+    bind_log_context,
+    get_logger,
+    handle_logs_request,
+    install_log_ring,
+    set_log_context,
+    setup_logging,
+)
+from kubeai_tpu_torch.obs.perf import handle_perf_request
+from kubeai_tpu_torch.obs.recorder import (
+    debug_index_response,
+    handle_debug_request,
+    handle_operator_side_request,
+)
+from kubeai_tpu_torch.obs.trace import extract_context, sanitize_request_id
 from kubeai_tpu_torch.qos import (
     DEFAULT_CLASS,
     PREEMPTIBLE_HEADER,
@@ -76,10 +117,13 @@ from kubeai_tpu_torch.qos import (
     normalize_priority,
 )
 from kubeai_tpu_torch.qos.classes import TENANT_HEADER, sanitize_tenant
+from kubeai_tpu_torch.qos.stats import handle_qos_request
 
-log = logging.getLogger("kubeai_tpu_torch.engine.server")
+log = get_logger("kubeai_tpu_torch.engine.server")
 
 STREAM_WAIT_S = 600.0
+# Retry-After (seconds) of a 429 that no class backlog scales (draining).
+RETRY_AFTER_HINT = "1"
 
 M_HANDOFF_CAPPED = default_registry.counter(
     "kubeai_engine_handoff_capped_total",
@@ -96,13 +140,21 @@ M_RESUMED = default_registry.counter(
 
 class EngineServer:
     def __init__(self, engine: Engine, model_name: str, host: str = "0.0.0.0", port: int = 8000,
-                 role: str = "", handoff_budget: int = 0):
+                 role: str = "", handoff_budget: int = 0, drain_grace: float = 30.0):
         self.engine = engine
         self.model_name = model_name
         # Disaggregated role ("prefill" | "decode" | "" unified): a prefill
         # replica caps planned handoff streams at handoff_budget tokens.
         self.role = role
         self.handoff_budget = handoff_budget if role == "prefill" else 0
+        # Graceful drain: once set, /readyz answers 503 (routing stops),
+        # new /v1/* work gets 429 + Retry-After, and requests in flight get
+        # up to drain_grace seconds before the hard stop fails the rest.
+        self.draining = threading.Event()
+        self.drain_grace = drain_grace
+        self._stop_lock = threading.Lock()
+        self._stopped = False
+        self.stopped_event = threading.Event()  # set once stop() is done
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_port
@@ -117,15 +169,27 @@ class EngineServer:
         self._adapters_lock = threading.Lock()
 
     def start(self) -> None:
+        set_build_info("engine")
+        # The WARNING+ ring from the start, so /debug/logs holds early
+        # failures.
+        install_log_ring()
         self.engine.kv_advertise = self.kv_advertise
+        # The scheduler thread's failpoint scope: engine.step@PORT etc.
+        self.engine.fault_scope = str(self.port)
         self.engine.start()
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
         log.info("engine server for %s on :%d", self.model_name, self.port)
 
     def stop(self) -> None:
-        """Stop the engine first (in-flight requests get terminal events),
-        then the HTTP server."""
+        """Idempotent hard stop: admission first (the draining flag),
+        then the engine (requests in flight get terminal events, so their
+        handlers finish), then the HTTP server, in a finally."""
+        with self._stop_lock:
+            if self._stopped:
+                return
+            self._stopped = True
+        self.draining.set()
         try:
             self.engine.stop()
         finally:
@@ -133,6 +197,35 @@ class EngineServer:
             self.httpd.server_close()
             if self._thread is not None:
                 self._thread.join(timeout=10)
+            self.stopped_event.set()
+
+    def drain(self, grace: float | None = None) -> None:
+        """The SIGTERM path: stop admission, let the requests in flight
+        finish within *grace* seconds (``drain_grace`` by default), then
+        stop(), which fails what remains."""
+        grace = self.drain_grace if grace is None else grace
+        self.draining.set()
+        log.info("engine draining: %d active slots, %d queued, grace %.1fs",
+                 self.engine.active_slots(), self.engine.queue_depth(), grace)
+        deadline = time.monotonic() + grace
+        # requests_in_system(), not queue + slots: those miss a request
+        # between the queue and its slot.
+        while self.engine.requests_in_system() > 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        leftover = self.engine.requests_in_system()
+        if leftover:
+            log.warning("drain budget expired with %d requests in flight", leftover)
+        self.stop()
+
+    def install_signal_handlers(self) -> None:
+        """SIGTERM drains instead of killing streams mid-flight. Main
+        thread only (the signal module's rule); the drain runs on a
+        thread of its own so the handler returns at once."""
+
+        def on_term(signum, frame):
+            threading.Thread(target=self.drain, daemon=True).start()
+
+        signal.signal(signal.SIGTERM, on_term)
 
     _ADAPTER_NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,128}$")
 
@@ -163,6 +256,11 @@ class EngineServer:
         return True, "ok" if existed else "adapter was not loaded"
 
 
+def _cancel_all(reqs) -> None:
+    for r in reqs:
+        r.cancelled.set()
+
+
 def _make_handler(srv: EngineServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -190,8 +288,16 @@ def _make_handler(srv: EngineServer):
             self.end_headers()
             self.wfile.write(body)
 
+        def _saturated(self, msg: str, retry_after: int | None = None):
+            """429 + Retry-After: load, not failure (SDKs back off)."""
+            return self._error(
+                429, msg + "; retry after backoff", "rate_limit_error",
+                headers={"Retry-After": str(retry_after) if retry_after else RETRY_AFTER_HINT})
+
         def do_GET(self):
-            path = self.path.split("?")[0]
+            # Failpoints fired on this thread also fire their @PORT twins.
+            set_thread_scope(srv.port)
+            path, _, query = self.path.partition("?")
             if path in ("/health", "/healthz"):
                 ready = srv.engine.is_ready()
                 body = {"status": "ok" if ready else "engine not ready",
@@ -199,6 +305,30 @@ def _make_handler(srv: EngineServer):
                 if srv.role:
                     body["role"] = srv.role
                 self._json(200 if ready else 503, body)
+            elif path == "/readyz":
+                # 503 from the start of a drain, so routing stops before
+                # the pod goes away.
+                if srv.draining.is_set():
+                    self._json(503, {"status": "draining", "model": srv.model_name})
+                elif srv.engine.is_ready():
+                    body = {"status": "ok", "model": srv.model_name}
+                    if srv.role:
+                        body["role"] = srv.role
+                    self._json(200, body)
+                else:
+                    self._json(503, {"status": "engine not ready", "model": srv.model_name})
+            elif path in ("/debug", "/debug/"):
+                self._raw(*debug_index_response())
+            elif path.startswith("/debug/"):
+                resp = (handle_faults_request(path, query)
+                        or handle_perf_request(path, query, engine=srv.engine)
+                        or handle_qos_request(path, query)
+                        or handle_logs_request(path, query)
+                        or handle_debug_request(path, query)
+                        or handle_operator_side_request(path))
+                if resp is None:
+                    return self._error(404, f"no route {path}")
+                self._raw(*resp)
             elif path == "/metrics":
                 self._raw(200, "text/plain; version=0.0.4", default_registry.render().encode())
             elif path.startswith("/v1/kv/"):
@@ -220,7 +350,42 @@ def _make_handler(srv: EngineServer):
                 self._error(404, f"no route {path}")
 
         def do_POST(self):
+            set_thread_scope(srv.port)
             path = self.path.split("?")[0]
+            # The proxy's correlation id, sanitized (this port is reachable
+            # without the proxy); the trace id derives from it when no
+            # traceparent came, so both timelines join.
+            rid = sanitize_request_id(self.headers.get("X-Request-ID", ""))
+            trace_ctx = extract_context(self.headers, fallback_request_id=rid)
+            # One request per handler thread: replace the log context.
+            set_log_context(trace_id=trace_ctx.trace_id, span_id=trace_ctx.span_id,
+                            request_id=rid, model=srv.model_name)
+            if rid and path.startswith("/v1/"):
+                log.info("request id=%s engine=%s path=%s", rid, srv.model_name, path)
+            # The proxy's remaining budget in seconds, made an absolute
+            # deadline here, so queue wait counts against it.
+            deadline = None
+            dl_hdr = self.headers.get("X-Request-Deadline", "")
+            if dl_hdr:
+                try:
+                    deadline = time.monotonic() + max(float(dl_hdr), 0.0)
+                except ValueError:
+                    pass  # an unparseable deadline is no deadline
+            # The proxy's stamps (it strips client copies): tenant lane,
+            # class (an unknown value serves as standard), and whether the
+            # slot may be seized, never together with a planned handoff.
+            tenant = sanitize_tenant(self.headers.get(TENANT_HEADER, ""))
+            priority = normalize_priority(self.headers.get(PRIORITY_HEADER, "")) or DEFAULT_CLASS
+            bind_log_context(tenant=tenant, qos_class=priority)
+            preemptible = (self.headers.get(PREEMPTIBLE_HEADER) == "1"
+                           and self.headers.get("X-Handoff-Planned") != "1")
+            resume_tokens = 0
+            try:
+                resume_tokens = max(int(self.headers.get("X-Resume-Tokens", "") or 0), 0)
+            except ValueError:
+                pass
+            if resume_tokens:
+                M_RESUMED.inc()
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n) or b"{}")
@@ -228,11 +393,19 @@ def _make_handler(srv: EngineServer):
                 return self._error(400, f"invalid JSON: {e}")
             if not isinstance(body, dict):
                 return self._error(400, "request body must be a JSON object")
+            if srv.draining.is_set() and path.startswith("/v1/") and path != "/v1/models":
+                # In-flight work finishes; new work goes elsewhere (the
+                # proxy retries another replica).
+                return self._saturated("server is draining")
+            ctx = dict(trace_ctx=trace_ctx, deadline=deadline, tenant=tenant,
+                       priority=priority, preemptible=preemptible, resume_tokens=resume_tokens)
             try:
                 if path == "/v1/completions":
-                    self._completions(body, chat=False)
+                    self._completions(body, chat=False, **ctx)
                 elif path == "/v1/chat/completions":
-                    self._completions(body, chat=True)
+                    self._completions(body, chat=True, **ctx)
+                elif path == "/v1/embeddings":
+                    self._embeddings(body)
                 elif path == "/v1/load_lora_adapter":
                     ok, msg = srv.load_adapter(str(body.get("lora_name", "")),
                                                str(body.get("lora_path", "")))
@@ -250,6 +423,45 @@ def _make_handler(srv: EngineServer):
                     self._error(500, str(e), "internal_error")
                 except OSError:
                     pass
+
+        def _embeddings(self, body: dict):
+            """The JAX route: a string, strings, a token array or token
+            arrays; ``encoding_format`` float or base64 (little-endian
+            float32)."""
+            inputs = body.get("input")
+            if inputs is None:
+                return self._error(400, "input is required")
+            if isinstance(inputs, str):
+                inputs = [inputs]
+            if not isinstance(inputs, list) or not inputs:
+                return self._error(400, "input must be a string or list of strings")
+            tok = srv.engine.tokenizer
+            if all(isinstance(x, int) for x in inputs):
+                prompts = [list(inputs)]  # one pre-tokenized input
+            elif all(isinstance(x, str) for x in inputs):
+                prompts = [tok.encode(t) for t in inputs]
+            elif all(isinstance(x, list) and all(isinstance(i, int) for i in x) for x in inputs):
+                prompts = [list(x) for x in inputs]  # a batch of token arrays
+            else:
+                return self._error(
+                    400, "input must be a string, list of strings, or token array(s)")
+            if any(not p for p in prompts):
+                return self._error(400, "input entries must be non-empty")
+            try:
+                vecs = srv.engine.embed(prompts)
+            except ValueError as e:
+                return self._error(400, str(e))
+            fmt = body.get("encoding_format", "float")
+            data = []
+            for i, v in enumerate(vecs):
+                if fmt == "base64":
+                    emb = base64.b64encode(v.astype("<f4").tobytes()).decode()
+                else:
+                    emb = [float(x) for x in v]
+                data.append({"object": "embedding", "index": i, "embedding": emb})
+            n_tokens = sum(len(p) for p in prompts)
+            self._json(200, {"object": "list", "data": data, "model": srv.model_name,
+                             "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens}})
 
         # ---- request parsing ----
 
@@ -354,7 +566,9 @@ def _make_handler(srv: EngineServer):
                 return list(prompt), None
             return self._error(400, "prompt must be a string or a token id list")
 
-        def _completions(self, body: dict, chat: bool):
+        def _completions(self, body: dict, chat: bool, trace_ctx=None, deadline=None,
+                         tenant: str = "", priority: str = DEFAULT_CLASS,
+                         preemptible: bool = False, resume_tokens: int = 0):
             got = self._prompt(body, chat)
             if got is None:
                 return
@@ -363,53 +577,73 @@ def _make_handler(srv: EngineServer):
             if got is None:
                 return
             params, top_n, want_logprobs, handoff_cap = got
-            # The proxy's stamps (it strips client copies): tenant lane,
-            # class (an unknown value serves as standard), and whether the
-            # slot may be seized, never together with a planned handoff,
-            # and only for a stream, which the resume cursor can replay.
-            tenant = sanitize_tenant(self.headers.get(TENANT_HEADER, ""))
-            priority = normalize_priority(self.headers.get(PRIORITY_HEADER, "")) or DEFAULT_CLASS
-            preemptible = (self.headers.get(PREEMPTIBLE_HEADER) == "1"
-                           and self.headers.get("X-Handoff-Planned") != "1"
-                           and bool(body.get("stream")))
-            try:
-                if int(self.headers.get("X-Resume-Tokens", "") or 0) > 0:
-                    M_RESUMED.inc()
-            except ValueError:
-                pass
-            if body.get("n") not in (None, 1):
-                return self._error(400, "n > 1 is not supported by this engine")
+            # Preemption resumes through the stream's replay cursor: only
+            # a stream may be seized.
+            preemptible = preemptible and bool(body.get("stream"))
+            # n > 1: one engine request per choice (the prefix cache
+            # shares the prompt); a set seed gives choice i seed + i.
+            n_choices = body.get("n")
+            if n_choices is None:
+                n_choices = 1
+            if (not isinstance(n_choices, int) or isinstance(n_choices, bool)
+                    or not 1 <= n_choices <= 16):
+                return self._error(400, "n must be an integer between 1 and 16")
+            # echo and stream_options are checked before any submit: a 400
+            # after one would leave generations with no consumer.
             echo = body.get("echo")
             if echo is not None and not isinstance(echo, bool):
                 return self._error(400, "echo must be a boolean")
             so = body.get("stream_options")
             if so is not None and (not isinstance(so, dict) or not body.get("stream")):
                 return self._error(400, "stream_options must be an object and requires stream: true")
+            if deadline is not None and time.monotonic() >= deadline:
+                # The budget was spent before admission.
+                return self._error(504, "deadline exceeded", "timeout_error")
             # A model field that names a loaded adapter runs with it.
             requested = str(body.get("model", ""))
             adapter = requested if requested in srv.adapters else None
-            # A stream the proxy may preempt or hand off parks its KV at
-            # the cut; a resume carrying the X-KV-* offer imports it. Both
-            # are best-effort: any failure replays the same stream.
+            # A single-choice stream the proxy may preempt or hand off
+            # parks its KV at the cut; a resume carrying the X-KV-* offer
+            # imports it. Both are best-effort: any failure replays.
             park_kv, restore, restore_key = "", None, ""
-            if body.get("stream"):
+            if body.get("stream") and n_choices == 1:
                 park_kv = "handoff" if handoff_cap else "preempt" if preemptible else ""
                 restore, restore_key = self._acquire_restore(prompt_ids, params, adapter)
+            reqs = []
             try:
-                req = srv.engine.submit(prompt_ids, params, adapter=adapter, tenant=tenant,
-                                        priority=priority, preemptible=preemptible,
-                                        park_kv=park_kv, restore=restore,
-                                        restore_key=restore_key)
+                for i in range(n_choices):
+                    p_i = params
+                    if i and params.seed is not None:
+                        p_i = dataclasses.replace(params, seed=params.seed + i)
+                    r = srv.engine.submit(prompt_ids, p_i, adapter=adapter, trace_ctx=trace_ctx,
+                                          deadline=deadline, tenant=tenant, priority=priority,
+                                          preemptible=preemptible, park_kv=park_kv,
+                                          restore=restore, restore_key=restore_key)
+                    r.trace.model = srv.model_name
+                    if n_choices > 1:
+                        r.trace.attrs["choice"] = i
+                    if resume_tokens:
+                        r.trace.attrs["resume_tokens"] = resume_tokens
+                    reqs.append(r)
             except ValueError as e:
+                _cancel_all(reqs)
                 return self._error(400, str(e))
             except queue.Full:
-                # Retry-After scaled by the backlog at or above the class.
-                return self._error(
-                    429, "engine saturated; retry after backoff", "rate_limit_error",
-                    headers={"Retry-After": str(srv.engine.qos_retry_after(priority))},
-                )
+                # Shed mid-loop (n > 1): the choices already submitted are
+                # cancelled, or they would decode for nobody. Retry-After
+                # scales with the backlog at or above the class.
+                _cancel_all(reqs)
+                return self._saturated("engine saturated",
+                                       retry_after=srv.engine.qos_retry_after(priority))
+            except FaultError:
+                _cancel_all(reqs)
+                raise
             except RuntimeError as e:
+                _cancel_all(reqs)
                 return self._error(503, str(e), "service_unavailable")
+            except BaseException:
+                _cancel_all(reqs)
+                raise
             rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:24]
             echo_text = ""
             if not chat and echo:
@@ -418,12 +652,12 @@ def _make_handler(srv: EngineServer):
                        want_logprobs=want_logprobs, top_n=top_n, echo_text=echo_text)
             try:
                 if body.get("stream"):
-                    self._stream(req, include_usage=bool((so or {}).get("include_usage")),
+                    self._stream(reqs, include_usage=bool((so or {}).get("include_usage")),
                                  prompt_tokens=len(prompt_ids), handoff_cap=handoff_cap, **ctx)
                 else:
-                    self._full(req, **ctx)
+                    self._full(reqs, deadline=deadline, **ctx)
             finally:
-                req.cancelled.set()  # a no-op once the request finished
+                _cancel_all(reqs)  # a no-op for requests that finished
 
         def _acquire_restore(self, prompt_ids, params, adapter):
             """The proxy's X-KV-* offer as a decoded RestoreState and its
@@ -454,9 +688,16 @@ def _make_handler(srv: EngineServer):
                     kvstate.M_KV_IMPORT.inc(labels={"outcome": "miss"})
                     return None, ""
             try:
+                # The serving thread's leg of the import failpoint: corrupt
+                # mangles the blob (the checksums must catch it), error
+                # aborts the acquire.
+                blob = fault("engine.kv_import", payload=blob)
                 state = kvstate.decode_state(
                     blob, expect_model_fp=eng._kv_fp,
                     expect_request_fp=kvstate.request_fingerprint(prompt_ids, params, adapter))
+            except FaultError:
+                kvstate.M_KV_IMPORT.inc(labels={"outcome": "error"})
+                return None, ""
             except kvstate.KVFormatError as e:
                 kvstate.M_KV_IMPORT.inc(labels={"outcome": "corrupt"})
                 log.warning("parked KV %s rejected (%s); resuming by replay", key, e)
@@ -502,43 +743,58 @@ def _make_handler(srv: EngineServer):
                 content.append(entry)
             return {"content": content}
 
-        def _full(self, req, rid, created, chat, want_logprobs, top_n, echo_text):
-            chunks, pieces = [], []
-            while True:
-                try:
-                    ev = req.out.get(timeout=STREAM_WAIT_S)
-                except queue.Empty:
-                    return self._error(504, "generation timed out", "timeout_error")
-                if ev[0] == "token":
-                    chunks.append(ev[2])
-                    if ev[1] >= 0 and ev[3] is not None:
-                        pieces.append((ev[1], ev[3], ev[4]))
-                elif ev[0] == "done":
-                    fin = ev[1]
-                    break
+        def _full(self, reqs, rid, created, chat, want_logprobs, top_n, echo_text,
+                  deadline=None):
+            choices = []
+            prompt_tokens = completion_tokens = 0
+            for idx, req in enumerate(reqs):
+                chunks, pieces = [], []
+                while True:
+                    wait = STREAM_WAIT_S
+                    if deadline is not None:
+                        # Wait no longer than the budget: the scheduler's
+                        # sweep frees the slot, the answer must not outwait it.
+                        wait = min(wait, max(deadline - time.monotonic(), 0.0) + 1.0)
+                    try:
+                        ev = req.out.get(timeout=wait)
+                    except queue.Empty:
+                        return self._error(504, "generation timed out", "timeout_error")
+                    if ev[0] == "token":
+                        chunks.append(ev[2])
+                        if ev[1] >= 0 and ev[3] is not None:
+                            pieces.append((ev[1], ev[3], ev[4]))
+                    elif ev[0] == "done":
+                        fin = ev[1]
+                        break
+                    elif ev[1] == Engine.DEADLINE_MSG:
+                        return self._error(504, ev[1], "timeout_error")
+                    else:
+                        return self._error(500, ev[1], "internal_error")
+                text = "".join(chunks)
+                prompt_tokens = fin.prompt_tokens  # one prompt for every choice
+                completion_tokens += fin.completion_tokens
+                if chat:
+                    choice = {"index": idx, "message": {"role": "assistant", "content": text},
+                              "finish_reason": fin.reason}
+                    if want_logprobs:
+                        choice["logprobs"] = self._lp_chat(pieces, top_n)
                 else:
-                    return self._error(500, ev[1], "internal_error")
-            text = "".join(chunks)
-            if chat:
-                choice = {"index": 0, "message": {"role": "assistant", "content": text},
-                          "finish_reason": fin.reason}
-                if want_logprobs:
-                    choice["logprobs"] = self._lp_chat(pieces, top_n)
-            else:
-                choice = {"index": 0, "text": echo_text + text, "finish_reason": fin.reason}
-                if want_logprobs:
-                    choice["logprobs"] = self._lp_completion(pieces, top_n)
+                    choice = {"index": idx, "text": echo_text + text,
+                              "finish_reason": fin.reason}
+                    if want_logprobs:
+                        choice["logprobs"] = self._lp_completion(pieces, top_n)
+                choices.append(choice)
             self._json(200, {
                 "id": rid, "object": "chat.completion" if chat else "text_completion",
-                "created": created, "model": srv.model_name, "choices": [choice],
+                "created": created, "model": srv.model_name, "choices": choices,
                 "usage": {
-                    "prompt_tokens": fin.prompt_tokens,
-                    "completion_tokens": fin.completion_tokens,
-                    "total_tokens": fin.prompt_tokens + fin.completion_tokens,
+                    "prompt_tokens": prompt_tokens,
+                    "completion_tokens": completion_tokens,
+                    "total_tokens": prompt_tokens + completion_tokens,
                 },
             })
 
-        def _stream(self, req, rid, created, chat, want_logprobs, top_n, echo_text,
+        def _stream(self, reqs, rid, created, chat, want_logprobs, top_n, echo_text,
                     include_usage, prompt_tokens, handoff_cap=False):
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
@@ -548,6 +804,9 @@ def _make_handler(srv: EngineServer):
             obj = "chat.completion.chunk" if chat else "text_completion"
 
             def send(payload: str):
+                # Failpoint: error:1:skip=N severs the stream after N
+                # events, as a replica dying mid-stream would.
+                fault("engine.stream")
                 data = f"data: {payload}\n\n".encode()
                 self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
                 self.wfile.flush()
@@ -556,73 +815,134 @@ def _make_handler(srv: EngineServer):
                 send(json.dumps({"id": rid, "object": obj, "created": created,
                                  "model": srv.model_name, "choices": [choice], **extra}))
 
-            def end():
-                send("[DONE]")
+            def close():
                 self.wfile.write(b"0\r\n\r\n")
                 self.wfile.flush()
 
-            emitted = 0
+            # n > 1 choices decode together; one pump per choice feeds a
+            # merge queue, and each event goes out tagged with its index.
+            merged: "queue.Queue[tuple[int, tuple]]" = queue.Queue()
+
+            def pump(idx, r):
+                # Short polls: a cancelled request frees its slot with no
+                # terminal event, which a long get would wait out.
+                waited = 0.0
+                while True:
+                    try:
+                        ev = r.out.get(timeout=1.0)
+                    except queue.Empty:
+                        if r.cancelled.is_set():
+                            return
+                        waited += 1.0
+                        if waited >= STREAM_WAIT_S:
+                            merged.put((idx, ("error", "generation timed out")))
+                            return
+                        continue
+                    waited = 0.0
+                    merged.put((idx, ev))
+                    if ev[0] in ("done", "error"):
+                        return
+
+            if len(reqs) > 1:
+                for i, r in enumerate(reqs):
+                    threading.Thread(target=pump, args=(i, r), daemon=True).start()
+            remaining = len(reqs)
+            done_prompt = completion = 0
+            # Tokens so far of each choice still running: the usage an
+            # error path reports.
+            live: dict[int, int] = {}
             # A capped stream holds its text-only tail flush until the
             # finish: at a handoff the decode replica delivers those bytes
             # inside its own chunks, so flushing here would duplicate them.
-            held = ""
-            if chat:
-                chunk({"index": 0, "delta": {"role": "assistant"}, "finish_reason": None})
-            elif echo_text:
-                chunk({"index": 0, "text": echo_text, "finish_reason": None})
-            while True:
-                try:
-                    ev = req.out.get(timeout=STREAM_WAIT_S)
-                except queue.Empty:
-                    ev = ("error", "generation timed out")
-                if ev[0] == "token":
-                    emitted += ev[1] >= 0
-                    has_lp = want_logprobs and ev[1] >= 0 and ev[3] is not None
-                    if not ev[2] and not has_lp:
-                        continue
-                    if handoff_cap and ev[1] < 0:
-                        held += ev[2]
-                        continue
-                    pieces = [(ev[1], ev[3], ev[4])] if has_lp else []
+            held: dict[int, str] = {}
+
+            def usage_chunk():
+                pt = done_prompt or prompt_tokens
+                ct = completion + sum(live.values())
+                send(json.dumps({"id": rid, "object": obj, "created": created,
+                                 "model": srv.model_name, "choices": [],
+                                 "usage": {"prompt_tokens": pt, "completion_tokens": ct,
+                                           "total_tokens": pt + ct}}))
+
+            try:
+                for idx in range(len(reqs)):
                     if chat:
-                        choice = {"index": 0, "delta": {"content": ev[2]}, "finish_reason": None}
-                        if has_lp:
-                            choice["logprobs"] = self._lp_chat(pieces, top_n)
+                        chunk({"index": idx, "delta": {"role": "assistant"},
+                               "finish_reason": None})
+                    elif echo_text:
+                        chunk({"index": idx, "text": echo_text, "finish_reason": None})
+                while remaining:
+                    if len(reqs) == 1:
+                        try:
+                            idx, ev = 0, reqs[0].out.get(timeout=STREAM_WAIT_S)
+                        except queue.Empty:
+                            idx, ev = 0, ("error", "generation timed out")
                     else:
-                        choice = {"index": 0, "text": ev[2], "finish_reason": None}
-                        if has_lp:
-                            choice["logprobs"] = self._lp_completion(pieces, top_n)
-                    chunk(choice)
-                elif ev[0] == "done":
-                    fin = ev[1]
-                    reason = fin.reason
-                    if handoff_cap and reason == "length":
-                        # The handoff budget ran out, not the client's.
-                        reason = "handoff"
-                        M_HANDOFF_CAPPED.inc()
-                    if held and reason != "handoff":
-                        chunk({"index": 0, "delta": {"content": held}, "finish_reason": None}
-                              if chat else {"index": 0, "text": held, "finish_reason": None})
-                    # A parked-KV offer rides the marker chunk: the proxy
-                    # stamps it on the resume; clients ignore the field.
-                    chunk({"index": 0, "delta": {}, "finish_reason": reason} if chat
-                          else {"index": 0, "text": "", "finish_reason": reason},
-                          **({"kubeai_kv": fin.kv} if fin.kv else {}))
-                    if include_usage:
-                        emitted = fin.completion_tokens
-                        send(json.dumps({
-                            "id": rid, "object": obj, "created": created,
-                            "model": srv.model_name, "choices": [],
-                            "usage": {"prompt_tokens": prompt_tokens,
-                                      "completion_tokens": emitted,
-                                      "total_tokens": prompt_tokens + emitted},
-                        }))
-                    return end()
-                else:
-                    send(json.dumps({"error": {"message": ev[1]}}))
-                    self.wfile.write(b"0\r\n\r\n")
-                    self.wfile.flush()
-                    return
+                        idx, ev = merged.get()
+                    if ev[0] == "token":
+                        if ev[1] >= 0:
+                            live[idx] = live.get(idx, 0) + 1
+                        has_lp = want_logprobs and ev[1] >= 0 and ev[3] is not None
+                        if not ev[2] and not has_lp:
+                            continue
+                        if handoff_cap and ev[1] < 0:
+                            held[idx] = held.get(idx, "") + ev[2]
+                            continue
+                        pieces = [(ev[1], ev[3], ev[4])] if has_lp else []
+                        if chat:
+                            choice = {"index": idx, "delta": {"content": ev[2]},
+                                      "finish_reason": None}
+                            if has_lp:
+                                choice["logprobs"] = self._lp_chat(pieces, top_n)
+                        else:
+                            choice = {"index": idx, "text": ev[2], "finish_reason": None}
+                            if has_lp:
+                                choice["logprobs"] = self._lp_completion(pieces, top_n)
+                        chunk(choice)
+                    elif ev[0] == "done":
+                        fin = ev[1]
+                        remaining -= 1
+                        done_prompt = fin.prompt_tokens
+                        completion += fin.completion_tokens
+                        live.pop(idx, None)  # the exact count landed
+                        reason = fin.reason
+                        if handoff_cap and reason == "length":
+                            # The handoff budget ran out, not the client's.
+                            reason = "handoff"
+                            M_HANDOFF_CAPPED.inc()
+                        tail = held.pop(idx, "")
+                        if tail and reason != "handoff":
+                            chunk({"index": idx, "delta": {"content": tail},
+                                   "finish_reason": None}
+                                  if chat else {"index": idx, "text": tail, "finish_reason": None})
+                        # A parked-KV offer rides the marker chunk: the proxy
+                        # stamps it on the resume; clients ignore the field.
+                        chunk({"index": idx, "delta": {}, "finish_reason": reason} if chat
+                              else {"index": idx, "text": "", "finish_reason": reason},
+                              **({"kubeai_kv": fin.kv} if fin.kv else {}))
+                        if remaining == 0:
+                            if include_usage:
+                                usage_chunk()
+                            send("[DONE]")
+                            return close()
+                    else:
+                        _cancel_all(reqs)
+                        if include_usage:
+                            # Every terminal path reports usage, partial here.
+                            usage_chunk()
+                        send(json.dumps({"error": {"message": ev[1]}}))
+                        return close()
+            except FaultError:
+                # An injected death: sever the socket with the chunked
+                # stream unterminated, as a crashed replica would.
+                _cancel_all(reqs)
+                try:
+                    self.connection.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                self.close_connection = True
+            except (BrokenPipeError, ConnectionResetError):
+                _cancel_all(reqs)
 
     return Handler
 
@@ -647,6 +967,8 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=64, help="KV pool tokens per page")
+    p.add_argument("--kv-pages", type=int, default=0,
+                   help="total KV pool pages (0 = auto: max_slots * max_seq_len/page_size + 1)")
     p.add_argument("--speculate-tokens", type=int, default=0,
                    help="draft tokens verified per decode step via n-gram prompt "
                         "lookup (greedy-exact; 0 disables)")
@@ -665,6 +987,10 @@ def make_arg_parser() -> argparse.ArgumentParser:
                    default=int(os.environ.get("KUBEAI_HANDOFF_BUDGET", "8")),
                    help="max tokens a prefill-role replica streams before the 'handoff' "
                         "finish (ignored unless --role prefill)")
+    p.add_argument("--drain-grace", type=float,
+                   default=float(os.environ.get("KUBEAI_DRAIN_GRACE", "30")),
+                   help="seconds SIGTERM lets in-flight generations finish before the hard "
+                        "stop (keep below terminationGracePeriodSeconds)")
     p.add_argument("--warmup", action="store_true",
                    default=os.environ.get("KUBEAI_ENGINE_WARMUP", "0") == "1",
                    help="run every step shape (on CUDA: capture the decode chunk's graph) "
@@ -684,8 +1010,8 @@ def build_engine_from_args(args) -> tuple[Engine, str]:
 def _engine_from_args(args) -> tuple[Engine, str]:
     ec = EngineConfig(
         max_slots=args.max_slots, max_seq_len=args.max_seq_len, page_size=args.page_size,
-        decode_kernel=args.decode_kernel, speculate_tokens=args.speculate_tokens,
-        prefix_cache_min=args.prefix_cache_min,
+        num_pages=args.kv_pages, decode_kernel=args.decode_kernel,
+        speculate_tokens=args.speculate_tokens, prefix_cache_min=args.prefix_cache_min,
         kv_cache_dtype=args.kv_cache_dtype,
     )
     name = args.served_model_name or args.model
@@ -701,18 +1027,18 @@ def _engine_from_args(args) -> tuple[Engine, str]:
 
 
 def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s %(message)s")
     args = make_arg_parser().parse_args(argv)
+    setup_logging("engine")
     engine, name = build_engine_from_args(args)
     srv = EngineServer(engine, name, host=args.host, port=args.port, role=args.role,
-                       handoff_budget=args.handoff_budget)
+                       handoff_budget=args.handoff_budget, drain_grace=args.drain_grace)
+    srv.install_signal_handlers()
     srv.start()
     try:
-        while True:
-            time.sleep(3600)
+        # A SIGTERM drain ends in stop(), which sets the event.
+        while not srv.stopped_event.wait(3600):
+            pass
     except KeyboardInterrupt:
-        pass
-    finally:
         srv.stop()
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from kubeai_tpu_torch import resolve_device
 from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+from kubeai_tpu_torch.faults import fault
 from kubeai_tpu_torch.engine.tokenizer import load_tokenizer
 from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.base import ModelConfig
@@ -322,6 +323,8 @@ def load_engine_from_path(
     (config.json and *.safetensors, else pytorch_model*.bin), on *device*
     (default cuda). A checkpoint without ``lm_head.weight`` ties the head
     to the embedding."""
+    # Failpoint: a cold start that fails or stalls at weight load.
+    fault("weights.load")
     if quantization:
         if quantization != "int8":
             raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")

@@ -189,3 +189,17 @@ class Registry:
 
 
 default_registry = Registry()
+
+
+def set_build_info(server: str) -> None:
+    """``kubeai_build_info`` (the JAX package's build-identity series:
+    value 1, identity in labels) with the port's stack in the labels."""
+    import platform
+
+    import torch
+
+    default_registry.gauge(
+        "kubeai_build_info",
+        "Build identity (value 1; server/python/torch/cuda in labels)",
+    ).set(1.0, labels={"server": server, "python": platform.python_version(),
+                       "torch": torch.__version__, "cuda": str(torch.version.cuda)})

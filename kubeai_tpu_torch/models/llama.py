@@ -329,8 +329,11 @@ def apply(
     lora: Params | None = None,  # adapter bank from init_lora_bank
     lora_rows: torch.Tensor | None = None,  # [B] adapter row per batch row
     ring_mesh=None,
+    return_hidden: bool = False,  # final-norm hidden states instead of logits
 ):
-    """Run the decoder. Returns (logits [B, S or 1, V] float32, cache).
+    """Run the decoder. Returns (logits [B, S or 1, V] float32, cache), or
+    with *return_hidden* (hidden [B, S, D] float32, cache): the final-norm
+    states, as the embeddings read them.
 
     With the paged pool and *page_table*: position p of row b lives in
     pool page page_table[b, p // page] at offset p % page; writes past the
@@ -499,6 +502,8 @@ def apply(
         x = x + m
 
     x = norm(x, params["final_norm"])
+    if return_hidden:
+        return x.float(), cache
     if logits_idx is not None:
         x = x[torch.arange(B, device=dev)[:, None], logits_idx.long()[:, None]]  # [B, 1, D]
     if config.tie_word_embeddings:

@@ -1,10 +1,14 @@
-"""The engine's ``kubeai_qos_*`` metrics (port of kubeai_tpu/qos/stats.py,
-same names and help strings). The preemption-storm incident trigger and
-``/debug/qos`` are operator-side and not ported."""
+"""The engine's ``kubeai_qos_*`` metrics and ``GET /debug/qos`` (port of
+kubeai_tpu/qos/stats.py, same names and help strings). The
+preemption-storm incident trigger and the proxy's counters are
+operator-side and not ported."""
 
 from __future__ import annotations
 
+import json
+
 from kubeai_tpu_torch.metrics import default_registry
+from kubeai_tpu_torch.qos.classes import CLASSES
 
 M_DEPTH = default_registry.gauge(
     "kubeai_qos_queue_depth",
@@ -55,3 +59,39 @@ def record_preemption(generated_tokens: int) -> None:
     """A batch slot was seized after *generated_tokens* tokens."""
     M_PREEMPTIONS.inc()
     M_PREEMPTED_TOKENS.inc(max(int(generated_tokens), 0))
+
+
+_queue = None  # the live engine's QoSQueue (Engine.start installs it)
+
+
+def install_queue(q) -> None:
+    """Point /debug/qos at the live engine's queue."""
+    global _queue
+    _queue = q
+
+
+def uninstall_queue(q) -> None:
+    """Identity-checked: a stopped engine must not unhook a newer one's."""
+    global _queue
+    if _queue is q:
+        _queue = None
+
+
+def qos_snapshot() -> dict:
+    doc = {
+        "classes": list(CLASSES),
+        "preemptions": int(M_PREEMPTIONS.value()),
+        "preempted_tokens": int(M_PREEMPTED_TOKENS.value()),
+    }
+    q = _queue
+    if q is not None:
+        doc["queue"] = q.snapshot()
+    return doc
+
+
+def handle_qos_request(path: str, query: str = "") -> tuple[int, str, bytes] | None:
+    """GET /debug/qos: per-class depth and sheds, per-tenant fair-share
+    deficits and preemption counters of this engine."""
+    if path != "/debug/qos":
+        return None
+    return 200, "application/json", json.dumps(qos_snapshot(), indent=2, sort_keys=True).encode()

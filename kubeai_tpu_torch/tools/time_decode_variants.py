@@ -277,8 +277,8 @@ def _profile_window(engine, times, threads) -> dict:
             state["t0"], state["n0"] = time.monotonic(), len(engine.chunk_log)
         return type(engine)._dispatch_chunk(engine)
 
-    def process(*args):
-        type(engine)._process_chunk(engine, *args)
+    def process(*args, **kw):
+        type(engine)._process_chunk(engine, *args, **kw)
         if "prof" in state and len(engine.chunk_log) >= state["n0"] + PROFILE_CHUNKS:
             torch.cuda.synchronize()  # the chunk dispatched after this one too
             state["t1"] = time.monotonic()

@@ -1222,3 +1222,42 @@ def test_graphed_chunk_decodes_a_restored_slot_as_eager(wide):
             for e in engines:
                 e.stop()
     assert got[True] == got[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["tiny_f32", "wide_bf16", "wide_int8"])
+def test_serving_ops_embed_on_the_card_matches_cpu(cuda, wide, case):
+    """Engine.embed on the card (plain attention, no pool: the JAX gate;
+    projections in cuBLAS, or the W8A16 kernel with int8 weights) against
+    the same engine's on the CPU: test:tiny in float32, and the 2-layer
+    model at Llama-3.1-8B's widths in bf16 and int8, within one bf16
+    rounding (2^-8 relative + 1e-3), each vector of unit norm."""
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig, build_test_engine
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    if case == "tiny_f32":
+        cpu = build_test_engine(device="cpu")
+        card = build_test_engine(device=cuda, params=to(cpu.params, cuda))
+        lengths = [1, 9, 16, 17, 40, 64, 100, 128, 3]
+    else:
+        mc, params, qparams = wide
+        p = qparams if case == "wide_int8" else params
+        ec = dict(max_slots=4, max_seq_len=256, prefill_buckets=(16, 32))
+        card = Engine(mc, p, ByteTokenizer(), EngineConfig(**ec), device=cuda)
+        cpu = Engine(mc, to(p, "cpu"), ByteTokenizer(), EngineConfig(**ec), device="cpu")
+        lengths = [1, 7, 20, 32, 5]  # two groups of max_slots
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, 256, (n,), generator=g).tolist() for n in lengths]
+    qdot.launches = 0  # every W8A16 launch, grouped ones included
+    got = card.embed(prompts)
+    launched = qdot.launches
+    want = cpu.embed(prompts)
+    got_t, want_t = torch.from_numpy(got), torch.from_numpy(want)
+    _assert_close(got_t, want_t, torch.bfloat16)
+    torch.testing.assert_close(got_t.norm(dim=1), torch.ones(len(lengths)), rtol=1e-5, atol=1e-5)
+    assert (launched > 0) == (case == "wide_int8")
+    card.stop()
+    cpu.stop()

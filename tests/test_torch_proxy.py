@@ -9,22 +9,32 @@ package's (``role_engines`` and ``qos_engine`` are redefined here):
   server to a decode-role one, importing the parked KV, and the client's
   stream equals a direct port engine's byte for byte;
 - a preempted batch stream resumes byte-identical through the proxy;
-- the autoscaler's engine-load scrape reads the port's /metrics.
+- the autoscaler's engine-load scrape reads the port's /metrics;
+- the proxy routes around a draining port replica (its 429 is load, not
+  failure), and its deadline (a body ``timeout``, stamped as
+  X-Request-Deadline) ends a slow generation on a port engine in a 504
+  with the engine's slot and pages freed (tests/test_proxy_integration.py's
+  ``stack``).
 """
 
 import json
 import threading
+import time
+import urllib.error
 import urllib.request
 
 import pytest
 
 import test_disagg as _disagg
+import test_proxy_integration as _pi
 import test_qos as _qos
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
+from kubeai_tpu.api import model_types as mt
 from kubeai_tpu.autoscaler.autoscaler import scrape_engine_load
 from kubeai_tpu.disagg import ROLE_DECODE, ROLE_PREFILL
 from kubeai_tpu.disagg.handoff import M_HANDOFFS
 from kubeai_tpu.qos.stats import M_RESUMES
+from kubeai_tpu_torch import faults
 from kubeai_tpu_torch.engine.core import EngineConfig, build_test_engine
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.server import EngineServer
@@ -32,6 +42,7 @@ from kubeai_tpu_torch.metrics import default_registry as treg
 
 disagg_stack = _disagg.disagg_stack
 qos_stack = _qos.qos_stack
+stack = _pi.stack
 
 
 def count(name, **labels):
@@ -138,3 +149,92 @@ def test_engine_load_scrape_reads_the_port_metrics(qos_engine):
         queued.cancelled.set()
         _qos.await_cond(lambda: eng.active_slots() == 0 and eng.queue_depth() == 0,
                         msg="engine drained")
+
+
+def _proxy_post(api, body, timeout=60):
+    req = urllib.request.Request(f"http://127.0.0.1:{api.port}/openai/v1/completions",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _port_replicas(stack, n, monkeypatch):
+    """*n* port servers as the ready pods of Model m1 (round robin), each
+    counting the engine submits it takes."""
+    store, _, _, _, _, engines = stack
+    ec = EngineConfig(max_slots=2, max_seq_len=256, prefill_buckets=(16, 32), decode_chunk=2)
+    srvs = []
+    for _ in range(n):
+        srv = EngineServer(build_test_engine(ec, device="cpu"), "m1", host="127.0.0.1", port=0)
+        srv.start()
+        engines.append(srv)
+        srv.submits = 0
+
+        def counting(*a, _srv=srv, _submit=srv.engine.submit, **kw):
+            _srv.submits += 1
+            return _submit(*a, **kw)
+
+        monkeypatch.setattr(srv.engine, "submit", counting)
+        srvs.append(srv)
+    store.create(mt.KIND_MODEL, _pi.mk_model(
+        "m1", replicas=n, min_replicas=n, load_balancing=mt.LoadBalancing(strategy="RoundRobin")))
+    for pod, srv in zip(_pi.await_pods(store, "m1", n), srvs):
+        _pi.forge_ready(store, pod.meta.name, srv)
+    return srvs
+
+
+def test_the_proxy_routes_around_a_draining_replica(stack, monkeypatch):
+    """A drains (a slowed request in flight holds its drain open): /readyz
+    turns 503, and every request through the proxy is served by B."""
+    api = stack[4]
+    a, b = _port_replicas(stack, 2, monkeypatch)
+    faults.arm_spec(f"engine.step@{a.port}", "delay:0.05")
+    try:
+        slow = a.engine.submit(a.engine.tokenizer.encode("slow"),
+                               SamplingParams(temperature=0.0, max_tokens=40))
+        drain = threading.Thread(target=a.drain, args=(30.0,), daemon=True)
+        drain.start()
+        _qos.await_cond(a.draining.is_set, msg="A draining")
+        with urllib.request.urlopen(f"http://127.0.0.1:{a.port}/readyz", timeout=10) as r:
+            pass
+    except urllib.error.HTTPError as e:
+        assert e.code == 503 and json.loads(e.read())["status"] == "draining"
+    else:
+        raise AssertionError("/readyz of a draining replica answered 200")
+    a_before, b_before = a.submits, b.submits
+    for i in range(6):
+        status, body = _proxy_post(api, {"model": "m1", "prompt": f"r{i}", "max_tokens": 3})
+        assert status == 200, body
+    assert a.submits == a_before and b.submits == b_before + 6
+    assert drain.is_alive(), "the drain waits for the request in flight"
+    faults.clear_all()
+    drain.join(timeout=30)
+    assert not drain.is_alive() and a.stopped_event.is_set()
+    events = []
+    while not events or events[-1][0] not in ("done", "error"):
+        events.append(slow.out.get(timeout=10))
+    assert events[-1][0] == "done"
+
+
+def test_a_proxy_deadline_ends_in_504_and_frees_the_engine(stack, monkeypatch):
+    api = stack[4]
+    (srv,) = _port_replicas(stack, 1, monkeypatch)
+    eng = srv.engine
+    cancelled = eng.m_requests.value(labels={"outcome": "cancelled"})
+    faults.arm_spec(f"engine.step@{srv.port}", "delay:0.02")
+    try:
+        t0 = time.monotonic()
+        status, body = _proxy_post(api, {"model": "m1", "prompt": "x", "max_tokens": 2000,
+                                         "timeout": 0.3})
+        assert status == 504, body
+        assert time.monotonic() - t0 < 10
+    finally:
+        faults.clear_all()
+    _qos.await_cond(lambda: eng.requests_in_system() == 0 and eng.active_slots() == 0,
+                    msg="engine drained")
+    assert eng._pool.used() == 0
+    assert eng.m_requests.value(labels={"outcome": "cancelled"}) == cancelled + 1
