@@ -127,7 +127,15 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      /debug/pipeline's MFU and roofline fraction under load, a 2 s
      /debug/profile naming the decode kernel (the decode step timed
      before and after it), and the drain (/readyz 200 -> 503, the stream
-     in flight completes, new work gets 429).
+     in flight completes, new work gets 429);
+  7. cold start (phase_coldstart, budget 120 s): a spawned server over a
+     4-layer checkpoint at Llama-3.1-8B width into an empty library
+     directory (KUBEAI_COMPILE_CACHE, the build overlapped with the
+     weight stream, --warmup): spawn -> /readyz 200 and each phase; then
+     a parked server warmed for preset:llama-3.1-8b and attached with
+     the same args (the park engine adopted, weights in place): park
+     warm and attach -> ready seconds, capture seconds by part, 8 greedy
+     requests equal to a directly built engine's (path "parked").
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -1737,7 +1745,7 @@ def phase_serving() -> dict:
         "--model", "preset:llama-3.1-8b", "--kv-cache-dtype", "fp8", "--decode-kernel", "ragged",
         "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64", "--warmup"])
     warm = out["fp8_pool"]["warmup"]
-    if not warm or warm["shapes"] != 1 + 3 * 6:
+    if not warm or warm["shapes"] != 1 + 3 * 6 + 3:
         raise AssertionError(f"fp8_pool: --warmup ran {warm}")
     log("warmup[fp8_pool]", gpu_line(), json.dumps(
         {**warm, "capture_s": out["fp8_pool"]["capture_s"]}))
@@ -3373,6 +3381,270 @@ def _ops_profile_and_drain(srv) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: cold start and the parked replica
+
+COLDSTART_LAYERS = 4
+COLDSTART_ARGS = ["--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"]
+COLDSTART_PHASES = ("stage", "load", "compile", "build", "warmup", "ready")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _await_ready(port, timeout, proc=None) -> float:
+    """Seconds until /readyz answers 200 (polled every 50 ms); raises at
+    *timeout*, or when *proc* exits first."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"engine process exited with {proc.returncode}")
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=2) as r:
+                if r.status == 200:
+                    return time.monotonic() - t0
+        except (urllib.error.URLError, OSError):
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"/readyz on :{port} not 200 within {timeout} s")
+
+
+def _metric_counts(port, name) -> dict:
+    """{phase: observation count} of histogram *name* on /metrics."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    return {m[0]: float(m[1]) for m in re.findall(
+        rf'^{name}_count{{phase="([^"]+)"}} (\S+)$', text, re.M)}
+
+
+def _greedy_batch(eng, prompts, n=32) -> list:
+    """[(ids, top-2 gaps)] of *prompts*, greedy, submitted together to the
+    engine's queue (they decode together)."""
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+    reqs = [eng.submit(eng.tokenizer.encode(p), SamplingParams(
+        temperature=0.0, max_tokens=n, logprobs=True, logit_bias=((257, -100.0),)))
+        for p in prompts]
+    out = []
+    for req in reqs:
+        ids, gaps = [], []
+        while True:
+            ev = req.out.get(timeout=300)
+            if ev[0] == "token" and ev[1] >= 0:
+                ids.append(ev[1])
+                gaps.append(ev[4][0][1] - ev[4][1][1])
+            elif ev[0] == "done":
+                break
+            elif ev[0] == "error":
+                raise AssertionError(f"request failed: {ev[1]}")
+        out.append((ids, gaps))
+    return out
+
+
+def _spawn_cold() -> dict:
+    """(a) A fresh engine process over a checkpoint at Llama-3.1-8B width
+    with an empty library directory: spawn -> /readyz 200, and its start
+    timeline from /debug/engine and /metrics."""
+    import torch
+
+    from kubeai_tpu_torch.engine.weights import hf_state_dict, save_hf_checkpoint
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", f"ckpt_8b_width_{COLDSTART_LAYERS}_layers")
+    libs = os.path.join(root, "build", "coldstart_libraries")
+    mc = llama_3_1_8b(num_layers=COLDSTART_LAYERS)
+    t0 = time.monotonic()
+    p = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    shutil.rmtree(path, ignore_errors=True)
+    save_hf_checkpoint(path, mc, hf_state_dict(p, mc))
+    del p
+    torch.cuda.empty_cache()
+    write_s = time.monotonic() - t0
+    shutil.rmtree(libs, ignore_errors=True)
+    os.makedirs(libs)
+    port = _free_port()
+    env = {**os.environ, "KUBEAI_COMPILE_CACHE": libs, "KUBEAI_COLDSTART_OVERLAP": "1",
+           "PYTHONPATH": root}
+    log_path = os.path.join(root, "build", "coldstart_spawn.log")
+    t0 = time.monotonic()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeai_tpu_torch.engine.server", "--model", path,
+             "--host", "127.0.0.1", "--port", str(port), "--warmup"] + COLDSTART_ARGS,
+            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=root)
+    try:
+        try:
+            ready_s = _await_ready(port, 240, proc)
+        except AssertionError:
+            with open(log_path) as f:
+                log(f.read()[-4000:])
+            raise
+        snap = _http(port, "/debug/engine")[2]["cold_start"]
+        counts = _metric_counts(port, "kubeai_engine_cold_start_seconds")
+        _check_completion(_post(port, "/v1/completions", {
+            "prompt": "Hello", "max_tokens": 8, "temperature": 0}), "cold spawn")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(path, ignore_errors=True)
+        shutil.rmtree(libs, ignore_errors=True)
+    ph = snap["phases"]
+    warm = snap["attrs"]["warm_compile"]
+    if not ph["compile"]["start_s"] < ph["load"]["end_s"]:
+        raise AssertionError(f"cold spawn: compile did not start before load ended: {ph}")
+    if warm.get("missing") or sorted(warm["built"]) != sorted(warm["libraries"]):
+        raise AssertionError(f"cold spawn: not every library was built into the empty "
+                             f"directory: {warm}")
+    if any(counts.get(name, 0) < 1 for name in COLDSTART_PHASES):
+        raise AssertionError(f"cold spawn: /metrics lacks a phase: {counts}")
+    return {"checkpoint": f"{COLDSTART_LAYERS} layers at Llama-3.1-8B width, bf16",
+            "write_s": write_s, "spawn_to_ready_s": ready_s,
+            "phases": {k: v.get("duration_s") for k, v in ph.items()},
+            "starts": {k: v["start_s"] for k, v in ph.items()},
+            "phase_sum_s": snap["phase_sum_s"], "span_s": snap["span_s"],
+            "overlap_s": snap["overlap_s"], "ready_s": snap["ready_s"],
+            "built": warm["built"], "preloaded": warm["preloaded"],
+            "warm_seconds": warm["seconds"], "warmup": _shapes(snap["attrs"]["warmup"]),
+            "capture_segments": snap["attrs"]["capture_segments"], "metric_counts": counts}
+
+
+def _shapes(warmup: dict) -> dict:
+    """A warmup's result without its list of shape names."""
+    return {k: v for k, v in warmup.items() if k != "names"}
+
+
+def _parked_attach() -> tuple[dict, dict]:
+    """(b) An in-process parked server warmed for preset:llama-3.1-8b,
+    then attached with the same args: park warm, attach -> ready, the
+    adoption, the captures; 8 greedy requests against an engine built
+    directly. Returns (the run's numbers, its launch counts)."""
+    import torch
+
+    from kubeai_tpu_torch.engine.server import (
+        EngineServer,
+        build_engine_from_args,
+        make_arg_parser,
+    )
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    args = ["--model", "preset:llama-3.1-8b"] + COLDSTART_ARGS
+    srv = EngineServer(None, "(parked)", host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        t0 = time.monotonic()
+        srv.start_park_warm("preset:llama-3.1-8b", COLDSTART_ARGS)
+        park = srv.park_warm.join()
+        park_s = time.monotonic() - t0
+        if "error" in park or srv.park_engine is None:
+            raise AssertionError(f"park warm failed: {park}")
+        code, _, body = _http(srv.port, "/readyz")
+        if code != 503 or body != {"status": "parked", "attach": "parked"}:
+            raise AssertionError(f"parked /readyz: {code} {body}")
+        t0 = time.monotonic()
+        code, _, body = _http(srv.port, "/v1/attach", {"args": args})
+        if code != 202:
+            raise AssertionError(f"/v1/attach: {code} {body}")
+        attach_s = _await_ready(srv.port, 120)
+        eng = srv.engine
+        tl = eng.cold_start_timeline.snapshot()
+        if not tl["attrs"].get("adopted_park_engine"):
+            raise AssertionError(f"the park engine was not adopted: {tl}")
+        prompts = [f"Request number {i}: tell a story about the sea." for i in range(8)]
+        _zero_launches()
+        got = _greedy_batch(eng, prompts)
+        mid = ("The quick brown fox jumps over the lazy dog. " * 7)[:300]
+        _check_completion(_post(srv.port, "/v1/completions", {
+            "prompt": mid, "max_tokens": 8, "temperature": 0}), "parked 300-byte")
+        launches = _read_launches()
+        _check_graphed(eng, "parked")
+        # Captures since the park's (the attach and its traffic): none.
+        recaptured = {k: v for k, v in eng.graph_capture_seconds.items()
+                      if park["capture_s"].get(k) != v}
+        if recaptured:
+            raise AssertionError(f"the attached engine captured again: {recaptured}")
+        park_tl = srv.park_timeline.snapshot()
+        counts = _metric_counts(srv.port, "kubeai_engine_cold_start_seconds")
+        if any(counts.get(p, 0) < 1 for p in ("load", "build", "ready")):
+            raise AssertionError(f"parked /metrics lacks a phase: {counts}")
+    finally:
+        srv.stop()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (launches["launches"]["flash_attention"] and
+            launches["launches"]["paged_attention_ragged"]):
+        raise AssertionError(f"parked: flash and ragged must launch: {launches}")
+    direct, _ = build_engine_from_args(make_arg_parser().parse_args(args))
+    direct.start()
+    try:
+        want = _greedy_batch(direct, prompts)
+        diverged = []
+        for i, ((ids, _), (ref, gaps)) in enumerate(zip(got, want)):
+            j = next((k for k, (a, b) in enumerate(zip(ids, ref)) if a != b), None)
+            if j is None:
+                if len(ids) != len(ref):
+                    raise AssertionError(f"parked: request {i} has {len(ids)} tokens, "
+                                         f"not {len(ref)}")
+                continue
+            ulp = _logit_ulp(direct.params, llama_3_1_8b(),
+                             direct.tokenizer.encode(prompts[i]) + ref[:j])
+            diverged.append({"request": i, "at": j, "gap": gaps[j], "ulp": ulp})
+            if gaps[j] > 2 * ulp:
+                raise AssertionError(f"parked: request {i}'s greedy token {j} differs from "
+                                     f"the direct engine's at a top-2 gap of {gaps[j]} > 2 ulps")
+    finally:
+        direct.stop()
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"park_warm_s": park_s,
+           "park_phases": {k: v.get("duration_s") for k, v in park_tl["phases"].items()},
+           "park_libraries": park["libraries"], "park_preloaded": park["preloaded"],
+           "park_zero_params_s": park["zero_params_s"], "park_warmup": _shapes(park["warmup"]),
+           "capture_s_at_park": park["capture_s"],
+           "capture_segments_at_park": park["capture_segments"],
+           "attach_to_ready_s": attach_s, "adopted_park_engine": True,
+           "capture_s_at_attach": recaptured,
+           "attach_phases": {k: v.get("duration_s") for k, v in tl["phases"].items()},
+           "tokens_equal": not diverged, "diverged_at_near_ties": diverged,
+           "metric_counts": counts}
+    return res, launches
+
+
+def phase_coldstart() -> dict:
+    """Cold start on Llama-3.1-8B's widths: (a) a cold spawn of the
+    server over a 4-layer checkpoint into an empty library directory
+    (KUBEAI_COMPILE_CACHE) with the background warm overlapped
+    (KUBEAI_COLDSTART_OVERLAP=1) and --warmup: spawn -> /readyz 200, each
+    phase, overlap_s and the libraries built; compile must start before
+    load ends, and /metrics must carry every phase; (b) a parked server
+    warmed for preset:llama-3.1-8b (the libraries, then a zero-weight
+    engine whose decode graph is captured), attached with the same
+    args: park warm and attach -> ready seconds, the adoption, capture
+    seconds at park and at attach (none), 8 greedy requests equal to an
+    engine built directly from the same args and seed (up to near-ties
+    within 2 bf16 ulps) and a 300-byte request, with the launch counts of
+    that run (path "parked"); flash and ragged must launch there."""
+    t0 = time.monotonic()
+    spawn = _spawn_cold()
+    log("coldstart[spawn]", gpu_line(), json.dumps(spawn))
+    parked, launches = _parked_attach()
+    log("coldstart[parked]", gpu_line(), json.dumps(parked))
+    log(f"coldstart phase: {time.monotonic() - t0:.1f}s (budget 120 s)")
+    return {"parked": launches}
+
+
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
 # belongs to: the default ragged-decode path, --decode-kernel dedicated,
 # --quantization int8, --kv-cache-dtype fp8 (ragged), --kv-cache-dtype
@@ -3485,6 +3757,7 @@ def main() -> int:
     t6 = time.monotonic()
     phase_serving_ops()
     log(f"serving_ops phase: {time.monotonic() - t6:.1f}s")
+    serving.update(phase_coldstart())
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

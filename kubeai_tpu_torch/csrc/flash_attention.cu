@@ -26,6 +26,7 @@
 // with more than 64 query heads per KV head.
 #include "attention_common.cuh"
 #include "hopper_attention.cuh"
+#include "preload.cuh"
 
 #include <algorithm>
 

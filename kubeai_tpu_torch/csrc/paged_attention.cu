@@ -54,6 +54,7 @@
 #include "attention_common.cuh"
 #include "hopper_attention.cuh"
 #include "split_kv_decode.cuh"
+#include "preload.cuh"
 
 #include <algorithm>
 

@@ -46,6 +46,7 @@
 // softmax scale and v_scale into the output (attention_common.cuh).
 #include "attention_common.cuh"
 #include "split_kv_decode.cuh"
+#include "preload.cuh"
 
 using namespace kattn;
 

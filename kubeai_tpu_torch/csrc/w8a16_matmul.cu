@@ -98,6 +98,7 @@
 
 #include "hopper_attention.cuh"
 #include "split_kv_decode.cuh"
+#include "preload.cuh"
 
 namespace kw8 {
 

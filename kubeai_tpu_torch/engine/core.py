@@ -64,7 +64,10 @@ A slim port of the JAX engine's serving path:
   recorder, which also keeps one step record per decode chunk and
   prefill; the stall tracker and rate window feed ``pipeline_report``;
 - :meth:`Engine.warmup` runs every step shape before serving (the
-  server's ``--warmup``);
+  server's ``--warmup``), the restore path's imports included;
+  :meth:`Engine.load_params_` copies a model's weights into the
+  engine's parameter storage in place, under its captured graphs (a
+  parked replica's attach, engine/coldstart.py);
 - one scheduler thread owns the device state and runs every device call
   on the engine's own CUDA stream; callers talk to it through
   per-request queues. Stop strings, EOS and ``max_tokens`` are handled on
@@ -455,8 +458,10 @@ class Engine:
                           for s in (self._stream, self._capture_stream) if s is not None})
         self._graphs: dict[str, _ChunkGraph] = {}
         self._graph_pool = None
-        # Seconds each graph's capture took (eager run included), by kernel.
+        # Seconds each graph's capture took (eager run included), by kernel,
+        # and their split (_capture).
         self.graph_capture_seconds: dict[str, float] = {}
+        self.graph_capture_segments: dict[str, dict] = {}
         # Recent decode chunks: host-clock segments (the JAX engine's
         # flight-recorder step records) and the device span between CUDA
         # events around the chunk.
@@ -1060,15 +1065,21 @@ class Engine:
         """Run every step shape the serving path hits before the first
         request (JAX ``Engine.warmup``): the decode chunk (on CUDA its
         graph's capture), batch-1 and, with *include_group*, group-cap
-        cold prefill for every bucket, and one chunked-prefill shape per
-        bucket. Builds and loads the kernels and fills the allocator's
-        and libraries' caches. Every write goes to the KV pool's trash
-        page (tables all zero) and no slot bookkeeping changes. Call it
-        before start(). Returns {"shapes", "seconds"}."""
+        cold prefill for every bucket, one chunked-prefill shape per
+        bucket, and with KV restore on the restore path: an import of 1
+        and of 2 pages (the park's gather of trash pages written back in
+        place) and a restored slot's device writes into slot 0's
+        pre-serving state (JAX warms these lest the first preemption pay
+        for them mid-flood; its KV evolve has no counterpart: a slot's
+        sampling key is its seed). Builds and loads the kernels and fills
+        the allocator's and libraries' caches. Every write goes to the
+        KV pool's trash page (tables all zero) and no slot bookkeeping
+        changes. Call it before start(). Returns {"shapes", "seconds",
+        "names"}, the names in the JAX warmup's terms."""
         if self.is_ready():
             raise RuntimeError("warmup() runs before start()")
         t0 = time.monotonic()
-        shapes = 0
+        names = []
         B, Kb, mp = self.cfg.max_slots, self.cfg.max_logit_bias, self._max_pages
         with self._on_stream():
             if self.cuda_graphs:
@@ -1077,7 +1088,7 @@ class Engine:
             else:
                 self._inputs.make_inert()
                 self._chunk_body()
-            shapes += 1
+            names.append("decode")
 
             def first(logits, n):
                 z, zf = np.zeros((n,), np.int64), np.zeros((n,), np.float32)
@@ -1094,7 +1105,7 @@ class Engine:
                         self._t(np.full((n,), bucket, np.int64)), **self._lora_args([0] * n),
                     )
                     first(logits, n)
-                    shapes += 1
+                    names.append(f"prefill_batch[{n}x{bucket}]")
             for bucket in self.cfg.prefill_buckets:
                 logits, _ = llama.prefill_paged(
                     self.params, self.model_config, self._t(np.zeros((1, bucket), np.int64)),
@@ -1102,13 +1113,66 @@ class Engine:
                     self._t([0]), self._t([bucket - 1]), **self._lora_args([0]),
                 )
                 first(logits, 1)
-                shapes += 1
+                names.append(f"prefill_chunk[{bucket}]")
+            if self._kv_enabled():
+                for n in (1, 2):
+                    trash = [0] * n
+                    self._import_pages(trash, self._gather_pages(trash))
+                    names.append(f"kv_import[{n}]")
+                # _admit_restored's device writes, with slot 0's values.
+                self._adm_toks[0] = 0
+                self._tok_hist[0].copy_(self._t(np.zeros(self._tok_hist.shape[1:], np.int64)))
+                names.append("kv_slotset")
             if self._cuda:
                 self._stream.synchronize()
         dur = time.monotonic() - t0
-        log.info("engine warmup: %d shapes in %.1fs", shapes, dur)
-        self.warmup_result = {"shapes": shapes, "seconds": round(dur, 3)}
+        log.info("engine warmup: %d shapes in %.1fs", len(names), dur)
+        self.warmup_result = {"shapes": len(names), "seconds": round(dur, 3), "names": names}
         return self.warmup_result
+
+    def load_params_(self, params) -> None:
+        """Copy *params*, a tree with this engine's leaves, shapes and
+        dtypes, into the engine's parameter storage, before start(). The
+        captured decode graphs read every weight by its address, so a
+        leaf is written in place and never rebound (as LoRA rows are).
+        The page pool's bookkeeping, the park store and the decode state
+        return to a fresh engine's: no page cached under the old weights
+        is matched again. A parked replica warms up over zeros and takes
+        its model's weights this way."""
+        if self.is_ready():
+            raise RuntimeError("load_params_() runs before start()")
+        pairs = []
+
+        def walk(dst, src, where):
+            if isinstance(dst, dict):
+                if not isinstance(src, dict) or set(src) != set(dst):
+                    raise ValueError(f"load_params_: params{where} has keys "
+                                     f"{sorted(src) if isinstance(src, dict) else type(src)}, "
+                                     f"expected {sorted(dst)}")
+                for k in dst:
+                    walk(dst[k], src[k], f"{where}/{k}")
+            elif (not isinstance(src, torch.Tensor) or src.shape != dst.shape
+                  or src.dtype != dst.dtype):
+                raise ValueError(f"load_params_: params{where} is "
+                                 f"{getattr(src, 'dtype', type(src))} "
+                                 f"{tuple(getattr(src, 'shape', ()))}, expected {dst.dtype} "
+                                 f"{tuple(dst.shape)}")
+            else:
+                pairs.append((dst, src))
+
+        walk(self.params, params, "")  # every leaf checked before any is written
+        if self._cuda:
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream(), torch.no_grad():
+            for dst, src in pairs:
+                dst.copy_(src)
+            for t in (self._lengths, self._last, self._seeds, self._tok_hist, self._adm_toks):
+                t.zero_()
+            if self._cuda:
+                # The caller may free *params* as soon as this returns.
+                self._stream.synchronize()
+        self._pool = PagePool(self._pool.num_pages, self.cfg.page_size)
+        self.kv_park = kvstate.ParkStore()
 
     # -- scheduler loop ----------------------------------------------------
 
@@ -1336,16 +1400,17 @@ class Engine:
                 poisoned = False
                 for slot_idx, req in items:
                     if self._slots[slot_idx] is None:
-                        req.out.put(("error", f"prefill failed: {e}"))
-                        self._finish_request(req, "error", error=f"prefill failed: {e}")
                         # Pages registered at plan time were never written:
                         # unregister them. If a same-round request already
-                        # claimed one, its prefill would read garbage.
+                        # claimed one, its prefill would read garbage. The
+                        # pages are back before the caller hears of it.
                         fresh = self._slot_fresh[slot_idx]
                         poisoned |= any(self._pool.refcount(p) > 1 for p in fresh)
                         self._pool.unregister_pages(fresh)
                         self._slot_fresh[slot_idx] = []
                         self._release_slot_pages(slot_idx)
+                        req.out.put(("error", f"prefill failed: {e}"))
+                        self._finish_request(req, "error", error=f"prefill failed: {e}")
                 if poisoned:
                     # Escalate to the loop's reset; requests of this round
                     # not prefilled yet hold no slot, so fail them first.
@@ -1762,6 +1827,10 @@ class Engine:
         cs.wait_stream(self._stream)
         with torch.cuda.stream(cs):
             self._chunk_body()
+        cs.synchronize()  # torch.cuda.graph synchronizes on entry anyway
+        t_eager = time.monotonic()
+        gc.collect()  # as torch.cuda.graph's entry does, timed apart here
+        t_gc = time.monotonic()
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         before = _counts()
@@ -1769,10 +1838,19 @@ class Engine:
         try:
             with torch.cuda.graph(graph, pool=self._graph_pool, stream=cs,
                                   capture_error_mode="thread_local"):
+                t_rec = time.monotonic()
                 outputs = self._chunk_body()
+                t_end = time.monotonic()
         finally:
             after = _counts()
             _set_counts(before)
+        t_inst = time.monotonic()
+        # Where a capture's seconds go: the eager chunk (enqueue and run),
+        # the garbage collection, torch.cuda.graph's entry, recording the
+        # chunk's launches, and ending the capture (instantiation).
+        self.graph_capture_segments[self.decode_kernel] = {
+            "eager_s": t_eager - t0, "gc_s": t_gc - t_eager, "enter_s": t_rec - t_gc,
+            "record_s": t_end - t_rec, "instantiate_s": t_inst - t_end}
         _build.hold_stream(cs)
         self._stream.wait_stream(cs)
         delta = {}
@@ -2280,6 +2358,24 @@ def ngram_drafts(hist: torch.Tensor, lengths: torch.Tensor, last: torch.Tensor,
     return torch.where(valid, hist.gather(1, torch.clamp(didx, 0, W - 1)), 0)
 
 
+def test_model_config() -> ModelConfig:
+    """The JAX package's float32 test model (``--model test:tiny``)."""
+    return ModelConfig(
+        vocab_size=272,  # 259 used; padded as in the JAX package
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        dtype="float32",
+        max_position=2048,
+    )
+
+
+# Prefill buckets of a test:tiny engine served from the command line.
+TEST_PREFILL_BUCKETS = (16, 32, 64, 128)
+
+
 def build_test_engine(
     engine_config: EngineConfig | None = None,
     seed: int = 0,
@@ -2295,16 +2391,7 @@ def build_test_engine(
     if quantization not in ("", "int8"):
         raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
     dev = resolve_device(device)
-    mc = model_config or ModelConfig(
-        vocab_size=272,  # 259 used; padded as in the JAX package
-        hidden_size=128,
-        intermediate_size=256,
-        num_layers=2,
-        num_heads=4,
-        num_kv_heads=2,
-        dtype="float32",
-        max_position=2048,
-    )
+    mc = model_config or test_model_config()
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = llama.init_params(mc, gen, device=dev)
@@ -2344,18 +2431,31 @@ def build_engine(
     weight at a time (a MoE model's experts and router stay in full
     precision, as in the JAX package). The byte tokenizer drives it;
     logits past its vocab are masked."""
-    if preset not in PRESETS:
-        raise ValueError(f"unknown preset {preset!r}; known: {sorted(PRESETS)}")
+    mc = preset_config(preset, num_layers)
     if quantization not in ("", "int8"):
         raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
     dev = resolve_device(device)
+    params = preset_params(mc, dev, seed, quantization)
+    return Engine(mc, params, ByteTokenizer(), engine_config or EngineConfig(), device=dev)
+
+
+def preset_config(preset: str, num_layers: int | None = None) -> ModelConfig:
+    """A preset's model config, at *num_layers* when given."""
+    if preset not in PRESETS:
+        raise ValueError(f"unknown preset {preset!r}; known: {sorted(PRESETS)}")
     mc = PRESETS[preset]()
-    if num_layers is not None:
-        mc = mc.replace(num_layers=num_layers)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = llama.init_params(mc, gen, device=dev)
+    return mc if num_layers is None else mc.replace(num_layers=num_layers)
+
+
+def preset_params(mc: ModelConfig, device: torch.device, seed: int = 0, quantization: str = ""):
+    """A preset's random weights on *device*, drawn from *seed* (int8
+    quantized one stacked weight at a time under ``quantization="int8"``)."""
+    if quantization not in ("", "int8"):
+        raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = llama.init_params(mc, gen, device=device)
     if quantization:
         from kubeai_tpu_torch.engine.weights import quantize_model_params  # imports this module
 
         params = quantize_model_params(params, mc)
-    return Engine(mc, params, ByteTokenizer(), engine_config or EngineConfig(), device=dev)
+    return params

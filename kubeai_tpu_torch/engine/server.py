@@ -1,9 +1,11 @@
 """OpenAI-compatible HTTP server over the port's engine (port of
 kubeai_tpu/engine/server.py).
 
-    GET  /health /healthz        liveness (+ engine readiness, role)
+    GET  /health /healthz        liveness (+ engine readiness, role; a parked
+                                 replica's ``parked`` and ``attach`` state)
     GET  /readyz                 readiness: 200 once the engine runs, 503
-                                 "draining" from the start of a drain
+                                 "draining" from the start of a drain, 503
+                                 "parked" until an attach has finished
     GET  /metrics                Prometheus text (the JAX engine's families)
     GET  /debug                  index of the debug routes below
     GET  /debug/requests         request timelines (?limit=&id=&tenant=)
@@ -21,6 +23,9 @@ kubeai_tpu/engine/server.py).
     POST /v1/embeddings          mean-pooled, normalised hidden states
     POST /v1/load_lora_adapter   {lora_name, lora_path}
     POST /v1/unload_lora_adapter {lora_name}
+    POST /v1/attach              {args} (+ model, served_model_name): a
+                                 parked replica loads that model (202, or
+                                 409 when attached or attaching)
 
 Responses keep the JAX server's shapes: the same ``usage`` block, the
 completions ``logprobs`` object (tokens / token_logprobs / top_logprobs)
@@ -46,9 +51,22 @@ parks its KV and carries the offer on its marker chunk as
 offer imports the blob (from this replica's park store, or fetched from
 the source's ``/v1/kv/<key>``) instead of re-running the prefill.
 
-Not ported yet (ROADMAP queue 1): parked replicas and ``/v1/attach``,
-``/debug/tenants`` (the tenant accountant) and the OTLP exporter. The
-operator-side surfaces (``/debug/incidents``, ``/canary``, ``/history``,
+A parked replica (``--parked``, the JAX operator's ``ParkedPool``) starts
+with no model: its HTTP surface is up, ``/readyz`` answers 503 "parked",
+and a POST ``/v1/attach`` with the desired pod's arguments starts the
+model on a worker thread (states ``parked``, ``attaching``, ``attached``,
+``failed: ...``; a failed attach may be retried). With ``--park-config``
+(default ``KUBEAI_PARK_CONFIG``) it warms in the background at park time
+(engine/coldstart.py ``park``): the config's kernel libraries are built
+and loaded, and an engine over zero weights at its shapes warms up,
+capturing the decode graph. An attach whose configuration equals the park
+config's adopts that engine and copies its weights in place; any other
+builds afresh. ``KUBEAI_COMPILE_CACHE`` names a library directory every
+replica shares. Every start stamps its phases (``/debug/engine``'s
+``cold_start``, ``kubeai_engine_cold_start_seconds``).
+
+Not ported yet (ROADMAP queue 1): ``/debug/tenants`` (the tenant
+accountant) and the OTLP exporter. The operator-side surfaces (``/debug/incidents``, ``/canary``, ``/history``,
 ``/forecast``) answer 404 "not installed", as on a JAX engine.
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
@@ -73,25 +91,43 @@ from __future__ import annotations
 import argparse
 import base64
 import dataclasses
+import gc
 import json
 import os
 import queue
 import re
 import signal
 import socket
+import sys
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import torch
+
+from kubeai_tpu_torch import resolve_device
 from kubeai_tpu_torch.engine import kvstate
+from kubeai_tpu_torch.engine.coldstart import (
+    BackgroundWarm,
+    ColdStartTimeline,
+    StartSpec,
+    park,
+    setup_compile_cache,
+    start_engine,
+    start_spec,
+)
 from kubeai_tpu_torch.engine.core import (
+    TEST_PREFILL_BUCKETS,
     Engine,
     EngineConfig,
-    build_engine,
     build_test_engine,
+    preset_config,
+    preset_params,
 )
+from kubeai_tpu_torch.engine.lora import stage_remote
 from kubeai_tpu_torch.engine.sampling import SamplingParams
+from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
 from kubeai_tpu_torch.engine.weights import load_engine_from_path
 from kubeai_tpu_torch.faults import FaultError, fault, handle_faults_request, set_thread_scope
 from kubeai_tpu_torch.metrics import default_registry, set_build_info
@@ -139,10 +175,25 @@ M_RESUMED = default_registry.counter(
 
 
 class EngineServer:
-    def __init__(self, engine: Engine, model_name: str, host: str = "0.0.0.0", port: int = 8000,
-                 role: str = "", handoff_budget: int = 0, drain_grace: float = 30.0):
+    def __init__(self, engine: Engine | None, model_name: str, host: str = "0.0.0.0",
+                 port: int = 8000, role: str = "", handoff_budget: int = 0,
+                 drain_grace: float = 30.0, device: str | None = None):
+        # engine=None is a PARKED replica: HTTP up, no weights, /readyz 503
+        # until a POST /v1/attach starts a model (scale-from-zero attaches
+        # to a parked pod instead of spawning a process).
         self.engine = engine
         self.model_name = model_name
+        self._attach_lock = threading.Lock()
+        self._attach_state = "parked" if engine is None else "attached"
+        # The park-time warm in flight (coldstart.BackgroundWarm): an attach
+        # joins it first, and adopts the engine it leaves in park_engine
+        # when the configurations match.
+        self.park_warm: BackgroundWarm | None = None
+        self.park_engine: Engine | None = None
+        self.park_timeline: ColdStartTimeline | None = None
+        # The device an attach runs on unless its args name one (the
+        # parked process's own --device).
+        self.device = device
         # Disaggregated role ("prefill" | "decode" | "" unified): a prefill
         # replica caps planned handoff streams at handoff_budget tokens.
         self.role = role
@@ -173,13 +224,100 @@ class EngineServer:
         # The WARNING+ ring from the start, so /debug/logs holds early
         # failures.
         install_log_ring()
-        self.engine.kv_advertise = self.kv_advertise
-        # The scheduler thread's failpoint scope: engine.step@PORT etc.
-        self.engine.fault_scope = str(self.port)
-        self.engine.start()
+        if self.engine is not None:
+            self._start_engine(self.engine)
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
         self._thread.start()
+        tl = getattr(self.engine, "cold_start_timeline", None)
+        if tl is not None:
+            tl.ready()
         log.info("engine server for %s on :%d", self.model_name, self.port)
+
+    def _start_engine(self, engine: Engine) -> None:
+        engine.kv_advertise = self.kv_advertise
+        # The scheduler thread's failpoint scope: engine.step@PORT etc.
+        engine.fault_scope = str(self.port)
+        engine.start()
+
+    def start_park_warm(self, path: str, engine_args: list[str]) -> None:
+        """Warm for *path* under *engine_args* in the background
+        (coldstart.park): registered before the server accepts attaches,
+        so an early attach joins it instead of racing its builds."""
+        self.park_timeline = ColdStartTimeline().install()
+
+        def run():
+            stats, self.park_engine = park(path, engine_args, timeline=self.park_timeline)
+            return stats
+
+        self.park_warm = BackgroundWarm(run)
+
+    def attach(self, args_list: list[str], warmup: bool | None = None) -> tuple[bool, str]:
+        """Attach a model to a parked replica: parse engine-server args
+        (the Model's pod args; ``--host``/``--port`` are this process's and
+        ignored, unknown args logged), start the engine on a worker thread
+        and flip /readyz. Returns (accepted, message); readiness is the
+        completion signal, and a failure leaves ``failed: ...`` in
+        /readyz and /health (retryable)."""
+        with self._attach_lock:
+            if self.engine is not None:
+                return False, f"model {self.model_name!r} already attached"
+            if self._attach_state == "attaching":
+                return False, "attach already in progress"
+            self._attach_state = "attaching"
+        if warmup is None:
+            # Warm up by default: the parked pod exists to make ready mean
+            # ready (an adopted park engine warmed up at park time).
+            warmup = os.environ.get("KUBEAI_ATTACH_WARMUP", "1") == "1"
+
+        def run():
+            taken = None  # the park engine, until adopted or freed
+            try:
+                if self.park_warm is not None:
+                    # The park's builds land before this start reads them.
+                    self.park_warm.join()
+                parser = make_arg_parser(require_model=True)
+                parser.set_defaults(device=self.device)
+                a, unknown = parser.parse_known_args(args_list)
+                if unknown:
+                    log.info("attach ignoring unknown args: %s", unknown)
+                if a.model is None:
+                    raise ValueError("attach args must include --model")
+                taken, self.park_engine = self.park_engine, None
+                had_park = taken is not None
+                if taken is not None and (
+                        start_spec(a.model, args_list, device=self.device)[0].key()
+                        != taken.park_key):
+                    # Another model: free the park engine before building.
+                    taken = None
+                    gc.collect()
+                    if torch.cuda.is_available():
+                        torch.cuda.empty_cache()
+                engine, name = build_engine_from_args(a, warmup=warmup, park_engine=taken)
+                taken = None
+                self._start_engine(engine)
+                with self._attach_lock:
+                    self.model_name = name
+                    self.engine = engine
+                    self._attach_state = "attached"
+                tl = getattr(engine, "cold_start_timeline", None)
+                if tl is not None:
+                    if had_park:
+                        tl.attrs.setdefault("adopted_park_engine", False)
+                    tl.ready()
+                log.info("parked replica attached model %s", name)
+            except (Exception, SystemExit) as e:  # argparse's SystemExit too
+                log.exception("attach failed")
+                if taken is not None:
+                    # load_params_ checks before it writes: still a park
+                    # engine, which a retry may adopt.
+                    self.park_engine = taken
+                with self._attach_lock:
+                    # Retryable: the pod stays not-ready, and the operator's
+                    # pool deletes it or a caller attaches again.
+                    self._attach_state = f"failed: {e}"
+
+        threading.Thread(target=run, name="engine-attach", daemon=True).start()
+        return True, "attaching"
 
     def stop(self) -> None:
         """Idempotent hard stop: admission first (the draining flag),
@@ -191,7 +329,8 @@ class EngineServer:
             self._stopped = True
         self.draining.set()
         try:
-            self.engine.stop()
+            if self.engine is not None:
+                self.engine.stop()
         finally:
             self.httpd.shutdown()
             self.httpd.server_close()
@@ -205,6 +344,8 @@ class EngineServer:
         stop(), which fails what remains."""
         grace = self.drain_grace if grace is None else grace
         self.draining.set()
+        if self.engine is None:
+            return self.stop()  # parked: nothing in flight
         log.info("engine draining: %d active slots, %d queued, grace %.1fs",
                  self.engine.active_slots(), self.engine.queue_depth(), grace)
         deadline = time.monotonic() + grace
@@ -299,6 +440,10 @@ def _make_handler(srv: EngineServer):
             set_thread_scope(srv.port)
             path, _, query = self.path.partition("?")
             if path in ("/health", "/healthz"):
+                if srv.engine is None:
+                    # Parked (or mid-attach): alive, serving nothing.
+                    return self._json(200, {"status": "ok", "model": srv.model_name,
+                                            "parked": True, "attach": srv._attach_state})
                 ready = srv.engine.is_ready()
                 body = {"status": "ok" if ready else "engine not ready",
                         "model": srv.model_name}
@@ -308,7 +453,9 @@ def _make_handler(srv: EngineServer):
             elif path == "/readyz":
                 # 503 from the start of a drain, so routing stops before
                 # the pod goes away.
-                if srv.draining.is_set():
+                if srv.engine is None:
+                    self._json(503, {"status": "parked", "attach": srv._attach_state})
+                elif srv.draining.is_set():
                     self._json(503, {"status": "draining", "model": srv.model_name})
                 elif srv.engine.is_ready():
                     body = {"status": "ok", "model": srv.model_name}
@@ -335,7 +482,7 @@ def _make_handler(srv: EngineServer):
                 # A peer pulls a parked request's blob; a miss is definitive
                 # (the caller replays), so this never blocks or retries.
                 key = path[len("/v1/kv/"):]
-                entry = srv.engine.kv_park.get(key)
+                entry = srv.engine.kv_park.get(key) if srv.engine is not None else None
                 if entry is None:
                     return self._error(404, f"no parked KV under {key!r}")
                 kvstate.M_KV_TRANSFER.inc(len(entry.blob), labels={"direction": "tx"})
@@ -397,6 +544,19 @@ def _make_handler(srv: EngineServer):
                 # In-flight work finishes; new work goes elsewhere (the
                 # proxy retries another replica).
                 return self._saturated("server is draining")
+            if path == "/v1/attach":
+                # The pod's args (Model.spec.args included); model and
+                # served_model_name are conveniences for an attach by hand.
+                args_list = [str(x) for x in (body.get("args") or [])]
+                if body.get("model") and "--model" not in args_list:
+                    args_list = ["--model", str(body["model"])] + args_list
+                if body.get("served_model_name") and "--served-model-name" not in args_list:
+                    args_list += ["--served-model-name", str(body["served_model_name"])]
+                ok, msg = srv.attach(args_list)
+                return self._json(202 if ok else 409, {"status": msg})
+            if srv.engine is None and path.startswith("/v1/"):
+                return self._error(503, "no model attached (parked replica)",
+                                   "service_unavailable")
             ctx = dict(trace_ctx=trace_ctx, deadline=deadline, tenant=tenant,
                        priority=priority, preemptible=preemptible, resume_tokens=resume_tokens)
             try:
@@ -951,9 +1111,13 @@ def _make_handler(srv: EngineServer):
 # CLI
 
 
-def make_arg_parser() -> argparse.ArgumentParser:
+def make_arg_parser(require_model: bool = True) -> argparse.ArgumentParser:
+    """The engine's command line. Also parses a parked replica's attach
+    args and the park config's (coldstart.start_spec), with
+    *require_model* False for the latter: one parser, so a warm can never
+    drift from the start it prepares."""
     p = argparse.ArgumentParser("kubeai-tpu-torch-engine")
-    p.add_argument("--model", required=True,
+    p.add_argument("--model", required=require_model, default=None,
                    help="an HF checkpoint dir, test:tiny, or preset:NAME (random weights; NAME "
                         "llama-3.1-8b, qwen2.5-7b, gemma-2b, gemma2-2b or mixtral-8x7b)")
     p.add_argument("--served-model-name", default=None)
@@ -995,45 +1159,91 @@ def make_arg_parser() -> argparse.ArgumentParser:
                    default=os.environ.get("KUBEAI_ENGINE_WARMUP", "0") == "1",
                    help="run every step shape (on CUDA: capture the decode chunk's graph) "
                         "before serving, so the first request pays for none")
+    p.add_argument("--parked", action="store_true",
+                   help="start with no model and wait for a POST /v1/attach (scale-from-zero "
+                        "attaches to a parked pod instead of spawning a process)")
+    p.add_argument("--park-config", default=os.environ.get("KUBEAI_PARK_CONFIG", ""),
+                   help="the model (as --model takes it) a parked replica warms for at park "
+                        "time: its kernel libraries, and an engine over zero weights whose "
+                        "decode graph is captured; an attach with the same configuration "
+                        "adopts that engine")
     return p
 
 
-def build_engine_from_args(args) -> tuple[Engine, str]:
-    """The engine and served name of a command line; with ``--warmup`` the
-    engine has run Engine.warmup (its result in ``engine.warmup_result``)."""
-    eng, name = _engine_from_args(args)
-    if getattr(args, "warmup", False):
-        eng.warmup()
-    return eng, name
-
-
-def _engine_from_args(args) -> tuple[Engine, str]:
+def engine_config_from_args(args) -> EngineConfig:
+    """The EngineConfig of a parsed command line (test: models take the
+    test buckets). Shared with the warm (coldstart.start_spec), so warmed
+    shapes never drift from what a pod started with the same args runs."""
     ec = EngineConfig(
         max_slots=args.max_slots, max_seq_len=args.max_seq_len, page_size=args.page_size,
         num_pages=args.kv_pages, decode_kernel=args.decode_kernel,
         speculate_tokens=args.speculate_tokens, prefix_cache_min=args.prefix_cache_min,
         kv_cache_dtype=args.kv_cache_dtype,
     )
+    if (args.model or "").startswith("test:"):
+        ec.prefill_buckets = TEST_PREFILL_BUCKETS
+    return ec
+
+
+def build_engine_from_args(args, warmup: bool | None = None,
+                           park_engine: Engine | None = None) -> tuple[Engine, str]:
+    """The engine and served name of a command line. With *warmup* (None:
+    ``--warmup``) the engine has run Engine.warmup (its result in
+    ``engine.warmup_result``). A checkpoint or preset start stamps its
+    phases on a ColdStartTimeline (``engine.cold_start_timeline``, at
+    /debug/engine); a test: engine has none, as in the JAX server. A
+    *park_engine* of the same configuration is adopted."""
+    if warmup is None:
+        warmup = getattr(args, "warmup", False)
+    ec = engine_config_from_args(args)
     name = args.served_model_name or args.model
     if args.model.startswith("test:"):
-        ec.prefill_buckets = (16, 32, 64, 128)
-        return build_test_engine(ec, seed=args.seed, device=args.device,
-                                 quantization=args.quantization), name
+        eng = build_test_engine(ec, seed=args.seed, device=args.device,
+                                quantization=args.quantization)
+        if warmup:
+            eng.warmup()
+        return eng, name
+    timeline = ColdStartTimeline().install()
     if args.model.startswith("preset:"):
-        return build_engine(args.model[len("preset:"):], args.device, ec, seed=args.seed,
-                            quantization=args.quantization), name
-    return load_engine_from_path(args.model, ec, tp=args.tensor_parallel_size,
-                                 quantization=args.quantization, device=args.device), name
+        mc = preset_config(args.model[len("preset:"):])
+        dev = resolve_device(args.device)
+        spec = StartSpec(mc, ec, args.quantization, ByteTokenizer(), dev)
+        # A preset's load is its seeded init.
+        return start_engine(spec, lambda: (preset_params(mc, dev, args.seed, args.quantization),
+                                           mc),
+                            timeline, warmup=warmup, park_engine=park_engine), name
+    with timeline.phase("stage"):
+        path = stage_remote(args.model)
+    return load_engine_from_path(path, ec, tp=args.tensor_parallel_size,
+                                 quantization=args.quantization, device=args.device,
+                                 timeline=timeline, warmup=warmup,
+                                 park_engine=park_engine), name
 
 
 def main(argv=None) -> None:
-    args = make_arg_parser().parse_args(argv)
+    # The kernel-library cache (KUBEAI_COMPILE_CACHE): replicas that share
+    # its mount read each other's builds.
+    setup_compile_cache()
+    parser = make_arg_parser(require_model=False)
+    args = parser.parse_args(argv)
+    if not args.parked and not args.model:
+        parser.error("--model is required (unless --parked)")
     setup_logging("engine")
-    engine, name = build_engine_from_args(args)
-    srv = EngineServer(engine, name, host=args.host, port=args.port, role=args.role,
-                       handoff_budget=args.handoff_budget, drain_grace=args.drain_grace)
-    srv.install_signal_handlers()
-    srv.start()
+    if args.parked:
+        srv = EngineServer(None, "(parked)", host=args.host, port=args.port,
+                           drain_grace=args.drain_grace, device=args.device)
+        if args.park_config:
+            raw = argv if argv is not None else sys.argv[1:]
+            srv.start_park_warm(args.park_config, [a for a in raw if a != "--parked"])
+        srv.install_signal_handlers()
+        srv.start()
+        log.info("parked replica on :%d (awaiting /v1/attach)", srv.port)
+    else:
+        engine, name = build_engine_from_args(args)
+        srv = EngineServer(engine, name, host=args.host, port=args.port, role=args.role,
+                           handoff_budget=args.handoff_budget, drain_grace=args.drain_grace)
+        srv.install_signal_handlers()
+        srv.start()
     try:
         # A SIGTERM drain ends in stop(), which sets the event.
         while not srv.stopped_event.wait(3600):

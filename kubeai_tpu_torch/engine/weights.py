@@ -16,9 +16,12 @@ JSON header (dtype, shape and data offsets of each tensor), then the raw
 little-endian data. Tensors are read lazily by name. F32, F16, BF16 and
 I8 are supported.
 
-Left out (ROADMAP queue 1 items 10-11): the JAX loader's tensor-parallel
-mesh and gang ranks, its background compile overlap, warmup and
-compile cache.
+``load_engine_from_path`` stamps the JAX loader's start phases on a
+ColdStartTimeline (engine/coldstart.py): ``load`` (the stream), with
+``compile`` (the kernels' background build, started before the stream
+under ``KUBEAI_COLDSTART_OVERLAP``), ``build`` (the Engine) and
+``warmup``; the stream is always on. Left out (ROADMAP queue 1 item 10):
+the JAX loader's tensor-parallel mesh and gang ranks.
 """
 
 from __future__ import annotations
@@ -311,6 +314,24 @@ def stream_params_from_hf(
     return params, out_config
 
 
+def open_checkpoint(path: str, dtype: str = "bfloat16", tp: int = 1):
+    """(model config as served, tokenizer, SafetensorsSource or None) of the
+    checkpoint directory *path*, before any weight is read: config.json in
+    *dtype*, the tie fallback (a safetensors checkpoint without
+    ``lm_head.weight`` ties the head; a .bin one is known only once read,
+    source None) and the padded vocab."""
+    config = ModelConfig.from_json_file(path).replace(dtype=dtype)
+    llama.check_supported(config)
+    tokenizer = load_tokenizer(path)
+    try:
+        source = SafetensorsSource(path)
+    except FileNotFoundError:
+        source = None
+    if source is not None and "lm_head.weight" not in source and not config.tie_word_embeddings:
+        config = config.replace(tie_word_embeddings=True)
+    return config.replace(vocab_size=padded_vocab_size(config.vocab_size, tp)), tokenizer, source
+
+
 def load_engine_from_path(
     path: str,
     engine_config: EngineConfig | None = None,
@@ -318,11 +339,26 @@ def load_engine_from_path(
     dtype: str = "bfloat16",
     quantization: str = "",
     device: torch.device | str | None = None,
+    timeline=None,
+    overlap: bool | None = None,
+    warmup: bool | None = None,
+    park_engine=None,
 ) -> Engine:
     """An Engine over the HF-format checkpoint directory *path*
     (config.json and *.safetensors, else pytorch_model*.bin), on *device*
     (default cuda). A checkpoint without ``lm_head.weight`` ties the head
-    to the embedding."""
+    to the embedding.
+
+    The start's phases land on *timeline* (a fresh one, installed at
+    /debug/engine, when None): the weights stream in phase ``load`` while
+    the kernels' libraries build in phase ``compile`` when *overlap*
+    (None: ``KUBEAI_COLDSTART_OVERLAP``, auto = when a compile cache is
+    set), then ``build`` and, with *warmup* (None:
+    ``KUBEAI_ENGINE_WARMUP=1``), ``warmup``. A *park_engine* with this
+    start's configuration takes the weights in place instead
+    (coldstart.start_engine)."""
+    from kubeai_tpu_torch.engine.coldstart import StartSpec, start_engine
+
     # Failpoint: a cold start that fails or stalls at weight load.
     fault("weights.load")
     if quantization:
@@ -333,18 +369,19 @@ def load_engine_from_path(
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP queue 1 item 10)")
     dev = resolve_device(device)
-    config = ModelConfig.from_json_file(path).replace(dtype=dtype)
-    llama.check_supported(config)
-    tokenizer = load_tokenizer(path)
-    try:
-        source = SafetensorsSource(path)
-    except FileNotFoundError:
-        source = load_state_dict(path)  # pytorch_model*.bin: a name -> tensor dict
-    if "lm_head.weight" not in source and not config.tie_word_embeddings:
-        config = config.replace(tie_word_embeddings=True)
-    params, config = stream_params_from_hf(source, config, tp=tp, quantization=quantization,
-                                           device=dev)
-    return Engine(config, params, tokenizer, engine_config or EngineConfig(), device=dev)
+    served, tokenizer, source = open_checkpoint(path, dtype, tp)
+    spec = StartSpec(served, engine_config or EngineConfig(), quantization, tokenizer, dev,
+                     adoptable=source is not None)
+
+    def load():
+        src = source if source is not None else load_state_dict(path)  # .bin: a dict
+        config = ModelConfig.from_json_file(path).replace(dtype=dtype)
+        if "lm_head.weight" not in src and not config.tie_word_embeddings:
+            config = config.replace(tie_word_embeddings=True)
+        return stream_params_from_hf(src, config, tp=tp, quantization=quantization, device=dev)
+
+    return start_engine(spec, load, timeline, overlap=overlap, warmup=warmup,
+                        park_engine=park_engine)
 
 
 def _hf_family(config: ModelConfig) -> tuple[str, str, dict]:

@@ -5,8 +5,14 @@ Each source is compiled on first use by ``nvcc`` for Hopper
 interface and loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds rather than minutes. Libraries land in
 ``build/torch_kernels/`` at the repository root (git-ignored), named by a
-hash of the source, the shared headers and the flags, so an edited
-kernel is rebuilt and an unchanged one is reused.
+hash of the source, the shared headers, the flags and nvcc's release, so
+an edited kernel (or another toolkit) builds anew and an unchanged one is
+reused. :func:`set_library_dir` moves that directory
+(engine/coldstart.py's ``setup_compile_cache``: a mount every replica
+shares turns first-use builds into file reads). Threads of one process
+that want the same library wait for one build, and each build writes
+its own temporary file, so a background warm and a first-use load never
+race into one.
 
 Every launcher returns ``cudaGetLastError()``; wrappers call
 :func:`check` on it so a refused launch raises instead of vanishing.
@@ -16,6 +22,7 @@ Nothing here runs at import time: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,7 +33,10 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# The default library directory; set_library_dir() points the builds
+# elsewhere.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_lib_dir = BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +65,36 @@ def attention_library(name: str, head_dim: int) -> str:
     own choice)."""
     return f"{name}_d256" if head_dim == WIDE_HEAD_DIM else name
 
+
+def serving_libraries(model_config, engine_config, quantization: str = "") -> list[str]:
+    """The libraries an engine on CUDA over *model_config* and
+    *engine_config* loads as it serves (warmup, prefill, decode, embed),
+    by the wrappers' own choices: flash when a prefill bucket takes it
+    (a multiple of 256, no softcap, no window), the ragged paged kernel
+    without a window, the dedicated one where the decode step resolves
+    to it, each at the model's head dim and pool (``_d256``,
+    ``_q8d32``), and the W8A16 library under int8 weights."""
+    from kubeai_tpu_torch.ops.paged_attention import library
+    from kubeai_tpu_torch.ops.paged_decode_attention import resolve_decode_kernel
+
+    h = model_config.head_dim_
+    windowed = model_config.sliding_window > 0
+    one_byte = (engine_config.kv_cache_dtype or model_config.kv_cache_dtype) in ("fp8", "int8")
+    pool_code = POOL_INT8 if one_byte else POOL_SAME  # either one-byte code picks alike
+    names = []
+    if (not windowed and model_config.attn_softcap == 0.0
+            and any(b >= 256 and b % 256 == 0 for b in engine_config.prefill_buckets)):
+        names.append(attention_library("flash_attention", h))
+    if not windowed:
+        names.append(library("paged_attention", h, pool_code))
+        mode = resolve_decode_kernel(engine_config.decode_kernel,
+                                     1 + engine_config.speculate_tokens)
+        if mode == "dedicated":
+            names.append(library("paged_decode_attention", h, pool_code))
+    if quantization == "int8":
+        names.append("w8a16_matmul")
+    return names
+
 # ctypes argument types, named once for the wrappers.
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -71,6 +111,23 @@ class BuildResult:
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# Library files being built by a thread of this process, each with the
+# event its build sets when it ends: a second thread waits for it.
+_building: dict[Path, threading.Event] = {}
+_building_lock = threading.Lock()
+
+
+def set_library_dir(path) -> Path:
+    """Build and look up libraries under *path* from now on (created if
+    missing). Libraries already loaded stay loaded."""
+    global _lib_dir
+    _lib_dir = Path(path)
+    _lib_dir.mkdir(parents=True, exist_ok=True)
+    return _lib_dir
+
+
+def library_dir() -> Path:
+    return _lib_dir
 
 
 def nvcc_path() -> str:
@@ -81,6 +138,22 @@ def nvcc_path() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=4)
+def _nvcc_release_of(nvcc: str) -> str:
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60)
+    return next((line.strip() for line in out.stdout.splitlines() if "release" in line), "")
+
+
+def nvcc_release() -> str:
+    """The release line of ``nvcc --version`` ("" without nvcc): part of
+    every library's hash, so a directory shared by nodes with another
+    toolkit never hands one node another toolkit's build."""
+    try:
+        return _nvcc_release_of(nvcc_path())
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return ""
 
 
 def _source(name: str) -> tuple[Path, tuple[str, ...]]:
@@ -97,40 +170,75 @@ def _library_path(name: str) -> Path:
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS + flags).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(nvcc_release().encode())
+    return _lib_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str], ptxas_verbose: bool = False) -> dict[str, BuildResult]:
     """Compile every source in *names* that is not built yet, one
-    ``nvcc`` process per source, all started together. Raises with the
-    compiler's output if any build fails."""
+    ``nvcc`` process per source, all started together. A library another
+    thread of this process is building is waited for (and built here if
+    that build failed). Raises with the compiler's output if any build
+    fails."""
     extra = ("-Xptxas", "-v") if ptxas_verbose else ()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _lib_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
+    waits = {}
     results: dict[str, BuildResult] = {}
     t0 = time.monotonic()
     for name in names:
         path = _library_path(name)
-        if path.exists() and not ptxas_verbose:
-            results[name] = BuildResult(name, path, 0.0, "")
-            continue
-        src, flags = _source(name)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, *extra, "-I", str(CSRC), "-o", str(tmp),
-               str(src)]
-        procs[name] = (path, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with _building_lock:
+            if path.exists() and not ptxas_verbose:
+                results[name] = BuildResult(name, path, 0.0, "")
+                continue
+            other = _building.get(path)
+            if other is not None and not ptxas_verbose:
+                waits[name] = (path, other)
+                continue
+            done = _building[path] = threading.Event()
+        try:
+            src, flags = _source(name)
+            # Keyed by process and thread: two builds never share a file.
+            tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, *flags, *extra, "-I", str(CSRC), "-o", str(tmp),
+                   str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+        except BaseException:
+            _finish_build(path, done)
+            raise
+        procs[name] = (path, tmp, proc, done)
     failed = []
-    for name, (path, tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
-            continue
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-        results[name] = BuildResult(name, path, time.monotonic() - t0, out)
+    for name, (path, tmp, proc, done) in procs.items():
+        try:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
+                continue
+            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+            results[name] = BuildResult(name, path, time.monotonic() - t0, out)
+        finally:
+            _finish_build(path, done)
+    for name, (path, other) in waits.items():
+        other.wait()
+        if path.exists():
+            results[name] = BuildResult(name, path, time.monotonic() - t0, "")
+        else:
+            try:
+                results.update(build([name]))
+            except RuntimeError as e:
+                failed.append(str(e))
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return results
+
+
+def _finish_build(path: Path, done: threading.Event) -> None:
+    with _building_lock:
+        if _building.get(path) is done:
+            del _building[path]
+    done.set()
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
@@ -146,8 +254,20 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
+            lib.kernels_preload.argtypes = []
+            lib.kernels_preload.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def preload(lib: ctypes.CDLL, device) -> int:
+    """Load every kernel of a loaded library onto CUDA *device* now
+    (csrc/preload.cuh), so its first launch pays no lazy module load.
+    Returns the number of kernels, or a negative CUDA error code."""
+    import torch
+
+    with torch.cuda.device(device):
+        return int(lib.kernels_preload())
 
 
 def check(err: int, what: str) -> None:

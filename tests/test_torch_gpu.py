@@ -1261,3 +1261,84 @@ def test_serving_ops_embed_on_the_card_matches_cpu(cuda, wide, case):
     assert (launched > 0) == (case == "wide_int8")
     card.stop()
     cpu.stop()
+
+
+@pytest.mark.gpu
+def test_warm_compile_builds_into_an_empty_directory_then_reads(cuda, tmp_path):
+    """warm_compile into an empty library directory builds (nvcc) and
+    loads exactly the config's libraries, every kernel of each loaded onto
+    the card; a second warm reads them back and builds none."""
+    from kubeai_tpu_torch.engine.coldstart import warm_compile
+    from kubeai_tpu_torch.engine.core import EngineConfig
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.ops import _build
+
+    mc = llama_3_1_8b(num_layers=2)
+    ec = EngineConfig(decode_kernel="dedicated", kv_cache_dtype="fp8")
+    prior = _build.library_dir()
+    _build.set_library_dir(tmp_path)
+    try:
+        first = warm_compile(mc, ec, "int8", device=cuda)
+        second = warm_compile(mc, ec, "int8", device=cuda)
+    finally:
+        _build.set_library_dir(prior)
+    want = ["flash_attention", "paged_attention", "paged_decode_attention", "w8a16_matmul"]
+    assert first["libraries"] == want and "errors" not in first, first
+    assert sorted(first["built"]) == sorted(want) and all(s > 0 for s in first["built"].values())
+    assert first["loaded"] == want and all(n > 0 for n in first["preloaded"].values()), first
+    assert sorted(p.name.split("-")[0] for p in tmp_path.glob("*.so")) == sorted(want)
+    assert second["built"] == {} and second["loaded"] == want and second["missing"] == []
+
+
+@pytest.mark.gpu
+def test_parked_engine_captured_on_zeros_then_loaded_in_place(cuda):
+    """A parked test-size engine captures its decode graph over zero
+    weights; load_params_ copies seed 2's weights into the same storage
+    and the graphed engine gives a fresh seed-2 engine's greedy tokens.
+    Rebinding the leaves instead (new tensors) leaves the graph reading
+    the zeros: a silent wrong answer, which is why the copy is in place."""
+    from kubeai_tpu_torch.engine.coldstart import zero_params
+    from kubeai_tpu_torch.engine.core import (
+        Engine,
+        EngineConfig,
+        build_test_engine,
+        preset_params,
+        test_model_config,
+    )
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    mc = test_model_config()
+    ec = EngineConfig(max_slots=4, max_seq_len=256, prefill_buckets=(16, 32, 64, 128))
+    prompts = [[256] + list(b"Hello there"), [256] + [(i * 11) % 250 + 1 for i in range(90)]]
+
+    def greedy(eng):
+        from kubeai_tpu_torch.engine.sampling import SamplingParams
+
+        eng.start()
+        try:
+            return [eng.generate(p, SamplingParams(temperature=0.0, max_tokens=24))[0]
+                    for p in prompts]
+        finally:
+            eng.stop()
+
+    fresh = build_test_engine(ec, seed=2, device=cuda)
+    want = greedy(fresh)
+    parked = Engine(mc, zero_params(mc, "", cuda), ByteTokenizer(), ec, device=cuda)
+    parked.warmup()
+    assert parked.graph_capture_seconds
+    ptrs = {k: v.data_ptr() for k, v in parked.params["layers"].items()}
+    parked.load_params_(preset_params(mc, cuda, 2))
+    assert {k: v.data_ptr() for k, v in parked.params["layers"].items()} == ptrs
+    captured = dict(parked.graph_capture_seconds)
+    assert greedy(parked) == want
+    assert all(c["graph"] for c in parked.chunk_log) and captured
+
+    rebound = Engine(mc, zero_params(mc, "", cuda), ByteTokenizer(), ec, device=cuda)
+    rebound.warmup()  # the decode graph, captured over the zeros
+    zeros = dict(rebound.params)  # kept alive: the graph still reads them
+    rebound.params.update(preset_params(mc, cuda, 2))  # new storage for every leaf
+    got = greedy(rebound)
+    # The eager prefill reads the new weights (its first token is right);
+    # the replayed decode chunks read the zeros.
+    assert [g[0] for g in got] == [w[0] for w in want] and got != want
+    del zeros

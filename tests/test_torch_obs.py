@@ -278,11 +278,11 @@ def test_profile_gates_and_capture(monkeypatch, tmp_path):
 # modules its process imports (the proxy, the balancer, canary, SLOs...):
 # the comparison takes the families of the engine side, and of those
 # leaves out what the port does not have: gangs (item 10), the tenant
-# accountant, jit recompiles (the port counts graph captures instead),
-# cold start (item 15) and the proxy's QoS counters.
+# accountant, jit recompiles (the port counts graph captures instead)
+# and the proxy's QoS counters.
 ENGINE_SIDE = re.compile(r"kubeai_(engine_|request_|kv_|qos_|log_|build_|gang_|tenant_)")
 NOT_PORTED = re.compile(
-    r"kubeai_(gang_|tenant_|engine_jit_recompiles_total$|engine_cold_start_seconds$"
+    r"kubeai_(gang_|tenant_|engine_jit_recompiles_total$"
     r"|qos_proxy_|qos_resumes_)")
 
 
@@ -307,7 +307,11 @@ def _complete(port, body, headers=None):
 def test_metrics_families_match_jax_engine():
     """One JAX and one port server (each engine built last in its
     package, so the callback gauges are theirs) serve the same three
-    requests; the port's page then holds the JAX engine's families."""
+    requests; the port's page then holds the JAX engine's families. A
+    JAX checkpoint start imports engine/coldstart.py, whose
+    kubeai_engine_cold_start_seconds the port's server always carries."""
+    import kubeai_tpu.engine.coldstart  # noqa: F401  (the JAX cold-start family)
+
     jsrv = JServer(jcore.build_test_engine(), "m", host="127.0.0.1", port=0)
     tsrv = EngineServer(build_test_engine(device="cpu"), "m", host="127.0.0.1", port=0)
     jsrv.start()
@@ -325,7 +329,7 @@ def test_metrics_families_match_jax_engine():
         jsrv.stop()
         tsrv.stop()
     want = {k: v for k, v in jfams.items() if ENGINE_SIDE.match(k) and not NOT_PORTED.match(k)}
-    assert len(want) >= 45
+    assert len(want) >= 45 and want["kubeai_engine_cold_start_seconds"] == "histogram"
     missing = {k: v for k, v in want.items() if tfams.get(k) != v}
     assert not missing, f"families missing or of another type: {missing}"
     assert "kubeai_engine_graph_captures_total" in tfams

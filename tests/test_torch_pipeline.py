@@ -261,8 +261,9 @@ def test_admission_merge_matches_jax_rebase(engines):
 
 def test_warmup_runs_every_shape_and_changes_no_state():
     """Warmup (before start) runs the decode chunk, cold prefill at batch
-    1 and at the group cap for every bucket, and a chunk prefill per
-    bucket; the pool's bookkeeping, the slots and the decode state stay
+    1 and at the group cap for every bucket, a chunk prefill per bucket,
+    and the restore path (imports of 1 and 2 pages, the slot set); the
+    pool's bookkeeping, the slots and the decode state stay
     as they were (every write lands in the trash page), and the engine
     then serves the same greedy tokens as one that never warmed up."""
     ec = tcore.EngineConfig(**EC)
@@ -271,7 +272,7 @@ def test_warmup_runs_every_shape_and_changes_no_state():
     pages_before = warm.cache["kv"].clone()
     res = warm.warmup()
     n = len(EC["prefill_buckets"])
-    assert res["shapes"] == 1 + 2 * n + n and res["seconds"] >= 0
+    assert res["shapes"] == 1 + 2 * n + n + 3 and res["seconds"] >= 0
     assert warm.warmup_result == res
     P = warm._pool.num_pages
     assert warm._pool.available() == P - 1 and warm._pool.cached_pages() == 0
@@ -307,6 +308,6 @@ def test_server_warmup_flag(monkeypatch):
     assert make_arg_parser().parse_args(args).warmup is True
     monkeypatch.delenv("KUBEAI_ENGINE_WARMUP")
     eng, _ = build_engine_from_args(make_arg_parser().parse_args(args + ["--warmup"]))
-    assert eng.warmup_result["shapes"] == 1 + 3 * 4
+    assert eng.warmup_result["shapes"] == 1 + 3 * 4 + 3
     eng2, _ = build_engine_from_args(make_arg_parser().parse_args(args))
     assert eng2.warmup_result is None
