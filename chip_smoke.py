@@ -135,7 +135,17 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      a parked server warmed for preset:llama-3.1-8b and attached with
      the same args (the park engine adopted, weights in place): park
      warm and attach -> ready seconds, capture seconds by part, 8 greedy
-     requests equal to a directly built engine's (path "parked").
+     requests equal to a directly built engine's (path "parked");
+  8. fine-tune (phase_finetune, budget 90 s): the LoRA fine-tune CLI
+     (train/finetune.py's main) over a 4-layer checkpoint at
+     Llama-3.1-8B width (64 seeded JSONL rows, --seq-len 256, rank 16 on
+     q and v, batch 4, 30 steps): the loss must drop; median step,
+     tokens/s and peak memory beside the step's operations bound,
+     checkpoint and adapter seconds; 20 steps resumed to 30 must equal
+     the uninterrupted adapter; the same loop at 32 layers over
+     preset:llama-3.1-8b (10 steps); the adapter served through
+     EngineServer.load_adapter changes greedy text (path "finetune");
+     a trainer step and a LoRA step on the card equal the CPU's.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -3446,19 +3456,16 @@ def _greedy_batch(eng, prompts, n=32) -> list:
     return out
 
 
-def _spawn_cold() -> dict:
-    """(a) A fresh engine process over a checkpoint at Llama-3.1-8B width
-    with an empty library directory: spawn -> /readyz 200, and its start
-    timeline from /debug/engine and /metrics."""
+def _write_width_checkpoint(path: str) -> float:
+    """Seconds to write an HF checkpoint of Llama-3.1-8B's widths at
+    COLDSTART_LAYERS layers (bf16 weights drawn from seed 3 on the card,
+    no tokenizer: the byte tokenizer serves it) to *path*."""
     import torch
 
     from kubeai_tpu_torch.engine.weights import hf_state_dict, save_hf_checkpoint
     from kubeai_tpu_torch.models import llama
     from kubeai_tpu_torch.models.base import llama_3_1_8b
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    path = os.path.join(root, "build", f"ckpt_8b_width_{COLDSTART_LAYERS}_layers")
-    libs = os.path.join(root, "build", "coldstart_libraries")
     mc = llama_3_1_8b(num_layers=COLDSTART_LAYERS)
     t0 = time.monotonic()
     p = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(3), device="cuda")
@@ -3466,7 +3473,17 @@ def _spawn_cold() -> dict:
     save_hf_checkpoint(path, mc, hf_state_dict(p, mc))
     del p
     torch.cuda.empty_cache()
-    write_s = time.monotonic() - t0
+    return time.monotonic() - t0
+
+
+def _spawn_cold() -> dict:
+    """(a) A fresh engine process over a checkpoint at Llama-3.1-8B width
+    with an empty library directory: spawn -> /readyz 200, and its start
+    timeline from /debug/engine and /metrics."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", f"ckpt_8b_width_{COLDSTART_LAYERS}_layers")
+    libs = os.path.join(root, "build", "coldstart_libraries")
+    write_s = _write_width_checkpoint(path)
     shutil.rmtree(libs, ignore_errors=True)
     os.makedirs(libs)
     port = _free_port()
@@ -3645,6 +3662,270 @@ def phase_coldstart() -> dict:
     return {"parked": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: LoRA fine-tuning and the training step
+
+FINETUNE_ROWS = 64
+FINETUNE_SEQ = 256
+FINETUNE_BATCH = 4
+FINETUNE_ARGS = ["--rank", "16", "--targets", "q_proj,v_proj", "--batch-size",
+                 str(FINETUNE_BATCH), "--seq-len", str(FINETUNE_SEQ), "--checkpoint-every", "10"]
+FINETUNE_WORDS = ("the", "river", "keeper", "lamp", "north", "stone", "quiet", "harbor",
+                  "winter", "signal", "carries", "across", "bright", "a", "of", "and")
+
+
+def _finetune_data(path: str, seed: int = 0) -> None:
+    """FINETUNE_ROWS JSONL text rows of seeded word sequences, each longer
+    than FINETUNE_SEQ bytes (the byte tokenizer's tokens), so every
+    position of a batch carries loss."""
+    import random
+
+    rng = random.Random(seed)
+    with open(path, "w") as f:
+        for _ in range(FINETUNE_ROWS):
+            words = []
+            while sum(len(w) + 1 for w in words) < FINETUNE_SEQ + 64:
+                words.append(rng.choice(FINETUNE_WORDS))
+            f.write(json.dumps({"text": " ".join(words) + "."}) + "\n")
+
+
+def _train_flops(mc, tokens: int) -> float:
+    """Operations of one LoRA step over the frozen weights: the forward's
+    product with every projection and the head (2 per weight and token),
+    and as much again for the input gradients (no weight gradients)."""
+    D, Fi, L = mc.hidden_size, mc.intermediate_size, mc.num_layers
+    H, Kv, h = mc.num_heads, mc.num_kv_heads, mc.head_dim_
+    weights = L * (D * (H + 2 * Kv) * h + H * h * D + 3 * D * Fi) + D * mc.vocab_size
+    return 2 * (2.0 * weights * tokens)
+
+
+def _step_numbers(stats, mc) -> dict:
+    """Median step (steps 2 on), tokens a second and the bound of a step
+    of FINETUNE_BATCH x FINETUNE_SEQ tokens."""
+    import statistics
+
+    tokens = FINETUNE_BATCH * FINETUNE_SEQ
+    med = statistics.median(stats["step_s"][1:])
+    return {"step_ms": med * 1e3, "step_ms_all": [t * 1e3 for t in stats["step_s"]],
+            "tokens_per_s": tokens / med,
+            "bound_ms": _train_flops(mc, tokens) / PEAK_FLOPS["bf16"] * 1e3,
+            "bound_by": "operations", "first_loss": stats["losses"][0],
+            "last_loss": stats["losses"][-1]}
+
+
+def _adapter_tensors(path: str) -> dict:
+    from kubeai_tpu_torch.engine.weights import read_safetensors_header, read_safetensors_tensor
+
+    f = os.path.join(path, "adapter_model.safetensors")
+    header, start = read_safetensors_header(f)
+    return {k: read_safetensors_tensor(f, e, start) for k, e in header.items()}
+
+
+def _finetune_cli(ckpt, data, work) -> tuple[dict, str]:
+    """(a) main() over the 4-layer checkpoint: 30 steps with a checkpoint
+    every 10, then 20 steps and a resume to 30, whose adapter must equal
+    the uninterrupted run's."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.train import finetune
+
+    rows = finetune.load_dataset(data, ByteTokenizer(), FINETUNE_SEQ)
+    batch = finetune.make_batch(rows, FINETUNE_BATCH, FINETUNE_SEQ, np.random.default_rng(0))
+    covered = float(batch["mask"].mean())
+    if covered < 0.9:
+        raise AssertionError(f"finetune: {covered:.3f} of a batch's positions carry loss (< 0.9)")
+    out, part = os.path.join(work, "adapter"), os.path.join(work, "resumed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    stats = {}
+    t0 = time.monotonic()
+    first, last = finetune.main(["--model", ckpt, "--data", data, "--output", out, "--steps", "30"]
+                                + FINETUNE_ARGS, stats=stats)
+    run_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    if not last < first:
+        raise AssertionError(f"finetune: the loss did not drop ({first} -> {last})")
+    res = {"layers": COLDSTART_LAYERS, "rows": len(rows), "loss_positions": covered,
+           **_step_numbers(stats, llama_3_1_8b(num_layers=COLDSTART_LAYERS)),
+           "peak_bytes": peak, "resident_bytes": resident, "save_s": stats["save_s"], "adapter_s": stats["adapter_s"],
+           "main_s": run_s}
+    finetune.main(["--model", ckpt, "--data", data, "--output", part, "--steps", "20"]
+                  + FINETUNE_ARGS)
+    finetune.main(["--model", ckpt, "--data", data, "--output", part, "--steps", "30", "--resume"]
+                  + FINETUNE_ARGS)
+    ref, got = _adapter_tensors(out), _adapter_tensors(part)
+    if set(ref) != set(got):
+        raise AssertionError("finetune: the resumed adapter has other tensors")
+    err = max((got[k] - ref[k]).abs().max().item() for k in ref)
+    scale = max(ref[k].abs().max().item() for k in ref)
+    res["resume"] = {"bitwise": all(torch.equal(got[k], ref[k]) for k in ref),
+                     "max_abs_err": err, "max_abs": scale}
+    if err > 1e-5 * scale:
+        raise AssertionError(f"finetune: the resumed adapter differs by {err} (max {scale})")
+    return res, out
+
+
+def _finetune_full_depth(data) -> dict:
+    """(b) The fine-tune's loop over preset:llama-3.1-8b's seeded weights
+    (32 layers, bf16), a float32 rank-16 bank on q and v, 10 steps."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import preset_params
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.train import finetune
+
+    mc = llama_3_1_8b()
+    params_bytes = -torch.cuda.memory_allocated()
+    params = preset_params(mc, torch.device("cuda"), seed=0)
+    params_bytes += torch.cuda.memory_allocated()
+    bank = finetune.init_bank(mc, 16, 16.0, ("wq", "wv"), seed=0, device="cuda")
+    rows = finetune.load_dataset(data, ByteTokenizer(), FINETUNE_SEQ)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - params_bytes
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    finetune.train_lora(params, mc, bank, rows, ("wq", "wv"), 10, FINETUNE_BATCH, FINETUNE_SEQ,
+                        1e-3, stats=stats)
+    res = {"layers": mc.num_layers, **_step_numbers(stats, mc),
+           "peak_bytes": torch.cuda.max_memory_allocated() - resident,
+           "weights_bytes": params_bytes, "resident_bytes": resident}
+    del params, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _finetune_serves(ckpt, adapter) -> tuple[dict, dict]:
+    """(c) (a)'s adapter loaded into a port engine over the same
+    checkpoint (EngineServer.load_adapter): a greedy completion on it must
+    differ from the base model's. Returns (the texts, the launch counts
+    of the run, path "finetune")."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import EngineConfig
+    from kubeai_tpu_torch.engine.server import EngineServer
+    from kubeai_tpu_torch.engine.weights import load_engine_from_path
+
+    eng = load_engine_from_path(ckpt, EngineConfig(
+        max_slots=4, max_seq_len=512, prefill_buckets=(32, 64, 128, 256), max_adapters=1,
+        max_lora_rank=16))
+    srv = EngineServer(eng, "base", host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        _zero_launches()
+        body = {"prompt": "the river keeper carries a lamp across the", "max_tokens": 24,
+                "temperature": 0, "logit_bias": NO_EOS}
+        base = _post(srv.port, "/v1/completions", {**body, "model": "base"})
+        ok, msg = srv.load_adapter("tuned", adapter)
+        if not ok:
+            raise AssertionError(f"finetune: the adapter did not load: {msg}")
+        tuned = _post(srv.port, "/v1/completions", {**body, "model": "tuned"})
+        launches = _read_launches()
+    finally:
+        srv.stop()
+    del eng, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    texts = {"base": base["choices"][0]["text"], "tuned": tuned["choices"][0]["text"]}
+    if texts["base"] == texts["tuned"]:
+        raise AssertionError(f"finetune: the trained adapter left greedy output unchanged: {texts}")
+    if not launches["launches"]["paged_attention_ragged"]:
+        raise AssertionError(f"finetune: the ragged kernel never launched: {launches}")
+    return texts, launches
+
+
+def _card_vs_cpu() -> dict:
+    """(d) One trainer.train_step and one LoRA step on a float32 tiny
+    config, on the card and on the CPU from the same weights and batch:
+    the loss within 1e-5 relative, every parameter after the step within
+    1e-5 (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import ModelConfig
+    from kubeai_tpu_torch.train import finetune, trainer
+
+    mc = ModelConfig(vocab_size=300, hidden_size=64, intermediate_size=128, num_layers=2,
+                     num_heads=4, num_kv_heads=2, dtype="float32")
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 259, (4, 32)).astype(np.int32)
+    host = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1),
+            "mask": (rng.random((4, 32)) < 0.9).astype(np.int32)}
+    base = llama.init_params(mc, torch.Generator().manual_seed(0))
+    rows = [(list(map(int, rng.integers(0, 259, 40))), [1] * 40) for _ in range(8)]
+    def copy(dev):  # a copy on each device: a step updates its weights in place
+        return {k: ({n: w.to(dev, copy=True) for n, w in v.items()} if isinstance(v, dict)
+                    else v.to(dev, copy=True)) for k, v in base.items()}
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = copy(dev)
+        for t in trainer.leaves(params):
+            t.requires_grad_(True)
+        opt = trainer.make_optimizer(params, 1e-4)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss = trainer.train_step(params, opt, batch, mc).item()
+        frozen = copy(dev)
+        bank = finetune.init_bank(mc, 8, 16.0, ("wq", "wv"), seed=1, device=dev)
+        bank["wq_B"][:, 1] = 0.01  # a nonzero B: A takes a gradient in the first step
+        stats = {}
+        finetune.train_lora(frozen, mc, bank, rows, ("wq", "wv"), 1, 4, 32, 1e-4, stats=stats)
+        out[dev] = (loss, [t.detach().cpu() for t in trainer.leaves(params)],
+                    stats["losses"][0], [bank[k].cpu() for k in ("wq_A", "wq_B", "wv_A", "wv_B")])
+    res = {}
+    for i, what in ((0, "train_step"), (2, "lora_step")):
+        (lg, pg), (lc, pc) = out["cuda"][i:i + 2], out["cpu"][i:i + 2]
+        perr = max((a - b).abs().max().item() for a, b in zip(pg, pc))
+        res[what] = {"loss_card": lg, "loss_cpu": lc, "loss_rel_err": abs(lg - lc) / abs(lc),
+                     "param_max_abs_err": perr}
+        if abs(lg - lc) > 1e-5 * abs(lc) or perr > 1e-5:
+            raise AssertionError(f"finetune: {what} on the card differs from the CPU: "
+                                 f"{res[what]}")
+    return res
+
+
+def phase_finetune() -> dict:
+    """LoRA fine-tuning on Llama-3.1-8B's widths (budget 90 s): (a) the
+    CLI's main() over a 4-layer checkpoint written as phase_coldstart's
+    (64 seeded JSONL rows filling --seq-len 256, rank 16 on q and v,
+    batch 4, 30 steps, a checkpoint every 10): the loss must drop; the
+    median step, tokens a second, peak memory, checkpoint and adapter
+    seconds; then 20 steps and a resume to 30, equal to the uninterrupted
+    adapter; (b) the same loop at 32 layers over preset:llama-3.1-8b's
+    seeded weights, 10 steps; (c) (a)'s adapter served by a port engine
+    over the checkpoint, its greedy text unlike the base model's (launch
+    counts under path "finetune"; ragged must launch); (d) a trainer step
+    and a LoRA step on the card against the CPU."""
+    t0 = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "finetune")
+    ckpt = os.path.join(work, f"ckpt_8b_width_{COLDSTART_LAYERS}_layers")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        write_s = _write_width_checkpoint(ckpt)
+        data = os.path.join(work, "train.jsonl")
+        _finetune_data(data)
+        cli, adapter = _finetune_cli(ckpt, data, work)
+        cli["checkpoint_write_s"] = write_s
+        log("finetune[cli]", gpu_line(), json.dumps(cli))
+        full = _finetune_full_depth(data)
+        log("finetune[32 layers]", gpu_line(), json.dumps(full))
+        texts, launches = _finetune_serves(ckpt, adapter)
+        log("finetune[serve]", gpu_line(), json.dumps(texts))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("finetune[card vs cpu]", gpu_line(), json.dumps(_card_vs_cpu()))
+    log(f"finetune phase: {time.monotonic() - t0:.1f}s (budget 90 s)")
+    return {"finetune": launches}
+
+
 # name -> (source, TPU kernel it replaces, wrapper, the serving path it
 # belongs to: the default ragged-decode path, --decode-kernel dedicated,
 # --quantization int8, --kv-cache-dtype fp8 (ragged), --kv-cache-dtype
@@ -3758,6 +4039,7 @@ def main() -> int:
     phase_serving_ops()
     log(f"serving_ops phase: {time.monotonic() - t6:.1f}s")
     serving.update(phase_coldstart())
+    serving.update(phase_finetune())
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

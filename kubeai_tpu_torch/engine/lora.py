@@ -104,26 +104,38 @@ def load_peft_checkpoint(path: str) -> tuple[dict, dict[str, dict[int, list]], f
     return cfg, out, scale
 
 
+def peft_module(li: int, target: str) -> str:
+    """The PEFT name of layer *li*'s module *target* (a PEFT name), which
+    its ``.lora_A.weight`` [r, in] and ``.lora_B.weight`` [out, r] extend."""
+    return f"base_model.model.model.layers.{li}.{_MODULE[target]}.{target}"
+
+
+def write_peft_files(path: str, tensors: dict, rank: int, alpha: float, targets) -> None:
+    """adapter_config.json (the JAX fine-tune's keys) and
+    adapter_model.safetensors of *tensors* (PEFT names) under *path*."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"peft_type": "LORA", "r": rank, "lora_alpha": alpha,
+                   "target_modules": list(targets)}, f, indent=1)
+    save_safetensors(tensors, os.path.join(path, "adapter_model.safetensors"))
+
+
 def write_peft_checkpoint(path: str, config: ModelConfig, rank: int = 4, alpha: float = 8,
                           seed: int = 0, targets=tuple(TARGET_MAP), std: float = 0.1) -> dict:
     """A PEFT-format adapter directory (adapter_config.json and
     adapter_model.safetensors) with N(0, std) float32 A and B of *rank* on
     *targets* (PEFT names) in every layer, from *seed*. Returns the
     tensors by name."""
-    os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "adapter_config.json"), "w") as f:
-        json.dump({"r": rank, "lora_alpha": alpha, "target_modules": list(targets),
-                   "peft_type": "LORA"}, f)
     rng = np.random.default_rng(seed)
     dims = llama.lora_dims(config)
     tensors = {}
     for li in range(config.num_layers):
         for t in targets:
             din, dout = dims[TARGET_MAP[t]]
-            base = f"base_model.model.model.layers.{li}.{_MODULE[t]}.{t}"
+            base = peft_module(li, t)
             tensors[base + ".lora_A.weight"] = rng.normal(0, std, (rank, din)).astype(np.float32)
             tensors[base + ".lora_B.weight"] = rng.normal(0, std, (dout, rank)).astype(np.float32)
-    save_safetensors(tensors, os.path.join(path, "adapter_model.safetensors"))
+    write_peft_files(path, tensors, rank, alpha, targets)
     return tensors
 
 

@@ -254,11 +254,14 @@ def stream_params_from_hf(
     tp: int = 1,
     quantization: str = "",
     device: torch.device | str | None = None,
+    pad: bool = True,
 ) -> tuple[dict, ModelConfig]:
     """Read, convert, vocab-pad and (int8) quantize each parameter group
     on the host, then move it to *device* before the next group is read.
     *source* is a SafetensorsSource or a name -> tensor dict. Returns
-    (params, config with the padded vocab)."""
+    (params, config with the padded vocab). ``pad=False`` keeps the
+    checkpoint's vocab, as the JAX fine-tune reads it: a padded column's
+    logit 0 would enter a training loss's softmax."""
     llama.check_supported(config)
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP queue 1 item 10)")
@@ -266,7 +269,7 @@ def stream_params_from_hf(
     dtype = llama.torch_dtype(config.dtype)
     L = config.num_layers
     V = config.vocab_size
-    pad = padded_vocab_size(V, tp) - V
+    pad = padded_vocab_size(V, tp) - V if pad else 0
     out_config = config.replace(vocab_size=V + pad) if pad else config
     quant_dense = _quant_dense(config)
 

@@ -30,7 +30,11 @@ Batched multi-LoRA (``apply(..., lora=, lora_rows=)``): a bank from
 :func:`init_lora_bank` holds every adapter's A and B per target, and each
 batch row picks its adapter by index (row 0: none). Each target's delta
 is added after its projection (after Qwen2's bias), as in the JAX
-package; Mixtral's experts take none.
+package; Mixtral's experts take none. A bank of another dtype than the
+model's (the fine-tune's float32 bank over a bf16 base) computes at the
+promoted dtype and adds its delta cast to the model's, as the JAX
+package's _lora_delta; under autograd the delta is built without
+``out=`` (train/finetune.py differentiates through it).
 """
 
 from __future__ import annotations
@@ -235,8 +239,15 @@ def _lora_add(out, x, A_l, B_l, weights):
     Bn, S, din = x.shape
     N, _, r = A_l.shape
     low = torch.matmul(x.reshape(1, Bn * S, din).to(cdt), A_l.to(cdt))  # [N, B*S, r]
-    picked = torch.empty((Bn, S, N, r), dtype=cdt, device=x.device)
-    torch.mul(low.reshape(N, Bn, S, r).permute(1, 2, 0, 3), weights[:, None, :, None], out=picked)
+    low = low.reshape(N, Bn, S, r).permute(1, 2, 0, 3)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (out, x, A_l, B_l, weights)):
+        # Autograd takes no out= argument: the same product, allocated by
+        # the multiply (training; a served step runs under no_grad).
+        picked = low * weights[:, None, :, None]
+    else:
+        picked = torch.empty((Bn, S, N, r), dtype=cdt, device=x.device)
+        torch.mul(low, weights[:, None, :, None], out=picked)
     picked = picked.reshape(Bn * S, N * r)
     B_flat = B_l.to(cdt).reshape(N * r, -1)
     if out is None:
@@ -344,7 +355,8 @@ def apply(
     if lora is not None and lora_rows is None:
         raise ValueError("lora needs lora_rows (one adapter row per batch row)")
     if ring_mesh is not None:
-        raise NotImplementedError("ring attention is not ported yet (ROADMAP queue 1: training)")
+        raise NotImplementedError(
+            "ring attention is not ported yet (ROADMAP queue 1 item 12b)")
     if cache is not None and page_table is None:
         raise NotImplementedError(
             "the dense slot cache is not ported; pass a paged pool and page_table"
@@ -419,10 +431,13 @@ def apply(
         window_mask = mask & (key_positions > positions[:, :, None] - config.sliding_window)
 
     if lora is not None:
-        if lora["wq_A"].dtype != dtype:
-            raise ValueError(f"the LoRA bank is {lora['wq_A'].dtype}; the model computes in "
-                             f"{dtype} (init_lora_bank's default)")
-        lora_w = lora_weights(lora_rows.long(), lora["scale"], dtype)
+        # The delta computes at the promoted precision of the model and the
+        # bank; a bank of the model's dtype adds it inside one addmm, any
+        # other (a float32 bank being trained over a bf16 base) casts it
+        # to the model's dtype first, where the JAX package's _lora_delta
+        # casts.
+        lora_dtype = torch.promote_types(dtype, lora["wq_A"].dtype)
+        lora_w = lora_weights(lora_rows.long(), lora["scale"], lora_dtype)
 
     for li in range(L):
         w = {k: _layer_slice(v, li) for k, v in params["layers"].items()}
@@ -431,7 +446,10 @@ def apply(
             """*out* (the projection of *inp*) plus its LoRA delta."""
             if lora is None:
                 return out
-            return _lora_add(out, inp, lora[name + "_A"][li], lora[name + "_B"][li], lora_w)
+            A_l, B_l = lora[name + "_A"][li], lora[name + "_B"][li]
+            if lora_dtype == dtype:
+                return _lora_add(out, inp, A_l, B_l, lora_w)
+            return out + _lora_add(None, inp, A_l, B_l, lora_w).to(dtype)
 
         layer_mask = mask
         if windowed and (config.sliding_layers != "even" or li % 2 == 0):

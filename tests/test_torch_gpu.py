@@ -1342,3 +1342,76 @@ def test_parked_engine_captured_on_zeros_then_loaded_in_place(cuda):
     # the replayed decode chunks read the zeros.
     assert [g[0] for g in got] == [w[0] for w in want] and got != want
     del zeros
+
+
+def _tiny_f32():
+    from kubeai_tpu_torch.models.base import ModelConfig
+
+    return ModelConfig(vocab_size=300, hidden_size=64, intermediate_size=128, num_layers=2,
+                       num_heads=4, num_kv_heads=2, dtype="float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_add_forms_equal_on_the_card(cuda, dtype):
+    """The served form of _lora_add (out=, under no_grad) and the training
+    form (allocated, under autograd) give the same values on the card."""
+    from kubeai_tpu_torch.models import llama
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((4, 64, 4096), generator=g, device=cuda).to(dtype)
+    A = (torch.randn((3, 4096, 16), generator=g, device=cuda) * 0.02).to(dtype)
+    B = (torch.randn((3, 16, 1024), generator=g, device=cuda) * 0.02).to(dtype)
+    out = torch.randn((4, 64, 1024), generator=g, device=cuda).to(dtype)
+    w = llama.lora_weights(torch.tensor([1, 0, 2, 1], device=cuda),
+                           torch.tensor([0.0, 2.0, 0.5], device=cuda), dtype)
+    with torch.no_grad():
+        served = llama._lora_add(out, x, A, B, w)
+    A.requires_grad_(True)
+    trained = llama._lora_add(out, x, A, B, w)
+    assert trained.requires_grad
+    assert torch.equal(trained.detach(), served)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", ["train_step", "lora_step"])
+def test_training_step_on_the_card_matches_cpu(cuda, step):
+    """One trainer.train_step (full parameters, AdamW lr 1e-4) or one LoRA
+    step (train_lora, a float32 bank on q and v) on a float32 tiny config,
+    on the card and on the CPU from the same weights and batch: the loss
+    within 1e-5 relative, every parameter after the step within 1e-5
+    (TF32 off, torch's default)."""
+    import numpy as np
+
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.train import finetune, trainer
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    mc = _tiny_f32()
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, 259, (4, 32)).astype(np.int32)
+    host = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1),
+            "mask": (rng.random((4, 32)) < 0.9).astype(np.int32)}
+    rows = [(list(map(int, rng.integers(0, 259, 40))), [1] * 40) for _ in range(8)]
+    base = llama.init_params(mc, torch.Generator().manual_seed(0))
+
+    def run(dev):
+        params = {k: ({n: w.to(dev, copy=True) for n, w in v.items()} if isinstance(v, dict)
+                      else v.to(dev, copy=True)) for k, v in base.items()}
+        if step == "train_step":
+            for t in trainer.leaves(params):
+                t.requires_grad_(True)
+            opt = trainer.make_optimizer(params, 1e-4)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            loss = trainer.train_step(params, opt, batch, mc).item()
+            return loss, [t.detach().cpu() for t in trainer.leaves(params)]
+        bank = finetune.init_bank(mc, 8, 16.0, ("wq", "wv"), seed=1, device=dev)
+        bank["wq_B"][:, 1] = 0.01  # a nonzero B: A takes a gradient in the first step
+        stats = {}
+        finetune.train_lora(params, mc, bank, rows, ("wq", "wv"), 1, 4, 32, 1e-4, stats=stats)
+        return stats["losses"][0], [bank[k].cpu() for k in ("wq_A", "wq_B", "wv_A", "wv_B")]
+
+    (lg, pg), (lc, pc) = run(cuda), run("cpu")
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    for a, b in zip(pg, pc):
+        assert (a - b).abs().max().item() <= 1e-5
