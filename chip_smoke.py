@@ -146,6 +146,23 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      preset:llama-3.1-8b (10 steps); the adapter served through
      EngineServer.load_adapter changes greedy text (path "finetune");
      a trainer step and a LoRA step on the card equal the CPU's.
+  9. the gang (phase_gang, budget 90 s): tensor parallelism at tp = 2 on
+     the one card. (d) a one-rank NCCL group's all-reduce and all-gather
+     captured in a CUDA graph and replayed equal the eager ones; (b) a
+     float32 config at Llama-3.1-8B width, 2 layers, served by a tp = 2
+     gang in this process (two threads over gloo, rank 0 publishing to
+     rank 1 over the gang's TCP wire): greedy tokens identical to tp = 1;
+     (a) + (c) ``python -m kubeai_tpu_torch.engine.server --model
+     preset:llama-3.1-8b --tensor-parallel-size 2`` (two processes on the
+     card over gloo, eager chunks) with the gang.follower failpoint armed
+     once: rank 1 reconnects and the next request re-forms the gang
+     (kubeai_gang_reforms_total 1); then 8 greedy requests over HTTP,
+     each rank holding about half the parameter bytes, first tokens and
+     top-5 logprobs against a tp = 1 engine within the tolerance of one
+     extra bf16 rounding per row-parallel layer, flash and ragged
+     launched on both ranks (path "gang"); the decode step's wall,
+     device and collective milliseconds. Phase 2 also runs each kernel
+     at a tp = 2 rank's shapes (H 16, Kv 4; W8A16 N and K halved).
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -524,6 +541,7 @@ def phase_kernels() -> dict:
     _verify_cases(record)
     _w8a16_cases(record)
     _family_cases(record)
+    _tp2_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
     return results
@@ -4007,6 +4025,447 @@ SOURCES = {
 }
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: tensor parallelism and the gang (tp = 2 on the one card)
+
+GANG_TP = 2
+GANG_MAX_TOKENS = 16
+GANG_BUDGET_S = 90.0
+# bf16 unit roundoff.
+BF16_U = 2.0**-8
+
+
+def _gang_prompts(n=8, length=220) -> list:
+    """*n* prompts of *length* seeded lowercase bytes (distinct from the
+    first page, so no prefix is shared: every prompt takes the cold
+    bucket-256 prefill, the flash kernel's path)."""
+    import random
+
+    rng = random.Random(15)
+    return ["".join(rng.choice("abcdefghijklmnopqrstuvwxyz ") for _ in range(length))
+            for _ in range(n)]
+
+
+def _tp2_cases(record) -> None:
+    """The kernels at a tp = 2 rank's shapes of Llama-3.1-8B (H 16, Kv 4
+    per rank, G 4; the W8A16 column-parallel N and row-parallel K
+    halved), each held against its plain version."""
+    import torch
+
+    from kubeai_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_ragged
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+    from kubeai_tpu_torch.ops.quant import dequantize, qdot, qdot_many, qdot_plain
+
+    H, Kv, h = 32 // GANG_TP, 8 // GANG_TP, 128
+    for S in (256, 1024):
+        g = torch.Generator(device="cuda").manual_seed(S + 2)
+        q = torch.randn((1, S, H, h), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((1, S, Kv, h), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((1, S, Kv, h), generator=g, device="cuda").to(torch.bfloat16)
+        got = flash_attention(q, k, v, causal=True)
+        err = compare(got, flash_attention_plain(q.float(), k.float(), v.float(), causal=True),
+                      f"flash_attention tp2 S={S}")
+        ms = timed_ms(lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+        lib_ms = timed_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True))
+        record("flash_attention", f"tp2 B=1 S={S} H={H} Kv={Kv} causal", err, ms, plain_ms,
+               2 * (2 * S * H * h + 2 * S * Kv * h), 4.0 * h * H * S * (S + 1) / 2, lib_ms,
+               False, False)
+    for case, B, S, lens_list in (("tp2 decode B=8 kv_len=512", 8, 1, [512] * 8),
+                                  ("tp2 decode B=8 kv_len=2048", 8, 1, [2048] * 8),
+                                  ("tp2 prefill chunk B=1 S=256 start=256", 1, 256, [512])):
+        cold = "decode" in case
+        q, pool, table, lens = _paged_case(B, S, lens_list, H=H, Kv=Kv)
+        want = paged_attention_plain(q.float(), pool.float(), table, lens)
+        nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h)
+        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens), iters=5, cold_l2=cold)
+        plain_ms = timed_ms(lambda: paged_attention_plain(q, pool, table, lens), iters=5,
+                            cold_l2=cold)
+        kernels = [("paged_attention", paged_attention_ragged)]
+        if S == 1:
+            kernels.append(("paged_decode_attention", paged_decode_attention))
+        for name, fn in kernels:
+            got = fn(q, pool, table, lens)
+            err = compare(got, want, f"{name} {case}")
+            ms = timed_ms(lambda: fn(q, pool, table, lens), cold_l2=cold)
+            record(name, f"{case} H={H} Kv={Kv}", err, ms, plain_ms, nbytes, flops, lib_ms,
+                   False, cold)
+        del q, pool, table, lens, want
+    # W8A16 at a rank's projections: single launches and the two groups.
+    shards = [(name, K, N // GANG_TP) for name, K, N in W8A16_SHAPES if name != "wd"]
+    shards += [("wv", 4096, 1024 // GANG_TP), ("wo", 4096 // GANG_TP, 4096),
+               ("wd", 14336 // GANG_TP, 4096)]
+    groups = [("qkv", [(n, 4096, N // GANG_TP) for n, _, N in W8A16_GROUPS[0][1]]),
+              ("gate_up", [(n, 4096, N // GANG_TP) for n, _, N in W8A16_GROUPS[1][1]])]
+    for M in (8, 256):
+        cold = M <= 64
+        for name, K, N in shards:
+            g = torch.Generator(device="cuda").manual_seed(K + N + M)
+            x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+            w = _w8a16_weight(g, K, N, 0)
+            got = qdot(x, w)
+            err = compare(got, _w8a16_want(x, w, 0), f"w8a16 tp2 {name} M={M}")
+            ms = timed_ms(lambda: qdot(x, w), cold_l2=cold)
+            plain_ms = timed_ms(lambda: qdot_plain(x, w["int8_q"], w["int8_s"]), iters=5,
+                                cold_l2=cold)
+            wb = dequantize(w, torch.bfloat16)
+            lib_ms = timed_ms(lambda: torch.matmul(x, wb), cold_l2=cold)
+            record("w8a16_matmul", f"tp2 {name} M={M} K={K} N={N}", err, ms, plain_ms,
+                   K * N + 4 * N + 2 * (M * K + M * N), 2.0 * M * N * K, lib_ms, False, cold)
+            del x, w, wb, got
+        for gname, shapes in groups:
+            g = torch.Generator(device="cuda").manual_seed(M + 7)
+            x = torch.randn((M, 4096), generator=g, device="cuda").to(torch.bfloat16)
+            ws = [_w8a16_weight(g, K, N, 0) for _, K, N in shapes]
+            got = qdot_many(x, ws)
+            err = 0.0
+            for (wname, _, _), y, w in zip(shapes, got, ws):
+                if not torch.equal(y, qdot(x, w)):
+                    raise AssertionError(f"w8a16 tp2 {gname} M={M}: {wname} differs from "
+                                         "its own launch")
+                err = max(err, compare(y, _w8a16_want(x, w, 0), f"w8a16 tp2 {gname} {wname}"))
+            ms = timed_ms(lambda: qdot_many(x, ws), cold_l2=cold)
+            plain_ms = timed_ms(lambda: [qdot_plain(x, w["int8_q"], w["int8_s"]) for w in ws],
+                                iters=5, cold_l2=cold)
+            wbs = [dequantize(w, torch.bfloat16) for w in ws]
+            lib_ms = timed_ms(lambda: [torch.matmul(x, wb) for wb in wbs], cold_l2=cold)
+            nbytes = sum(K * N + 4 * N + 2 * M * N for _, K, N in shapes) + 2 * M * 4096
+            record("w8a16_matmul", f"tp2 {gname} M={M} K=4096 N="
+                   + "+".join(str(N) for _, _, N in shapes), err, ms, plain_ms, nbytes,
+                   sum(2.0 * M * N * K for _, K, N in shapes), lib_ms, False, cold)
+            del x, ws, wbs, got
+    torch.cuda.empty_cache()
+
+
+def _nccl_graph_check() -> dict:
+    """(d) A one-rank NCCL group's all-reduce and all-gather captured in
+    a CUDA graph and replayed on new inputs equal the eager collectives
+    on the same inputs: the mechanism a multi-card gang's graphed decode
+    chunk relies on."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeai_tpu_torch.parallel.group import make_process_group
+
+    pg = make_process_group(dist.HashStore(), 0, 1, "nccl", timeout=60)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.empty((8, 4096), dtype=torch.bfloat16, device="cuda")
+    red = torch.empty_like(x)
+    gat = torch.empty((x.numel(),), dtype=x.dtype, device="cuda")
+
+    def body():
+        red.copy_(x)
+        pg.allreduce([red]).wait()
+        pg._allgather_base(gat, x.reshape(-1)).wait()
+
+    x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+    body()  # eager: the communicator is made here, outside the capture
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        body()
+    torch.cuda.synchronize()
+    replays = 3
+    for i in range(replays):
+        x.copy_(torch.randn(x.shape, generator=g, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        got_r, got_g = red.clone(), gat.clone()
+        body()
+        torch.cuda.synchronize()
+        if not (torch.equal(got_r, red) and torch.equal(got_g, gat)
+                and torch.equal(red, x) and torch.equal(gat, x.reshape(-1))):
+            raise AssertionError(f"nccl capture: replay {i} differs from the eager collectives")
+    graph.reset()
+    if hasattr(pg, "shutdown"):  # the communicator's resources, before exit
+        pg.shutdown()
+    return {"replays": replays, "equal": True}
+
+
+def _gang_float32() -> dict:
+    """(b) A float32 config at Llama-3.1-8B width, 2 layers: a tp = 2
+    gang in this process (two threads on the card over gloo, rank 0
+    publishing over the gang's TCP wire to rank 1) against a tp = 1
+    engine on the same seeded weights: greedy tokens identical."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig, preset_params
+    from kubeai_tpu_torch.engine.gang import GangFollower, GangPublisher
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.parallel.group import run_local_ranks
+
+    mc = llama_3_1_8b(num_layers=2).replace(dtype="float32")
+    ec = EngineConfig(max_slots=4, max_seq_len=512)
+    prompts = _gang_prompts(4, 120)
+    t0 = time.monotonic()
+    ref_eng = Engine(mc, preset_params(mc, torch.device("cuda"), seed=5), ByteTokenizer(), ec,
+                     device="cuda")
+    ref_eng.start()
+    try:
+        want = _greedy_batch(ref_eng, prompts, n=GANG_MAX_TOKENS)
+    finally:
+        ref_eng.stop()
+    del ref_eng
+    torch.cuda.empty_cache()
+    secret = "chip-smoke-gang"
+    pub = GangPublisher(GANG_TP - 1, port=0, host="127.0.0.1", secret=secret)
+
+    def rank(group):
+        params = preset_params(mc, group.device, seed=5, tp_group=group)
+        if group.rank == 0:
+            eng = Engine(mc, params, ByteTokenizer(), ec, device=group.device,
+                         tp_group=group, publisher=pub)
+            pub.accept_all(timeout=120)
+            eng.start()
+            try:
+                return _greedy_batch(eng, prompts, n=GANG_MAX_TOKENS)
+            finally:
+                eng.stop()
+        eng = Engine(mc, params, ByteTokenizer(), ec, device=group.device, tp_group=group)
+        eng.run_follower(GangFollower("127.0.0.1", pub.port, secret=secret, rank=group.rank))
+        return dict(eng.follower_ops)
+
+    got, ops = run_local_ranks(GANG_TP, rank, "cuda:0", backend="gloo", timeout=300)
+    torch.cuda.empty_cache()
+    for i, ((g_ids, _), (w_ids, _)) in enumerate(zip(got, want)):
+        if g_ids != w_ids:
+            raise AssertionError(f"gang float32: prompt {i} greedy tokens differ from tp = 1: "
+                                 f"{g_ids} vs {w_ids}")
+    return {"prompts": len(prompts), "tokens": GANG_MAX_TOKENS, "identical": True,
+            "follower_ops": ops, "seconds": time.monotonic() - t0}
+
+
+def _gang_reference(prompts) -> list:
+    """The tp = 1 reference over preset:llama-3.1-8b's seed-0 weights: an
+    eager engine's first greedy token (EOS banned) and its top-5
+    logprobs for each prompt, the prompts submitted together as the
+    server gets them, and the prefill logits' max |logit| over the byte
+    tokenizer's vocab (the tolerance's scale, from llama.apply)."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig, preset_config, preset_params
+    from kubeai_tpu_torch.engine.sampling import SamplingParams
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models import llama
+
+    tok = ByteTokenizer()
+    mc = preset_config("llama-3.1-8b")
+    params = preset_params(mc, torch.device("cuda"), seed=0)
+    eng = Engine(mc, params, tok, EngineConfig(), device="cuda", cuda_graphs=False)
+    eng.start()
+    try:
+        reqs = [eng.submit(tok.encode(p), SamplingParams(
+            temperature=0.0, max_tokens=1, logprobs=True, logit_bias=((257, -100.0),)))
+            for p in prompts]
+        firsts = []
+        for req in reqs:
+            while True:
+                ev = req.out.get(timeout=300)
+                if ev[0] == "token" and ev[1] >= 0:
+                    firsts.append((ev[1], sorted((lp for _, lp in ev[4]), reverse=True)[:5]))
+                elif ev[0] == "done":
+                    break
+                elif ev[0] == "error":
+                    raise AssertionError(f"gang reference: {ev[1]}")
+    finally:
+        eng.stop()
+    out = []
+    with torch.no_grad():
+        for p, (first, top5) in zip(prompts, firsts):
+            ids = torch.tensor([tok.encode(p)], device="cuda")
+            pos = torch.arange(ids.shape[1], device="cuda")[None, :]
+            logits, _ = llama.apply(params, mc, ids, pos, logits_idx=torch.tensor(
+                [ids.shape[1] - 1], device="cuda"))
+            lg = logits[0, -1, :tok.vocab_size].float()
+            out.append((first, top5, float(lg.abs().max()), top5[0] - top5[1]))
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gang_server() -> dict:
+    """(a) and (c): ``python -m kubeai_tpu_torch.engine.server --model
+    preset:llama-3.1-8b --tensor-parallel-size 2`` (both ranks on the one
+    card over gloo, eager chunks), started with the gang.follower
+    failpoint armed once: rank 1's first recv fails, it reconnects, and
+    the first request after that re-forms the gang
+    (kubeai_gang_reforms_total 1). Then 8 greedy requests over HTTP,
+    their first tokens and top-5 logprobs against tp = 1."""
+    import socket
+
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    while True:  # rank 1 answers on the port after rank 0's
+        port = _free_port()
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", port + 1))
+            break
+        except OSError:
+            continue
+    env = {**os.environ, "PYTHONPATH": root, "KUBEAI_FAILPOINTS": "gang.follower=error:1",
+           "KUBEAI_GANG_REFORM_TIMEOUT": "60"}
+    cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server", "--model",
+           "preset:llama-3.1-8b", "--tensor-parallel-size", str(GANG_TP), "--host",
+           "127.0.0.1", "--port", str(port)]
+    log_path = os.path.join(root, "build", "gang_server.log")
+    prompts = _gang_prompts()
+    t0 = time.monotonic()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, env=env, cwd=root)
+    try:
+        ref = _gang_reference(prompts)  # while the ranks load
+        try:
+            ready_s = _await_ready(port, 240, proc)
+        except AssertionError:
+            with open(log_path) as f:
+                log(f.read()[-4000:])
+            raise
+        # (c) rank 1's reconnect is accepted only once rank 0 dropped its
+        # old connection, so rank 0 owes the gang a reset: the next
+        # request fails and re-forms the gang.
+        deadline = time.monotonic() + 60
+        while _http(port + 1, "/debug/gang")[2].get("reconnects", 0) < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("gang: rank 1 never reconnected after its failpoint")
+            time.sleep(0.05)
+        _await_ready(port, 60, proc)
+        probe = _http(port, "/v1/completions", {"prompt": "re-form", "max_tokens": 2})
+        _await_ready(port, 60, proc)
+        reforms = _http(port, "/debug/engine")[2]["gang"]["reforms"]
+        if reforms != 1:
+            raise AssertionError(f"gang: kubeai_gang_reforms_total {reforms}, expected 1 "
+                                 f"(probe answered {probe[0]} {probe[2]})")
+        # (a) 8 greedy requests at once.
+        results: list = [None] * len(prompts)
+
+        def one(i):
+            results[i] = _http(port, "/v1/completions", {
+                "prompt": prompts[i], "max_tokens": GANG_MAX_TOKENS, "temperature": 0,
+                "logprobs": 5, "logit_bias": {"257": -100}})
+
+        t_req = time.monotonic()
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        requests_s = time.monotonic() - t_req
+        r0 = _http(port, "/debug/engine?limit=200")[2]
+        r1 = _http(port + 1, "/debug/gang")[2]
+        metrics = {}
+        for rank, p in ((0, port), (1, port + 1)):
+            with urllib.request.urlopen(f"http://127.0.0.1:{p}/metrics", timeout=30) as r:
+                text = r.read().decode()
+            metrics[rank] = {m[0]: float(m[1]) for m in re.findall(
+                r"^kubeai_engine_param_bytes_(global|local) (\S+)$", text, re.M)}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    L = 32
+    tok = ByteTokenizer()
+    tol_terms = []
+    first_equal = 0
+    for i, (status, _, body) in enumerate(results):
+        if status != 200:
+            raise AssertionError(f"gang: request {i} answered {status}: {body}")
+        _check_completion(body, f"gang request {i}")
+        lp = body["choices"][0]["logprobs"]
+        want_tok, want_top5, max_logit, gap = ref[i]
+        # One extra bf16 rounding of a partial sum per row-parallel layer
+        # (wo, wd: 2L of them), each <= u (|S1| + |S2|) <= 2u |S|; as a
+        # random walk over 2L steps, the hidden state moves by
+        # 2 sqrt(2L) u of its size, and a logit by that share of the
+        # largest |logit|; a logprob by twice that (the logit and the
+        # log-sum-exp).
+        tol = 4.0 * math.sqrt(2 * L) * BF16_U * max_logit
+        got_top5 = sorted(lp["top_logprobs"][0].values(), reverse=True)
+        top_err = max(abs(a - b) for a, b in zip(got_top5, want_top5))
+        same = lp["tokens"][0] == tok.decode([want_tok])
+        first_equal += same
+        if top_err > tol:
+            raise AssertionError(f"gang: prompt {i} top-5 logprobs differ by {top_err} > {tol}")
+        if not same and gap > tol:
+            raise AssertionError(f"gang: prompt {i} first token differs from tp = 1 with a "
+                                 f"top-2 gap of {gap} > {tol}")
+        tol_terms.append({"top5_err": top_err, "tol": tol, "first_equal": same, "gap": gap})
+    for rank, m in metrics.items():
+        share = m["local"] / m["global"]
+        if not 0.45 <= share <= 0.55:
+            raise AssertionError(f"gang: rank {rank} holds {share:.3f} of the parameter bytes")
+    g0 = r0["gang"]
+    steps = [s for s in r0["steps"] if s.get("kind") == "decode_chunk"]
+    step_wall = [s["dur_ms"] / s["steps"] for s in steps]
+    step_dev = [s["device_ms"] / s["steps"] for s in steps if s.get("device_ms")]
+    step_coll = [s.get("collective_ms", 0.0) / s["steps"] for s in steps]
+    launches = {}
+    for rank, rep in ((0, g0), (1, r1)):
+        launches[rank] = {k: v for k, v in rep["launches"].items()
+                          if k in ("flash_attention.launches", "paged_attention_ragged.launches",
+                                   "qdot.launches", "qdot_many.launches")}
+        if not (launches[rank]["flash_attention.launches"]
+                and launches[rank]["paged_attention_ragged.launches"]):
+            raise AssertionError(f"gang: rank {rank} did not launch flash and ragged: "
+                                 f"{launches[rank]}")
+    def med(xs):
+        return sorted(xs)[len(xs) // 2] if xs else None
+
+    run = {
+        "launches": {"flash_attention": g0["launches"]["flash_attention.launches"],
+                     "paged_attention_ragged": g0["launches"]["paged_attention_ragged.launches"],
+                     "paged_decode_attention": g0["launches"]["paged_decode_attention.launches"],
+                     "qdot": g0["launches"]["qdot.launches"],
+                     "qdot_many": g0["launches"]["qdot_many.launches"]},
+        "launches_by_pool": {
+            "paged_attention_ragged": g0["launches"]["paged_attention_ragged.launches_by_pool"],
+            "paged_decode_attention": g0["launches"]["paged_decode_attention.launches_by_pool"]},
+        "launches_by_regime": g0["launches"]["paged_attention_ragged.launches_by_regime"],
+        "flash_launches_by_regime": g0["launches"]["flash_attention.launches_by_regime"],
+        "launches_by_rank": launches,
+        "backend": g0["group"]["backend"], "host_staged": g0["group"]["host_staged"],
+        "cuda_graphs": g0["cuda_graphs"],
+        "spawn_to_ready_s": ready_s, "requests": len(prompts), "requests_s": requests_s,
+        "param_bytes": metrics, "reforms": reforms, "probe_status": probe[0],
+        "first_tokens_equal": first_equal, "logprob_checks": tol_terms,
+        "decode_step_wall_ms": med(step_wall), "decode_step_device_ms": med(step_dev),
+        "decode_step_collective_ms": med(step_coll),
+        "collective_share": (med(step_coll) / med(step_wall)) if step_wall else None,
+        "collectives_rank0": g0["group"]["collectives"],
+        "collectives_rank1": r1["group"]["collectives"], "follower_ops": r1["ops"],
+        "server_s": time.monotonic() - t0,
+    }
+    return run
+
+
+def phase_gang() -> dict:
+    """Phase 9 (budget GANG_BUDGET_S): (d) NCCL capture, (b) the float32
+    gang in process, (a) + (c) the two-rank server. Returns {"gang": run}
+    for the kernels line's launches_by_path."""
+    t0 = time.monotonic()
+    out = {"nccl_capture": _nccl_graph_check()}
+    log("gang_nccl_capture", json.dumps(out["nccl_capture"]))
+    out["float32"] = _gang_float32()
+    log("gang_float32", json.dumps(out["float32"]))
+    run = _gang_server()
+    run["phase_s"] = time.monotonic() - t0
+    log("gang_server", json.dumps(run))
+    if run["phase_s"] > GANG_BUDGET_S:
+        raise AssertionError(f"gang phase took {run['phase_s']:.1f} s > {GANG_BUDGET_S} s")
+    return {"gang": run}
+
+
 def main() -> int:
     import torch
 
@@ -4040,6 +4499,9 @@ def main() -> int:
     log(f"serving_ops phase: {time.monotonic() - t6:.1f}s")
     serving.update(phase_coldstart())
     serving.update(phase_finetune())
+    t9 = time.monotonic()
+    serving.update(phase_gang())
+    log(f"gang phase: {time.monotonic() - t9:.1f}s")
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

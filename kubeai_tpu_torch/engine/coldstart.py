@@ -443,7 +443,8 @@ def start_background_warm(model_config, engine_config, quantization: str = "",
 
 
 def start_engine(spec: StartSpec, load, timeline: ColdStartTimeline | None = None,
-                 overlap: bool | None = None, warmup: bool | None = None, park_engine=None):
+                 overlap: bool | None = None, warmup: bool | None = None, park_engine=None,
+                 tp_group=None, publisher=None):
     """Start an engine for *spec* with its phases on *timeline* (a fresh
     one, installed, when None): ``compile`` (the background warm, started
     before the weights when *overlap*), ``load`` (``load()`` returns
@@ -454,11 +455,20 @@ def start_engine(spec: StartSpec, load, timeline: ColdStartTimeline | None = Non
     for every replica), 1 or 0. *warmup* None reads
     ``KUBEAI_ENGINE_WARMUP=1``. A *park_engine* whose ``park_key`` equals
     the spec's is adopted instead: the weights load into it in place and
-    its park-time warmup stands (``attrs.adopted_park_engine``)."""
+    its park-time warmup stands (``attrs.adopted_park_engine``).
+
+    A gang rank (*tp_group*, and on rank 0 the gang's *publisher*) builds
+    its engine over its shard with no warmup and no overlap, as the JAX
+    loader starts a gang: the libraries load from the compile cache at
+    first use."""
     from kubeai_tpu_torch.engine.core import Engine
 
     setup_compile_cache()
     timeline = (timeline or ColdStartTimeline()).install()
+    if tp_group is not None:
+        if park_engine is not None:
+            raise ValueError("a parked engine cannot be adopted by a gang rank")
+        overlap = warmup = False
     if park_engine is not None:
         adopt = spec.adoptable and getattr(park_engine, "park_key", None) == spec.key()
         timeline.attrs["adopted_park_engine"] = adopt
@@ -490,7 +500,8 @@ def start_engine(spec: StartSpec, load, timeline: ColdStartTimeline | None = Non
         timeline.attrs["warm_compile"] = stats
         require_libraries(stats)
     timeline.begin("build")
-    eng = Engine(config, params, spec.tokenizer, spec.engine_config, device=spec.device)
+    eng = Engine(config, params, spec.tokenizer, spec.engine_config, device=spec.device,
+                 tp_group=tp_group, publisher=publisher)
     timeline.end("build")
     if warmup:
         with timeline.phase("warmup"):

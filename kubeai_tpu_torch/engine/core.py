@@ -76,6 +76,26 @@ A slim port of the JAX engine's serving path:
 On the CPU the same loop runs the chunk eagerly (the tests), and on CUDA
 too when the caller passes ``cuda_graphs=False``.
 
+Tensor parallelism and the gang (``Engine(..., tp_group=, publisher=)``,
+the JAX engine's ``mesh`` / ``publisher``): each rank's engine holds its
+shard of the weights (parallel/sharding.py) and a pool of its KV heads
+with the same page indices as every other rank; the forward's collectives
+run on the *tp_group*. Rank 0 owns the scheduler and, before every
+device dispatch (``prefill_batch``, ``prefill_chunk``, ``decode`` with
+the resolved decode kernel, ``embed``) and every bank change
+(``load_adapter``, ``unload_adapter``), publishes the op and its host
+arguments (engine/gang.py); the other ranks replay them in
+:meth:`Engine.run_follower` on the same host arrays, so their
+collectives line up and their device state stays bit-identical to rank
+0's. A failure after a broadcast is :class:`GangDesync` (the rank exits:
+its followers are inside a collective rank 0 never reached); a lost
+follower is :class:`GangLost`: in-flight work fails, the engine reads
+not ready until the follower reconnects, then "reset" re-forms the gang
+(``kubeai_gang_reforms_total``) and adapters are replayed. On a gang
+warmup and KV park/restore are off, as in the JAX engine, and the
+decode chunk is captured as a CUDA graph only under nccl (a gloo
+collective goes through host memory and cannot be captured).
+
 Metrics: the JAX engine's families under its names, types and buckets
 (queue, slot, page and HBM gauges, the TTFT / queue-wait / prefill /
 TPOT / e2e / step histograms, token, request, prefix and slot-step
@@ -84,9 +104,8 @@ and ``kubeai_qos_*`` series, in kubeai_tpu_torch/metrics.py's registry.
 ``kubeai_engine_jit_recompiles_total`` has no counterpart: the port
 counts decode-graph captures as ``kubeai_engine_graph_captures_total``.
 
-Left for later slices (ROADMAP queue 1): gangs (and the profile
-fan-out, ``broadcast_profile``), the tenant accountant, CUDA graphs for
-prefill.
+Left for later slices (ROADMAP queue 1): the tenant accountant, CUDA
+graphs for prefill.
 """
 
 from __future__ import annotations
@@ -94,6 +113,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import os
 import queue
 import threading
 import time
@@ -105,7 +125,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from kubeai_tpu_torch import resolve_device
+from kubeai_tpu_torch import env_float, resolve_device
 from kubeai_tpu_torch.engine import kvstate
 from kubeai_tpu_torch.engine.paging import PagePool, pages_for
 from kubeai_tpu_torch.engine.sampling import (
@@ -142,12 +162,25 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
     resolve_decode_kernel,
 )
 from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+from kubeai_tpu_torch.parallel.sharding import check_divisible, global_nbytes
 from kubeai_tpu_torch.qos import QoSQueue, record_admitted, record_preemption
 from kubeai_tpu_torch.qos.stats import install_queue, uninstall_queue
 
 # The scheduler thread serves many requests, so its per-request log
 # lines stamp the request's trace explicitly (extra=trace_extra(...)).
 log = get_logger("kubeai_tpu_torch.engine")
+
+
+class GangLost(ConnectionError):
+    """A gang follower's dispatch connection failed: the gang's
+    collectives cannot line up until the follower reconnects and the
+    gang re-forms (or, failing that in time, the rank exits)."""
+
+
+class GangDesync(RuntimeError):
+    """Rank 0 failed to run an op after broadcasting it: the followers
+    have entered that op's collectives and wait for rank 0, which no
+    reset can realign. Fatal for the rank."""
 
 
 @dataclass
@@ -393,7 +426,11 @@ class Engine:
     JAX engine turns them on for the TPU: flash prefill and, without a
     sliding window, the paged attention kernels; every device call runs on the engine's own stream,
     and each decode chunk replays a CUDA graph unless ``cuda_graphs`` is
-    False (the same chunk eagerly: for comparisons on the card)."""
+    False (the same chunk eagerly: for comparisons on the card).
+
+    On a gang *params* is this rank's shard, *tp_group* the ranks'
+    parallel/group.py TPGroup, and rank 0 passes the gang's *publisher*
+    (engine/gang.py); the other ranks call :meth:`run_follower`."""
 
     def __init__(
         self,
@@ -403,9 +440,17 @@ class Engine:
         engine_config: EngineConfig | None = None,
         device: torch.device | str | None = None,
         cuda_graphs: bool = True,
+        tp_group=None,
+        publisher=None,
     ):
         self.cfg = engine_config or EngineConfig()
         self.device = resolve_device(device)
+        self.tp_group = tp_group
+        self.tp = tp_group.world_size if tp_group is not None else 1
+        check_divisible(model_config, self.tp)
+        self._publisher = publisher
+        # Any rank of a gang (rank 0 publishes; the others replay).
+        self._gang = publisher is not None or tp_group is not None
         if self.cfg.decode_kernel not in ("ragged", "dedicated", "auto"):
             raise ValueError(
                 f"decode_kernel must be 'ragged', 'dedicated' or 'auto', "
@@ -439,7 +484,10 @@ class Engine:
         self.n_valid_vocab = min(
             getattr(tokenizer, "vocab_size", model_config.vocab_size), model_config.vocab_size
         )
-        self.cuda_graphs = bool(cuda_graphs) and self._cuda
+        # A gloo group's collectives pass through host memory, which a
+        # CUDA graph cannot capture: its chunk runs eagerly.
+        self.cuda_graphs = bool(cuda_graphs) and self._cuda and (
+            tp_group is None or tp_group.graphable)
         # Set by EngineServer.start(): the scheduler thread's failpoint
         # scope (engine.step@PORT and the other sites' twins).
         self.fault_scope: str | None = None
@@ -482,6 +530,17 @@ class Engine:
         # loads and unloads), each with its reply queue.
         self._aux: "queue.Queue[tuple]" = queue.Queue()
         self._adapters = None  # engine/lora.py AdapterRuntime, made at the first load
+        # Gang supervision: set while a follower is lost (not ready); the
+        # adapters loaded, replayed to a re-formed gang; the seconds rank 0
+        # waits for a lost follower before it exits.
+        self._gang_degraded = threading.Event()
+        self._adapter_sources: dict[str, str] = {}
+        self.gang_reform_timeout = env_float("KUBEAI_GANG_REFORM_TIMEOUT", 300.0)
+        # Ops a follower replayed, by name, and the decode kernels they ran.
+        self.follower_ops: collections.Counter = collections.Counter()
+        self.follower_kernels: set[str] = set()
+        self.follower_reconnects = 0
+        self._follower_profile = None
         self._running = False
         self._thread: threading.Thread | None = None
         self._wake = threading.Event()
@@ -566,17 +625,24 @@ class Engine:
             "kubeai_engine_speculative_drafted_total", "draft tokens proposed")
         self.m_spec_accepted = reg.counter(
             "kubeai_engine_speculative_accepted_total", "draft tokens accepted")
-        weight_bytes = _param_bytes(self.params)
-        # One process, tp = 1: every parameter byte is resident here.
+        self.m_gang_reforms = reg.counter(
+            "kubeai_gang_reforms_total",
+            "gang re-formations: a lost follower reconnected and rank 0 "
+            "re-synchronized every rank with a reset")
+        # Weight residency: on a tp gang each rank holds about 1/tp of the
+        # model (the replicated norms and row-parallel int8 scales whole).
+        self.param_bytes_local = _param_bytes(self.params)
+        self.param_bytes_global = global_nbytes(self.params, self.model_config, self.tp)
         reg.gauge("kubeai_engine_param_bytes_global", "total model parameter bytes"
-                  ).set(weight_bytes)
+                  ).set(self.param_bytes_global)
         reg.gauge("kubeai_engine_param_bytes_local", "parameter bytes resident on this rank"
-                  ).set(weight_bytes)
+                  ).set(self.param_bytes_local)
         # Live roofline / MFU accounting (obs/perf.py): FLOPs per token
         # from the config, weight bytes measured off the parameters (int8
-        # values and their scales as stored), the card's peaks.
+        # values and their scales as stored), the card's peaks; on a gang
+        # the whole model's bytes over every rank's device.
         self.perf = perf_obs.PerfModel.from_model_config(
-            self.model_config, weight_bytes=weight_bytes)
+            self.model_config, weight_bytes=self.param_bytes_global)
         self.perf_env = perf_obs.detect_device(self.device)
         self._rate_window = perf_obs.TokenRateWindow(span=10.0)
         self._stall = perf_obs.PipelineStallTracker()
@@ -609,6 +675,8 @@ class Engine:
         # One bound method kept for the register / unregister identity.
         self._perf_section_fn = self._perf_debug_section
         register_engine_debug_section("perf", self._perf_section_fn)
+        self._gang_section_fn = self.gang_report
+        register_engine_debug_section("gang", self._gang_section_fn)
 
     def _hbm_stats(self) -> tuple[int, int]:
         """(used, capacity) bytes of the engine's card (cudaMemGetInfo:
@@ -620,18 +688,26 @@ class Engine:
 
     # -- perf X-ray --------------------------------------------------------
 
+    def _peaks(self) -> tuple:
+        """(peak FLOP/s, HBM GB/s) of every device the model spans: one
+        card's times the tp ranks (the JAX engine scales by the mesh)."""
+        env = self.perf_env
+        return ((env.peak_flops * self.tp if env.peak_flops else env.peak_flops),
+                (env.hbm_gbps * self.tp if env.hbm_gbps else env.hbm_gbps))
+
     def _mfu(self) -> float:
-        return self.perf.mfu(self.m_tok_rate.value(), self.perf_env.peak_flops)
+        return self.perf.mfu(self.m_tok_rate.value(), self._peaks()[0])
 
     def _roofline_fraction(self) -> float:
-        roof = self.perf.roofline_tokens_per_sec(self.cfg.max_slots, self.perf_env.hbm_gbps)
+        roof = self.perf.roofline_tokens_per_sec(self.cfg.max_slots, self._peaks()[1])
         return self.m_tok_rate.value() / roof if roof else 0.0
 
     def _perf_debug_section(self) -> dict:
         """The ``perf`` block of /debug/engine: live rate, MFU, roofline
         context and the windowed stall summary."""
         env = self.perf_env
-        roof = self.perf.roofline_tokens_per_sec(self.cfg.max_slots, env.hbm_gbps)
+        peak_flops, hbm_gbps = self._peaks()
+        roof = self.perf.roofline_tokens_per_sec(self.cfg.max_slots, hbm_gbps)
         return {
             "tokens_per_second": self.m_tok_rate.value(),
             "mfu": round(self._mfu(), 5),
@@ -640,11 +716,40 @@ class Engine:
             "flops_per_token": self.perf.flops_per_token,
             "weight_bytes": self.perf.weight_bytes,
             "device": env.kind,
-            "devices": 1,
-            "peak_flops": env.peak_flops,
-            "hbm_gbps": env.hbm_gbps,
+            "devices": self.tp,
+            "peak_flops": peak_flops,
+            "hbm_gbps": hbm_gbps,
             "stall": self._stall.report(),
         }
+
+    def gang_report(self) -> dict:
+        """The ``gang`` block of /debug/engine (and a follower's
+        /debug/gang): this rank's place in the gang, the group's backend
+        and collective counts, the parameter bytes and the kernel launch
+        counts of this process."""
+        out = {
+            "tp": self.tp,
+            "rank": self.tp_group.rank if self.tp_group is not None else 0,
+            "role": "leader" if self._publisher is not None else (
+                "follower" if self._gang else "single"),
+            "param_bytes_local": self.param_bytes_local,
+            "param_bytes_global": self.param_bytes_global,
+            "cuda_graphs": self.cuda_graphs,
+            "launches": {f"{fn.__name__}.{k}": (dict(v) if isinstance(v, collections.Counter)
+                                                 else v)
+                         for (fn, k), v in _counts().items()},
+        }
+        if self.tp_group is not None:
+            out["group"] = self.tp_group.describe()
+        if self._publisher is not None:
+            out["complete"] = self._publisher.is_complete()
+            out["degraded"] = self._gang_degraded.is_set()
+            out["reforms"] = self.m_gang_reforms.value()
+        if self._gang and not self._publisher:
+            out["ops"] = dict(self.follower_ops)
+            out["kernels"] = sorted(self.follower_kernels)
+            out["reconnects"] = self.follower_reconnects
+        return out
 
     def pipeline_report(self) -> dict:
         """The GET /debug/pipeline payload: windowed stall attribution
@@ -701,7 +806,7 @@ class Engine:
         self._max_pages, P, hist_width = engine_dims(self.cfg)
         self._pool = PagePool(P, self.cfg.page_size)
         self.cache = llama.init_paged_cache(
-            self.model_config, P, self.cfg.page_size, self.device
+            self.model_config, P, self.cfg.page_size, self.device, tp=self.tp
         )
         self._slots: list[_Slot | None] = [None] * B
         self._slot_epoch = [0] * B  # bumped at each admission (JAX _slot_epoch)
@@ -789,13 +894,20 @@ class Engine:
             self._thread.join(timeout=30)
             if self._thread.is_alive():
                 log.warning("engine loop did not exit; skipping in-flight cleanup")
+                if self._publisher is not None:
+                    self._publisher.close()
                 return
+        # After the loop exits: a close racing its broadcast would look
+        # like a lost follower. Sends the followers "stop".
+        if self._publisher is not None:
+            self._publisher.close()
         self._fail_inflight("engine shutting down")
         # Unbind this engine from the process-wide registries (only where
         # it is still the owner): they must not pin its pool.
         for gauge, fn in self._gauge_callbacks:
             gauge.clear_callback(fn)
         unregister_engine_debug_section("perf", self._perf_section_fn)
+        unregister_engine_debug_section("gang", self._gang_section_fn)
         uninstall_queue(self._queue)
         # The graphs and their pool die with the engine's serving life (a
         # later start() captures anew), once the last chunk has run.
@@ -805,7 +917,12 @@ class Engine:
         self._out_sets = [None, None]
 
     def is_ready(self) -> bool:
-        return bool(self._running and self._thread is not None and self._thread.is_alive())
+        """The loop is alive and, on a gang, every follower is connected
+        and the gang is not re-forming (a degraded gang cannot decode)."""
+        gang_ok = self._publisher is None or (
+            self._publisher.is_complete() and not self._gang_degraded.is_set())
+        return bool(self._running and self._thread is not None and self._thread.is_alive()
+                    and gang_ok)
 
     def queue_depth(self) -> int:
         return self._queue.qsize() + len(self._deferred)
@@ -940,6 +1057,11 @@ class Engine:
         return np.concatenate(out, axis=0)
 
     def _embed_group(self, tokens: np.ndarray, lengths: np.ndarray) -> tuple:
+        """One padded group through the model, broadcast first on a gang."""
+        with self._lockstep("embed", arrays={"tokens": tokens, "lengths": lengths}):
+            return self._run_embed(tokens, lengths)
+
+    def _run_embed(self, tokens: np.ndarray, lengths: np.ndarray) -> tuple:
         """One padded group through the model without a cache (no pool
         page, no decode state: plain attention, as the JAX embed_fn's
         cache-less apply), pooled on the device; the result's copy to
@@ -947,7 +1069,8 @@ class Engine:
         B, S = tokens.shape
         tok = self._t(tokens)
         pos = torch.arange(S, device=self.device)[None, :].expand(B, S)
-        hidden, _ = llama.apply(self.params, self.model_config, tok, pos, return_hidden=True)
+        hidden, _ = llama.apply(self.params, self.model_config, tok, pos, return_hidden=True,
+                                tp_group=self.tp_group)
         valid = (pos < self._t(lengths)[:, None]).float()[..., None]
         pooled = (hidden * valid).sum(1) / torch.clamp(valid.sum(1), min=1.0)
         vecs = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),
@@ -967,7 +1090,23 @@ class Engine:
         from kubeai_tpu_torch.engine.lora import stage_remote
 
         staged = stage_remote(path)
-        self._run_on_scheduler(lambda: self._install_adapter(name, staged), "adapter load")
+
+        def do():
+            # Install first: a bad checkpoint fails here with nothing
+            # broadcast. On a gang the broadcast then takes this thunk's
+            # place in the dispatch stream, and each follower stages the
+            # original path itself.
+            self._install_adapter(name, staged)
+            self._bcast("load_adapter", scalars={"name": name, "path": path})
+            self._adapter_sources[name] = path
+
+        self._run_on_scheduler(do, "adapter load")
+
+    def _load_adapter_local(self, name: str, path: str) -> None:
+        """A follower's load (the op's place in the stream orders it)."""
+        from kubeai_tpu_torch.engine.lora import stage_remote
+
+        self._install_adapter(name, stage_remote(path))
 
     def _install_adapter(self, name: str, path: str) -> None:
         from kubeai_tpu_torch.engine.lora import AdapterRuntime
@@ -990,7 +1129,15 @@ class Engine:
         zeroed row."""
         if self._adapters is None:
             return False
-        return self._run_on_scheduler(lambda: self._adapters.unload(name), "adapter unload")
+
+        def do():
+            ok = self._adapters.unload(name)
+            if ok:  # an unload of nothing broadcasts nothing
+                self._bcast("unload_adapter", scalars={"name": name})
+                self._adapter_sources.pop(name, None)
+            return ok
+
+        return self._run_on_scheduler(do, "adapter unload")
 
     def loaded_adapters(self) -> list[str]:
         return self._adapters.names() if self._adapters else []
@@ -1007,6 +1154,15 @@ class Engine:
         if self._adapters is None:
             return {}
         return {"lora": self._adapters.bank, "lora_rows": self._t(np.asarray(rows, np.int64))}
+
+    def _lora_kw(self, ar: dict) -> dict:
+        """The lora keywords of a dispatch's arrays: its ``lora_rows`` when
+        rank 0 had a bank at the dispatch (a follower must have one too)."""
+        if "lora_rows" not in ar:
+            return {}
+        if self._adapters is None:
+            raise RuntimeError("rank 0 dispatched LoRA state this follower lacks")
+        return {"lora": self._adapters.bank, "lora_rows": self._t(ar["lora_rows"])}
 
     def _run_on_scheduler(self, thunk, what: str, timeout: float = 600):
         """Run *thunk* on the scheduler thread (between dispatches, on the
@@ -1057,6 +1213,9 @@ class Engine:
             return
         try:
             rq.put((True, thunk()))
+        except (GangLost, GangDesync) as e:  # the caller's, and the loop's
+            rq.put((False, e))
+            raise
         except Exception as e:  # the caller raises it
             log.exception("scheduler thunk failed")
             rq.put((False, e))
@@ -1078,6 +1237,11 @@ class Engine:
         "names"}, the names in the JAX warmup's terms."""
         if self.is_ready():
             raise RuntimeError("warmup() runs before start()")
+        if self._gang:
+            # Every dispatch of a gang is broadcast; warmup's are not.
+            log.info("warmup skipped on a gang")
+            self.warmup_result = {"shapes": 0, "seconds": 0.0, "names": [], "skipped": "gang"}
+            return self.warmup_result
         t0 = time.monotonic()
         names = []
         B, Kb, mp = self.cfg.max_slots, self.cfg.max_logit_bias, self._max_pages
@@ -1141,6 +1305,8 @@ class Engine:
         its model's weights this way."""
         if self.is_ready():
             raise RuntimeError("load_params_() runs before start()")
+        if self._gang:
+            raise RuntimeError("load_params_() is not supported on a gang")
         pairs = []
 
         def walk(dst, src, where):
@@ -1222,18 +1388,24 @@ class Engine:
                             self.m_tok_rate.set(0.0)
                         self._wake.wait(timeout=0.05)
                         self._wake.clear()
+                except GangDesync as e:
+                    # The followers ran an op this rank did not: no reset
+                    # can realign them (they wait inside its collective).
+                    log.critical("%s; terminating rank 0", e)
+                    self._terminate_rank("gang desynced; restarting the gang", code=14)
+                    return  # where _terminate_rank is stubbed (tests)
+                except GangLost as e:
+                    # A follower's dispatch connection died: fail the work
+                    # in flight, go not ready, and wait for the gang to
+                    # re-form.
+                    self._handle_gang_loss(str(e))
+                    pending = None
                 except Exception:
                     # A failed capture, replay or step: fail everything in
                     # flight and rebuild the device state (no eager
-                    # fallback).
+                    # fallback); a gang's followers rebuild theirs too.
                     log.exception("engine step failed; resetting device state")
-                    self._fail_inflight("engine reset after device error")
-                    if self._cuda:
-                        # The chunk in flight still reads the state about
-                        # to be rebuilt (a device error may be sticky).
-                        with contextlib.suppress(RuntimeError):
-                            self._stream.synchronize()
-                    self._init_state()
+                    self._recover()
                     pending = None
             if pending is not None:
                 # The chunk dispatched last, still in flight at stop(): its
@@ -1243,6 +1415,224 @@ class Engine:
                     self._process_chunk(*pending)
                 except Exception:
                     log.exception("the last decode chunk failed at stop")
+
+    def _recover(self) -> None:
+        """The reset after a failed step: "reset" to the followers, then
+        fail the work in flight and rebuild the device state."""
+        try:
+            self._bcast("reset")
+        except GangLost as e:
+            if self._running:
+                self._handle_gang_loss(str(e))
+            return
+        self._fail_inflight("engine reset after device error")
+        self._reset_device_state()
+
+    def _reset_device_state(self) -> None:
+        if self._cuda:
+            # The chunk in flight still reads the state about to be
+            # rebuilt (a device error may be sticky).
+            with contextlib.suppress(RuntimeError):
+                self._stream.synchronize()
+        self._init_state()
+
+    # -- gang (rank 0's side; the followers' is run_follower) --------------
+
+    def _bcast(self, op: str, scalars: dict | None = None, arrays: dict | None = None) -> None:
+        """On rank 0 of a gang, publish the upcoming dispatch to the
+        followers BEFORE running it (wire order = dispatch order); a
+        no-op otherwise. A send failure is GangLost."""
+        if self._publisher is not None:
+            try:
+                self._publisher.publish(op, scalars, arrays)
+            except OSError as e:
+                raise GangLost(str(e)) from e
+
+    @contextlib.contextmanager
+    def _lockstep(self, op: str, scalars: dict | None = None, arrays: dict | None = None):
+        """Broadcast *op*, then run its local dispatch in the with-body. On
+        a gang a body failure after the broadcast is GangDesync (the
+        followers replayed an op rank 0 never finished); alone, the
+        exception passes unchanged into the reset."""
+        self._bcast(op, scalars, arrays)
+        try:
+            yield
+        except (GangLost, GangDesync):
+            raise
+        except Exception as e:
+            if self._publisher is not None:
+                raise GangDesync(f"rank 0 failed to execute broadcast op {op!r}: {e}") from e
+            raise
+
+    def _terminate_rank(self, message: str, code: int) -> None:
+        """An unrecoverable gang failure: error everything in flight, then
+        exit for the controller to recreate the whole gang. Tests replace
+        this hook."""
+        self._fail_inflight(message)
+        os._exit(code)
+
+    def _handle_gang_loss(self, reason: str) -> None:
+        """Rank 0's supervision of a lost follower: fail the work in
+        flight, read not ready, wait for the follower to reconnect; then
+        "reset" every rank, replay the adapter loads, rebuild the local
+        state, count kubeai_gang_reforms_total and serve again. A gang
+        that does not re-form within KUBEAI_GANG_REFORM_TIMEOUT seconds
+        (<= 0: at once) ends the rank."""
+        self._gang_degraded.set()
+        log.warning("gang degraded (%s); waiting for re-form", reason)
+        self._fail_inflight(f"gang follower lost; re-forming ({reason})")
+        pub = self._publisher
+        if pub is None:
+            self._gang_degraded.clear()
+            return
+        if self.gang_reform_timeout <= 0:
+            self._terminate_rank("gang follower lost; restarting the gang", code=13)
+            return
+        deadline = time.monotonic() + self.gang_reform_timeout
+        while self._running:
+            if pub.wait_complete(0.1):
+                try:
+                    self._bcast("reset")
+                    # A restarted follower has an empty bank: every rank
+                    # (re)installs the loaded adapters before any dispatch.
+                    for name, path in self._adapter_sources.items():
+                        self._bcast("load_adapter", scalars={"name": name, "path": path})
+                except GangLost:
+                    if time.monotonic() >= deadline:
+                        break
+                    continue
+                self._reset_device_state()
+                self._gang_degraded.clear()
+                self.m_gang_reforms.inc()
+                log.info("gang re-formed; serving resumes")
+                return
+            if time.monotonic() >= deadline:
+                break
+        if self._running:
+            log.critical("gang did not re-form within %.0fs; terminating rank 0",
+                         self.gang_reform_timeout)
+            self._terminate_rank("gang follower lost; restarting the gang", code=13)
+
+    def broadcast_profile(self, seconds: float, out_dir: str) -> int:
+        """Rank 0: ask the followers for a profile of the same window, in
+        the dispatch stream (from the scheduler thread). Returns the
+        number of followers asked; 0 off a gang."""
+        if self._publisher is None:
+            return 0
+        self._run_on_scheduler(
+            lambda: self._bcast("profile", scalars={"seconds": float(seconds), "dir": out_dir}),
+            "profile broadcast")
+        return int(self._publisher.n_followers)
+
+    # -- gang follower (ranks > 0) -----------------------------------------
+
+    def run_follower(self, follower) -> None:
+        """Replay rank 0's dispatch stream from *follower* (an
+        engine/gang.py GangFollower) until "stop" or a lost connection
+        that does not come back within KUBEAI_GANG_RECONNECT_TIMEOUT
+        seconds. Every op runs on this engine's stream with the host
+        arrays rank 0 used, so the collectives line up and this rank's
+        device state follows rank 0's. No scheduler and no inference
+        surface: the balancer routes to rank 0 only."""
+        reconnect_timeout = env_float("KUBEAI_GANG_RECONNECT_TIMEOUT", 60.0)
+        try:
+            with self._on_stream():
+                while True:
+                    self._follower_profile_tick()
+                    try:
+                        op, sc, ar = follower.recv()
+                    except ConnectionError:
+                        # Rank 0 restarted, a network cut, or an injected
+                        # gang.follower fault: reconnect with backoff;
+                        # rank 0 holds the gang degraded until then and
+                        # resets every rank.
+                        if reconnect_timeout <= 0 or not hasattr(follower, "reconnect"):
+                            log.warning("gang publisher connection closed; follower exiting")
+                            return
+                        log.warning("gang dispatch stream lost; reconnecting (up to %.0fs)",
+                                    reconnect_timeout)
+                        try:
+                            follower.reconnect(timeout=reconnect_timeout)
+                        except Exception as e:
+                            log.warning("gang reconnect failed (%s); follower exiting", e)
+                            return
+                        self.follower_reconnects += 1
+                        log.info("gang dispatch stream re-established")
+                        continue
+                    if op == "stop":
+                        return
+                    if not self._replay(op, sc or {}, ar):
+                        log.error("unknown gang op %r; stopping follower", op)
+                        return
+                    self.follower_ops[op] += 1
+        finally:
+            self._follower_profile_tick(force=True)
+
+    def _replay(self, op: str, sc: dict, ar: dict) -> bool:
+        """Run one op of rank 0's stream here; False for an unknown op. A
+        failure raises and ends the follower: a rank that cannot do what
+        rank 0 did cannot stay in lockstep."""
+        if op == "reset":
+            self._reset_device_state()
+        elif op == "load_adapter":
+            self._load_adapter_local(sc["name"], sc["path"])
+        elif op == "unload_adapter":
+            if self._adapters is not None:
+                self._adapters.unload(sc["name"])
+        elif op == "profile":
+            self._follower_profile_start(float(sc.get("seconds", 2.0)), sc.get("dir") or None)
+        elif op == "decode":
+            # Rank 0's resolved kernel, not this rank's: every rank must
+            # run the same program.
+            kernel = sc.get("decode_kernel", self.decode_kernel)
+            self.follower_kernels.add(kernel)
+            for name, view in self._inputs.views.items():
+                view[...] = ar[name]
+            self._run_chunk(kernel, fetch=False)
+        elif op == "prefill_batch":
+            self._run_prefill_batch(ar, fetch=False)
+        elif op == "prefill_chunk":
+            self._run_prefill_chunk(ar, fetch=False)
+        elif op == "embed":
+            self._run_embed(ar["tokens"], ar["lengths"])
+        else:
+            return False
+        return True
+
+    def _follower_profile_start(self, seconds: float, out_dir: str | None) -> None:
+        """Rank 0's /debug/profile fan-out: a torch.profiler session on
+        this (the replay) thread, stopped at the first op boundary after
+        *seconds* (the port's sessions start and stop on the thread that
+        launches). The trace goes to *out_dir*-rank<r>. Best effort."""
+        if self._follower_profile is not None:
+            log.warning("profile fan-out ignored: a capture is in flight")
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        rank = self.tp_group.rank if self.tp_group is not None else 0
+        out_dir = f"{out_dir or perf_obs.default_profiler.root}-rank{rank}"
+        try:
+            prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self._cuda else []))
+            prof.__enter__()
+        except Exception:
+            log.exception("follower profile capture failed to start")
+            return
+        self._follower_profile = (prof, time.monotonic() + seconds, out_dir)
+
+    def _follower_profile_tick(self, force: bool = False) -> None:
+        if self._follower_profile is None:
+            return
+        prof, deadline, out_dir = self._follower_profile
+        if not force and time.monotonic() < deadline:
+            return
+        self._follower_profile = None
+        try:
+            prof.__exit__(None, None, None)
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        except Exception:
+            log.exception("follower profile capture failed")
 
     def _poll_evictions(self) -> None:
         """kubeai_engine_kv_cached_evictions_total from the pool's count."""
@@ -1411,9 +1801,10 @@ class Engine:
                         self._release_slot_pages(slot_idx)
                         req.out.put(("error", f"prefill failed: {e}"))
                         self._finish_request(req, "error", error=f"prefill failed: {e}")
-                if poisoned:
-                    # Escalate to the loop's reset; requests of this round
-                    # not prefilled yet hold no slot, so fail them first.
+                if poisoned or isinstance(e, (GangLost, GangDesync)):
+                    # Escalate to the loop's reset (or the gang's
+                    # supervision); requests of this round not prefilled
+                    # yet hold no slot, so fail them first.
                     for later, _ in work[w + 1 :]:
                         for slot_idx, req in later:
                             req.out.put(("error", f"prefill failed: {e}"))
@@ -1568,22 +1959,31 @@ class Engine:
         t_lp, t_ids = torch.topk(logp, max(1, self.cfg.top_logprobs_k), dim=-1)
         return toks, lps, t_ids, t_lp
 
-    def _first_tokens(self, logits, slots, reqs, seeds, positions) -> tuple:
-        """Sample the first tokens of *slots* from prefill logits [N, V]
-        into the device staging vector adm_toks[slots], which the next
-        chunk merges in (JAX ``prefill_batch_fn``), and queue their copy
-        to the host. Returns (host tensors, event) for _emit_admitted."""
+    def _sampling_rows(self, reqs, slots, seeds, positions) -> dict:
+        """The host arrays a prefill samples its first tokens with: each
+        request's slot, seed, position and sampling parameters."""
         sp = [r.params for r in reqs]
         bias = [self._bias_rows(p) for p in sp]
-        out = self._sample_first(
-            logits, np.stack([b[0] for b in bias]), np.stack([b[1] for b in bias]),
-            np.asarray(seeds, np.int64), np.asarray(positions, np.int64),
-            np.array([p.temperature for p in sp], np.float32),
-            np.array([p.top_p for p in sp], np.float32),
-            np.array([p.top_k for p in sp], np.int64),
-        )
-        self._adm_toks[self._t(np.asarray(slots, np.int64))] = out[0]
-        return self._to_host(out)
+        return {
+            "slots": np.asarray(slots, np.int64), "seeds": np.asarray(seeds, np.int64),
+            "positions": np.asarray(positions, np.int64),
+            "bias_ids": np.stack([b[0] for b in bias]),
+            "bias_vals": np.stack([b[1] for b in bias]),
+            "temp": np.array([p.temperature for p in sp], np.float32),
+            "top_p": np.array([p.top_p for p in sp], np.float32),
+            "top_k": np.array([p.top_k for p in sp], np.int64),
+        }
+
+    def _first_tokens(self, logits, ar: dict, fetch: bool = True):
+        """Sample the first tokens of slots ar["slots"] from prefill logits
+        [N, V] (the rest of *ar* from :meth:`_sampling_rows`) into the
+        device staging vector adm_toks[slots], which the next chunk merges
+        in (JAX ``prefill_batch_fn``), and with *fetch* queue their copy
+        to the host: (host tensors, event) for _emit_admitted."""
+        out = self._sample_first(logits, ar["bias_ids"], ar["bias_vals"], ar["seeds"],
+                                 ar["positions"], ar["temp"], ar["top_p"], ar["top_k"])
+        self._adm_toks[self._t(ar["slots"])] = out[0]
+        return self._to_host(out) if fetch else None
 
     def _to_host(self, tensors) -> tuple:
         """Queue the copy of *tensors* to pinned host memory: (host
@@ -1608,15 +2008,15 @@ class Engine:
             tokens[j, : len(req.prompt_ids)] = req.prompt_ids
             lengths[j] = len(req.prompt_ids)
             req.trace.mark("prefill")
-        tables = self._page_table[[s for s, _ in items]]
-        logits, _ = llama.prefill_paged_cold(
-            self.params, self.model_config, self._t(tokens), self.cache,
-            self._t(tables), self._t(lengths),
-            **self._lora_args([self._adapter_row(r.adapter) for _, r in items]),
-        )
         reqs = [r for _, r in items]
+        slots = [s for s, _ in items]
         seeds = [self._seed32(r.params, j) for j, r in enumerate(reqs)]
-        host, ev = self._first_tokens(logits[:, -1], [s for s, _ in items], reqs, seeds, lengths)
+        ar = {"tokens": tokens, "lengths": lengths, "tables": self._page_table[slots],
+              **self._sampling_rows(reqs, slots, seeds, lengths)}
+        if self._adapters is not None:
+            ar["lora_rows"] = np.array([self._adapter_row(r.adapter) for r in reqs], np.int64)
+        with self._lockstep("prefill_batch", arrays=ar):
+            host, ev = self._run_prefill_batch(ar)
         out = []
         for j, (slot_idx, req) in enumerate(items):
             self._register(slot_idx, req, seeds[j], reuse=0)
@@ -1625,6 +2025,27 @@ class Engine:
         self._record_prefill("prefill_group", t_disp, n * bucket - real, bucket=bucket, batch=n,
                              slots=[s for s, _ in items], prompt_tokens=real)
         return out
+
+    def _run_prefill_batch(self, ar: dict, fetch: bool = True):
+        """The device side of a cold prefill group (rank 0's and each
+        follower's replay): the prompts' KV into their pages and the
+        first tokens into adm_toks."""
+        logits, _ = llama.prefill_paged_cold(
+            self.params, self.model_config, self._t(ar["tokens"]), self.cache,
+            self._t(ar["tables"]), self._t(ar["lengths"]), tp_group=self.tp_group,
+            **self._lora_kw(ar))
+        return self._first_tokens(logits[:, -1], ar, fetch)
+
+    def _run_prefill_chunk(self, ar: dict, fetch: bool = True):
+        """The device side of one prefill chunk; the last chunk of a prompt
+        (its arrays carry the sampling rows) samples its first token."""
+        logits, _ = llama.prefill_paged(
+            self.params, self.model_config, self._t(ar["tokens"]), self.cache,
+            self._t(ar["table"]), self._t(ar["start"]), self._t(ar["last_idx"]),
+            tp_group=self.tp_group, **self._lora_kw(ar))
+        if "slots" not in ar:
+            return None
+        return self._first_tokens(logits[:, -1], ar, fetch)
 
     def _record_prefill(self, kind: str, t_disp: float, pad_tokens: int, **fields) -> None:
         """A prefill call's step histogram, stall record, padding count and
@@ -1646,10 +2067,9 @@ class Engine:
         t_disp = time.monotonic()
         req.trace.mark("prefill")
         req.trace.attrs["reuse_tokens"] = reuse
-        table = self._t(self._page_table[slot_idx : slot_idx + 1])
+        table = self._page_table[slot_idx : slot_idx + 1]
         max_bucket = max(self.cfg.prefill_buckets)
-        lora = self._lora_args([self._adapter_row(req.adapter)])
-        logits = None
+        seed = self._seed32(req.params)
         pad_tokens = 0
         for start in range(reuse, len(ids), max_bucket):
             chunk = ids[start : start + max_bucket]
@@ -1658,12 +2078,15 @@ class Engine:
             pad_tokens += bucket - len(chunk)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, : len(chunk)] = chunk
-            logits, _ = llama.prefill_paged(
-                self.params, self.model_config, self._t(padded), self.cache, table,
-                self._t([start]), self._t([len(chunk) - 1]), **lora,
-            )
-        seed = self._seed32(req.params)
-        host, ev = self._first_tokens(logits[:, -1], [slot_idx], [req], [seed], [len(ids)])
+            ar = {"tokens": padded, "table": table, "start": np.array([start], np.int64),
+                  "last_idx": np.array([len(chunk) - 1], np.int64)}
+            if self._adapters is not None:
+                ar["lora_rows"] = np.array([self._adapter_row(req.adapter)], np.int64)
+            if is_last:
+                ar.update(self._sampling_rows([req], [slot_idx], [seed], [len(ids)]))
+            with self._lockstep("prefill_chunk", arrays=ar):
+                first = self._run_prefill_chunk(ar)
+        host, ev = first
         self._register(slot_idx, req, seed, reuse)
         self._record_prefill("prefill_chunked", t_disp, pad_tokens, slot=slot_idx,
                              prompt_tokens=len(ids), reuse_tokens=reuse)
@@ -1726,7 +2149,7 @@ class Engine:
 
     # -- decode ------------------------------------------------------------
 
-    def _chunk_body(self) -> tuple:
+    def _chunk_body(self, kernel: str | None = None) -> tuple:
         """decode_chunk fused steps over every slot, reading and updating
         the static device buffers in place; the function a CUDA graph
         captures. First the admission merge (JAX ``decode_fn``'s rebase);
@@ -1739,6 +2162,7 @@ class Engine:
         their writes land past the emitted tokens, in pages that are
         released without content registration (or in the trash page)."""
         mc = self.model_config
+        kernel = kernel or self.decode_kernel
         K = self.cfg.decode_chunk
         G = self.cfg.speculate_tokens
         topn = max(1, self.cfg.top_logprobs_k)
@@ -1774,7 +2198,7 @@ class Engine:
             hist[rows, pos] = torch.where(active[:, None], inputs, hist[rows, pos])
             logits, _ = llama.decode_speculative_paged(
                 self.params, mc, inputs, self.cache, tables, lengths,
-                decode_kernel=self.decode_kernel, **lora,
+                decode_kernel=kernel, tp_group=self.tp_group, **lora,
             )
             logits = self._mask_pad(logits)  # [B, G+1, V]
             # Penalties and bias steer position 0's choice only.
@@ -1811,7 +2235,7 @@ class Engine:
         self._last.copy_(last)
         return tuple(torch.stack(x) for x in zip(*outs))
 
-    def _capture(self) -> _ChunkGraph:
+    def _capture(self, kernel: str | None = None) -> _ChunkGraph:
         """Capture the decode chunk as one CUDA graph for the resolved
         decode kernel (JAX ``_decode_jit_for`` builds one program per
         flavour). The chunk first runs once eagerly on the capture stream
@@ -1820,13 +2244,17 @@ class Engine:
         loaded and configured and the stream's split-KV scratch and W8A16
         workspace are reserved; the capture then holds that scratch. The
         counts the capture added are taken back and added at each replay.
-        Any failure raises: there is no eager fallback."""
+        Any failure raises: there is no eager fallback. Under nccl the
+        graph captures the chunk's collectives; every rank of the gang
+        captures at the same decode op, so the eager run's collectives
+        line up too."""
+        kernel = kernel or self.decode_kernel
         t0 = time.monotonic()
         cs = self._capture_stream
         self._inputs.make_inert()
         cs.wait_stream(self._stream)
         with torch.cuda.stream(cs):
-            self._chunk_body()
+            self._chunk_body(kernel)
         cs.synchronize()  # torch.cuda.graph synchronizes on entry anyway
         t_eager = time.monotonic()
         gc.collect()  # as torch.cuda.graph's entry does, timed apart here
@@ -1839,7 +2267,7 @@ class Engine:
             with torch.cuda.graph(graph, pool=self._graph_pool, stream=cs,
                                   capture_error_mode="thread_local"):
                 t_rec = time.monotonic()
-                outputs = self._chunk_body()
+                outputs = self._chunk_body(kernel)
                 t_end = time.monotonic()
         finally:
             after = _counts()
@@ -1848,7 +2276,7 @@ class Engine:
         # Where a capture's seconds go: the eager chunk (enqueue and run),
         # the garbage collection, torch.cuda.graph's entry, recording the
         # chunk's launches, and ending the capture (instantiation).
-        self.graph_capture_segments[self.decode_kernel] = {
+        self.graph_capture_segments[kernel] = {
             "eager_s": t_eager - t0, "gc_s": t_gc - t_eager, "enter_s": t_rec - t_gc,
             "record_s": t_end - t_rec, "instantiate_s": t_inst - t_end}
         _build.hold_stream(cs)
@@ -1858,11 +2286,10 @@ class Engine:
             d = v - before[key]
             if d:
                 delta[key] = d
-        g = self._graphs[self.decode_kernel] = _ChunkGraph(graph, outputs, delta)
-        self.graph_capture_seconds[self.decode_kernel] = time.monotonic() - t0
+        g = self._graphs[kernel] = _ChunkGraph(graph, outputs, delta)
+        self.graph_capture_seconds[kernel] = time.monotonic() - t0
         self.m_captures.inc()
-        log.info("decode chunk captured (%s) in %.2fs", self.decode_kernel,
-                 self.graph_capture_seconds[self.decode_kernel])
+        log.info("decode chunk captured (%s) in %.2fs", kernel, self.graph_capture_seconds[kernel])
         return g
 
     def _dispatch_chunk(self) -> tuple:
@@ -1870,18 +2297,42 @@ class Engine:
         each slot (JAX ``_dispatch_chunk``): upload the host inputs
         (admission arrays included, then cleared: this dispatch consumes
         them), replay the graph (or run the chunk eagerly), and queue the
-        outputs' copy into a pinned set with an event behind it."""
+        outputs' copy into a pinned set with an event behind it. On a gang
+        the host inputs and the decode kernel are broadcast first."""
         t_start = time.monotonic()
+        coll0 = self._collective_s()
+        with self._lockstep("decode", scalars={"decode_kernel": self.decode_kernel},
+                            arrays=self._inputs.views):
+            host, events = self._run_chunk(self.decode_kernel)
+        snapshot = [(i, s, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
+        return (host, events, snapshot, t_start, time.monotonic(),
+                (self._collective_s() - coll0) * 1e3)
+
+    def _collective_s(self) -> float:
+        """Host seconds this rank's group has spent in collectives (the
+        host-staged gloo ones; a graphed chunk's run on the device)."""
+        if self.tp_group is None:
+            return 0.0
+        return sum(sec for _, sec in self.tp_group.stats.values())
+
+    def _run_chunk(self, kernel: str, fetch: bool = True) -> tuple:
+        """The device side of a decode chunk (rank 0's and each follower's
+        replay): upload the host inputs, clear the admission mask, replay
+        the chunk's graph for *kernel* (captured at its first use) or run
+        it eagerly, and with *fetch* queue the outputs' copy. Returns
+        (outputs, (start event, end event))."""
         graph = None
         if self.cuda_graphs:
-            graph = self._graphs.get(self.decode_kernel) or self._capture()
+            graph = self._graphs.get(kernel) or self._capture(kernel)
         ev0 = None
         if self._cuda:
             ev0 = torch.cuda.Event(enable_timing=True)
             ev0.record()
         self._inputs.upload()
         self._adm_mask[:] = False
-        outs = graph.replay() if graph is not None else self._chunk_body()
+        outs = graph.replay() if graph is not None else self._chunk_body(kernel)
+        if not fetch:
+            return None, (None, None)
         if self._cuda:
             j, self._out_turn = self._out_turn, self._out_turn ^ 1
             if self._out_sets[j] is None:
@@ -1894,11 +2345,10 @@ class Engine:
             ev.record()
         else:
             host, ev = outs, None
-        snapshot = [(i, s, self._slot_epoch[i]) for i, s in enumerate(self._slots) if s is not None]
-        return host, (ev0, ev), snapshot, t_start, time.monotonic()
+        return host, (ev0, ev)
 
     def _process_chunk(self, host, events, snapshot, t_start: float, t_disp: float,
-                       host_overlap_ms: float = 0.0) -> None:
+                       collective_ms: float = 0.0, host_overlap_ms: float = 0.0) -> None:
         """Wait for a dispatched chunk's outputs and emit its tokens (JAX
         ``_process_chunk``): a token reaches a request only while its slot
         still holds the request it held at dispatch; the slot's KV history
@@ -1962,6 +2412,8 @@ class Engine:
             "dur_ms": (t_fetched - t_disp) * 1e3,  # dispatched -> fetched
             "fetched_at": t_fetched,
             "device_ms": ev0.elapsed_time(ev) if ev is not None else None,
+            # In the dispatch: a host-staged group's collectives.
+            "collective_ms": collective_ms,
         }
         self.chunk_log.append(entry)
         self._stall.record_decode(dispatch_ms=entry["dispatch_ms"],
@@ -1980,6 +2432,8 @@ class Engine:
                                                 "emit_ms")},
             "device_ms": entry["device_ms"],
         }
+        if self.tp_group is not None:
+            step["collective_ms"] = round(collective_ms, 3)
         if G:
             step["spec_drafted"], step["spec_accepted"] = drafted, accepted
         default_recorder.record_step(**step)
@@ -2068,8 +2522,10 @@ class Engine:
     # -- KV park / restore (engine/kvstate.py) -----------------------------
 
     def _kv_enabled(self) -> bool:
-        """KUBEAI_KV_RESTORE=0 turns parking, offers and imports off."""
-        return kvstate.restore_enabled()
+        """KUBEAI_KV_RESTORE=0 turns parking, offers and imports off; so
+        does a gang (the JAX engine's rule: a park's gather and an import
+        would be dispatches the followers never see)."""
+        return kvstate.restore_enabled() and not self._gang
 
     def _pool_rows(self, pages: list[int]) -> torch.Tensor:
         """Rows of the flat [L*P, ...] pool holding *pages* in every
@@ -2447,15 +2903,24 @@ def preset_config(preset: str, num_layers: int | None = None) -> ModelConfig:
     return mc if num_layers is None else mc.replace(num_layers=num_layers)
 
 
-def preset_params(mc: ModelConfig, device: torch.device, seed: int = 0, quantization: str = ""):
+def preset_params(mc: ModelConfig, device: torch.device, seed: int = 0, quantization: str = "",
+                  tp_group=None):
     """A preset's random weights on *device*, drawn from *seed* (int8
-    quantized one stacked weight at a time under ``quantization="int8"``)."""
+    quantized one stacked weight at a time under ``quantization="int8"``).
+    With *tp_group* every rank draws the same values, one group at a time
+    at full size, and keeps its shard of each (quantized first)."""
     if quantization not in ("", "int8"):
         raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = llama.init_params(mc, gen, device=device)
-    if quantization:
-        from kubeai_tpu_torch.engine.weights import quantize_model_params  # imports this module
+    from kubeai_tpu_torch.engine.weights import quantize_group  # imports this module
+    from kubeai_tpu_torch.parallel.sharding import shard_group
 
-        params = quantize_model_params(params, mc)
-    return params
+    tp = tp_group.world_size if tp_group is not None else 1
+    check_divisible(mc, tp)
+
+    def keep(path, t):
+        if quantization:
+            t = quantize_group(path, t, mc)
+        return shard_group(path, t, mc, tp_group.rank, tp) if tp > 1 else t
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return llama.init_params(mc, gen, device=device, keep=keep)

@@ -149,11 +149,7 @@ class AdapterRuntime:
     index."""
 
     def __init__(self, config: ModelConfig, max_adapters: int = 8, max_rank: int = 64,
-                 dtype: torch.dtype | None = None, device: torch.device | str = "cpu",
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a multi-process adapter bank belongs to the gang (ROADMAP queue 1 item 10)")
+                 dtype: torch.dtype | None = None, device: torch.device | str = "cpu"):
         self.config = config
         self.max_adapters = max_adapters
         self.max_rank = max_rank

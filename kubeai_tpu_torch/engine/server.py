@@ -65,6 +65,23 @@ builds afresh. ``KUBEAI_COMPILE_CACHE`` names a library directory every
 replica shares. Every start stamps its phases (``/debug/engine``'s
 ``cold_start``, ``kubeai_engine_cold_start_seconds``).
 
+Tensor parallelism (``--tensor-parallel-size N``): N ranks, one process
+each, each holding its shard of the model (parallel/sharding.py). On a
+multi-host gang the controller stamps ``TPU_WORKER_HOSTNAMES``,
+``TPU_WORKER_ID``, ``TPU_COORDINATOR_PORT``, ``KUBEAI_GANG_SECRET`` and
+``KUBEAI_GANG_PORT`` (the JAX server's contract); each host runs
+N / hosts ranks, rank = host * (N / hosts) + local rank, and the pod's
+process starts its host's other local ranks itself. Without that
+environment, N > 1 starts N - 1 local ranks over loopback with a secret
+it generates. The ranks meet at a TCPStore on host 0's coordinator port
+(parallel/group.py; nccl when every rank has a card, gloo when they
+share one or on the CPU). Rank 0 alone binds the API port and serves
+inference; it publishes every dispatch to the others (engine/gang.py).
+Each other rank answers ``/health``, ``/readyz``, ``/metrics`` and
+``/debug/gang`` on ``--port`` plus its local rank, and nothing else.
+``--parked`` and ``test:`` models are refused on a gang, as in the JAX
+server.
+
 Not ported yet (ROADMAP queue 1): ``/debug/tenants`` (the tenant
 accountant) and the OTLP exporter. The operator-side surfaces (``/debug/incidents``, ``/canary``, ``/history``,
 ``/forecast``) answer 404 "not installed", as on a JAX engine.
@@ -96,6 +113,7 @@ import json
 import os
 import queue
 import re
+import secrets
 import signal
 import socket
 import sys
@@ -125,6 +143,7 @@ from kubeai_tpu_torch.engine.core import (
     preset_config,
     preset_params,
 )
+from kubeai_tpu_torch.engine.gang import DEFAULT_GANG_PORT
 from kubeai_tpu_torch.engine.lora import stage_remote
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -146,6 +165,11 @@ from kubeai_tpu_torch.obs.recorder import (
     handle_operator_side_request,
 )
 from kubeai_tpu_torch.obs.trace import extract_context, sanitize_request_id
+from kubeai_tpu_torch.parallel.group import (
+    DEFAULT_COORDINATOR_PORT,
+    choose_backend,
+    init_tp_group,
+)
 from kubeai_tpu_torch.qos import (
     DEFAULT_CLASS,
     PREEMPTIBLE_HEADER,
@@ -1125,7 +1149,9 @@ def make_arg_parser(require_model: bool = True) -> argparse.ArgumentParser:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    p.add_argument("--tensor-parallel-size", type=int, default=1, choices=[1])
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="ranks the model is split over (one process each; see the module doc)")
+    p.add_argument("--gang-local-rank", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--quantization", default="", choices=["", "int8"],
                    help="int8: weight-only int8 (W8A16 kernel on CUDA)")
     p.add_argument("--max-slots", type=int, default=8)
@@ -1186,13 +1212,15 @@ def engine_config_from_args(args) -> EngineConfig:
 
 
 def build_engine_from_args(args, warmup: bool | None = None,
-                           park_engine: Engine | None = None) -> tuple[Engine, str]:
+                           park_engine: Engine | None = None, tp_group=None,
+                           publisher=None) -> tuple[Engine, str]:
     """The engine and served name of a command line. With *warmup* (None:
     ``--warmup``) the engine has run Engine.warmup (its result in
     ``engine.warmup_result``). A checkpoint or preset start stamps its
     phases on a ColdStartTimeline (``engine.cold_start_timeline``, at
     /debug/engine); a test: engine has none, as in the JAX server. A
-    *park_engine* of the same configuration is adopted."""
+    *park_engine* of the same configuration is adopted. A gang rank
+    passes its *tp_group* (and rank 0 the gang's *publisher*)."""
     if warmup is None:
         warmup = getattr(args, "warmup", False)
     ec = engine_config_from_args(args)
@@ -1208,27 +1236,232 @@ def build_engine_from_args(args, warmup: bool | None = None,
         mc = preset_config(args.model[len("preset:"):])
         dev = resolve_device(args.device)
         spec = StartSpec(mc, ec, args.quantization, ByteTokenizer(), dev)
-        # A preset's load is its seeded init.
-        return start_engine(spec, lambda: (preset_params(mc, dev, args.seed, args.quantization),
-                                           mc),
-                            timeline, warmup=warmup, park_engine=park_engine), name
+        # A preset's load is its seeded init (a gang rank keeps its shard).
+        return start_engine(spec, lambda: (preset_params(mc, dev, args.seed, args.quantization,
+                                                         tp_group=tp_group), mc),
+                            timeline, warmup=warmup, park_engine=park_engine,
+                            tp_group=tp_group, publisher=publisher), name
     with timeline.phase("stage"):
         path = stage_remote(args.model)
     return load_engine_from_path(path, ec, tp=args.tensor_parallel_size,
                                  quantization=args.quantization, device=args.device,
                                  timeline=timeline, warmup=warmup,
-                                 park_engine=park_engine), name
+                                 park_engine=park_engine, tp_group=tp_group,
+                                 publisher=publisher), name
+
+
+# ---------------------------------------------------------------------------
+# The gang
+
+
+def maybe_init_distributed() -> tuple[list[str], int] | None:
+    """(gang hosts, this host's index) from the controller's stamps
+    ``TPU_WORKER_HOSTNAMES`` and ``TPU_WORKER_ID``, or None for a
+    single-host pod (fewer than two hosts)."""
+    hosts = [h.strip() for h in os.environ.get("TPU_WORKER_HOSTNAMES", "").split(",")
+             if h.strip()]
+    if len(hosts) < 2:
+        return None
+    host_id = int(os.environ.get("TPU_WORKER_ID", "0"))
+    log.info("joining slice: coordinator=%s:%s host %d/%d", hosts[0],
+             os.environ.get("TPU_COORDINATOR_PORT", str(DEFAULT_COORDINATOR_PORT)), host_id,
+             len(hosts))
+    return hosts, host_id
+
+
+def _gang_port() -> int:
+    return int(os.environ.get("KUBEAI_GANG_PORT", str(DEFAULT_GANG_PORT)))
+
+
+def _gang_secret() -> str:
+    """The shared secret gang members authenticate with (stamped per
+    gang by the controller). Required: the dispatch stream carries
+    prompt tokens and adapter paths."""
+    secret = os.environ.get("KUBEAI_GANG_SECRET", "")
+    if not secret:
+        raise SystemExit("KUBEAI_GANG_SECRET is required for multi-host gangs "
+                         "(the controller stamps it on slice pods)")
+    return secret
+
+
+def _coordinator_port() -> int:
+    return int(os.environ.get("TPU_COORDINATOR_PORT", str(DEFAULT_COORDINATOR_PORT)))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_device(args, local: int, per_host: int) -> tuple[torch.device, str]:
+    """(device, backend) of local rank *local* of *per_host*: card
+    local % cards when --device names no index, nccl when the host's
+    ranks each have a card, else gloo (ranks sharing a card, the CPU)."""
+    base = resolve_device(args.device)
+    if base.type != "cuda":
+        return base, "gloo"
+    if base.index is not None:
+        return base, choose_backend(base, per_host, 1)
+    cards = torch.cuda.device_count()
+    return torch.device("cuda", local % cards), choose_backend(base, per_host, cards)
+
+
+def _spawn_local_ranks(argv: list[str], per_host: int, port: int) -> list:
+    """This host's local ranks 1 .. per_host-1 as child processes with the
+    same arguments (they read the gang's ports and secret from the
+    environment this process set) and ``--port`` port + local rank.
+    Each dies with this process (PR_SET_PDEATHSIG)."""
+    import subprocess
+
+    def die_with_parent():
+        try:
+            import ctypes
+
+            ctypes.CDLL("libc.so.6").prctl(1, signal.SIGTERM)  # PR_SET_PDEATHSIG
+        except OSError:
+            pass
+
+    procs = []
+    for local in range(1, per_host):
+        cmd = [sys.executable, "-m", "kubeai_tpu_torch.engine.server", *argv,
+               "--gang-local-rank", str(local), "--port", str(port + local if port else 0)]
+        procs.append(subprocess.Popen(cmd, env=dict(os.environ), preexec_fn=die_with_parent))
+    log.info("started %d local gang rank(s)", len(procs))
+    return procs
+
+
+def _follower_http(host: str, port: int, name: str, engine: Engine) -> ThreadingHTTPServer:
+    """A follower's HTTP surface: health, readiness, metrics and
+    /debug/gang; every other path answers 404 (the balancer routes
+    inference to rank 0 only)."""
+
+    class FollowerHandler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *a):
+            log.debug("%s " + fmt, self.address_string(), *a)
+
+        def do_GET(self):
+            path = self.path.split("?")[0]
+            status, ctype = 200, "application/json"
+            if path in ("/health", "/healthz", "/readyz"):
+                body = json.dumps({"status": "ok", "model": name, "role": "follower"}).encode()
+            elif path == "/metrics":
+                body, ctype = default_registry.render().encode(), "text/plain; version=0.0.4"
+            elif path == "/debug/gang":
+                body = json.dumps(engine.gang_report()).encode()
+            else:
+                status = 404
+                body = json.dumps(
+                    {"error": {"message": "follower rank serves no inference"}}).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = ThreadingHTTPServer((host, port), FollowerHandler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, name="follower-http", daemon=True).start()
+    return httpd
+
+
+def serve_gang(args, argv: list[str], gang_hosts) -> None:
+    """Serve as one rank of a tp gang (see the module doc): start this
+    host's other local ranks (local rank 0 only), meet the others at the
+    coordinator, build this rank's engine over its shard, then on rank 0
+    publish and serve, elsewhere replay until rank 0 stops."""
+    from kubeai_tpu_torch.engine.gang import GangFollower, GangPublisher
+
+    hosts, host_id = gang_hosts or (["127.0.0.1"], 0)
+    tp = args.tensor_parallel_size
+    if tp <= 1:
+        # Bare gang pods: span every card of the slice.
+        tp = len(hosts) * max(1, torch.cuda.device_count())
+        args.tensor_parallel_size = tp
+    if tp % len(hosts):
+        raise SystemExit(f"--tensor-parallel-size must be a multiple of the gang size "
+                         f"(tp={tp}, processes={len(hosts)})")
+    per_host = tp // len(hosts)
+    local = args.gang_local_rank
+    rank = host_id * per_host + local
+    if gang_hosts is None and local == 0:
+        # A one-host gang over loopback: its ports and a secret of its own,
+        # handed to the local ranks through their environment.
+        os.environ.setdefault("KUBEAI_GANG_SECRET", secrets.token_hex(16))
+        os.environ.setdefault("KUBEAI_GANG_PORT", str(_free_port()))
+        os.environ.setdefault("TPU_COORDINATOR_PORT", str(_free_port()))
+    secret, gang_port = _gang_secret(), _gang_port()
+    dev, backend = _rank_device(args, local, per_host)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    args.device = str(dev)
+    children = _spawn_local_ranks(argv, per_host, args.port) if local == 0 else []
+    publisher = None
+    try:
+        if rank == 0:
+            # Handshakes run in the background from here on.
+            publisher = GangPublisher(tp - 1, port=gang_port, secret=secret)
+        group = init_tp_group(rank, tp, dev, backend, host=hosts[0], port=_coordinator_port())
+        engine, name = build_engine_from_args(args, tp_group=group, publisher=publisher)
+        if rank == 0:
+            publisher.accept_all()  # a dispatch before the gang is whole strands it
+            srv = EngineServer(engine, name, host=args.host, port=args.port, role=args.role,
+                               handoff_budget=args.handoff_budget,
+                               drain_grace=args.drain_grace)
+            srv.install_signal_handlers()
+            srv.start()
+            log.info("serving %s as rank 0 of a tp=%d gang (%s)", name, tp, backend)
+            try:
+                while not srv.stopped_event.wait(3600):
+                    pass
+            except KeyboardInterrupt:
+                srv.stop()
+            return
+        httpd = _follower_http(args.host, args.port, name, engine)
+        # Connect once the engine is built: the first recv follows the
+        # proof at once, so rank 0 never publishes to a rank still loading.
+        follower = GangFollower(hosts[0], gang_port, secret=secret, rank=rank)
+        log.info("rank %d of a tp=%d gang (%s) replaying rank 0's dispatches", rank, tp,
+                 backend)
+        try:
+            engine.run_follower(follower)
+        finally:
+            follower.close()
+            httpd.shutdown()
+    finally:
+        for p in children:
+            try:
+                p.wait(timeout=30)
+            except Exception:
+                p.kill()
+                p.wait()
 
 
 def main(argv=None) -> None:
     # The kernel-library cache (KUBEAI_COMPILE_CACHE): replicas that share
     # its mount read each other's builds.
     setup_compile_cache()
+    gang_hosts = maybe_init_distributed()
     parser = make_arg_parser(require_model=False)
-    args = parser.parse_args(argv)
+    raw = list(argv if argv is not None else sys.argv[1:])
+    args = parser.parse_args(raw)
     if not args.parked and not args.model:
         parser.error("--model is required (unless --parked)")
+    if args.tensor_parallel_size < 1:
+        parser.error("--tensor-parallel-size must be >= 1")
+    gang = gang_hosts is not None or args.tensor_parallel_size > 1
+    if gang and args.parked:
+        parser.error("--parked is not supported on multi-host gangs")
+    if gang and args.model.startswith("test:"):
+        # build_test_engine has no tp plumbing: rank 0 would serve
+        # unsharded and never publish, stranding the others.
+        parser.error("test: models cannot serve on a multi-host gang")
     setup_logging("engine")
+    if gang:
+        serve_gang(args, raw, gang_hosts)
+        return
     if args.parked:
         srv = EngineServer(None, "(parked)", host=args.host, port=args.port,
                            drain_grace=args.drain_grace, device=args.device)

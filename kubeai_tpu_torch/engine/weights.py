@@ -1,11 +1,16 @@
 """Checkpoint loading: HF-format directories -> the port's engine params
-(port of kubeai_tpu/engine/weights.py, single process, tp = 1).
+(port of kubeai_tpu/engine/weights.py).
 
 ``stream_params_from_hf`` reads one parameter group at a time (a stacked
 layer weight, the embedding, the head), converts it to the model dtype,
 pads the vocab and, with ``quantization="int8"``, quantizes it on the
 host before it moves to the device, so full-precision weights never fill
-the card. ``load_engine_from_path`` drives it for ``--model <dir>``. Every model
+the card. Under tensor parallelism (a parallel/group.py TPGroup) every
+rank reads, converts, pads and quantizes each group on the host at full
+size, then keeps its slice (parallel/sharding.py) and moves only that to
+its device: a row-parallel weight's int8 scales are taken over its whole
+input dim, as the JAX package's. ``load_engine_from_path`` drives it for
+``--model <dir>``. Every model
 family's HF names are read (Qwen2's q/k/v biases, Gemma2's four norms,
 Mixtral's router and experts, a tied head with no ``lm_head.weight``);
 ``hf_state_dict`` and ``save_hf_checkpoint`` write them back.
@@ -20,8 +25,10 @@ I8 are supported.
 ColdStartTimeline (engine/coldstart.py): ``load`` (the stream), with
 ``compile`` (the kernels' background build, started before the stream
 under ``KUBEAI_COLDSTART_OVERLAP``), ``build`` (the Engine) and
-``warmup``; the stream is always on. Left out (ROADMAP queue 1 item 10):
-the JAX loader's tensor-parallel mesh and gang ranks.
+``warmup``; the stream is always on. On a gang (a tp group) the
+engine takes the rank's shard and, on rank 0, the gang's publisher;
+warmup and the background compile overlap are off there, as in the JAX
+loader.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from kubeai_tpu_torch.engine.tokenizer import load_tokenizer
 from kubeai_tpu_torch.models import llama
 from kubeai_tpu_torch.models.base import ModelConfig
 from kubeai_tpu_torch.ops.quant import quantize, quantize_rows
+from kubeai_tpu_torch.parallel.sharding import check_divisible, shard_group
 
 # safetensors dtype -> (numpy storage dtype, torch dtype). BF16 moves
 # through int16: numpy has no bfloat16 without ml_dtypes.
@@ -176,6 +184,18 @@ def _quant_dense(config: ModelConfig) -> tuple[str, ...]:
     return ("wq", "wk", "wv", "wo") + (() if config.num_experts > 0 else ("wg", "wu", "wd"))
 
 
+def quantize_group(key_path: tuple[str, ...], t, config: ModelConfig):
+    """One parameter group under weight-only int8: per-row scales on the
+    embedding, per-output-channel ones on the head and the dense
+    projections; anything else (norms, biases, Mixtral's experts and
+    router) as it is."""
+    if key_path == ("embed",):
+        return quantize_rows(t)
+    if key_path == ("lm_head",) or (len(key_path) == 2 and key_path[1] in _quant_dense(config)):
+        return quantize(t, contract_axis=-2)
+    return t
+
+
 def quantize_model_params(params: dict, config: ModelConfig) -> dict:
     """Weight-only int8: per-output-channel scales on the projection
     weights and the head, per-row scales on the embedding; norms stay
@@ -255,31 +275,33 @@ def stream_params_from_hf(
     quantization: str = "",
     device: torch.device | str | None = None,
     pad: bool = True,
+    tp_group=None,
 ) -> tuple[dict, ModelConfig]:
     """Read, convert, vocab-pad and (int8) quantize each parameter group
     on the host, then move it to *device* before the next group is read.
     *source* is a SafetensorsSource or a name -> tensor dict. Returns
     (params, config with the padded vocab). ``pad=False`` keeps the
     checkpoint's vocab, as the JAX fine-tune reads it: a padded column's
-    logit 0 would enter a training loss's softmax."""
+    logit 0 would enter a training loss's softmax. With *tp_group* (tp
+    its world size) each group is sliced to this rank's shard on the
+    host, after quantization, and only the shard moves."""
     llama.check_supported(config)
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP queue 1 item 10)")
+    if tp_group is not None and tp_group.world_size != tp:
+        raise ValueError(f"tp={tp} but the tp group has {tp_group.world_size} ranks")
     dev = resolve_device(device)
     dtype = llama.torch_dtype(config.dtype)
     L = config.num_layers
     V = config.vocab_size
     pad = padded_vocab_size(V, tp) - V if pad else 0
     out_config = config.replace(vocab_size=V + pad) if pad else config
-    quant_dense = _quant_dense(config)
+    check_divisible(out_config, tp)
 
     def put(host: torch.Tensor, *key_path):
         host = host.contiguous()
         if quantization == "int8":
-            if key_path == ("embed",):
-                host = quantize_rows(host)
-            elif key_path == ("lm_head",) or (len(key_path) == 2 and key_path[1] in quant_dense):
-                host = quantize(host, contract_axis=-2)
+            host = quantize_group(key_path, host, config)
+        if tp_group is not None:
+            host = shard_group(key_path, host, out_config, tp_group.rank, tp)
         if isinstance(host, dict):
             return {k: v.contiguous().to(dev) for k, v in host.items()}
         return host.to(dev)
@@ -346,6 +368,8 @@ def load_engine_from_path(
     overlap: bool | None = None,
     warmup: bool | None = None,
     park_engine=None,
+    tp_group=None,
+    publisher=None,
 ) -> Engine:
     """An Engine over the HF-format checkpoint directory *path*
     (config.json and *.safetensors, else pytorch_model*.bin), on *device*
@@ -359,7 +383,11 @@ def load_engine_from_path(
     set), then ``build`` and, with *warmup* (None:
     ``KUBEAI_ENGINE_WARMUP=1``), ``warmup``. A *park_engine* with this
     start's configuration takes the weights in place instead
-    (coldstart.start_engine)."""
+    (coldstart.start_engine).
+
+    On a gang, *tp_group* (a parallel/group.py TPGroup of *tp* ranks)
+    makes every rank load its own shard of the same checkpoint, and rank
+    0 passes the gang's *publisher* (engine/gang.py)."""
     from kubeai_tpu_torch.engine.coldstart import StartSpec, start_engine
 
     # Failpoint: a cold start that fails or stalls at weight load.
@@ -369,8 +397,9 @@ def load_engine_from_path(
             raise ValueError(f"unsupported quantization {quantization!r} (supported: int8)")
         if tp > 1:
             raise ValueError("int8 quantization currently supports tensor-parallel-size 1")
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP queue 1 item 10)")
+    if tp > 1 and tp_group is None:
+        raise ValueError(f"tensor-parallel-size {tp} needs a tp group of {tp} ranks "
+                         "(the engine server starts them)")
     dev = resolve_device(device)
     served, tokenizer, source = open_checkpoint(path, dtype, tp)
     spec = StartSpec(served, engine_config or EngineConfig(), quantization, tokenizer, dev,
@@ -381,10 +410,11 @@ def load_engine_from_path(
         config = ModelConfig.from_json_file(path).replace(dtype=dtype)
         if "lm_head.weight" not in src and not config.tie_word_embeddings:
             config = config.replace(tie_word_embeddings=True)
-        return stream_params_from_hf(src, config, tp=tp, quantization=quantization, device=dev)
+        return stream_params_from_hf(src, config, tp=tp, quantization=quantization, device=dev,
+                                     tp_group=tp_group)
 
     return start_engine(spec, load, timeline, overlap=overlap, warmup=warmup,
-                        park_engine=park_engine)
+                        park_engine=park_engine, tp_group=tp_group, publisher=publisher)
 
 
 def _hf_family(config: ModelConfig) -> tuple[str, str, dict]:

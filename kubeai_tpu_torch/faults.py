@@ -34,6 +34,9 @@ The port's sites, under the JAX package's names:
                          fetched blob as payload, and on the scheduler
                          thread before the device import
     weights.load         checkpoint loading
+    gang.publish         before each gang dispatch broadcast (rank 0)
+    gang.follower        each follower recv (a follower-drop: the
+                         reconnect-with-backoff and re-form path)
 """
 
 from __future__ import annotations

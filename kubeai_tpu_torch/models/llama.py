@@ -26,6 +26,16 @@ attention and final softcaps, a query scale, a sliding window on even
 layers) and Mixtral (:func:`moe_mlp`). Ring attention raises
 NotImplementedError naming its ROADMAP item.
 
+Tensor parallelism (``apply(..., tp_group=)``, a parallel/group.py
+TPGroup): *params* are this rank's shard (parallel/sharding.py) and the
+pool holds this rank's KV heads. The embedding looks up this rank's
+vocab range (zeros elsewhere) and all-reduces; each layer all-reduces
+after ``wo`` and after ``wd`` (or the expert mix); the head gives this
+rank's vocab slice of the logits and an all-gather rebuilds them (a tied
+head reads the sharded embedding). A LoRA bank stays whole on every rank:
+a column target uses its columns of B, a row target its rows of A, whose
+partial delta joins the partial sum before the all-reduce.
+
 Batched multi-LoRA (``apply(..., lora=, lora_rows=)``): a bank from
 :func:`init_lora_bank` holds every adapter's A and B per target, and each
 batch row picks its adapter by index (row 0: none). Each target's delta
@@ -57,6 +67,7 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
 )
 from kubeai_tpu_torch.ops.quant import qdot, qdot_many, qgather, qmatT
 from kubeai_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from kubeai_tpu_torch.parallel.sharding import shard_lora_bank
 
 Params = dict[str, Any]
 
@@ -88,13 +99,18 @@ def init_params(
     generator: torch.Generator,
     device: torch.device | str | None = None,
     dtype: torch.dtype | None = None,
+    keep=None,
 ) -> Params:
     """Random-normal parameters drawn from *generator* (tests, benches).
     Scales follow the JAX package: 1/sqrt(fan_in) for projections, the
     router and the experts, 0.02 for embed and lm_head, ones for norms.
     q/k/v biases (zeros in the JAX package) are drawn at 0.02, so a
     random-weight run exercises them. Drawn one layer at a time, so the
-    float32 temporaries stay one layer wide."""
+    float32 temporaries stay one layer wide. *keep*, when given, maps
+    each group as soon as it is drawn, ``keep(key_path, tensor)`` with
+    key_path ("embed",) or ("layers", "wq") ..., and the tree holds what
+    it returns (a tp rank's slice, an int8 leaf): the draws, and so the
+    values, are the same whatever it keeps."""
     check_supported(config)
     device = torch.device(device) if device is not None else generator.device
     dtype = dtype or torch_dtype(config.dtype)
@@ -112,52 +128,63 @@ def init_params(
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
-    layers: Params = {
-        "ln1": ones(L, D),
-        "ln2": ones(L, D),
-        "wq": w(L, D, H * h),
-        "wk": w(L, D, Kv * h),
-        "wv": w(L, D, Kv * h),
-        "wo": w(L, H * h, D),
-    }
+    if keep is None:
+        def keep(_path, t):
+            return t
+
+    layers: Params = {}
+
+    def put(key, t):
+        layers[key] = keep(("layers", key), t)  # as soon as drawn: one group at a time
+
+    put("ln1", ones(L, D))
+    put("ln2", ones(L, D))
+    put("wq", w(L, D, H * h))
+    put("wk", w(L, D, Kv * h))
+    put("wv", w(L, D, Kv * h))
+    put("wo", w(L, H * h, D))
     if config.qkv_bias:
-        layers["bq"] = w(L, H * h, scale=0.02)
-        layers["bk"] = w(L, Kv * h, scale=0.02)
-        layers["bv"] = w(L, Kv * h, scale=0.02)
+        put("bq", w(L, H * h, scale=0.02))
+        put("bk", w(L, Kv * h, scale=0.02))
+        put("bv", w(L, Kv * h, scale=0.02))
     if config.post_norms:
-        layers["ln1b"] = ones(L, D)
-        layers["ln2b"] = ones(L, D)
+        put("ln1b", ones(L, D))
+        put("ln2b", ones(L, D))
     if E > 0:
-        layers["wr"] = w(L, D, E)
-        layers["wg"] = w(L, E, D, Fi)
-        layers["wu"] = w(L, E, D, Fi)
-        layers["wd"] = w(L, E, Fi, D)
+        put("wr", w(L, D, E))
+        put("wg", w(L, E, D, Fi))
+        put("wu", w(L, E, D, Fi))
+        put("wd", w(L, E, Fi, D))
     else:
-        layers["wg"] = w(L, D, Fi)
-        layers["wu"] = w(L, D, Fi)
-        layers["wd"] = w(L, Fi, D)
+        put("wg", w(L, D, Fi))
+        put("wu", w(L, D, Fi))
+        put("wd", w(L, Fi, D))
     params: Params = {
-        "embed": w(V, D, scale=0.02, stacked=False),
-        "final_norm": ones(D),
+        "embed": keep(("embed",), w(V, D, scale=0.02, stacked=False)),
+        "final_norm": keep(("final_norm",), ones(D)),
         "layers": layers,
     }
     if not config.tie_word_embeddings:
-        params["lm_head"] = w(D, V, scale=0.02, stacked=False)
+        params["lm_head"] = keep(("lm_head",), w(D, V, scale=0.02, stacked=False))
     return params
 
 
 def init_paged_cache(config: ModelConfig, num_pages: int, page_size: int,
-                     device: torch.device | str, dtype: torch.dtype | None = None) -> Params:
+                     device: torch.device | str, dtype: torch.dtype | None = None,
+                     tp: int = 1) -> Params:
     """Paged KV pool: one flat tensor [L*P, page, 2*Kv, h], K at even and V
     at odd head indices (the kernels' native layout). Layer l owns rows
     [l*P, (l+1)*P); logical page 0 of every layer is its trash page.
 
     config.kv_cache_dtype "fp8" / "int8" stores the pool in one byte per
     element (:func:`kv_pool_dtype`): ``apply`` quantizes on write and the
-    attention paths dequantize on read (inside the paged kernels)."""
+    attention paths dequantize on read (inside the paged kernels).
+    Under tensor parallelism (*tp* ranks) each rank's pool holds its
+    num_kv_heads / tp KV heads of every page."""
     check_supported(config)
     dtype = dtype or kv_pool_dtype(config)
-    shape = (config.num_layers * num_pages, page_size, 2 * config.num_kv_heads, config.head_dim_)
+    shape = (config.num_layers * num_pages, page_size, 2 * (config.num_kv_heads // tp),
+             config.head_dim_)
     return {"kv": torch.zeros(shape, dtype=dtype, device=device)}
 
 
@@ -341,6 +368,7 @@ def apply(
     lora_rows: torch.Tensor | None = None,  # [B] adapter row per batch row
     ring_mesh=None,
     return_hidden: bool = False,  # final-norm hidden states instead of logits
+    tp_group=None,  # parallel/group.py TPGroup: params and pool are this rank's shard
 ):
     """Run the decoder. Returns (logits [B, S or 1, V] float32, cache), or
     with *return_hidden* (hidden [B, S, D] float32, cache): the final-norm
@@ -362,13 +390,32 @@ def apply(
             "the dense slot cache is not ported; pass a paged pool and page_table"
         )
     B, S = tokens.shape
-    H, Kv, h, L = config.num_heads, config.num_kv_heads, config.head_dim_, config.num_layers
+    tp = tp_group.world_size if tp_group is not None else 1
+    # This rank's heads (all of them at tp = 1).
+    H, Kv = config.num_heads // tp, config.num_kv_heads // tp
+    h, L = config.head_dim_, config.num_layers
     dtype = torch_dtype(config.dtype)
     dev = tokens.device
     inv_freq = _inv_freq(h, config.rope_theta, config.rope_scaling, dev)
     positions = positions.to(torch.int64)
 
-    x = qgather(params["embed"], tokens, dtype)
+    def reduce(t):
+        """The sum of the ranks' partial *t* (row-parallel outputs)."""
+        return tp_group.all_reduce(t) if tp > 1 else t
+
+    if tp > 1:
+        # This rank's vocab range [rank*Vl, (rank+1)*Vl): a masked lookup
+        # (ids clamped as the gather clamps them at tp = 1), zeros for the
+        # other ranks' ids, summed over the ranks.
+        Vl = config.vocab_size // tp
+        local = torch.clamp(tokens, 0, config.vocab_size - 1) - tp_group.rank * Vl
+        mine = (local >= 0) & (local < Vl)
+        x = qgather(params["embed"], torch.where(mine, local, 0), dtype)
+        x = reduce(x * mine[..., None].to(dtype))
+        if lora is not None:
+            lora = shard_lora_bank(lora, tp_group.rank, tp)
+    else:
+        x = qgather(params["embed"], tokens, dtype)
     if config.embed_scale:
         # Gemma scales the embedding by sqrt(hidden) rounded to the
         # compute dtype (the JAX package's jnp.asarray(..., x.dtype)); a
@@ -502,19 +549,19 @@ def apply(
             attn_out = attention(q, k, v, layer_mask, scale=config.query_scale,
                                  softcap=config.attn_softcap)
         attn_flat = attn_out.reshape(B, S, H * h)
-        o = delta(qdot(attn_flat, w["wo"]), attn_flat, "wo")
+        o = reduce(delta(qdot(attn_flat, w["wo"]), attn_flat, "wo"))
         if config.post_norms:
             o = norm(o, w["ln1b"])
         x = x + o
 
         mlp_in = norm(x, w["ln2"])
         if config.num_experts > 0:
-            m = moe_mlp(mlp_in, w["wr"], w["wg"], w["wu"], w["wd"],
-                        config.num_experts_per_tok, config.moe_capacity_factor)
+            m = reduce(moe_mlp(mlp_in, w["wr"], w["wg"], w["wu"], w["wd"],
+                               config.num_experts_per_tok, config.moe_capacity_factor))
         else:
             gate, up = qdot_many(mlp_in, (w["wg"], w["wu"]))
             hid = act(delta(gate, mlp_in, "wg")) * delta(up, mlp_in, "wu")
-            m = delta(qdot(hid, w["wd"]), hid, "wd")
+            m = reduce(delta(qdot(hid, w["wd"]), hid, "wd"))
         if config.post_norms:
             m = norm(m, w["ln2b"])
         x = x + m
@@ -529,6 +576,8 @@ def apply(
     else:
         logits = qdot(x, params["lm_head"])
     logits = logits.float()
+    if tp > 1:
+        logits = tp_group.all_gather_last(logits)  # this rank's vocab slice -> all of it
     if config.logit_softcap > 0.0:
         logits = config.logit_softcap * torch.tanh(logits / config.logit_softcap)
     return logits, cache
@@ -548,7 +597,7 @@ def _arange(S: int, device) -> torch.Tensor:
 
 
 def prefill_paged_cold(params, config, tokens, pool, page_table, lengths, lora=None,
-                       lora_rows=None):
+                       lora_rows=None, tp_group=None):
     """Whole-prompt paged prefill (positions arange(S)); eligible for the
     flash kernel. Returns (logits [B, 1, V] at lengths-1, pool)."""
     B, S = tokens.shape
@@ -557,11 +606,12 @@ def prefill_paged_cold(params, config, tokens, pool, page_table, lengths, lora=N
         params, config, tokens, pos, pool,
         logits_idx=lengths.reshape(-1).long() - 1,
         page_table=page_table, left_aligned=True, lora=lora, lora_rows=lora_rows,
+        tp_group=tp_group,
     )
 
 
 def prefill_paged(params, config, tokens, pool, page_table, start, last_idx, lora=None,
-                  lora_rows=None):
+                  lora_rows=None, tp_group=None):
     """Prefill [B, S] chunks at absolute offsets *start* [B] (chunked
     continuation or a shared-prefix resume). Returns (logits [B, 1, V] at
     *last_idx* [B] within the chunk, pool)."""
@@ -570,22 +620,23 @@ def prefill_paged(params, config, tokens, pool, page_table, start, last_idx, lor
     return apply(
         params, config, tokens, pos, pool,
         logits_idx=last_idx.reshape(-1).long(), page_table=page_table,
-        lora=lora, lora_rows=lora_rows,
+        lora=lora, lora_rows=lora_rows, tp_group=tp_group,
     )
 
 
 def decode_step_paged(params, config, tokens, pool, page_table, lengths, decode_kernel="ragged",
-                      lora=None, lora_rows=None):
+                      lora=None, lora_rows=None, tp_group=None):
     """One paged decode step for [B, 1] tokens at positions *lengths* [B].
     Returns (logits [B, 1, V], pool)."""
     return apply(
         params, config, tokens, lengths.reshape(-1, 1).long(), pool,
         page_table=page_table, decode_kernel=decode_kernel, lora=lora, lora_rows=lora_rows,
+        tp_group=tp_group,
     )
 
 
 def decode_speculative_paged(params, config, tokens, pool, page_table, lengths,
-                             decode_kernel="ragged", lora=None, lora_rows=None):
+                             decode_kernel="ragged", lora=None, lora_rows=None, tp_group=None):
     """[B, S] candidate tokens (next token + S-1 drafts) at positions
     lengths .. lengths+S-1; returns logits for all S positions
     ([B, S, V]) and the pool."""
@@ -594,4 +645,5 @@ def decode_speculative_paged(params, config, tokens, pool, page_table, lengths,
     return apply(
         params, config, tokens, pos, pool,
         page_table=page_table, decode_kernel=decode_kernel, lora=lora, lora_rows=lora_rows,
+        tp_group=tp_group,
     )

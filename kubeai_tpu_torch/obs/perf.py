@@ -17,9 +17,10 @@ profiler capture.
   CUDA activity) into a Chrome trace file; single-flight, and opt-in via
   ``KUBEAI_DEBUG_PROFILE=1``. A running engine's own scheduler thread
   starts and stops the session (a session stopped on another thread
-  while the engine launched a CUDA graph deadlocked on the H100). The
-  gang leader's fan-out (JAX ``broadcast_profile``) waits for gangs
-  (ROADMAP queue 1, item 10).
+  while the engine launched a CUDA graph deadlocked on the H100). On a
+  gang's rank 0 the capture first asks the followers for the same
+  window through the dispatch stream (``Engine.broadcast_profile``;
+  each follower writes ``<dir>-rank<r>/trace.json``).
 """
 
 from __future__ import annotations
@@ -403,6 +404,12 @@ class ProfilerCapture:
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
             prof = profile(activities=acts)
             on_engine = engine is not None and engine.is_ready()
+            fanout = 0
+            if on_engine and getattr(engine, "_publisher", None) is not None:
+                try:  # best effort: a degraded gang still profiles rank 0
+                    fanout = engine.broadcast_profile(seconds, out_dir)
+                except Exception as e:
+                    log.warning("profile gang fan-out failed: %s", e)
 
             def run(fn):
                 return engine._run_on_scheduler(fn, "profiler") if on_engine else fn()
@@ -426,7 +433,7 @@ class ProfilerCapture:
                 "files": files,
                 "bytes": total,
                 "activities": ["cpu"] + (["cuda"] if cuda else []),
-                "gang_fanout": 0,
+                "gang_fanout": fanout,
             }
         finally:
             self._lock.release()

@@ -1,0 +1,172 @@
+"""Megatron split rules for the model's parameters (port of
+kubeai_tpu/parallel/sharding.py).
+
+The JAX package writes one PartitionSpec per leaf and lets XLA insert
+the collectives. Here the rules are data, one per leaf: the dimension
+of the stacked leaf (every layer weight is [L, in, out], an expert
+weight [L, E, in, out]) that is split over the tp ranks, or None for a
+replicated leaf. ``models/llama.py`` calls the collectives the split
+needs:
+
+- column-parallel (``wq wk wv wg wu`` on their output dim, Qwen2's
+  ``bq bk bv``): each rank computes its heads or its FFN columns;
+- row-parallel (``wo wd`` on their input dim): each rank's product is a
+  partial sum, all-reduced;
+- vocab-sharded ``embed`` [V, D] (rows) and ``lm_head`` [D, V]
+  (columns): a masked lookup of this rank's vocab range plus an
+  all-reduce, and an all-gather of the logits;
+- Mixtral's ``wg wu wd`` split their FFN dim as the dense ones do (the
+  JAX package's ``ep`` axis has size 1 here), the router ``wr`` is
+  replicated, and so are the norms.
+
+The paged KV pool splits its combined KV heads: rank r holds KV heads
+r*Kv/tp .. (r+1)*Kv/tp-1 of every page, so tp must divide Kv, pages are
+not split, and block tables are host state every rank shares.
+
+An int8 leaf ({"int8_q", "int8_s"}, engine/weights.py) splits its values
+as the weight; its per-output-channel scales [.., 1, out] split with a
+column-parallel weight and stay whole with a row-parallel one (the
+scale is taken over the whole input dim, as the JAX package's is).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from kubeai_tpu_torch.models.base import ModelConfig
+from kubeai_tpu_torch.ops.quant import QKEY, SKEY
+
+COLUMN = ("wq", "wk", "wv", "wg", "wu")
+ROW = ("wo", "wd")
+BIAS = ("bq", "bk", "bv")
+
+
+def llama_split_rules(config: ModelConfig) -> dict[str, Any]:
+    """The split dimension of every leaf of ``llama.init_params``'s tree
+    for *config* (None: replicated), in the tree's own structure."""
+    moe = config.num_experts > 0
+    layers: dict[str, int | None] = {"ln1": None, "ln2": None,
+                                     "wq": 2, "wk": 2, "wv": 2, "wo": 1}
+    if config.qkv_bias:
+        layers.update({b: 1 for b in BIAS})
+    if config.post_norms:
+        layers.update({"ln1b": None, "ln2b": None})
+    if moe:
+        layers.update({"wr": None, "wg": 3, "wu": 3, "wd": 2})
+    else:
+        layers.update({"wg": 2, "wu": 2, "wd": 1})
+    rules: dict[str, Any] = {"embed": 0, "final_norm": None, "layers": layers}
+    if not config.tie_word_embeddings:
+        rules["lm_head"] = 1
+    return rules
+
+
+def check_divisible(config: ModelConfig, tp: int) -> None:
+    """Raise ValueError unless *tp* divides the KV heads (and so the
+    heads, a multiple of them), the FFN width (dense or expert) and the
+    vocab."""
+    if tp < 1:
+        raise ValueError(f"tensor-parallel size must be >= 1, got {tp}")
+    if tp == 1:
+        return
+    if config.num_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide the KV heads (num_kv_heads={config.num_kv_heads}): the paged "
+            f"pool's combined KV heads are split over tp, each rank holding whole K/V pairs")
+    for what, n in (("intermediate_size", config.intermediate_size),
+                    ("vocab_size", config.vocab_size)):
+        if n % tp:
+            raise ValueError(
+                f"{what}: the split over tp={tp} implies that the global size of its "
+                f"dimension should be divisible by {tp}, but it is equal to {n}")
+
+
+def shard_leaf(leaf, dim: int | None, rank: int, tp: int, scale_whole: bool = False):
+    """Rank *rank*'s part of *leaf* split on *dim* (None: the leaf
+    itself), as a contiguous copy; an int8 leaf's scales stay whole when
+    *scale_whole* (a row-parallel weight)."""
+    if dim is None or tp == 1:
+        return leaf
+    if isinstance(leaf, dict):
+        return {k: (v if k == SKEY and scale_whole else shard_leaf(v, dim, rank, tp))
+                for k, v in leaf.items()}
+    n = leaf.shape[dim]
+    if n % tp:
+        raise ValueError(
+            f"the split over tp={tp} implies that the global size of its dimension {dim} "
+            f"should be divisible by {tp}, but it is equal to {n} (full shape: "
+            f"{tuple(leaf.shape)})")
+    part = n // tp
+    return leaf.narrow(dim, rank * part, part).contiguous()
+
+
+def shard_group(key_path: tuple[str, ...], leaf, config: ModelConfig, rank: int, tp: int):
+    """This rank's part of the parameter group at *key_path* (("embed",),
+    ("layers", "wq"), ...), a full bf16/float32 tensor or int8 leaf."""
+    rule: Any = llama_split_rules(config)
+    for k in key_path:
+        rule = rule[k]
+    return shard_leaf(leaf, rule, rank, tp, scale_whole=key_path[-1] in ROW)
+
+
+def shard_params(params: dict, config: ModelConfig, group) -> dict:
+    """Rank ``group.rank``'s shard of the full parameter tree *params*
+    (host or device tensors; the shard stays where the leaf is). Raises
+    ValueError when tp does not divide a split dimension."""
+    tp = group.world_size
+    check_divisible(config, tp)
+    out: dict = {}
+    for key, leaf in params.items():
+        if key == "layers":
+            out[key] = {k: shard_group(("layers", k), v, config, group.rank, tp)
+                        for k, v in leaf.items()}
+        else:
+            out[key] = shard_group((key,), leaf, config, group.rank, tp)
+    return out
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def global_nbytes(params: dict, config: ModelConfig, tp: int) -> int:
+    """Bytes of the whole model whose rank shard is *params*: a split
+    leaf counts tp times, a replicated one (and a row-parallel weight's
+    whole int8 scales) once."""
+    rules = llama_split_rules(config)
+    total = 0
+    for key, leaf in params.items():
+        group = leaf.items() if key == "layers" else [(key, leaf)]
+        for k, v in group:
+            dim = rules["layers"][k] if key == "layers" else rules[k]
+            if dim is None or tp == 1:
+                total += _nbytes(v)
+            elif isinstance(v, dict) and k in ROW:
+                total += _nbytes(v[QKEY]) * tp + _nbytes(v[SKEY])
+            else:
+                total += _nbytes(v) * tp
+    return total
+
+
+def shard_lora_bank(bank: dict, rank: int, tp: int) -> dict:
+    """This rank's view of a replicated LoRA bank: a column target's B
+    [L, N, r, out] keeps its columns, a row target's A [L, N, in, r] its
+    rows (views: the bank stays whole, written in place by loads)."""
+    if tp == 1:
+        return bank
+    out = dict(bank)
+    for t in COLUMN:
+        b = bank[t + "_B"]
+        part = b.shape[-1] // tp
+        out[t + "_B"] = b.narrow(-1, rank * part, part)
+    for t in ROW:
+        a = bank[t + "_A"]
+        part = a.shape[-2] // tp
+        out[t + "_A"] = a.narrow(-2, rank * part, part)
+    return out

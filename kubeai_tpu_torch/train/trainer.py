@@ -8,10 +8,10 @@ with ``jax.value_and_grad``. ``torch.optim.AdamW`` takes optax.adamw's
 place with its defaults (b1 0.9, b2 0.999, eps 1e-8; both decouple the
 weight decay and correct the moments' bias).
 
-Left out: the JAX step's fsdp + tp sharding over a mesh (ROADMAP queue 1
-item 10) and ring attention over its sp axis (item 12b); a mesh of more
+Left out (ROADMAP queue 1 item 12b): the JAX step's fsdp + tp + sp
+sharding over a mesh and ring attention over its sp axis; a mesh of more
 than one device, ``ring_attention=True`` or a ``ring_mesh`` raise naming
-them.
+it.
 """
 
 from __future__ import annotations
@@ -92,13 +92,13 @@ def init_sharded_training(config: ModelConfig, mesh=None, seed: int = 0, lr: flo
 
     *config* must compute in float32: torch's matmul refuses a bf16
     activation against a float32 weight, where JAX promotes it. A *mesh*
-    of more than one device raises (ROADMAP queue 1 item 10), and so does
-    ``ring_attention=True`` (item 12b); None is off on one device, as
+    of more than one device and ``ring_attention=True`` raise (ROADMAP
+    queue 1 item 12b); None is off on one device, as
     the JAX package's auto rule (sp > 1) gives."""
     if _mesh_devices(mesh) > 1:
         raise NotImplementedError(
             "training over a mesh of more than one device is not ported yet "
-            "(ROADMAP queue 1 item 10)")
+            "(ROADMAP queue 1 item 12b)")
     if ring_attention:
         raise NotImplementedError("ring attention is not ported yet (ROADMAP queue 1 item 12b)")
     if config.dtype != "float32":

@@ -1415,3 +1415,90 @@ def test_training_step_on_the_card_matches_cpu(cuda, step):
     assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
     for a, b in zip(pg, pc):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+def _tp_config(dtype):
+    from kubeai_tpu_torch.models.base import ModelConfig
+
+    # Head dim 128 (the kernels' instances), H 8 / Kv 4: at tp = 2 each
+    # rank runs G = 2 over 4 heads.
+    return ModelConfig(vocab_size=512, hidden_size=1024, intermediate_size=2048, num_layers=2,
+                       num_heads=8, num_kv_heads=4, dtype=dtype, max_position=2048)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantization", ["", "int8"])
+def test_shard_params_on_the_card_are_slices(cuda, quantization):
+    """shard_params of a CUDA tree keeps each rank's slice on the card:
+    column weights by output columns, row weights by input rows (int8
+    scales whole), the vocab by rows of the embedding."""
+    from kubeai_tpu_torch.engine.core import preset_params
+    from kubeai_tpu_torch.parallel.group import TPGroup
+    from kubeai_tpu_torch.parallel.sharding import shard_params
+
+    mc = _tp_config("bfloat16")
+    full = preset_params(mc, cuda, seed=3, quantization=quantization)
+    for rank in range(2):
+        part = shard_params(full, mc, TPGroup(rank, 2, cuda, None, "gloo"))
+        drawn = preset_params(mc, cuda, seed=3, quantization=quantization,
+                              tp_group=TPGroup(rank, 2, cuda, None, "gloo"))
+        for key, dim in (("wq", 2), ("wo", 1), ("wd", 1), ("wg", 2)):
+            w, p, d = full["layers"][key], part["layers"][key], drawn["layers"][key]
+            if quantization:
+                n = w["int8_q"].shape[dim] // 2
+                assert torch.equal(p["int8_q"], w["int8_q"].narrow(dim, rank * n, n))
+                want_s = w["int8_s"] if key in ("wo", "wd") else w["int8_s"].narrow(dim, rank * n, n)
+                assert torch.equal(p["int8_s"], want_s)
+                assert torch.equal(d["int8_q"], p["int8_q"]) and torch.equal(d["int8_s"], p["int8_s"])
+            else:
+                n = w.shape[dim] // 2
+                assert p.is_cuda and torch.equal(p, w.narrow(dim, rank * n, n))
+                assert torch.equal(d, p)
+        emb = full["embed"]["int8_q"] if quantization else full["embed"]
+        got = part["embed"]["int8_q"] if quantization else part["embed"]
+        assert torch.equal(got, emb[rank * 256:(rank + 1) * 256])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_thread_gloo_tp2_decode_step_matches_tp1(cuda, dtype):
+    """One paged prefill and one decode step at tp = 2 (two threads on
+    the card, gloo over host memory) against tp = 1 on the same weights:
+    the paged kernels and the W8A16-free bf16 path at a rank's shapes.
+    float32 within 1e-4; bf16 within the extra rounding of each
+    row-parallel partial sum (2L of them, as chip_smoke derives)."""
+    import math
+
+    from kubeai_tpu_torch.engine.core import preset_params
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.parallel.group import run_local_ranks
+    from kubeai_tpu_torch.parallel.sharding import shard_params
+
+    mc = _tp_config(dtype).replace(use_paged_kernel=True, use_flash_prefill=True)
+    full = preset_params(mc, cuda, seed=1)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, S, P, page = 2, 256, 12, 64
+    tok = torch.randint(0, 512, (B, S), generator=g, device=cuda)
+    table = torch.tensor([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([S, S], device=cuda)
+
+    def go(group):
+        params = shard_params(full, mc, group) if group is not None else full
+        tp = group.world_size if group is not None else 1
+        pool = llama.init_paged_cache(mc, P, page, cuda, tp=tp)
+        before = paged_attention_ragged.launches, flash_attention.launches
+        a, _ = llama.prefill_paged_cold(params, mc, tok, pool, table, lens, tp_group=group)
+        b, _ = llama.decode_step_paged(params, mc, tok[:, :1], pool, table, lens,
+                                       tp_group=group)
+        torch.cuda.synchronize()
+        return a, b, before
+
+    want_a, want_b, _ = go(None)
+    ranks = run_local_ranks(2, go, cuda, backend="gloo")
+    assert paged_attention_ragged.launches >= 3 and flash_attention.launches >= 3
+    tol = 1e-4 if dtype == "float32" else 4 * math.sqrt(2 * mc.num_layers) * 2.0**-8 * float(
+        want_a.abs().max())
+    for a, b, _ in ranks:
+        assert (a - want_a).abs().max().item() <= tol
+        assert (b - want_b).abs().max().item() <= tol
+    assert torch.equal(ranks[0][0], ranks[1][0]) and torch.equal(ranks[0][1], ranks[1][1])

@@ -291,8 +291,15 @@ def test_errors(tmp_path):
             te.load_adapter("missing", str(tmp_path / "missing"))
         assert te.loaded_adapters() == ["a"]
         assert te.unload_adapter("a") and not te.unload_adapter("a")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tlora.AdapterRuntime(mc, mesh=object())
+        # A gang replicates the bank: each rank reads its slice of it
+        # (parallel/sharding.py) as views, so a load reaches every rank.
+        from kubeai_tpu_torch.parallel.sharding import shard_lora_bank
+
+        bank = te._adapters.bank
+        part = shard_lora_bank(bank, 1, 2)
+        assert part["wq_B"].data_ptr() == bank["wq_B"][..., bank["wq_B"].shape[-1] // 2:].data_ptr()
+        assert part["wo_A"].shape[-2] == bank["wo_A"].shape[-2] // 2
+        assert part["wo_B"] is bank["wo_B"] and part["wq_A"] is bank["wq_A"]
     finally:
         te.stop()
 

@@ -134,7 +134,7 @@ def _port_sites() -> set:
 def test_fault_sites_are_jax_sites():
     sites = _port_sites()
     assert sites == {"engine.submit", "engine.step", "engine.stream", "engine.kv_export",
-                     "engine.kv_import", "weights.load"}
+                     "engine.kv_import", "weights.load", "gang.publish", "gang.follower"}
     assert sites <= set(SUBSYSTEM_OF)
 
 
@@ -277,12 +277,12 @@ def test_profile_gates_and_capture(monkeypatch, tmp_path):
 # The JAX engine server's page also carries the families of operator-side
 # modules its process imports (the proxy, the balancer, canary, SLOs...):
 # the comparison takes the families of the engine side, and of those
-# leaves out what the port does not have: gangs (item 10), the tenant
-# accountant, jit recompiles (the port counts graph captures instead)
-# and the proxy's QoS counters.
+# leaves out what the port does not have: the tenant accountant, jit
+# recompiles (the port counts graph captures instead) and the proxy's
+# QoS counters.
 ENGINE_SIDE = re.compile(r"kubeai_(engine_|request_|kv_|qos_|log_|build_|gang_|tenant_)")
 NOT_PORTED = re.compile(
-    r"kubeai_(gang_|tenant_|engine_jit_recompiles_total$"
+    r"kubeai_(tenant_|engine_jit_recompiles_total$"
     r"|qos_proxy_|qos_resumes_)")
 
 

@@ -128,7 +128,7 @@ def test_init_sharded_training_on_one_device_lowers_the_loss():
 def test_refusals_name_their_roadmap_items():
     _, tc = _configs("llama")
     for axes in (dict(dp=2, sp=1), dict(dp=1, sp=4)):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             ttrainer.init_sharded_training(tc, mesh=_MeshShape(**axes), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12b"):
         ttrainer.init_sharded_training(tc, ring_attention=True, device="cpu")

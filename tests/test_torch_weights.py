@@ -246,7 +246,7 @@ def test_server_serves_int8_checkpoint(ckpt, int8_engines):
 def test_loader_refusals(ckpt, tmp_path):
     with pytest.raises(ValueError, match="tensor-parallel"):
         tw.load_engine_from_path("/nonexistent", tp=2, quantization="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="needs a tp group of 2 ranks"):
         tw.load_engine_from_path(ckpt, tp=2, device="cpu")
     with pytest.raises(ValueError, match="unsupported quantization"):
         tw.load_engine_from_path(ckpt, quantization="int4", device="cpu")
@@ -266,8 +266,17 @@ def test_loader_refusals(ckpt, tmp_path):
     os.remove(with_tok / "tokenizer.json")
     os.remove(with_tok / "tokenizer_config.json")
     assert type(tw.load_tokenizer(str(with_tok))).__name__ == "ByteTokenizer"
-    with pytest.raises(SystemExit):
-        make_arg_parser().parse_args(["--model", ckpt, "--tensor-parallel-size", "2"])
+    # tp > 1 parses (the server starts the ranks); the JAX server's gang
+    # refusals are parser errors.
+    assert make_arg_parser().parse_args(
+        ["--model", ckpt, "--tensor-parallel-size", "2"]).tensor_parallel_size == 2
+    from kubeai_tpu_torch.engine.server import main as server_main
+
+    for bad in (["--model", ckpt, "--tensor-parallel-size", "0"],
+                ["--model", ckpt, "--tensor-parallel-size", "2", "--parked"],
+                ["--model", "test:tiny", "--tensor-parallel-size", "2", "--device", "cpu"]):
+        with pytest.raises(SystemExit):
+            server_main(bad)
 
 
 @pytest.mark.parametrize("quantization", ["", "int8"], ids=["bf16", "int8"])
