@@ -180,6 +180,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -1318,7 +1319,7 @@ def _post(port, path, body, timeout=600):
         return json.loads(r.read())
 
 
-def _stream(port, body, timeout=600):
+def _stream(port, body, timeout=600, headers=None):
     """(text, finish_reason, event times in s since the request) of an
     SSE completion. With logprobs on, every token sends an event."""
     req = urllib.request.Request(
@@ -1327,7 +1328,7 @@ def _stream(port, body, timeout=600):
         # stream runs its full length.
         data=json.dumps({**body, "stream": True, "logprobs": 0,
                          "logit_bias": {"257": -100}}).encode(),
-        headers={"Content-Type": "application/json"},
+        headers={"Content-Type": "application/json", **(headers or {})},
     )
     t0 = time.monotonic()
     times, text, reason = [], [], None
@@ -3047,10 +3048,22 @@ def phase_serving_ops() -> dict:
     roofline fraction in (0, 1]); a 2 s /debug/profile naming the decode
     kernel, with the decode step timed before and after it; and the
     drain (/readyz 200 -> 503, the stream in flight completes, new work
-    is refused)."""
+    is refused). The bf16 server also runs the telemetry: an OTLP
+    exporter to a loopback collector and a history sampler every 0.25 s;
+    8 greedy 128-token streams (3 of tenant a, 5 of b, each with a
+    traceparent) check /debug/tenants (3 and 5 records, page-seconds over
+    slot-seconds = each request's reserved pages, each tenant's
+    slot-seconds between its streams' token spans and their whole
+    times), /debug/history (TTFT p50, p95 and the token rate with 4
+    samples or more; a file flushed at stop) and the collector (all 8
+    traces, the two tenant cost series, nothing dropped), with the decode
+    step timed with the exporter and sampler running and again after
+    both stopped. The launch counts of that round are the kernel line's
+    "telemetry" path."""
     import numpy as np
     import torch
 
+    from benchmarks.otlp_stub import StubCollector
     from kubeai_tpu_torch import faults
     from kubeai_tpu_torch.engine.core import Engine, EngineConfig
     from kubeai_tpu_torch.engine.server import EngineServer
@@ -3076,7 +3089,19 @@ def phase_serving_ops() -> dict:
         pre = _int8_embed_parity(eng, prompts, direct) if run == "int8" else \
             {"batch_rounding": _batch_rounding_witness(eng, N4_BODY)}
         srv = EngineServer(eng, f"ops-{run}", host="127.0.0.1", port=0)
-        srv.start()
+        if run == "bf16":
+            # The telemetry the bf16 server starts with: an exporter to a
+            # loopback collector, a history sampler every 0.25 s.
+            collector = StubCollector().start()
+            hist_dir = tempfile.mkdtemp(prefix="kubeai-history-")
+            telemetry_env = {"KUBEAI_OTLP_ENDPOINT": collector.endpoint,
+                             "KUBEAI_HISTORY_DIR": hist_dir, "KUBEAI_HISTORY_INTERVAL": "0.25"}
+            os.environ.update(telemetry_env)
+        try:
+            srv.start()
+        finally:
+            for k in telemetry_env if run == "bf16" else ():
+                os.environ.pop(k, None)
         try:
             # The decode chunk's capture before anything is timed.
             _http(srv.port, "/v1/completions", {"prompt": "warm", "max_tokens": 4})
@@ -3086,13 +3111,29 @@ def phase_serving_ops() -> dict:
                                      f"{res['embed']['w8a16_launches']} times, not 4 a layer")
             if run == "bf16":
                 res.update(_ops_under_load(srv, prompts, direct))
+                t_tel = time.monotonic()
+                res["telemetry"] = _telemetry(srv, collector, hist_dir)
+                res["telemetry"]["round_s"] = time.monotonic() - t_tel
             else:
                 res.update(_ops_profile_and_drain(srv))
         finally:
             faults.clear_all()
             srv.stop()
+            if run == "bf16":
+                collector.stop()
         if eng._pool.used():
             raise AssertionError(f"{run}: {eng._pool.used()} pages still used after the run")
+        if run == "bf16":
+            flushed = [n for n in os.listdir(os.path.join(hist_dir, "engine"))
+                       if n.startswith("history-") and n.endswith(".json")]
+            if not flushed:
+                raise AssertionError(f"no history file flushed under {hist_dir}")
+            res["telemetry"]["history_files"] = len(flushed)
+            shutil.rmtree(hist_dir, ignore_errors=True)
+            tel = res["telemetry"]
+            log("serving_ops[telemetry] decode step ms, telemetry on / off:",
+                tel["decode_step_telemetry_on"]["wall_ms"],
+                tel["decode_step_telemetry_off"]["wall_ms"], gpu_line())
         out[run] = res
         log(f"serving_ops[{run}]", gpu_line(), json.dumps(res))
         del eng, srv
@@ -3339,18 +3380,166 @@ def _decode_step_ms(srv, n=64) -> dict:
     """One greedy *n*-token stream alone: the median, over its graphed
     chunks in chunk_log, of the wall (dispatch to fetch) and the device
     time per decode step."""
-    import numpy as np
-
     t0 = time.monotonic()
     _stream(srv.port, {"prompt": "step timing", "max_tokens": n, "temperature": 0})
+    return _step_from_log(srv, t0, 1)
+
+
+def _step_from_log(srv, t0, slots) -> dict:
+    """The median wall (dispatch to fetch) and device time per decode
+    step over the graphed chunks fetched since *t0* that ran *slots*
+    slots."""
+    import numpy as np
+
     log_ = [e for e in list(srv.engine.chunk_log)
-            if e["fetched_at"] > t0 and e["graph"] and e["slots"] == 1]
+            if e["fetched_at"] > t0 and e["graph"] and e["slots"] == slots]
     if not log_:
-        raise AssertionError("no graphed chunk of the timing stream in chunk_log")
+        raise AssertionError(f"no graphed chunk of {slots} slots in chunk_log")
     dev = [e["device_ms"] / e["steps"] for e in log_ if e["device_ms"] is not None]
     return {"chunks": len(log_),
             "wall_ms": float(np.median([e["dur_ms"] / e["steps"] for e in log_])),
             "device_ms": float(np.median(dev)) if dev else None}
+
+
+# The telemetry round: 3 streams of tenant a and 5 of tenant b on one
+# prompt long enough for a flash prefill (bucket 256).
+TELEMETRY_TENANTS = ("a",) * 3 + ("b",) * 5
+TELEMETRY_PROMPT = OPS_PROMPTS[0] * 5
+TELEMETRY_TOKENS = 128
+
+
+def _tenant_round(srv, tag: int) -> list:
+    """TELEMETRY_TENANTS' greedy streams, all started at once, each with
+    its tenant header and a traceparent of its own: per stream (tenant,
+    trace id, submit, first token, last token, end), monotonic seconds."""
+    from kubeai_tpu_torch.obs.tenants import TENANT_HEADER
+
+    out: list = [None] * len(TELEMETRY_TENANTS)
+    errors: list = []
+
+    def run(i, tenant):
+        trace_id = f"{tag:04x}{i:04x}" + "7" * 24
+        try:
+            t0 = time.monotonic()
+            _, reason, times = _stream(
+                srv.port, {"prompt": TELEMETRY_PROMPT, "max_tokens": TELEMETRY_TOKENS,
+                           "temperature": 0},
+                headers={TENANT_HEADER: tenant, "traceparent": f"00-{trace_id}-{'ab' * 8}-01"})
+            if reason != "length" or len(times) != TELEMETRY_TOKENS:
+                raise AssertionError(f"stream {i}: {reason} after {len(times)} tokens")
+            out[i] = (tenant, trace_id, t0, t0 + times[0], t0 + times[-1], time.monotonic())
+        except Exception as e:  # reported below
+            errors.append(f"{i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i, t)) for i, t in enumerate(TELEMETRY_TENANTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"telemetry streams failed: {errors}")
+    return out
+
+
+def _telemetry(srv, collector, hist_dir) -> dict:
+    """The bf16 run's telemetry checks (see phase_serving_ops): the
+    server started with the exporter pointed at *collector* and the
+    history sampler ticking every 0.25 s into *hist_dir*."""
+    from kubeai_tpu_torch.obs.otel import M_DROPPED, installed_exporter, uninstall_exporter
+    from kubeai_tpu_torch.obs.tenants import default_accountant
+
+    eng = srv.engine
+    exp = installed_exporter()
+    if exp is None or srv._history_sampler is None:
+        raise AssertionError("the server started no exporter or no history sampler")
+    # Each record: the request's tenant and prompt, its seconds, and the
+    # pages its slot held at release.
+    default_accountant.reset()
+    recs, pending = [], []
+    record_cost, record_slot = default_accountant.record_cost, eng._record_slot_cost
+
+    def spy_cost(tenant, slot_s, page_s):
+        pending.append((slot_s, page_s))
+        record_cost(tenant, slot_s, page_s)
+
+    def spy_slot(slot, slot_idx):
+        n, pages = len(pending), len(eng._slot_pages[slot_idx])
+        record_slot(slot, slot_idx)
+        recs.extend((slot.req.tenant, len(slot.req.prompt_ids), s, p, pages)
+                    for s, p in pending[n:])
+
+    default_accountant.record_cost, eng._record_slot_cost = spy_cost, spy_slot
+    try:
+        _zero_launches()
+        t0 = time.monotonic()
+        streams = _tenant_round(srv, 1)
+        launches = _read_launches()
+        step_on = _step_from_log(srv, t0, len(TELEMETRY_TENANTS))
+        weights = {t: default_accountant._tracked[t].weight for t in ("a", "b")}
+        _, _, rep = _http(srv.port, "/debug/tenants")
+    finally:
+        del default_accountant.record_cost, eng._record_slot_cost
+    missing = [k for k in ("flash_attention", "paged_attention_ragged")
+               if not launches["launches"][k]]
+    if missing:
+        raise AssertionError(f"telemetry round: kernels never launched: {missing}")
+    # /debug/tenants: 3 and 5 records; each request's page-seconds over
+    # slot-seconds is its reservation; each tenant's slot-seconds within
+    # its streams' token spans and their whole times.
+    ps = eng.cfg.page_size
+    bad = [r for r in recs if r[4] != math.ceil((r[1] + TELEMETRY_TOKENS) / ps)
+           or not r[2] > 0 or abs(r[3] / r[2] - r[4]) > 1e-9 * r[4]]
+    rows = {row["tenant"]: row for row in rep["tenants"]}
+    if weights != {"a": 3, "b": 5} or len(recs) != 8 or bad or set(rows) != {"a", "b"}:
+        raise AssertionError(f"/debug/tenants: weights {weights}, {len(recs)} records, "
+                             f"reservations off: {bad}, rows {sorted(rows)}")
+    tenants = {}
+    for t in ("a", "b"):
+        slot_s = sum(r[2] for r in recs if r[0] == t)
+        page_s = sum(r[3] for r in recs if r[0] == t)
+        lo = sum(s[4] - s[3] for s in streams if s[0] == t)
+        hi = sum(s[5] - s[2] for s in streams if s[0] == t)
+        if not lo <= slot_s <= hi or rows[t]["cost"] != {
+                "slot_seconds": round(slot_s, 4), "kv_page_seconds": round(page_s, 4)}:
+            raise AssertionError(f"tenant {t}: slot-seconds {slot_s} outside [{lo}, {hi}] or "
+                                 f"the report's {rows[t]['cost']}")
+        tenants[t] = {"slot_seconds": slot_s, "kv_page_seconds": page_s,
+                      "token_span_s": lo, "request_s": hi}
+    # /debug/history: the sampler's TTFT quantiles and token rate.
+    ttft = "kubeai_engine_ttft_seconds"
+    names = (f"{ttft}_p50", f"{ttft}_p95", "kubeai_engine_generated_tokens_total")
+    _, _, hist = _http(srv.port, f"/debug/history?series={','.join(names)}&since=600")
+    samples = {n: sum(p[1] for p in hist["series"].get(n, {}).get("points", [])) for n in names}
+    if min(samples.values()) < 4:
+        raise AssertionError(f"/debug/history samples: {samples}")
+    # The collector: every stream's spans, the tenant series, no drops.
+    want = {s[1] for s in streams}
+
+    def traces():
+        return {span["traceId"] for span in collector.spans()}
+
+    _await_cond(lambda: want <= traces(), 15)
+    exp.export_metrics()
+    names_got = collector.metric_names()
+    dropped = sum(M_DROPPED.snapshot().values())
+    tenant_series = {"kubeai_tenant_slot_seconds_total", "kubeai_tenant_kv_page_seconds_total"}
+    if not want <= traces() or not tenant_series <= names_got or dropped:
+        raise AssertionError(f"collector: {len(want - traces())} traces missing, "
+                             f"tenant series {sorted(tenant_series & names_got)}, "
+                             f"dropped {dropped}")
+    # The same round with the sampler and the exporter stopped.
+    srv._history_sampler.stop()
+    srv._history_sampler = None
+    exp.stop()
+    uninstall_exporter(exp)
+    srv._otel = None
+    t0 = time.monotonic()
+    _tenant_round(srv, 2)
+    step_off = _step_from_log(srv, t0, len(TELEMETRY_TENANTS))
+    return {"launches": launches, "tenants": tenants, "history_samples": samples,
+            "traces": len(want), "exported": exp.report()["exported"],
+            "decode_step_telemetry_on": step_on, "decode_step_telemetry_off": step_off,
+            "on_over_off": step_on["wall_ms"] / step_off["wall_ms"]}
 
 
 def _ops_profile_and_drain(srv) -> dict:
@@ -4495,7 +4684,8 @@ def main() -> int:
     serving.update(phase_handoff())
     log(f"handoff phase: {time.monotonic() - t5:.1f}s")
     t6 = time.monotonic()
-    phase_serving_ops()
+    ops = phase_serving_ops()
+    serving["telemetry"] = ops["bf16"]["telemetry"]["launches"]
     log(f"serving_ops phase: {time.monotonic() - t6:.1f}s")
     serving.update(phase_coldstart())
     serving.update(phase_finetune())

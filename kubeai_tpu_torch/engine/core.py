@@ -104,8 +104,12 @@ and ``kubeai_qos_*`` series, in kubeai_tpu_torch/metrics.py's registry.
 ``kubeai_engine_jit_recompiles_total`` has no counterpart: the port
 counts decode-graph captures as ``kubeai_engine_graph_captures_total``.
 
-Left for later slices (ROADMAP queue 1): the tenant accountant, CUDA
-graphs for prefill.
+Per-tenant cost: each tenanted request records its slot-seconds and
+KV-page-seconds once, at slot release (``_record_slot_cost``, on every
+path through ``_free`` and in ``_fail_inflight``), into obs/tenants.py's
+accountant.
+
+Left for later slices: CUDA graphs for prefill.
 """
 
 from __future__ import annotations
@@ -153,6 +157,7 @@ from kubeai_tpu_torch.obs.recorder import (
     register_engine_debug_section,
     unregister_engine_debug_section,
 )
+from kubeai_tpu_torch.obs.tenants import default_accountant as tenant_accountant
 from kubeai_tpu_torch.obs.trace import RequestTrace, TraceContext
 from kubeai_tpu_torch.ops import _build
 from kubeai_tpu_torch.ops.flash_attention import flash_attention
@@ -275,6 +280,9 @@ class _Slot:
     committed_text: str = ""  # decodable text so far
     delivered_chars: int = 0  # prefix of committed_text already sent
     budget: int = 0  # max new tokens
+    # When the slot was taken (after the prefill): the base of the
+    # tenant cost recorded at release.
+    admitted_at: float = field(default_factory=time.monotonic)
     # The emitted ("token", ...) events of a request that may park: a
     # restore re-emits exactly these. None = not recording.
     event_log: list | None = None
@@ -1650,6 +1658,7 @@ class Engine:
                 slot.req.out.put(("error", message))
                 self._finish_request(slot.req, "error", error=message,
                                      completion_tokens=slot.generated)
+                self._record_slot_cost(slot, i)
                 self._release_slot_pages(i)
         self._n_active = 0
         self.m_active.set(0)
@@ -1904,6 +1913,16 @@ class Engine:
         if reuse:
             self.m_prefix_cached.inc(reuse)
         return slot_idx, reuse
+
+    def _record_slot_cost(self, slot: _Slot, slot_idx: int) -> None:
+        """The request's tenant cost, once, before its pages are released
+        or parked: slot-seconds (wall time the slot was held) and
+        KV-page-seconds (that time x the pages _plan_admission reserved).
+        An untenanted request records nothing."""
+        if not slot.req.tenant:
+            return
+        held = max(time.monotonic() - slot.admitted_at, 0.0)
+        tenant_accountant.record_cost(slot.req.tenant, held, held * len(self._slot_pages[slot_idx]))
 
     def _release_slot_pages(self, slot_idx: int, register: bool = False) -> None:
         row = self._slot_pages[slot_idx]
@@ -2489,6 +2508,7 @@ class Engine:
         self._n_active -= 1
         self.m_active.set(self._n_active)
         self._h_active[slot_idx] = False
+        self._record_slot_cost(slot, slot_idx)
         # A finish the request asked to park at (a preempted batch stream,
         # a handoff-capped "length") serializes its KV before the pages
         # are released; any failure releases them and the resume replays.

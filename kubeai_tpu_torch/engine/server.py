@@ -15,6 +15,8 @@ kubeai_tpu/engine/server.py).
     GET  /debug/pipeline         stall attribution, MFU, roofline
     GET  /debug/profile          torch.profiler trace (?seconds=)
     GET  /debug/qos              the QoS queue's classes and lanes
+    GET  /debug/tenants          per-tenant cost: slot- and KV-page-seconds
+    GET  /debug/history          metric history (?series=&since=&step=)
     GET  /debug/logs             recent WARNING+ records (?level=&since=&trace=)
     GET  /v1/models              the served model + loaded adapters
     GET  /v1/kv/<key>            a parked request's KV blob (peer transfer)
@@ -82,9 +84,16 @@ Each other rank answers ``/health``, ``/readyz``, ``/metrics`` and
 ``--parked`` and ``test:`` models are refused on a gang, as in the JAX
 server.
 
-Not ported yet (ROADMAP queue 1): ``/debug/tenants`` (the tenant
-accountant) and the OTLP exporter. The operator-side surfaces (``/debug/incidents``, ``/canary``, ``/history``,
-``/forecast``) answer 404 "not installed", as on a JAX engine.
+Telemetry, as the JAX engine server has it: each tenanted request's
+slot- and KV-page-seconds go into obs/tenants.py's accountant
+(``/debug/tenants``, ``kubeai_tenant_*``); ``start()`` installs a history
+store under ``<KUBEAI_HISTORY_DIR>/engine`` with a registry sampler
+(``/debug/history``) unless the process has one, and an OTLP exporter when
+``KUBEAI_OTLP_ENDPOINT`` is set; ``stop()`` removes what it installed. A
+gang follower rank installs none of them and answers ``/debug/tenants``
+and ``/debug/history`` 404, as the JAX server's ``run_follower`` does. The
+operator-side surfaces (``/debug/incidents``, ``/canary``, ``/forecast``)
+answer 404 "not installed", as on a JAX engine.
 
 Run: ``python -m kubeai_tpu_torch.engine.server --model preset:llama-3.1-8b``
 (on the card; ``--device cpu --model test:tiny`` for a CPU smoke run).
@@ -150,6 +159,15 @@ from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
 from kubeai_tpu_torch.engine.weights import load_engine_from_path
 from kubeai_tpu_torch.faults import FaultError, fault, handle_faults_request, set_thread_scope
 from kubeai_tpu_torch.metrics import default_registry, set_build_info
+from kubeai_tpu_torch.obs.history import (
+    HistoryStore,
+    RegistrySampler,
+    handle_history_request,
+    history_dir_default,
+    install_history,
+    installed_history,
+    uninstall_history,
+)
 from kubeai_tpu_torch.obs.logs import (
     bind_log_context,
     get_logger,
@@ -158,12 +176,14 @@ from kubeai_tpu_torch.obs.logs import (
     set_log_context,
     setup_logging,
 )
+from kubeai_tpu_torch.obs.otel import maybe_start_exporter, uninstall_exporter
 from kubeai_tpu_torch.obs.perf import handle_perf_request
 from kubeai_tpu_torch.obs.recorder import (
     debug_index_response,
     handle_debug_request,
     handle_operator_side_request,
 )
+from kubeai_tpu_torch.obs.tenants import TENANT_HEADER, handle_tenant_request, sanitize_tenant
 from kubeai_tpu_torch.obs.trace import extract_context, sanitize_request_id
 from kubeai_tpu_torch.parallel.group import (
     DEFAULT_COORDINATOR_PORT,
@@ -176,7 +196,6 @@ from kubeai_tpu_torch.qos import (
     PRIORITY_HEADER,
     normalize_priority,
 )
-from kubeai_tpu_torch.qos.classes import TENANT_HEADER, sanitize_tenant
 from kubeai_tpu_torch.qos.stats import handle_qos_request
 
 log = get_logger("kubeai_tpu_torch.engine.server")
@@ -242,12 +261,22 @@ class EngineServer:
         self._thread: threading.Thread | None = None
         self.adapters: dict[str, str] = {}  # name -> path
         self._adapters_lock = threading.Lock()
+        # The telemetry start() installed (stop() removes only that).
+        self._history: HistoryStore | None = None
+        self._history_sampler: RegistrySampler | None = None
+        self._otel = None
 
     def start(self) -> None:
         set_build_info("engine")
         # The WARNING+ ring from the start, so /debug/logs holds early
         # failures.
         install_log_ring()
+        self._otel = maybe_start_exporter("kubeai-engine")
+        if installed_history() is None:
+            self._history = HistoryStore(history_dir=os.path.join(history_dir_default(), "engine"))
+            self._history_sampler = RegistrySampler(self._history)
+            install_history(self._history)
+            self._history_sampler.start()
         if self.engine is not None:
             self._start_engine(self.engine)
         self._thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
@@ -356,6 +385,16 @@ class EngineServer:
             if self.engine is not None:
                 self.engine.stop()
         finally:
+            if self._history_sampler is not None:
+                self._history_sampler.stop()  # the last flush
+                self._history_sampler = None
+            if self._history is not None:
+                uninstall_history(self._history)
+                self._history = None
+            if self._otel is not None:
+                self._otel.stop()
+                uninstall_exporter(self._otel)
+                self._otel = None
             self.httpd.shutdown()
             self.httpd.server_close()
             if self._thread is not None:
@@ -493,7 +532,9 @@ def _make_handler(srv: EngineServer):
             elif path.startswith("/debug/"):
                 resp = (handle_faults_request(path, query)
                         or handle_perf_request(path, query, engine=srv.engine)
+                        or handle_tenant_request(path, query)
                         or handle_qos_request(path, query)
+                        or handle_history_request(path, query)
                         or handle_logs_request(path, query)
                         or handle_debug_request(path, query)
                         or handle_operator_side_request(path))

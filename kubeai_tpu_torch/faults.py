@@ -37,6 +37,8 @@ The port's sites, under the JAX package's names:
     gang.publish         before each gang dispatch broadcast (rank 0)
     gang.follower        each follower recv (a follower-drop: the
                          reconnect-with-backoff and re-form path)
+    history.disk         each metrics-history snapshot write (an error
+                         keeps the history in memory only)
 """
 
 from __future__ import annotations

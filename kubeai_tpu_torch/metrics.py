@@ -4,8 +4,10 @@ Counters, gauges, callback gauges and histograms, each with labels, and
 the Prometheus text exposition that the engine serves on ``GET /metrics``.
 Names and help strings are the JAX engine's, so the operator's autoscaler
 (``parse_prometheus_text``) reads the port's page as it reads the JAX
-engine's. Stdlib only. Exemplars, snapshots and the history sampler's
-seams are left out: nothing in the port reads them.
+engine's. Stdlib only. ``snapshot()`` and ``Registry.metrics()`` are the
+seams the history sampler (obs/history.py) and the OTLP exporter
+(obs/otel.py) read. Exemplars are left out: nothing in the port reads
+them.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ class _Metric:
     def value(self, labels: dict[str, str] | None = None) -> float:
         with self._lock:
             return self._values.get(self._key(labels), 0.0)
+
+    def snapshot(self) -> dict[tuple[tuple[str, str], ...], float]:
+        """A point-in-time copy of every labeled series."""
+        with self._lock:
+            return dict(self._values)
 
     def collect(self) -> list[str]:
         with self._lock:
@@ -128,6 +135,12 @@ class Histogram(_Metric):
             entry[1] += value
             entry[2] += 1
 
+    def snapshot(self) -> dict[tuple, tuple[list[int], float, int]]:
+        """A point-in-time copy: key -> (per-bucket counts with the +Inf
+        slot last, not cumulative, unlike the exposition; sum; count)."""
+        with self._lock:
+            return {k: (list(c), s, n) for k, (c, s, n) in self._obs.items()}
+
     def collect(self) -> list[str]:
         with self._lock:
             lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
@@ -168,6 +181,12 @@ class Registry:
     def get(self, name: str) -> _Metric | None:
         with self._lock:
             return self._metrics.get(name)
+
+    def metrics(self) -> dict[str, _Metric]:
+        """A point-in-time copy of the name -> metric map (the history
+        sampler and the exporter iterate it)."""
+        with self._lock:
+            return dict(self._metrics)
 
     def _get_or_create(self, name, help_, cls, factory=None):
         with self._lock:

@@ -8,6 +8,8 @@ server's /debug surface over them.
   prefill, decode) off that thread.
 - ``record_step(**fields)``: one scheduler step record (a decode chunk
   with its host segments, a prefill call).
+- ``add_timeline_hook(fn)`` / ``remove_timeline_hook(fn)``: subscribers
+  (the OTLP exporter) called with every recorded timeline.
 
 Routes: ``/debug/requests[?limit=&id=&tenant=]``, ``/debug/engine
 [?limit=]`` and ``/debug/trace[?limit=]`` (Chrome trace-event JSON for
@@ -43,6 +45,13 @@ class FlightRecorder:
     def record_timeline(self, timeline: dict) -> None:
         with self._lock:
             self._timelines.append(timeline)
+        # Hooks must not block (the exporter's is a bounded enqueue); one
+        # that raises loses only its own copy.
+        for fn in list(_timeline_hooks):
+            try:
+                fn(timeline)
+            except Exception:
+                pass
 
     def submit(self, tr: RequestTrace, observe=None) -> None:
         """Enqueue a finished RequestTrace for off-thread assembly
@@ -247,6 +256,20 @@ def assemble_request_trace(tr: RequestTrace) -> dict:
 
 default_recorder = FlightRecorder()
 
+_timeline_hooks: list = []
+
+
+def add_timeline_hook(fn) -> None:
+    if fn not in _timeline_hooks:
+        _timeline_hooks.append(fn)
+
+
+def remove_timeline_hook(fn) -> None:
+    try:
+        _timeline_hooks.remove(fn)
+    except ValueError:
+        pass
+
 
 # ---------------------------------------------------------------------------
 # The /debug HTTP surface of the engine server.
@@ -328,9 +351,9 @@ def handle_debug_request(
 
 # ---------------------------------------------------------------------------
 # The /debug index: every debug route the engine server answers, one line
-# each. The JAX engine's list, less the routes of modules the port has not
-# taken: the operator-side surfaces (incidents, canary, history, forecast)
-# answer "not installed here" 404s, as on a JAX engine, and are not listed.
+# each. The JAX engine's list, less the operator-side surfaces (incidents,
+# canary, forecast), which answer "not installed here" 404s, as on a JAX
+# engine, and are not listed.
 
 DEBUG_INDEX: tuple[tuple[str, str], ...] = (
     ("/debug/requests",
@@ -342,9 +365,15 @@ DEBUG_INDEX: tuple[tuple[str, str], ...] = (
     ("/debug/faults",
      "fault-injection failpoints: list armed faults; arm/disarm via ?set=/?clear= "
      "(gated by KUBEAI_DEBUG_FAULTS)"),
+    ("/debug/tenants",
+     "per-tenant usage metering: rolling-window share, tokens, latency attainment, "
+     "cost proxies, heavy-hitter ranking"),
     ("/debug/qos",
      "QoS scheduling: per-class queue depth and shed counts, per-tenant fair-share "
      "deficits, preemption counters"),
+    ("/debug/history",
+     "embedded time-series history: tiered metric trajectories with gap markers "
+     "(?series=&since=&step=)"),
     ("/debug/logs",
      "recent WARNING+ structured log records with trace correlation "
      "(?level=&since=&trace=&limit=)"),
@@ -361,7 +390,6 @@ DEBUG_INDEX: tuple[tuple[str, str], ...] = (
 OPERATOR_SIDE = {
     "/debug/incidents": "no incident recorder installed on this process",
     "/debug/canary": "no canary prober installed on this process",
-    "/debug/history": "no history store installed on this process",
     "/debug/forecast": "no forecaster installed on this process (operator-side surface)",
 }
 

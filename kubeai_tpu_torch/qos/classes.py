@@ -1,6 +1,6 @@
 """Priority classes and the headers the proxy stamps (port of
 kubeai_tpu/qos/classes.py, the engine's side), and the tenant-lane
-constants of kubeai_tpu/obs/tenants.py.
+constants, which obs/tenants.py defines.
 
 Three classes, strictly ordered: interactive > standard > batch. The
 proxy resolves a request's class once and stamps it as X-Priority; the
@@ -8,7 +8,15 @@ engine parses it leniently (an unknown value serves as standard)."""
 
 from __future__ import annotations
 
-import re
+# The proxy's hashed tenant id (TENANT_HEADER) keys a queue's fair lanes.
+# Requests without one share the anonymous lane, and tenants past the lane
+# cap fold into OTHER.
+from kubeai_tpu_torch.obs.tenants import (  # noqa: F401
+    ANONYMOUS,
+    OTHER,
+    TENANT_HEADER,
+    sanitize_tenant,
+)
 
 CLASSES: tuple[str, ...] = ("interactive", "standard", "batch")
 DEFAULT_CLASS = "standard"
@@ -35,17 +43,3 @@ def normalize_priority(value: str | None) -> str:
         return ""
     v = value.strip().lower()
     return v if v in _RANK else ""
-
-
-# The proxy's hashed tenant id rides this header; a queue keys its fair
-# lanes on it. Requests without one share the anonymous lane, and tenants
-# past the lane cap fold into OTHER.
-TENANT_HEADER = "X-KubeAI-Tenant"
-ANONYMOUS = "anonymous"
-OTHER = "__other__"
-
-_TENANT_RE = re.compile(r"[^A-Za-z0-9._\-]")
-
-
-def sanitize_tenant(t: str) -> str:
-    return _TENANT_RE.sub("", str(t))[:64]

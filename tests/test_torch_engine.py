@@ -191,14 +191,16 @@ def test_port_imports_no_jax():
         "       'kubeai_tpu_torch.obs.logs', 'kubeai_tpu_torch.obs.perf',\n"
         "       'kubeai_tpu_torch.train.finetune', 'kubeai_tpu_torch.train.trainer',\n"
         "       'kubeai_tpu_torch.engine.gang', 'kubeai_tpu_torch.parallel.group',\n"
-        "       'kubeai_tpu_torch.parallel.sharding']\n"
+        "       'kubeai_tpu_torch.parallel.sharding', 'kubeai_tpu_torch.obs.tenants',\n"
+        "       'kubeai_tpu_torch.obs.history', 'kubeai_tpu_torch.obs.otel',\n"
+        "       'kubeai_tpu_torch.obs.incidents']\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 42  # every module really imported
+    assert int(out.stdout.split()[0]) >= 46  # every module really imported
 
 
 def test_page_pool_copy_matches_jax():

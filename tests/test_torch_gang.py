@@ -89,7 +89,10 @@ def _sync(leader, follower, names=STATE, timeout=30):
     replay runs on its own thread), then assert it, pool included."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
-        if all(torch.equal(getattr(follower, n), getattr(leader, n)) for n in names):
+        # The pool too: the follower's last chunk may still be writing it
+        # (the trash page) after its state already equals the leader's.
+        if all(torch.equal(getattr(follower, n), getattr(leader, n)) for n in names) and \
+                torch.equal(follower.cache["kv"], leader.cache["kv"]):
             break
         time.sleep(0.05)
     for n in names:

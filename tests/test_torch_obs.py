@@ -134,7 +134,8 @@ def _port_sites() -> set:
 def test_fault_sites_are_jax_sites():
     sites = _port_sites()
     assert sites == {"engine.submit", "engine.step", "engine.stream", "engine.kv_export",
-                     "engine.kv_import", "weights.load", "gang.publish", "gang.follower"}
+                     "engine.kv_import", "weights.load", "gang.publish", "gang.follower",
+                     "history.disk"}
     assert sites <= set(SUBSYSTEM_OF)
 
 
@@ -277,12 +278,11 @@ def test_profile_gates_and_capture(monkeypatch, tmp_path):
 # The JAX engine server's page also carries the families of operator-side
 # modules its process imports (the proxy, the balancer, canary, SLOs...):
 # the comparison takes the families of the engine side, and of those
-# leaves out what the port does not have: the tenant accountant, jit
-# recompiles (the port counts graph captures instead) and the proxy's
-# QoS counters.
+# leaves out what the port does not have: jit recompiles (the port counts
+# graph captures instead) and the proxy's QoS counters.
 ENGINE_SIDE = re.compile(r"kubeai_(engine_|request_|kv_|qos_|log_|build_|gang_|tenant_)")
 NOT_PORTED = re.compile(
-    r"kubeai_(tenant_|engine_jit_recompiles_total$"
+    r"kubeai_(engine_jit_recompiles_total$"
     r"|qos_proxy_|qos_resumes_)")
 
 
@@ -395,9 +395,13 @@ def test_debug_index_and_routes():
                 assert get(p)[0] == 200, p
         assert get("/debug/qos")[1]["queue"]["maxsize"] == srv.engine.cfg.max_queue
         assert "perf" in get("/debug/engine")[1]
-        for p in ("/debug/incidents", "/debug/canary", "/debug/history", "/debug/forecast"):
+        # As on the JAX engine: the tenant report and the history store
+        # are listed and answer; the operator-side surfaces answer 404.
+        assert {"/debug/tenants", "/debug/history"} <= set(paths)
+        assert get("/debug/tenants")[1]["tenants"] is not None
+        assert get("/debug/history")[1]["history_dir"].endswith("engine")
+        for p in ("/debug/incidents", "/debug/canary", "/debug/forecast"):
             assert get(p)[0] == 404, p
-        assert get("/debug/tenants")[0] == 404
         assert get("/debug/trace")[1]["displayTimeUnit"] == "ms"
         assert np.isfinite(get("/debug/pipeline")[1]["accounted_ms"])
     finally:

@@ -14,7 +14,11 @@ package's (``role_engines`` and ``qos_engine`` are redefined here):
   failure), and its deadline (a body ``timeout``, stamped as
   X-Request-Deadline) ends a slow generation on a port engine in a 504
   with the engine's slot and pages freed (tests/test_proxy_integration.py's
-  ``stack``).
+  ``stack``);
+- a request with ``Authorization: Bearer k1`` reaches the port engine
+  under the proxy's hashed tenant id, which the engine's /debug/tenants
+  lists with that one request's slot- and page-seconds (the raw key
+  appears nowhere on it).
 """
 
 import json
@@ -33,12 +37,14 @@ from kubeai_tpu.api import model_types as mt
 from kubeai_tpu.autoscaler.autoscaler import scrape_engine_load
 from kubeai_tpu.disagg import ROLE_DECODE, ROLE_PREFILL
 from kubeai_tpu.disagg.handoff import M_HANDOFFS
+from kubeai_tpu.obs.tenants import hash_tenant_key
 from kubeai_tpu.qos.stats import M_RESUMES
 from kubeai_tpu_torch import faults
 from kubeai_tpu_torch.engine.core import EngineConfig, build_test_engine
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.server import EngineServer
 from kubeai_tpu_torch.metrics import default_registry as treg
+from kubeai_tpu_torch.obs.tenants import default_accountant
 
 disagg_stack = _disagg.disagg_stack
 qos_stack = _qos.qos_stack
@@ -151,10 +157,10 @@ def test_engine_load_scrape_reads_the_port_metrics(qos_engine):
                         msg="engine drained")
 
 
-def _proxy_post(api, body, timeout=60):
+def _proxy_post(api, body, timeout=60, headers=None):
     req = urllib.request.Request(f"http://127.0.0.1:{api.port}/openai/v1/completions",
                                  data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, json.loads(r.read())
@@ -238,3 +244,32 @@ def test_a_proxy_deadline_ends_in_504_and_frees_the_engine(stack, monkeypatch):
                     msg="engine drained")
     assert eng._pool.used() == 0
     assert eng.m_requests.value(labels={"outcome": "cancelled"}) == cancelled + 1
+
+
+def test_the_proxy_tenant_reaches_the_port_engine_hashed(stack, monkeypatch, tmp_path):
+    monkeypatch.setenv("KUBEAI_HISTORY_DIR", str(tmp_path))
+    default_accountant.reset()
+    api = stack[4]
+    (srv,) = _port_replicas(stack, 1, monkeypatch)
+    costs = []
+    record = default_accountant.record_cost
+    monkeypatch.setattr(default_accountant, "record_cost",
+                        lambda t, s, p: (costs.append((t, s, p)), record(t, s, p)))
+    try:
+        status, body = _proxy_post(api, {"model": "m1", "prompt": "hi", "max_tokens": 4},
+                                   headers={"Authorization": "Bearer k1"})
+        assert status == 200, body
+        _qos.await_cond(lambda: costs, msg="the engine's cost record")
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/debug/tenants",
+                                    timeout=10) as r:
+            raw = r.read().decode()
+    finally:
+        default_accountant.reset()
+    tenant = hash_tenant_key("k1")
+    ((t, slot_s, page_s),) = costs
+    rows = json.loads(raw)["tenants"]
+    assert t == tenant and [row["tenant"] for row in rows] == [tenant]
+    assert rows[0]["cost"] == {"slot_seconds": round(slot_s, 4),
+                               "kv_page_seconds": round(page_s, 4)}
+    assert 0 < slot_s <= page_s
+    assert "k1" not in raw.replace(tenant, "")
