@@ -163,6 +163,20 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      launched on both ranks (path "gang"); the decode step's wall,
      device and collective milliseconds. Phase 2 also runs each kernel
      at a tp = 2 rank's shapes (H 16, Kv 4; W8A16 N and K halved).
+ 10. sharded training (phase_sharded_train, budget 120 s; started FIRST,
+     in a child process, while the card is empty: its eight ranks peak
+     near 70-79 GB, and the earlier phases leave ~20 GB allocated in this
+     process; it runs beside phase 1's nvcc build, which needs no card,
+     and phase 2 starts after it ends):
+     ``python3 -m kubeai_tpu_torch.tools.sharded_check``. (a)
+     ring attention at Llama-3.1-8B's attention widths (H 32, Kv 8, h 128,
+     float32, S 8,192) at sp = 2 and 4, thread ranks over host-staged
+     gloo, output and q / k / v gradients against dense attention on the
+     card within 2·S·u; (b) the full-parameter step at Llama-3.1-8B's
+     published widths, 2 layers, float32, B 2 x S 2,048, over a dp = sp =
+     tp = 2 mesh of eight thread ranks against one rank's step: loss,
+     every leaf's gradient, the updated final_norm. One ``sharded_train``
+     line per part. It adds no kernel and launches none of the four.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -4638,6 +4652,67 @@ def _gang_server() -> dict:
     return run
 
 
+SHARDED_BUDGET_S = 120.0
+
+
+def start_sharded_train() -> dict:
+    """Start phase 10's child process (kubeai_tpu_torch/tools/
+    sharded_check.py; see the module docstring), its output in temporary
+    files; phase_sharded_train waits for it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "kubeai_tpu_torch.tools.sharded_check"],
+                            cwd=root, stdout=out, stderr=err, text=True)
+    run = {"proc": proc, "t0": time.monotonic(), "out": out, "err": err}
+
+    def stamp_exit():  # the child's own wall, whichever of it and the build ends first
+        proc.wait()
+        run["t_end"] = time.monotonic()
+
+    threading.Thread(target=stamp_exit, name="sharded-train-wait", daemon=True).start()
+    return run
+
+
+def phase_sharded_train(run: dict) -> dict:
+    """Phase 10 (budget SHARDED_BUDGET_S): wait for the child that
+    start_sharded_train started and check its parts. Its
+    ``sharded_train[...]`` lines are printed with the card's name and
+    power limit."""
+    proc = run["proc"]
+    left = SHARDED_BUDGET_S + 60 - (time.monotonic() - run["t0"])
+    try:
+        proc.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"sharded_train: the check did not end within "
+                             f"{SHARDED_BUDGET_S + 60:.0f} s") from e
+    phase_s = run.get("t_end", time.monotonic()) - run["t0"]
+    for f in (run["out"], run["err"]):
+        f.seek(0)
+    stdout, stderr = run["out"].read(), run["err"].read()
+    if proc.returncode != 0:
+        raise AssertionError(f"sharded_train: exit {proc.returncode}\n{stdout[-3000:]}"
+                             f"\n{stderr[-3000:]}")
+    parts = {}
+    for line in stdout.splitlines():
+        if line.startswith("sharded_train["):
+            name, body = line.split(" ", 1)
+            parts[name] = json.loads(body)
+            log(name, gpu_line(), body)
+    if set(parts) != {"sharded_train[ring]", "sharded_train[step]"}:
+        raise AssertionError(f"sharded_train: parts {sorted(parts)}\n{stdout[-3000:]}")
+    step = parts["sharded_train[step]"]
+    if any(step["kernel_launches"].values()):
+        raise AssertionError(f"sharded_train: the training step launched a kernel: "
+                             f"{step['kernel_launches']}")
+    log(f"sharded_train phase: {phase_s:.1f}s (budget {SHARDED_BUDGET_S:.0f} s; beside the "
+        f"kernel build)")
+    if phase_s > SHARDED_BUDGET_S:
+        raise AssertionError(f"sharded_train phase took {phase_s:.1f} s > {SHARDED_BUDGET_S} s")
+    return parts
+
+
 def phase_gang() -> dict:
     """Phase 9 (budget GANG_BUDGET_S): (d) NCCL capture, (b) the float32
     gang in process, (a) + (c) the two-rank server. Returns {"gang": run}
@@ -4672,7 +4747,14 @@ def main() -> int:
     # 1200 s the run is given.
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     t0 = time.monotonic()
-    phase_env()
+    sharded = start_sharded_train()
+    try:
+        phase_env()
+    except BaseException:
+        sharded["proc"].kill()
+        raise
+    phase_sharded_train(sharded)
+    log(f"elapsed after phases 1 and 10: {time.monotonic() - t0:.1f}s")
     kern = phase_kernels()
     check_decode_grid()
     log(f"elapsed after phases 1-2: {time.monotonic() - t0:.1f}s")

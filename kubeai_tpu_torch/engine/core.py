@@ -775,13 +775,15 @@ class Engine:
         outcome counter, the per-phase histograms from its trace and the
         flight recorder's handoff (spans are assembled on the recorder's
         thread). A request is accounted once, whichever thread gets here
-        first."""
+        first. The outcome is counted before the request leaves
+        ``requests_in_system()``: whoever sees the engine drained also sees
+        every outcome counted."""
         with self._in_system_lock:
             if req.finished:
                 return
             req.finished = True
+            self.m_requests.inc(labels={"outcome": outcome})
             self._in_system -= 1
-        self.m_requests.inc(labels={"outcome": outcome})
         tr = req.trace
         if tr is None:
             return

@@ -7,6 +7,12 @@ stacked [L, ...] layer axis; an int8 weight ``{"int8_q", "int8_s"}``
 (kubeai_tpu/ops/quant.py) becomes the same dict of an int8 and a float32
 tensor. The port imports neither jax nor ml_dtypes:
 bfloat16 leaves arrive as ml_dtypes arrays and move through a uint16 view.
+
+For training over a mesh, ``params_from_jax`` on the host followed by
+parallel/sharding.py's ``shard_mesh_params(params, config, mesh)`` (which
+``train/trainer.py::init_sharded_training(..., params=)`` calls) gives
+every rank its block of the JAX package's initial parameters: a
+``torch.Generator`` cannot draw what ``jax.random.key`` draws.
 """
 
 from __future__ import annotations

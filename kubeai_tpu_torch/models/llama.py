@@ -23,8 +23,7 @@ The model families of the JAX package's catalog run through the same
 forward: Qwen2 (q/k/v biases), Gemma (gelu with tanh, the embedding
 scaled by sqrt(hidden), 1 + w norms, head dim 256), Gemma2 (post norms,
 attention and final softcaps, a query scale, a sliding window on even
-layers) and Mixtral (:func:`moe_mlp`). Ring attention raises
-NotImplementedError naming its ROADMAP item.
+layers) and Mixtral (:func:`moe_mlp`).
 
 Tensor parallelism (``apply(..., tp_group=)``, a parallel/group.py
 TPGroup): *params* are this rank's shard (parallel/sharding.py) and the
@@ -35,6 +34,19 @@ rank's vocab slice of the logits and an all-gather rebuilds them (a tied
 head reads the sharded embedding). A LoRA bank stays whole on every rank:
 a column target uses its columns of B, a row target its rows of A, whose
 partial delta joins the partial sum before the all-reduce.
+
+Training over a mesh (``apply(..., mesh=)``, a parallel/mesh.py Mesh,
+with ``ring=True`` for ring attention; the cache-less path only): *params* are this
+rank's fsdp x tp block (parallel/sharding.py), tokens and positions its
+[B/dp, S/sp] block with global positions. Each layer's dp-split weights
+are all-gathered just before use and their gradients reduce-scattered
+back (group.py ``fsdp_gather``); tp runs Megatron's autograd pair
+(``copy_to_group`` before each column-parallel product,
+``reduce_from_group`` after each row-parallel one, the logits' vocab
+gather); attention is ring attention over the sp group
+(parallel/ring_attention.py) or, on the dense arm, this rank's queries
+against every rank's keys and values, all-gathered over sp. Mixtral
+trains only on tp (ROADMAP item 12c).
 
 Batched multi-LoRA (``apply(..., lora=, lora_rows=)``): a bank from
 :func:`init_lora_bank` holds every adapter's A and B per target, and each
@@ -67,7 +79,15 @@ from kubeai_tpu_torch.ops.paged_decode_attention import (
 )
 from kubeai_tpu_torch.ops.quant import qdot, qdot_many, qgather, qmatT
 from kubeai_tpu_torch.ops.rope import apply_rope, rope_frequencies
-from kubeai_tpu_torch.parallel.sharding import shard_lora_bank
+from kubeai_tpu_torch.parallel.group import (
+    all_gather_grad,
+    copy_to_group,
+    fsdp_gather,
+    gather_last_grad,
+    reduce_from_group,
+)
+from kubeai_tpu_torch.parallel.ring_attention import ring_attention
+from kubeai_tpu_torch.parallel.sharding import llama_fsdp_rules, shard_lora_bank
 
 Params = dict[str, Any]
 
@@ -366,9 +386,10 @@ def apply(
     decode_kernel: str = "ragged",  # paged kernel: "ragged" | "dedicated" | "auto"
     lora: Params | None = None,  # adapter bank from init_lora_bank
     lora_rows: torch.Tensor | None = None,  # [B] adapter row per batch row
-    ring_mesh=None,
     return_hidden: bool = False,  # final-norm hidden states instead of logits
     tp_group=None,  # parallel/group.py TPGroup: params and pool are this rank's shard
+    mesh=None,  # parallel/mesh.py Mesh: the training forward over a mesh
+    ring: bool = False,  # on the mesh: ring attention over sp (else the dense arm)
 ):
     """Run the decoder. Returns (logits [B, S or 1, V] float32, cache), or
     with *return_hidden* (hidden [B, S, D] float32, cache): the final-norm
@@ -378,13 +399,30 @@ def apply(
     pool page page_table[b, p // page] at offset p % page; writes past the
     table's span go to the trash page; attention either runs a paged
     kernel in place or gathers the rows' pages into a contiguous view.
-    Without a cache: attention is causal over the S new tokens only."""
+    Without a cache: attention is causal over the S new tokens only.
+
+    With *mesh* (the training path over a mesh, no cache):
+    *params* are this rank's block and tokens / positions its [B/dp, S/sp]
+    block (global positions); the logits are this rank's rows over the
+    whole vocab (see the module docstring)."""
     check_supported(config)
     if lora is not None and lora_rows is None:
         raise ValueError("lora needs lora_rows (one adapter row per batch row)")
-    if ring_mesh is not None:
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP queue 1 item 12b)")
+    if ring:
+        # The JAX package's asserts: ring attention derives its mask from
+        # the blocks' positions and has no window or softcap arm.
+        if cache is not None:
+            raise ValueError("ring attention is the cache-less (training) path")
+        if config.sliding_window != 0 or config.attn_softcap != 0.0:
+            raise ValueError("ring attention does not support sliding windows or softcap")
+        if mesh is None:
+            raise ValueError("ring attention runs over a mesh (mesh=)")
+    if mesh is not None:
+        if cache is not None or tp_group is not None:
+            raise ValueError("the mesh forward is the cache-less (training) path; "
+                             "serving takes tp_group")
+        check_mesh_supported(config, mesh)
+        tp_group = mesh.tp
     if cache is not None and page_table is None:
         raise NotImplementedError(
             "the dense slot cache is not ported; pass a paged pool and page_table"
@@ -401,8 +439,21 @@ def apply(
 
     def reduce(t):
         """The sum of the ranks' partial *t* (row-parallel outputs)."""
+        if mesh is not None:
+            return reduce_from_group(t, tp_group)
         return tp_group.all_reduce(t) if tp > 1 else t
 
+    def enter(t):
+        """The input of a column-parallel product (its gradient is summed
+        over tp on the mesh; serving needs nothing)."""
+        return copy_to_group(t, tp_group) if mesh is not None else t
+
+    fsdp = llama_fsdp_rules(config) if mesh is not None else None
+    embed = params["embed"]
+    if fsdp is not None:
+        embed = all_gather_grad(embed, mesh.dp, fsdp["embed"])
+        if config.tie_word_embeddings:  # the head reads it too
+            params = dict(params, embed=embed)
     if tp > 1:
         # This rank's vocab range [rank*Vl, (rank+1)*Vl): a masked lookup
         # (ids clamped as the gather clamps them at tp = 1), zeros for the
@@ -410,12 +461,13 @@ def apply(
         Vl = config.vocab_size // tp
         local = torch.clamp(tokens, 0, config.vocab_size - 1) - tp_group.rank * Vl
         mine = (local >= 0) & (local < Vl)
-        x = qgather(params["embed"], torch.where(mine, local, 0), dtype)
+        x = qgather(embed, torch.where(mine, local, 0), dtype)
         x = reduce(x * mine[..., None].to(dtype))
         if lora is not None:
             lora = shard_lora_bank(lora, tp_group.rank, tp)
     else:
-        x = qgather(params["embed"], tokens, dtype)
+        x = qgather(embed, tokens, dtype)
+    del embed  # the gathered table of an untied head is done with
     if config.embed_scale:
         # Gemma scales the embedding by sqrt(hidden) rounded to the
         # compute dtype (the JAX package's jnp.asarray(..., x.dtype)); a
@@ -469,6 +521,9 @@ def apply(
         w_pages = torch.where(positions < skv, w_pages, 0)
         w_offs = positions % page
         kv_lengths = positions[:, -1] + 1  # keys 0..last position inclusive
+    elif mesh is not None and mesh.shape["sp"] > 1 and not ring:
+        # The dense arm: this rank's queries against every rank's keys.
+        key_positions = mesh.sp.all_gather_dim(positions, 1)[:, None, :]
     else:
         key_positions = positions[:, None, :]
     mask = key_positions <= positions[:, :, None]  # [B, S, Skv]
@@ -488,6 +543,11 @@ def apply(
 
     for li in range(L):
         w = {k: _layer_slice(v, li) for k, v in params["layers"].items()}
+        if fsdp is not None:
+            split = [k for k in w if fsdp["layers"][k] is not None]
+            x, full = fsdp_gather(x, [w[k] for k in split],
+                                  [fsdp["layers"][k] - 1 for k in split], mesh.dp)
+            w.update(zip(split, full))
 
         def delta(out, inp, name):
             """*out* (the projection of *inp*) plus its LoRA delta."""
@@ -501,7 +561,7 @@ def apply(
         layer_mask = mask
         if windowed and (config.sliding_layers != "even" or li % 2 == 0):
             layer_mask = window_mask
-        attn_in = norm(x, w["ln1"])
+        attn_in = enter(norm(x, w["ln1"]))
         q, k, v = qdot_many(attn_in, (w["wq"], w["wk"], w["wv"]))
         if config.qkv_bias:
             q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
@@ -545,7 +605,14 @@ def apply(
                 v_att = gathered[..., 1::2, :].reshape(B, skv, Kv, h)
                 attn_out = attention(q, k_att, v_att, layer_mask, scale=config.query_scale,
                                      softcap=config.attn_softcap)
+        elif ring:
+            attn_out = ring_attention(q, k, v, mesh.sp, scale=config.query_scale)
         else:
+            if mesh is not None:
+                # Every rank's K and V (one gather, one reduce-scatter of
+                # their gradient), at the global positions of the mask.
+                kv = all_gather_grad(torch.stack([k, v]), mesh.sp, 2)
+                k, v = kv[0], kv[1]
             attn_out = attention(q, k, v, layer_mask, scale=config.query_scale,
                                  softcap=config.attn_softcap)
         attn_flat = attn_out.reshape(B, S, H * h)
@@ -554,7 +621,7 @@ def apply(
             o = norm(o, w["ln1b"])
         x = x + o
 
-        mlp_in = norm(x, w["ln2"])
+        mlp_in = enter(norm(x, w["ln2"]))
         if config.num_experts > 0:
             m = reduce(moe_mlp(mlp_in, w["wr"], w["wg"], w["wu"], w["wd"],
                                config.num_experts_per_tok, config.moe_capacity_factor))
@@ -566,9 +633,13 @@ def apply(
             m = norm(m, w["ln2b"])
         x = x + m
 
+    if fsdp is not None and not config.tie_word_embeddings:
+        x, (lm_head,) = fsdp_gather(x, [params["lm_head"]], [fsdp["lm_head"]], mesh.dp)
+        params = dict(params, lm_head=lm_head)
     x = norm(x, params["final_norm"])
     if return_hidden:
         return x.float(), cache
+    x = enter(x)
     if logits_idx is not None:
         x = x[torch.arange(B, device=dev)[:, None], logits_idx.long()[:, None]]  # [B, 1, D]
     if config.tie_word_embeddings:
@@ -576,11 +647,27 @@ def apply(
     else:
         logits = qdot(x, params["lm_head"])
     logits = logits.float()
-    if tp > 1:
+    if mesh is not None:
+        logits = gather_last_grad(logits, tp_group)
+    elif tp > 1:
         logits = tp_group.all_gather_last(logits)  # this rank's vocab slice -> all of it
     if config.logit_softcap > 0.0:
         logits = config.logit_softcap * torch.tanh(logits / config.logit_softcap)
     return logits, cache
+
+
+def check_mesh_supported(config: ModelConfig, mesh) -> None:
+    """Raise NotImplementedError for a MoE config on a mesh that splits
+    the tokens (dp * sp > 1) or the experts (ep > 1): the JAX package
+    takes moe_mlp's capacity over the global B*S tokens, a rank of the
+    port would take it over its own block and drop other tokens (ROADMAP
+    queue 1 item 12c)."""
+    if config.num_experts > 0 and (mesh.shape["dp"] * mesh.shape["sp"] > 1
+                                   or mesh.shape["ep"] > 1):
+        raise NotImplementedError(
+            f"a MoE config on a mesh with dp*sp > 1 or ep > 1 ({mesh.shape}) is not ported "
+            f"yet: the expert capacity is taken over the global tokens (ROADMAP queue 1 "
+            f"item 12c)")
 
 
 def _layer_slice(leaf, li: int):

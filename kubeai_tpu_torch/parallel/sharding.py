@@ -27,6 +27,14 @@ An int8 leaf ({"int8_q", "int8_s"}, engine/weights.py) splits its values
 as the weight; its per-output-channel scales [.., 1, out] split with a
 column-parallel weight and stay whole with a row-parallel one (the
 scale is taken over the whole input dim, as the JAX package's is).
+
+Training over a mesh (parallel/mesh.py) adds the JAX package's fsdp
+split (``llama_param_specs(fsdp=True)``): :func:`llama_fsdp_rules` gives
+each leaf's dimension split over dp, the one its tp split leaves alone
+(the input dim of wq wk wv wg wu, the output dim of wo wd, the hidden
+dim of embed and lm_head); norms and biases have none. A mesh rank
+holds the block of its (dp, tp) coordinates and the same block as every
+rank along sp and ep.
 """
 
 from __future__ import annotations
@@ -61,6 +69,49 @@ def llama_split_rules(config: ModelConfig) -> dict[str, Any]:
     if not config.tie_word_embeddings:
         rules["lm_head"] = 1
     return rules
+
+
+def llama_fsdp_rules(config: ModelConfig) -> dict[str, Any]:
+    """The dimension of every leaf that fsdp splits over dp (None: not
+    split), in the tree's own structure: the "dp" entries of the JAX
+    package's ``llama_param_specs(config, fsdp=True)``."""
+    layers: dict[str, int | None] = {"ln1": None, "ln2": None,
+                                     "wq": 1, "wk": 1, "wv": 1, "wo": 2}
+    if config.qkv_bias:
+        layers.update({b: None for b in BIAS})
+    if config.post_norms:
+        layers.update({"ln1b": None, "ln2b": None})
+    if config.num_experts > 0:
+        layers.update({"wr": 1, "wg": 2, "wu": 2, "wd": 3})
+    else:
+        layers.update({"wg": 1, "wu": 1, "wd": 2})
+    rules: dict[str, Any] = {"embed": 1, "final_norm": None, "layers": layers}
+    if not config.tie_word_embeddings:
+        rules["lm_head"] = 0
+    return rules
+
+
+def _rule(rules, key_path):
+    for k in key_path:
+        rules = rules[k]
+    return rules
+
+
+def key_paths(params: dict):
+    """(key_path, leaf) of every tensor of a parameter tree, in order:
+    ("embed",), ("layers", "wq"), ..."""
+    for key, leaf in params.items():
+        if key == "layers":
+            for k, v in leaf.items():
+                yield ("layers", k), v
+        else:
+            yield (key,), leaf
+
+
+def _put(tree: dict, key_path, value) -> None:
+    for k in key_path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[key_path[-1]] = value
 
 
 def check_divisible(config: ModelConfig, tp: int) -> None:
@@ -124,6 +175,44 @@ def shard_params(params: dict, config: ModelConfig, group) -> dict:
                         for k, v in leaf.items()}
         else:
             out[key] = shard_group((key,), leaf, config, group.rank, tp)
+    return out
+
+
+def shard_mesh_params(params: dict, config: ModelConfig, mesh) -> dict:
+    """A parallel/mesh.py Mesh rank's fsdp x tp block of the full tree
+    *params* (:func:`shard_mesh_group` of each leaf)."""
+    out: dict = {}
+    for path, leaf in key_paths(params):
+        _put(out, path, shard_mesh_group(path, leaf, config, mesh))
+    return out
+
+
+def shard_mesh_group(key_path: tuple[str, ...], leaf, config: ModelConfig, mesh):
+    """A mesh rank's block of the full leaf at *key_path*: its tp part,
+    then its dp part of that on the fsdp dim."""
+    check_divisible(config, mesh.shape["tp"])
+    part = shard_group(key_path, leaf, config, mesh.coords["tp"], mesh.shape["tp"])
+    dim = _rule(llama_fsdp_rules(config), key_path)
+    if dim is None:
+        return part
+    return shard_leaf(part, dim, mesh.coords["dp"], mesh.shape["dp"])
+
+
+def gather_params(params: dict, config: ModelConfig, mesh) -> dict:
+    """The whole tree from every mesh rank's block *params* (a parameter
+    tree or one of its gradients): each leaf all-gathered over dp on its
+    fsdp dim, then over tp on its split dim. Every rank of the mesh calls
+    it; the result is on the leaves' device, outside autograd."""
+    tp_rules, dp_rules = llama_split_rules(config), llama_fsdp_rules(config)
+    out: dict = {}
+    with torch.no_grad():
+        for path, leaf in key_paths(params):
+            dp_dim, tp_dim = _rule(dp_rules, path), _rule(tp_rules, path)
+            if dp_dim is not None:
+                leaf = mesh.dp.all_gather_dim(leaf, dp_dim)
+            if tp_dim is not None:
+                leaf = mesh.tp.all_gather_dim(leaf, tp_dim)
+            _put(out, path, leaf)
     return out
 
 

@@ -235,11 +235,17 @@ class TestEngineContainment:
         drain_engine(eng)
         assert eng._pool.used() == 0
 
-    def test_scheduler_fault_recovers_and_serves_again(self, eng_srv):
+    def test_scheduler_fault_recovers_and_serves_again(self, eng_srv, monkeypatch):
         eng, srv = eng_srv
+        # The reset fails whatever is queued when it runs, which can be
+        # after the fault is counted: wait for the reset itself.
+        reset = threading.Event()
+        recover = eng._recover
+        monkeypatch.setattr(eng, "_recover", lambda: (recover(), reset.set()))
         faults.arm_spec("engine.step", "error:1")
         _await(lambda: any(f["name"] == "engine.step" and f["fired"] >= 1
                            for f in faults.list_faults()), msg="injected scheduler fault")
+        assert reset.wait(30), "the scheduler's reset after the fault"
         # The loop's reset path rebuilt the device state; serving resumes.
         ids, text, fin = eng.generate(eng.tokenizer.encode("still alive"),
                                       mk_params(max_tokens=4), timeout=60)

@@ -1502,3 +1502,32 @@ def test_two_thread_gloo_tp2_decode_step_matches_tp1(cuda, dtype):
         assert (a - want_a).abs().max().item() <= tol
         assert (b - want_b).abs().max().item() <= tol
     assert torch.equal(ranks[0][0], ranks[1][0]) and torch.equal(ranks[0][1], ranks[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+def test_ring_attention_thread_ranks_match_dense_on_the_card(cuda, sp):
+    """Ring attention at sp thread ranks sharing the card (gloo staged
+    through pinned host memory; the backward's collectives run on each
+    rank's own thread, not the card's shared autograd thread) against the
+    plain dense attention, output and q / k / v gradients within 2·S·u of
+    max |ref| (kubeai_tpu_torch/tools/sharded_check.py at narrow widths)."""
+    from kubeai_tpu_torch.tools.sharded_check import RING_SMALL, ring_check
+
+    out = ring_check(**{**RING_SMALL, "sps": (sp,)}, device=cuda)
+    run = out["sp"][str(sp)]
+    assert max(run["rel_err"].values()) <= out["tol_rel"]
+    assert run["ring_passes"] == 2 * (sp - 1)
+
+
+@pytest.mark.gpu
+def test_sharded_step_dp2_sp2_tp2_matches_one_rank_on_the_card(cuda):
+    """The training step over a dp = sp = tp = 2 mesh of eight thread
+    ranks on the card against one rank's step from the same seeded
+    weights (narrow widths): the loss, every leaf's gradient and the
+    updated final_norm within sharded_check's tolerances."""
+    from kubeai_tpu_torch.tools.sharded_check import GRAD_TOL, small_config, step_check
+
+    out = step_check(small_config(), 2, 256, device=cuda)
+    assert out["grad_rel_err_max"] <= GRAD_TOL and out["loss_rel_err"] <= 1e-4
+    assert out["collective_calls_by_kind"]["dp.reduce_scatter"] > 0

@@ -147,13 +147,38 @@ def test_init_params_is_seeded():
 
 
 def test_lora_and_ring_attention_raise(model):
-    """Ring attention is not ported (it names its ROADMAP item); a LoRA
-    bank without the batch rows' adapter indices is refused (LoRA itself:
-    tests/test_torch_lora.py)."""
+    """Ring attention keeps the JAX package's asserts (no cache, no
+    sliding window, no softcap: it derives its mask from the blocks'
+    positions); a LoRA bank without the batch rows' adapter indices is
+    refused (LoRA itself: tests/test_torch_lora.py)."""
+    from kubeai_tpu_torch.parallel.mesh import single_rank_mesh
+
     _, tc, _, tp = model
+    mesh = single_rank_mesh("cpu")
     toks = torch.zeros((1, 4), dtype=torch.int64)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.apply(tp, tc, toks, pos, ring_mesh=object())
+    pool = tl.init_paged_cache(tc, 3, 16, "cpu")
+    table = torch.tensor([[1]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="cache-less"):
+        tl.apply(tp, tc, toks, pos, pool, page_table=table, mesh=mesh, ring=True)
+    for kw in (dict(sliding_window=8), dict(attn_softcap=50.0)):
+        with pytest.raises(ValueError, match="sliding windows or softcap"):
+            tl.apply(tp, tc.replace(**kw), toks, pos, mesh=mesh, ring=True)
     with pytest.raises(ValueError, match="lora_rows"):
         tl.apply(tp, tc, toks, pos, lora={})
+
+
+def test_ring_mesh_of_one_rank_matches_jax(model):
+    """``apply(mesh=, ring=True)`` on a mesh of one rank (ring attention over
+    one block, no collective) against the JAX cache-less forward, as
+    test_cacheless_forward_matches_jax holds the dense path."""
+    from kubeai_tpu_torch.parallel.mesh import single_rank_mesh
+
+    jc, tc, jp, tp = model
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, tc.vocab_size, (2, 12)).astype(np.int32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12))
+    want, _ = jl.apply(jp, jc, jnp.asarray(toks), jnp.asarray(pos))
+    got, _ = tl.apply(tp, tc, torch.from_numpy(toks), torch.from_numpy(pos.copy()),
+                      mesh=single_rank_mesh("cpu"), ring=True)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)

@@ -6,8 +6,11 @@ test_torch_gpu.py):
 - quantize / quantize_rows: int8 values and scales bit-identical, from
   numpy and from torch input, against the JAX function on numpy (its
   host path) and on jax arrays;
-- qdot / qmatT / qgather: within 1e-5 in float32 and within one bf16
-  rounding in bf16, stacked per-layer scales included;
+- qdot / qmatT / qgather: in float32 both packages within the float32
+  accumulation bound of float64 truth (K·u·(|x|@|q|)·|s| plus one
+  rounding of the scale's product) and the port's error at most 4x
+  JAX's plus one ulp of the largest output; within one bf16 rounding of
+  each other in bf16; stacked per-layer scales included;
 - qdot_many (the grouped projections wq|wk|wv, wg|wu): each output of
   its plain version against the JAX qdot of that weight;
 - the kernels' regime and split plan at the main path's shapes;
@@ -104,10 +107,53 @@ def _as(x, dtype):
     return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
 
 
-def _close(got, want, dtype):
+U32 = 2.0**-24  # float32 unit roundoff
+PORT_VS_JAX = 4.0  # the port's max error against truth, at most this many times JAX's
+
+
+def _truth(x, w, rows=False):
+    """(float64 x @ W, the float32 bound on either package's error) for
+    numpy *x* and a weight *w* of the test: plain [K, N], or int8 values
+    and scales (per column, or per row of an [N, K] table with *rows*,
+    as qmatT takes it). A float32 product of K terms is within
+    K·u·(|x|@|q|)·|s| of the truth, and the scale's product adds one
+    rounding of the output."""
+    if isinstance(w, dict):
+        q = np.asarray(w[tq.QKEY], np.float64)
+        s = np.asarray(w[tq.SKEY], np.float64)
+        s = s.squeeze(-1) if rows else s.squeeze(-2)
+    else:
+        q, s = np.asarray(w, np.float64), 1.0
+    if rows:
+        q = np.swapaxes(q, -1, -2)
+    x = np.asarray(x, np.float64)
+    truth = (x @ q) * s
+    bound = q.shape[-2] * U32 * (np.abs(x) @ np.abs(q)) * np.abs(s) + U32 * np.abs(truth)
+    return truth, bound
+
+
+def _lookup_truth(w, idx):
+    """(float64 rows *idx* of a plain or per-row-quantized table, one
+    float32 rounding of them)."""
+    if isinstance(w, dict):
+        rows = np.asarray(w[tq.QKEY], np.float64)[idx] * np.asarray(w[tq.SKEY], np.float64)[idx]
+    else:
+        rows = np.asarray(w, np.float64)[idx]
+    return rows, U32 * np.abs(rows)
+
+
+def _close(got, want, dtype, truth=None):
     got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
     if dtype == "float32":
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        # Both against float64 truth: the two packages sum in different
+        # orders, so they may differ by up to twice the bound.
+        exact, bound = truth
+        err_port, err_jax = np.abs(got - exact), np.abs(want - exact)
+        assert (err_port <= bound).all(), (err_port - bound).max()
+        assert (err_jax <= bound).all(), (err_jax - bound).max()
+        ulp = U32 * np.abs(exact).max()
+        assert err_port.max() <= PORT_VS_JAX * err_jax.max() + ulp, (err_port.max(),
+                                                                     err_jax.max())
     else:
         # One bf16 rounding of either side (2^-8 relative) apart, after the
         # product and the scale are rounded to bf16 in both frameworks.
@@ -123,13 +169,14 @@ def test_qdot_matches_jax(dtype, M, K, N, stacked):
     jx, tx = _as(x, dtype)
     if stacked:  # per-layer slices of a stacked weight, as the model takes them
         for li in range(stacked):
-            _close(tq.qdot(tx[li], {k: v[li] for k, v in tw.items()}),
-                   jq.qdot(jx[li], {k: v[li] for k, v in jw.items()}), dtype)
+            wl = {k: v[li] for k, v in jw.items()}
+            _close(tq.qdot(tx[li], {k: v[li] for k, v in tw.items()}), jq.qdot(jx[li], wl),
+                   dtype, _truth(x[li], wl))
     else:
-        _close(tq.qdot(tx, tw), jq.qdot(jx, jw), dtype)
+        _close(tq.qdot(tx, tw), jq.qdot(jx, jw), dtype, _truth(x, jw))
     # Unquantized weights take the plain product.
     jwp, twp = _as(w, dtype)
-    _close(tq.qdot(tx, twp), jq.qdot(jx, jwp), dtype)
+    _close(tq.qdot(tx, twp), jq.qdot(jx, jwp), dtype, _truth(x, w))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -145,10 +192,10 @@ def test_qdot_many_matches_jax(dtype):
     assert len(got) == 3
     for g, jw in zip(got, jws):
         assert g.dtype == tx.dtype and g.shape == (2, 5, jw[jq.QKEY].shape[1])
-        _close(g, jq.qdot(jx, jw), dtype)
+        _close(g, jq.qdot(jx, jw), dtype, _truth(x, jw))
     plain = [_as(w, dtype) for w in ws]
-    for g, (jw, tw) in zip(tq.qdot_many(tx, [tw for _, tw in plain]), plain):
-        _close(g, jq.qdot(jx, jw), dtype)
+    for g, (jw, tw), w in zip(tq.qdot_many(tx, [tw for _, tw in plain]), plain, ws):
+        _close(g, jq.qdot(jx, jw), dtype, _truth(x, w))
 
 
 # Llama-3.1-8B's weights (K, N): wq / wo, wk / wv, wg / wu, wd, the head.
@@ -201,12 +248,14 @@ def test_qmatT_and_qgather_match_jax(dtype):
     got = tq.qgather(te, torch.from_numpy(idx), tdt)
     want = jq.qgather(je, jnp.asarray(idx), jdt)
     assert got.dtype == tdt
-    _close(got, want, dtype)
-    jx, tx = _as(rng.normal(size=(3, 16)).astype(np.float32), dtype)
-    _close(tq.qmatT(tx, te), jq.qmatT(jx, je), dtype)
+    _close(got, want, dtype, _lookup_truth(je, idx))
+    x = rng.normal(size=(3, 16)).astype(np.float32)
+    jx, tx = _as(x, dtype)
+    _close(tq.qmatT(tx, te), jq.qmatT(jx, je), dtype, _truth(x, je, rows=True))
     jep, tep = _as(emb, dtype)
-    _close(tq.qmatT(tx, tep), jq.qmatT(jx, jep), dtype)
-    _close(tq.qgather(tep, torch.from_numpy(idx), tdt), jq.qgather(jep, jnp.asarray(idx), jdt), dtype)
+    _close(tq.qmatT(tx, tep), jq.qmatT(jx, jep), dtype, _truth(x, emb, rows=True))
+    _close(tq.qgather(tep, torch.from_numpy(idx), tdt), jq.qgather(jep, jnp.asarray(idx), jdt), dtype,
+           _lookup_truth(emb, idx))
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["plain", "int8"])

@@ -5,7 +5,9 @@ weight_decay=0.0) against torch AdamW) from one set of weights carried
 across by ``params_from_jax``, for a Llama-style config and a
 Gemma2-style one (sliding window, both softcaps, post-norms, 1 + w
 norms, a tied head), so the gradients cross every family option of the
-cache-less path. The refusals name their ROADMAP items.
+cache-less path. A mesh of two thread ranks and ring attention on one
+device train; the refusals name their ROADMAP items (the sharded step
+against JAX's: tests/test_torch_sharded_trainer.py).
 
 Adam divides each gradient by its running norm plus eps (1e-8), so an
 element whose gradient sums to within a few eps of zero moves by
@@ -29,7 +31,9 @@ from jax.sharding import Mesh
 from kubeai_tpu.models.base import ModelConfig as JMC
 from kubeai_tpu.train import trainer as jtrainer
 from kubeai_tpu_torch.models.base import ModelConfig as TMC
+from kubeai_tpu_torch.models import llama as tl
 from kubeai_tpu_torch.models.convert import params_from_jax
+from kubeai_tpu_torch.parallel.mesh import run_local_mesh
 from kubeai_tpu_torch.train import trainer as ttrainer
 
 from _torch_families import BASE, FAMILIES, jax_params
@@ -126,21 +130,63 @@ def test_init_sharded_training_on_one_device_lowers_the_loss():
 
 
 def test_refusals_name_their_roadmap_items():
+    """bf16 and a missing card are refused; a MoE config on a mesh that
+    splits tokens or experts names ROADMAP item 12c; a mesh of several
+    devices must be a rank's Mesh (a shape alone has no process groups).
+    A mesh and ring attention train (the two cases below)."""
     _, tc = _configs("llama")
-    for axes in (dict(dp=2, sp=1), dict(dp=1, sp=4)):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            ttrainer.init_sharded_training(tc, mesh=_MeshShape(**axes), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ttrainer.init_sharded_training(tc, ring_attention=True, device="cpu")
     with pytest.raises(ValueError, match="float32"):
         ttrainer.init_sharded_training(tc.replace(dtype="bfloat16"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrainer.init_sharded_training(tc)
+    with pytest.raises(TypeError, match="Mesh"):
+        ttrainer.init_sharded_training(tc, mesh=_MeshShape(dp=2, sp=1), device="cpu")
+    moe = TMC(**{**BASE, "num_heads": 4, "num_kv_heads": 2, "num_experts": 4,
+                 "num_experts_per_tok": 2})
+
+    def rank(mesh):
+        with pytest.raises(NotImplementedError, match="item 12c"):
+            ttrainer.init_sharded_training(moe, mesh, device="cpu")
+        return True
+
+    assert all(run_local_mesh(dict(dp=2), rank, "cpu"))
     params, _, _ = ttrainer.init_sharded_training(tc, mesh=_MeshShape(dp=1, sp=1), device="cpu")
-    t = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ttrainer.loss_fn(params, tc, t, t, t, ring_mesh=object())
+    assert isinstance(params["embed"], torch.Tensor)
+
+
+def test_a_mesh_of_two_ranks_trains():
+    """dp = 2 over two thread ranks from the one-device weights: the same
+    loss as one device, and the loss falls over four steps."""
+    _, tc = _configs("llama")
+    full = tl.init_params(tc, torch.Generator().manual_seed(1), device="cpu",
+                          dtype=torch.float32)
+    batch = _batches(1, seed=4)[0]
+    _, _, one = ttrainer.init_sharded_training(tc, lr=1e-2, device="cpu", params=full)
+    want = float(one({k: torch.from_numpy(v) for k, v in batch.items()}))
+
+    def rank(mesh):
+        _, _, step = ttrainer.init_sharded_training(tc, mesh, lr=1e-2, params=full)
+        return [float(step(batch)) for _ in range(4)]
+
+    for losses in run_local_mesh(dict(dp=2), rank, "cpu"):
+        np.testing.assert_allclose(losses[0], want, rtol=1e-5)
+        assert losses[-1] < losses[0], losses
+
+
+def test_ring_attention_on_one_device_trains():
+    """``ring_attention=True`` without a mesh: a mesh of one rank, ring
+    attention over one block; its first step's loss equals the dense
+    one-device step's."""
+    _, tc = _configs("llama")
+    b = {k: torch.from_numpy(v) for k, v in _batches(1, seed=4)[0].items()}
+    params, optimizer, step = ttrainer.init_sharded_training(tc, seed=1, lr=1e-2,
+                                                             ring_attention=True, device="cpu")
+    assert isinstance(optimizer, torch.optim.AdamW)
+    _, _, dense = ttrainer.init_sharded_training(tc, seed=1, lr=1e-2, device="cpu")
+    losses = [float(step(b)) for _ in range(3)]
+    np.testing.assert_allclose(losses[0], float(dense(b)), rtol=1e-5)
+    assert losses[-1] < losses[0], losses
 
 
 class _MeshShape:
