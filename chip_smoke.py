@@ -175,8 +175,14 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      card within 2·S·u; (b) the full-parameter step at Llama-3.1-8B's
      published widths, 2 layers, float32, B 2 x S 2,048, over a dp = sp =
      tp = 2 mesh of eight thread ranks against one rank's step: loss,
-     every leaf's gradient, the updated final_norm. One ``sharded_train``
-     line per part. It adds no kernel and launches none of the four.
+     every leaf's gradient, the updated final_norm; (c) the same step for
+     Mixtral-8x7B at its published widths, 1 layer, float32, capacity
+     factor 0.5, B 2 x S 1,024, over a dp = ep = tp = 2 mesh (experts
+     split over ep, routing over the global tokens): top-k ids and keep
+     masks equal to one rank's, the loss within 1e-6, gradients within
+     1e-5 of each leaf's max |g|, pairs dropped (must be > 0). One
+     ``sharded_train`` line per part. It adds no kernel and launches none
+     of the four.
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -4700,12 +4706,16 @@ def phase_sharded_train(run: dict) -> dict:
             name, body = line.split(" ", 1)
             parts[name] = json.loads(body)
             log(name, gpu_line(), body)
-    if set(parts) != {"sharded_train[ring]", "sharded_train[step]"}:
+    if set(parts) != {"sharded_train[ring]", "sharded_train[step]", "sharded_train[moe]"}:
         raise AssertionError(f"sharded_train: parts {sorted(parts)}\n{stdout[-3000:]}")
-    step = parts["sharded_train[step]"]
-    if any(step["kernel_launches"].values()):
-        raise AssertionError(f"sharded_train: the training step launched a kernel: "
-                             f"{step['kernel_launches']}")
+    for name in ("sharded_train[step]", "sharded_train[moe]"):
+        if any(parts[name]["kernel_launches"].values()):
+            raise AssertionError(f"{name}: the training step launched a kernel: "
+                                 f"{parts[name]['kernel_launches']}")
+    moe = parts["sharded_train[moe]"]
+    if not moe["routes_equal"] or moe["routing"]["dropped"] == 0:
+        raise AssertionError(f"sharded_train[moe]: routes equal {moe['routes_equal']}, "
+                             f"routing {moe['routing']} (capacity factor 0.5 must drop pairs)")
     log(f"sharded_train phase: {phase_s:.1f}s (budget {SHARDED_BUDGET_S:.0f} s; beside the "
         f"kernel build)")
     if phase_s > SHARDED_BUDGET_S:

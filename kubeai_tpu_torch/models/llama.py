@@ -45,8 +45,10 @@ back (group.py ``fsdp_gather``); tp runs Megatron's autograd pair
 ``reduce_from_group`` after each row-parallel one, the logits' vocab
 gather); attention is ring attention over the sp group
 (parallel/ring_attention.py) or, on the dense arm, this rank's queries
-against every rank's keys and values, all-gathered over sp. Mixtral
-trains only on tp (ROADMAP item 12c).
+against every rank's keys and values, all-gathered over sp. A MoE layer
+(:func:`moe_mlp_mesh`) routes over the global tokens and runs this
+rank's experts (split over ep) on its own tokens; its input takes
+Megatron's pair over the (ep, tp) group instead of tp.
 
 Batched multi-LoRA (``apply(..., lora=, lora_rows=)``): a bank from
 :func:`init_lora_bank` holds every adapter's A and B per target, and each
@@ -331,7 +333,52 @@ def moe_route(xt, wr, k: int):
     return router, torch.sort(router, dim=-1, descending=True, stable=True)[1][:, :k]
 
 
-def moe_mlp(x, wr, wg, wu, wd, num_experts_per_tok: int, capacity_factor: float = 2.0):
+def moe_capacity(T: int, E: int, k: int, capacity_factor: float) -> int:
+    """Each expert's capacity for T tokens: C = ceil(k*T/E * factor), at
+    least 1 (the JAX package's)."""
+    return max(int(np.ceil(k * T / E * capacity_factor)), 1)
+
+
+def moe_slots(expert, E: int, valid=None):
+    """Each pair's place in its expert's queue, pairs in order: expert
+    [N] (the (token, choice) pairs, token-major) -> [N]; with *valid* [N]
+    bool, only the valid pairs take places."""
+    onehot = F.one_hot(expert, E)
+    if valid is not None:
+        onehot = onehot * valid[:, None]
+    return (torch.cumsum(onehot, dim=0) - onehot).gather(1, expert[:, None])[:, 0]
+
+
+def _moe_experts(xt, expert, slot, keep, weights, C: int, wg, wu, wd):
+    """Σ over each token's kept pairs of its weight times the pair's
+    expert FFN of the token: [T, D] float32. xt [T, D]; expert, slot,
+    keep [T*k] per pair (token-major); weights [T, k]; wg/wu [E, D, F],
+    wd [E, F, D]. A kept pair runs as row slot of its expert's [C, D]
+    batch (kept pairs have distinct (expert, slot) rows); dropped ones go
+    to one spare row past the E*C real ones and contribute zero. The JAX
+    package dispatches and combines with one-hot einsums, each output a
+    sum of exactly one term; index scatters and gathers move the same
+    values, and the expert products are batched matmuls over [E, C, D]
+    (as in the JAX package, outside any kernel)."""
+    T, D = xt.shape
+    E = wg.shape[0]
+    n = expert.numel()
+    row = torch.where(keep, expert * C + slot, E * C)
+    src = torch.arange(n, device=xt.device) // (n // T)  # the token of each pair
+    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    xe[row] = xt[src]
+    xe = xe[: E * C].reshape(E, C, D)
+    hid = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
+    ye = torch.bmm(hid, wd).reshape(E * C, D)  # [E*C, D]
+
+    w_flat = torch.where(keep, weights.reshape(n), 0.0)
+    picked = ye[torch.clamp(row, max=E * C - 1)].float()
+    y = torch.where(keep[:, None], picked, 0.0) * w_flat[:, None]
+    return y.reshape(T, n // T, D).sum(dim=1)
+
+
+def moe_mlp(x, wr, wg, wu, wd, num_experts_per_tok: int, capacity_factor: float = 2.0,
+            routes: list | None = None):
     """Mixtral's sparse MoE FFN with the JAX package's GShard
     static-capacity dispatch (kubeai_tpu/models/llama.py::moe_mlp).
 
@@ -339,39 +386,68 @@ def moe_mlp(x, wr, wg, wu, wd, num_experts_per_tok: int, capacity_factor: float 
     (:func:`moe_route`) with softmax-over-top-k weights; the (token, choice)
     pairs, token-major, fill each expert's capacity C = ceil(k*T/E *
     factor) in order, and pairs past it are dropped (contribute zero).
-    The JAX package dispatches and combines with one-hot einsums, each
-    output a sum of exactly one term; here index scatters and gathers
-    move the same values, and the expert products are batched matmuls
-    over [E, C, D] (as in the JAX package, outside any kernel)."""
+    *routes*, if given, gets (top-k ids [B, S, k], keep [B, S, k])."""
     B, S, D = x.shape
     E = wr.shape[-1]
     k = num_experts_per_tok
     T = B * S
-    C = max(int(np.ceil(k * T / E * capacity_factor)), 1)
-    dev = x.device
+    C = moe_capacity(T, E, k, capacity_factor)
 
     xt = x.reshape(T, D)
     router, top_idx = moe_route(xt, wr, k)
     weights = torch.softmax(router.gather(1, top_idx), dim=-1)  # over the chosen experts
-
-    expert = top_idx.reshape(T * k)  # (token, choice), token-major
-    onehot = F.one_hot(expert, E)  # [T*k, E]
-    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, expert[:, None])[:, 0]
+    expert = top_idx.reshape(T * k)
+    pos = moe_slots(expert, E)
     keep = pos < C
-    # Kept pairs have distinct (expert, position) rows; dropped ones go
-    # to one spare row past the E*C real ones.
-    row = torch.where(keep, expert * C + pos, E * C)
-    src = torch.arange(T * k, device=dev) // k  # the token of each pair
-    xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
-    xe[row] = xt[src]
-    xe = xe[: E * C].reshape(E, C, D)
-    hid = F.silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
-    ye = torch.bmm(hid, wd).reshape(E * C, D)  # [E*C, D]
+    if routes is not None:
+        routes.append((top_idx.reshape(B, S, k), keep.reshape(B, S, k)))
+    y = _moe_experts(xt, expert, pos, keep, weights, C, wg, wu, wd)
+    return y.reshape(B, S, D).to(x.dtype)
 
-    w_flat = torch.where(keep, weights.reshape(T * k), 0.0)
-    picked = ye[torch.clamp(row, max=E * C - 1)].float()
-    y = torch.where(keep[:, None], picked, 0.0) * w_flat[:, None]
-    return y.reshape(T, k, D).sum(dim=1).reshape(B, S, D).to(x.dtype)
+
+def moe_mlp_mesh(x, wr, wg, wu, wd, num_experts_per_tok: int, capacity_factor: float,
+                 mesh, routes: list | None = None):
+    """:func:`moe_mlp` on a parallel/mesh.py Mesh rank: this rank's
+    partial output [B/dp, S/sp, D], which the caller sums over
+    ``mesh.expert`` (ep x tp).
+
+    x is this rank's P("dp", "sp") block of the global [B, S, D] (the same
+    on every ep and tp rank of the block); wr [D, E] whole; wg/wu [E/ep,
+    D, F/tp] and wd [E/ep, F/tp, D], this rank's experts' tp part. As in
+    the JAX package, the capacity C is taken over the global T = B*S and
+    filled in global token order: each rank routes its own tokens, the
+    top-k ids are all-gathered over ``mesh.data`` into the global [B, S,
+    k] (``Mesh.gather_blocks``: placed by (dp, sp), since a rank's tokens
+    are not a contiguous run of b*S + s once sp > 1), every rank computes
+    every pair's place from them, and keeps its own tokens' pairs that
+    fall to its experts and inside C. Its capacity buffer holds only
+    those (row order does not change a row's value; sizing it reads their
+    count on the host). The softmax weights are over all k choices on
+    every rank, so the router's gradient is a partial sum over ep x tp,
+    as the products' are. *routes*, if given, gets the global (top-k ids,
+    keep) [B, S, k], the same on every rank."""
+    Bl, Sl, D = x.shape
+    E, k = wr.shape[-1], num_experts_per_tok
+    El = wg.shape[0]  # this rank's experts: El*e .. El*(e+1)-1 on ep rank e
+    Tl = Bl * Sl
+
+    xt = x.reshape(Tl, D)
+    router, top_idx = moe_route(xt, wr, k)
+    weights = torch.softmax(router.gather(1, top_idx), dim=-1)
+    with torch.no_grad():
+        ids = mesh.gather_blocks(top_idx.reshape(Bl, Sl, k))  # [B, S, k]
+        B, S = ids.shape[:2]
+        pos = moe_slots(ids.reshape(B * S * k), E)
+        keep = (pos < moe_capacity(B * S, E, k, capacity_factor)).reshape(B, S, k)
+        if routes is not None:
+            routes.append((ids, keep))
+        local = top_idx.reshape(Tl * k) - mesh.coords["ep"] * El
+        mine = mesh.block(keep).reshape(Tl * k) & (local >= 0) & (local < El)
+        local = torch.where(mine, local, 0)
+        slot = moe_slots(local, El, mine)
+        C = max(int(torch.bincount(local[mine], minlength=El).max()), 1)
+    y = _moe_experts(xt, local, slot, mine, weights, C, wg, wu, wd)
+    return y.reshape(Bl, Sl, D).to(x.dtype)
 
 
 def apply(
@@ -390,6 +466,7 @@ def apply(
     tp_group=None,  # parallel/group.py TPGroup: params and pool are this rank's shard
     mesh=None,  # parallel/mesh.py Mesh: the training forward over a mesh
     ring: bool = False,  # on the mesh: ring attention over sp (else the dense arm)
+    routes: list | None = None,  # MoE: each layer appends its (top-k ids, keep)
 ):
     """Run the decoder. Returns (logits [B, S or 1, V] float32, cache), or
     with *return_hidden* (hidden [B, S, D] float32, cache): the final-norm
@@ -404,7 +481,10 @@ def apply(
     With *mesh* (the training path over a mesh, no cache):
     *params* are this rank's block and tokens / positions its [B/dp, S/sp]
     block (global positions); the logits are this rank's rows over the
-    whole vocab (see the module docstring)."""
+    whole vocab (see the module docstring).
+
+    *routes*, a list: each MoE layer appends its (top-k expert ids, keep)
+    [B, S, k] of the global batch (:func:`moe_mlp`)."""
     check_supported(config)
     if lora is not None and lora_rows is None:
         raise ValueError("lora needs lora_rows (one adapter row per batch row)")
@@ -421,7 +501,6 @@ def apply(
         if cache is not None or tp_group is not None:
             raise ValueError("the mesh forward is the cache-less (training) path; "
                              "serving takes tp_group")
-        check_mesh_supported(config, mesh)
         tp_group = mesh.tp
     if cache is not None and page_table is None:
         raise NotImplementedError(
@@ -621,11 +700,20 @@ def apply(
             o = norm(o, w["ln1b"])
         x = x + o
 
-        mlp_in = enter(norm(x, w["ln2"]))
-        if config.num_experts > 0:
-            m = reduce(moe_mlp(mlp_in, w["wr"], w["wg"], w["wu"], w["wd"],
-                               config.num_experts_per_tok, config.moe_capacity_factor))
+        if config.num_experts > 0 and mesh is not None:
+            # The experts' partial outputs are summed over ep and tp in
+            # one collective, and so is their input's gradient.
+            mlp_in = copy_to_group(norm(x, w["ln2"]), mesh.expert)
+            m = reduce_from_group(
+                moe_mlp_mesh(mlp_in, w["wr"], w["wg"], w["wu"], w["wd"],
+                             config.num_experts_per_tok, config.moe_capacity_factor, mesh,
+                             routes), mesh.expert)
+        elif config.num_experts > 0:
+            m = reduce(moe_mlp(norm(x, w["ln2"]), w["wr"], w["wg"], w["wu"], w["wd"],
+                               config.num_experts_per_tok, config.moe_capacity_factor,
+                               routes))
         else:
+            mlp_in = enter(norm(x, w["ln2"]))
             gate, up = qdot_many(mlp_in, (w["wg"], w["wu"]))
             hid = act(delta(gate, mlp_in, "wg")) * delta(up, mlp_in, "wu")
             m = reduce(delta(qdot(hid, w["wd"]), hid, "wd"))
@@ -654,20 +742,6 @@ def apply(
     if config.logit_softcap > 0.0:
         logits = config.logit_softcap * torch.tanh(logits / config.logit_softcap)
     return logits, cache
-
-
-def check_mesh_supported(config: ModelConfig, mesh) -> None:
-    """Raise NotImplementedError for a MoE config on a mesh that splits
-    the tokens (dp * sp > 1) or the experts (ep > 1): the JAX package
-    takes moe_mlp's capacity over the global B*S tokens, a rank of the
-    port would take it over its own block and drop other tokens (ROADMAP
-    queue 1 item 12c)."""
-    if config.num_experts > 0 and (mesh.shape["dp"] * mesh.shape["sp"] > 1
-                                   or mesh.shape["ep"] > 1):
-        raise NotImplementedError(
-            f"a MoE config on a mesh with dp*sp > 1 or ep > 1 ({mesh.shape}) is not ported "
-            f"yet: the expert capacity is taken over the global tokens (ROADMAP queue 1 "
-            f"item 12c)")
 
 
 def _layer_slice(leaf, li: int):

@@ -7,6 +7,7 @@ from kubeai_tpu_torch.parallel.mesh import Mesh, make_mesh, run_local_mesh
 from kubeai_tpu_torch.parallel.sharding import (
     check_divisible,
     gather_params,
+    llama_ep_rules,
     llama_fsdp_rules,
     llama_split_rules,
     shard_mesh_params,
@@ -15,4 +16,5 @@ from kubeai_tpu_torch.parallel.sharding import (
 
 __all__ = ["TPGroup", "choose_backend", "init_tp_group", "Mesh", "make_mesh",
            "run_local_mesh", "check_divisible", "gather_params",
-           "llama_fsdp_rules", "llama_split_rules", "shard_mesh_params", "shard_params"]
+           "llama_ep_rules", "llama_fsdp_rules", "llama_split_rules", "shard_mesh_params",
+           "shard_params"]

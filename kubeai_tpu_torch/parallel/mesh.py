@@ -9,8 +9,11 @@ tp)`` (rank r sits where device r sits in ``make_mesh``'s fallback
 layout) and, for each axis, a parallel/group.py ``TPGroup`` over the
 ranks that differ from it only along that axis, each over its own store
 prefix. A fifth group spans (dp, sp): the ranks that see different data,
-over which the loss and the gradients are summed. An axis of size 1 has
-a group of one rank and no process group.
+over which the loss and the gradients are summed. A sixth spans (ep,
+tp): the ranks that hold other parts of the same tokens' experts, over
+which a MoE layer's partial outputs are summed in one collective (it is
+the ep or the tp group itself when the other axis has size 1). An axis
+of size 1 has a group of one rank and no process group.
 
 Axes, as in the JAX package: dp data parallel (and fsdp's parameter
 split), sp sequence parallel (ring attention), ep expert parallel, tp
@@ -69,13 +72,13 @@ class Mesh:
     """One rank's view of the mesh: ``shape`` (axis name -> size, as the
     JAX Mesh exposes it), ``rank``, ``coords`` (axis -> this rank's index
     on it), ``device``, ``backend``, ``groups`` (axis -> its group; also
-    the ``dp``, ``sp`` and ``tp`` properties) and ``data``, the group over
-    (dp, sp)."""
+    the ``dp``, ``sp``, ``ep`` and ``tp`` properties), ``data``, the group
+    over (dp, sp), and ``expert``, the group over (ep, tp)."""
 
     axis_names = AXES
 
     def __init__(self, shape: dict[str, int], rank: int, device, backend: str,
-                 groups: dict[str, TPGroup], data: TPGroup):
+                 groups: dict[str, TPGroup], data: TPGroup, expert: TPGroup):
         self.shape = dict(shape)
         self.rank = int(rank)
         self.device = torch.device(device)
@@ -84,6 +87,7 @@ class Mesh:
         self.coords = {a: int(c) for a, c in zip(AXES, np.unravel_index(self.rank, layout.shape))}
         self.groups = groups
         self.data = data
+        self.expert = expert
 
     @property
     def dp(self) -> TPGroup:
@@ -94,8 +98,20 @@ class Mesh:
         return self.groups["sp"]
 
     @property
+    def ep(self) -> TPGroup:
+        return self.groups["ep"]
+
+    @property
     def tp(self) -> TPGroup:
         return self.groups["tp"]
+
+    def all_groups(self) -> list[TPGroup]:
+        """Every distinct group of this rank (the axes', data, expert)."""
+        out: list[TPGroup] = []
+        for g in [*self.groups.values(), self.data, self.expert]:
+            if all(g is not o for o in out):
+                out.append(g)
+        return out
 
     def block(self, a):
         """This rank's P("dp", "sp") block of a global [B, S, ...] array
@@ -110,17 +126,32 @@ class Mesh:
             cuts.append(slice(c * (n // k), (c + 1) * (n // k)))
         return a[cuts[0], cuts[1]]
 
+    def gather_blocks(self, t: torch.Tensor) -> torch.Tensor:
+        """The global [B, S, ...] tensor from every data rank's P("dp",
+        "sp") block *t* [B/dp, S/sp, ...] (all-gathered over ``data``,
+        outside autograd). Under sp > 1 a rank's rows are not a
+        contiguous run of the global tokens b*S + s, so the blocks are
+        placed by their (dp, sp) coordinates, not concatenated."""
+        dp, sp = self.shape["dp"], self.shape["sp"]
+        if dp * sp == 1:
+            return t
+        Bl, Sl, *rest = t.shape
+        parts = self.data.all_gather_dim(t.contiguous()[None], 0)  # [dp*sp, Bl, Sl, ...]
+        parts = parts.reshape(dp, sp, Bl, Sl, *rest).transpose(1, 2)
+        return parts.reshape(dp * Bl, sp * Sl, *rest)
+
 
 def build_mesh(store, rank: int, shape: dict[str, int], device, backend: str,
                timeout: float = 300.0) -> Mesh:
     """This rank's Mesh over *store*: a process group per axis of size > 1
-    and one over (dp, sp), each under its own store prefix. Every rank
-    builds its groups in the same order (gloo connects a group's members
-    when it is built)."""
+    and one over (dp, sp) and (ep, tp) each, each under its own store
+    prefix. Every rank builds its groups in the same order (gloo connects
+    a group's members when it is built)."""
     shape = mesh_shape(shape)
     device = torch.device(device)
     groups: dict[str, TPGroup] = {}
-    for axes in [(a,) for a in AXES] + [("dp", "sp")]:
+    both = shape["ep"] > 1 and shape["tp"] > 1  # else (ep, tp) is one axis's group
+    for axes in [(a,) for a in AXES] + [("dp", "sp")] + [("ep", "tp")] * both:
         members = group_ranks(shape, rank, axes)
         n, me = len(members), members.index(rank)
         pg = None
@@ -132,7 +163,8 @@ def build_mesh(store, rank: int, shape: dict[str, int], device, backend: str,
         group.members = members
         groups["x".join(axes)] = group
     data = groups.pop("dpxsp")
-    return Mesh(shape, rank, device, backend, groups, data)
+    expert = groups.pop("epxtp") if both else groups["tp" if shape["ep"] == 1 else "ep"]
+    return Mesh(shape, rank, device, backend, groups, data, expert)
 
 
 def single_rank_mesh(device) -> Mesh:

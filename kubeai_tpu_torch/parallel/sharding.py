@@ -15,9 +15,10 @@ needs:
 - vocab-sharded ``embed`` [V, D] (rows) and ``lm_head`` [D, V]
   (columns): a masked lookup of this rank's vocab range plus an
   all-reduce, and an all-gather of the logits;
-- Mixtral's ``wg wu wd`` split their FFN dim as the dense ones do (the
-  JAX package's ``ep`` axis has size 1 here), the router ``wr`` is
-  replicated, and so are the norms.
+- Mixtral's ``wg wu wd`` split their FFN dim as the dense ones do, the
+  router ``wr`` is replicated, and so are the norms. Serving splits
+  every expert this way; training over a mesh also splits the experts
+  themselves over ep (below).
 
 The paged KV pool splits its combined KV heads: rank r holds KV heads
 r*Kv/tp .. (r+1)*Kv/tp-1 of every page, so tp must divide Kv, pages are
@@ -32,9 +33,12 @@ Training over a mesh (parallel/mesh.py) adds the JAX package's fsdp
 split (``llama_param_specs(fsdp=True)``): :func:`llama_fsdp_rules` gives
 each leaf's dimension split over dp, the one its tp split leaves alone
 (the input dim of wq wk wv wg wu, the output dim of wo wd, the hidden
-dim of embed and lm_head); norms and biases have none. A mesh rank
-holds the block of its (dp, tp) coordinates and the same block as every
-rank along sp and ep.
+dim of embed and lm_head); norms and biases have none. The JAX
+package's ``ep`` axis splits the experts of ``wg wu wd`` (dim 1 of the
+stacked [L, E, in, out]; :func:`llama_ep_rules`) and nothing else. A
+mesh rank holds the block of its (dp, ep, tp) coordinates and the same
+block as every rank along sp (and, for a leaf that is not an expert's,
+along ep).
 """
 
 from __future__ import annotations
@@ -91,6 +95,17 @@ def llama_fsdp_rules(config: ModelConfig) -> dict[str, Any]:
     return rules
 
 
+def llama_ep_rules(config: ModelConfig) -> dict[str, Any]:
+    """The dimension of every leaf that is split over ep (None: not
+    split), in the tree's own structure: the "ep" entries of the JAX
+    package's ``llama_param_specs`` (dim 1, E, of the stacked experts)."""
+    rules: dict[str, Any] = {k: None for k in llama_split_rules(config)}
+    rules["layers"] = {k: None for k in llama_split_rules(config)["layers"]}
+    if config.num_experts > 0:
+        rules["layers"].update({"wg": 1, "wu": 1, "wd": 1})
+    return rules
+
+
 def _rule(rules, key_path):
     for k in key_path:
         rules = rules[k]
@@ -114,12 +129,14 @@ def _put(tree: dict, key_path, value) -> None:
     tree[key_path[-1]] = value
 
 
-def check_divisible(config: ModelConfig, tp: int) -> None:
+def check_divisible(config: ModelConfig, tp: int, ep: int = 1) -> None:
     """Raise ValueError unless *tp* divides the KV heads (and so the
     heads, a multiple of them), the FFN width (dense or expert) and the
-    vocab."""
+    vocab, and *ep* the experts of a MoE config."""
     if tp < 1:
         raise ValueError(f"tensor-parallel size must be >= 1, got {tp}")
+    if config.num_experts > 0 and config.num_experts % ep:
+        raise ValueError(f"ep={ep} must divide the experts (num_experts={config.num_experts})")
     if tp == 1:
         return
     if config.num_kv_heads % tp:
@@ -179,8 +196,8 @@ def shard_params(params: dict, config: ModelConfig, group) -> dict:
 
 
 def shard_mesh_params(params: dict, config: ModelConfig, mesh) -> dict:
-    """A parallel/mesh.py Mesh rank's fsdp x tp block of the full tree
-    *params* (:func:`shard_mesh_group` of each leaf)."""
+    """A parallel/mesh.py Mesh rank's fsdp x ep x tp block of the full
+    tree *params* (:func:`shard_mesh_group` of each leaf)."""
     out: dict = {}
     for path, leaf in key_paths(params):
         _put(out, path, shard_mesh_group(path, leaf, config, mesh))
@@ -189,29 +206,31 @@ def shard_mesh_params(params: dict, config: ModelConfig, mesh) -> dict:
 
 def shard_mesh_group(key_path: tuple[str, ...], leaf, config: ModelConfig, mesh):
     """A mesh rank's block of the full leaf at *key_path*: its tp part,
-    then its dp part of that on the fsdp dim."""
-    check_divisible(config, mesh.shape["tp"])
+    then its ep part of that (an expert's leaf), then its dp part on the
+    fsdp dim."""
+    check_divisible(config, mesh.shape["tp"], mesh.shape["ep"])
     part = shard_group(key_path, leaf, config, mesh.coords["tp"], mesh.shape["tp"])
-    dim = _rule(llama_fsdp_rules(config), key_path)
-    if dim is None:
-        return part
-    return shard_leaf(part, dim, mesh.coords["dp"], mesh.shape["dp"])
+    for rules, axis in ((llama_ep_rules, "ep"), (llama_fsdp_rules, "dp")):
+        part = shard_leaf(part, _rule(rules(config), key_path), mesh.coords[axis],
+                          mesh.shape[axis])
+    return part
 
 
 def gather_params(params: dict, config: ModelConfig, mesh) -> dict:
     """The whole tree from every mesh rank's block *params* (a parameter
     tree or one of its gradients): each leaf all-gathered over dp on its
-    fsdp dim, then over tp on its split dim. Every rank of the mesh calls
-    it; the result is on the leaves' device, outside autograd."""
-    tp_rules, dp_rules = llama_split_rules(config), llama_fsdp_rules(config)
+    fsdp dim, over ep on its expert dim, then over tp on its split dim.
+    Every rank of the mesh calls it; the result is on the leaves' device,
+    outside autograd."""
+    rules = [(llama_fsdp_rules(config), mesh.dp), (llama_ep_rules(config), mesh.ep),
+             (llama_split_rules(config), mesh.tp)]
     out: dict = {}
     with torch.no_grad():
         for path, leaf in key_paths(params):
-            dp_dim, tp_dim = _rule(dp_rules, path), _rule(tp_rules, path)
-            if dp_dim is not None:
-                leaf = mesh.dp.all_gather_dim(leaf, dp_dim)
-            if tp_dim is not None:
-                leaf = mesh.tp.all_gather_dim(leaf, tp_dim)
+            for rule, group in rules:
+                dim = _rule(rule, path)
+                if dim is not None:
+                    leaf = group.all_gather_dim(leaf, dim)
             _put(out, path, leaf)
     return out
 

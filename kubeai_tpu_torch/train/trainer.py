@@ -17,9 +17,11 @@ max(Σmask, 1): each rank's backward leaves on its block its share of the
 gradient of that loss, and the shares are summed over the ranks that saw
 other data (dp through fsdp's reduce-scatter, then sp; dp x sp for the
 leaves fsdp does not split), never over tp, where Megatron's pair
-already makes the replicated leaves' gradients equal. AdamW is
+already makes the replicated leaves' gradients equal, nor over ep, whose
+ranks see the same data: a MoE router's gradient alone is summed over ep
+x tp, since each rank's products see only its experts' part. AdamW is
 elementwise, so each rank's update of its block is optax's update of the
-whole, sliced. MoE configs train only on tp (ROADMAP queue 1 item 12c).
+whole, sliced.
 """
 
 from __future__ import annotations
@@ -72,10 +74,11 @@ def positions(tokens, offset: int = 0) -> torch.Tensor:
     return pos[None, :].expand(B, S)
 
 
-def loss_fn(params, config: ModelConfig, tokens, targets, mask, mesh=None, ring=False):
+def loss_fn(params, config: ModelConfig, tokens, targets, mask, mesh=None, ring=False,
+            routes=None):
     """Mean next-token cross-entropy over mask = 1 positions.
     tokens / targets / mask: [B, S] (targets already shifted by the
-    caller).
+    caller). *routes* as ``llama.apply``'s (a MoE config's routing).
 
     Over a *mesh* (*ring*: ring attention over its sp axis, else the
     dense arm) the arguments are this rank's [B/dp, S/sp] block of
@@ -84,10 +87,10 @@ def loss_fn(params, config: ModelConfig, tokens, targets, mask, mesh=None, ring=
     whose gradient on this rank is its share (summed over the data ranks
     by :func:`sync_grads`)."""
     if mesh is None:
-        logits, _ = llama.apply(params, config, tokens, positions(tokens))
+        logits, _ = llama.apply(params, config, tokens, positions(tokens), routes=routes)
         return masked_nll(logits, targets, mask)
     pos = positions(tokens, mesh.coords["sp"] * tokens.shape[1])
-    logits, _ = llama.apply(params, config, tokens, pos, mesh=mesh, ring=ring)
+    logits, _ = llama.apply(params, config, tokens, pos, mesh=mesh, ring=ring, routes=routes)
     with torch.no_grad():
         count = mesh.data.all_reduce(mask.float().sum().reshape(1))
     return reduce_from_group(nll_sum(logits, targets, mask) / torch.clamp(count, min=1.0)[0],
@@ -106,12 +109,13 @@ def make_optimizer(params, lr: float = 1e-4, weight_decay: float = 0.0,
                              weight_decay=weight_decay, foreach=foreach)
 
 
-def train_step(params, optimizer, batch, config: ModelConfig) -> torch.Tensor:
+def train_step(params, optimizer, batch, config: ModelConfig, routes=None) -> torch.Tensor:
     """One full-parameter step. batch = {"tokens", "targets", "mask"}, each
     [B, S]. Updates *params* in place and returns the loss (before the
-    update)."""
+    update). *routes* as :func:`loss_fn`'s."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(params, config, batch["tokens"], batch["targets"], batch["mask"])
+    loss = loss_fn(params, config, batch["tokens"], batch["targets"], batch["mask"],
+                   routes=routes)
     loss.backward()
     optimizer.step()
     return loss.detach()
@@ -121,17 +125,19 @@ def sync_grads(params, config: ModelConfig, mesh: Mesh) -> None:
     """Sum each leaf's gradient share over the ranks that saw other data,
     in place, in the tree's order on every rank: a leaf fsdp splits has
     its dp sum from the gather's reduce-scatter and is summed over sp; any
-    other over dp x sp. A MoE router (tp only) is also summed over tp: its
-    products see only this rank's experts' columns."""
+    other over dp x sp. A MoE router is also summed over ep x tp
+    (``mesh.expert``): its products see only this rank's experts, and of
+    them only its columns. The experts themselves are never summed over
+    ep: each ep rank owns its own."""
     fsdp = llama_fsdp_rules(config)
     for path, leaf in key_paths(params):
         if leaf.grad is None:  # every rank takes part in every sum
             leaf.grad = torch.zeros_like(leaf)
         rule = fsdp["layers"][path[1]] if path[0] == "layers" else fsdp[path[0]]
         group = mesh.sp if rule is not None else mesh.data
-        group.all_reduce(leaf.grad)
+        group.all_reduce(leaf.grad, pin=True)
         if path == ("layers", "wr"):
-            mesh.tp.all_reduce(leaf.grad)
+            mesh.expert.all_reduce(leaf.grad, pin=True)
 
 
 def _mesh_devices(mesh) -> int:
@@ -171,12 +177,12 @@ def init_sharded_training(config: ModelConfig, mesh=None, seed: int = 0, lr: flo
     runs this rank's P("dp", "sp") block, sums the gradients
     (:func:`sync_grads`) and updates the block; each leaf's ``.grad``
     keeps the summed gradient until the next step. *ring_attention* None
-    is the JAX package's auto rule (:func:`ring_rule`).
+    is the JAX package's auto rule (:func:`ring_rule`). For a MoE config,
+    ``step.routes`` keeps the last step's (top-k ids, keep) [B, S, k] of
+    each layer over the global batch (``llama.apply``'s *routes*).
 
     *config* must compute in float32: torch's matmul refuses a bf16
-    activation against a float32 weight, where JAX promotes it. A MoE
-    config on a mesh with dp * sp > 1 or ep > 1 raises (ROADMAP queue 1
-    item 12c)."""
+    activation against a float32 weight, where JAX promotes it."""
     if config.dtype != "float32":
         raise ValueError(f"init_sharded_training draws float32 parameters; the config computes "
                          f"in {config.dtype} (pass dtype='float32')")
@@ -193,7 +199,6 @@ def init_sharded_training(config: ModelConfig, mesh=None, seed: int = 0, lr: flo
         want = torch.device(device)
         if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
             raise ValueError(f"device {device} is not the mesh rank's device {mesh.device}")
-    llama.check_mesh_supported(config, mesh)
     if ring and (config.sliding_window != 0 or config.attn_softcap != 0.0):
         raise ValueError("ring attention does not support sliding windows or softcap")
     dev = mesh.device
@@ -228,8 +233,9 @@ def init_sharded_training(config: ModelConfig, mesh=None, seed: int = 0, lr: flo
 
         block = {k: torch.as_tensor(mesh.block(v)).to(dev) for k, v in batch.items()}
         optimizer.zero_grad(set_to_none=True)
+        step.routes = [] if config.num_experts > 0 else None
         loss = loss_fn(shard, config, block["tokens"], block["targets"], block["mask"],
-                       mesh=mesh, ring=ring)
+                       mesh=mesh, ring=ring, routes=step.routes)
         mark()
         loss.backward()
         mark()
@@ -263,7 +269,8 @@ def _init_one_device(config, seed, lr, device, params):
     optimizer = make_optimizer(params, lr)
 
     def step(batch):
+        step.routes = [] if config.num_experts > 0 else None
         return train_step(params, optimizer, {k: torch.as_tensor(v).to(dev)
-                                              for k, v in batch.items()}, config)
+                                              for k, v in batch.items()}, config, step.routes)
 
     return params, optimizer, step

@@ -1531,3 +1531,24 @@ def test_sharded_step_dp2_sp2_tp2_matches_one_rank_on_the_card(cuda):
     out = step_check(small_config(), 2, 256, device=cuda)
     assert out["grad_rel_err_max"] <= GRAD_TOL and out["loss_rel_err"] <= 1e-4
     assert out["collective_calls_by_kind"]["dp.reduce_scatter"] > 0
+
+
+@pytest.mark.gpu
+def test_moe_step_dp2_ep2_tp2_matches_one_rank_on_the_card(cuda):
+    """A narrow Mixtral at capacity factor 0.5 over a dp = ep = tp = 2
+    mesh of eight thread ranks on the card (experts split over ep,
+    routing over the global tokens) against one rank's step from the same
+    seeded weights: every layer's top-k ids and keep mask exactly, then
+    the loss and every leaf's gradient within sharded_check's moe
+    tolerances; pairs were dropped."""
+    from kubeai_tpu_torch.tools.sharded_check import (
+        MOE_GRAD_TOL,
+        MOE_LOSS_RTOL,
+        moe_check,
+        small_moe_config,
+    )
+
+    out = moe_check(small_moe_config(), 2, 256, device=cuda)
+    assert out["routes_equal"] and out["routing"]["dropped"] > 0
+    assert out["grad_rel_err_max"] <= MOE_GRAD_TOL and out["loss_rel_err"] <= MOE_LOSS_RTOL
+    assert out["collective_calls_by_kind"]["epxtp.all_reduce"] > 0

@@ -9,10 +9,10 @@ on the CPU, thread ranks over gloo:
   TCPStore;
 - every autograd collective's forward and gradient against the same
   function computed whole in one process;
-- the fsdp and tp dims of every leaf against JAX's
+- the fsdp, ep and tp dims of every leaf against JAX's
   ``llama_param_specs(fsdp=True)``, and each rank's block against the
-  shard JAX's ``shard_tree`` puts on the device of the same index;
-  gather_params rebuilds the tree."""
+  shard JAX's ``shard_tree`` puts on the device of the same index (a
+  Mixtral's experts split over ep too); gather_params rebuilds the tree."""
 
 import dataclasses
 
@@ -40,6 +40,7 @@ from kubeai_tpu_torch.parallel.mesh import (
 from kubeai_tpu_torch.parallel.sharding import (
     gather_params,
     key_paths,
+    llama_ep_rules,
     llama_fsdp_rules,
     llama_split_rules,
     shard_mesh_params,
@@ -64,7 +65,7 @@ def test_layout_and_groups_match_jax_make_mesh(cpu_mesh_devices, shape):
 
     def rank(mesh):
         out = {}
-        for name, g in [*mesh.groups.items(), ("data", mesh.data)]:
+        for name, g in [*mesh.groups.items(), ("data", mesh.data), ("expert", mesh.expert)]:
             t = torch.tensor([float(mesh.rank)])
             g.all_reduce(t)
             out[name] = (g.members, g.rank, float(t))
@@ -73,7 +74,7 @@ def test_layout_and_groups_match_jax_make_mesh(cpu_mesh_devices, shape):
     for r, (coords, groups) in enumerate(run_local_mesh(shape, rank, "cpu")):
         assert coords == {a: int(c) for a, c in zip(AXES, np.argwhere(ids == r)[0])}
         for name, (members, me, total) in groups.items():
-            axes = ("dp", "sp") if name == "data" else (name,)
+            axes = {"data": ("dp", "sp"), "expert": ("ep", "tp")}.get(name, (name,))
             assert members == group_ranks(full, r, axes) and members[me] == r
             assert total == sum(members)
 
@@ -195,18 +196,22 @@ def test_fsdp_and_tp_dims_match_llama_param_specs(variant):
     tc = TMC(**dataclasses.asdict(jc))
     specs = dict(key_paths(llama_param_specs(jc, fsdp=True)))
     fsdp, tp = dict(key_paths(llama_fsdp_rules(tc))), dict(key_paths(llama_split_rules(tc)))
-    assert set(specs) == set(fsdp) == set(tp)
+    ep = dict(key_paths(llama_ep_rules(tc)))
+    assert set(specs) == set(fsdp) == set(tp) == set(ep)
     for path, spec in specs.items():
         assert isinstance(spec, P)
         assert fsdp[path] == _spec_dims(spec, "dp"), path
         assert tp[path] == _spec_dims(spec, "tp"), path
+        assert ep[path] == _spec_dims(spec, "ep"), path
 
 
-@pytest.mark.parametrize("shape", [dict(dp=2, sp=2, tp=2), dict(dp=4, tp=2)],
-                         ids=["dp2_sp2_tp2", "dp4_tp2"])
-def test_rank_blocks_match_jax_shard_tree(cpu_mesh_devices, shape):
+@pytest.mark.parametrize("variant,shape", [("llama", dict(dp=2, sp=2, tp=2)),
+                                           ("llama", dict(dp=4, tp=2)),
+                                           ("mixtral", dict(dp=2, ep=2, tp=2))],
+                         ids=["dp2_sp2_tp2", "dp4_tp2", "mixtral_dp2_ep2_tp2"])
+def test_rank_blocks_match_jax_shard_tree(cpu_mesh_devices, variant, shape):
     jc = JMC(vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
-             num_heads=4, num_kv_heads=2, dtype="float32")
+             dtype="float32", **VARIANTS[variant])
     tc = TMC(**dataclasses.asdict(jc))
     jp = jl.init_params(jc, jax.random.key(0))
     sharded = shard_tree(jp, llama_param_specs(jc, fsdp=True), jmake_mesh(**shape))

@@ -130,10 +130,10 @@ def test_init_sharded_training_on_one_device_lowers_the_loss():
 
 
 def test_refusals_name_their_roadmap_items():
-    """bf16 and a missing card are refused; a MoE config on a mesh that
-    splits tokens or experts names ROADMAP item 12c; a mesh of several
-    devices must be a rank's Mesh (a shape alone has no process groups).
-    A mesh and ring attention train (the two cases below)."""
+    """bf16 and a missing card are refused; a MoE config whose experts
+    the ep axis does not divide is refused; a mesh of several devices
+    must be a rank's Mesh (a shape alone has no process groups). A mesh
+    and ring attention train (the two cases below)."""
     _, tc = _configs("llama")
     with pytest.raises(ValueError, match="float32"):
         ttrainer.init_sharded_training(tc.replace(dtype="bfloat16"), device="cpu")
@@ -146,11 +146,11 @@ def test_refusals_name_their_roadmap_items():
                  "num_experts_per_tok": 2})
 
     def rank(mesh):
-        with pytest.raises(NotImplementedError, match="item 12c"):
+        with pytest.raises(ValueError, match="ep=3 must divide the experts"):
             ttrainer.init_sharded_training(moe, mesh, device="cpu")
         return True
 
-    assert all(run_local_mesh(dict(dp=2), rank, "cpu"))
+    assert all(run_local_mesh(dict(ep=3), rank, "cpu"))
     params, _, _ = ttrainer.init_sharded_training(tc, mesh=_MeshShape(dp=1, sp=1), device="cpu")
     assert isinstance(params["embed"], torch.Tensor)
 
