@@ -330,10 +330,10 @@ def start_spec(model: str, engine_args: list[str] | None = None, device=None):
     never drift from the start it prepares."""
     from kubeai_tpu_torch import resolve_device
     from kubeai_tpu_torch.engine import core
-    from kubeai_tpu_torch.engine.lora import stage_remote
     from kubeai_tpu_torch.engine.server import engine_config_from_args, make_arg_parser
     from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
     from kubeai_tpu_torch.engine.weights import open_checkpoint
+    from kubeai_tpu_torch.loader import stage_model
 
     args, unknown = make_arg_parser(require_model=False).parse_known_args(
         list(engine_args or []) + ["--model", model])
@@ -347,7 +347,7 @@ def start_spec(model: str, engine_args: list[str] | None = None, device=None):
     if model.startswith("preset:"):
         return StartSpec(core.preset_config(model[len("preset:"):]), ec, args.quantization,
                          ByteTokenizer(), dev), args
-    config, tokenizer, source = open_checkpoint(stage_remote(model),
+    config, tokenizer, source = open_checkpoint(stage_model(model),
                                                 tp=args.tensor_parallel_size)
     return StartSpec(config, ec, args.quantization, tokenizer, dev,
                      adoptable=source is not None), args

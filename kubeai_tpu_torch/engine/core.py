@@ -1090,16 +1090,17 @@ class Engine:
     # -- LoRA adapters -----------------------------------------------------
 
     def load_adapter(self, name: str, path: str) -> None:
-        """Install the PEFT adapter at *path* (a local directory or
-        file://) as *name*, or reload it. Staged on the caller's thread;
+        """Install the PEFT adapter at *path* (a local directory, file://,
+        or a remote source staged under KUBEAI_ADAPTER_STAGING_DIR as
+        ``{name}-<12 hex>``) as *name*, or reload it. Staged on the caller's thread;
         installed on the scheduler thread between dispatches, so the bank
         changes in stream order: the chunk in flight runs with the old
         rows, the next with the new ones. The first load allocates the
         bank and drops the captured chunk graphs: the next dispatch
         captures the chunk with the adapter deltas."""
-        from kubeai_tpu_torch.engine.lora import stage_remote
+        from kubeai_tpu_torch.loader import stage_adapter
 
-        staged = stage_remote(path)
+        staged = stage_adapter(name, path)
 
         def do():
             # Install first: a bad checkpoint fails here with nothing
@@ -1113,10 +1114,11 @@ class Engine:
         self._run_on_scheduler(do, "adapter load")
 
     def _load_adapter_local(self, name: str, path: str) -> None:
-        """A follower's load (the op's place in the stream orders it)."""
-        from kubeai_tpu_torch.engine.lora import stage_remote
+        """A follower's load (the op's place in the stream orders it): each
+        rank stages the original source itself."""
+        from kubeai_tpu_torch.loader import stage_adapter
 
-        self._install_adapter(name, stage_remote(path))
+        self._install_adapter(name, stage_adapter(name, path))
 
     def _install_adapter(self, name: str, path: str) -> None:
         from kubeai_tpu_torch.engine.lora import AdapterRuntime

@@ -48,21 +48,6 @@ _MODULE = {"q_proj": "self_attn", "k_proj": "self_attn", "v_proj": "self_attn",
            "o_proj": "self_attn", "gate_proj": "mlp", "up_proj": "mlp", "down_proj": "mlp"}
 
 
-def stage_remote(url: str) -> str:
-    """The local directory of an adapter (or model) source: ``file://`` is
-    stripped and a plain path passes through. Remote schemes (hf, s3, gs,
-    oss) need the JAX loader's downloaders and a network; they are
-    refused (ROADMAP queue 1 item 13: remote sources)."""
-    if url.startswith("file://"):
-        return url[len("file://"):]
-    if "://" in url:
-        raise NotImplementedError(
-            f"remote source {url!r}: only local paths and file:// are ported "
-            "(ROADMAP queue 1 item 13: remote adapter and model sources)"
-        )
-    return url
-
-
 def load_peft_checkpoint(path: str) -> tuple[dict, dict[str, dict[int, list]], float]:
     """(adapter_config, {target: {layer: [A [r, in], B [out, r]]}}, scale)
     of a PEFT adapter directory; arrays are float32 numpy. The scale is

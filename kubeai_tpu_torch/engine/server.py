@@ -153,11 +153,11 @@ from kubeai_tpu_torch.engine.core import (
     preset_params,
 )
 from kubeai_tpu_torch.engine.gang import DEFAULT_GANG_PORT
-from kubeai_tpu_torch.engine.lora import stage_remote
 from kubeai_tpu_torch.engine.sampling import SamplingParams
 from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
 from kubeai_tpu_torch.engine.weights import load_engine_from_path
 from kubeai_tpu_torch.faults import FaultError, fault, handle_faults_request, set_thread_scope
+from kubeai_tpu_torch.loader import stage_model
 from kubeai_tpu_torch.metrics import default_registry, set_build_info
 from kubeai_tpu_torch.obs.history import (
     HistoryStore,
@@ -1183,8 +1183,10 @@ def make_arg_parser(require_model: bool = True) -> argparse.ArgumentParser:
     drift from the start it prepares."""
     p = argparse.ArgumentParser("kubeai-tpu-torch-engine")
     p.add_argument("--model", required=require_model, default=None,
-                   help="an HF checkpoint dir, test:tiny, or preset:NAME (random weights; NAME "
-                        "llama-3.1-8b, qwen2.5-7b, gemma-2b, gemma2-2b or mixtral-8x7b)")
+                   help="an HF checkpoint dir (or a source URL: file://, pvc://, hf://, s3://, "
+                        "gs://, oss://, staged under KUBEAI_MODEL_STAGING_DIR), test:tiny, or "
+                        "preset:NAME (random weights; NAME llama-3.1-8b, qwen2.5-7b, gemma-2b, "
+                        "gemma2-2b or mixtral-8x7b)")
     p.add_argument("--served-model-name", default=None)
     p.add_argument("--device", default=None, help="torch device (default cuda)")
     p.add_argument("--host", default="0.0.0.0")
@@ -1283,7 +1285,7 @@ def build_engine_from_args(args, warmup: bool | None = None,
                             timeline, warmup=warmup, park_engine=park_engine,
                             tp_group=tp_group, publisher=publisher), name
     with timeline.phase("stage"):
-        path = stage_remote(args.model)
+        path = stage_model(args.model)
     return load_engine_from_path(path, ec, tp=args.tensor_parallel_size,
                                  quantization=args.quantization, device=args.device,
                                  timeline=timeline, warmup=warmup,

@@ -8,8 +8,9 @@ machine has none): the BPE models, normalizers, pre-tokenizers and
 decoders of the catalog's tokenizers (Llama-3, Qwen2, Gemma, Mistral),
 added and special tokens, and the chat template of
 ``tokenizer_config.json`` rendered with ``jinja2`` as transformers renders
-it. Any other component raises and names itself. A directory with only a
-SentencePiece ``tokenizer.model`` is refused (ROADMAP queue 1 item 5b).
+it. Any other component raises and names itself. A directory with a
+SentencePiece ``tokenizer.model`` and no ``tokenizer.json`` is converted as
+transformers converts it (engine/spm.py).
 """
 
 from __future__ import annotations
@@ -410,24 +411,31 @@ class _BPE:
     def _tokenize(self, word: str) -> list[int]:
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
+        # As tokenizers' BPE::merge_word: an unknown character's <unk> is
+        # held until the next character found in the vocab (or the end),
+        # so byte-fallback tokens after it come first, and with fuse_unk
+        # the unknown characters on both sides of them share one <unk>.
         syms: list[int] = []
-        last_unk = False
+        pending_unk = False
         for ch in word:
             tid = self.vocab.get(ch)
             if tid is not None:
+                if pending_unk:
+                    syms.append(self.unk_id)
+                    pending_unk = False
                 syms.append(tid)
-                last_unk = False
                 continue
             if self.byte_fallback:
                 ids = [self.vocab.get(f"<0x{b:02X}>") for b in ch.encode("utf-8")]
                 if all(i is not None for i in ids):
                     syms += ids
-                    last_unk = False
                     continue
             if self.unk_id is not None:
-                if not (self.fuse_unk and last_unk):
+                if pending_unk and not self.fuse_unk:
                     syms.append(self.unk_id)
-                last_unk = True
+                pending_unk = True
+        if pending_unk:
+            syms.append(self.unk_id)
         return self._merge(syms)
 
     def _merge(self, c: list[int]) -> list[int]:
@@ -479,18 +487,29 @@ def _content(tok):
 
 
 class HFTokenizer:
-    """A checkpoint's tokenizer from its tokenizer.json (and
+    """A checkpoint's tokenizer from its tokenizer.json, or else from its
+    SentencePiece tokenizer.model (engine/spm.py), and its
     tokenizer_config.json / special_tokens_map.json / chat_template.jinja
-    where present), with the JAX package's HFTokenizer interface: encode
+    where present, with the JAX package's HFTokenizer interface: encode
     without the post-processor's special tokens (BOS prepended by
     *add_bos*), decode skipping special tokens, and the chat template."""
 
     def __init__(self, path: str):
-        with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
-            spec = json.load(f)
         cfg = _read_json(os.path.join(path, "tokenizer_config.json"))
         for k, v in _read_json(os.path.join(path, "special_tokens_map.json")).items():
             cfg.setdefault(k, v)
+        if os.path.exists(os.path.join(path, "tokenizer.json")):
+            with open(os.path.join(path, "tokenizer.json"), encoding="utf-8") as f:
+                spec = json.load(f)
+        else:
+            # A SentencePiece tokenizer.model, converted as transformers
+            # converts it; the tokenizer class's special tokens fill in
+            # those the config does not name.
+            from kubeai_tpu_torch.engine import spm
+
+            spec, specials = spm.tokenizer_json(path, cfg)
+            for k, v in specials.items():
+                cfg.setdefault(k, v)
         if "model" not in spec:
             raise ValueError(f"{path}/tokenizer.json has no model")
         self._model = _BPE(spec["model"])
@@ -689,19 +708,17 @@ def _compiled_template(source: str):
 def load_tokenizer(path: str | None):
     """The tokenizer of a model directory: the byte tokenizer when *path*
     is None or "byte" or the directory has no tokenizer files, else
-    :class:`HFTokenizer` over its tokenizer.json. A directory whose only
-    tokenizer is a SentencePiece tokenizer.model (or that has a
-    tokenizer_config.json and no tokenizer.json) raises."""
+    :class:`HFTokenizer` over its tokenizer.json, or over its SentencePiece
+    tokenizer.model where it has no tokenizer.json. A directory with a
+    tokenizer_config.json and neither raises."""
     if path in (None, "byte"):
         return ByteTokenizer()
     found = [f for f in TOKENIZER_FILES if os.path.exists(os.path.join(path, f))]
     if not found:
         return ByteTokenizer()
-    if "tokenizer.json" not in found:
-        raise NotImplementedError(
-            f"{path} has {', '.join(found)} but no tokenizer.json: reading a SentencePiece "
-            "tokenizer.model is not ported (ROADMAP queue 1 item 5b)"
-        )
+    if found == ["tokenizer_config.json"]:
+        raise ValueError(f"{path} has a tokenizer_config.json but neither a tokenizer.json "
+                         "nor a tokenizer.model")
     return HFTokenizer(path)
 
 

@@ -183,7 +183,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'kubeai_tpu.'))"
         " or m in ('kubeai_tpu', 'safetensors', 'transformers', 'ml_dtypes', 'optax',"
-        " 'orbax')]\n"
+        " 'orbax', 'sentencepiece', 'google.protobuf')]\n"
         "new = ['kubeai_tpu_torch.ops.quant', 'kubeai_tpu_torch.engine.weights',\n"
         "       'kubeai_tpu_torch.metrics', 'kubeai_tpu_torch.qos.queue',\n"
         "       'kubeai_tpu_torch.engine.kvstate', 'kubeai_tpu_torch.faults',\n"
@@ -193,7 +193,9 @@ def test_port_imports_no_jax():
         "       'kubeai_tpu_torch.engine.gang', 'kubeai_tpu_torch.parallel.group',\n"
         "       'kubeai_tpu_torch.parallel.sharding', 'kubeai_tpu_torch.obs.tenants',\n"
         "       'kubeai_tpu_torch.obs.history', 'kubeai_tpu_torch.obs.otel',\n"
-        "       'kubeai_tpu_torch.obs.incidents']\n"
+        "       'kubeai_tpu_torch.obs.incidents', 'kubeai_tpu_torch.loader',\n"
+        "       'kubeai_tpu_torch.utils.xxh', 'kubeai_tpu_torch.controller.model_source',\n"
+        "       'kubeai_tpu_torch.engine.spm']\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -17,6 +17,7 @@ JAX package on the CPU, at tiny float32 widths:
 - the server's adapter routes and /v1/models answer as the JAX server's."""
 
 import json
+import os
 import queue
 import urllib.error
 import urllib.request
@@ -269,7 +270,11 @@ def test_engine_greedy_with_mixed_adapters_matches_jax(tmp_path, G):
         te.stop()
 
 
-def test_errors(tmp_path):
+def test_errors(tmp_path, monkeypatch):
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "staging").mkdir()
+    monkeypatch.setenv("PATH", str(tmp_path / "bin"))
+    monkeypatch.setenv("KUBEAI_ADAPTER_STAGING_DIR", str(tmp_path / "staging"))
     te = tcore.build_test_engine(tcore.EngineConfig(max_slots=2, max_seq_len=128,
                                                     prefill_buckets=(16, 32), max_adapters=1,
                                                     max_lora_rank=8), device="cpu")
@@ -285,8 +290,11 @@ def test_errors(tmp_path):
         te.load_adapter("a", str(tmp_path / "a"))
         with pytest.raises(RuntimeError, match="capacity 1 exhausted"):
             te.load_adapter("a2", str(tmp_path / "a"))
-        with pytest.raises(NotImplementedError, match="item 13"):
+        # A remote source stages through the loader's CLI (none on this
+        # PATH): the load fails and leaves no partial staging directory.
+        with pytest.raises(FileNotFoundError, match="aws"):
             te.load_adapter("remote", "s3://bucket/adapter")
+        assert os.listdir(tmp_path / "staging") == []
         with pytest.raises(FileNotFoundError):
             te.load_adapter("missing", str(tmp_path / "missing"))
         assert te.loaded_adapters() == ["a"]

@@ -21,6 +21,7 @@ the JAX package's, on the CPU.
   an untenanted one records nothing.
 """
 
+import contextlib
 import json
 import math
 import threading
@@ -86,6 +87,40 @@ def _series(mod, tenants) -> dict:
     return out
 
 
+def _clear_series(mod, series) -> None:
+    for attr, values in series.items():
+        for key in values:
+            getattr(mod, attr).remove(dict(key))
+
+
+def _restore_series(mod, series) -> None:
+    """Put back *series* (a _series result) exactly: a counter is
+    incremented from 0, a gauge set."""
+    for attr, values in series.items():
+        metric = getattr(mod, attr)
+        for key, v in values.items():
+            if attr == "M_T_SHARE":
+                metric.set(v, labels=dict(key))
+            else:
+                metric.inc(v, labels=dict(key))
+
+
+@contextlib.contextmanager
+def _own_series(mod, tenants):
+    """The series of *tenants* are process-global in each package, and
+    other test files (tests/test_tenants.py for the JAX package) leave
+    them non-zero in the same worker. Inside this block they start from
+    nothing, so the script's series are what the script wrote; after it
+    the values from before are put back exactly."""
+    before = _series(mod, tenants)
+    _clear_series(mod, before)
+    try:
+        yield
+    finally:
+        _clear_series(mod, _series(mod, tenants))
+        _restore_series(mod, before)
+
+
 def _strip_at(rep):
     rep = json.loads(json.dumps(rep))
     last = rep["flood"]["last"]
@@ -97,6 +132,12 @@ def _run(mod, inc, script, **kw):
     """*script* on a new accountant of package *mod*: the reports after
     every tick and at the end, the triggers published, the window states,
     the totals and the series."""
+    tenants = {s[1] for s in script if s[0] in ("req", "cost")} | {jt.OTHER, jt.ANONYMOUS}
+    with _own_series(mod, tenants):
+        return _run_script(mod, inc, script, tenants, **kw)
+
+
+def _run_script(mod, inc, script, tenants, **kw):
     kw = {"topk": 4, "window_seconds": 60.0, "flood_share": 0.5, "flood_min": 4.0, **kw}
     clock = FakeClock()
     a = mod.TenantAccountant(clock=clock, **kw)
@@ -122,7 +163,6 @@ def _run(mod, inc, script, **kw):
         reports.append(a.report())
     finally:
         inc.uninstall_recorder(cap)
-    tenants = {s[1] for s in script if s[0] in ("req", "cost")} | {jt.OTHER, jt.ANONYMOUS}
     return reports, cap.got, states, a.totals(), _series(mod, tenants)
 
 
