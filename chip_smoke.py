@@ -146,14 +146,21 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      a child process (``python -m kubeai_tpu_torch.loader
      --warm-compile-cache s3://...`` through a stand-in aws, into an
      empty KUBEAI_COMPILE_CACHE); after phase 8, phase_loader (budget
-     90 s) prints its staging and build seconds and the seconds waited
-     for it, checks the staged tree equals the source, and spawns a
-     replica on that cache (its compile phase builds nothing): spawn ->
-     /readyz 200 beside the empty-cache spawn, 8 greedy requests and a
-     300-byte one equal to an engine built directly over the checkpoint
-     (path "loader"), and an adapter from gs://... (a stand-in gcloud)
-     through /v1/load_lora_adapter, staged as {name}-<12 hex>, changing
-     greedy text;
+     135 s) prints its staging and build seconds and the seconds waited
+     for it, checks the staged tree equals the source, and hands that
+     cache to the port's operator (Manager with LocalRuntime, a Model
+     built in Python on nvidia-gpu-h100:1, minReplicas 0, PrefixHash):
+     the first /openai/v1/completions scales it from zero (the pod runs
+     kubeai_tpu_torch.engine.server with --tensor-parallel-size 1 and
+     nvidia.com/gpu 1; its compile phase builds nothing; spawn -> Ready
+     beside the empty-cache spawn); replicas 2, and while the second pod
+     starts, 8 greedy requests and a 300-byte one through the proxy equal
+     to an engine built directly over the checkpoint (path "operator"),
+     an adapter from gs://... (a stand-in gcloud) through the pod's
+     /v1/load_lora_adapter, staged as {name}-<12 hex>, changing greedy
+     text; 16 requests over two prefixes each stay on one pod; one
+     request through the proxy beside the same straight to its pod; the
+     Model deleted ends both processes and returns the card's memory;
   8. fine-tune (phase_finetune, budget 90 s): the LoRA fine-tune CLI
      (train/finetune.py's main) over a 4-layer checkpoint at
      Llama-3.1-8B width (64 seeded JSONL rows, --seq-len 256, rank 16 on
@@ -3952,23 +3959,32 @@ if path.endswith("/*"):
     path = path[:-2]
 shutil.copytree(os.path.join(os.environ["STANDIN_BUCKETS"], path), dest, dirs_exist_ok=True)
 """
-# The engine server with its kernel launch counts behind SIGUSR1: each
-# signal writes the counts since the last one to $SMOKE_LAUNCH_COUNTS
-# (chip_smoke's _read_launches) and sets them to 0.
-COUNTED_SERVER = """
-import json, os, runpy, signal
-import chip_smoke
+# Every engine process LocalRuntime starts in the operator run imports
+# this sitecustomize (first on PYTHONPATH), so the pod's command stays the
+# generator's: with SMOKE_LAUNCH_COUNTS set, each SIGUSR1 writes the
+# kernel launch counts since the last one to
+# $SMOKE_LAUNCH_COUNTS/<pid>.json (chip_smoke's _read_launches) and sets
+# them to 0. A sitecustomize further along the path still runs.
+POD_SITECUSTOMIZE = """
+import importlib.machinery, importlib.util, os, signal, sys
 
-def dump(signum, frame):
+def _dump(signum, frame):
+    import json
+    import chip_smoke
     counts = chip_smoke._read_launches()
     chip_smoke._zero_launches()
-    path = os.environ["SMOKE_LAUNCH_COUNTS"]
+    path = os.path.join(os.environ["SMOKE_LAUNCH_COUNTS"], f"{os.getpid()}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(counts, f)
     os.replace(path + ".tmp", path)
 
-signal.signal(signal.SIGUSR1, dump)
-runpy.run_module("kubeai_tpu_torch.engine.server", run_name="__main__", alter_sys=True)
+if os.environ.get("SMOKE_LAUNCH_COUNTS"):
+    signal.signal(signal.SIGUSR1, _dump)
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
 """
 
 
@@ -4044,34 +4060,45 @@ def _finish_loader(run, ckpt) -> dict:
             "loader_wall_s": wall, "waited_s": waited}
 
 
-def _child_counts(proc, path, timeout=60) -> dict:
-    """The launch counts of a COUNTED_SERVER process since the last call
-    (and set to 0 there)."""
+def _pod_counts(pid, counts_dir, timeout=60) -> dict:
+    """The launch counts of the engine process *pid* (started with
+    POD_SITECUSTOMIZE) since the last call, and set to 0 there."""
+    path = os.path.join(counts_dir, f"{pid}.json")
     if os.path.exists(path):
         os.remove(path)
-    os.kill(proc.pid, signal.SIGUSR1)
+    os.kill(pid, signal.SIGUSR1)
     t0 = time.monotonic()
     while not os.path.exists(path):
-        if proc.poll() is not None or time.monotonic() - t0 > timeout:
-            raise AssertionError(f"the counted server wrote no counts (exit {proc.poll()})")
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"engine process {pid} wrote no counts")
         time.sleep(0.05)
     with open(path) as f:
         return json.load(f)
 
 
-def _http_greedy(port, prompts, n=32) -> list:
+def _sum_counts(a: dict, b: dict) -> dict:
+    """Two launch-count records added key by key."""
+    if isinstance(a, dict):
+        return {k: _sum_counts(a.get(k, 0 if not isinstance(b.get(k), dict) else {}),
+                               b.get(k, 0 if not isinstance(a.get(k), dict) else {}))
+                for k in set(a) | set(b)}
+    return a + b
+
+
+def _http_greedy(port, prompts, n=32, path="/v1/completions", model=None) -> list:
     """[(ids, chosen tokens' logprobs)] of *prompts* as concurrent greedy
     HTTP completions under ASCII_ONLY (each token one character: its
-    id)."""
+    id); *path* and *model* address the proxy's OpenAI route."""
     out = [None] * len(prompts)
 
     def one(i):
-        resp = _post(port, "/v1/completions", {
+        resp = _post(port, path, {
+            **({"model": model} if model else {}),
             "prompt": prompts[i], "max_tokens": n, "temperature": 0, "logprobs": 0,
             "logit_bias": {str(t): b for t, b in ASCII_ONLY}})
         lp = resp["choices"][0]["logprobs"]
         if any(len(t) != 1 for t in lp["tokens"]):
-            raise AssertionError(f"loader: a token is not one ASCII character: {lp['tokens']}")
+            raise AssertionError(f"operator: a token is not one ASCII character: {lp['tokens']}")
         out[i] = ([ord(t) for t in lp["tokens"]], lp["token_logprobs"])
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
@@ -4080,28 +4107,121 @@ def _http_greedy(port, prompts, n=32) -> list:
     for th in threads:
         th.join()
     if any(o is None for o in out):
-        raise AssertionError("loader: a greedy request failed")
+        raise AssertionError("operator: a greedy request failed")
     return out
 
 
-def _serve_staged(run, ckpt, cold) -> dict:
-    """A replica started as a cache-mounted pod starts: the server over
-    the loader's destination with KUBEAI_COMPILE_CACHE the loader's
-    directory (its compile phase must build nothing: every library is read
-    from the cache), spawn -> /readyz 200 beside the empty-cache spawn
-    *cold*; 8 concurrent greedy requests with the launch counts zeroed
-    just before and read just after (path "loader"; flash and ragged must
-    launch), equal to an engine built directly over the checkpoint up to
-    near-ties within 2 bf16 ulps; then an adapter from ADAPTER_URL through
-    the stand-in gcloud and /v1/load_lora_adapter, staged under
-    KUBEAI_ADAPTER_STAGING_DIR as ``{name}-<12 hex>``, changing greedy
-    text. A 300-byte request (a flash prefill) follows the 8 inside the
-    counted window. Returns (numbers, launch counts)."""
+class _PodWatch:
+    """The store's pod events of one model, as times: each pod's ADDED (the
+    LocalRuntime's spawn) and first Ready; *on_ready(name)* runs on the
+    watcher's thread at a pod's first Ready."""
+
+    def __init__(self, store, model, on_ready=None):
+        from kubeai_tpu_torch.api import model_types as mt
+        from kubeai_tpu_torch.api.core_types import KIND_POD
+
+        self.added, self.ready, self.error = {}, {}, None
+        self._mt, self._on_ready = mt, on_ready
+        self._q, self._store, self._model = store.watch(KIND_POD), store, model
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="pod-watch", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import queue
+
+        while not self._stop.is_set():
+            try:
+                ev = self._q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            pod = ev.obj
+            if pod.meta.labels.get(self._mt.LABEL_MODEL) != self._model:
+                continue
+            name, now = pod.meta.name, time.monotonic()
+            self.added.setdefault(name, now)
+            if ev.type != "DELETED" and pod.status.ready and name not in self.ready:
+                try:
+                    if self._on_ready is not None:
+                        self._on_ready(name)
+                except Exception as e:
+                    self.error = e
+                # Recorded after the callback: a reader waiting for the
+                # pod's Ready sees what the callback did.
+                self.ready[name] = now
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._store.unwatch(self._q)
+
+
+OPERATOR_MODEL = "llama-8b-width"
+OPERATOR_PROMPTS = [f"Request number {i}: tell a story about the sea." for i in range(8)]
+AFFINITY_PREFIXES = (
+    "You keep the harbor lights on a northern coast. Answer each question about the "
+    "harbor in one short sentence. ",
+    "You guide boats down a long river through the hills. Answer each question about "
+    "the river in one short sentence. ",
+)
+
+
+def _direct_reference(ckpt) -> tuple[list, dict]:
+    """(greedy [(ids, chosen logprobs)] of OPERATOR_PROMPTS under
+    ASCII_ONLY, the weights) of an engine built directly over the
+    checkpoint *ckpt* with COLDSTART_ARGS: the reference the operator's
+    pods are held to. The engine is freed; its weights stay for the
+    near-tie check."""
     import torch
 
-    from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
     from kubeai_tpu_torch.engine.server import build_engine_from_args, make_arg_parser
+
+    direct, _ = build_engine_from_args(make_arg_parser().parse_args(
+        ["--model", ckpt] + COLDSTART_ARGS))
+    direct.start()
+    try:
+        want = _greedy_batch(direct, OPERATOR_PROMPTS, bias=ASCII_ONLY, chosen=True)
+    finally:
+        direct.stop()
+    params = direct.params
+    del direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, params
+
+
+def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
+    """The replica on the loader's cache, started by the port's operator
+    (path "operator"): Manager(local_runtime=True) with the default
+    profiles, a Model built in Python (TPUEngine, file:// the loader's
+    destination, nvidia-gpu-h100:1, minReplicas 0, maxReplicas 2,
+    PrefixHash, --warmup and COLDSTART_ARGS), LocalRuntime's pods with
+    KUBEAI_COMPILE_CACHE the loader's directory. The pod must run the
+    port's server with --tensor-parallel-size 1 and nvidia.com/gpu 1. The
+    first /openai/v1/completions scales it from zero (its wait; the pod's
+    spawn -> Ready), and its compile phase builds nothing. Then replicas 2,
+    and while the second pod starts on the same cache: 8 concurrent
+    greedy requests and a 300-byte one through the proxy with the launch
+    counts zeroed just before and read just after (flash and ragged must
+    launch), equal to an engine built directly over the checkpoint up to
+    near-ties within 2 bf16 ulps; the gs:// adapter (ADAPTER_URL through
+    the stand-in gcloud) on the first pod's own port, staged as
+    ``{name}-<12 hex>``, changing greedy text. With both pods ready, 16
+    sequential greedy requests over two prefixes (each prefix must stay on
+    one pod; each pod's count from its /debug/requests), one request
+    timed through the proxy beside the same request straight to its pod,
+    then the Model deleted: both processes must exit and the card's free
+    memory come back. *direct* is _direct_reference's. Returns (numbers,
+    launch counts)."""
+    import torch
+
+    from kubeai_tpu_torch.api import model_types as mt
+    from kubeai_tpu_torch.api.core_types import KIND_POD
+    from kubeai_tpu_torch.api.model_types import LoadBalancing, Model, ModelSpec, PrefixHash
+    from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
+    from kubeai_tpu_torch.manager import Manager
     from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.runtime.store import ObjectMeta
     from kubeai_tpu_torch.utils.xxh import xxh64
 
     work = os.path.dirname(run["cache"])
@@ -4110,67 +4230,185 @@ def _serve_staged(run, ckpt, cold) -> dict:
                                        ADAPTER_URL.split("://", 1)[1]),
                           mc, rank=16, alpha=32, seed=5, std=0.02)
     adapters = os.path.join(work, "adapters")
-    counts_path = os.path.join(work, "launch_counts.json")
-    proc, port, ready_s = _spawn_server(
-        run["dest"], run["cache"], os.path.join(work, "served.log"),
-        env={**run["env"], "KUBEAI_ADAPTER_STAGING_DIR": adapters,
-             "SMOKE_LAUNCH_COUNTS": counts_path},
-        cmd=[sys.executable, "-c", COUNTED_SERVER])
-    prompts = [f"Request number {i}: tell a story about the sea." for i in range(8)]
+    counts_dir = os.path.join(work, "launch_counts")
+    site, pods_bin = os.path.join(work, "pod_site"), os.path.join(work, "pod_bin")
+    for d in (counts_dir, site, pods_bin):
+        os.makedirs(d)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(POD_SITECUSTOMIZE)
+    # The generator's command is `python -m ...`: `python` is this one
+    # (a script, not a link: a link would lose a virtual environment).
+    with open(os.path.join(pods_bin, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec {sys.executable} "$@"\n')
+    os.chmod(os.path.join(pods_bin, "python"), 0o755)
+    os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "pod_logs")
+    mgr = Manager(local_runtime=True, host="127.0.0.1", port=0)
+    mgr.local_runtime.extra_env.update({
+        **run["env"], "PATH": pods_bin + os.pathsep + run["env"]["PATH"],
+        "PYTHONPATH": site, "KUBEAI_COMPILE_CACHE": run["cache"],
+        "KUBEAI_COLDSTART_OVERLAP": "1", "KUBEAI_ADAPTER_STAGING_DIR": adapters,
+        "SMOKE_LAUNCH_COUNTS": counts_dir})
+
+    def pid(name):
+        return mgr.local_runtime._procs[name].proc.pid
+
+    def pod_port(name):
+        pod = mgr.store.get(KIND_POD, name)
+        return int(pod.meta.annotations[mt.ANNOTATION_MODEL_POD_PORT])
+
+    first: list = []
+    # A later pod's start (its warmup launches) is not part of the counted
+    # window: its counts are zeroed the moment it is Ready.
+    watch = _PodWatch(mgr.store, OPERATOR_MODEL,
+                      on_ready=lambda name: first and name != first[0] and
+                      _pod_counts(pid(name), counts_dir))
+    prompts = OPERATOR_PROMPTS
+    mid = ("The quick brown fox jumps over the lazy dog. " * 7)[:300]
+    free0 = torch.cuda.mem_get_info()[0]
+    procs, res = [], {}
+    mgr.start()
     try:
-        res = _start_numbers(port, ready_s, "loader")
-        _child_counts(proc, counts_path)
-        got = _http_greedy(port, prompts)
-        mid = ("The quick brown fox jumps over the lazy dog. " * 7)[:300]
-        _check_completion(_post(port, "/v1/completions", {
-            "prompt": mid, "max_tokens": 8, "temperature": 0}), "loader 300-byte")
-        launches = _child_counts(proc, counts_path)
-        base = _post(port, "/v1/completions", {"prompt": prompts[0], "max_tokens": 16,
-                                                "temperature": 0})["choices"][0]["text"]
-        code, _, body = _http(port, "/v1/load_lora_adapter",
+        mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name=OPERATOR_MODEL), spec=ModelSpec(
+            url=f"file://{run['dest']}", engine=mt.ENGINE_TPU,
+            resource_profile="nvidia-gpu-h100:1", min_replicas=0, max_replicas=2,
+            args=["--host", "127.0.0.1", "--warmup"] + COLDSTART_ARGS,
+            load_balancing=LoadBalancing(strategy=mt.PREFIX_HASH_STRATEGY,
+                                         prefix_hash=PrefixHash()))))
+        time.sleep(0.5)
+        if mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: OPERATOR_MODEL}):
+            raise AssertionError("operator: a pod exists before the first request")
+        t0 = time.monotonic()
+        _check_completion(_post(mgr.api.port, "/openai/v1/completions", {
+            "model": OPERATOR_MODEL, "prompt": "Hello", "max_tokens": 8, "temperature": 0},
+            timeout=240), "operator scale-from-zero")
+        wait_s = time.monotonic() - t0
+        (pod,) = mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: OPERATOR_MODEL})
+        first.append(pod.meta.name)
+        c = pod.spec.containers[0]
+        tp = c.args[c.args.index("--tensor-parallel-size") + 1]
+        if c.command[-1] != "kubeai_tpu_torch.engine.server" or tp != "1" or \
+                c.resources_requests.get("nvidia.com/gpu") != "1" or \
+                c.resources_limits.get("nvidia.com/gpu") != "1":
+            raise AssertionError(f"operator: the pod is not the port's server on one GPU: "
+                                 f"{c.command} {c.args} {c.resources_requests}")
+        port0 = pod_port(first[0])
+        spawn_ready = watch.ready[first[0]] - watch.added[first[0]]
+        res = _start_numbers(port0, spawn_ready, "operator")
+        res.update({"pod_command": c.command, "tensor_parallel_size": int(tp),
+                    "gpu_request": c.resources_requests["nvidia.com/gpu"],
+                    "scale_from_zero_wait_s": wait_s})
+        _pod_counts(pid(first[0]), counts_dir)
+        mgr.store.mutate(mt.KIND_MODEL, OPERATOR_MODEL, lambda m: setattr(m.spec, "replicas", 2))
+        t_checks = time.monotonic()
+        got = _http_greedy(mgr.api.port, prompts, path="/openai/v1/completions",
+                           model=OPERATOR_MODEL)
+        _check_completion(_post(mgr.api.port, "/openai/v1/completions", {
+            "model": OPERATOR_MODEL, "prompt": mid, "max_tokens": 8, "temperature": 0}),
+            "operator 300-byte")
+        checks_s = time.monotonic() - t_checks
+        launches = _pod_counts(pid(first[0]), counts_dir)
+        second_ready_during_checks = any(n != first[0] and t < t_checks + checks_s
+                                         for n, t in watch.ready.items())
+        base = _post(port0, "/v1/completions", {"prompt": prompts[0], "max_tokens": 16,
+                                                 "temperature": 0})["choices"][0]["text"]
+        code, _, body = _http(port0, "/v1/load_lora_adapter",
                               {"lora_name": "gsa", "lora_path": ADAPTER_URL})
         if code != 200:
-            raise AssertionError(f"loader: /v1/load_lora_adapter: {code} {body}")
-        tuned = _post(port, "/v1/completions", {"model": "gsa", "prompt": prompts[0],
-                                                 "max_tokens": 16, "temperature": 0})
+            raise AssertionError(f"operator: /v1/load_lora_adapter: {code} {body}")
+        tuned = _post(port0, "/v1/completions", {"model": "gsa", "prompt": prompts[0],
+                                                  "max_tokens": 16, "temperature": 0})
         staged = os.listdir(adapters)
+        deadline = time.monotonic() + 120
+        while len(watch.ready) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"operator: the second pod is not Ready in 120 s: "
+                                     f"{mgr.store.list(KIND_POD)}")
+            time.sleep(0.05)
+        second = next(n for n in watch.ready if n != first[0])
+        if second_ready_during_checks:
+            launches = _sum_counts(launches, _pod_counts(pid(second), counts_dir))
+        # Prefix affinity: 16 sequential requests over two prefixes longer
+        # than PrefixHash's 100 characters.
+        served_by, ports = {}, {n: pod_port(n) for n in (first[0], second)}
+        for i in range(16):
+            prefix = AFFINITY_PREFIXES[i % 2]
+            rid = f"affinity-{i}"
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{mgr.api.port}/openai/v1/completions",
+                data=json.dumps({"model": OPERATOR_MODEL, "prompt": prefix + f"Part {i}.",
+                                 "max_tokens": 8, "temperature": 0}).encode(),
+                headers={"Content-Type": "application/json", "X-Request-ID": rid})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                r.read()
+            served_by[rid] = (i % 2, [n for n, p in ports.items() if _http(
+                p, f"/debug/requests?id={rid}")[2]["requests"]])
+        per_prefix = {k: {tuple(v) for kk, v in served_by.values() if kk == k} for k in (0, 1)}
+        if any(len(pods) != 1 or len(next(iter(pods))) != 1 for pods in per_prefix.values()):
+            raise AssertionError(f"operator: a prefix was served by more than one pod: "
+                                 f"{served_by}")
+        per_pod = {n: sum(1 for _, v in served_by.values() if v == [n]) for n in ports}
+        one = {"model": OPERATOR_MODEL, "prompt": prompts[1], "max_tokens": 16,
+               "temperature": 0}
+        target = per_prefix[0] and next(iter(per_prefix[0]))[0]
+        proxy_ms, direct_ms = [], []
+        for _ in range(3):
+            t = time.monotonic()
+            _post(mgr.api.port, "/openai/v1/completions", one)
+            proxy_ms.append((time.monotonic() - t) * 1e3)
+            t = time.monotonic()
+            _post(ports[target], "/v1/completions", one)
+            direct_ms.append((time.monotonic() - t) * 1e3)
+        free_up = torch.cuda.mem_get_info()[0]
+        procs = [mgr.local_runtime._procs[n].proc for n in ports]
+        t_del = time.monotonic()
+        mgr.store.delete(mt.KIND_MODEL, OPERATOR_MODEL)
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() - t_del > 60:
+                raise AssertionError("operator: a pod process outlived its Model by 60 s")
+            time.sleep(0.02)
+        teardown_s = time.monotonic() - t_del
+        time.sleep(0.5)
+        free1 = torch.cuda.mem_get_info()[0]
     finally:
-        _stop(proc)
+        watch.stop()
+        mgr.stop()
+        os.environ.pop("KUBEAI_POD_LOGS", None)
+    if watch.error is not None:
+        raise AssertionError(f"operator: zeroing the second pod's counts failed: {watch.error!r}")
     if res["built"] or res["missing"] or sorted(res["loaded"]) != sorted(res["libraries"]):
-        raise AssertionError(f"loader: the replica on the warmed cache built: {res}")
+        raise AssertionError(f"operator: the replica on the warmed cache built: {res}")
     n = launches["launches"]
     if not (n["flash_attention"] and n["paged_attention_ragged"]):
-        raise AssertionError(f"loader: flash and ragged must launch: {launches}")
+        raise AssertionError(f"operator: flash and ragged must launch: {launches}")
     want_dir = f"gsa-{xxh64(ADAPTER_URL) & 0xFFFFFFFFFFFF:012x}"
     if staged != [want_dir]:
-        raise AssertionError(f"loader: adapter staged as {staged}, not [{want_dir}]")
+        raise AssertionError(f"operator: adapter staged as {staged}, not [{want_dir}]")
     tuned_text = tuned["choices"][0]["text"]
     if tuned_text == base:
-        raise AssertionError(f"loader: the gs:// adapter left greedy text unchanged: {base!r}")
-    direct, _ = build_engine_from_args(make_arg_parser().parse_args(
-        ["--model", ckpt] + COLDSTART_ARGS))
-    direct.start()
-    try:
-        want = _greedy_batch(direct, prompts, bias=ASCII_ONLY, chosen=True)
-        # Where a request first differs, both chose among the allowed
-        # tokens after the same ids: the two choices' logprobs (raw: a
-        # bias steers choice only) must lie within 2 bf16 ulps.
-        gaps = [[abs(a - b) for a, b in zip(g_lp, w_lp)]
-                for (_, g_lp), (_, w_lp) in zip(got, want)]
-        diverged = _near_tie_divergence(direct.params, [ids for ids, _ in got],
-                                        [ids for ids, _ in want], gaps, "loader",
-                                        prompts=prompts, mc=mc)
-    finally:
-        direct.stop()
-    del direct
-    gc.collect()
-    torch.cuda.empty_cache()
-    res.update({"ready_s_beside_empty_cache": {"warmed": ready_s,
+        raise AssertionError(f"operator: the gs:// adapter left greedy text unchanged: {base!r}")
+    if free1 < free0 - (512 << 20):
+        raise AssertionError(f"operator: the card's memory did not come back: free "
+                             f"{free0 / 2**30:.2f} GiB before, {free1 / 2**30:.2f} GiB after")
+    # Where a request first differs, both chose among the allowed tokens
+    # after the same ids: the two choices' logprobs (raw: a bias steers
+    # choice only) must lie within 2 bf16 ulps.
+    want, params = direct
+    gaps = [[abs(a - b) for a, b in zip(g_lp, w_lp)]
+            for (_, g_lp), (_, w_lp) in zip(got, want)]
+    diverged = _near_tie_divergence(params, [ids for ids, _ in got], [ids for ids, _ in want],
+                                    gaps, "operator", prompts=OPERATOR_PROMPTS, mc=mc)
+    res.update({"ready_s_beside_empty_cache": {"warmed": res["spawn_to_ready_s"],
                                                "empty": cold["spawn_to_ready_s"]},
                 "compile_phase_beside_empty_cache": {"warmed": res["phases"].get("compile"),
                                                      "empty": cold["phases"].get("compile")},
+                "second_pod_spawn_to_ready_s": watch.ready[second] - watch.added[second],
+                "checks_s": checks_s, "second_ready_during_checks": second_ready_during_checks,
                 "tokens_equal": not diverged, "diverged_at_near_ties": diverged,
                 "adapter_staged_as": staged[0], "adapter_text": tuned_text, "base_text": base,
+                "requests_per_pod": per_pod, "proxy_ms": proxy_ms, "direct_ms": direct_ms,
+                "teardown_s": teardown_s, "free_gib": {"before": free0 / 2**30,
+                                                      "two_pods": free_up / 2**30,
+                                                      "after": free1 / 2**30},
                 "launches": n})
     return res, launches
 
@@ -4310,27 +4548,36 @@ def phase_coldstart() -> tuple[dict, dict]:
 
 
 def phase_loader(run) -> dict:
-    """Phase 7b, after phase 8 (budget 90 s): the cache loader Job that
+    """Phase 7b, after phase 8 (budget 135 s): the cache loader Job that
     phase_coldstart started beside the parked part and phase 8 (``python
     -m kubeai_tpu_torch.loader --warm-compile-cache LOADER_URL <dest>
     COLDSTART_ARGS`` through a stand-in aws, into an empty
     KUBEAI_COMPILE_CACHE): its staging seconds, the libraries it built and
     their seconds, the staged tree equal to the source, the seconds
-    waited for it (what it added to the whole); then a replica on that
-    cache (_serve_staged, path "loader"). Returns {"loader": counts}."""
+    waited for it (what it added to the whole), the reference engine's
+    greedy tokens taken meanwhile (_direct_reference); then the port's
+    operator scales replicas on that cache (_serve_operator, path
+    "operator"). Returns {"operator": counts}."""
+    import torch
+
     t0 = time.monotonic()
     try:
+        # The reference engine runs while the loader's nvcc builds.
+        direct = _direct_reference(run["ckpt"])
         loader = _finish_loader(run, run["ckpt"])
         log("coldstart[loader]", gpu_line(), json.dumps(loader))
-        served, launches = _serve_staged(run, run["ckpt"], run["spawn"])
-        log("coldstart[warmed_start]", gpu_line(), json.dumps(served))
+        served, launches = _serve_operator(run, run["spawn"], direct)
+        del direct
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("operator", gpu_line(), json.dumps(served))
     finally:
         _stop(run["proc"])
         shutil.rmtree(run["ckpt"], ignore_errors=True)
         shutil.rmtree(os.path.dirname(run["cache"]), ignore_errors=True)
-    log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 90 s; the loader's child added "
-        f"{loader['waited_s']:.1f} s past phases 7 and 8)")
-    return {"loader": launches}
+    log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 135 s; the loader's child added "
+        f"{loader['waited_s']:.1f} s past phases 7, 8 and the reference engine)")
+    return {"operator": launches}
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""The part of the operator's controller that the engine needs: the model
-source URL (port of kubeai_tpu/controller)."""
+"""The operator's controller: model sources, pod plans, engine pod
+generators and the Model reconciler (port of kubeai_tpu/controller)."""

@@ -1,19 +1,25 @@
-"""Model source URLs (port of kubeai_tpu/controller/model_source.py:
-``ModelSource`` and ``parse_model_source``; the pod and volume injection
-stays with the operator). Schemes:
+"""Model source URL parsing + credential/volume injection.
+
+Port of kubeai_tpu/controller/model_source.py: the JAX package's code,
+its imports in this package.
+
+Parity: internal/modelcontroller/model_source.go:19-64,231-287. Schemes:
     hf://org/model[?param=...]      HuggingFace repo
     pvc://claim/path                pre-provisioned PVC
     ollama://model[:tag][?pull=..]  Ollama registry name
     s3://bucket/path  gs://  oss:// object storage
-    file:///abs/path                local path
+    file:///abs/path                local path (LocalRuntime / dev)
 Query params: insecure, pull, model (engine-specific model id within the
 source).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from urllib.parse import parse_qs, urlparse
+
+from kubeai_tpu_torch.api.core_types import Container, Pod, Volume, VolumeMount
+from kubeai_tpu_torch.config.system import SecretNames
 
 
 @dataclass
@@ -67,3 +73,52 @@ def parse_model_source(url: str) -> ModelSource:
     else:
         raise ValueError(f"unsupported model url scheme {scheme!r}")
     return src
+
+
+@dataclass
+class SourcePodAdditions:
+    env: dict[str, str] = field(default_factory=dict)
+    env_from_secrets: list[str] = field(default_factory=list)
+    volumes: list[Volume] = field(default_factory=list)
+    mounts: list[VolumeMount] = field(default_factory=list)
+
+
+def source_pod_additions(src: ModelSource, secrets: SecretNames) -> SourcePodAdditions:
+    """Credentials + volumes each source scheme needs in the server pod
+    (parity: model_source.go:82-227)."""
+    add = SourcePodAdditions()
+    if src.scheme == "hf":
+        add.env["HF_HOME"] = "/tmp/hf"
+        add.env_from_secrets.append(secrets.huggingface)
+    elif src.scheme == "s3":
+        add.env_from_secrets.append(secrets.aws)
+    elif src.scheme == "gs":
+        add.env["GOOGLE_APPLICATION_CREDENTIALS"] = "/secrets/gcp/keyfile.json"
+        add.env_from_secrets.append(secrets.gcp)
+    elif src.scheme == "oss":
+        add.env_from_secrets.append(secrets.alibaba)
+    elif src.scheme == "pvc":
+        add.volumes.append(Volume(name="model-source", pvc_name=src.pvc_name))
+        add.mounts.append(
+            VolumeMount(
+                name="model-source",
+                mount_path="/model",
+                sub_path=src.pvc_subpath,
+                read_only=True,
+            )
+        )
+    elif src.scheme == "file":
+        # Mounted at the same path as on the host so the container arg
+        # (--model <path>) is valid in both cluster mode and LocalRuntime
+        # (which has no mounts at all).
+        add.volumes.append(Volume(name="model-source", host_path=src.local_path))
+        add.mounts.append(VolumeMount(name="model-source", mount_path=src.local_path))
+    return add
+
+
+def apply_source_to_container(add: SourcePodAdditions, pod: Pod, container: Container):
+    container.env.update(add.env)
+    for s in add.env_from_secrets:
+        container.env[f"__envFromSecret_{s}"] = s
+    pod.spec.volumes.extend(add.volumes)
+    container.volume_mounts.extend(add.mounts)

@@ -6,8 +6,9 @@ that is a no-op until a fault is armed on it. Faults are armed by name:
 - programmatically: ``set_fault("engine.step", "error", times=2)``
 - by environment:   ``KUBEAI_FAILPOINTS="engine.submit=error:2;engine.step=delay:0.05"``
 - over HTTP:        ``GET /debug/faults?set=engine.step=delay:0.05`` on the
-  engine server (``?clear=NAME`` / ``?clear=all`` disarm; a bare GET lists
-  armed faults and hit counts; arming needs ``KUBEAI_DEBUG_FAULTS=1``).
+  engine server and the operator's OpenAI server (``?clear=NAME`` /
+  ``?clear=all`` disarm; a bare GET lists armed faults and hit counts;
+  arming needs ``KUBEAI_DEBUG_FAULTS=1``).
 
 Modes (``spec`` grammar: ``mode[:arg][:key=val...]``), as in the JAX
 package: ``error[:N]`` (``skip=K`` passes the first K triggers), ``delay:S``,
@@ -39,6 +40,9 @@ The port's sites, under the JAX package's names:
                          reconnect-with-backoff and re-form path)
     history.disk         each metrics-history snapshot write (an error
                          keeps the history in memory only)
+    proxy.connect        before each upstream connect attempt of the
+                         proxy (payload: the request body)
+    balancer.reconcile   each endpoint-reconcile pass of the balancer
 """
 
 from __future__ import annotations

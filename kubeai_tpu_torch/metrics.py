@@ -79,6 +79,11 @@ class Gauge(_Metric):
         with self._lock:
             self._values[self._key(labels)] = value
 
+    def add(self, amount: float, labels: dict[str, str] | None = None):
+        key = self._key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
 
 class CallbackGauge(_Metric):
     """A gauge computed by a callback when the page is rendered, so
@@ -208,6 +213,9 @@ class Registry:
 
 
 default_registry = Registry()
+
+# The autoscaling signal: the proxy's gauge of requests in flight per model.
+ACTIVE_REQUESTS = "kubeai_inference_requests_active"
 
 
 def set_build_info(server: str) -> None:

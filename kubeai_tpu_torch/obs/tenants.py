@@ -33,14 +33,17 @@ Knobs: ``KUBEAI_TENANT_TOPK`` (32), ``KUBEAI_TENANT_WINDOW_SECONDS`` (60),
 and the thresholds ``KUBEAI_SLO_TTFT_SECONDS`` (2) and
 ``KUBEAI_SLO_E2E_SECONDS`` (30).
 
-Left out, because the JAX proxy stays the front end: ``RequestMeter``
-(the proxy's per-request usage meter), ``extract_tenant`` and
-``hash_tenant_key`` (its identity from credentials) and the canary
-header.
+The proxy's half: ``extract_tenant`` hashes the caller's credentials
+(``Authorization: Bearer`` or ``X-API-Key``, sha256 prefix, unsalted so
+an id is stable across restarts; none gives ``anonymous``), and one
+``RequestMeter`` per proxied request records its TTFT, usage and outcome
+once at the terminal. Canary probes (``X-KubeAI-Canary``) are counted
+apart and nowhere else.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import re
@@ -57,6 +60,9 @@ log = logging.getLogger("kubeai_tpu_torch.tenants")
 
 # The proxy's hashed tenant id rides this header (it strips client copies).
 TENANT_HEADER = "X-KubeAI-Tenant"
+# The marker the canary prober stamps on its probes: excluded from
+# accounting end to end.
+CANARY_HEADER = "X-KubeAI-Canary"
 ANONYMOUS = "anonymous"
 OTHER = "__other__"
 
@@ -67,6 +73,32 @@ _TENANT_RE = re.compile(r"[^A-Za-z0-9._\-]")
 
 def sanitize_tenant(t: str) -> str:
     return _TENANT_RE.sub("", str(t))[:64]
+
+
+def hash_tenant_key(raw: str) -> str:
+    """A stable tenant id from a raw credential (sha256 prefix; the raw
+    key is never logged)."""
+    return hashlib.sha256(raw.encode()).hexdigest()[:16]
+
+
+def extract_tenant(headers) -> str:
+    """The tenant id of a request's credentials (header names match in
+    any case): ``Authorization: Bearer <key>`` wins, then ``X-API-Key``;
+    no credential gives ``anonymous``. Only the hash leaves."""
+    auth = api_key = ""
+    for k in headers:
+        lk = k.lower()
+        if lk == "authorization" and not auth:
+            auth = str(headers[k])
+        elif lk == "x-api-key" and not api_key:
+            api_key = str(headers[k])
+    if auth:
+        scheme, _, token = auth.partition(" ")
+        if scheme.lower() == "bearer" and token.strip():
+            return hash_tenant_key(token.strip())
+    if api_key.strip():
+        return hash_tenant_key(api_key.strip())
+    return ANONYMOUS
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +599,134 @@ class TenantAccountant:
 
 
 default_accountant = TenantAccountant(auto_tick=True)
+
+
+# ---------------------------------------------------------------------------
+# The proxy's per-request meter: TTFT, usage and outcome, recorded once at
+# the terminal.
+
+# Non-streaming bodies are buffered for the usage parse only up to this
+# many bytes; larger bodies (audio, giant embedding matrices) skip it.
+BODY_PARSE_CAP = 4 * 1024 * 1024
+
+
+class RequestMeter:
+    """One per proxied request, created at tenant extraction and
+    finished (idempotently) on whichever terminal path the request
+    takes. Canary probes construct one too, but finish() drops them —
+    the single choke point for canary exclusion."""
+
+    __slots__ = (
+        "tenant", "canary", "accountant", "t0", "ttft",
+        "prompt_tokens", "completion_tokens", "usage_seen",
+        "strip_usage", "_done", "_buf", "_buf_len",
+    )
+
+    def __init__(self, tenant: str, canary: bool = False, accountant: TenantAccountant | None = None):
+        self.tenant = tenant
+        self.canary = canary
+        self.accountant = accountant or default_accountant
+        self.t0 = time.monotonic()
+        self.ttft: float | None = None
+        self.prompt_tokens = 0
+        self.completion_tokens = 0
+        self.usage_seen = False
+        # Set when the proxy injected stream_options.include_usage the
+        # client never asked for: the usage chunk is metered here and
+        # withheld from the client stream.
+        self.strip_usage = False
+        self._done = False
+        self._buf: list[bytes] = []
+        self._buf_len = 0
+
+    def first_byte(self) -> None:
+        if self.ttft is None:
+            self.ttft = time.monotonic() - self.t0
+
+    def observe_usage(self, usage) -> None:
+        if not isinstance(usage, dict):
+            return
+        pt = usage.get("prompt_tokens")
+        ct = usage.get("completion_tokens")
+        if ct is None:
+            # Prompt-only usage shapes (embeddings; some third-party
+            # engines): completion is total minus prompt — falling back
+            # to total_tokens directly would bill the prompt twice.
+            # Clamped at 0: a malformed block (total < prompt) must not
+            # become a negative count that DECREMENTS the token counter.
+            total = usage.get("total_tokens")
+            if isinstance(total, (int, float)) and isinstance(pt, (int, float)):
+                ct = max(total - pt, 0)
+        if isinstance(pt, (int, float)):
+            self.prompt_tokens = int(pt)
+            self.usage_seen = True
+        if isinstance(ct, (int, float)):
+            self.completion_tokens = int(ct)
+            self.usage_seen = True
+
+    def observe_event(self, event: bytes) -> bool:
+        """Inspect one SSE event for a usage block. Returns True when
+        the event is the usage-only chunk (empty ``choices``) AND the
+        proxy injected the request's include_usage — i.e. the caller
+        must strip it from the client stream. The substring pre-filter
+        keeps the JSON parse off the per-token path."""
+        if b'"usage"' not in event or not event.startswith(b"data:"):
+            return False
+        payload = event[5:].strip()
+        if payload == b"[DONE]":
+            return False
+        try:
+            obj = json.loads(payload)
+        except ValueError:
+            return False
+        if not isinstance(obj, dict):
+            return False
+        usage = obj.get("usage")
+        if not isinstance(usage, dict):
+            return False
+        self.observe_usage(usage)
+        return self.strip_usage and obj.get("choices") == []
+
+    def feed(self, chunk: bytes) -> None:
+        """Accumulate a non-streaming response body (bounded) for the
+        terminal usage parse. Crossing the cap drops everything
+        buffered so far — parse_body() is guaranteed to skip an
+        over-cap body, so holding the accumulated megabytes for the
+        rest of the request would be dead memory."""
+        if self._buf_len > BODY_PARSE_CAP:
+            return
+        self._buf_len += len(chunk)
+        if self._buf_len > BODY_PARSE_CAP:
+            self._buf = []
+            return
+        self._buf.append(chunk)
+
+    def parse_body(self) -> None:
+        if not self._buf or self._buf_len > BODY_PARSE_CAP:
+            return
+        try:
+            obj = json.loads(b"".join(self._buf))
+        except ValueError:
+            return
+        if isinstance(obj, dict):
+            self.observe_usage(obj.get("usage"))
+
+    def finish(self, outcome: str) -> None:
+        """Idempotent terminal record — first caller's outcome wins
+        (mirrors SpanBuilder.finish, and is called beside it)."""
+        if self._done:
+            return
+        self._done = True
+        self._buf = []
+        self.accountant.record_request(
+            self.tenant,
+            outcome,
+            e2e_s=time.monotonic() - self.t0,
+            ttft_s=self.ttft,
+            prompt_tokens=self.prompt_tokens,
+            completion_tokens=self.completion_tokens,
+            canary=self.canary,
+        )
 
 
 def handle_tenant_request(path: str, query: str = "") -> tuple[int, str, bytes] | None:

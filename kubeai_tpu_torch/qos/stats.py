@@ -1,7 +1,7 @@
-"""The engine's ``kubeai_qos_*`` metrics and ``GET /debug/qos`` (port of
-kubeai_tpu/qos/stats.py, same names and help strings). The
-preemption-storm incident trigger and the proxy's counters are
-operator-side and not ported."""
+"""The ``kubeai_qos_*`` metrics and ``GET /debug/qos`` (port of
+kubeai_tpu/qos/stats.py, same names and help strings): the engine's queue
+series and the proxy's class and resume counters. The preemption-storm
+incident trigger is not ported (ROADMAP queue 1, the incident recorder)."""
 
 from __future__ import annotations
 
@@ -50,6 +50,27 @@ M_PREEMPTED_TOKENS = default_registry.counter(
 )
 
 
+M_RESUMES = default_registry.counter(
+    "kubeai_qos_resumes_total",
+    "preempted batch streams the proxy re-dispatched with their replay "
+    "cursor (X-Resume-Tokens)",
+)
+M_PROXY_REQS = default_registry.counter(
+    "kubeai_qos_proxy_requests_total",
+    "requests entering the proxy by resolved priority class (client-facing "
+    "twin of kubeai_qos_requests_total; differs by sheds/retries)",
+)
+
+
+def record_resolved(priority: str) -> None:
+    """One request entered the proxy at this class."""
+    M_PROXY_REQS.inc(labels={"class": priority})
+
+
+def record_resume() -> None:
+    M_RESUMES.inc()
+
+
 def record_admitted(priority: str, wait_s: float) -> None:
     """A queued request won a decode slot after *wait_s* in line."""
     M_WAIT.observe(max(wait_s, 0.0), labels={"class": priority})
@@ -82,6 +103,8 @@ def qos_snapshot() -> dict:
         "classes": list(CLASSES),
         "preemptions": int(M_PREEMPTIONS.value()),
         "preempted_tokens": int(M_PREEMPTED_TOKENS.value()),
+        "resumes": int(M_RESUMES.value()),
+        "proxy_requests": {c: int(M_PROXY_REQS.value(labels={"class": c})) for c in CLASSES},
     }
     q = _queue
     if q is not None:

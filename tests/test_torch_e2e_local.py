@@ -1,0 +1,135 @@
+"""The port's operator end to end on the CPU (the counterpart of
+tests/test_e2e_local.py): ``kubeai_tpu_torch.manager.Manager`` with
+LocalRuntime runs real ``python -m kubeai_tpu_torch.engine.server``
+processes.
+
+A Model over a tiny checkpoint (``file://``, ``--device cpu``: the pods
+would otherwise ask for the card), minReplicas 0, PrefixHash:
+- the first request scales it from zero (replicas 1, one pod running the
+  port's server with ``--tensor-parallel-size 1``), and the greedy text
+  of three completions through ``/openai/v1/completions`` equals the JAX
+  engine's over the same checkpoint, built in process with the JAX
+  server's own arguments; where the two first differ the JAX engine's
+  top-2 logprobs must lie within 2 bf16 ulps (both serve the checkpoint
+  in bf16);
+- at replicas 2, eight requests that share a 100-character prefix land
+  on one pod (found by request id in each pod's /debug/requests);
+- deleting the Model ends both processes.
+"""
+
+import json
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+
+from kubeai_tpu.engine.core import EngineConfig as JEC
+from kubeai_tpu.engine.weights import load_engine_from_path as jload
+from kubeai_tpu_torch.api import model_types as mt
+from kubeai_tpu_torch.api.core_types import KIND_POD
+from kubeai_tpu_torch.api.model_types import LoadBalancing, Model, ModelSpec, PrefixHash
+from kubeai_tpu_torch.manager import Manager
+from kubeai_tpu_torch.runtime.store import ObjectMeta
+
+from test_torch_weights import _checkpoint
+
+ARGS = ["--device", "cpu", "--max-slots", "2", "--max-seq-len", "128"]
+PROMPTS = ["Hello there", "The sea is", "Once upon a time, in a land"]
+PREFIX = ("You keep the harbor lights on a northern coast. Answer each question "
+          "about the harbor in one short sentence. ")
+
+
+def post(port, path, body, headers=None, timeout=120):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _jax_choices(ckpt, bodies):
+    """The JAX engine server's choices for *bodies*: the engine built in
+    process as the JAX server builds it from ``--model <dir>`` (bf16)."""
+    from kubeai_tpu.engine.server import EngineServer as JServer
+
+    srv = JServer(jload(ckpt, JEC(max_slots=2, max_seq_len=128)), "tiny", host="127.0.0.1",
+                  port=0)
+    srv.start()
+    try:
+        return [post(srv.port, "/v1/completions", b)["choices"][0] for b in bodies]
+    finally:
+        srv.stop()
+
+
+@pytest.mark.e2e
+def test_operator_scales_the_port_engine_from_zero(tmp_path):
+    ckpt = _checkpoint(tmp_path / "ckpt", V=300)
+    mgr = Manager(local_runtime=True, host="127.0.0.1", port=0)
+    mgr.start()
+    procs = []
+    try:
+        mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name="tiny"), spec=ModelSpec(
+            url=f"file://{ckpt}", engine=mt.ENGINE_TPU, resource_profile="cpu:1",
+            min_replicas=0, max_replicas=2, args=ARGS,
+            load_balancing=LoadBalancing(strategy=mt.PREFIX_HASH_STRATEGY,
+                                         prefix_hash=PrefixHash()))))
+        time.sleep(0.3)
+        assert mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: "tiny"}) == []
+        bodies = [{"prompt": p, "max_tokens": 8, "temperature": 0, "logprobs": 2}
+                  for p in PROMPTS]
+        got = [post(mgr.api.port, "/openai/v1/completions", {"model": "tiny", **b},
+                    timeout=300)["choices"][0] for b in bodies]
+        (pod,) = mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: "tiny"})
+        c = pod.spec.containers[0]
+        assert c.command == ["python", "-m", "kubeai_tpu_torch.engine.server"]
+        assert c.args[c.args.index("--tensor-parallel-size") + 1] == "1"
+        assert mgr.store.get(mt.KIND_MODEL, "tiny").spec.replicas == 1
+        for mine, theirs in zip(got, _jax_choices(ckpt, bodies)):
+            if mine["text"] == theirs["text"]:
+                continue
+            # The first step where the tokens differ must be a near-tie
+            # of the JAX engine's: its top two within 2 bf16 ulps.
+            a, b = mine["logprobs"]["tokens"], theirs["logprobs"]["tokens"]
+            k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            top = sorted(theirs["logprobs"]["top_logprobs"][k].values(), reverse=True)
+            assert top[0] - top[1] <= 2 * 2.0 ** -8 * max(1.0, abs(top[0])), (
+                f"greedy text differs at step {k} with no near-tie: {mine['text']!r} "
+                f"!= {theirs['text']!r}")
+
+        # Two replicas: a shared prefix stays on one pod.
+        mgr.store.mutate(mt.KIND_MODEL, "tiny", lambda m: setattr(m.spec, "replicas", 2))
+        deadline = time.monotonic() + 120
+        while True:
+            pods = mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: "tiny"})
+            if len(pods) == 2 and all(p.status.ready for p in pods) and \
+                    len(mgr.lb.get_all_addresses("tiny")) == 2:
+                break
+            assert time.monotonic() < deadline, "the second pod never became ready"
+            time.sleep(0.1)
+        ports = {p.meta.name: int(p.meta.annotations[mt.ANNOTATION_MODEL_POD_PORT])
+                 for p in pods}
+        for i in range(8):
+            post(mgr.api.port, "/openai/v1/completions",
+                 {"model": "tiny", "prompt": PREFIX + f"Question {i}?", "max_tokens": 2,
+                  "temperature": 0}, headers={"X-Request-ID": f"affinity-{i}"})
+        served = {name: sum(bool(get(port, f"/debug/requests?id=affinity-{i}")["requests"])
+                            for i in range(8)) for name, port in ports.items()}
+        assert sorted(served.values()) == [0, 8], served
+
+        procs = [mgr.local_runtime._procs[name].proc for name in ports]
+        mgr.store.delete(mt.KIND_MODEL, "tiny")
+        deadline = time.monotonic() + 30
+        while any(p.poll() is None for p in procs):
+            assert time.monotonic() < deadline, "a pod process outlived its Model"
+            time.sleep(0.05)
+        assert mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: "tiny"}) == []
+    finally:
+        mgr.stop()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()

@@ -1,7 +1,8 @@
 """End to end on the CPU: the port's engine and server against the JAX
 engine on the same weights (kubeai_tpu.engine.core.build_test_engine's,
 converted by params_from_jax: tests/_torch_parity.py), plus the port's
-device rule and its freedom from JAX.
+device rule, its freedom from JAX, and its operator's start without
+PyYAML.
 
 Greedy completions must be token-identical. Where the JAX engine's top
 two logprobs at a step are closer than 1e-5, float32 summation order may
@@ -9,8 +10,12 @@ legitimately pick the other token, so the comparison stops before that
 step (and the test says so in its assertion message)."""
 
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
+import time
 import urllib.request
 
 import numpy as np
@@ -195,14 +200,70 @@ def test_port_imports_no_jax():
         "       'kubeai_tpu_torch.obs.history', 'kubeai_tpu_torch.obs.otel',\n"
         "       'kubeai_tpu_torch.obs.incidents', 'kubeai_tpu_torch.loader',\n"
         "       'kubeai_tpu_torch.utils.xxh', 'kubeai_tpu_torch.controller.model_source',\n"
-        "       'kubeai_tpu_torch.engine.spm']\n"
+        "       'kubeai_tpu_torch.engine.spm', 'kubeai_tpu_torch.runtime.store',\n"
+        "       'kubeai_tpu_torch.runtime.local', 'kubeai_tpu_torch.runtime.k8s_parse',\n"
+        "       'kubeai_tpu_torch.api.core_types', 'kubeai_tpu_torch.api.model_types',\n"
+        "       'kubeai_tpu_torch.api.openai_types', 'kubeai_tpu_torch.config.system',\n"
+        "       'kubeai_tpu_torch.controller.engines.common',\n"
+        "       'kubeai_tpu_torch.controller.engines.cuda',\n"
+        "       'kubeai_tpu_torch.controller.engines.vllm',\n"
+        "       'kubeai_tpu_torch.controller.engines.ollama',\n"
+        "       'kubeai_tpu_torch.controller.engines.fasterwhisper',\n"
+        "       'kubeai_tpu_torch.controller.engines.infinity',\n"
+        "       'kubeai_tpu_torch.controller.pod_plan', 'kubeai_tpu_torch.controller.patch',\n"
+        "       'kubeai_tpu_torch.controller.files', 'kubeai_tpu_torch.controller.controller',\n"
+        "       'kubeai_tpu_torch.loadbalancer.chwbl', 'kubeai_tpu_torch.loadbalancer.health',\n"
+        "       'kubeai_tpu_torch.loadbalancer.group', 'kubeai_tpu_torch.loadbalancer.balancer',\n"
+        "       'kubeai_tpu_torch.proxy.apiutils', 'kubeai_tpu_torch.proxy.modelclient',\n"
+        "       'kubeai_tpu_torch.proxy.recovery', 'kubeai_tpu_torch.proxy.handler',\n"
+        "       'kubeai_tpu_torch.proxy.server', 'kubeai_tpu_torch.disagg.roles',\n"
+        "       'kubeai_tpu_torch.disagg.handoff', 'kubeai_tpu_torch.qos.preempt',\n"
+        "       'kubeai_tpu_torch.catalog', 'kubeai_tpu_torch.manager']\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 46  # every module really imported
+    assert int(out.stdout.split()[0]) >= 92  # every module really imported
+
+
+def test_manager_starts_without_yaml(tmp_path):
+    """The card's machine may lack PyYAML: the operator imports and serves
+    without it (only --config and --models read YAML), and SIGTERM drains
+    it to exit 0."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['yaml'] = None  # import yaml raises ImportError\n"
+        "sys.argv = ['manager'] + sys.argv[1:]\n"
+        "runpy.run_module('kubeai_tpu_torch.manager', run_name='__main__')\n"
+    )
+    env = {**os.environ, "KUBEAI_HISTORY_DIR": str(tmp_path)}
+    proc = subprocess.Popen([sys.executable, "-c", code, "--local", "--host", "127.0.0.1",
+                             "--port", "0", "--drain-grace", "0"],
+                            stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        port = None
+        deadline = time.monotonic() + 60
+        for line in proc.stderr:
+            m = re.search(r"manager up: api :(\d+)", line)
+            if m:
+                port = int(m.group(1))
+                break
+            assert time.monotonic() < deadline
+        assert port, "the manager never came up"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/openai/v1/models", timeout=10) as r:
+            assert json.loads(r.read())["data"] == []
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    # --models is the one path that needs it, and says so.
+    bad = subprocess.run([sys.executable, "-c", code, "--local", "--port", "0", "--models",
+                          str(tmp_path / "m.yaml")], capture_output=True, text=True,
+                         timeout=60, env=env)
+    assert bad.returncode != 0 and "yaml" in bad.stderr
 
 
 def test_page_pool_copy_matches_jax():

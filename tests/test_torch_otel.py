@@ -76,6 +76,18 @@ def _complete(port, body, headers=None):
         return json.loads(r.read())
 
 
+def _recorded(request_id, timeout=10.0):
+    """The recorder's timelines of *request_id*, waited for: the response
+    can reach the client before the engine submits the finished trace to
+    the recorder's thread, so one snapshot may not hold it yet."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = [t for t in default_recorder.snapshot() if t["request_id"] == request_id]
+        if got or time.monotonic() >= deadline:
+            return got
+        time.sleep(0.02)
+
+
 def test_converters_equal_jax():
     for doc in (DOC, {**DOC, "outcome": "error", "phases": None}, {}):
         assert to.timeline_to_spans(doc) == jo.timeline_to_spans(doc)
@@ -85,7 +97,7 @@ def test_converters_equal_jax():
     try:
         _complete(srv.port, {"prompt": "hi", "max_tokens": 4},
                   {"X-KubeAI-Tenant": "conv-t", "X-Request-ID": "conv-1"})
-        (tl,) = [t for t in default_recorder.snapshot() if t["request_id"] == "conv-1"]
+        (tl,) = _recorded("conv-1")
     finally:
         srv.stop()
     assert to.timeline_to_spans(tl) == jo.timeline_to_spans(tl)
@@ -160,7 +172,11 @@ def test_port_server_exports_spans_metrics_and_logs_like_the_jax_server(monkeypa
     assert any(r["body"]["stringValue"] == "otel probe" for r in stub.log_records())
 
 
-def test_collector_down_serves_unchanged_and_counts_send_errors(monkeypatch):
+def test_collector_down_serves_unchanged_and_counts_send_errors(monkeypatch, caplog):
+    # INFO records flow to the exporter (a log POST follows the spans' in
+    # a flush) whatever level an earlier test left the root logger at.
+    caplog.set_level(logging.INFO, logger="kubeai_tpu_torch")
+
     def dropped(reason):
         return to.M_DROPPED.value(labels={"signal": "span", "reason": reason})
 
@@ -182,9 +198,21 @@ def test_collector_down_serves_unchanged_and_counts_send_errors(monkeypatch):
         # Who posts and who waits on the worker's wake-up event: the
         # exporter's thread only.
         waiters: list = []
+        # Each POST's path, result and the error it left behind, read on
+        # the exporter's thread as the POST returns: ``last_error`` is the
+        # newest failure of any signal, and with INFO logs flowing (a
+        # process whose root logger is at INFO) a failed /v1/logs POST
+        # follows the spans' in the same flush.
+        sends: list = []
         send, wake_wait = exp._send, exp._wake.wait
-        monkeypatch.setattr(exp, "_send", lambda *a, **k: (
-            waiters.append(("send", threading.current_thread())), send(*a, **k))[1])
+
+        def spy_send(path, *a, **k):
+            waiters.append(("send", threading.current_thread()))
+            ok = send(path, *a, **k)
+            sends.append((path, ok, exp.last_error))
+            return ok
+
+        monkeypatch.setattr(exp, "_send", spy_send)
         monkeypatch.setattr(exp._wake, "wait", lambda *a, **k: (
             waiters.append(("wait", threading.current_thread())), wake_wait(*a, **k))[1])
         t0 = time.monotonic()
@@ -194,7 +222,9 @@ def test_collector_down_serves_unchanged_and_counts_send_errors(monkeypatch):
         while dropped("send_error") == before and time.monotonic() < deadline:
             time.sleep(0.05)
         assert got == ref and dropped("send_error") > before
-        assert exp.consecutive_failures > 0 and "/v1/traces" in exp.last_error
+        assert exp.consecutive_failures > 0
+        assert any(path == "/v1/traces" and not ok and err.startswith("/v1/traces")
+                   for path, ok, err in sends), sends
         assert served_s < 10  # a hang guard: the waits are counted below
         assert any(kind == "send" for kind, _ in waiters)
         assert {t for _, t in waiters} == {exp._thread}, {t.name for _, t in waiters}
