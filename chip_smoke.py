@@ -89,8 +89,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      TTFT, the chunk's host segments), the greedy tokens equal across
      turns up to near-ties. After the last timed serving run (a
      profiler session slows a process's later launches), one eager and
-     one graphed engine per G serve a round with a torch.profiler window
-     over 6 chunks (device busy ms of a chunk, idle share). Then a
+     one graphed engine per G, on the first 8 of the 32 layers, serve a
+     round with a torch.profiler window over 6 chunks (device busy ms of
+     a chunk, idle share). Then a
      32-layer step profile: decode and verify steps
      under both decode kernels, in int8 and over an fp8 pool, prefills
      with bf16 and int8 weights, and a decode step without a bank and with
@@ -146,7 +147,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      a child process (``python -m kubeai_tpu_torch.loader
      --warm-compile-cache s3://...`` through a stand-in aws, into an
      empty KUBEAI_COMPILE_CACHE); after phase 8, phase_loader (budget
-     135 s) prints its staging and build seconds and the seconds waited
+     210 s) prints its staging and build seconds and the seconds waited
      for it, checks the staged tree equals the source, and hands that
      cache to the port's operator (Manager with LocalRuntime, a Model
      built in Python on nvidia-gpu-h100:1, minReplicas 0, PrefixHash):
@@ -160,7 +161,20 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      /v1/load_lora_adapter, staged as {name}-<12 hex>, changing greedy
      text; 16 requests over two prefixes each stay on one pod; one
      request through the proxy beside the same straight to its pod; the
-     Model deleted ends both processes and returns the card's memory;
+     Model deleted ends both processes and returns the card's memory.
+     Then the operator's control loops on the same cache (a second
+     Manager: autoscaler ticking every second, one parked pod warmed for
+     the checkpoint's configuration, cacheWarmCompile): a Model's first
+     request claims the parked pod (a parked_attach decision record);
+     concurrent greedy streams make the autoscaler scale it 1 -> 2, equal
+     to the directly built engine (path "operator_loops"); with no
+     traffic it scales to zero and its processes exit; a Model with a
+     cacheProfile starts its pod only after its loader Job (which builds
+     nothing on the filled library directory), gets the gs:// adapter
+     from the adapter reconciler (its text through the proxy equal to the
+     hand-loaded one's), and on deletion runs the eviction Job and loses
+     its cache directory; no process is left and the card's memory comes
+     back;
   8. fine-tune (phase_finetune, budget 90 s): the LoRA fine-tune CLI
      (train/finetune.py's main) over a 4-layer checkpoint at
      Llama-3.1-8B width (64 seeded JSONL rows, --seq-len 256, rank 16 on
@@ -2341,24 +2355,34 @@ def _graph_turns(params) -> None:
             log(f"graph_turns[G={G} #{turn} {res['mode']}]", gpu_line(), json.dumps(res))
 
 
+# The profiled rounds' depth: the first 8 of Llama-3.1-8B's 32 layers.
+# A session over an eager engine at all 32 took 50-70 s a round to turn
+# its ~84,000 kernels' events into tables, over a tenth of chip_smoke's wall.
+PROFILE_LAYERS = 8
+
+
 def _graph_profiles(params) -> None:
-    """One eager and one graphed engine per G (0 and 7, bf16 ragged)
-    serve a round of 64 tokens a stream with a torch.profiler window over
-    6 chunks: device busy ms per chunk and the window's idle share. Run
-    after the timed serving runs: a profiler session slows the launches
-    a process makes after it."""
+    """One eager and one graphed engine per G (0 and 7, bf16 ragged) on
+    the first PROFILE_LAYERS layers of *params* serve a round of 64
+    tokens a stream with a torch.profiler window over 6 chunks: device
+    busy ms per chunk and the window's idle share. Run after the timed
+    serving runs: a profiler session slows the launches a process makes
+    after it."""
+    sub = {**params, "layers": {k: v[:PROFILE_LAYERS] for k, v in params["layers"].items()}}
     for G in (0, 7):
         for graphs in (False, True):
-            res = _serve_traffic(params, G, graphs, profile=True)
+            res = _serve_traffic(sub, G, graphs, profile=True, layers=PROFILE_LAYERS)
             for r in res["rounds"]:
                 del r["ids"], r["gaps"]
-            log(f"graph_profile[G={G} {res['mode']}]", gpu_line(), json.dumps(res))
+            log(f"graph_profile[G={G} {res['mode']}]", gpu_line(),
+                json.dumps({"layers": PROFILE_LAYERS, **res}))
 
 
-def _serve_traffic(params, G: int, graphs: bool, profile: bool) -> dict:
+def _serve_traffic(params, G: int, graphs: bool, profile: bool, layers=None) -> dict:
     """A warmed-up engine (bf16 ragged, 8 slots, speculate_tokens G,
-    graphed or eager) serving the turns' traffic: 3 rounds, or with
-    *profile* one round of 64 tokens a stream with a profiled window."""
+    graphed or eager; Llama-3.1-8B, cut to *layers* when given) serving
+    the turns' traffic: 3 rounds, or with *profile* one round of 64
+    tokens a stream with a profiled window."""
     import torch
 
     from kubeai_tpu_torch.engine.core import Engine, EngineConfig
@@ -2367,8 +2391,8 @@ def _serve_traffic(params, G: int, graphs: bool, profile: bool) -> dict:
     from kubeai_tpu_torch.tools.time_decode_variants import serve_rounds
 
     ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, speculate_tokens=G)
-    eng = Engine(llama_3_1_8b(), params, ByteTokenizer(), ec, device="cuda",
-                 cuda_graphs=graphs)
+    mc = llama_3_1_8b(num_layers=layers) if layers else llama_3_1_8b()
+    eng = Engine(mc, params, ByteTokenizer(), ec, device="cuda", cuda_graphs=graphs)
     warm = eng.warmup()
     eng.start()
     try:
@@ -3814,6 +3838,14 @@ def _metric_counts(port, name) -> dict:
         rf'^{name}_count{{phase="([^"]+)"}} (\S+)$', text, re.M)}
 
 
+def _metric_sums(port, name) -> dict:
+    """{phase: summed seconds} of histogram *name* on /metrics."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    return {m[0]: float(m[1]) for m in re.findall(
+        rf'^{name}_sum{{phase="([^"]+)"}} (\S+)$', text, re.M)}
+
+
 def _greedy_batch(eng, prompts, n=32, bias=((257, -100.0),), chosen=False) -> list:
     """[(ids, top-2 gaps)] of *prompts*, greedy under the logit *bias*
     (default: the byte tokenizer's EOS banned), submitted together to the
@@ -3959,16 +3991,19 @@ if path.endswith("/*"):
     path = path[:-2]
 shutil.copytree(os.path.join(os.environ["STANDIN_BUCKETS"], path), dest, dirs_exist_ok=True)
 """
-# Every engine process LocalRuntime starts in the operator run imports
+# Every engine process LocalRuntime starts in the operator runs imports
 # this sitecustomize (first on PYTHONPATH), so the pod's command stays the
 # generator's: with SMOKE_LAUNCH_COUNTS set, each SIGUSR1 writes the
 # kernel launch counts since the last one to
 # $SMOKE_LAUNCH_COUNTS/<pid>.json (chip_smoke's _read_launches) and sets
-# them to 0. A sitecustomize further along the path still runs.
+# them to 0. SIGUSR1 is blocked in every thread and taken by a thread of
+# its own (sigwait): a Python handler runs only on the main thread, which
+# may sleep through a signal the kernel handed to another thread. A
+# sitecustomize further along the path still runs.
 POD_SITECUSTOMIZE = """
-import importlib.machinery, importlib.util, os, signal, sys
+import importlib.machinery, importlib.util, os, signal, sys, threading
 
-def _dump(signum, frame):
+def _dump():
     import json
     import chip_smoke
     counts = chip_smoke._read_launches()
@@ -3978,8 +4013,14 @@ def _dump(signum, frame):
         json.dump(counts, f)
     os.replace(path + ".tmp", path)
 
+def _serve_counts():
+    while True:
+        signal.sigwait({signal.SIGUSR1})
+        _dump()
+
 if os.environ.get("SMOKE_LAUNCH_COUNTS"):
-    signal.signal(signal.SIGUSR1, _dump)
+    signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGUSR1})
+    threading.Thread(target=_serve_counts, name="smoke-launch-counts", daemon=True).start()
 _here = os.path.dirname(os.path.abspath(__file__))
 _spec = importlib.machinery.PathFinder.find_spec(
     "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
@@ -4121,6 +4162,9 @@ class _PodWatch:
         from kubeai_tpu_torch.api.core_types import KIND_POD
 
         self.added, self.ready, self.error = {}, {}, None
+        # The store's resource version at each pod's first event: it
+        # orders the pod's creation against other writes.
+        self.added_rv = {}
         self._mt, self._on_ready = mt, on_ready
         self._q, self._store, self._model = store.watch(KIND_POD), store, model
         self._stop = threading.Event()
@@ -4140,6 +4184,7 @@ class _PodWatch:
                 continue
             name, now = pod.meta.name, time.monotonic()
             self.added.setdefault(name, now)
+            self.added_rv.setdefault(name, pod.meta.resource_version)
             if ev.type != "DELETED" and pod.status.ready and name not in self.ready:
                 try:
                     if self._on_ready is not None:
@@ -4195,7 +4240,8 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
     (path "operator"): Manager(local_runtime=True) with the default
     profiles, a Model built in Python (TPUEngine, file:// the loader's
     destination, nvidia-gpu-h100:1, minReplicas 0, maxReplicas 2,
-    PrefixHash, --warmup and COLDSTART_ARGS), LocalRuntime's pods with
+    PrefixHash, --warmup and COLDSTART_ARGS, scaleDownDelaySeconds 600 so
+    that the autoscaler keeps the hand-set replicas), LocalRuntime's pods with
     KUBEAI_COMPILE_CACHE the loader's directory. The pod must run the
     port's server with --tensor-parallel-size 1 and nvidia.com/gpu 1. The
     first /openai/v1/completions scales it from zero (its wait; the pod's
@@ -4271,6 +4317,10 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
         mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name=OPERATOR_MODEL), spec=ModelSpec(
             url=f"file://{run['dest']}", engine=mt.ENGINE_TPU,
             resource_profile="nvidia-gpu-h100:1", min_replicas=0, max_replicas=2,
+            # The autoscaler would take the hand-set second replica away
+            # after scaleDownDelaySeconds (30 s by default) of low load:
+            # the checks below need both pods.
+            scale_down_delay_seconds=600,
             args=["--host", "127.0.0.1", "--warmup"] + COLDSTART_ARGS,
             load_balancing=LoadBalancing(strategy=mt.PREFIX_HASH_STRATEGY,
                                          prefix_hash=PrefixHash()))))
@@ -4413,6 +4463,354 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
     return res, launches
 
 
+# The operator's control loops on the same cache (path "operator_loops")
+
+LOOPS_MODEL = "llama-8b-loops"
+CACHED_MODEL = "llama-8b-cached"
+LOOPS_TARGET = 2  # the loops Model's targetRequests
+LOOPS_DELAY_S = 3  # and its scaleDownDelaySeconds
+
+
+class _JobWatch:
+    """The store's Job events as times: each Job's ADDED and its first
+    completion (and the store's resource version at that completion)."""
+
+    def __init__(self, store):
+        from kubeai_tpu_torch.api.core_types import KIND_JOB, job_is_completed
+
+        self.added, self.done, self.done_rv = {}, {}, {}
+        self._completed = job_is_completed
+        self._q, self._store = store.watch(KIND_JOB), store
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="job-watch", daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        import queue
+
+        while not self._stop.is_set():
+            try:
+                ev = self._q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            name, now = ev.obj.meta.name, time.monotonic()
+            self.added.setdefault(name, now)
+            if ev.type != "DELETED" and self._completed(ev.obj):
+                self.done.setdefault(name, now)
+                self.done_rv.setdefault(name, ev.obj.meta.resource_version)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._store.unwatch(self._q)
+
+
+def _tree_state(root) -> dict:
+    """{relative path: (size, mtime)} of every file under *root*."""
+    return {os.path.relpath(os.path.join(d, n), root): (os.path.getsize(os.path.join(d, n)),
+                                                        os.path.getmtime(os.path.join(d, n)))
+            for d, _, names in os.walk(root) for n in names}
+
+
+def _until(cond, what, timeout):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"operator_loops: {what} within {timeout} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _serve_operator_loops(run, operator, direct) -> tuple[dict, dict]:
+    """The operator's control loops on the loader's cache (path
+    "operator_loops"): a second Manager(local_runtime=True) after the
+    operator run's has stopped, with autoscaling.interval_seconds 1 and a
+    3 s window, one parked pod warmed for the checkpoint's configuration
+    (parkedArgs --park-config, COLDSTART_ARGS) and cacheWarmCompile on. Two
+    Models are created at once:
+
+    - LOOPS_MODEL (file:// the loader's destination, minReplicas 0,
+      maxReplicas 2, targetRequests LOOPS_TARGET, scaleDownDelaySeconds
+      LOOPS_DELAY_S): its first request claims the parked pod (a
+      parked_attach record in /debug/autoscaler; its wait beside the
+      operator run's cold-spawn wait); then rounds of 8 concurrent greedy
+      streams until the autoscaler has scaled it 1 -> 2 and the second pod
+      is Ready (the decision's signal, seconds from the load's start to
+      the decision and to that Ready, the second pod attached or spawned;
+      a 300-byte request among them reaches flash's prefill buckets);
+      the first round's tokens equal the direct engine's up to near-ties
+      within 2 bf16 ulps; then, with no traffic, the autoscaler takes it
+      to 0 (seconds from the last response to no process left);
+    - CACHED_MODEL (LOADER_URL through the stand-in aws, cacheProfile,
+      minReplicas 1, the gs:// adapter as ``gsa``): its pod starts only
+      after the loader Job (``--warm-compile-cache`` on the filled
+      library directory: it must build nothing) has completed; the
+      adapter reconciler loads gsa on it, and ``CACHED_MODEL_gsa`` through
+      the proxy gives the operator run's hand-loaded gsa text; deleting
+      it runs the eviction Job, releases the finalizer and removes the
+      cache directory.
+
+    LocalRuntime mounts no volumes, so the loader Job and the pod meet at
+    the cache directory on this machine's filesystem. The JAX layout puts
+    it at /models/<name>-<uid>, outside the checkout, where this script
+    writes nothing: the run's cache reconciler is given a directory of the
+    same form under the work directory. Launch counts are zeroed at each
+    pod's Ready and read before its Model lets it go. After the Manager
+    stops, no engine process may be left and the card's free memory must
+    come back within 512 MiB. Returns (numbers, launch counts)."""
+    import torch
+
+    from kubeai_tpu_torch.api import model_types as mt
+    from kubeai_tpu_torch.api.core_types import KIND_POD
+    from kubeai_tpu_torch.api.model_types import Adapter, Model, ModelSpec
+    from kubeai_tpu_torch.config.system import CacheProfile, System
+    from kubeai_tpu_torch.controller.parked import LABEL_PARKED
+    from kubeai_tpu_torch.manager import Manager
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.runtime.store import ObjectMeta
+
+    work = os.path.dirname(run["cache"])
+    counts_dir = os.path.join(work, "launch_counts")
+    pods_bin = os.path.join(work, "pod_bin")
+    system = System()
+    system.autoscaling.interval_seconds = 1.0
+    system.autoscaling.time_window_seconds = 3.0
+    system.parked_replicas = 1
+    system.parked_args = ["--host", "127.0.0.1", "--park-config", run["dest"]] + COLDSTART_ARGS
+    system.cache_warm_compile = True
+    system.cache_profiles["h100-cache"] = CacheProfile(shared_filesystem_storage_class="standard")
+    os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "loops_pod_logs")
+    mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
+    mgr.local_runtime.extra_env.update({
+        **run["env"], "PATH": pods_bin + os.pathsep + run["env"]["PATH"],
+        "PYTHONPATH": os.path.join(work, "pod_site"), "KUBEAI_COMPILE_CACHE": run["cache"],
+        "KUBEAI_COLDSTART_OVERLAP": "1",
+        "KUBEAI_ADAPTER_STAGING_DIR": os.path.join(work, "adapters"),
+        "SMOKE_LAUNCH_COUNTS": counts_dir})
+    cache_root = os.path.join(work, "models")
+    mgr.cache_reconciler.model_cache_dir = lambda m: os.path.join(
+        cache_root, f"{m.meta.name}-{m.meta.uid}")
+    procs: dict = {}
+
+    def pid(name):
+        procs.setdefault(name, mgr.local_runtime._procs[name].proc)
+        return procs[name].pid
+
+    def pods(model):
+        return mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: model})
+
+    def decisions(model):
+        return _http(mgr.api.port, f"/debug/autoscaler?model={model}&limit=1000")[2]["decisions"]
+
+    counts: dict = {}
+
+    def read(name):  # a pod's counts since its Ready, added to the run's
+        counts[name] = _sum_counts(counts.get(name, {}), _pod_counts(pid(name), counts_dir))
+
+    watch_a = _PodWatch(mgr.store, LOOPS_MODEL, on_ready=lambda n: _pod_counts(pid(n), counts_dir))
+    watch_b = _PodWatch(mgr.store, CACHED_MODEL, on_ready=lambda n: _pod_counts(pid(n), counts_dir))
+    jobs = _JobWatch(mgr.store)
+    libs_before = _tree_state(run["cache"])
+    free0 = torch.cuda.mem_get_info()[0]
+    res: dict = {}
+    t_start = time.monotonic()
+    mgr.start()
+    try:
+        res["lease_s"] = _until(mgr.election.is_leader.is_set, "the Manager held no lease", 30)
+        common = dict(engine=mt.ENGINE_TPU, resource_profile="nvidia-gpu-h100:1",
+                      args=["--host", "127.0.0.1"] + COLDSTART_ARGS)
+        mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name=LOOPS_MODEL), spec=ModelSpec(
+            url=f"file://{run['dest']}", min_replicas=0, max_replicas=2,
+            target_requests=LOOPS_TARGET, scale_down_delay_seconds=LOOPS_DELAY_S, **common)))
+        mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name=CACHED_MODEL), spec=ModelSpec(
+            url=LOADER_URL, cache_profile="h100-cache", min_replicas=1, max_replicas=1,
+            adapters=[Adapter(name="gsa", url=ADAPTER_URL)], **common)))
+
+        def cached_checks():
+            """The cached Model, on a thread beside the loops Model's run:
+            gated on its loader Job, then its adapter, then its eviction."""
+            try:
+                _until(lambda: len(watch_b.ready) >= 1, "the cached Model's pod is not Ready",
+                       240)
+                (b,) = watch_b.ready
+                load_job = f"load-cache-{CACHED_MODEL}"
+                if load_job not in jobs.done or not jobs.done_rv[load_job] < watch_b.added_rv[b]:
+                    raise AssertionError(f"operator_loops: the cached pod started before its "
+                                         f"loader Job completed: {jobs.done_rv} "
+                                         f"{watch_b.added_rv}")
+                built = {k: v for k, v in _tree_state(run["cache"]).items()
+                         if libs_before.get(k) != v}
+                if built:
+                    raise AssertionError(f"operator_loops: the loader Job built into the filled "
+                                         f"kernel cache: {sorted(built)}")
+                cache_dir = mgr.cache_reconciler.model_cache_dir(mgr.store.get(mt.KIND_MODEL,
+                                                                               CACHED_MODEL))
+                tuned = _post(mgr.api.port, "/openai/v1/completions", {
+                    "model": f"{CACHED_MODEL}_gsa", "prompt": OPERATOR_PROMPTS[0],
+                    "max_tokens": 16, "temperature": 0}, timeout=240)["choices"][0]["text"]
+                label = mgr.store.get(KIND_POD, b).meta.labels.get("adapter.kubeai.org/gsa")
+                read(b)
+                t_del = time.monotonic()
+                mgr.store.delete(mt.KIND_MODEL, CACHED_MODEL)
+                evict_s = _until(lambda: all(m.meta.name != CACHED_MODEL
+                                             for m in mgr.store.list(mt.KIND_MODEL)),
+                                 "the cached Model was not released", 120)
+                evict_job = f"evict-cache-{CACHED_MODEL}"
+                if evict_job not in jobs.done or os.path.exists(cache_dir):
+                    raise AssertionError(f"operator_loops: eviction: jobs {jobs.done}, "
+                                         f"{cache_dir} exists: {os.path.exists(cache_dir)}")
+                _until(lambda: procs[b].poll() is not None, "the cached pod outlived its Model",
+                       60)
+                res["cached"] = {
+                    "loader_job_s": jobs.done[load_job] - jobs.added[load_job],
+                    "job_done_to_pod_added_s": watch_b.added[b] - jobs.done[load_job],
+                    "pod_added_to_ready_s": watch_b.ready[b] - watch_b.added[b],
+                    "built_by_job": sorted(built), "adapter_label": label, "adapter_text": tuned,
+                    "operator_adapter_text": operator["adapter_text"],
+                    "delete_to_released_s": evict_s,
+                    "evict_job_s": jobs.done[evict_job] - jobs.added[evict_job],
+                    "delete_to_process_exit_s": time.monotonic() - t_del}
+            except BaseException as e:
+                cached_err.append(e)
+
+        cached_err: list = []
+        cached = threading.Thread(target=cached_checks, name="loops-cached", daemon=True)
+        cached.start()
+
+        def parked_serving():
+            for p in mgr.store.list(KIND_POD, selector={LABEL_PARKED: "true"}):
+                port = p.meta.annotations.get(mt.ANNOTATION_MODEL_POD_PORT)
+                try:
+                    if port and p.status.phase == "Running" and \
+                            _http(int(port), "/health", timeout=2)[2].get("parked"):
+                        return True
+                except OSError:
+                    pass
+            return False
+
+        res["parked_http_s"] = _until(parked_serving, "no parked pod served /health", 120)
+        # The first request claims the parked pod.
+        t0, wall0 = time.monotonic(), time.time()
+        _check_completion(_post(mgr.api.port, "/openai/v1/completions", {
+            "model": LOOPS_MODEL, "prompt": "Hello", "max_tokens": 8, "temperature": 0},
+            timeout=240), "operator_loops scale-from-zero")
+        attach_wait = time.monotonic() - t0
+        (pod_a,) = pods(LOOPS_MODEL)
+        a1 = pod_a.meta.name
+        attached = [r for r in decisions(LOOPS_MODEL) if r.get("action") == "parked_attach"]
+        if pod_a.meta.labels.get(LABEL_PARKED) != "attached" or \
+                [r["pod"] for r in attached] != [a1]:
+            raise AssertionError(f"operator_loops: the first request did not claim the parked "
+                                 f"pod: {pod_a.meta.name} {pod_a.meta.labels} {attached}")
+        _until(lambda: a1 in watch_a.ready, "the attached pod's counts were not zeroed", 30)
+        port_a1 = int(mgr.store.get(KIND_POD, a1).meta.annotations[mt.ANNOTATION_MODEL_POD_PORT])
+        attach_tl = _http(port_a1, "/debug/engine")[2]["cold_start"]
+        # The parked process's start phases, the park warm's and the
+        # attach's summed by phase.
+        parked_phases = _metric_sums(port_a1, "kubeai_engine_cold_start_seconds")
+        # Sustained load: rounds of 8 concurrent greedy streams until the
+        # autoscaler's second replica is Ready.
+        load_t0, load_wall0 = time.monotonic(), time.time()
+        got = _http_greedy(mgr.api.port, OPERATOR_PROMPTS, path="/openai/v1/completions",
+                           model=LOOPS_MODEL)
+        # A prompt past 256 tokens: flash's prefill buckets.
+        _check_completion(_post(mgr.api.port, "/openai/v1/completions", {
+            "model": LOOPS_MODEL, "prompt": ("The quick brown fox jumps over the lazy dog. " *
+                                             7)[:300], "max_tokens": 8, "temperature": 0}),
+            "operator_loops 300-byte")
+        rounds = 1
+        while len(watch_a.ready) < 2:
+            if time.monotonic() - load_t0 > 180:
+                raise AssertionError(f"operator_loops: no second Ready pod after 180 s of load: "
+                                     f"{decisions(LOOPS_MODEL)[:4]}")
+            _http_greedy(mgr.api.port, OPERATOR_PROMPTS, path="/openai/v1/completions",
+                         model=LOOPS_MODEL)
+            rounds += 1
+        last_response = time.monotonic()
+        a2 = next(n for n in watch_a.ready if n != a1)
+        up = [r for r in reversed(decisions(LOOPS_MODEL))
+              if r.get("applied") and r.get("applied_replicas") == 2]
+        if not up:
+            raise AssertionError(f"operator_loops: no applied 1 -> 2 decision: "
+                                 f"{decisions(LOOPS_MODEL)[:6]}")
+        pod_a2 = mgr.store.get(KIND_POD, a2)
+        for name in (a1, a2):
+            read(name)
+        res.update({
+            "parked_attach_wait_s": attach_wait,
+            "cold_spawn_wait_s": operator["scale_from_zero_wait_s"],
+            "attach_record": attached[0], "load_rounds": rounds,
+            "request_to_claim_s": attached[0]["t"] - wall0,
+            "claim_to_ready_s": watch_a.ready[a1] - t0 - (attached[0]["t"] - wall0),
+            "parked_phase_sums_s": parked_phases,
+            "attach_phases": {k: v.get("duration_s") for k, v in attach_tl["phases"].items()},
+            "attach_adopted_park_engine": attach_tl["attrs"].get("adopted_park_engine"),
+            "scale_up": {"signal": up[0]["signal"], "window_avg": up[0]["window_avg"],
+                         "desired": up[0]["desired"], "current": up[0]["current"],
+                         "load_to_decision_s": up[0]["t"] - load_wall0,
+                         "load_to_second_ready_s": watch_a.ready[a2] - load_t0,
+                         "second_pod": "attached" if pod_a2.meta.labels.get(LABEL_PARKED) ==
+                         "attached" else "spawned",
+                         "second_pod_added_to_ready_s": watch_a.ready[a2] - watch_a.added[a2]}})
+
+        # No traffic: the autoscaler takes the loops Model to zero.
+        _until(lambda: mgr.store.get(mt.KIND_MODEL, LOOPS_MODEL).spec.replicas == 0,
+               "the autoscaler did not scale the loops Model to zero", 120)
+        _until(lambda: all(procs[n].poll() is not None for n in (a1, a2)),
+               "a loops pod outlived replicas 0", 60)
+        res["idle_to_no_process_s"] = time.monotonic() - last_response
+        down = [r for r in decisions(LOOPS_MODEL)
+                if r.get("applied") and r.get("applied_replicas") == 0]
+        if not down:
+            raise AssertionError("operator_loops: no applied scale-to-zero decision")
+        res["scale_to_zero"] = {"required_consecutive": down[0]["required_consecutive"],
+                                "window_avg": down[0]["window_avg"]}
+        cached.join(timeout=300)
+        if cached_err:
+            raise cached_err[0]
+        if "cached" not in res:
+            raise AssertionError("operator_loops: the cached Model's checks did not end")
+    finally:
+        watch_a.stop()
+        watch_b.stop()
+        jobs.stop()
+        for name, lp in list(mgr.local_runtime._procs.items()):
+            procs.setdefault(name, lp.proc)  # the parked pool's last pod too
+        mgr.stop()
+        os.environ.pop("KUBEAI_POD_LOGS", None)
+    _until(lambda: all(p.poll() is not None for p in procs.values()),
+           f"engine processes left after the Manager stopped: {sorted(procs)}", 60)
+    time.sleep(0.5)
+    free1 = torch.cuda.mem_get_info()[0]
+    res["wall_s"] = time.monotonic() - t_start
+    if watch_a.error is not None or watch_b.error is not None:
+        raise AssertionError(f"operator_loops: zeroing a pod's counts failed: "
+                             f"{watch_a.error!r} {watch_b.error!r}")
+    if free1 < free0 - (512 << 20):
+        raise AssertionError(f"operator_loops: the card's memory did not come back: free "
+                             f"{free0 / 2**30:.2f} GiB before, {free1 / 2**30:.2f} GiB after")
+    if res["cached"]["adapter_text"] != operator["adapter_text"]:
+        raise AssertionError(f"operator_loops: {CACHED_MODEL}_gsa gave "
+                             f"{res['cached']['adapter_text']!r}, the hand-loaded gsa "
+                             f"{operator['adapter_text']!r}")
+    launches: dict = {}
+    for c in counts.values():
+        launches = _sum_counts(launches, c)
+    n = launches["launches"]
+    if not (n["flash_attention"] and n["paged_attention_ragged"]):
+        raise AssertionError(f"operator_loops: flash and ragged must launch: {launches}")
+    want, params = direct
+    gaps = [[abs(a - b) for a, b in zip(g_lp, w_lp)]
+            for (_, g_lp), (_, w_lp) in zip(got, want)]
+    diverged = _near_tie_divergence(params, [ids for ids, _ in got], [ids for ids, _ in want],
+                                    gaps, "operator_loops", prompts=OPERATOR_PROMPTS,
+                                    mc=llama_3_1_8b(num_layers=COLDSTART_LAYERS))
+    res.update({"tokens_equal": not diverged, "diverged_at_near_ties": diverged,
+                "free_gib": {"before": free0 / 2**30, "after": free1 / 2**30},
+                "processes": len(procs), "launches": n})
+    return res, launches
+
+
 def _shapes(warmup: dict) -> dict:
     """A warmup's result without its list of shape names."""
     return {k: v for k, v in warmup.items() if k != "names"}
@@ -4548,7 +4946,7 @@ def phase_coldstart() -> tuple[dict, dict]:
 
 
 def phase_loader(run) -> dict:
-    """Phase 7b, after phase 8 (budget 135 s): the cache loader Job that
+    """Phase 7b, after phase 8 (budget 210 s): the cache loader Job that
     phase_coldstart started beside the parked part and phase 8 (``python
     -m kubeai_tpu_torch.loader --warm-compile-cache LOADER_URL <dest>
     COLDSTART_ARGS`` through a stand-in aws, into an empty
@@ -4557,7 +4955,9 @@ def phase_loader(run) -> dict:
     waited for it (what it added to the whole), the reference engine's
     greedy tokens taken meanwhile (_direct_reference); then the port's
     operator scales replicas on that cache (_serve_operator, path
-    "operator"). Returns {"operator": counts}."""
+    "operator"), and a second operator runs its control loops there
+    (_serve_operator_loops, path "operator_loops"). Returns
+    {"operator": counts, "operator_loops": counts}."""
     import torch
 
     t0 = time.monotonic()
@@ -4567,17 +4967,20 @@ def phase_loader(run) -> dict:
         loader = _finish_loader(run, run["ckpt"])
         log("coldstart[loader]", gpu_line(), json.dumps(loader))
         served, launches = _serve_operator(run, run["spawn"], direct)
+        log("operator", gpu_line(), json.dumps(served))
+        loops, loops_launches = _serve_operator_loops(run, served, direct)
+        log("operator_loops", gpu_line(), json.dumps(loops))
         del direct
         gc.collect()
         torch.cuda.empty_cache()
-        log("operator", gpu_line(), json.dumps(served))
     finally:
         _stop(run["proc"])
         shutil.rmtree(run["ckpt"], ignore_errors=True)
         shutil.rmtree(os.path.dirname(run["cache"]), ignore_errors=True)
-    log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 135 s; the loader's child added "
-        f"{loader['waited_s']:.1f} s past phases 7, 8 and the reference engine)")
-    return {"operator": launches}
+    log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 210 s; the loader's child added "
+        f"{loader['waited_s']:.1f} s past phases 7, 8 and the reference engine; "
+        f"operator_loops {loops['wall_s']:.1f} s)")
+    return {"operator": launches, "operator_loops": loops_launches}
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,9 @@ One Model replica may expand to ``hosts_per_replica`` pods (a multi-host
 gang), planned as groups. ``TPUEngine`` pods run the port's CUDA engine
 (engines/cuda.py).
 
-The cache and adapter reconcilers and the parked pool are hooks here, as
-in JAX; their modules are not ported yet, so the Manager passes None and
-refuses what would need them (``refuse_unported``).
+The cache reconciler (cache.py), the adapter reconciler (adapters.py)
+and the parked pool (parked.py) are passed in by the Manager; each may be
+None, and then its step is skipped.
 """
 
 from __future__ import annotations
@@ -31,29 +31,6 @@ from kubeai_tpu_torch.controller.pod_plan import calculate_pod_plan, pod_spec_ha
 from kubeai_tpu_torch.runtime.store import Conflict, NotFound, ObjectMeta, Store, WatchEvent
 
 log = logging.getLogger("kubeai_tpu_torch.controller")
-
-# The cache reconciler's names (kubeai_tpu/controller/cache.py): the
-# finalizer it puts on a Model with a cacheProfile, and its shared PVC.
-CACHE_FINALIZER = "kubeai.org/cache-eviction"
-
-
-def pvc_name(profile: str) -> str:
-    return f"model-cache-{profile}"
-
-
-def refuse_unported(model: Model) -> None:
-    """Raise ValueError for a Model this package cannot serve yet, naming
-    the ROADMAP item that brings it: a cacheProfile needs the cache
-    reconciler, adapters the adapter reconciler. The Manager runs it as
-    the store's admission check for Models."""
-    if model.spec.cache_profile:
-        raise ValueError(
-            f"model {model.meta.name}: cacheProfile is not ported yet "
-            "(ROADMAP queue 1, item 2: the cache reconciler)")
-    if model.spec.adapters:
-        raise ValueError(
-            f"model {model.meta.name}: adapters are not ported yet "
-            "(ROADMAP queue 1, item 3: controller/engineclient and adapters)")
 
 
 class ModelReconciler:
@@ -406,6 +383,7 @@ class ModelReconciler:
         """Server pods mount the shared cache PVC read-only at the model's
         cache dir (ref: cache.go:436-458)."""
         from kubeai_tpu_torch.api.core_types import Volume, VolumeMount
+        from kubeai_tpu_torch.controller.cache import pvc_name
 
         pod.spec.volumes.append(
             Volume(name="model-cache", pvc_name=pvc_name(model.spec.cache_profile))
@@ -422,6 +400,8 @@ class ModelReconciler:
     def _finalize(self, model: Model) -> None:
         """Deletion: drop server pods, run cache finalizer
         (ref: model_controller.go:112-133)."""
+        from kubeai_tpu_torch.controller.cache import CACHE_FINALIZER
+
         self.store.delete_all_of(KIND_POD, model.meta.namespace, {mt.LABEL_MODEL: model.meta.name})
         from kubeai_tpu_torch.api.core_types import KIND_SECRET
 

@@ -1,16 +1,18 @@
-"""Process manager: builds and wires the operator's request path (port of
+"""Process manager: builds and wires the operator (port of
 kubeai_tpu/manager.py, ``Manager``).
 
-The store, the model client, the load balancer, the model reconciler, the
-proxy and its OpenAI server, and (``local_runtime=True``) the
-LocalRuntime pod executor; each runs on daemon threads and stops in
-reverse order. The JAX manager's other components are not ported yet and
-are left out, not stubbed: the autoscaler and fleet collector, leader
-election, the SLO monitor, canary, history, forecaster and incident
-recorder, the messengers, the cache and adapter reconcilers and the
-parked pool (ROADMAP queue 1). What would need one is refused: a System
-with ``parked_replicas`` or ``streams`` at construction, and a Model with
-a ``cacheProfile`` or ``adapters`` at the store's admission.
+The store, leader election, the model client, the load balancer, the
+cache and adapter reconcilers, the parked pool (``parkedReplicas`` > 0),
+the model reconciler, the fleet collector and the autoscaler, the proxy
+and its OpenAI server, and (``local_runtime=True``) the LocalRuntime pod
+executor; each runs on daemon threads, started and stopped in the JAX
+manager's order. Only the lease holder's autoscaler ticks.
+
+Left out, not stubbed: the SLO monitor, canary, history sampler,
+forecaster and incident recorder (ROADMAP queue 1, item 7: the
+autoscaler's forecast input is None, and ``/debug/slo`` answers 404), and
+the messengers, so a System with ``streams`` is refused at construction
+(item 5).
 
 CLI:
     python -m kubeai_tpu_torch.manager --local [--port 8000]
@@ -27,10 +29,15 @@ import argparse
 import os
 import signal
 import threading
+import uuid
 
-from kubeai_tpu_torch.api import model_types as mt
+from kubeai_tpu_torch.autoscaler.autoscaler import Autoscaler
+from kubeai_tpu_torch.autoscaler.fleet import FleetCollector
+from kubeai_tpu_torch.autoscaler.leader import Election
 from kubeai_tpu_torch.config.system import System, load_system_config
-from kubeai_tpu_torch.controller.controller import ModelReconciler, refuse_unported
+from kubeai_tpu_torch.controller.adapters import AdapterReconciler
+from kubeai_tpu_torch.controller.cache import CacheReconciler
+from kubeai_tpu_torch.controller.controller import ModelReconciler
 from kubeai_tpu_torch.loadbalancer.balancer import LoadBalancer
 from kubeai_tpu_torch.obs.logs import get_logger, setup_logging
 from kubeai_tpu_torch.obs.otel import maybe_start_exporter, uninstall_exporter
@@ -44,12 +51,9 @@ log = get_logger("kubeai_tpu_torch.manager")
 
 
 def refuse_unported_system(system: System) -> None:
-    """Raise ValueError for System settings whose component is not ported
-    yet, naming its ROADMAP item."""
-    if system.parked_replicas > 0:
-        raise ValueError(
-            "parkedReplicas > 0 needs the parked pool, which is not ported yet "
-            "(ROADMAP queue 1, item 4: controller/parked)")
+    """Raise ValueError for a System whose settings need a component that
+    is not ported yet: ``streams`` need the messenger (ROADMAP queue 1,
+    item 5)."""
     if system.streams:
         raise ValueError(
             "streams need the messenger, which is not ported yet "
@@ -69,8 +73,13 @@ class Manager:
         self.system = (system or System()).default_and_validate()
         refuse_unported_system(self.system)
         self.store = store or Store()
-        self.store.add_admission(mt.KIND_MODEL, refuse_unported)
         self.namespace = namespace
+
+        identity = f"kubeai-{uuid.uuid4().hex[:8]}"
+        self.election = Election(
+            self.store, identity, duration=self.system.leader_election_lease_seconds,
+            namespace=namespace,
+        )
         self.model_client = ModelClient(
             self.store,
             namespace,
@@ -79,9 +88,52 @@ class Manager:
             ),
         )
         self.lb = LoadBalancer(self.store, self.system.allow_pod_address_override)
-        self.reconciler = ModelReconciler(self.store, self.system)
+        self.cache_reconciler = CacheReconciler(self.store, self.system, namespace)
+        self.adapter_reconciler = AdapterReconciler(
+            self.store, allow_override=self.system.allow_pod_address_override or local_runtime
+        )
+        # The parked pool: a scale-up attaches the Model to a parked pod
+        # instead of spawning one; each attach is recorded in the
+        # autoscaler's decision log (wired below).
+        self.parked_pool = None
+        if self.system.parked_replicas > 0:
+            from kubeai_tpu_torch.controller.parked import ParkedPool
+
+            self.parked_pool = ParkedPool(self.store, self.system, namespace)
+        self.reconciler = ModelReconciler(
+            self.store,
+            self.system,
+            cache_reconciler=self.cache_reconciler,
+            adapter_reconciler=self.adapter_reconciler,
+            parked_pool=self.parked_pool,
+        )
+        # One scrape per engine endpoint per autoscaler tick, shared by
+        # the scaling signal and /debug/fleet; the debug view reuses it
+        # for 1.5 ticks.
+        self.fleet = FleetCollector(
+            self.lb,
+            default_max_age=1.5 * self.system.autoscaling.interval_seconds,
+        )
+        self.autoscaler = Autoscaler(
+            self.store,
+            self.model_client,
+            self.lb,
+            self.election,
+            interval_seconds=self.system.autoscaling.interval_seconds,
+            average_window_count=self.system.autoscaling.average_window_count,
+            fixed_self_metric_addrs=self.system.fixed_self_metric_addrs,
+            state_name=self.system.autoscaling.state_config_map_name,
+            namespace=namespace,
+            fleet=self.fleet,
+            parked_pool=self.parked_pool,
+        )
+        if self.parked_pool is not None:
+            self.parked_pool.decision_log = self.autoscaler.decisions
         self.proxy = ModelProxy(self.model_client, self.lb)
         self.api = OpenAIServer(self.proxy, self.model_client, host=host, port=port)
+        self.api.decision_log = self.autoscaler.decisions
+        self.api.fleet = self.fleet
+        self.api.election = self.election
         self.local_runtime = LocalRuntime(self.store, namespace) if local_runtime else None
         self._otel = None
 
@@ -89,7 +141,11 @@ class Manager:
         # The OTLP exporter (nothing unless KUBEAI_OTLP_ENDPOINT is set).
         self._otel = maybe_start_exporter("kubeai-operator")
         self.lb.start()
+        if self.parked_pool is not None:
+            self.parked_pool.start()
         self.reconciler.start()
+        self.election.start()
+        self.autoscaler.start()
         if self.local_runtime:
             self.local_runtime.start()
         self.api.start()
@@ -106,7 +162,11 @@ class Manager:
         self.api.stop()
         if self.local_runtime:
             self.local_runtime.stop()
+        self.autoscaler.stop()
+        self.election.stop()
         self.reconciler.stop()
+        if self.parked_pool is not None:
+            self.parked_pool.stop()
         self.lb.stop()
         if self._otel is not None:
             self._otel.stop()

@@ -2,9 +2,9 @@
 
 Counters, gauges, callback gauges and histograms, each with labels, and
 the Prometheus text exposition that the engine serves on ``GET /metrics``.
-Names and help strings are the JAX engine's, so the operator's autoscaler
-(``parse_prometheus_text``) reads the port's page as it reads the JAX
-engine's. Stdlib only. ``snapshot()`` and ``Registry.metrics()`` are the
+Names and help strings are the JAX engine's, so the operator's autoscaler and fleet collector
+read the port's page through ``parse_prometheus_text`` (below) as they
+read the JAX engine's. Stdlib only. ``snapshot()`` and ``Registry.metrics()`` are the
 seams the history sampler (obs/history.py) and the OTLP exporter
 (obs/otel.py) read. Exemplars are left out: nothing in the port reads
 them.
@@ -20,6 +20,31 @@ def _escape_label_value(v: str) -> str:
     """Exposition-format label escaping: backslash first, then quote and
     newline."""
     return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _unescape_label_value(v: str) -> str:
+    """The inverse of _escape_label_value, in one left-to-right pass
+    (replace calls in sequence would rescan what the last one wrote)."""
+    out: list[str] = []
+    i, n = 0, len(v)
+    while i < n:
+        c = v[i]
+        if c == "\\" and i + 1 < n:
+            nxt = v[i + 1]
+            if nxt == "\\":
+                out.append("\\")
+            elif nxt == '"':
+                out.append('"')
+            elif nxt == "n":
+                out.append("\n")
+            else:  # unknown escape: kept verbatim
+                out.append(c)
+                out.append(nxt)
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    return "".join(out)
 
 
 def _fmt_labels(labels: dict[str, str]) -> str:
@@ -230,3 +255,62 @@ def set_build_info(server: str) -> None:
         "Build identity (value 1; server/python/torch/cuda in labels)",
     ).set(1.0, labels={"server": server, "python": platform.python_version(),
                        "torch": torch.__version__, "cuda": str(torch.version.cuda)})
+
+
+def parse_prometheus_text(text: str) -> dict[str, list[tuple[dict[str, str], float]]]:
+    """A minimal exposition-format parser: name -> [(labels, value)].
+    Comment lines are skipped, an OpenMetrics exemplar suffix
+    (`` # {trace_id="..."} v ts``, which the JAX engine may emit) is cut
+    off, and a line that does not parse is dropped."""
+    out: dict[str, list[tuple[dict[str, str], float]]] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        if " # {" in line:
+            line = line.split(" # {", 1)[0].rstrip()
+        try:
+            if "{" in line:
+                name, rest = line.split("{", 1)
+                labelstr, valstr = rest.rsplit("}", 1)
+                labels = {}
+                for part in _split_labels(labelstr):
+                    if not part:
+                        continue
+                    k, v = part.split("=", 1)
+                    v = v.strip()
+                    # Only the delimiting quote pair (.strip('"') would
+                    # also eat quotes that belong to the value).
+                    if len(v) >= 2 and v[0] == '"' and v[-1] == '"':
+                        v = v[1:-1]
+                    labels[k.strip()] = _unescape_label_value(v)
+                out.setdefault(name.strip(), []).append((labels, float(valstr)))
+            else:
+                name, valstr = line.rsplit(None, 1)
+                out.setdefault(name.strip(), []).append(({}, float(valstr)))
+        except ValueError:
+            continue
+    return out
+
+
+def _split_labels(s: str) -> list[str]:
+    """Split a label set on the commas outside quoted values."""
+    parts, cur, in_q, esc = [], [], False, False
+    for ch in s:
+        if esc:
+            cur.append(ch)
+            esc = False
+        elif ch == "\\":
+            cur.append(ch)
+            esc = True
+        elif ch == '"':
+            cur.append(ch)
+            in_q = not in_q
+        elif ch == "," and not in_q:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    if cur:
+        parts.append("".join(cur))
+    return parts

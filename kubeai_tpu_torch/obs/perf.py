@@ -169,12 +169,14 @@ class PerfModel:
 
 
 class TokenRateWindow:
-    """Sliding-window rate over a cumulative count: the engine's goodput
-    gauge (``add(n)`` per decode chunk). Samples are (t, cumulative
-    total); rate = (last-first)/(t_last-t_0). The first sample only
-    anchors the window: its tokens were produced before the window
-    opened. (The JAX class's ``observe_total`` serves the operator's
-    fleet collector, which the port does not have.)"""
+    """Sliding-window rate over a cumulative count, for the engine's
+    goodput gauge (``add(n)`` per decode chunk) and the fleet collector's
+    per-endpoint tokens/s (``observe_total(counter)`` per scrape), so the
+    two agree. Samples are (t, cumulative total); rate =
+    (last-first)/(t_last-t_0). The first sample only anchors the window:
+    its tokens were produced before the window opened. A total that goes
+    backwards (an engine restart resets its counter) re-anchors instead of
+    giving a negative rate."""
 
     def __init__(self, span: float = 10.0, clock=time.monotonic):
         self.span = span
@@ -186,14 +188,24 @@ class TokenRateWindow:
     def add(self, n: float, now: float | None = None) -> None:
         with self._lock:
             self._total += n
-            now = self._clock() if now is None else now
-            self._samples.append((now, self._total))
-            cutoff = now - self.span
-            # Keep at least two samples: the oldest retained one is the
-            # anchor just before (or at) the window edge, so the delta is
-            # always measured over a real elapsed span.
-            while len(self._samples) > 2 and self._samples[1][0] <= cutoff:
-                self._samples.popleft()
+            self._observe_locked(self._total, now)
+
+    def observe_total(self, total: float, now: float | None = None) -> None:
+        with self._lock:
+            self._observe_locked(float(total), now)
+
+    def _observe_locked(self, total: float, now: float | None) -> None:
+        now = self._clock() if now is None else now
+        if self._samples and total < self._samples[-1][1]:
+            self._samples.clear()  # counter reset: re-anchor
+        self._total = total
+        self._samples.append((now, total))
+        cutoff = now - self.span
+        # Keep at least two samples: the oldest retained one is the
+        # anchor just before (or at) the window edge, so the delta is
+        # always measured over a real elapsed span.
+        while len(self._samples) > 2 and self._samples[1][0] <= cutoff:
+            self._samples.popleft()
 
     def rate(self, now: float | None = None) -> float:
         with self._lock:

@@ -47,9 +47,11 @@ INFERENCE_PATHS = (
 
 
 # The operator's GET /debug index: the JAX operator's routes that this
-# server answers. Incidents, canary and forecast are not ported and answer
-# 404 "not installed"; /debug/autoscaler, /debug/fleet and /debug/slo
-# answer 404 until those components are attached.
+# server answers. /debug/autoscaler and /debug/fleet answer once the
+# Manager attaches the autoscaler's decision log and the fleet collector.
+# The SLO monitor, incidents, canary and forecast are not ported (ROADMAP
+# queue 1, item 7): /debug/slo answers 404 "no SLO monitor attached", the
+# others 404 "not installed".
 DEBUG_INDEX: tuple[tuple[str, str], ...] = (
     ("/debug/requests",
      "completed request timelines, most recent first (?limit=&id=&tenant=)"),
@@ -72,6 +74,10 @@ DEBUG_INDEX: tuple[tuple[str, str], ...] = (
     ("/debug/health",
      "latency health scoring: per-endpoint TTFT p95/EWMA, pick weights, slow-start "
      "ramp, soft-ejection state"),
+    ("/debug/autoscaler",
+     "scaling decision audit: one record per tick per model/pool (?limit=&model=)"),
+    ("/debug/fleet",
+     "fleet saturation: per-endpoint engine scrapes, per-model aggregates, capacity headroom"),
     ("/debug/history",
      "embedded time-series history: tiered metric trajectories with gap markers "
      "(?series=&since=&step=)"),
@@ -106,9 +112,9 @@ class OpenAIServer:
         self._stop_lock = threading.Lock()
         self._stopped = False
         # Capacity-observability attachments (wired by the manager):
-        # the autoscaler's DecisionLog (/debug/autoscaler), the fleet
-        # scrape collector (/debug/fleet), and the SLOMonitor
-        # (/debug/slo). Any left None 404s its route.
+        # the autoscaler's DecisionLog (/debug/autoscaler) and the fleet
+        # scrape collector (/debug/fleet). The SLOMonitor (/debug/slo) is
+        # not ported, so ``slo`` stays None and its route 404s.
         self.decision_log = None
         self.fleet = None
         self.slo = None

@@ -15,10 +15,6 @@ Semantics implemented (the subset the control plane relies on):
 - ownerReferences + cascade delete (background propagation)
 - finalizers: delete sets deletionTimestamp; object removed when the
   finalizer list empties
-- admission: checks per kind (``add_admission``) run before create() and
-  update() store an object, and what they raise refuses the write (the
-  apiserver's admission webhook; the JAX store has none, and with none
-  added the two stores behave alike)
 """
 
 from __future__ import annotations
@@ -80,7 +76,6 @@ class Store:
         self._objs: dict[str, dict[tuple[str, str], Any]] = {}
         self._watchers: list[tuple[str | None, "queue.Queue[WatchEvent]"]] = []
         self._rv = 0
-        self._admission: dict[str, list[Callable[[Any], None]]] = {}
 
     # -- helpers -----------------------------------------------------------
 
@@ -109,16 +104,6 @@ class Store:
         with self._lock:
             self._watchers = [(k, w) for k, w in self._watchers if w is not q]
 
-    def add_admission(self, kind: str, check: Callable[[Any], None]) -> None:
-        """Run *check* on each object of *kind* before it is created or
-        updated; an exception it raises refuses the write."""
-        with self._lock:
-            self._admission.setdefault(kind, []).append(check)
-
-    def _admit(self, kind: str, obj: Any) -> None:
-        for check in self._admission.get(kind, ()):
-            check(obj)
-
     # -- CRUD --------------------------------------------------------------
 
     def create(self, kind: str, obj: Any) -> Any:
@@ -127,7 +112,6 @@ class Store:
             objs = self._objs.setdefault(kind, {})
             if key in objs:
                 raise AlreadyExists(f"{kind} {key}")
-            self._admit(kind, obj)
             import time
 
             obj = copy.deepcopy(obj)
@@ -170,7 +154,6 @@ class Store:
                 raise Conflict(
                     f"{kind} {key}: version {obj.meta.resource_version} != {cur.meta.resource_version}"
                 )
-            self._admit(kind, obj)
             obj = copy.deepcopy(obj)
             obj.meta.uid = cur.meta.uid
             obj.meta.resource_version = self._bump()

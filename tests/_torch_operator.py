@@ -11,7 +11,15 @@ package) replaced by ``dual``: the JAX
 function and the port's run on the same arguments (carried across by
 ``to_port``), and their results, their effects on the arguments and
 their errors (type name and message) must be equal. The test's own
-assertions then run on the JAX result, unchanged."""
+assertions then run on the JAX result, unchanged.
+
+``port_clone(module)`` is a JAX test module's own source with every name
+of the JAX package spelled as the port's (the test modules it imports
+cloned alike), loaded as a module of its own: its cases run the same
+inputs and the same assertions on the port's objects. A stateful object
+(an autoscaler, a reconciler over a store) cannot be carried across per
+call as ``dual`` carries functions, so such test files run each case
+twice, on the JAX module and on its clone (``run_jax_case_both``)."""
 
 from __future__ import annotations
 
@@ -19,6 +27,9 @@ import dataclasses
 import enum
 import importlib
 import inspect
+import re
+import sys
+import types
 
 import pytest
 from _pytest.fixtures import FixtureFunctionDefinition
@@ -226,13 +237,69 @@ def run_jax_case(module, qual, params, wrap, request, monkeypatch) -> int:
     else:
         fn = getattr(module, qual)
     kwargs = dict(params)
-    for arg in inspect.signature(fn).parameters:
-        if arg in kwargs:
-            continue
-        fixture = getattr(module, arg, None)
-        if isinstance(fixture, FixtureFunctionDefinition):
-            kwargs[arg] = fixture._get_wrapped_function()()
-        else:
-            kwargs[arg] = request.getfixturevalue(arg)
-    fn(**kwargs)
+    teardown = []
+    try:
+        for arg in inspect.signature(fn).parameters:
+            if arg not in kwargs:
+                kwargs[arg] = _fixture_value(module, arg, request, teardown)
+        fn(**kwargs)
+    finally:
+        for gen in reversed(teardown):
+            next(gen, None)
     return sum(d.calls for d in duals.values())
+
+
+def _fixture_value(module, name, request, teardown):
+    """The value of fixture *name* for a case of *module*: the module's
+    own fixture function (its arguments resolved alike; a generator's
+    rest runs at *teardown*), else pytest's."""
+    fixture = getattr(module, name, None)
+    if not isinstance(fixture, FixtureFunctionDefinition):
+        return request.getfixturevalue(name)
+    fn = fixture._get_wrapped_function()
+    args = {a: _fixture_value(module, a, request, teardown)
+            for a in inspect.signature(fn).parameters}
+    value = fn(**args)
+    if inspect.isgenerator(value):
+        teardown.append(value)
+        value = next(value)
+    return value
+
+
+# Modules of the JAX package whose port has another path.
+_PORT_MODULES = (("kubeai_tpu_torch.metrics.registry", "kubeai_tpu_torch.metrics"),)
+
+
+def port_clone(module):
+    """*module*'s source with the JAX package's names spelled as the
+    port's, loaded as a module named ``port_<name>`` (once)."""
+    name = "port_" + module.__name__.replace(".", "_")
+    if name in sys.modules:
+        return sys.modules[name]
+    with open(module.__file__) as f:
+        src = f.read()
+    src = re.sub(r"\bkubeai_tpu\b(?!_torch)", PORT, src)
+    for jax_name, port_name in _PORT_MODULES:
+        src = src.replace(jax_name, port_name)
+
+    def clone_import(m):
+        dep = port_clone(importlib.import_module(m.group(2)))
+        return f"from {dep.__name__} import"
+
+    src = re.sub(r"from (tests\.)?(test_\w+) import", clone_import, src)
+    mod = types.ModuleType(name)
+    mod.__file__ = module.__file__
+    sys.modules[name] = mod
+    try:
+        exec(compile(src, module.__file__, "exec"), mod.__dict__)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
+def run_jax_case_both(module, qual, params, request, monkeypatch) -> None:
+    """Run one JAX test case on the JAX package, then on the port (its
+    clone): the same inputs and the same assertions."""
+    run_jax_case(module, qual, params, (), request, monkeypatch)
+    run_jax_case(port_clone(module), qual, to_port(params), (), request, monkeypatch)

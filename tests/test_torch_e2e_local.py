@@ -15,6 +15,18 @@ would otherwise ask for the card), minReplicas 0, PrefixHash:
 - at replicas 2, eight requests that share a 100-character prefix land
   on one pod (found by request id in each pod's /debug/requests);
 - deleting the Model ends both processes.
+The Model holds its replicas through these checks with a long
+scaleDownDelaySeconds: the autoscaler runs in the Manager and would
+otherwise take the hand-set second replica away.
+
+The control loops, with an autoscaler interval of 0.3 s and one parked
+pod (``--parked --device cpu``): a Model listing a ``file://`` adapter
+scales from zero by claiming the parked pod (a ``parked_attach`` record
+in ``/debug/autoscaler``); the adapter reconciler loads the adapter on it,
+and the greedy text of ``<model>_gsa`` through the proxy equals the JAX
+engine's with that adapter (the same near-tie rule); after
+scaleDownDelaySeconds without traffic the autoscaler takes the Model to
+zero and its process exits.
 """
 
 import json
@@ -28,8 +40,12 @@ from kubeai_tpu.engine.core import EngineConfig as JEC
 from kubeai_tpu.engine.weights import load_engine_from_path as jload
 from kubeai_tpu_torch.api import model_types as mt
 from kubeai_tpu_torch.api.core_types import KIND_POD
-from kubeai_tpu_torch.api.model_types import LoadBalancing, Model, ModelSpec, PrefixHash
+from kubeai_tpu_torch.api.model_types import Adapter, LoadBalancing, Model, ModelSpec, PrefixHash
+from kubeai_tpu_torch.config.system import System
+from kubeai_tpu_torch.controller.parked import LABEL_PARKED
+from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
 from kubeai_tpu_torch.manager import Manager
+from kubeai_tpu_torch.models.base import ModelConfig
 from kubeai_tpu_torch.runtime.store import ObjectMeta
 
 from test_torch_weights import _checkpoint
@@ -52,18 +68,35 @@ def get(port, path):
         return json.loads(r.read())
 
 
-def _jax_choices(ckpt, bodies):
+def _jax_choices(ckpt, bodies, adapters=()):
     """The JAX engine server's choices for *bodies*: the engine built in
-    process as the JAX server builds it from ``--model <dir>`` (bf16)."""
+    process as the JAX server builds it from ``--model <dir>`` (bf16),
+    with *adapters* ((name, path)) loaded through its route."""
     from kubeai_tpu.engine.server import EngineServer as JServer
 
     srv = JServer(jload(ckpt, JEC(max_slots=2, max_seq_len=128)), "tiny", host="127.0.0.1",
                   port=0)
     srv.start()
     try:
+        for name, path in adapters:
+            post(srv.port, "/v1/load_lora_adapter", {"lora_name": name, "lora_path": path})
         return [post(srv.port, "/v1/completions", b)["choices"][0] for b in bodies]
     finally:
         srv.stop()
+
+
+def _same_greedy(got, want):
+    """Greedy choices equal, or first different where the JAX engine's top
+    two lie within 2 bf16 ulps (both serve the checkpoint in bf16)."""
+    for mine, theirs in zip(got, want):
+        if mine["text"] == theirs["text"]:
+            continue
+        a, b = mine["logprobs"]["tokens"], theirs["logprobs"]["tokens"]
+        k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        top = sorted(theirs["logprobs"]["top_logprobs"][k].values(), reverse=True)
+        assert top[0] - top[1] <= 2 * 2.0 ** -8 * max(1.0, abs(top[0])), (
+            f"greedy text differs at step {k} with no near-tie: {mine['text']!r} "
+            f"!= {theirs['text']!r}")
 
 
 @pytest.mark.e2e
@@ -75,7 +108,7 @@ def test_operator_scales_the_port_engine_from_zero(tmp_path):
     try:
         mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name="tiny"), spec=ModelSpec(
             url=f"file://{ckpt}", engine=mt.ENGINE_TPU, resource_profile="cpu:1",
-            min_replicas=0, max_replicas=2, args=ARGS,
+            min_replicas=0, max_replicas=2, args=ARGS, scale_down_delay_seconds=600,
             load_balancing=LoadBalancing(strategy=mt.PREFIX_HASH_STRATEGY,
                                          prefix_hash=PrefixHash()))))
         time.sleep(0.3)
@@ -89,17 +122,7 @@ def test_operator_scales_the_port_engine_from_zero(tmp_path):
         assert c.command == ["python", "-m", "kubeai_tpu_torch.engine.server"]
         assert c.args[c.args.index("--tensor-parallel-size") + 1] == "1"
         assert mgr.store.get(mt.KIND_MODEL, "tiny").spec.replicas == 1
-        for mine, theirs in zip(got, _jax_choices(ckpt, bodies)):
-            if mine["text"] == theirs["text"]:
-                continue
-            # The first step where the tokens differ must be a near-tie
-            # of the JAX engine's: its top two within 2 bf16 ulps.
-            a, b = mine["logprobs"]["tokens"], theirs["logprobs"]["tokens"]
-            k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            top = sorted(theirs["logprobs"]["top_logprobs"][k].values(), reverse=True)
-            assert top[0] - top[1] <= 2 * 2.0 ** -8 * max(1.0, abs(top[0])), (
-                f"greedy text differs at step {k} with no near-tie: {mine['text']!r} "
-                f"!= {theirs['text']!r}")
+        _same_greedy(got, _jax_choices(ckpt, bodies))
 
         # Two replicas: a shared prefix stays on one pod.
         mgr.store.mutate(mt.KIND_MODEL, "tiny", lambda m: setattr(m.spec, "replicas", 2))
@@ -133,3 +156,71 @@ def test_operator_scales_the_port_engine_from_zero(tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+
+
+def _wait(cond, what, timeout=60):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.05)
+
+
+@pytest.mark.e2e
+def test_control_loops_attach_load_adapters_and_scale_to_zero(tmp_path):
+    ckpt = _checkpoint(tmp_path / "ckpt", V=300)
+    adapter = str(tmp_path / "gsa")
+    write_peft_checkpoint(adapter, ModelConfig(vocab_size=300, hidden_size=64,
+                                               intermediate_size=128, num_layers=2,
+                                               num_heads=4, num_kv_heads=2),
+                          rank=4, alpha=8, seed=3, std=0.2)
+    system = System()
+    system.autoscaling.interval_seconds = 0.3
+    system.autoscaling.time_window_seconds = 0.9
+    system.parked_replicas = 1
+    system.parked_args = ["--device", "cpu"]
+    mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
+    mgr.start()
+    try:
+        def parked_up():
+            for p in mgr.store.list(KIND_POD, selector={LABEL_PARKED: "true"}):
+                port = p.meta.annotations.get(mt.ANNOTATION_MODEL_POD_PORT)
+                try:
+                    return port and get(int(port), "/health").get("parked", False)
+                except OSError:
+                    pass
+            return False
+
+        _wait(parked_up, "the parked pod never served /health", timeout=120)
+        mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name="tiny"), spec=ModelSpec(
+            url=f"file://{ckpt}", engine=mt.ENGINE_TPU, resource_profile="cpu:1",
+            min_replicas=0, max_replicas=2, target_requests=1, scale_down_delay_seconds=1,
+            adapters=[Adapter(name="gsa", url=f"file://{adapter}")], args=ARGS)))
+        bodies = [{"prompt": p, "max_tokens": 8, "temperature": 0, "logprobs": 2}
+                  for p in PROMPTS]
+        got = [post(mgr.api.port, "/openai/v1/completions", {"model": "tiny_gsa", **b},
+                    timeout=300)["choices"][0] for b in bodies]
+        (pod,) = mgr.store.list(KIND_POD, selector={mt.LABEL_MODEL: "tiny"})
+        proc = mgr.local_runtime._procs[pod.meta.name].proc
+        assert pod.meta.name.startswith("parked-") and pod.meta.labels[LABEL_PARKED] == "attached"
+        assert pod.meta.labels["adapter.kubeai.org/gsa"]
+        recs = get(mgr.api.port, "/debug/autoscaler?model=tiny&limit=1000")["decisions"]
+        assert [r["pod"] for r in recs if r.get("action") == "parked_attach"] == [pod.meta.name]
+        want = _jax_choices(ckpt, [{"model": "gsa", **b} for b in bodies],
+                            adapters=[("gsa", adapter)])
+        _same_greedy(got, want)
+        base = _jax_choices(ckpt, bodies[:1])
+        assert base[0]["text"] != want[0]["text"], "the adapter left greedy text unchanged"
+
+        # No traffic: the autoscaler takes the Model to zero and the
+        # attached process exits.
+        _wait(lambda: mgr.store.get(mt.KIND_MODEL, "tiny").spec.replicas == 0,
+              "the autoscaler never scaled the Model to zero", timeout=30)
+        _wait(lambda: proc.poll() is not None, "the pod's process outlived replicas 0",
+              timeout=30)
+        recs = get(mgr.api.port, "/debug/autoscaler?model=tiny&limit=1000")["decisions"]
+        assert any(r.get("applied") and r.get("applied_replicas") == 0 for r in recs)
+    finally:
+        procs = [h.proc for h in mgr.local_runtime._procs.values()]
+        mgr.stop()
+        for p in procs:
+            p.wait(timeout=30)

@@ -218,14 +218,19 @@ def test_port_imports_no_jax():
         "       'kubeai_tpu_torch.proxy.recovery', 'kubeai_tpu_torch.proxy.handler',\n"
         "       'kubeai_tpu_torch.proxy.server', 'kubeai_tpu_torch.disagg.roles',\n"
         "       'kubeai_tpu_torch.disagg.handoff', 'kubeai_tpu_torch.qos.preempt',\n"
-        "       'kubeai_tpu_torch.catalog', 'kubeai_tpu_torch.manager']\n"
+        "       'kubeai_tpu_torch.catalog', 'kubeai_tpu_torch.manager',\n"
+        "       'kubeai_tpu_torch.autoscaler.movingaverage', 'kubeai_tpu_torch.autoscaler.leader',\n"
+        "       'kubeai_tpu_torch.autoscaler.fleet', 'kubeai_tpu_torch.autoscaler.autoscaler',\n"
+        "       'kubeai_tpu_torch.disagg.signals', 'kubeai_tpu_torch.controller.cache',\n"
+        "       'kubeai_tpu_torch.controller.engineclient',\n"
+        "       'kubeai_tpu_torch.controller.adapters', 'kubeai_tpu_torch.controller.parked']\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert int(out.stdout.split()[0]) >= 92  # every module really imported
+    assert int(out.stdout.split()[0]) >= 102  # every module really imported
 
 
 def test_manager_starts_without_yaml(tmp_path):

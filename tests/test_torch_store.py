@@ -6,9 +6,7 @@ versions), mutate and delete, with labels, owners (cascading deletes)
 and finalizers, run on both stores: every step gives the same result or
 the same error (AlreadyExists, Conflict, NotFound), and a watcher of all
 kinds and one of a single kind see the same events, with the same
-resource versions. The port's admission checks (the Manager's refusal of
-what it does not port yet) refuse a write before it is stored and leave
-a store without checks as the JAX one.
+resource versions.
 """
 
 import queue
@@ -20,8 +18,6 @@ from _torch_operator import plain, to_port
 from kubeai_tpu.api import core_types as jct
 from kubeai_tpu.api import model_types as jmt
 from kubeai_tpu.runtime import store as js
-from kubeai_tpu_torch.api import model_types as tmt
-from kubeai_tpu_torch.controller.controller import refuse_unported
 from kubeai_tpu_torch.runtime import store as ts
 
 KINDS = (jmt.KIND_MODEL, jct.KIND_POD, jct.KIND_CONFIGMAP)
@@ -133,31 +129,3 @@ def test_the_same_script_gives_the_same_results_and_events(seed):
     # A late watcher gets the same synthetic ADDED events.
     assert sorted(_drain(stores[0].watch())) == sorted(_drain(stores[1].watch()))
 
-
-def test_admission_refuses_before_the_write():
-    store = ts.Store()
-    seen = store.watch()
-    store.add_admission(tmt.KIND_MODEL, refuse_unported)
-    ok = tmt.Model(meta=ts.ObjectMeta(name="a"), spec=tmt.ModelSpec(url="hf://a/b"))
-    store.create(tmt.KIND_MODEL, ok)
-    cached = tmt.Model(meta=ts.ObjectMeta(name="b"),
-                       spec=tmt.ModelSpec(url="hf://a/b", cache_profile="fast"))
-    with pytest.raises(ValueError, match="item 2: the cache reconciler"):
-        store.create(tmt.KIND_MODEL, cached)
-    with pytest.raises(ValueError, match="item 3: controller/engineclient and adapters"):
-        store.mutate(tmt.KIND_MODEL, "a", lambda m: m.spec.adapters.append(
-            tmt.Adapter(name="x", url="hf://c/d")))
-    assert [m.meta.name for m in store.list(tmt.KIND_MODEL)] == ["a"]
-    assert not store.get(tmt.KIND_MODEL, "a").spec.adapters
-    assert [(e.type, e.obj.meta.name) for e in _events(seen)] == [("ADDED", "a")]
-    # Other kinds are not checked.
-    store.create(jct.KIND_POD, to_port(jct.Pod(meta=js.ObjectMeta(name="p"))))
-
-
-def _events(q):
-    out = []
-    while True:
-        try:
-            out.append(q.get_nowait())
-        except queue.Empty:
-            return out
