@@ -159,9 +159,13 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      to an engine built directly over the checkpoint (path "operator"),
      an adapter from gs://... (a stand-in gcloud) through the pod's
      /v1/load_lora_adapter, staged as {name}-<12 hex>, changing greedy
-     text; 16 requests over two prefixes each stay on one pod; one
-     request through the proxy beside the same straight to its pod; the
-     Model deleted ends both processes and returns the card's memory.
+     text; 16 requests over two prefixes each stay on one pod; the 8
+     greedy bodies and a new 300-byte one over the Manager's mem:// stream (its messenger, from a
+     System read by load_system_config) and 2 from a child process over
+     its file:// stream, equal to the direct engine (path "messenger");
+     one request through the proxy beside the same straight to its pod
+     and over each stream; the Model deleted ends both processes and
+     returns the card's memory.
      Then the operator's control loops on the same cache (a second
      Manager: autoscaler ticking every second, one parked pod warmed for
      the checkpoint's configuration, cacheWarmCompile): a Model's first
@@ -4126,6 +4130,21 @@ def _sum_counts(a: dict, b: dict) -> dict:
     return a + b
 
 
+def _greedy_body(prompt, n=32, model=None) -> dict:
+    """The body of a greedy completion under ASCII_ONLY."""
+    return {**({"model": model} if model else {}), "prompt": prompt, "max_tokens": n,
+            "temperature": 0, "logprobs": 0, "logit_bias": {str(t): b for t, b in ASCII_ONLY}}
+
+
+def _http_greedy_ids(resp) -> tuple[list, list]:
+    """(ids, chosen tokens' logprobs) of a _greedy_body completion: each
+    token one ASCII character, its id."""
+    lp = resp["choices"][0]["logprobs"]
+    if any(len(t) != 1 for t in lp["tokens"]):
+        raise AssertionError(f"operator: a token is not one ASCII character: {lp['tokens']}")
+    return [ord(t) for t in lp["tokens"]], lp["token_logprobs"]
+
+
 def _http_greedy(port, prompts, n=32, path="/v1/completions", model=None) -> list:
     """[(ids, chosen tokens' logprobs)] of *prompts* as concurrent greedy
     HTTP completions under ASCII_ONLY (each token one character: its
@@ -4133,14 +4152,7 @@ def _http_greedy(port, prompts, n=32, path="/v1/completions", model=None) -> lis
     out = [None] * len(prompts)
 
     def one(i):
-        resp = _post(port, path, {
-            **({"model": model} if model else {}),
-            "prompt": prompts[i], "max_tokens": n, "temperature": 0, "logprobs": 0,
-            "logit_bias": {str(t): b for t, b in ASCII_ONLY}})
-        lp = resp["choices"][0]["logprobs"]
-        if any(len(t) != 1 for t in lp["tokens"]):
-            raise AssertionError(f"operator: a token is not one ASCII character: {lp['tokens']}")
-        out[i] = ([ord(t) for t in lp["tokens"]], lp["token_logprobs"])
+        out[i] = _http_greedy_ids(_post(port, path, _greedy_body(prompts[i], n, model)))
 
     threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
     for th in threads:
@@ -4211,6 +4223,67 @@ AFFINITY_PREFIXES = (
 )
 
 
+# The operator's System: two streams into its messengers (the spool
+# directories absolute: a relative file:// path is the working directory's).
+BUS_SYSTEM_YAML = """messaging:
+  streams:
+    - requestsURL: mem://smoke-req
+      responsesURL: mem://smoke-resp
+      maxHandlers: 8
+    - requestsURL: file://{work}/bus/req
+      responsesURL: file://{work}/bus/resp
+      maxHandlers: 2
+"""
+
+
+def _bus_envelope(corr, body, request_id=None) -> dict:
+    return {"metadata": {"corr": corr, **({"request_id": request_id} if request_id else {})},
+            "path": "/v1/completions", "body": body}
+
+
+def _bus_round(requests_url, responses_url, envelopes) -> tuple[dict, float]:
+    """({corr: response envelope with "ms", publish -> received}, wall s)
+    of *envelopes* published together on *requests_url* and read back
+    from *responses_url* through the port's drivers."""
+    from kubeai_tpu_torch.messenger import open_subscription, open_topic
+
+    topic, sub = open_topic(requests_url), open_subscription(responses_url)
+    t0 = time.monotonic()
+    sent, out = {}, {}
+    for env in envelopes:
+        sent[env["metadata"]["corr"]] = time.monotonic()
+        topic.send(json.dumps(env).encode())
+    for _ in envelopes:
+        msg = sub.receive(timeout=300)
+        if msg is None:
+            raise AssertionError(f"messenger: no response on {responses_url} within 300 s")
+        msg.ack()
+        resp = json.loads(msg.body)
+        corr = resp["metadata"].get("corr")
+        resp["ms"] = (time.monotonic() - sent[corr]) * 1e3
+        out[corr] = resp
+    return out, time.monotonic() - t0
+
+
+def _bus_child(argv) -> None:
+    """The file:// client, run in a child process (``python -c "import
+    sys, chip_smoke; chip_smoke._bus_child(sys.argv[1:])"``, argv: the
+    request spool's URL, the response spool's, a file to wait for, the
+    envelopes as JSON, the timed envelope as JSON): once the file exists,
+    the envelopes in one round, then the timed one in 3 rounds of its own;
+    prints one JSON line."""
+    import kubeai_tpu_torch.messenger  # noqa: F401  (torch's import, before the wait)
+
+    req_url, resp_url, go, envelopes, timed = argv
+    while not os.path.exists(go):
+        time.sleep(0.01)
+    out, wall = _bus_round(req_url, resp_url, json.loads(envelopes))
+    timed_runs = [_bus_round(req_url, resp_url, [json.loads(timed)])[0] for _ in range(3)]
+    print(json.dumps({"responses": out, "wall_s": wall,
+                      "timed": [r["timed"]["status_code"] for r in timed_runs],
+                      "timed_ms": [r["timed"]["ms"] for r in timed_runs]}), flush=True)
+
+
 def _direct_reference(ckpt) -> tuple[list, dict]:
     """(greedy [(ids, chosen logprobs)] of OPERATOR_PROMPTS under
     ASCII_ONLY, the weights) of an engine built directly over the
@@ -4238,7 +4311,8 @@ def _direct_reference(ckpt) -> tuple[list, dict]:
 def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
     """The replica on the loader's cache, started by the port's operator
     (path "operator"): Manager(local_runtime=True) with the default
-    profiles, a Model built in Python (TPUEngine, file:// the loader's
+    profiles and BUS_SYSTEM_YAML's two streams (read by
+    load_system_config), a Model built in Python (TPUEngine, file:// the loader's
     destination, nvidia-gpu-h100:1, minReplicas 0, maxReplicas 2,
     PrefixHash, --warmup and COLDSTART_ARGS, scaleDownDelaySeconds 600 so
     that the autoscaler keeps the hand-set replicas), LocalRuntime's pods with
@@ -4254,23 +4328,32 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
     the stand-in gcloud) on the first pod's own port, staged as
     ``{name}-<12 hex>``, changing greedy text. With both pods ready, 16
     sequential greedy requests over two prefixes (each prefix must stay on
-    one pod; each pod's count from its /debug/requests), one request
-    timed through the proxy beside the same request straight to its pod,
-    then the Model deleted: both processes must exit and the card's free
-    memory come back. *direct* is _direct_reference's. Returns (numbers,
-    launch counts)."""
+    one pod; each pod's count from its /debug/requests); the messenger
+    (path "messenger"): the 8 greedy bodies and a 300-byte one no pod has
+    cached, published together on mem://smoke-req and read on mem://smoke-resp with the launch counts
+    zeroed just before and read just after, then 2 from a child process
+    over the file:// spools (_bus_child), held by _check_bus; one request
+    timed through the proxy beside the same request straight to its pod
+    and over each stream, then the Model deleted: both processes must
+    exit and the card's free memory come back. *direct* is
+    _direct_reference's. Returns (numbers with the messenger's under
+    "messenger", {"operator": launch counts, "messenger": launch
+    counts})."""
     import torch
 
     from kubeai_tpu_torch.api import model_types as mt
     from kubeai_tpu_torch.api.core_types import KIND_POD
     from kubeai_tpu_torch.api.model_types import LoadBalancing, Model, ModelSpec, PrefixHash
+    from kubeai_tpu_torch.config.system import load_system_config
     from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
     from kubeai_tpu_torch.manager import Manager
+    from kubeai_tpu_torch.metrics import ACTIVE_REQUESTS, parse_prometheus_text
     from kubeai_tpu_torch.models.base import llama_3_1_8b
     from kubeai_tpu_torch.runtime.store import ObjectMeta
     from kubeai_tpu_torch.utils.xxh import xxh64
 
     work = os.path.dirname(run["cache"])
+    root = os.path.dirname(os.path.abspath(__file__))
     mc = llama_3_1_8b(num_layers=COLDSTART_LAYERS)
     write_peft_checkpoint(os.path.join(run["env"]["STANDIN_BUCKETS"],
                                        ADAPTER_URL.split("://", 1)[1]),
@@ -4288,7 +4371,12 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
         f.write(f'#!/bin/sh\nexec {sys.executable} "$@"\n')
     os.chmod(os.path.join(pods_bin, "python"), 0o755)
     os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "pod_logs")
-    mgr = Manager(local_runtime=True, host="127.0.0.1", port=0)
+    cfg = os.path.join(work, "system.yaml")
+    with open(cfg, "w") as f:
+        f.write(BUS_SYSTEM_YAML.format(work=work))
+    system = load_system_config(cfg)
+    streams = {s.requests_url.split(":", 1)[0]: s for s in system.streams}
+    mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
     mgr.local_runtime.extra_env.update({
         **run["env"], "PATH": pods_bin + os.pathsep + run["env"]["PATH"],
         "PYTHONPATH": site, "KUBEAI_COMPILE_CACHE": run["cache"],
@@ -4310,10 +4398,25 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
                       _pod_counts(pid(name), counts_dir))
     prompts = OPERATOR_PROMPTS
     mid = ("The quick brown fox jumps over the lazy dog. " * 7)[:300]
+    # The bus's 300-byte prompt: one no pod has cached (a prefix-cache
+    # hit on mid's pages would resume its prefill without flash).
+    bus_mid = ("The lazy dog sleeps under the quick brown fox. " * 7)[:300]
     free0 = torch.cuda.mem_get_info()[0]
-    procs, res = [], {}
+    one = {"model": OPERATOR_MODEL, "prompt": prompts[1], "max_tokens": 16, "temperature": 0}
+    go = os.path.join(work, "bus_go")
+    file_envs = [_bus_envelope(i, _greedy_body(prompts[i], model=OPERATOR_MODEL), f"file-{i}")
+                 for i in range(2)]
+    procs, res, bus_child = [], {}, None
     mgr.start()
     try:
+        # The file:// client starts here, so that its imports overlap the
+        # pods' start; it publishes once the mem:// round is done.
+        bus_child = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke._bus_child(sys.argv[1:])",
+             streams["file"].requests_url, streams["file"].responses_url, go,
+             json.dumps(file_envs), json.dumps(_bus_envelope("timed", one))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+            env={**os.environ, "PYTHONPATH": root})
         mgr.store.create(mt.KIND_MODEL, Model(meta=ObjectMeta(name=OPERATOR_MODEL), spec=ModelSpec(
             url=f"file://{run['dest']}", engine=mt.ENGINE_TPU,
             resource_profile="nvidia-gpu-h100:1", min_replicas=0, max_replicas=2,
@@ -4397,10 +4500,39 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
             raise AssertionError(f"operator: a prefix was served by more than one pod: "
                                  f"{served_by}")
         per_pod = {n: sum(1 for _, v in served_by.values() if v == [n]) for n in ports}
-        one = {"model": OPERATOR_MODEL, "prompt": prompts[1], "max_tokens": 16,
-               "temperature": 0}
+        # The pub/sub path. mem://: the 8 greedy bodies and the 300-byte
+        # one together, the launch counts zeroed just before and read just
+        # after.
+        t_bus = time.monotonic()
+        for name in (first[0], second):
+            _pod_counts(pid(name), counts_dir)
+        mem_envs = [_bus_envelope(i, _greedy_body(p, model=OPERATOR_MODEL), f"bus-{i}")
+                    for i, p in enumerate(prompts + [bus_mid])]
+        mem_out, mem_wall = _bus_round(streams["mem"].requests_url,
+                                       streams["mem"].responses_url, mem_envs)
+        bus_launches = _sum_counts(_pod_counts(pid(first[0]), counts_dir),
+                                   _pod_counts(pid(second), counts_dir))
+        with urllib.request.urlopen(f"http://127.0.0.1:{mgr.api.port}/metrics",
+                                    timeout=30) as r:
+            gauge = [v for labels, v in parse_prometheus_text(r.read().decode()).get(
+                ACTIVE_REQUESTS, []) if labels.get("request_type") == "messenger"
+                and labels.get("request_model") == OPERATOR_MODEL]
+        # file://: the child's round, then its 3 timed requests.
+        with open(go, "w"):
+            pass
+        child_out, child_err = bus_child.communicate(timeout=300)
+        if bus_child.returncode != 0:
+            raise AssertionError(f"messenger: the file:// client exited "
+                                 f"{bus_child.returncode}\n{child_err[-3000:]}")
+        file_run = json.loads(child_out.strip().splitlines()[-1])
+        file_out = {int(k): v for k, v in file_run["responses"].items()}
+        bus_served = {rid: [n for n, p in ports.items()
+                            if _http(p, f"/debug/requests?id={rid}")[2]["requests"]]
+                      for rid in [f"bus-{i}" for i in range(len(mem_envs))]
+                      + [f"file-{i}" for i in range(len(file_envs))]}
+        bus_s = time.monotonic() - t_bus
         target = per_prefix[0] and next(iter(per_prefix[0]))[0]
-        proxy_ms, direct_ms = [], []
+        proxy_ms, direct_ms, mem_ms = [], [], []
         for _ in range(3):
             t = time.monotonic()
             _post(mgr.api.port, "/openai/v1/completions", one)
@@ -4408,6 +4540,13 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
             t = time.monotonic()
             _post(ports[target], "/v1/completions", one)
             direct_ms.append((time.monotonic() - t) * 1e3)
+            t = time.monotonic()
+            timed, _ = _bus_round(streams["mem"].requests_url, streams["mem"].responses_url,
+                                  [_bus_envelope("timed", one)])
+            if timed["timed"]["status_code"] != 200:
+                raise AssertionError(f"messenger: the timed mem:// request: {timed}")
+            mem_ms.append(timed["timed"]["ms"])
+            bus_s += time.monotonic() - t
         free_up = torch.cuda.mem_get_info()[0]
         procs = [mgr.local_runtime._procs[n].proc for n in ports]
         t_del = time.monotonic()
@@ -4420,6 +4559,9 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
         time.sleep(0.5)
         free1 = torch.cuda.mem_get_info()[0]
     finally:
+        if bus_child is not None and bus_child.poll() is None:
+            bus_child.kill()
+            bus_child.wait()
         watch.stop()
         mgr.stop()
         os.environ.pop("KUBEAI_POD_LOGS", None)
@@ -4447,6 +4589,11 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
             for (_, g_lp), (_, w_lp) in zip(got, want)]
     diverged = _near_tie_divergence(params, [ids for ids, _ in got], [ids for ids, _ in want],
                                     gaps, "operator", prompts=OPERATOR_PROMPTS, mc=mc)
+    bus = _check_bus(mem_out, file_out, file_run, bus_served, gauge, bus_launches, direct, mc)
+    bus.update({"mem_wall_s": mem_wall, "file_wall_s": file_run["wall_s"],
+                "added_wall_s": bus_s, "timed_16_tokens": {
+                    "proxy_ms": proxy_ms, "direct_ms": direct_ms, "mem_ms": mem_ms,
+                    "file_ms": file_run["timed_ms"]}})
     res.update({"ready_s_beside_empty_cache": {"warmed": res["spawn_to_ready_s"],
                                                "empty": cold["spawn_to_ready_s"]},
                 "compile_phase_beside_empty_cache": {"warmed": res["phases"].get("compile"),
@@ -4459,8 +4606,51 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
                 "teardown_s": teardown_s, "free_gib": {"before": free0 / 2**30,
                                                       "two_pods": free_up / 2**30,
                                                       "after": free1 / 2**30},
-                "launches": n})
-    return res, launches
+                "launches": n, "messenger": bus})
+    return res, {"operator": launches, "messenger": bus_launches}
+
+
+def _check_bus(mem_out, file_out, file_run, served, gauge, launches, direct, mc) -> dict:
+    """The messenger's checks (path "messenger"): every response 200 with
+    its correlation and request id echoed and the request found in one
+    pod's /debug/requests; the greedy ids equal to the directly built
+    engine's up to near-ties within 2 bf16 ulps; flash and ragged launched
+    in the mem:// window; the active gauge of request_type="messenger"
+    back at 0. Returns the messenger line's numbers."""
+    want, params = direct
+    for what, out, n, tag in (("mem://", mem_out, len(OPERATOR_PROMPTS) + 1, "bus"),
+                              ("file://", file_out, 2, "file")):
+        if sorted(out) != list(range(n)) or any(
+                r["status_code"] != 200 or r["metadata"]["request_id"] != f"{tag}-{i}"
+                for i, r in out.items()):
+            raise AssertionError(f"messenger: {what} responses {json.dumps(out)[:3000]}")
+    if file_run["timed"] != [200] * 3:
+        raise AssertionError(f"messenger: the timed file:// requests: {file_run['timed']}")
+    lost = {rid: pods for rid, pods in served.items() if len(pods) != 1}
+    if lost:
+        raise AssertionError(f"messenger: requests not found in exactly one pod: {lost}")
+    if gauge != [0.0]:
+        raise AssertionError(f"messenger: the active gauge of request_type messenger is "
+                             f"{gauge}, not [0.0]")
+    n = launches["launches"]
+    if not (n["flash_attention"] and n["paged_attention_ragged"]):
+        raise AssertionError(f"messenger: flash and ragged must launch: {launches}")
+    _check_completion(mem_out[len(OPERATOR_PROMPTS)]["body"], "messenger 300-byte")
+    diverged = {}
+    for what, out, k in (("mem", mem_out, len(OPERATOR_PROMPTS)), ("file", file_out, 2)):
+        got = [_http_greedy_ids(out[i]["body"]) for i in range(k)]
+        gaps = [[abs(a - b) for a, b in zip(g_lp, w_lp)]
+                for (_, g_lp), (_, w_lp) in zip(got, want)]
+        diverged[what] = _near_tie_divergence(
+            params, [ids for ids, _ in got], [ids for ids, _ in want[:k]], gaps,
+            f"messenger[{what}]", prompts=OPERATOR_PROMPTS[:k], mc=mc)
+    return {"responses": {"mem": len(mem_out), "file": len(file_out)},
+            "tokens_equal": not any(diverged.values()), "diverged_at_near_ties": diverged,
+            "mem_ms": [mem_out[i]["ms"] for i in sorted(mem_out)],
+            "file_ms": [file_out[i]["ms"] for i in sorted(file_out)],
+            "requests_per_pod": {p: sum(1 for v in served.values() if v == [p])
+                                 for p in {v[0] for v in served.values()}},
+            "gauge": gauge[0], "launches": n}
 
 
 # The operator's control loops on the same cache (path "operator_loops")
@@ -4957,7 +5147,7 @@ def phase_loader(run) -> dict:
     operator scales replicas on that cache (_serve_operator, path
     "operator"), and a second operator runs its control loops there
     (_serve_operator_loops, path "operator_loops"). Returns
-    {"operator": counts, "operator_loops": counts}."""
+    {"operator": counts, "messenger": counts, "operator_loops": counts}."""
     import torch
 
     t0 = time.monotonic()
@@ -4967,6 +5157,7 @@ def phase_loader(run) -> dict:
         loader = _finish_loader(run, run["ckpt"])
         log("coldstart[loader]", gpu_line(), json.dumps(loader))
         served, launches = _serve_operator(run, run["spawn"], direct)
+        log("messenger", gpu_line(), json.dumps(served.pop("messenger")))
         log("operator", gpu_line(), json.dumps(served))
         loops, loops_launches = _serve_operator_loops(run, served, direct)
         log("operator_loops", gpu_line(), json.dumps(loops))
@@ -4980,7 +5171,7 @@ def phase_loader(run) -> dict:
     log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 210 s; the loader's child added "
         f"{loader['waited_s']:.1f} s past phases 7, 8 and the reference engine; "
         f"operator_loops {loops['wall_s']:.1f} s)")
-    return {"operator": launches, "operator_loops": loops_launches}
+    return {**launches, "operator_loops": loops_launches}
 
 
 # ---------------------------------------------------------------------------

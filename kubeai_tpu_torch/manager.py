@@ -4,15 +4,15 @@ kubeai_tpu/manager.py, ``Manager``).
 The store, leader election, the model client, the load balancer, the
 cache and adapter reconcilers, the parked pool (``parkedReplicas`` > 0),
 the model reconciler, the fleet collector and the autoscaler, the proxy
-and its OpenAI server, and (``local_runtime=True``) the LocalRuntime pod
-executor; each runs on daemon threads, started and stopped in the JAX
-manager's order. Only the lease holder's autoscaler ticks.
+and its OpenAI server, one messenger per ``streams`` entry (pub/sub
+requests into the same balancer and model client as the proxy), and
+(``local_runtime=True``) the LocalRuntime pod executor; each runs on
+daemon threads, started and stopped in the JAX manager's order. Only the
+lease holder's autoscaler ticks.
 
 Left out, not stubbed: the SLO monitor, canary, history sampler,
 forecaster and incident recorder (ROADMAP queue 1, item 7: the
-autoscaler's forecast input is None, and ``/debug/slo`` answers 404), and
-the messengers, so a System with ``streams`` is refused at construction
-(item 5).
+autoscaler's forecast input is None, and ``/debug/slo`` answers 404).
 
 CLI:
     python -m kubeai_tpu_torch.manager --local [--port 8000]
@@ -39,6 +39,7 @@ from kubeai_tpu_torch.controller.adapters import AdapterReconciler
 from kubeai_tpu_torch.controller.cache import CacheReconciler
 from kubeai_tpu_torch.controller.controller import ModelReconciler
 from kubeai_tpu_torch.loadbalancer.balancer import LoadBalancer
+from kubeai_tpu_torch.messenger.messenger import Messenger
 from kubeai_tpu_torch.obs.logs import get_logger, setup_logging
 from kubeai_tpu_torch.obs.otel import maybe_start_exporter, uninstall_exporter
 from kubeai_tpu_torch.proxy.handler import ModelProxy
@@ -48,16 +49,6 @@ from kubeai_tpu_torch.runtime.local import LocalRuntime
 from kubeai_tpu_torch.runtime.store import Store
 
 log = get_logger("kubeai_tpu_torch.manager")
-
-
-def refuse_unported_system(system: System) -> None:
-    """Raise ValueError for a System whose settings need a component that
-    is not ported yet: ``streams`` need the messenger (ROADMAP queue 1,
-    item 5)."""
-    if system.streams:
-        raise ValueError(
-            "streams need the messenger, which is not ported yet "
-            "(ROADMAP queue 1, item 5: messenger/)")
 
 
 class Manager:
@@ -71,7 +62,6 @@ class Manager:
         namespace: str = "default",
     ):
         self.system = (system or System()).default_and_validate()
-        refuse_unported_system(self.system)
         self.store = store or Store()
         self.namespace = namespace
 
@@ -134,6 +124,17 @@ class Manager:
         self.api.decision_log = self.autoscaler.decisions
         self.api.fleet = self.fleet
         self.api.election = self.election
+        self.messengers = [
+            Messenger(
+                stream.requests_url,
+                stream.responses_url,
+                max_handlers=stream.max_handlers,
+                model_client=self.model_client,
+                lb=self.lb,
+                error_max_backoff=self.system.messaging_error_max_backoff_seconds,
+            )
+            for stream in self.system.streams
+        ]
         self.local_runtime = LocalRuntime(self.store, namespace) if local_runtime else None
         self._otel = None
 
@@ -148,6 +149,8 @@ class Manager:
         self.autoscaler.start()
         if self.local_runtime:
             self.local_runtime.start()
+        for m in self.messengers:
+            m.start()
         self.api.start()
         log.info("manager up: api :%d", self.api.port)
 
@@ -159,6 +162,8 @@ class Manager:
         self.stop()
 
     def stop(self):
+        for m in self.messengers:
+            m.stop()
         self.api.stop()
         if self.local_runtime:
             self.local_runtime.stop()

@@ -447,7 +447,8 @@ def test_manager_wires_the_loops():
     """The port's Manager builds the election, the fleet collector, the
     autoscaler (its engine signal the collector's), the three reconcilers'
     hooks and the parked pool, the decision log shared with the pool and
-    the API; it still refuses streams."""
+    the API, and one messenger per stream over its own model client and
+    balancer."""
     from kubeai_tpu_torch.config.system import MessageStream, System
     from kubeai_tpu_torch.manager import Manager
 
@@ -466,7 +467,18 @@ def test_manager_wires_the_loops():
         assert mgr.fleet.default_max_age == 1.5 * system.autoscaling.interval_seconds
     finally:
         mgr.api.httpd.server_close()
+    assert mgr.messengers == []
     system = System()
-    system.streams = [MessageStream(requests_url="mem://a", responses_url="mem://b")]
-    with pytest.raises(ValueError, match="item 5: messenger"):
-        Manager(system, store=ts.Store(), port=0)
+    system.streams = [MessageStream(requests_url="mem://a", responses_url="mem://b"),
+                      MessageStream(requests_url="file:///q/req", responses_url="file:///q/resp",
+                                    max_handlers=4)]
+    system.messaging_error_max_backoff_seconds = 3.0
+    mgr = Manager(system, store=ts.Store(), port=0)
+    try:
+        assert [(m.requests_url, m.responses_url, m.max_handlers, m.error_max_backoff)
+                for m in mgr.messengers] == [("mem://a", "mem://b", 1, 3.0),
+                                             ("file:///q/req", "file:///q/resp", 4, 3.0)]
+        assert all(m.model_client is mgr.model_client and m.lb is mgr.lb
+                   for m in mgr.messengers)
+    finally:
+        mgr.api.httpd.server_close()

@@ -12,6 +12,9 @@ would otherwise ask for the card), minReplicas 0, PrefixHash:
   server's own arguments; where the two first differ the JAX engine's
   top-2 logprobs must lie within 2 bf16 ulps (both serve the checkpoint
   in bf16);
+- the same three bodies published over the Manager's mem:// and file://
+  streams (its messengers) come back on the response streams with status
+  200 and their correlation metadata, held to the same JAX choices;
 - at replicas 2, eight requests that share a 100-character prefix land
   on one pod (found by request id in each pod's /debug/requests);
 - deleting the Model ends both processes.
@@ -41,10 +44,11 @@ from kubeai_tpu.engine.weights import load_engine_from_path as jload
 from kubeai_tpu_torch.api import model_types as mt
 from kubeai_tpu_torch.api.core_types import KIND_POD
 from kubeai_tpu_torch.api.model_types import Adapter, LoadBalancing, Model, ModelSpec, PrefixHash
-from kubeai_tpu_torch.config.system import System
+from kubeai_tpu_torch.config.system import MessageStream, System
 from kubeai_tpu_torch.controller.parked import LABEL_PARKED
 from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
 from kubeai_tpu_torch.manager import Manager
+from kubeai_tpu_torch.messenger import open_subscription, open_topic
 from kubeai_tpu_torch.models.base import ModelConfig
 from kubeai_tpu_torch.runtime.store import ObjectMeta
 
@@ -99,10 +103,36 @@ def _same_greedy(got, want):
             f"!= {theirs['text']!r}")
 
 
+def _over_bus(requests_url, responses_url, bodies):
+    """The choices of *bodies* published as envelopes on *requests_url*,
+    read back from *responses_url* in their correlation order."""
+    topic, sub = open_topic(requests_url), open_subscription(responses_url)
+    for i, b in enumerate(bodies):
+        topic.send(json.dumps({"metadata": {"corr": i}, "path": "/v1/completions",
+                               "body": {"model": "tiny", **b}}).encode())
+    out = {}
+    for _ in bodies:
+        msg = sub.receive(timeout=300)
+        assert msg is not None, f"no response on {responses_url}"
+        msg.ack()
+        resp = json.loads(msg.body)
+        assert resp["status_code"] == 200, resp
+        out[resp["metadata"]["corr"]] = resp["body"]["choices"][0]
+    assert sorted(out) == list(range(len(bodies)))
+    return [out[i] for i in range(len(bodies))]
+
+
 @pytest.mark.e2e
 def test_operator_scales_the_port_engine_from_zero(tmp_path):
     ckpt = _checkpoint(tmp_path / "ckpt", V=300)
-    mgr = Manager(local_runtime=True, host="127.0.0.1", port=0)
+    bus = tmp_path / "bus"
+    system = System()
+    system.streams = [
+        MessageStream(requests_url="mem://e2e-req", responses_url="mem://e2e-resp",
+                      max_handlers=3),
+        MessageStream(requests_url=f"file://{bus}/req", responses_url=f"file://{bus}/resp",
+                      max_handlers=2)]
+    mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
     mgr.start()
     procs = []
     try:
@@ -122,7 +152,12 @@ def test_operator_scales_the_port_engine_from_zero(tmp_path):
         assert c.command == ["python", "-m", "kubeai_tpu_torch.engine.server"]
         assert c.args[c.args.index("--tensor-parallel-size") + 1] == "1"
         assert mgr.store.get(mt.KIND_MODEL, "tiny").spec.replicas == 1
-        _same_greedy(got, _jax_choices(ckpt, bodies))
+        want = _jax_choices(ckpt, bodies)
+        _same_greedy(got, want)
+        # The same bodies over the two streams.
+        for stream in system.streams:
+            _same_greedy(_over_bus(stream.requests_url, stream.responses_url, bodies), want)
+        assert mgr.store.get(mt.KIND_MODEL, "tiny").spec.replicas == 1
 
         # Two replicas: a shared prefix stays on one pod.
         mgr.store.mutate(mt.KIND_MODEL, "tiny", lambda m: setattr(m.spec, "replicas", 2))

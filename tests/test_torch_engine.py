@@ -223,7 +223,13 @@ def test_port_imports_no_jax():
         "       'kubeai_tpu_torch.autoscaler.fleet', 'kubeai_tpu_torch.autoscaler.autoscaler',\n"
         "       'kubeai_tpu_torch.disagg.signals', 'kubeai_tpu_torch.controller.cache',\n"
         "       'kubeai_tpu_torch.controller.engineclient',\n"
-        "       'kubeai_tpu_torch.controller.adapters', 'kubeai_tpu_torch.controller.parked']\n"
+        "       'kubeai_tpu_torch.controller.adapters', 'kubeai_tpu_torch.controller.parked',\n"
+        "       'kubeai_tpu_torch.messenger', 'kubeai_tpu_torch.messenger.drivers',\n"
+        "       'kubeai_tpu_torch.messenger.messenger', 'kubeai_tpu_torch.messenger.kafka_proto',\n"
+        "       'kubeai_tpu_torch.messenger.kafka_driver', 'kubeai_tpu_torch.messenger.amqp_driver',\n"
+        "       'kubeai_tpu_torch.messenger.nats_driver', 'kubeai_tpu_torch.messenger.sqs_driver',\n"
+        "       'kubeai_tpu_torch.messenger.gcp_pubsub',\n"
+        "       'kubeai_tpu_torch.messenger.azuresb_driver']\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
