@@ -89,7 +89,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      TTFT, the chunk's host segments), the greedy tokens equal across
      turns up to near-ties. After the last timed serving run (a
      profiler session slows a process's later launches), one eager and
-     one graphed engine per G, on the first 8 of the 32 layers, serve a
+     one graphed engine per G, on the first 4 of the 32 layers, serve a
      round with a torch.profiler window over 6 chunks (device busy ms of
      a chunk, idle share). Then a
      32-layer step profile: decode and verify steps
@@ -147,7 +147,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      a child process (``python -m kubeai_tpu_torch.loader
      --warm-compile-cache s3://...`` through a stand-in aws, into an
      empty KUBEAI_COMPILE_CACHE); after phase 8, phase_loader (budget
-     210 s) prints its staging and build seconds and the seconds waited
+     240 s) prints its staging and build seconds and the seconds waited
      for it, checks the staged tree equals the source, and hands that
      cache to the port's operator (Manager with LocalRuntime, a Model
      built in Python on nvidia-gpu-h100:1, minReplicas 0, PrefixHash):
@@ -178,7 +178,20 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      from the adapter reconciler (its text through the proxy equal to the
      hand-loaded one's), and on deletion runs the eviction Job and loses
      its cache directory; no process is left and the card's memory comes
-     back;
+     back. (Both runs keep the canary off, KUBEAI_CANARY=0.)
+     Then the operator on a cluster (path "kube"): an apiserver stand-in
+     (kubeai_tpu_torch/tools/kube_standin.py), a Manager over KubeStore
+     on it and the stand-in's kubelet, which runs each Pod from the
+     manifest the apiserver holds; a Model POSTed as the CRD's JSON
+     scales from zero on its first request (a canary tick at zero wakes
+     nothing; the stored Pod the port's server on nvidia.com/gpu 1, the
+     process its command), 8 greedy
+     requests and a 300-byte one equal to the direct engine, 3 canary
+     ticks at KUBEAI_CANARY_INTERVAL=1 all ok with one fingerprint,
+     /debug/slo over the fleet's scrapes, the Lease and the
+     AutoscalerState ConfigMap in the apiserver, request counts by verb;
+     the Model DELETEd through the REST API takes the Pod out of the
+     apiserver, ends the process and returns the card's memory;
   8. fine-tune (phase_finetune, budget 90 s): the LoRA fine-tune CLI
      (train/finetune.py's main) over a 4-layer checkpoint at
      Llama-3.1-8B width (64 seeded JSONL rows, --seq-len 256, rank 16 on
@@ -2031,10 +2044,28 @@ def _stream_http_staggered(port, prompts, models, n=32):
     return results
 
 
+# The LoRA runs' depth: the first 16 of Llama-3.1-8B's 32 layers (the four
+# runs took 133.6 s at 32 layers; step_profile[lora] keeps all 32). At 8,
+# an adapter's greedy text came out equal to the base model's, which the
+# runs refuse.
+LORA_LAYERS = 16
+
+
+def _first_layers(params, n: int) -> dict:
+    """*params* with its stacked layers cut to the first *n* (an int8
+    weight's q and scale alike)."""
+    def cut(v):
+        return {k: w[:n] for k, w in v.items()} if isinstance(v, dict) else v[:n]
+
+    return {**params, "layers": {k: cut(v) for k, v in params["layers"].items()}}
+
+
 def _serve_lora(params, qparams) -> dict:
-    """LORA_RUNS: the 32-layer model served with two PEFT adapters loaded
-    through the server's routes (bf16 ragged and dedicated, int8 weights,
-    --speculate-tokens 7), the launch counters zeroed before each run.
+    """LORA_RUNS: the first LORA_LAYERS layers of the model served with
+    two PEFT adapters (written for all 32 layers; a bank keeps the rows of
+    the layers it has) loaded through the server's routes (bf16 ragged
+    and dedicated, int8 weights, --speculate-tokens 7), the launch
+    counters zeroed before each run.
     Before the first load the engine (no bank) serves LORA_PROMPTS alone
     (staggered): the reference. Then /v1/load_lora_adapter a and b (the
     bank is allocated, the chunk graph dropped and captured again with the
@@ -2058,12 +2089,13 @@ def _serve_lora(params, qparams) -> dict:
     from kubeai_tpu_torch.models.base import llama_3_1_8b
 
     paths = dict(zip("abc", _adapter_dirs()))
+    mc = llama_3_1_8b(num_layers=LORA_LAYERS)
     out = {}
     for run, dk, int8, G in LORA_RUNS:
         ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=dk,
                           speculate_tokens=G)
-        w = qparams if int8 else params
-        eng = Engine(llama_3_1_8b(), w, ByteTokenizer(), ec, device="cuda")
+        w = _first_layers(qparams if int8 else params, LORA_LAYERS)
+        eng = Engine(mc, w, ByteTokenizer(), ec, device="cuda")
         srv = EngineServer(eng, run, host="127.0.0.1", port=0)
         _zero_launches()
         srv.start()
@@ -2097,8 +2129,7 @@ def _serve_lora(params, qparams) -> dict:
             stats = _read_launches()
             _check_lora_launches(run, stats["launches"], eng.model_config.num_layers, dk, int8)
             _zero_launches()
-            eager = Engine(llama_3_1_8b(), w, ByteTokenizer(), ec, device="cuda",
-                           cuda_graphs=False)
+            eager = Engine(mc, w, ByteTokenizer(), ec, device="cuda", cuda_graphs=False)
             eager.start()
             try:
                 for name in "ab":
@@ -2359,10 +2390,11 @@ def _graph_turns(params) -> None:
             log(f"graph_turns[G={G} #{turn} {res['mode']}]", gpu_line(), json.dumps(res))
 
 
-# The profiled rounds' depth: the first 8 of Llama-3.1-8B's 32 layers.
+# The profiled rounds' depth: the first 4 of Llama-3.1-8B's 32 layers.
 # A session over an eager engine at all 32 took 50-70 s a round to turn
-# its ~84,000 kernels' events into tables, over a tenth of chip_smoke's wall.
-PROFILE_LAYERS = 8
+# its ~84,000 kernels' events into tables, over a tenth of chip_smoke's
+# wall; the four rounds took 73.7 s at 8 layers (~3.5 s a layer).
+PROFILE_LAYERS = 4
 
 
 def _graph_profiles(params) -> None:
@@ -2372,7 +2404,7 @@ def _graph_profiles(params) -> None:
     busy ms per chunk and the window's idle share. Run after the timed
     serving runs: a profiler session slows the launches a process makes
     after it."""
-    sub = {**params, "layers": {k: v[:PROFILE_LAYERS] for k, v in params["layers"].items()}}
+    sub = _first_layers(params, PROFILE_LAYERS)
     for G in (0, 7):
         for graphs in (False, True):
             res = _serve_traffic(sub, G, graphs, profile=True, layers=PROFILE_LAYERS)
@@ -4376,7 +4408,10 @@ def _serve_operator(run, cold, direct) -> tuple[dict, dict]:
         f.write(BUS_SYSTEM_YAML.format(work=work))
     system = load_system_config(cfg)
     streams = {s.requests_url.split(":", 1)[0]: s for s in system.streams}
-    mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
+    # No canary probe in the windows this run counts (its configuration
+    # before the prober was ported).
+    with _env(KUBEAI_CANARY="0"):
+        mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
     mgr.local_runtime.extra_env.update({
         **run["env"], "PATH": pods_bin + os.pathsep + run["env"]["PATH"],
         "PYTHONPATH": site, "KUBEAI_COMPILE_CACHE": run["cache"],
@@ -4711,6 +4746,21 @@ def _until(cond, what, timeout):
     return time.monotonic() - t0
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """os.environ with *values* set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _serve_operator_loops(run, operator, direct) -> tuple[dict, dict]:
     """The operator's control loops on the loader's cache (path
     "operator_loops"): a second Manager(local_runtime=True) after the
@@ -4770,7 +4820,8 @@ def _serve_operator_loops(run, operator, direct) -> tuple[dict, dict]:
     system.cache_warm_compile = True
     system.cache_profiles["h100-cache"] = CacheProfile(shared_filesystem_storage_class="standard")
     os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "loops_pod_logs")
-    mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
+    with _env(KUBEAI_CANARY="0"):  # as in the operator run
+        mgr = Manager(system, local_runtime=True, host="127.0.0.1", port=0)
     mgr.local_runtime.extra_env.update({
         **run["env"], "PATH": pods_bin + os.pathsep + run["env"]["PATH"],
         "PYTHONPATH": os.path.join(work, "pod_site"), "KUBEAI_COMPILE_CACHE": run["cache"],
@@ -5001,6 +5052,240 @@ def _serve_operator_loops(run, operator, direct) -> tuple[dict, dict]:
     return res, launches
 
 
+# The operator on a cluster (path "kube")
+
+KUBE_MODEL = "llama-8b-kube"
+KUBE_CANARY_TICKS = 3
+# A 300-byte prompt that neither the reference nor the canary sent: its
+# cold prefill reaches flash's buckets (>= 256 tokens).
+KUBE_MID = ("A lamp burns in the lighthouse above the northern harbor. " * 6)[:300]
+
+
+def _kube_post(url, doc=None, method="POST") -> dict:
+    """One request to the apiserver stand-in, as kubectl sends it."""
+    req = urllib.request.Request(url, data=json.dumps(doc).encode() if doc else None,
+                                 method=method, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read() or b"{}")
+
+
+def _serve_kube(run, direct) -> tuple[dict, dict]:
+    """The operator on a cluster, on the loader's cache (path "kube"): an
+    apiserver stand-in (kubeai_tpu_torch/tools/kube_standin.py: the REST
+    subset and the chunked watch stream), a Manager over KubeStore on it
+    (autoscaling.interval_seconds 1, the canary at KUBEAI_CANARY_INTERVAL
+    1) that holds the only lease, and the stand-in's kubelet, which runs
+    each Pod from the manifest the apiserver holds (LocalRuntime's launch,
+    port rewrite and readiness probe) and writes its status into the
+    apiserver. A Model (min 0, max 1, file:// the loader's destination,
+    nvidia-gpu-h100:1, --warmup and COLDSTART_ARGS) is POSTed as the CRD's
+    JSON; the first /openai/v1/completions scales it from zero (its wait;
+    the pod's spawn -> Ready). The stored Pod must be the port's server
+    on nvidia.com/gpu 1 at --tensor-parallel-size 1 with no TPU key, and
+    the process's command its command and args (the port rewritten).
+    The canary must tick on the Model at zero without waking it, and
+    then rests. With the launch counts zeroed just before and read just
+    after: 8 concurrent greedy requests (equal to the direct engine's up
+    to near-ties within 2 bf16 ulps; the stand-in's 409s and the requests'
+    arrival spread at the pod recorded) and KUBE_MID through the proxy,
+    then KUBE_CANARY_TICKS canary ticks on an otherwise idle pod, every
+    probe ok with one fingerprint; flash and ragged must launch. /debug/slo once
+    the fleet has scraped the pod (the ttft objective must count the
+    run's requests); the Lease and the AutoscalerState ConfigMap as the
+    apiserver holds them. The Model is DELETEd through the REST API: the
+    Pod must leave the apiserver, the process exit and the card's free
+    memory come back within 512 MiB. Returns (numbers, launch counts)."""
+    import torch
+
+    from kubeai_tpu_torch.api import model_types as mt
+    from kubeai_tpu_torch.config.system import System
+    from kubeai_tpu_torch.manager import Manager
+    from kubeai_tpu_torch.metrics import default_registry
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+    from kubeai_tpu_torch.runtime.k8s import KubeStore
+    from kubeai_tpu_torch.tools.kube_standin import APIServer, Kubelet
+
+    t_start = time.monotonic()
+    work = os.path.dirname(run["cache"])
+    counts_dir = os.path.join(work, "launch_counts")
+    api = APIServer()
+    models_url = f"{api.url}/apis/kubeai.org/v1/namespaces/default/models"
+    system = System()
+    system.autoscaling.interval_seconds = 1.0
+    system.autoscaling.time_window_seconds = 3.0
+    os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "kube_pod_logs")
+    with _env(KUBEAI_CANARY="1", KUBEAI_CANARY_INTERVAL="1"):
+        mgr = Manager(system, store=KubeStore(api_server=api.url), host="127.0.0.1", port=0)
+    kubelet = Kubelet(api, KubeStore(api_server=api.url), extra_env={
+        **run["env"], "PATH": os.path.join(work, "pod_bin") + os.pathsep + run["env"]["PATH"],
+        "PYTHONPATH": os.path.join(work, "pod_site"), "KUBEAI_COMPILE_CACHE": run["cache"],
+        "KUBEAI_COLDSTART_OVERLAP": "1", "SMOKE_LAUNCH_COUNTS": counts_dir})
+    probes: list = []
+    probe_model = mgr.canary.probe_model
+
+    def recorded_probe(name):
+        rec = probe_model(name)
+        probes.append(rec)
+        return rec
+
+    mgr.canary.probe_model = recorded_probe
+    canary_total = default_registry.counter("kubeai_canary_probes_total")
+    canary0 = canary_total.snapshot()
+    procs: dict = {}
+
+    def pid(name):
+        procs.setdefault(name, kubelet._procs[name].proc)
+        return procs[name].pid
+
+    watch = _PodWatch(mgr.store, KUBE_MODEL)
+    free0 = torch.cuda.mem_get_info()[0]
+    res: dict = {}
+    mgr.start()
+    kubelet.start()
+    try:
+        res["lease_s"] = _until(mgr.election.is_leader.is_set, "the Manager held no lease", 30)
+        _kube_post(models_url, {
+            "apiVersion": "kubeai.org/v1", "kind": "Model", "metadata": {"name": KUBE_MODEL},
+            "spec": {"url": f"file://{run['dest']}", "engine": mt.ENGINE_TPU,
+                     "resourceProfile": "nvidia-gpu-h100:1", "minReplicas": 0,
+                     "maxReplicas": 1,
+                     "args": ["--host", "127.0.0.1", "--warmup"] + COLDSTART_ARGS}})
+        # The canary ticks on a Model at zero and must not wake it.
+        _until(lambda: any(p["outcome"] == "skipped" for p in probes),
+               "kube: the canary did not tick while the Model was at zero", 10)
+        if api.objects.get(("default", "pods")):
+            raise AssertionError("kube: a pod exists before the first request")
+        # Then it rests until the greedy checks are done: a probe whose
+        # prefill is batched with theirs computes at another batch shape,
+        # and an exact tie could flip its fingerprint.
+        mgr.canary.stop()
+        t0 = time.monotonic()
+        _check_completion(_post(mgr.api.port, "/openai/v1/completions", {
+            "model": KUBE_MODEL, "prompt": "Hello", "max_tokens": 8, "temperature": 0},
+            timeout=240), "kube scale-from-zero")
+        wait_s = time.monotonic() - t0
+        (name,) = api.objects[("default", "pods")]
+        doc = api.get("pods", name)
+        server = doc["spec"]["containers"][0]
+        args = server["args"]
+        manifest_cmd = Kubelet._rewrite_port(server["command"] + args, kubelet._procs[name].port)
+        if server["command"][-1] != "kubeai_tpu_torch.engine.server" or \
+                args[args.index("--tensor-parallel-size") + 1] != "1" or \
+                server["resources"]["limits"].get("nvidia.com/gpu") != "1" or \
+                server["resources"]["requests"].get("nvidia.com/gpu") != "1" or \
+                any(k in json.dumps(doc) for k in ("google.com/tpu", "gke-tpu")):
+            raise AssertionError(f"kube: the stored pod is not the port's server on one GPU: "
+                                 f"{json.dumps(doc)[:3000]}")
+        if kubelet._procs[name].proc.args != manifest_cmd:
+            raise AssertionError(f"kube: the process runs {kubelet._procs[name].proc.args}, "
+                                 f"not the manifest's {manifest_cmd}")
+        port = int(doc["metadata"]["annotations"][mt.ANNOTATION_MODEL_POD_PORT])
+        _until(lambda: name in watch.ready, "kube: the pod watch saw no Ready", 30)
+        res.update(_start_numbers(port, watch.ready[name] - watch.added[name], "kube"))
+        res.update({"scale_from_zero_wait_s": wait_s, "pod_command": server["command"],
+                    "gpu_limit": server["resources"]["limits"]["nvidia.com/gpu"],
+                    "node_selector": doc["spec"].get("nodeSelector"),
+                    "pod_status": doc["status"]})
+        _pod_counts(pid(name), counts_dir)
+        t_checks, conflicts0 = time.monotonic(), api.conflicts
+        got = _http_greedy(mgr.api.port, OPERATOR_PROMPTS, path="/openai/v1/completions",
+                           model=KUBE_MODEL)
+        res["greedy_s"] = time.monotonic() - t_checks
+        # Each proxied request writes the Model (the scale-from-zero
+        # gate's mutate): concurrent ones conflict and retry, and reach
+        # the pod spread out.
+        res["greedy_conflicts"] = api.conflicts - conflicts0
+        arrivals = [t["start_ms"] for t in _http(port, f"/debug/requests?limit="
+                                                       f"{len(OPERATOR_PROMPTS)}")[2]["requests"]]
+        res["greedy_arrival_spread_s"] = (max(arrivals) - min(arrivals)) / 1e3
+        _check_completion(_post(mgr.api.port, "/openai/v1/completions", {
+            "model": KUBE_MODEL, "prompt": KUBE_MID, "max_tokens": 8, "temperature": 0}),
+            "kube 300-byte")
+        res["checks_s"] = time.monotonic() - t_checks
+        n_probes = len(probes)
+        mgr.canary.start()
+        res["canary_wait_s"] = _until(
+            lambda: len(probes) - n_probes >= KUBE_CANARY_TICKS,
+            f"kube: {KUBE_CANARY_TICKS} canary ticks were not run", 30)
+        launches = _pod_counts(pid(name), counts_dir)
+        res["slo_wait_s"] = _until(lambda: any(
+            o["name"] == "ttft" and o.get("requests", 0) >= len(OPERATOR_PROMPTS) + 2
+            for o in _http(mgr.api.port, "/debug/slo")[2]["objectives"]),
+            "kube: /debug/slo does not count the run's requests", 30)
+        slo = _http(mgr.api.port, "/debug/slo")[2]
+        canary = _http(mgr.api.port, "/debug/canary")[2]
+        lease = api.get("leases", "kubeai-tpu.kubeai.org")
+        state = api.get("configmaps", "rec-autoscalerstate-kubeai-autoscaler-state")
+        pods_before = {n for (ns, pl), objs in api.objects.items() if pl == "pods" for n in objs}
+        free_up = torch.cuda.mem_get_info()[0]
+        t_del = time.monotonic()
+        _kube_post(f"{models_url}/{KUBE_MODEL}", method="DELETE")
+        _until(lambda: not api.objects.get(("default", "pods")),
+               "kube: the Pod outlived its Model in the apiserver", 30)
+        res["delete_to_pod_gone_s"] = time.monotonic() - t_del
+        _until(lambda: procs[name].poll() is not None, "kube: the pod's process outlived it", 60)
+        res["teardown_s"] = time.monotonic() - t_del
+        time.sleep(0.5)
+        free1 = torch.cuda.mem_get_info()[0]
+    finally:
+        watch.stop()
+        kubelet.stop()
+        mgr.stop()
+        mgr.store.close()
+        kubelet.store.close()
+        os.environ.pop("KUBEAI_POD_LOGS", None)
+        api.stop()
+    res["wall_s"] = time.monotonic() - t_start
+    if res["built"] or res["missing"] or sorted(res["loaded"]) != sorted(res["libraries"]):
+        raise AssertionError(f"kube: the replica on the warmed cache built: {res}")
+    if lease is None or lease["spec"].get("holderIdentity") != mgr.election.identity:
+        raise AssertionError(f"kube: the Lease is not the Manager's: {lease}")
+    if state is None or state["metadata"]["labels"] != {"records.kubeai.org/kind":
+                                                        "AutoscalerState"}:
+        raise AssertionError(f"kube: no AutoscalerState ConfigMap: {state}")
+    ran = [p for p in probes if p["outcome"] != "skipped"]
+    res["canary_skipped_at_zero"] = len(probes) - len(ran)
+    outcomes = {o: sum(1 for p in ran if p["outcome"] == o) for o in ("ok", "error", "corrupt")}
+    fingerprints = sorted({p["fingerprint"] for p in ran})
+    if len(ran) < KUBE_CANARY_TICKS or outcomes["ok"] != len(ran) or len(fingerprints) != 1:
+        raise AssertionError(f"kube: canary probes not all ok with one fingerprint: {ran}")
+    counted = {dict(k).get("outcome"): v - canary0.get(k, 0.0)
+               for k, v in canary_total.snapshot().items()}
+    if counted.get("ok") != len(ran) or any(v for o, v in counted.items() if o != "ok"):
+        raise AssertionError(f"kube: kubeai_canary_probes_total {counted}, probes {outcomes}")
+    if free1 < free0 - (512 << 20):
+        raise AssertionError(f"kube: the card's memory did not come back: free "
+                             f"{free0 / 2**30:.2f} GiB before, {free1 / 2**30:.2f} GiB after")
+    n = launches["launches"]
+    if not (n["flash_attention"] and n["paged_attention_ragged"]):
+        raise AssertionError(f"kube: flash and ragged must launch: {launches}")
+    want, params = direct
+    gaps = [[abs(a - b) for a, b in zip(g_lp, w_lp)]
+            for (_, g_lp), (_, w_lp) in zip(got, want)]
+    diverged = _near_tie_divergence(params, [ids for ids, _ in got], [ids for ids, _ in want],
+                                    gaps, "kube", prompts=OPERATOR_PROMPTS,
+                                    mc=llama_3_1_8b(num_layers=COLDSTART_LAYERS))
+    res.update({
+        "tokens_equal": not diverged, "diverged_at_near_ties": diverged,
+        "apiserver": {"requests_by_verb": dict(sorted(api.requests.items())),
+                      "conflicts": api.conflicts, "watch_events": api.watch_events,
+                      "pods_at_delete": sorted(pods_before)},
+        "lease": {"spec": lease["spec"], "resourceVersion": lease["metadata"]["resourceVersion"]},
+        "autoscaler_state": {"name": state["metadata"]["name"],
+                             "labels": state["metadata"]["labels"], "data": state["data"]},
+        "canary": {"probes_by_outcome": outcomes, "ticks": len(ran), "fingerprints": fingerprints,
+                   "ttft_s": [p["ttft_s"] for p in ran], "e2e_s": [p["e2e_s"] for p in ran],
+                   "text": ran[0]["text"], "interval_seconds": canary["interval_seconds"]},
+        "slo": {"window_seconds": slo["window_seconds"], "active": slo["active"],
+                "objectives": [{k: o.get(k) for k in (
+                    "name", "requests", "good", "attainment", "burn_rate", "threshold_s",
+                    "effective_threshold_s")} for o in slo["objectives"]]},
+        "free_gib": {"before": free0 / 2**30, "serving": free_up / 2**30,
+                     "after": free1 / 2**30},
+        "launches": n})
+    return res, launches
+
+
 def _shapes(warmup: dict) -> dict:
     """A warmup's result without its list of shape names."""
     return {k: v for k, v in warmup.items() if k != "names"}
@@ -5136,7 +5421,7 @@ def phase_coldstart() -> tuple[dict, dict]:
 
 
 def phase_loader(run) -> dict:
-    """Phase 7b, after phase 8 (budget 210 s): the cache loader Job that
+    """Phase 7b, after phase 8 (budget 240 s): the cache loader Job that
     phase_coldstart started beside the parked part and phase 8 (``python
     -m kubeai_tpu_torch.loader --warm-compile-cache LOADER_URL <dest>
     COLDSTART_ARGS`` through a stand-in aws, into an empty
@@ -5145,9 +5430,11 @@ def phase_loader(run) -> dict:
     waited for it (what it added to the whole), the reference engine's
     greedy tokens taken meanwhile (_direct_reference); then the port's
     operator scales replicas on that cache (_serve_operator, path
-    "operator"), and a second operator runs its control loops there
-    (_serve_operator_loops, path "operator_loops"). Returns
-    {"operator": counts, "messenger": counts, "operator_loops": counts}."""
+    "operator"), a second operator runs its control loops there
+    (_serve_operator_loops, path "operator_loops"), and a third runs over
+    the Kubernetes REST API with its kubelet (_serve_kube, path "kube").
+    Returns {"operator": counts, "messenger": counts, "operator_loops":
+    counts, "kube": counts}."""
     import torch
 
     t0 = time.monotonic()
@@ -5161,6 +5448,8 @@ def phase_loader(run) -> dict:
         log("operator", gpu_line(), json.dumps(served))
         loops, loops_launches = _serve_operator_loops(run, served, direct)
         log("operator_loops", gpu_line(), json.dumps(loops))
+        kube, kube_launches = _serve_kube(run, direct)
+        log("kube", gpu_line(), json.dumps(kube))
         del direct
         gc.collect()
         torch.cuda.empty_cache()
@@ -5168,10 +5457,10 @@ def phase_loader(run) -> dict:
         _stop(run["proc"])
         shutil.rmtree(run["ckpt"], ignore_errors=True)
         shutil.rmtree(os.path.dirname(run["cache"]), ignore_errors=True)
-    log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 210 s; the loader's child added "
+    log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 240 s; the loader's child added "
         f"{loader['waited_s']:.1f} s past phases 7, 8 and the reference engine; "
-        f"operator_loops {loops['wall_s']:.1f} s)")
-    return {**launches, "operator_loops": loops_launches}
+        f"operator_loops {loops['wall_s']:.1f} s, kube {kube['wall_s']:.1f} s)")
+    return {**launches, "operator_loops": loops_launches, "kube": kube_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -5946,14 +6235,14 @@ def _gang_server() -> dict:
 SHARDED_BUDGET_S = 120.0
 
 
-def start_sharded_train() -> dict:
+def start_sharded_train(args: tuple = ()) -> dict:
     """Start phase 10's child process (kubeai_tpu_torch/tools/
-    sharded_check.py; see the module docstring), its output in temporary
-    files; phase_sharded_train waits for it."""
+    sharded_check.py with *args*; see the module docstring), its output in
+    temporary files; phase_sharded_train waits for it."""
     root = os.path.dirname(os.path.abspath(__file__))
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
-    proc = subprocess.Popen([sys.executable, "-m", "kubeai_tpu_torch.tools.sharded_check"],
-                            cwd=root, stdout=out, stderr=err, text=True)
+    proc = subprocess.Popen([sys.executable, "-m", "kubeai_tpu_torch.tools.sharded_check",
+                             *args], cwd=root, stdout=out, stderr=err, text=True)
     run = {"proc": proc, "t0": time.monotonic(), "out": out, "err": err}
 
     def stamp_exit():  # the child's own wall, whichever of it and the build ends first

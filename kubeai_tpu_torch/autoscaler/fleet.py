@@ -7,7 +7,7 @@ per collect; per-endpoint tokens/s from the generated-token counter's
 deltas between collects; the load balancer's breaker and latency-health
 state merged in; per-model aggregate gauges and a headroom estimate.
 The JAX collector's history sink (the operator-side history store) is
-not ported (ROADMAP queue 1, item 7).
+not ported (ROADMAP queue 1, item 7b).
 """
 
 from __future__ import annotations

@@ -7,20 +7,30 @@ the model reconciler, the fleet collector and the autoscaler, the proxy
 and its OpenAI server, one messenger per ``streams`` entry (pub/sub
 requests into the same balancer and model client as the proxy), and
 (``local_runtime=True``) the LocalRuntime pod executor; each runs on
-daemon threads, started and stopped in the JAX manager's order. Only the
-lease holder's autoscaler ticks.
+daemon threads, started and stopped in the JAX manager's order. The SLO
+monitor (over the fleet's scrapes, ``/debug/slo``) and the canary prober
+(deterministic probes through the proxy, ``/debug/canary``) run beside
+the autoscaler. Only the lease holder's autoscaler, SLO monitor and
+canary tick.
 
-Left out, not stubbed: the SLO monitor, canary, history sampler,
-forecaster and incident recorder (ROADMAP queue 1, item 7: the
-autoscaler's forecast input is None, and ``/debug/slo`` answers 404).
+Left out, not stubbed: the operator's history sampler, the forecaster
+and the incident recorder (ROADMAP queue 1, item 7b: the autoscaler's
+forecast input is None, and ``/debug/incidents`` and ``/debug/forecast``
+answer 404).
 
 CLI:
-    python -m kubeai_tpu_torch.manager --local [--port 8000]
-        [--config sys.yaml] [--models file.yaml] [--catalog names]
+    python -m kubeai_tpu_torch.manager [--local | --kube]
+        [--kube-api-server URL] [--port 8000] [--config sys.yaml]
+        [--models file.yaml] [--catalog names]
 
-``--config`` and ``--models`` read YAML (PyYAML, imported only then); a
-Model can also be built in Python (``api.model_types.Model``) and created
-in ``Manager.store``.
+``--kube`` (the default inside a cluster, where KUBERNETES_SERVICE_HOST
+is set) or ``--kube-api-server`` backs the store with the kube-apiserver
+(``runtime/k8s.py``: the kubelet runs the pods); ``--local`` keeps the
+in-memory store and runs each pod as a local process, and overrides
+``--kube``. Without either the store is in memory and nothing runs the
+pods. ``--config`` and ``--models`` read YAML (PyYAML, imported only
+then); a Model can also be built in Python (``api.model_types.Model``)
+and created in ``Manager.store``.
 """
 
 from __future__ import annotations
@@ -40,8 +50,10 @@ from kubeai_tpu_torch.controller.cache import CacheReconciler
 from kubeai_tpu_torch.controller.controller import ModelReconciler
 from kubeai_tpu_torch.loadbalancer.balancer import LoadBalancer
 from kubeai_tpu_torch.messenger.messenger import Messenger
+from kubeai_tpu_torch.obs.canary import CanaryProber, install_canary, uninstall_canary
 from kubeai_tpu_torch.obs.logs import get_logger, setup_logging
 from kubeai_tpu_torch.obs.otel import maybe_start_exporter, uninstall_exporter
+from kubeai_tpu_torch.obs.slo import SLOMonitor
 from kubeai_tpu_torch.proxy.handler import ModelProxy
 from kubeai_tpu_torch.proxy.modelclient import ModelClient
 from kubeai_tpu_torch.proxy.server import OpenAIServer
@@ -117,13 +129,28 @@ class Manager:
             fleet=self.fleet,
             parked_pool=self.parked_pool,
         )
+        # The engines' histograms live in the pods: the fleet's scrapes
+        # are how this monitor sees them. Only the lease holder's
+        # autoscaler keeps those scrapes fresh, so only it reports.
+        self.slo = SLOMonitor(
+            interval_seconds=self.system.autoscaling.interval_seconds,
+            remote_pages=self.fleet.parsed_pages,
+            election=self.election,
+        )
         if self.parked_pool is not None:
             self.parked_pool.decision_log = self.autoscaler.decisions
         self.proxy = ModelProxy(self.model_client, self.lb)
         self.api = OpenAIServer(self.proxy, self.model_client, host=host, port=port)
         self.api.decision_log = self.autoscaler.decisions
         self.api.fleet = self.fleet
+        self.api.slo = self.slo
         self.api.election = self.election
+        # Deterministic probes through the proxy (KUBEAI_CANARY=0 turns
+        # them off); leader-gated like the SLO monitor.
+        self.canary = CanaryProber(
+            self.proxy, self.model_client, self.lb, election=self.election
+        )
+        install_canary(self.canary)
         self.messengers = [
             Messenger(
                 stream.requests_url,
@@ -147,6 +174,8 @@ class Manager:
         self.reconciler.start()
         self.election.start()
         self.autoscaler.start()
+        self.slo.start()
+        self.canary.start()
         if self.local_runtime:
             self.local_runtime.start()
         for m in self.messengers:
@@ -167,6 +196,11 @@ class Manager:
         self.api.stop()
         if self.local_runtime:
             self.local_runtime.stop()
+        self.canary.stop()
+        # Identity-checked: a newer Manager's prober (tests build several
+        # in one process) stays installed.
+        uninstall_canary(self.canary)
+        self.slo.stop()
         self.autoscaler.stop()
         self.election.stop()
         self.reconciler.stop()
@@ -183,6 +217,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser("kubeai-tpu-torch-manager")
     parser.add_argument("--config", default=os.environ.get("CONFIG_PATH"))
     parser.add_argument("--local", action="store_true", help="run pods as local processes")
+    parser.add_argument(
+        "--kube",
+        action="store_true",
+        default=bool(os.environ.get("KUBERNETES_SERVICE_HOST")),
+        help="back the store with the kube-apiserver (the default inside a cluster)",
+    )
+    parser.add_argument("--kube-api-server", default=None,
+                        help="the apiserver's URL (implies --kube; e.g. kubectl proxy's)")
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument(
@@ -197,9 +239,6 @@ def main(argv=None):
         help="comma-separated curated catalog entries to apply at boot (see kubeai_tpu_torch.catalog)",
     )
     args = parser.parse_args(argv)
-    if not args.local:
-        # The Kubernetes store is not ported yet: only LocalRuntime runs pods.
-        parser.error("only --local is supported (ROADMAP queue 1, item 6: runtime/k8s and KubeStore)")
     setup_logging("operator")
 
     system = load_system_config(args.config) if args.config else System().default_and_validate()
@@ -210,7 +249,15 @@ def main(argv=None):
         unknown = [n for n in names if n not in CATALOG]
         if unknown:
             parser.error(f"unknown catalog entries {unknown}; available: {sorted(CATALOG)}")
-    mgr = Manager(system, local_runtime=True, host=args.host, port=args.port)
+    store = None
+    want_kube = args.kube or bool(args.kube_api_server)
+    if want_kube and args.local:
+        log.warning("--local overrides --kube: pods run as local processes on the in-memory store")
+    if want_kube and not args.local:
+        from kubeai_tpu_torch.runtime.k8s import KubeStore
+
+        store = KubeStore(api_server=args.kube_api_server)
+    mgr = Manager(system, store=store, local_runtime=args.local, host=args.host, port=args.port)
     mgr.start()
 
     if args.models:

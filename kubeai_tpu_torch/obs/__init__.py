@@ -2,7 +2,8 @@
 (trace.py), the flight recorder and the /debug routes (recorder.py),
 context-stamped logs (logs.py), the perf X-ray (perf.py), per-tenant cost
 accounting (tenants.py), the metrics history (history.py), the OTLP
-exporter (otel.py) and the incident trigger seam (incidents.py). The JAX
-package's operator-side surfaces (the incident recorder, canary,
-forecast, SLOs) are not ported: an engine answers their routes 404, as a
-JAX engine does."""
+exporter (otel.py) and the incident trigger seam (incidents.py); and the
+operator's SLO monitor (slo.py) and canary prober (canary.py). The JAX
+package's incident recorder and forecaster are not ported (ROADMAP queue
+1, item 7b); an engine answers the operator-side routes 404, as a JAX
+engine does."""

@@ -43,6 +43,7 @@ from urllib.parse import parse_qs
 from kubeai_tpu_torch import env_float
 from kubeai_tpu_torch.faults import fault
 from kubeai_tpu_torch.metrics import CallbackGauge, Counter, Gauge, Histogram, default_registry
+from kubeai_tpu_torch.obs.slo import bucket_quantile
 
 log = logging.getLogger("kubeai_tpu_torch.history")
 
@@ -70,24 +71,6 @@ def history_dir_default() -> str:
     directory."""
     return (os.environ.get("KUBEAI_HISTORY_DIR", "")
             or os.path.join(tempfile.gettempdir(), "kubeai-history"))
-
-
-def bucket_quantile(bounds, counts, q: float) -> float | None:
-    """The upper bound of the bucket the q-th observation lands in, from
-    per-bucket counts (not cumulative, the +Inf slot last). None with no
-    observations; a quantile in the +Inf slot gives the largest finite
-    bound (a floor: it can understate a spike, never invent one)."""
-    total = sum(counts)
-    if total <= 0 or not bounds:
-        return None
-    target = q * total
-    cum = 0.0
-    finite = list(bounds)
-    for b, c in zip(finite + [float("inf")], counts):
-        cum += c
-        if cum >= target - 1e-9:
-            return float(b) if b != float("inf") else float(finite[-1])
-    return float(finite[-1])
 
 
 def _series_name(name: str, key: tuple[tuple[str, str], ...]) -> str:

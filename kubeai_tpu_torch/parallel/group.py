@@ -28,7 +28,11 @@ Backend follows placement, and the caller states it:
   explicitly: the stream is synchronized, the tensor copied to the host,
   reduced or gathered there, and copied back. So a gloo group's
   collectives cannot be captured in a CUDA graph, and the engine runs
-  its decode chunk eagerly under gloo (:attr:`TPGroup.graphable`).
+  its decode chunk eagerly under gloo (:attr:`TPGroup.graphable`);
+- ``threads`` when the ranks are threads of one process (run_local_ranks,
+  run_local_mesh): gloo's host staging, with the host tensors exchanged
+  in the process's memory (:class:`ThreadGroup`) instead of over
+  loopback TCP. Sums run in rank order.
 
 A failed NCCL initialisation raises; nothing retries on gloo.
 """
@@ -36,6 +40,8 @@ A failed NCCL initialisation raises; nothing retries on gloo.
 from __future__ import annotations
 
 import datetime
+import queue
+import threading
 import time
 
 import torch
@@ -48,6 +54,8 @@ log = get_logger("kubeai_tpu_torch.parallel")
 DEFAULT_COORDINATOR_PORT = 8476
 # The collectives a group counts in ``stats``: calls and host seconds.
 COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "ring_pass")
+# Backends whose collectives run on host tensors: a CUDA tensor is staged.
+HOST_BACKENDS = ("gloo", "threads")
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
@@ -93,8 +101,9 @@ class TPGroup:
 
     @property
     def staged(self) -> bool:
-        """Collectives of CUDA tensors go through host memory (gloo)."""
-        return self.backend == "gloo" and self.device.type == "cuda"
+        """Collectives of CUDA tensors go through host memory (gloo,
+        threads)."""
+        return self.backend in HOST_BACKENDS and self.device.type == "cuda"
 
     @property
     def graphable(self) -> bool:
@@ -113,7 +122,7 @@ class TPGroup:
         entry[1] += time.perf_counter() - t0
 
     def _staged_for(self, t: torch.Tensor) -> bool:
-        return self.backend == "gloo" and t.device.type == "cuda"
+        return self.backend in HOST_BACKENDS and t.device.type == "cuda"
 
     def _stage(self, t: torch.Tensor, pin: bool) -> torch.Tensor:
         """The host copy a staged collective sends: pinned for the mesh
@@ -233,6 +242,8 @@ def make_process_group(store, rank: int, world_size: int, backend: str,
                        timeout: float = 300.0, prefix: str = "kubeai-tp"):
     """A process group of *backend* over *store* (under its own *prefix*),
     not registered as the process's default group."""
+    if backend == "threads":
+        return ThreadGroup(_thread_hub(store, prefix, world_size), rank, timeout)
     td = datetime.timedelta(seconds=timeout)
     store = dist.PrefixStore(prefix, store)
     if backend == "gloo":
@@ -244,7 +255,139 @@ def make_process_group(store, rank: int, world_size: int, backend: str,
         opts = dist.ProcessGroupNCCL.Options()
         opts._timeout = td
         return dist.ProcessGroupNCCL(store, rank, world_size, opts)
-    raise ValueError(f"unknown backend {backend!r} (nccl or gloo)")
+    raise ValueError(f"unknown backend {backend!r} (nccl, gloo or threads)")
+
+
+class _Done:
+    """A collective that ended in its call: ``wait()`` returns at once."""
+
+    def wait(self):
+        return True
+
+
+class _Recv:
+    """A receive posted by :meth:`ThreadGroup.recv`; ``wait()`` takes the
+    sender's tensor from the mailbox into the posted one."""
+
+    def __init__(self, box: queue.Queue, out: torch.Tensor, timeout: float):
+        self.box, self.out, self.timeout = box, out, timeout
+
+    def wait(self):
+        try:
+            self.out.copy_(self.box.get(timeout=self.timeout))
+        except queue.Empty:
+            raise RuntimeError(f"threads group: no send within {self.timeout} s") from None
+        return True
+
+
+class _ThreadHub:
+    """What the ranks of one thread group share: a slot per rank, a
+    barrier, and a mailbox per (source, destination, tag)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.slots: list = [None] * n
+        self.sums: list = [None] * n
+        self.barrier = threading.Barrier(n)
+        self.joined = 0
+        self.lock = threading.Lock()
+        self.boxes: dict[tuple[int, int, int], queue.Queue] = {}
+
+    def box(self, src: int, dst: int, tag: int) -> queue.Queue:
+        with self.lock:
+            return self.boxes.setdefault((src, dst, tag), queue.Queue())
+
+
+_HUBS: dict[tuple[int, str], _ThreadHub] = {}
+_HUBS_LOCK = threading.Lock()
+
+
+def _thread_hub(store, prefix: str, n: int) -> _ThreadHub:
+    """The hub of the group under *prefix* of *store*: made by its first
+    rank, dropped from the registry once all *n* have it."""
+    key = (id(store), prefix)
+    with _HUBS_LOCK:
+        hub = _HUBS.get(key)
+        if hub is None:
+            hub = _HUBS[key] = _ThreadHub(n)
+        hub.joined += 1
+        if hub.joined == n:
+            del _HUBS[key]
+    return hub
+
+
+class ThreadGroup:
+    """The process-group calls TPGroup makes (``allreduce``,
+    ``_allgather_base``, ``_reduce_scatter_base``, ``send``, ``recv``) for
+    ranks that are threads of one process, on host tensors: each rank
+    puts its tensor in the hub and, past a barrier, reads the others'.
+    Every element is summed in rank order, so all ranks get the same
+    bits. A rank that does not arrive within *timeout* breaks the barrier
+    and every rank raises."""
+
+    def __init__(self, hub: _ThreadHub, rank: int, timeout: float):
+        self.hub, self.rank, self.timeout = hub, rank, timeout
+
+    def _wait(self):
+        try:
+            self.hub.barrier.wait(self.timeout)
+        except threading.BrokenBarrierError:
+            raise RuntimeError(f"threads group: a rank did not arrive within "
+                               f"{self.timeout} s") from None
+
+    def _post(self, t: torch.Tensor) -> list:
+        """Every rank's *t*, in rank order."""
+        self.hub.slots[self.rank] = t
+        self._wait()
+        return list(self.hub.slots)
+
+    def _bounds(self, r: int, numel: int) -> tuple[int, int]:
+        """Rank *r*'s block of an all-reduce over *numel* elements."""
+        n = -(-numel // self.hub.n)
+        return min(r * n, numel), min((r + 1) * n, numel)
+
+    def allreduce(self, tensors):
+        (t,) = tensors
+        flat = t.view(-1)
+        got = [g.view(-1) for g in self._post(t)]
+        lo, hi = self._bounds(self.rank, flat.numel())
+        part = got[0][lo:hi].clone()
+        for g in got[1:]:
+            part += g[lo:hi]
+        self.hub.sums[self.rank] = part
+        self._wait()  # every block summed: the inputs may be overwritten
+        for r, part in enumerate(list(self.hub.sums)):
+            lo, hi = self._bounds(r, flat.numel())
+            flat[lo:hi].copy_(part)
+        self._wait()  # every rank has every block
+        return _Done()
+
+    def _allgather_base(self, out, inp):
+        got = self._post(inp)
+        n = inp.numel()
+        for r, g in enumerate(got):
+            out[r * n:(r + 1) * n].copy_(g.view(-1))
+        self._wait()
+        return _Done()
+
+    def _reduce_scatter_base(self, out, inp):
+        got = [g.view(-1) for g in self._post(inp)]
+        n = out.numel()
+        lo, hi = self.rank * n, (self.rank + 1) * n
+        out.copy_(got[0][lo:hi])
+        for g in got[1:]:
+            out += g[lo:hi]
+        self._wait()
+        return _Done()
+
+    def send(self, tensors, dst: int, tag: int = 0):
+        (t,) = tensors
+        self.hub.box(self.rank, dst, tag).put(t.clone())
+        return _Done()
+
+    def recv(self, tensors, src: int, tag: int = 0):
+        (t,) = tensors
+        return _Recv(self.hub.box(src, self.rank, tag), t, self.timeout)
 
 
 def init_tp_group(rank: int, world_size: int, device: torch.device | str, backend: str,

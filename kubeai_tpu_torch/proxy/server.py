@@ -22,6 +22,7 @@ import time
 from kubeai_tpu_torch.api import model_types as mt
 from kubeai_tpu_torch.faults import handle_faults_request
 from kubeai_tpu_torch.metrics import default_registry, set_build_info
+from kubeai_tpu_torch.obs.canary import handle_canary_request
 from kubeai_tpu_torch.obs.history import handle_history_request
 from kubeai_tpu_torch.obs.logs import handle_logs_request, install_log_ring
 from kubeai_tpu_torch.obs.recorder import handle_debug_request, handle_operator_side_request
@@ -47,11 +48,12 @@ INFERENCE_PATHS = (
 
 
 # The operator's GET /debug index: the JAX operator's routes that this
-# server answers. /debug/autoscaler and /debug/fleet answer once the
-# Manager attaches the autoscaler's decision log and the fleet collector.
-# The SLO monitor, incidents, canary and forecast are not ported (ROADMAP
-# queue 1, item 7): /debug/slo answers 404 "no SLO monitor attached", the
-# others 404 "not installed".
+# server answers. /debug/autoscaler, /debug/fleet and /debug/slo answer
+# once the Manager attaches the autoscaler's decision log, the fleet
+# collector and the SLO monitor; /debug/canary once a prober is installed.
+# The incident recorder and the forecaster are not ported (ROADMAP queue 1,
+# item 7b): /debug/incidents and /debug/forecast answer 404 "not
+# installed".
 DEBUG_INDEX: tuple[tuple[str, str], ...] = (
     ("/debug/requests",
      "completed request timelines, most recent first (?limit=&id=&tenant=)"),
@@ -78,6 +80,9 @@ DEBUG_INDEX: tuple[tuple[str, str], ...] = (
      "scaling decision audit: one record per tick per model/pool (?limit=&model=)"),
     ("/debug/fleet",
      "fleet saturation: per-endpoint engine scrapes, per-model aggregates, capacity headroom"),
+    ("/debug/slo",
+     "SLO monitor report: attainment + burn rate per objective over the rolling window"),
+    ("/debug/canary", "synthetic canary prober state per model (operator-side)"),
     ("/debug/history",
      "embedded time-series history: tiered metric trajectories with gap markers "
      "(?series=&since=&step=)"),
@@ -112,9 +117,9 @@ class OpenAIServer:
         self._stop_lock = threading.Lock()
         self._stopped = False
         # Capacity-observability attachments (wired by the manager):
-        # the autoscaler's DecisionLog (/debug/autoscaler) and the fleet
-        # scrape collector (/debug/fleet). The SLOMonitor (/debug/slo) is
-        # not ported, so ``slo`` stays None and its route 404s.
+        # the autoscaler's DecisionLog (/debug/autoscaler), the fleet
+        # scrape collector (/debug/fleet), and the SLOMonitor
+        # (/debug/slo). Any left None 404s its route.
         self.decision_log = None
         self.fleet = None
         self.slo = None
@@ -331,6 +336,8 @@ def _make_handler(srv: OpenAIServer):
             elif path.startswith("/debug/"):
                 resp = (
                     handle_faults_request(path, query)
+                    or handle_canary_request(path, query)
+                    # /debug/incidents and /debug/forecast (item 7b).
                     or handle_operator_side_request(path)
                     or handle_tenant_request(path, query)
                     # QoS: operator-side class counters (an in-process

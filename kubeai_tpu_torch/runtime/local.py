@@ -5,7 +5,8 @@ The kubelet's stand-in for operation without a cluster (a workstation, a
 single GPU machine, the end-to-end tests): it watches Pods in the store,
 launches the server container's command as a subprocess (rewriting
 ``--port`` to a free one), marks the pod Ready while its ``/readyz`` (or
-``/health``) answers 200, relaunches a crashed pod after an exponential
+``/health``) answers 200 from a socket its own process group listens on,
+relaunches a crashed pod after an exponential
 backoff (``CrashBackoff``), and kills the process group when the pod is
 deleted. Jobs run to completion the same way. ``extra_env`` is added to
 every process's environment (the tests' ``--device cpu`` engines need
@@ -89,6 +90,39 @@ def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def group_listens_on(pgid: int, port: int) -> bool | None:
+    """Whether a process of process group *pgid* holds a TCP socket
+    listening on *port*, from /proc; None where /proc cannot tell. The
+    port free_port() gave a pod is free only until the pod binds it, and
+    another process may take it first: the pod then exits, and the server
+    that answers its probes is not its own."""
+    inodes, tables = set(), 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(table) as f:
+                lines = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        tables += 1
+        for line in lines:
+            fields = line.split()
+            if fields[3] == "0A" and int(fields[1].rsplit(":", 1)[1], 16) == port:
+                inodes.add(f"socket:[{fields[9]}]")
+    if not tables:
+        return None
+    for pid in (d for d in os.listdir("/proc") if d.isdigit()):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[2]) != pgid:
+                    continue
+            fds = os.listdir(f"/proc/{pid}/fd")
+            if any(os.readlink(f"/proc/{pid}/fd/{fd}") in inodes for fd in fds):
+                return True
+        except (OSError, ValueError, IndexError):
+            continue
+    return False
 
 
 class LocalProcess:
@@ -370,6 +404,8 @@ class LocalRuntime:
                     self._on_pod_exit(lp)
                     continue
                 ready = self._probe_ready(lp.port)
+                if ready and not lp.ready and group_listens_on(lp.proc.pid, lp.port) is False:
+                    continue  # another process holds the pod's port
                 if ready and not lp.ready:
                     lp.ready = True
                     self._set_status(

@@ -3,10 +3,14 @@
 card, against their dense, one-rank counterparts on the same card.
 
     python3 -m kubeai_tpu_torch.tools.sharded_check [--part ring|step|moe|all] [--small]
+        [--mesh-backend threads|gloo]
 
-Run from the repository root. Thread ranks share the card and talk over
-gloo, their collectives staged through host memory (parallel/group.py),
-so the times are those of a test layout, not of a card per rank.
+Run from the repository root. Thread ranks share the card, their
+collectives staged through host memory (parallel/group.py): over gloo in
+the ``ring`` part, and in the ``step`` and ``moe`` parts over the
+``threads`` backend (the same staging, the host tensors exchanged in the
+process; ``--mesh-backend gloo`` sends them over loopback TCP as ``ring``
+does). So the times are those of a test layout, not of a card per rank.
 
 - ``ring``: causal attention at Llama-3.1-8B's widths (H 32, Kv 8, h 128,
   float32, B 1, S 8,192): the port's plain dense attention (forward and
@@ -70,6 +74,10 @@ MOE_LAYERS = 1  # of Mixtral-8x7B's 32, at its published widths
 MOE_FACTOR = 0.5
 MOE_LOSS_RTOL = 1e-6
 MOE_GRAD_TOL = 1e-5
+# The step and moe parts' thread ranks exchange in the process (the ring
+# part keeps gloo): over gloo the fsdp all-gathers and reduce-scatters of
+# their ~1.5 GB shards took most of each mesh step.
+MESH_BACKEND = "threads"
 
 
 def _sync():
@@ -211,7 +219,7 @@ def routing_stats(routes, config, shape) -> dict:
 
 
 def step_check(config, B, S, shape=STEP_MESH, lr=1e-4, seed=0, device="cuda",
-               loss_rtol=LOSS_RTOL, grad_tol=GRAD_TOL) -> dict:
+               loss_rtol=LOSS_RTOL, grad_tol=GRAD_TOL, backend=MESH_BACKEND) -> dict:
     """The ``step`` part, and the ``moe`` part for a MoE *config* (see the
     module docstring)."""
     from kubeai_tpu_torch.parallel.group import to_host
@@ -285,7 +293,7 @@ def step_check(config, B, S, shape=STEP_MESH, lr=1e-4, seed=0, device="cuda",
                 "shard_numel": sum(t.numel() for _, t in key_paths(p))}
 
     t0 = time.perf_counter()
-    ranks = run_local_mesh(shape, rank, device, timeout=900)
+    ranks = run_local_mesh(shape, rank, device, backend=backend, timeout=900)
     mesh_s = time.perf_counter() - t0
     losses = [r["loss"] for r in ranks]
     errs = {k: max(r["errs"][k] for r in ranks) for k in ranks[0]["errs"]}
@@ -322,7 +330,7 @@ def step_check(config, B, S, shape=STEP_MESH, lr=1e-4, seed=0, device="cuda",
         moe = {"routes_equal": True, "routing": routing_stats(want_routes, config, shape)}
     return {
         "config": cfg, **moe, "tolerances": {"loss_rtol": loss_rtol, "grad_tol": grad_tol},
-        "params": n_params, "batch": [B, S], "mesh": shape, "lr": lr,
+        "params": n_params, "batch": [B, S], "mesh": shape, "backend": backend, "lr": lr,
         "one_rank": ref, "loss": losses[0], "loss_rel_err": abs(losses[0] - want_loss) /
         abs(want_loss), "grad_rel_err_max": max(errs.values()),
         "grad_rel_err": errs,
@@ -355,10 +363,10 @@ def small_moe_config():
                         moe_capacity_factor=MOE_FACTOR).replace(dtype="float32")
 
 
-def moe_check(config, B, S, device="cuda") -> dict:
+def moe_check(config, B, S, device="cuda", backend=MESH_BACKEND) -> dict:
     """The ``moe`` part (see the module docstring)."""
     return step_check(config, B, S, shape=MOE_MESH, device=device, loss_rtol=MOE_LOSS_RTOL,
-                      grad_tol=MOE_GRAD_TOL)
+                      grad_tol=MOE_GRAD_TOL, backend=backend)
 
 
 def main(argv=None) -> int:
@@ -366,6 +374,8 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=("ring", "step", "moe", "all"), default="all")
     ap.add_argument("--small", action="store_true", help="narrow widths (a quick check)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh-backend", choices=("threads", "gloo"), default=MESH_BACKEND,
+                    help=f"the step and moe parts' backend (default {MESH_BACKEND})")
     args = ap.parse_args(argv)
     from kubeai_tpu_torch import resolve_device
 
@@ -388,7 +398,7 @@ def main(argv=None) -> int:
         else:
             config = llama_3_1_8b(num_layers=STEP_LAYERS).replace(dtype="float32")
             B, S = 2, 2048
-        emit("step", step_check(config, B, S, device=dev))
+        emit("step", step_check(config, B, S, device=dev, backend=args.mesh_backend))
         _peak_reset()
     if args.part in ("moe", "all"):
         if args.small:
@@ -397,7 +407,7 @@ def main(argv=None) -> int:
             config = mixtral_8x7b(num_layers=MOE_LAYERS, moe_capacity_factor=MOE_FACTOR
                                   ).replace(dtype="float32")
             B, S = 2, 1024
-        emit("moe", moe_check(config, B, S, device=dev))
+        emit("moe", moe_check(config, B, S, device=dev, backend=args.mesh_backend))
     return 0
 
 

@@ -3,15 +3,20 @@
 
     python3 kubeai_tpu_torch/tools/smoke_parts.py serving
     python3 kubeai_tpu_torch/tools/smoke_parts.py loader
+    python3 kubeai_tpu_torch/tools/smoke_parts.py sharded
 
 ``serving``: phase 1 (the kernel build), then phase 4 with the wall of
 each of its parts (each serving run, the graph turns and profiles, the
 LoRA runs, the step profiles, each family, the checkpoint and tiny runs)
 printed as ``PART <function>[<run>] <seconds>s``. ``loader``: the
 4-layer checkpoint at Llama-3.1-8B width, the cache loader in a child
-process, then ``phase_loader`` (the ``operator`` and ``operator_loops``
-runs) on its library directory. Each prints chip_smoke's own lines. Run
-from the repository root, where chip_smoke.py is.
+process, then ``phase_loader`` (the ``operator``, ``operator_loops``
+and ``kube`` runs) on its library directory. ``sharded``: phase 10
+(tools/sharded_check.py) with its step and moe parts on each of
+SHARDED_BACKENDS, alone and then beside phase 1's kernel build; each
+wall printed as ``PART sharded[...]``.
+Each prints chip_smoke's own lines. Run from the repository root, where
+chip_smoke.py is.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ SERVING_PARTS = ("_serve_once", "_graph_turns", "_serve_lora", "_graph_profiles"
                  "_step_profile", "_lora_step_profile", "_serve_families",
                  "_family_step_profile", "_serve_checkpoint", "_serve_tiny",
                  "_calibrate_int8_pool", "_serve_spm")
+# The step and moe parts' backends in the ``sharded`` part's runs.
+SHARDED_BACKENDS = ("gloo", "threads")
 
 
 def _run_name(name: str, args: tuple, kwargs: dict) -> str:
@@ -60,7 +67,7 @@ def _time_parts(cs) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("part", choices=("serving", "loader"))
+    parser.add_argument("part", choices=("serving", "loader", "sharded"))
     args = parser.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
@@ -77,6 +84,10 @@ def main(argv=None) -> int:
         return 0
     from kubeai_tpu_torch.ops import _build
 
+    if args.part == "sharded":
+        _sharded_runs(cs, _build)
+        return 0
+
     build = os.path.join(os.getcwd(), "build")
     ckpt = os.path.join(build, f"ckpt_8b_width_{cs.COLDSTART_LAYERS}_layers")
     work = os.path.join(build, "loader_run")
@@ -88,6 +99,26 @@ def main(argv=None) -> int:
     cs.log(json.dumps(cs.phase_loader(run)))
     cs.log(f"PART loader {time.monotonic() - t0:.1f}s")
     return 0
+
+
+def _sharded_runs(cs, _build) -> None:
+    """The ``sharded`` part: phase 10's wall for each of SHARDED_BACKENDS,
+    alone and beside phase 1's build. A run over phase 10's budget is
+    logged, not raised, so every run is made."""
+    for beside in (False, True):
+        for backend in SHARDED_BACKENDS:
+            label = f"{backend}{', beside the build' if beside else ''}"
+            run = cs.start_sharded_train(("--mesh-backend", backend))
+            if beside:
+                t0 = time.monotonic()
+                _build.build(list(cs.KERNELS + cs.VARIANTS), ptxas_verbose=True)
+                cs.log(f"PART build[beside {backend}] {time.monotonic() - t0:.1f}s")
+            try:
+                cs.phase_sharded_train(run)
+            except AssertionError as e:
+                cs.log(f"sharded[{label}]: {str(e)[:300]}")
+            cs.log(f"PART sharded[{label}] "
+                   f"{run.get('t_end', time.monotonic()) - run['t0']:.1f}s")
 
 
 if __name__ == "__main__":

@@ -17,17 +17,24 @@ import test_movingaverage as jtest_movingaverage
 from _torch_operator import jax_cases, run_jax_case_both
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
+
+@pytest.fixture(autouse=True)
+def no_canary(monkeypatch):
+    # A Manager's canary probes would land in the windows these tests
+    # count requests and launches in: off, as before the port had one.
+    monkeypatch.setenv("KUBEAI_CANARY", "0")
+
 DISAGG_CLASSES = ("TestSignals", "TestFleetRoles", "TestPerPoolAutoscaling")
 
 CASES = (
     jax_cases(jtest_movingaverage)
-    # The JAX Manager's wiring case builds the SLO monitor, canary and
-    # history, which the port leaves out: test_manager_wires_the_loops
-    # holds the port's Manager instead.
+    # The JAX Manager's wiring case uninstalls the history store and the
+    # incident recorder, which the port leaves out (ROADMAP queue 1, item
+    # 7b): test_manager_wires_the_loops holds the port's Manager instead.
     + jax_cases(jtest_autoscaler, skip=("TestEngineQueueScrape.test_manager_wires_queue_signal",))
     + jax_cases(jtest_autoscaler_signal)
     # The hold-trigger case captures through the JAX IncidentRecorder,
-    # which the port leaves out (ROADMAP queue 1, item 7): the scripted
+    # which the port leaves out (ROADMAP queue 1, item 7b): the scripted
     # ticks below hold the port's triggers to JAX's through a recorder of
     # their own.
     + [c for c in jax_cases(jtest_disagg, skip=(
@@ -447,10 +454,12 @@ def test_manager_wires_the_loops():
     """The port's Manager builds the election, the fleet collector, the
     autoscaler (its engine signal the collector's), the three reconcilers'
     hooks and the parked pool, the decision log shared with the pool and
-    the API, and one messenger per stream over its own model client and
-    balancer."""
+    the API, the SLO monitor over the fleet's pages and the canary prober
+    over the proxy (both behind the election), and one messenger per
+    stream over its own model client and balancer."""
     from kubeai_tpu_torch.config.system import MessageStream, System
     from kubeai_tpu_torch.manager import Manager
+    from kubeai_tpu_torch.obs import canary as canary_mod
 
     system = System()
     system.parked_replicas = 1
@@ -463,10 +472,17 @@ def test_manager_wires_the_loops():
         assert mgr.reconciler.parked_pool is mgr.parked_pool is mgr.autoscaler.parked_pool
         assert mgr.parked_pool.decision_log is mgr.autoscaler.decisions is mgr.api.decision_log
         assert mgr.api.fleet is mgr.fleet and mgr.api.election is mgr.election
-        assert mgr.api.slo is None and mgr.autoscaler.forecaster is None
+        assert mgr.api.slo is mgr.slo and mgr.autoscaler.forecaster is None
+        assert mgr.slo._remote_pages == mgr.fleet.parsed_pages
+        assert mgr.slo._election is mgr.election and mgr.canary._election is mgr.election
+        assert (mgr.canary.proxy, mgr.canary.model_client, mgr.canary.lb) == \
+            (mgr.proxy, mgr.model_client, mgr.lb)
+        assert canary_mod._prober is mgr.canary
         assert mgr.fleet.default_max_age == 1.5 * system.autoscaling.interval_seconds
     finally:
         mgr.api.httpd.server_close()
+        # Never started, so never stopped: uninstall its prober here.
+        canary_mod.uninstall_canary(mgr.canary)
     assert mgr.messengers == []
     system = System()
     system.streams = [MessageStream(requests_url="mem://a", responses_url="mem://b"),
@@ -482,3 +498,5 @@ def test_manager_wires_the_loops():
                    for m in mgr.messengers)
     finally:
         mgr.api.httpd.server_close()
+        canary_mod.uninstall_canary(mgr.canary)
+        canary_mod.uninstall_canary(mgr.canary)

@@ -54,6 +54,13 @@ from kubeai_tpu_torch.runtime.store import ObjectMeta
 
 from test_torch_weights import _checkpoint
 
+
+@pytest.fixture(autouse=True)
+def no_canary(monkeypatch):
+    # A Manager's canary probes would land in the windows these tests
+    # count requests and launches in: off, as before the port had one.
+    monkeypatch.setenv("KUBEAI_CANARY", "0")
+
 ARGS = ["--device", "cpu", "--max-slots", "2", "--max-seq-len", "128"]
 PROMPTS = ["Hello there", "The sea is", "Once upon a time, in a land"]
 PREFIX = ("You keep the harbor lights on a northern coast. Answer each question "

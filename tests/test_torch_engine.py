@@ -186,6 +186,8 @@ def test_port_imports_no_jax():
         "import kubeai_tpu_torch\n"
         "for m in pkgutil.walk_packages(kubeai_tpu_torch.__path__, 'kubeai_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        # tools/ is a directory of scripts (no __init__): the walk skips it.
+        "importlib.import_module('kubeai_tpu_torch.tools.kube_standin')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'kubeai_tpu.'))"
         " or m in ('kubeai_tpu', 'safetensors', 'transformers', 'ml_dtypes', 'optax',"
         " 'orbax', 'sentencepiece', 'google.protobuf')]\n"
@@ -229,7 +231,10 @@ def test_port_imports_no_jax():
         "       'kubeai_tpu_torch.messenger.kafka_driver', 'kubeai_tpu_torch.messenger.amqp_driver',\n"
         "       'kubeai_tpu_torch.messenger.nats_driver', 'kubeai_tpu_torch.messenger.sqs_driver',\n"
         "       'kubeai_tpu_torch.messenger.gcp_pubsub',\n"
-        "       'kubeai_tpu_torch.messenger.azuresb_driver']\n"
+        "       'kubeai_tpu_torch.messenger.azuresb_driver',\n"
+        "       'kubeai_tpu_torch.runtime.k8s', 'kubeai_tpu_torch.runtime.k8s_manifests',\n"
+        "       'kubeai_tpu_torch.obs.slo', 'kubeai_tpu_torch.obs.canary',\n"
+        "       'kubeai_tpu_torch.tools.kube_standin']\n"
         "bad += [m for m in new if m not in sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith('kubeai_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"

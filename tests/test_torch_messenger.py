@@ -40,6 +40,13 @@ from kubeai_tpu.messenger import kafka_proto as jkp
 from kubeai_tpu_torch.messenger import drivers as tdrivers
 from kubeai_tpu_torch.messenger import kafka_proto as tkp
 
+
+@pytest.fixture(autouse=True)
+def no_canary(monkeypatch):
+    # A Manager's canary probes would land in the windows these tests
+    # count requests and launches in: off, as before the port had one.
+    monkeypatch.setenv("KUBEAI_CANARY", "0")
+
 PACKAGES = ("kubeai_tpu", "kubeai_tpu_torch")
 CODEC_CASES = ("test_request_header_golden_bytes", "test_record_batch_golden_header_and_roundtrip",
                "test_record_batch_crc_detects_corruption", "test_varint_zigzag_roundtrip")
@@ -383,6 +390,10 @@ def test_yaml_streams_give_the_same_messengers(tmp_path, monkeypatch):
                        for m in mgr.messengers)
         finally:
             mgr.api.httpd.server_close()
+            if pkg == "kubeai_tpu_torch":
+                from kubeai_tpu_torch.obs.canary import uninstall_canary
+
+                uninstall_canary(mgr.canary)
             if pkg == "kubeai_tpu":
                 from kubeai_tpu.obs import (
                     uninstall_canary,
