@@ -620,9 +620,45 @@ def phase_kernels() -> dict:
     _w8a16_cases(record)
     _family_cases(record)
     _tp2_cases(record)
+    _chaos_cases(record)
     for name, r in results.items():
         log("kernel", json.dumps({"kernel": name, **r}))
     return results
+
+
+# The chaos path's engines (test:tiny: H 4, Kv 2, h 32, a float32 pool,
+# page 64, 2 slots, prefill buckets 32-128): (case, B, S, kv_lens, headline).
+CHAOS_CASES = (
+    ("chaos decode B=2 kv_len=48", 2, 1, [48, 30], True),
+    ("chaos prefill B=1 S=32", 1, 32, [32], False),
+    ("chaos prefill B=2 S=64", 2, 64, [64, 64], False),
+)
+
+
+def _chaos_cases(record) -> None:
+    """The ragged kernel at the chaos path's shapes on float32 q and pool,
+    against the plain version (compare_f32), beside gather + SDPA."""
+    import torch
+
+    from kubeai_tpu_torch.ops.paged_attention import paged_attention_plain, paged_attention_ragged
+
+    H, Kv, h, page = 4, 2, 32, 64
+    for case, B, S, lens_list, headline in CHAOS_CASES:
+        cold = "decode" in case
+        q, pool, table, lens = _paged_case(B, S, lens_list, H=H, Kv=Kv, h=h, page=page, seed=5)
+        q, pool = q.float(), pool.float()
+        want = paged_attention_plain(q, pool, table, lens)
+        got = paged_attention_ragged(q, pool, table, lens)
+        torch.cuda.synchronize()
+        err = compare_f32(got, want, f"paged_attention {case}")
+        ms = timed_ms(lambda: paged_attention_ragged(q, pool, table, lens), cold_l2=cold)
+        plain_ms = timed_ms(lambda: paged_attention_plain(q, pool, table, lens), iters=5,
+                            cold_l2=cold)
+        lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens), iters=5, cold_l2=cold)
+        nbytes, flops = _paged_cost(B, S, lens_list, H, Kv, h, page, 4, 4)
+        record("paged_attention[float32 h32]", case, err, ms, plain_ms, nbytes, flops, lib_ms,
+               headline, cold, kind="f32")
+        del q, pool, table, lens, want
 
 
 # Quantized pools: int8 with the JAX package's test scales (K 0.05, V
@@ -1929,34 +1965,16 @@ NO_EOS = {"257": -100}  # the byte tokenizer's EOS, banned: full-length runs
 
 
 def _zero_launches():
-    from kubeai_tpu_torch.ops.flash_attention import flash_attention
-    from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
-    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
-    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+    from kubeai_tpu_torch.ops import zero_launches
 
-    for fn in (flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many):
-        fn.launches = 0
-    for fn in (paged_attention_ragged, paged_decode_attention):
-        fn.launches_by_pool.clear()
-    paged_attention_ragged.launches_by_regime.clear()
-    flash_attention.launches_by_regime.clear()
+    zero_launches()
 
 
 def _read_launches() -> dict:
     """The launch counts as _serve_once reports them."""
-    from kubeai_tpu_torch.ops.flash_attention import flash_attention
-    from kubeai_tpu_torch.ops.paged_attention import paged_attention_ragged
-    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
-    from kubeai_tpu_torch.ops.quant import qdot, qdot_many
+    from kubeai_tpu_torch.ops import read_launches
 
-    return {
-        "launches": {fn.__name__: fn.launches for fn in (
-            flash_attention, paged_attention_ragged, paged_decode_attention, qdot, qdot_many)},
-        "launches_by_pool": {fn.__name__: dict(fn.launches_by_pool)
-                             for fn in (paged_attention_ragged, paged_decode_attention)},
-        "launches_by_regime": dict(paged_attention_ragged.launches_by_regime),
-        "flash_launches_by_regime": dict(flash_attention.launches_by_regime),
-    }
+    return read_launches()
 
 
 def _staggered(eng, prompts, adapters, n=32):
@@ -5056,6 +5074,13 @@ def _serve_operator_loops(run, operator, direct) -> tuple[dict, dict]:
 
 KUBE_MODEL = "llama-8b-kube"
 KUBE_CANARY_TICKS = 3
+# The forecast check: a season of 30 s (the forecaster's buckets are 5 s,
+# and its lead, one spawn -> Ready, must fit in a season), a ramp of
+# in-flight requests whose 5 s peak needs two replicas at the Model's
+# targetRequests (100), and three seasons of it written into the history.
+KUBE_SEASON_S = 30
+KUBE_RAMP = (5.0, 150.0)  # in-flight requests outside and at the peak
+KUBE_INCIDENT_TRIGGERS = ("crash_loop", "breaker_ejection", "error_spike")
 # A 300-byte prompt that neither the reference nor the canary sent: its
 # cold prefill reaches flash's buckets (>= 256 tokens).
 KUBE_MID = ("A lamp burns in the lighthouse above the northern harbor. " * 6)[:300]
@@ -5069,7 +5094,7 @@ def _kube_post(url, doc=None, method="POST") -> dict:
         return json.loads(r.read() or b"{}")
 
 
-def _serve_kube(run, direct) -> tuple[dict, dict]:
+def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
     """The operator on a cluster, on the loader's cache (path "kube"): an
     apiserver stand-in (kubeai_tpu_torch/tools/kube_standin.py: the REST
     subset and the chunked watch stream), a Manager over KubeStore on it
@@ -5092,9 +5117,15 @@ def _serve_kube(run, direct) -> tuple[dict, dict]:
     probe ok with one fingerprint; flash and ragged must launch. /debug/slo once
     the fleet has scraped the pod (the ttft objective must count the
     run's requests); the Lease and the AutoscalerState ConfigMap as the
-    apiserver holds them. The Model is DELETEd through the REST API: the
-    Pod must leave the apiserver, the process exit and the card's free
-    memory come back within 512 MiB. Returns (numbers, launch counts)."""
+    apiserver holds them. Then the forecast (_kube_forecast: the
+    forecaster's lead is *lead_s*, the operator run's spawn -> Ready) must
+    raise the Model to 2 replicas ahead of a seeded ramp, and 8 greedy
+    requests over both pods equal the direct engine's; and a SIGKILLed
+    pod must be captured as an incident (_kube_incident). The Model is
+    DELETEd through the REST API: the Pods must leave the apiserver, every
+    pod process exit and the card's free memory come back within 512
+    MiB. Returns (numbers, launch counts); the incident's numbers are
+    under "incidents"."""
     import torch
 
     from kubeai_tpu_torch.api import model_types as mt
@@ -5114,7 +5145,10 @@ def _serve_kube(run, direct) -> tuple[dict, dict]:
     system.autoscaling.interval_seconds = 1.0
     system.autoscaling.time_window_seconds = 3.0
     os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "kube_pod_logs")
-    with _env(KUBEAI_CANARY="1", KUBEAI_CANARY_INTERVAL="1"):
+    with _env(KUBEAI_CANARY="1", KUBEAI_CANARY_INTERVAL="1",
+              KUBEAI_FORECAST_SEASON_SECONDS=str(KUBE_SEASON_S),
+              KUBEAI_FORECAST_HORIZON=str(KUBE_SEASON_S), KUBEAI_FORECAST_INTERVAL="1",
+              KUBEAI_FORECAST_LEAD=str(lead_s)):
         mgr = Manager(system, store=KubeStore(api_server=api.url), host="127.0.0.1", port=0)
     kubelet = Kubelet(api, KubeStore(api_server=api.url), extra_env={
         **run["env"], "PATH": os.path.join(work, "pod_bin") + os.pathsep + run["env"]["PATH"],
@@ -5148,7 +5182,9 @@ def _serve_kube(run, direct) -> tuple[dict, dict]:
             "apiVersion": "kubeai.org/v1", "kind": "Model", "metadata": {"name": KUBE_MODEL},
             "spec": {"url": f"file://{run['dest']}", "engine": mt.ENGINE_TPU,
                      "resourceProfile": "nvidia-gpu-h100:1", "minReplicas": 0,
-                     "maxReplicas": 1,
+                     # The forecast's second replica; no scale-down within
+                     # the run.
+                     "maxReplicas": 2, "scaleDownDelaySeconds": 600,
                      "args": ["--host", "127.0.0.1", "--warmup"] + COLDSTART_ARGS}})
         # The canary ticks on a Model at zero and must not wake it.
         _until(lambda: any(p["outcome"] == "skipped" for p in probes),
@@ -5216,14 +5252,23 @@ def _serve_kube(run, direct) -> tuple[dict, dict]:
         canary = _http(mgr.api.port, "/debug/canary")[2]
         lease = api.get("leases", "kubeai-tpu.kubeai.org")
         state = api.get("configmaps", "rec-autoscalerstate-kubeai-autoscaler-state")
+        # The canary's checks are done: a probe during the kill below
+        # would meet the dead pod.
+        mgr.canary.stop()
+        forecast, second = _kube_forecast(mgr, api, kubelet, watch, direct)
+        res["forecast"] = forecast
+        res["incidents"] = _kube_incident(mgr, kubelet, name, second, forecast)
         pods_before = {n for (ns, pl), objs in api.objects.items() if pl == "pods" for n in objs}
         free_up = torch.cuda.mem_get_info()[0]
+        # The crashed pod's relaunch is starting: every process must end.
+        live = [procs[name]] + [lp.proc for lp in list(kubelet._procs.values())]
         t_del = time.monotonic()
         _kube_post(f"{models_url}/{KUBE_MODEL}", method="DELETE")
         _until(lambda: not api.objects.get(("default", "pods")),
-               "kube: the Pod outlived its Model in the apiserver", 30)
+               "kube: the Pods outlived their Model in the apiserver", 30)
         res["delete_to_pod_gone_s"] = time.monotonic() - t_del
-        _until(lambda: procs[name].poll() is not None, "kube: the pod's process outlived it", 60)
+        _until(lambda: all(p.poll() is not None for p in live),
+               "kube: a pod's process outlived it", 60)
         res["teardown_s"] = time.monotonic() - t_del
         time.sleep(0.5)
         free1 = torch.cuda.mem_get_info()[0]
@@ -5284,6 +5329,151 @@ def _serve_kube(run, direct) -> tuple[dict, dict]:
                      "after": free1 / 2**30},
         "launches": n})
     return res, launches
+
+
+def _kube_forecast(mgr, api, kubelet, watch, direct) -> tuple[dict, str]:
+    """The forecast on the card (inside _serve_kube): three seasons of a
+    periodic ramp of the Model's in-flight requests (KUBE_RAMP, one 5 s
+    bucket a season at the peak) are written into the Manager's
+    HistoryStore with past wall times, as a request_type="messenger"
+    series beside the live http one, the peak placed just past one lead
+    from now. An autoscaler decision with source "forecast" must raise
+    the Model from 1 to 2 replicas before the next peak; the kubelet
+    stand-in starts the second pod on the card (its spawn -> Ready, on
+    the warmed cache: nothing built), /debug/forecast reports the Model's
+    curve, lead and MAPE, and 8 greedy requests through the proxy (once
+    the balancer routes to both pods) and the same 8 sent to the second
+    pod equal the direct engine's (up to near-ties within 2 bf16 ulps).
+    Returns (numbers, the second pod's name)."""
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    t0 = time.monotonic()
+    step, lead = 5.0, mgr.forecaster.lead
+    now = time.time()
+    peak = math.ceil((now + lead + 3.0) / step) * step  # the next peak bucket's start
+    at_peak = int((peak % KUBE_SEASON_S) // step)
+    series = (f"kubeai_inference_requests_active{{request_model={KUBE_MODEL},"
+              "request_type=messenger}")
+    t = now - 3 * KUBE_SEASON_S
+    while t < now - 0.5:
+        mgr.history.record(series, KUBE_RAMP[int((t % KUBE_SEASON_S) // step) == at_peak], t=t)
+        t += 1.0
+    first_pods = set(watch.added)
+
+    def raised():
+        return [d for d in mgr.autoscaler.decisions.snapshot(model=KUBE_MODEL)
+                if d["t"] >= now and d.get("source") == "forecast" and d.get("applied")
+                and d.get("current") == 1 and d.get("applied_replicas") == 2]
+
+    wait_s = _until(raised, "kube: no forecast decision raised the Model to 2", 3 * KUBE_SEASON_S)
+    decision = raised()[-1]
+    if decision["t"] >= peak:
+        raise AssertionError(f"kube: the forecast raised the Model after the peak: {decision}")
+    _until(lambda: set(watch.ready) - first_pods, "kube: the second pod was not Ready",
+           3 * KUBE_SEASON_S)
+    (second,) = set(watch.ready) - first_pods
+    port2 = kubelet._procs[second].port
+    start = _start_numbers(port2, watch.ready[second] - watch.added[second], "kube second pod")
+    if start["built"] or start["missing"]:
+        raise AssertionError(f"kube: the forecast's pod built on the warmed cache: {start}")
+    _until(lambda: len(mgr.lb.get_all_addresses(KUBE_MODEL)) == 2,
+           "kube: the balancer does not route to the second pod", 10)
+    want, params = direct
+    diverged = {}
+    for what, port, path, model in (("proxy", mgr.api.port, "/openai/v1/completions", KUBE_MODEL),
+                                    ("second_pod", port2, "/v1/completions", None)):
+        got = _http_greedy(port, OPERATOR_PROMPTS, path=path, model=model)
+        gaps = [[abs(a - b) for a, b in zip(g_lp, w_lp)]
+                for (_, g_lp), (_, w_lp) in zip(got, want)]
+        diverged[what] = _near_tie_divergence(
+            params, [ids for ids, _ in got], [ids for ids, _ in want], gaps,
+            f"kube forecast {what}", prompts=OPERATOR_PROMPTS,
+            mc=llama_3_1_8b(num_layers=COLDSTART_LAYERS))
+    code, _, report = _http(mgr.api.port, f"/debug/forecast?model={KUBE_MODEL}")
+    signal_doc = report["models"].get(KUBE_MODEL, {}).get("signals", {}).get("requests", {})
+    if code != 200 or not signal_doc.get("curve") or report["lead_seconds"] != lead or \
+            "mape" not in signal_doc.get("accuracy", {}):
+        raise AssertionError(f"kube: /debug/forecast lacks the Model's curve, lead or MAPE: "
+                             f"{json.dumps(report)[:3000]}")
+    return {
+        "lead_s": lead, "season_s": KUBE_SEASON_S, "ramp": KUBE_RAMP,
+        "decision_wait_s": wait_s, "decision_before_peak_s": peak - decision["t"],
+        "decision": {k: decision.get(k) for k in (
+            "desired", "reactive_desired", "current", "applied_replicas", "source", "forecast",
+            "window_avg")},
+        "second_pod_spawn_to_ready_s": start["spawn_to_ready_s"],
+        "second_pod_phases": start["phases"],
+        "greedy_tokens_equal": not any(diverged.values()),
+        "greedy_diverged_at_near_ties": diverged,
+        "forecast": {"curve_points": len(signal_doc["curve"]),
+                     "mape": signal_doc["accuracy"]["mape"],
+                     "scored": signal_doc["accuracy"]["scored"],
+                     "anomaly_score": signal_doc["anomaly_score"]},
+        "wall_s": time.monotonic() - t0,
+    }, second
+
+
+def _kube_incident(mgr, kubelet, first, second, forecast) -> dict:
+    """The incident on the card (inside _serve_kube): the second pod's
+    process is SIGKILLed; the kubelet's crash loop (or the balancer's
+    breaker, or the counter watch's error spike) must be captured in
+    /debug/incidents with sections endpoints, engines (the surviving
+    pod's /debug/engine step records), history (fleet.<model>.* series),
+    forecast and autoscaler; the document must be on disk under
+    KUBEAI_INCIDENT_DIR; ``python -m kubeai_tpu_torch.obs.incident_report``
+    over --url and over --dir (two processes at once) must exit 0 and
+    name the trigger. Returns the incidents line's numbers."""
+    t0 = time.monotonic()
+    killed = kubelet._procs[second]
+    kill_wall = time.time()
+    os.kill(killed.proc.pid, signal.SIGKILL)
+
+    def captured():
+        listing = _http(mgr.api.port, "/debug/incidents")[2]["incidents"]
+        return [i for i in listing if i["t"] >= kill_wall and i["trigger"] in
+                KUBE_INCIDENT_TRIGGERS]
+
+    _until(captured, "kube: the SIGKILL was captured in no incident", 30)
+    inc = captured()[-1]
+    mgr.incidents.wait_idle(10)
+    doc = _http(mgr.api.port, f"/debug/incidents?id={inc['id']}")[2]
+    sections = doc["sections"]
+    survivor = f"127.0.0.1:{kubelet._procs[first].port}"
+    steps = sections.get("engines", {}).get(KUBE_MODEL, {}).get(survivor, {}).get("engine", {})
+    fleet_series = [n for n in sections.get("history", {}).get("series", {})
+                    if n.startswith(f"fleet.{KUBE_MODEL}.")]
+    missing = {"endpoints", "engines", "history", "forecast", "autoscaler"} - set(
+        doc["sections_ok"])
+    if missing or not steps.get("steps") or not fleet_series:
+        raise AssertionError(f"kube: the incident lacks {sorted(missing)} (steps "
+                             f"{bool(steps.get('steps'))}, fleet series {len(fleet_series)}): "
+                             f"{json.dumps(doc)[:3000]}")
+    path = os.path.join(os.environ["KUBEAI_INCIDENT_DIR"], f"incident-{inc['id']}.json")
+    cmd = [sys.executable, "-m", "kubeai_tpu_torch.obs.incident_report", "--id", inc["id"]]
+    root = os.path.dirname(os.path.abspath(__file__))
+    renders = [subprocess.Popen(cmd + args, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+               for args in (["--url", f"http://127.0.0.1:{mgr.api.port}"],
+                            ["--dir", os.environ["KUBEAI_INCIDENT_DIR"]])]
+    outs = [p.communicate(timeout=120) for p in renders]
+    codes = [p.returncode for p in renders]
+    if codes != [0, 0] or not all(f"trigger:  {inc['trigger']}" in o for o, _ in outs):
+        raise AssertionError(f"kube: incident_report exits {codes}: "
+                             f"{[(o[-1500:], e[-1500:]) for o, e in outs]}")
+    return {
+        "trigger": inc["trigger"], "id": inc["id"],
+        "decision_before_peak_s": forecast["decision_before_peak_s"],
+        "lead_s": forecast["lead_s"],
+        "second_pod_spawn_to_ready_s": forecast["second_pod_spawn_to_ready_s"],
+        "kill_to_trigger_s": inc["t"] - kill_wall,
+        "capture_ms": 1e3 * doc["capture_seconds"],
+        "document_bytes": os.path.getsize(path), "sections": sorted(sections),
+        "sections_ok": sorted(doc["sections_ok"]), "engine_steps": len(steps["steps"]),
+        "fleet_series": len(fleet_series), "render_exit_codes": {"url": codes[0],
+                                                                 "dir": codes[1]},
+        "render_lines": [len(o.splitlines()) for o, _ in outs],
+        "wall_s": time.monotonic() - t0,
+    }
 
 
 def _shapes(warmup: dict) -> dict:
@@ -5432,28 +5622,36 @@ def phase_loader(run) -> dict:
     operator scales replicas on that cache (_serve_operator, path
     "operator"), a second operator runs its control loops there
     (_serve_operator_loops, path "operator_loops"), and a third runs over
-    the Kubernetes REST API with its kubelet (_serve_kube, path "kube").
-    Returns {"operator": counts, "messenger": counts, "operator_loops":
-    counts, "kube": counts}."""
+    the Kubernetes REST API with its kubelet (_serve_kube, path "kube"; its
+    forecast's lead is the operator run's spawn -> Ready, and its incident
+    is printed as the "incidents" line). The three Managers keep their
+    history and incident rings under a temporary directory of the run
+    (KUBEAI_HISTORY_DIR, KUBEAI_INCIDENT_DIR). Returns {"operator": counts,
+    "messenger": counts, "operator_loops": counts, "kube": counts}."""
     import torch
 
     t0 = time.monotonic()
+    obs = tempfile.mkdtemp(prefix="kubeai-smoke-obs-")
     try:
         # The reference engine runs while the loader's nvcc builds.
         direct = _direct_reference(run["ckpt"])
         loader = _finish_loader(run, run["ckpt"])
         log("coldstart[loader]", gpu_line(), json.dumps(loader))
-        served, launches = _serve_operator(run, run["spawn"], direct)
-        log("messenger", gpu_line(), json.dumps(served.pop("messenger")))
-        log("operator", gpu_line(), json.dumps(served))
-        loops, loops_launches = _serve_operator_loops(run, served, direct)
-        log("operator_loops", gpu_line(), json.dumps(loops))
-        kube, kube_launches = _serve_kube(run, direct)
+        with _env(KUBEAI_HISTORY_DIR=os.path.join(obs, "history"),
+                  KUBEAI_INCIDENT_DIR=os.path.join(obs, "incidents")):
+            served, launches = _serve_operator(run, run["spawn"], direct)
+            log("messenger", gpu_line(), json.dumps(served.pop("messenger")))
+            log("operator", gpu_line(), json.dumps(served))
+            loops, loops_launches = _serve_operator_loops(run, served, direct)
+            log("operator_loops", gpu_line(), json.dumps(loops))
+            kube, kube_launches = _serve_kube(run, direct, served["spawn_to_ready_s"])
+        log("incidents", gpu_line(), json.dumps(kube.pop("incidents")))
         log("kube", gpu_line(), json.dumps(kube))
         del direct
         gc.collect()
         torch.cuda.empty_cache()
     finally:
+        shutil.rmtree(obs, ignore_errors=True)
         _stop(run["proc"])
         shutil.rmtree(run["ckpt"], ignore_errors=True)
         shutil.rmtree(os.path.dirname(run["cache"]), ignore_errors=True)
@@ -5805,6 +6003,10 @@ SOURCES = {
                                    "paged_decode_attention", "qwen_int8", "bfloat16"),
     "w8a16_matmul[families]": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu",
                                "kubeai_tpu/ops/quant.py:50", "qdot", "qwen_int8", None),
+    # The chaos campaign's test:tiny engines (float32 pool, head dim 32).
+    "paged_attention[float32 h32]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                     "kubeai_tpu/ops/paged_attention.py:55",
+                                     "paged_attention_ragged", "chaos", "float32"),
 }
 
 
@@ -6297,6 +6499,117 @@ def phase_sharded_train(run: dict) -> dict:
     return parts
 
 
+# ---------------------------------------------------------------------------
+# The chaos campaign (python -m kubeai_tpu_torch.chaos) beside phases 2 and 3
+
+# 12 streams an episode: their arrivals (0.05 s apart) span the arm times
+# the schedules draw (0-0.5 s); on the card 6 streams end in ~0.4 s, and
+# an episode's faults could arm after its traffic.
+CHAOS_ARGS = ("--episodes", "4", "--seed", "1", "--replicas", "2", "--requests", "12",
+              "--induce")
+CHAOS_BUDGET_S = 150.0
+
+
+# The child: `python -m kubeai_tpu_torch.chaos` run by runpy once a go
+# file exists; its imports (CPU only) happen before, beside phase 2.
+CHAOS_CHILD = """
+import os, runpy, sys, time
+import kubeai_tpu_torch.chaos.campaign
+while not os.path.exists(sys.argv[1]):
+    time.sleep(0.02)
+sys.argv = ["kubeai_tpu_torch.chaos"] + sys.argv[2:]
+runpy.run_module("kubeai_tpu_torch.chaos", run_name="__main__", alter_sys=True)
+"""
+
+
+def start_chaos() -> dict:
+    """Start the chaos campaign's child process (CHAOS_ARGS: 4 seeded
+    episodes of 12 streams over 2 in-process test:tiny engine servers on
+    the card behind the port's proxy and balancer, then the induced
+    schedule), its output in temporary files. It imports, then waits for
+    run["go"] to exist before it touches the card; phase_chaos waits for
+    it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="kubeai-smoke-chaos-")
+    go = os.path.join(out_dir, "go")
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", CHAOS_CHILD, go, *CHAOS_ARGS,
+                             "--out", out_dir], cwd=root, stdout=out, stderr=err, text=True)
+    run = {"proc": proc, "t0": time.monotonic(), "out": out, "err": err, "dir": out_dir,
+           "go": go}
+
+    def stamp_exit():
+        proc.wait()
+        run["t_end"] = time.monotonic()
+
+    threading.Thread(target=stamp_exit, name="chaos-wait", daemon=True).start()
+    return run
+
+
+def release_chaos(run: dict) -> None:
+    """Let the chaos child go on to the card."""
+    run["t_go"] = time.monotonic()
+    open(run["go"], "w").close()
+
+
+def phase_chaos(run: dict) -> dict:
+    """Path "chaos" (budget CHAOS_BUDGET_S from its start, beside phases 2
+    and 3): let the child start_chaos started go on to the card, and wait
+    for it; every seeded episode must be clean under
+    the five invariants (stream_shape byte-identical to its uncontended
+    reference, conservation, tokens, recovery, incident) and fire at
+    least one fault site; the induced schedule must be detected, shrunk
+    to the connect kill and violate again on replay; the ragged kernel
+    must launch (counts zeroed after the stack's build, read after the
+    episodes). Prints the ``chaos`` line; returns the path's counts."""
+    proc = run["proc"]
+    if "t_go" not in run:
+        release_chaos(run)
+    try:
+        proc.wait(timeout=max(CHAOS_BUDGET_S - (time.monotonic() - run["t0"]), 1.0))
+    except subprocess.TimeoutExpired as e:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"chaos: the campaign did not end within {CHAOS_BUDGET_S:.0f} s"
+                             ) from e
+    wall = run.get("t_end", time.monotonic()) - run["t0"]
+    on_card = run.get("t_end", time.monotonic()) - run.get("t_go", run["t0"])
+    for f in (run["out"], run["err"]):
+        f.seek(0)
+    stdout, stderr = run["out"].read(), run["err"].read()
+    try:
+        with open(os.path.join(run["dir"], "CHAOS.json")) as f:
+            doc = json.load(f)
+    except OSError:
+        doc = None
+    finally:
+        shutil.rmtree(run["dir"], ignore_errors=True)
+    if proc.returncode != 0 or doc is None:
+        raise AssertionError(f"chaos: exit {proc.returncode}\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+    induced = doc["induced"]
+    reduced = induced["reduced_schedule"]["events"]
+    n = doc["launches"]["launches"]
+    if doc["violations"] or doc["degradation"]["episodes_with_faults_fired"] != doc["episodes"] \
+            or not induced["replay_violations"] or not any(
+                e["site"] == "proxy.connect" for e in reduced) or not n["paged_attention_ragged"]:
+        raise AssertionError(f"chaos: {json.dumps(doc)[:4000]}")
+    log("chaos", gpu_line(), json.dumps({
+        "episodes": doc["episodes"], "replicas": doc["replicas"], "seed": doc["seed"],
+        "requests_per_episode": doc["requests_per_episode"], "clean": not doc["violations"],
+        "episodes_with_faults_fired": doc["degradation"]["episodes_with_faults_fired"],
+        "sites_fired": doc["sites_fired"], "subsystems": doc["subsystems_covered"],
+        "invariants": doc["invariants"], "degradation": doc["degradation"],
+        "induced": {"violations": len(induced["violations"]), "reduced_to": reduced,
+                    "shrink_runs": induced["shrink_runs"],
+                    "replay_violations": len(induced["replay_violations"]),
+                    "seconds": induced["seconds"]},
+        "launches": doc["launches"], "build_s": doc["build_s"],
+        "episodes_s": doc["duration_s"], "wall_s": wall, "after_go_s": on_card,
+        "budget_s": CHAOS_BUDGET_S}))
+    return doc["launches"]
+
+
 def phase_gang() -> dict:
     """Phase 9 (budget GANG_BUDGET_S): (d) NCCL capture, (b) the float32
     gang in process, (a) + (c) the two-rank server. Returns {"gang": run}
@@ -6339,11 +6652,24 @@ def main() -> int:
         raise
     phase_sharded_train(sharded)
     log(f"elapsed after phases 1 and 10: {time.monotonic() - t0:.1f}s")
-    kern = phase_kernels()
-    check_decode_grid()
-    log(f"elapsed after phases 1-2: {time.monotonic() - t0:.1f}s")
-    phase_model_parity()
-    log(f"elapsed after phase 3: {time.monotonic() - t0:.1f}s")
+    # The chaos campaign's child imports beside phase 2 and runs on the
+    # card beside phase 3, which times nothing.
+    chaos = start_chaos()
+    try:
+        kern = phase_kernels()
+        check_decode_grid()
+        log(f"elapsed after phases 1-2: {time.monotonic() - t0:.1f}s")
+        release_chaos(chaos)
+        t3 = time.monotonic()
+        phase_model_parity()
+        log(f"elapsed after phase 3: {time.monotonic() - t0:.1f}s (phase 3 "
+            f"{time.monotonic() - t3:.1f}s)")
+    except BaseException:
+        chaos["proc"].kill()
+        raise
+    t_chaos = time.monotonic()
+    chaos_counts = phase_chaos(chaos)
+    log(f"chaos path: waited {time.monotonic() - t_chaos:.1f}s past phase 3")
     serving = phase_serving()
     log(f"elapsed after phase 4: {time.monotonic() - t0:.1f}s")
     t5 = time.monotonic()
@@ -6364,6 +6690,7 @@ def main() -> int:
     t9 = time.monotonic()
     serving.update(phase_gang())
     log(f"gang phase: {time.monotonic() - t9:.1f}s")
+    serving["chaos"] = chaos_counts
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

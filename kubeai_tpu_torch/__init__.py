@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import os
 
-import torch
-
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` when *device* is None.
@@ -25,6 +23,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     Raises RuntimeError when CUDA is asked for (explicitly or by default)
     and no CUDA device is present.
     """
+    # torch is imported here, not with the package: the operator's CLIs
+    # (incident_report, the manifests) run without it.
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

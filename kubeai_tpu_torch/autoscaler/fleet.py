@@ -6,8 +6,9 @@ One long-lived pool of daemon scrape threads; each endpoint fetched once
 per collect; per-endpoint tokens/s from the generated-token counter's
 deltas between collects; the load balancer's breaker and latency-health
 state merged in; per-model aggregate gauges and a headroom estimate.
-The JAX collector's history sink (the operator-side history store) is
-not ported (ROADMAP queue 1, item 7b).
+With ``history`` set (the Manager sets its store), each collect is also
+recorded there (``HistoryStore.record_fleet``), so a dead pod's
+trajectory outlives the pod.
 """
 
 from __future__ import annotations
@@ -208,6 +209,8 @@ class FleetCollector:
         # pool that disappears (mode flipped back to unified) has its
         # series REMOVED rather than frozen at the last pre-flip value.
         self._pool_roles: dict[str, set[str]] = {}
+        # The operator's HistoryStore (set by the Manager), or None.
+        self.history = None
 
     # -- scraping ----------------------------------------------------------
 
@@ -428,6 +431,11 @@ class FleetCollector:
                 self._prev_tokens.pop(addr, None)
                 self._prev_ttft.pop(addr, None)
                 self._last_pages.pop(addr, None)
+        if self.history is not None:
+            try:
+                self.history.record_fleet(views)
+            except Exception:
+                pass  # a history sink's fault must never break the scrape
         return views
 
     # -- consumers ---------------------------------------------------------

@@ -40,6 +40,8 @@ The port's sites, under the JAX package's names:
                          reconnect-with-backoff and re-form path)
     history.disk         each metrics-history snapshot write (an error
                          keeps the history in memory only)
+    incidents.disk       each incident document write (an error keeps
+                         the incident in memory only)
     proxy.connect        before each upstream connect attempt of the
                          proxy (payload: the request body)
     balancer.reconcile   each endpoint-reconcile pass of the balancer

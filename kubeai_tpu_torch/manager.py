@@ -10,13 +10,14 @@ requests into the same balancer and model client as the proxy), and
 daemon threads, started and stopped in the JAX manager's order. The SLO
 monitor (over the fleet's scrapes, ``/debug/slo``) and the canary prober
 (deterministic probes through the proxy, ``/debug/canary``) run beside
-the autoscaler. Only the lease holder's autoscaler, SLO monitor and
-canary tick.
-
-Left out, not stubbed: the operator's history sampler, the forecaster
-and the incident recorder (ROADMAP queue 1, item 7b: the autoscaler's
-forecast input is None, and ``/debug/incidents`` and ``/debug/forecast``
-answer 404).
+the autoscaler. The operator's history store (under
+``<KUBEAI_HISTORY_DIR>/operator``) takes the registry's samples and every
+fleet collect; the forecaster reads it and gives the autoscaler a
+forecast one cold-start lead ahead (``/debug/forecast``); the incident
+recorder captures every debug surface when a trigger fires
+(``/debug/incidents``, a disk ring under ``KUBEAI_INCIDENT_DIR``). Only
+the lease holder's autoscaler, SLO monitor, canary, history sampler,
+forecaster and recorder tick.
 
 CLI:
     python -m kubeai_tpu_torch.manager [--local | --kube]
@@ -51,6 +52,20 @@ from kubeai_tpu_torch.controller.controller import ModelReconciler
 from kubeai_tpu_torch.loadbalancer.balancer import LoadBalancer
 from kubeai_tpu_torch.messenger.messenger import Messenger
 from kubeai_tpu_torch.obs.canary import CanaryProber, install_canary, uninstall_canary
+from kubeai_tpu_torch.obs.forecast import Forecaster, install_forecaster, uninstall_forecaster
+from kubeai_tpu_torch.obs.history import (
+    HistoryStore,
+    RegistrySampler,
+    history_dir_default,
+    install_history,
+    uninstall_history,
+)
+from kubeai_tpu_torch.obs.incidents import (
+    IncidentRecorder,
+    install_recorder,
+    standard_sources,
+    uninstall_recorder,
+)
 from kubeai_tpu_torch.obs.logs import get_logger, setup_logging
 from kubeai_tpu_torch.obs.otel import maybe_start_exporter, uninstall_exporter
 from kubeai_tpu_torch.obs.slo import SLOMonitor
@@ -150,7 +165,42 @@ class Manager:
         self.canary = CanaryProber(
             self.proxy, self.model_client, self.lb, election=self.election
         )
+        # The operator's history: the registry's samples and each fleet
+        # collect ("operator" keeps it apart from an engine's store in the
+        # same directory).
+        self.history = HistoryStore(
+            history_dir=os.path.join(history_dir_default(), "operator"),
+        )
+        self.history_sampler = RegistrySampler(self.history, election=self.election)
+        self.fleet.history = self.history
+        # Forecasts over that history: the autoscaler's raise-only floor,
+        # the parked pool's pre-warm, and traffic_anomaly triggers.
+        self.forecaster = Forecaster(
+            self.history, election=self.election, decision_log=self.autoscaler.decisions,
+        )
+        self.autoscaler.forecaster = self.forecaster
+        self.autoscaler.parked_pool = self.parked_pool
+        self.incidents = IncidentRecorder(
+            sources=standard_sources(
+                self.lb,
+                self.model_client,
+                fleet=self.fleet,
+                decision_log=self.autoscaler.decisions,
+                slo=self.slo,
+                canary=self.canary,
+                history=self.history,
+                forecaster=self.forecaster,
+            ),
+            election=self.election,
+            # Pages by address: the counter watch differences each
+            # endpoint against its own baseline.
+            remote_pages=self.fleet.parsed_pages_by_addr,
+            watch_interval=self.system.autoscaling.interval_seconds,
+        )
+        install_recorder(self.incidents)
         install_canary(self.canary)
+        install_history(self.history)
+        install_forecaster(self.forecaster)
         self.messengers = [
             Messenger(
                 stream.requests_url,
@@ -175,6 +225,9 @@ class Manager:
         self.election.start()
         self.autoscaler.start()
         self.slo.start()
+        self.history_sampler.start()
+        self.forecaster.start()
+        self.incidents.start()
         self.canary.start()
         if self.local_runtime:
             self.local_runtime.start()
@@ -197,9 +250,15 @@ class Manager:
         if self.local_runtime:
             self.local_runtime.stop()
         self.canary.stop()
-        # Identity-checked: a newer Manager's prober (tests build several
-        # in one process) stays installed.
+        self.incidents.stop()
+        # Identity-checked: a newer Manager's installs (tests build
+        # several in one process) stay.
         uninstall_canary(self.canary)
+        uninstall_recorder(self.incidents)
+        self.forecaster.stop()
+        uninstall_forecaster(self.forecaster)
+        self.history_sampler.stop()
+        uninstall_history(self.history)
         self.slo.stop()
         self.autoscaler.stop()
         self.election.stop()
@@ -258,7 +317,25 @@ def main(argv=None):
 
         store = KubeStore(api_server=args.kube_api_server)
     mgr = Manager(system, store=store, local_runtime=args.local, host=args.host, port=args.port)
+
+    # SIGTERM (the kubelet's shutdown signal) drains: readiness flips to
+    # 503 first, then in-flight requests get the grace budget. The handler
+    # is in place before the lease can be taken; a drain asked for during
+    # start() runs once start() has returned.
+    done, started = threading.Event(), threading.Event()
+
+    def _drain():
+        started.wait()
+        mgr.drain(args.drain_grace)
+        done.set()
+
+    def _on_term(signum, frame):
+        # A handler must return at once; the drain runs on a thread.
+        threading.Thread(target=_drain, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _on_term)
     mgr.start()
+    started.set()
 
     if args.models:
         from kubeai_tpu_torch.catalog import apply_manifest_file
@@ -268,19 +345,6 @@ def main(argv=None):
         from kubeai_tpu_torch.catalog import apply_catalog
 
         apply_catalog(mgr.store, names)
-
-    # SIGTERM (the kubelet's shutdown signal) drains: readiness flips to
-    # 503 first, then in-flight requests get the grace budget.
-    done = threading.Event()
-
-    def _on_term(signum, frame):
-        # A handler must return at once; the drain runs on a thread.
-        threading.Thread(
-            target=lambda: (mgr.drain(args.drain_grace), done.set()),
-            daemon=True,
-        ).start()
-
-    signal.signal(signal.SIGTERM, _on_term)
 
     try:
         while not done.is_set():

@@ -1,6 +1,7 @@
-"""The engine's embedded metrics history (port of kubeai_tpu/obs/history.py):
+"""The embedded metrics history (port of kubeai_tpu/obs/history.py):
 bounded, tiered time series of every metric the registry carries, served
-at ``GET /debug/history?series=&since=&step=``.
+at ``GET /debug/history?series=&since=&step=`` by the engine server and
+the operator's proxy.
 
 - **Tiers.** Each series keeps fixed-width buckets in several tiers
   (5 s x 1 h, 60 s x 12 h, 600 s x 7 d). A bucket holds ``count, sum,
@@ -19,14 +20,18 @@ at ``GET /debug/history?series=&since=&step=``.
   ``KUBEAI_HISTORY_FLUSH_SECONDS``, and one at stop. The file format is
   the JAX store's: each package reads the other's files.
 - **Gaps.** A store that loads an earlier process's history marks the
-  restart as a gap, and a sampler whose ticks stalled marks the stall.
+  restart as a gap, a sampler whose ticks stalled marks the stall, and
+  a sampler given an *election* marks each change of leadership.
   Queries return the gap markers beside the points.
+- **The operator's side.** The Manager's store (under
+  ``<KUBEAI_HISTORY_DIR>/operator``) also takes each fleet collect
+  (``record_fleet``: ``fleet.<model>[.<addr>|.pool.<role>].<key>``
+  series, so a dead pod's trajectory outlives it), and every incident
+  embeds its ``context_block()``: the last
+  ``KUBEAI_INCIDENT_CONTEXT_SECONDS`` of a few key series.
 
 The ``history.disk`` failpoint (kubeai_tpu_torch/faults.py) fails a
 write: the store then keeps its history in memory only.
-
-Left out, as operator-side: the fleet feed (``record_fleet``), the
-incident context block and the sampler's leader election.
 """
 
 from __future__ import annotations
@@ -64,6 +69,26 @@ KEY_HISTOGRAMS: tuple[str, ...] = (
     "kubeai_engine_tpot_seconds",
     "kubeai_request_e2e_seconds",
 )
+
+
+# The incident context's series: prefixes of the live series names (the
+# block rides inside every persisted incident, so the set stays small).
+CONTEXT_SERIES_PREFIXES: tuple[str, ...] = (
+    "kubeai_engine_mfu",
+    "kubeai_engine_tokens_per_second",
+    "kubeai_fleet_tokens_per_second",
+    "kubeai_engine_stall_seconds_total",
+    "kubeai_engine_queue_depth",
+    "kubeai_fleet_queue_depth",
+    "kubeai_engine_requests_total",
+    "kubeai_slo_burn_rate",
+    "kubeai_tenant_share",
+    "kubeai_endpoint_state",
+    "kubeai_endpoint_health_score",
+)
+
+# A breaker state as a series value.
+_BREAKER = {"closed": 0.0, "half_open": 1.0, "open": 2.0, "soft_ejected": 3.0}
 
 
 def history_dir_default() -> str:
@@ -155,6 +180,41 @@ class HistoryStore:
             if self._last_sample_t is None or t > self._last_sample_t:
                 self._last_sample_t = t
 
+    def record_fleet(self, views: dict, t: float | None = None) -> None:
+        """Record one FleetCollector collect: each model's aggregate, each
+        scraped endpoint's values, breaker state and health score, and
+        each pool's aggregate, as ``fleet.<model>...`` series."""
+        t = self._wall() if t is None else t
+        agg_keys = ("queue_depth", "active_slots", "tokens_per_second", "free_pages",
+                    "headroom_requests", "prefix_hit_ratio")
+        ep_keys = ("queue_depth", "active_slots", "tokens_per_second", "pages_used",
+                   "prefix_hit_ratio")
+        for model, view in (views or {}).items():
+            agg = view.get("aggregate") or {}
+            for k in agg_keys:
+                v = agg.get(k)
+                if isinstance(v, (int, float)):
+                    self.record(f"fleet.{model}.{k}", v, t=t)
+            for ep in view.get("endpoints") or []:
+                addr = ep.get("address")
+                if not addr or not ep.get("ok"):
+                    continue
+                for k in ep_keys:
+                    v = ep.get(k)
+                    if isinstance(v, (int, float)):
+                        self.record(f"fleet.{model}.{addr}.{k}", v, t=t)
+                bs = _BREAKER.get(ep.get("breaker_state") or "")
+                if bs is not None:
+                    self.record(f"fleet.{model}.{addr}.breaker_state", bs, t=t)
+                hs = ep.get("health_score")
+                if isinstance(hs, (int, float)):
+                    self.record(f"fleet.{model}.{addr}.health_score", hs, t=t)
+            for role, pagg in (view.get("pools") or {}).items():
+                for k in agg_keys:
+                    v = pagg.get(k)
+                    if isinstance(v, (int, float)):
+                        self.record(f"fleet.{model}.pool.{role}.{k}", v, t=t)
+
     def mark_gap(self, reason: str, since: float | None = None, t: float | None = None) -> None:
         """Record an interval without data (a restart, a stalled
         sampler): queries report it rather than let it read as zero."""
@@ -231,6 +291,23 @@ class HistoryStore:
             "series": out,
             "gaps": self.gaps(since=since),
         }
+
+    def context_block(self, seconds: float | None = None, max_series: int = 48) -> dict:
+        """An incident's look back: the last *seconds*
+        (``KUBEAI_INCIDENT_CONTEXT_SECONDS``, 600 by default) of the
+        context series and the ``fleet.`` ones, at most *max_series*."""
+        seconds = (seconds if seconds is not None
+                   else env_float("KUBEAI_INCIDENT_CONTEXT_SECONDS", 600.0))
+        now = self._wall()
+        wanted = [n for n in self.series_names()
+                  if n.startswith(CONTEXT_SERIES_PREFIXES) or n.startswith("fleet.")]
+        truncated = max(len(wanted) - max_series, 0)
+        doc = self.query(wanted[:max_series], since=now - seconds, until=now)
+        doc["window_seconds"] = seconds
+        doc["captured_at"] = now
+        if truncated:
+            doc["series_truncated"] = truncated
+        return doc
 
     def report(self) -> dict:
         """The /debug/history payload without a query: the series, the
@@ -357,11 +434,12 @@ class HistoryStore:
 class RegistrySampler:
     """Samples the registry into a HistoryStore every *interval* seconds
     on a daemon thread (``start()``), or when ``tick()`` is called (tests,
-    with an injected clock and wall)."""
+    with an injected clock and wall). With an *election* (an object with
+    an ``is_leader`` Event) each change of leadership marks a gap."""
 
     def __init__(self, store: HistoryStore, registry=None, interval_seconds: float | None = None,
                  histograms: tuple[str, ...] = KEY_HISTOGRAMS, clock=time.monotonic,
-                 wall=time.time):
+                 wall=time.time, election=None):
         self.store = store
         self.registry = registry or default_registry
         self.interval = (interval_seconds if interval_seconds is not None
@@ -369,6 +447,8 @@ class RegistrySampler:
         self.histograms = tuple(histograms)
         self._clock = clock
         self._wall = wall
+        self._election = election
+        self._was_leader: bool | None = None
         # (metric, label key) -> (monotonic t, cumulative) counter anchors.
         self._anchors: dict[tuple[str, tuple], tuple[float, float]] = {}
         # metric -> {label key: (counts, sum, n)} histogram snapshots.
@@ -386,6 +466,11 @@ class RegistrySampler:
             self.store.mark_gap("sampler_stall", since=wall_t - (now - self._last_tick),
                                 t=wall_t)
         self._last_tick = now
+        if self._election is not None:
+            leading = self._election.is_leader.is_set()
+            if self._was_leader is not None and leading != self._was_leader:
+                self.store.mark_gap("leadership_change", since=wall_t, t=wall_t)
+            self._was_leader = leading
         for name, metric in self.registry.metrics().items():
             try:
                 if isinstance(metric, Counter):

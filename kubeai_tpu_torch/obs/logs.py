@@ -11,8 +11,9 @@
   (``KUBEAI_LOG_FORMAT``, ``KUBEAI_LOG_LEVEL``).
 - **LogRing**: a bounded ring of recent WARNING+ records of the
   ``kubeai_tpu_torch`` loggers, served at ``GET /debug/logs
-  ?level=&since=&trace=&limit=`` and counted in
-  ``kubeai_log_records_total``.
+  ?level=&since=&trace=&limit=``, counted in
+  ``kubeai_log_records_total``, and embedded in every incident
+  (``logs_incident_source``).
 """
 
 from __future__ import annotations
@@ -286,6 +287,17 @@ def uninstall_log_ring(ring: LogRing) -> None:
         if _ring is ring:
             logging.getLogger(LOGGER_ROOT).removeHandler(ring)
             _ring = None
+
+
+def logs_incident_source(limit: int = 60):
+    """An incident recorder's source: the ring's most recent WARNING+
+    records at capture time."""
+    ring = install_log_ring()
+
+    def fetch() -> dict:
+        return ring.snapshot(limit=limit)
+
+    return fetch
 
 
 # ---------------------------------------------------------------------------

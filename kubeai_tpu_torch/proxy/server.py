@@ -23,9 +23,11 @@ from kubeai_tpu_torch.api import model_types as mt
 from kubeai_tpu_torch.faults import handle_faults_request
 from kubeai_tpu_torch.metrics import default_registry, set_build_info
 from kubeai_tpu_torch.obs.canary import handle_canary_request
+from kubeai_tpu_torch.obs.forecast import handle_forecast_request
 from kubeai_tpu_torch.obs.history import handle_history_request
+from kubeai_tpu_torch.obs.incidents import handle_incident_request
 from kubeai_tpu_torch.obs.logs import handle_logs_request, install_log_ring
-from kubeai_tpu_torch.obs.recorder import handle_debug_request, handle_operator_side_request
+from kubeai_tpu_torch.obs.recorder import handle_debug_request
 from kubeai_tpu_torch.obs.tenants import handle_tenant_request
 from kubeai_tpu_torch.proxy.apiutils import (
     APIError,
@@ -47,13 +49,11 @@ INFERENCE_PATHS = (
 )
 
 
-# The operator's GET /debug index: the JAX operator's routes that this
-# server answers. /debug/autoscaler, /debug/fleet and /debug/slo answer
-# once the Manager attaches the autoscaler's decision log, the fleet
-# collector and the SLO monitor; /debug/canary once a prober is installed.
-# The incident recorder and the forecaster are not ported (ROADMAP queue 1,
-# item 7b): /debug/incidents and /debug/forecast answer 404 "not
-# installed".
+# The operator's GET /debug index: the JAX operator's routes.
+# /debug/autoscaler, /debug/fleet and /debug/slo answer once the Manager
+# attaches the autoscaler's decision log, the fleet collector and the SLO
+# monitor; /debug/canary, /debug/incidents and /debug/forecast once it
+# installs the prober, the incident recorder and the forecaster.
 DEBUG_INDEX: tuple[tuple[str, str], ...] = (
     ("/debug/requests",
      "completed request timelines, most recent first (?limit=&id=&tenant=)"),
@@ -82,10 +82,16 @@ DEBUG_INDEX: tuple[tuple[str, str], ...] = (
      "fleet saturation: per-endpoint engine scrapes, per-model aggregates, capacity headroom"),
     ("/debug/slo",
      "SLO monitor report: attainment + burn rate per objective over the rolling window"),
+    ("/debug/incidents",
+     "incident black box: triggered cross-layer snapshots (?id= for the full document; "
+     "operator-side)"),
     ("/debug/canary", "synthetic canary prober state per model (operator-side)"),
     ("/debug/history",
      "embedded time-series history: tiered metric trajectories with gap markers "
      "(?series=&since=&step=)"),
+    ("/debug/forecast",
+     "predictive telemetry: per-model forecast curves, prediction intervals, accuracy, "
+     "anomaly state (?model=; operator-side)"),
     ("/debug/logs",
      "recent WARNING+ structured log records with trace correlation "
      "(?level=&since=&trace=&limit=)"),
@@ -336,14 +342,14 @@ def _make_handler(srv: OpenAIServer):
             elif path.startswith("/debug/"):
                 resp = (
                     handle_faults_request(path, query)
+                    or handle_incident_request(path, query)
                     or handle_canary_request(path, query)
-                    # /debug/incidents and /debug/forecast (item 7b).
-                    or handle_operator_side_request(path)
                     or handle_tenant_request(path, query)
                     # QoS: operator-side class counters (an in-process
                     # stack also carries the engine queue breakdown).
                     or handle_qos_request(path, query)
                     or handle_history_request(path, query)
+                    or handle_forecast_request(path, query)
                     or handle_logs_request(path, query)
                     or handle_debug_request(path, query)
                 )

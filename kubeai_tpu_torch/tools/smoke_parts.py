@@ -4,6 +4,7 @@
     python3 kubeai_tpu_torch/tools/smoke_parts.py serving
     python3 kubeai_tpu_torch/tools/smoke_parts.py loader
     python3 kubeai_tpu_torch/tools/smoke_parts.py sharded
+    python3 kubeai_tpu_torch/tools/smoke_parts.py chaos
 
 ``serving``: phase 1 (the kernel build), then phase 4 with the wall of
 each of its parts (each serving run, the graph turns and profiles, the
@@ -11,10 +12,13 @@ LoRA runs, the step profiles, each family, the checkpoint and tiny runs)
 printed as ``PART <function>[<run>] <seconds>s``. ``loader``: the
 4-layer checkpoint at Llama-3.1-8B width, the cache loader in a child
 process, then ``phase_loader`` (the ``operator``, ``operator_loops``
-and ``kube`` runs) on its library directory. ``sharded``: phase 10
+and ``kube`` runs, their pods on the loader's library directory; this
+process builds its own, as phase 1 would). ``sharded``: phase 10
 (tools/sharded_check.py) with its step and moe parts on each of
 SHARDED_BACKENDS, alone and then beside phase 1's kernel build; each
-wall printed as ``PART sharded[...]``.
+wall printed as ``PART sharded[...]``. ``chaos``: phase 1, the chaos
+path's kernel cases (``_chaos_cases``), then the campaign's child
+process (``start_chaos``, ``phase_chaos``) alone.
 Each prints chip_smoke's own lines. Run from the repository root, where
 chip_smoke.py is.
 """
@@ -67,7 +71,7 @@ def _time_parts(cs) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("part", choices=("serving", "loader", "sharded"))
+    parser.add_argument("part", choices=("serving", "loader", "sharded", "chaos"))
     args = parser.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
@@ -82,6 +86,17 @@ def main(argv=None) -> int:
         cs.phase_serving()
         cs.log(f"PART phase_serving {time.monotonic() - t1:.1f}s")
         return 0
+    if args.part == "chaos":
+        cs.phase_env()
+        cs._chaos_cases(lambda name, case, err, ms, plain_ms, nbytes, flops, lib_ms, *a, **k:
+                        cs.log("kernel_case", json.dumps({
+                            "kernel": name, "case": case, "max_abs_err": err, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": cs._bound(nbytes, flops, "f32")[0],
+                            "library_ms": lib_ms})))
+        t1 = time.monotonic()
+        cs.log(json.dumps(cs.phase_chaos(cs.start_chaos())))
+        cs.log(f"PART chaos {time.monotonic() - t1:.1f}s")
+        return 0
     from kubeai_tpu_torch.ops import _build
 
     if args.part == "sharded":
@@ -95,7 +110,6 @@ def main(argv=None) -> int:
     cs.log("checkpoint written in", cs._write_width_checkpoint(ckpt), "s")
     run = cs._start_loader(ckpt, work)
     run.update(ckpt=ckpt, spawn={"spawn_to_ready_s": None, "phases": {}})
-    _build.set_library_dir(run["cache"])
     cs.log(json.dumps(cs.phase_loader(run)))
     cs.log(f"PART loader {time.monotonic() - t0:.1f}s")
     return 0

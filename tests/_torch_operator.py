@@ -19,7 +19,13 @@ cloned alike), loaded as a module of its own: its cases run the same
 inputs and the same assertions on the port's objects. A stateful object
 (an autoscaler, a reconciler over a store) cannot be carried across per
 call as ``dual`` carries functions, so such test files run each case
-twice, on the JAX module and on its clone (``run_jax_case_both``)."""
+twice, on the JAX module and on its clone (``run_jax_case_both``).
+
+``obs_dirs`` (autouse where imported) points ``KUBEAI_HISTORY_DIR`` and
+``KUBEAI_INCIDENT_DIR`` under the test's ``tmp_path``: a Manager's or a
+recorder's rings never reach the shared default directories, where
+another test (or a later run) would restore them; and it puts back each
+package's installed forecaster, recorder, history store and prober."""
 
 from __future__ import annotations
 
@@ -35,6 +41,29 @@ import pytest
 from _pytest.fixtures import FixtureFunctionDefinition
 
 JAX, PORT = "kubeai_tpu", "kubeai_tpu_torch"
+
+
+# Each package's process-wide install points (module, global): a test
+# that builds a Manager and never stops it (a JAX wiring case) leaves them
+# set for the next test file on its worker.
+_INSTALLS = (("obs.forecast", "_forecaster"), ("obs.incidents", "_recorder"),
+             ("obs.history", "_store"), ("obs.canary", "_prober"))
+
+
+@pytest.fixture(autouse=True)
+def obs_dirs(tmp_path, monkeypatch):
+    """The history and incident directories under ``tmp_path``:
+    {"history": dir, "incidents": dir}; each package's install points are
+    as before the test after it."""
+    dirs = {"history": str(tmp_path / "obs-history"),
+            "incidents": str(tmp_path / "obs-incidents")}
+    monkeypatch.setenv("KUBEAI_HISTORY_DIR", dirs["history"])
+    monkeypatch.setenv("KUBEAI_INCIDENT_DIR", dirs["incidents"])
+    for pkg in (JAX, PORT):
+        for mod, name in _INSTALLS:
+            m = importlib.import_module(f"{pkg}.{mod}")
+            monkeypatch.setattr(m, name, getattr(m, name))
+    return dirs
 
 
 def _package_of(obj) -> str | None:

@@ -14,7 +14,7 @@ import test_autoscaler as jtest_autoscaler
 import test_autoscaler_signal as jtest_autoscaler_signal
 import test_disagg as jtest_disagg
 import test_movingaverage as jtest_movingaverage
-from _torch_operator import jax_cases, run_jax_case_both
+from _torch_operator import jax_cases, obs_dirs, run_jax_case_both  # noqa: F401  (obs_dirs: autouse)
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
@@ -28,18 +28,9 @@ DISAGG_CLASSES = ("TestSignals", "TestFleetRoles", "TestPerPoolAutoscaling")
 
 CASES = (
     jax_cases(jtest_movingaverage)
-    # The JAX Manager's wiring case uninstalls the history store and the
-    # incident recorder, which the port leaves out (ROADMAP queue 1, item
-    # 7b): test_manager_wires_the_loops holds the port's Manager instead.
-    + jax_cases(jtest_autoscaler, skip=("TestEngineQueueScrape.test_manager_wires_queue_signal",))
+    + jax_cases(jtest_autoscaler)
     + jax_cases(jtest_autoscaler_signal)
-    # The hold-trigger case captures through the JAX IncidentRecorder,
-    # which the port leaves out (ROADMAP queue 1, item 7b): the scripted
-    # ticks below hold the port's triggers to JAX's through a recorder of
-    # their own.
-    + [c for c in jax_cases(jtest_disagg, skip=(
-        "TestPerPoolAutoscaling.test_hold_trigger_fires_on_confirmed_streak_and_keeps_publishing",))
-       if c.values[1].split(".")[0] in DISAGG_CLASSES]
+    + [c for c in jax_cases(jtest_disagg) if c.values[1].split(".")[0] in DISAGG_CLASSES]
 )
 
 
@@ -455,11 +446,26 @@ def test_manager_wires_the_loops():
     autoscaler (its engine signal the collector's), the three reconcilers'
     hooks and the parked pool, the decision log shared with the pool and
     the API, the SLO monitor over the fleet's pages and the canary prober
-    over the proxy (both behind the election), and one messenger per
+    over the proxy (both behind the election), the history store under
+    <KUBEAI_HISTORY_DIR>/operator fed by its sampler and the fleet, the
+    forecaster over it (the autoscaler's), the incident recorder over the
+    fleet's pages by address, each installed, and one messenger per
     stream over its own model client and balancer."""
+    import os
+
     from kubeai_tpu_torch.config.system import MessageStream, System
     from kubeai_tpu_torch.manager import Manager
     from kubeai_tpu_torch.obs import canary as canary_mod
+    from kubeai_tpu_torch.obs import forecast as forecast_mod
+    from kubeai_tpu_torch.obs import history as history_mod
+    from kubeai_tpu_torch.obs import incidents as incidents_mod
+
+    def uninstall(mgr):
+        # Never started, so never stopped: uninstall its installs here.
+        canary_mod.uninstall_canary(mgr.canary)
+        incidents_mod.uninstall_recorder(mgr.incidents)
+        forecast_mod.uninstall_forecaster(mgr.forecaster)
+        history_mod.uninstall_history(mgr.history)
 
     system = System()
     system.parked_replicas = 1
@@ -472,7 +478,21 @@ def test_manager_wires_the_loops():
         assert mgr.reconciler.parked_pool is mgr.parked_pool is mgr.autoscaler.parked_pool
         assert mgr.parked_pool.decision_log is mgr.autoscaler.decisions is mgr.api.decision_log
         assert mgr.api.fleet is mgr.fleet and mgr.api.election is mgr.election
-        assert mgr.api.slo is mgr.slo and mgr.autoscaler.forecaster is None
+        assert mgr.api.slo is mgr.slo and mgr.autoscaler.forecaster is mgr.forecaster
+        assert mgr.history.history_dir == os.path.join(os.environ["KUBEAI_HISTORY_DIR"],
+                                                       "operator")
+        assert mgr.history_sampler.store is mgr.history is mgr.fleet.history
+        assert mgr.history_sampler._election is mgr.election
+        assert mgr.forecaster.history is mgr.history and mgr.forecaster.election is mgr.election
+        assert mgr.forecaster.decision_log is mgr.autoscaler.decisions
+        assert mgr.incidents._remote_pages == mgr.fleet.parsed_pages_by_addr
+        assert mgr.incidents._election is mgr.election
+        assert mgr.incidents.incident_dir == os.environ["KUBEAI_INCIDENT_DIR"]
+        assert {"endpoints", "engines", "history", "forecast", "autoscaler", "fleet", "slo",
+                "canary", "logs"} <= set(mgr.incidents._sources)
+        assert incidents_mod.installed_recorder() is mgr.incidents
+        assert forecast_mod.installed_forecaster() is mgr.forecaster
+        assert history_mod.installed_history() is mgr.history
         assert mgr.slo._remote_pages == mgr.fleet.parsed_pages
         assert mgr.slo._election is mgr.election and mgr.canary._election is mgr.election
         assert (mgr.canary.proxy, mgr.canary.model_client, mgr.canary.lb) == \
@@ -481,8 +501,7 @@ def test_manager_wires_the_loops():
         assert mgr.fleet.default_max_age == 1.5 * system.autoscaling.interval_seconds
     finally:
         mgr.api.httpd.server_close()
-        # Never started, so never stopped: uninstall its prober here.
-        canary_mod.uninstall_canary(mgr.canary)
+        uninstall(mgr)
     assert mgr.messengers == []
     system = System()
     system.streams = [MessageStream(requests_url="mem://a", responses_url="mem://b"),
@@ -498,5 +517,5 @@ def test_manager_wires_the_loops():
                    for m in mgr.messengers)
     finally:
         mgr.api.httpd.server_close()
-        canary_mod.uninstall_canary(mgr.canary)
+        uninstall(mgr)
         canary_mod.uninstall_canary(mgr.canary)

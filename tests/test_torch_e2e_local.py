@@ -52,6 +52,7 @@ from kubeai_tpu_torch.messenger import open_subscription, open_topic
 from kubeai_tpu_torch.models.base import ModelConfig
 from kubeai_tpu_torch.runtime.store import ObjectMeta
 
+from _torch_operator import obs_dirs  # noqa: F401  (autouse)
 from test_torch_weights import _checkpoint
 
 

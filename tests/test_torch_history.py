@@ -15,10 +15,16 @@ JAX package's, on the CPU.
 - A port engine server installs a store under
   ``<KUBEAI_HISTORY_DIR>/engine``, answers ``/debug/history`` 200 with
   its sampled series, and flushes a file at stop.
+- The operator's side: ``record_fleet`` of the same seeded fleet views,
+  ``context_block`` over them, and a sampler's leader gating (a
+  ``leadership_change`` gap at each change) are equal to JAX's; the
+  cases of tests/test_history.py run on both packages.
 """
 
+import inspect
 import json
 import os
+import threading
 import time
 import urllib.request
 
@@ -35,6 +41,8 @@ from kubeai_tpu_torch.metrics import Registry as TRegistry
 from kubeai_tpu_torch.obs import history as th
 from kubeai_tpu_torch.obs import tenants as tt
 
+import test_history as jtest_history
+from _torch_operator import jax_cases, port_clone, run_jax_case, to_port
 from _torch_threads import few_torch_threads  # noqa: F401  (autouse)
 
 
@@ -238,3 +246,113 @@ def test_port_server_serves_history_and_flushes_at_stop(tmp_path, monkeypatch):
     assert th.installed_history() is None
     files = os.listdir(tmp_path / "engine")
     assert any(f.startswith("history-") and f.endswith(".json") for f in files)
+
+
+# test_build_info_gauge holds the JAX build gauge's labels (its `jax`
+# version): test_port_build_info_gauge holds the port's.
+@pytest.mark.parametrize("module,qual,params",
+                         jax_cases(jtest_history, skip=("test_build_info_gauge",)))
+def test_jax_cases_on_both_packages(module, qual, params, request, monkeypatch,
+                                    tmp_path_factory):
+    run_jax_case(module, qual, params, (), request, monkeypatch)
+    # The port's run gets a directory of its own: a store restores what
+    # it finds there.
+    clone = port_clone(module)
+    fn = getattr(clone, qual) if "." not in qual else \
+        getattr(getattr(clone, qual.split(".")[0]), qual.split(".")[1])
+    if "tmp_path" in inspect.signature(fn).parameters:
+        params = {**params, "tmp_path": tmp_path_factory.mktemp("port")}
+    run_jax_case(clone, qual, to_port(params), (), request, monkeypatch)
+
+
+def _fleet_views(g, addrs=("10.0.0.1:8000", "10.0.0.2:8000")):
+    """One seeded FleetCollector.collect() result for two Models, one
+    with prefill/decode pools and a failed endpoint."""
+    views = {}
+    for model in ("m1", "m2"):
+        eps = []
+        for i, addr in enumerate(addrs):
+            eps.append({
+                "address": addr, "ok": not (model == "m2" and i == 1),
+                "queue_depth": float(g.integers(0, 9)), "active_slots": float(g.integers(0, 8)),
+                "tokens_per_second": float(g.uniform(0, 900)),
+                "pages_used": float(g.integers(0, 500)),
+                "prefix_hit_ratio": None if i else float(g.uniform()),
+                "breaker_state": ("closed", "open", "half_open", "soft_ejected", None)[
+                    int(g.integers(0, 5))],
+                "health_score": float(g.uniform()) if i == 0 else None,
+                "role": ("prefill", "decode")[i] if model == "m1" else ""})
+        agg = {k: float(g.uniform(0, 100)) for k in (
+            "queue_depth", "active_slots", "tokens_per_second", "free_pages",
+            "headroom_requests")}
+        agg["prefix_hit_ratio"] = None
+        views[model] = {"endpoints": eps, "aggregate": agg}
+        if model == "m1":
+            views[model]["pools"] = {r: dict(agg, queue_depth=float(g.integers(0, 5)))
+                                     for r in ("prefill", "decode")}
+    return views
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_record_fleet_and_context_block_equal_jax(seed):
+    answers = []
+    for mod in (jh, th):
+        g = np.random.default_rng(seed)
+        wall = Clock(1_000_000.0)
+        store = mod.HistoryStore(history_dir="", wall=wall)
+        for _ in range(30):
+            store.record_fleet(_fleet_views(g))
+            store.record("kubeai_engine_queue_depth", float(g.integers(0, 9)))
+            store.record("kubeai_slo_burn_rate{objective=ttft}", float(g.uniform()))
+            store.record("kubeai_unrelated_gauge", 1.0)
+            wall.t += 5.0
+        names = store.series_names()
+        answers.append((names, json.dumps(store.context_block()),
+                        json.dumps(store.context_block(seconds=60.0, max_series=5)),
+                        json.dumps(store.query([n for n in names if n.startswith("fleet.")],
+                                               since=wall.t - 3600))))
+    assert answers[0] == answers[1]
+    names = answers[1][0]
+    assert "fleet.m1.pool.prefill.queue_depth" in names
+    assert "fleet.m1.10.0.0.1:8000.breaker_state" in names
+    assert not any(n.startswith("fleet.m2.10.0.0.2:8000") for n in names)  # a failed scrape
+    ctx = json.loads(answers[1][1])
+    assert "kubeai_unrelated_gauge" not in ctx["series"]
+    assert "kubeai_engine_queue_depth" in ctx["series"] and ctx["window_seconds"] == 600.0
+    assert json.loads(answers[1][2])["series_truncated"] > 0
+
+
+class _Election:
+    def __init__(self):
+        self.is_leader = threading.Event()
+
+
+def test_sampler_leader_gating_equal_jax():
+    """Leadership changes mark equal gaps in both packages' stores."""
+    gaps = []
+    for Reg, mod in ((JRegistry, jh), (TRegistry, th)):
+        reg = Reg()
+        reg.gauge("kubeai_engine_queue_depth", "queue").set(3.0)
+        mono, wall = Clock(0.0), Clock(2000.0)
+        store = mod.HistoryStore(history_dir="", wall=wall)
+        el = _Election()
+        samp = mod.RegistrySampler(store, registry=reg, interval_seconds=5.0, clock=mono,
+                                   wall=wall, election=el)
+        for leading in (False, True, True, False, False, True):
+            el.is_leader.set() if leading else el.is_leader.clear()
+            samp.tick()
+            mono.t += 5.0
+            wall.t += 5.0
+        gaps.append(store.gaps())
+    assert gaps[0] == gaps[1]
+    assert [g["reason"] for g in gaps[1]] == ["leadership_change"] * 3
+
+
+def test_port_build_info_gauge():
+    from kubeai_tpu_torch.metrics import default_registry, set_build_info
+
+    set_build_info("operator")
+    snap = default_registry.get("kubeai_build_info").snapshot()
+    ours = [dict(k) for k in snap if dict(k).get("server") == "operator"]
+    assert ours and ours[0]["python"] and ours[0]["torch"] and "jax" not in ours[0]
+    assert all(v == 1.0 for v in snap.values())

@@ -32,7 +32,7 @@ import urllib.request
 import pytest
 
 import test_kubestore as jtest_kubestore
-from _torch_operator import jax_cases, plain, port_clone, run_jax_case_both
+from _torch_operator import jax_cases, obs_dirs, plain, port_clone, run_jax_case_both  # noqa: F401
 from test_kubestore import FakeAPIServer
 from test_proxy_integration import FakeEngine
 

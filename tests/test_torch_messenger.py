@@ -33,7 +33,7 @@ from hypothesis import strategies as st
 
 import test_cloud_drivers as jtest_cloud_drivers
 import test_messenger as jtest_messenger
-from _torch_operator import jax_cases, port_clone, run_jax_case, to_port
+from _torch_operator import jax_cases, obs_dirs, port_clone, run_jax_case, to_port  # noqa: F401
 
 from kubeai_tpu.messenger import drivers as jdrivers
 from kubeai_tpu.messenger import kafka_proto as jkp

@@ -135,7 +135,7 @@ def test_fault_sites_are_jax_sites():
     sites = _port_sites()
     assert sites == {"engine.submit", "engine.step", "engine.stream", "engine.kv_export",
                      "engine.kv_import", "weights.load", "gang.publish", "gang.follower",
-                     "history.disk", "proxy.connect", "balancer.reconcile"}
+                     "history.disk", "incidents.disk", "proxy.connect", "balancer.reconcile"}
     assert sites <= set(SUBSYSTEM_OF)
 
 

@@ -40,6 +40,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+from _torch_operator import obs_dirs  # noqa: F401  (autouse)
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -397,9 +398,22 @@ def test_debug_routes_equal_jax(monkeypatch):
             if pkg == "kubeai_tpu_torch":
                 code, index = _get(srv.port, "/debug")
                 paths = [e["path"] for e in index["endpoints"]]
-                assert code == 200 and {"/debug/slo", "/debug/canary"} <= set(paths)
-                for p in ("/debug/incidents", "/debug/forecast"):
-                    assert _get(srv.port, p)[0] == 404
+                assert code == 200 and {"/debug/slo", "/debug/canary", "/debug/incidents",
+                                        "/debug/forecast"} <= set(paths)
+                # The proxy answers both once a recorder and a forecaster
+                # are installed.
+                incidents, forecast = _mod(pkg, "obs.incidents"), _mod(pkg, "obs.forecast")
+                fake = incidents._recorder
+                incidents._recorder = incidents.IncidentRecorder(incident_dir="")
+                forecaster = forecast.Forecaster(
+                    _mod(pkg, "obs.history").HistoryStore(history_dir=""))
+                forecast.install_forecaster(forecaster)
+                try:
+                    for p in ("/debug/incidents", "/debug/forecast"):
+                        assert _get(srv.port, p)[0] == 200
+                finally:
+                    incidents._recorder = fake
+                    forecast.uninstall_forecaster(forecaster)
         finally:
             srv.stop()
     assert bodies["kubeai_tpu_torch"] == bodies["kubeai_tpu"]
@@ -476,7 +490,7 @@ def test_manager_cli_takes_the_lease_on_an_apiserver(tmp_path):
 
     api = APIServer()
     env = {**os.environ, "PYTHONPATH": ROOT, "KUBEAI_HISTORY_DIR": str(tmp_path),
-           "KUBEAI_CANARY": "0"}
+           "KUBEAI_INCIDENT_DIR": str(tmp_path / "incidents"), "KUBEAI_CANARY": "0"}
     env.pop("KUBERNETES_SERVICE_HOST", None)
     out = open(tmp_path / "manager.log", "wb")
     proc = subprocess.Popen(
