@@ -191,7 +191,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      /debug/slo over the fleet's scrapes, the Lease and the
      AutoscalerState ConfigMap in the apiserver, request counts by verb;
      the Model DELETEd through the REST API takes the Pod out of the
-     apiserver, ends the process and returns the card's memory;
+     apiserver, ends the process and returns the card's memory. The
+     Manager's System is the port's operator chart's rendered ConfigMap,
+     and every request it sent must be granted by the chart's Role;
   8. fine-tune (phase_finetune, budget 90 s): the LoRA fine-tune CLI
      (train/finetune.py's main) over a 4-layer checkpoint at
      Llama-3.1-8B width (64 seeded JSONL rows, --seq-len 256, rank 16 on
@@ -239,6 +241,14 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      1e-5 of each leaf's max |g|, pairs dropped (must be > 0). One
      ``sharded_train`` line per part. It adds no kernel and launches none
      of the four.
+ 11. charts (phase_charts; no card): beside phase 1's build, the port's
+     operator and models charts rendered by the port's helmlite (kinds
+     and document counts), the operator chart's ConfigMap loaded through
+     load_system_config (nvidia-gpu-h100 among its profiles) and the
+     native fasthash library built and loaded; after phase 9, on the
+     card's host, the CHWBL ring build of one endpoint (256 nodes) and
+     the xxh64 of a 100-byte key, native against _xxh64_py, in µs (the
+     "charts" line, with the card's name and power limit).
 The last two lines are the kernels summary (each kernel's launches in
 the run of its own path, and per path; every entry must have launched
 there) and {"ok": true, ...}.
@@ -2344,6 +2354,7 @@ def _serve_families() -> dict:
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+        log(f"family[{run}]: {time.monotonic() - t0:.1f}s")
     return out
 
 
@@ -5086,6 +5097,30 @@ KUBE_INCIDENT_TRIGGERS = ("crash_loop", "breaker_ejection", "error_spike")
 KUBE_MID = ("A lamp burns in the lighthouse above the northern harbor. " * 6)[:300]
 
 
+# The kube run's System: the port's operator chart with these values.
+KUBE_CHART_SETS = {"autoscaling.intervalSeconds": "1", "autoscaling.timeWindowSeconds": "3"}
+# The Manager's bearer token at the stand-in (the user its requests count under).
+KUBE_OPERATOR = "operator"
+
+
+def _chart_system(sets: dict) -> tuple:
+    """(System, Role) of the port's operator chart rendered by the port's
+    helmlite with *sets* in namespace "default": the System loaded from
+    the rendered ConfigMap through load_system_config, as the chart's
+    Deployment loads it from CONFIG_PATH."""
+    import yaml
+
+    import kubeai_tpu_torch
+    from kubeai_tpu_torch.config.system import load_system_config
+    from kubeai_tpu_torch.utils.helmlite import render_chart
+
+    chart = os.path.join(os.path.dirname(kubeai_tpu_torch.__file__), "charts", "kubeai-tpu-torch")
+    docs = render_chart(chart, sets=sets, namespace="default")
+    (cm,) = [d for d in docs if d["kind"] == "ConfigMap" and "system.yaml" in d.get("data", {})]
+    (role,) = [d for d in docs if d["kind"] == "Role"]
+    return load_system_config(data=yaml.safe_load(cm["data"]["system.yaml"])), role
+
+
 def _kube_post(url, doc=None, method="POST") -> dict:
     """One request to the apiserver stand-in, as kubectl sends it."""
     req = urllib.request.Request(url, data=json.dumps(doc).encode() if doc else None,
@@ -5098,8 +5133,10 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
     """The operator on a cluster, on the loader's cache (path "kube"): an
     apiserver stand-in (kubeai_tpu_torch/tools/kube_standin.py: the REST
     subset and the chunked watch stream), a Manager over KubeStore on it
-    (autoscaling.interval_seconds 1, the canary at KUBEAI_CANARY_INTERVAL
-    1) that holds the only lease, and the stand-in's kubelet, which runs
+    (its System loaded from the ConfigMap of the port's operator chart,
+    rendered with KUBE_CHART_SETS: autoscaling every second over a 3 s
+    window; the canary at KUBEAI_CANARY_INTERVAL 1) that holds the only
+    lease, and the stand-in's kubelet, which runs
     each Pod from the manifest the apiserver holds (LocalRuntime's launch,
     port rewrite and readiness probe) and writes its status into the
     apiserver. A Model (min 0, max 1, file:// the loader's destination,
@@ -5124,33 +5161,36 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
     pod must be captured as an incident (_kube_incident). The Model is
     DELETEd through the REST API: the Pods must leave the apiserver, every
     pod process exit and the card's free memory come back within 512
-    MiB. Returns (numbers, launch counts); the incident's numbers are
-    under "incidents"."""
+    MiB; then every (verb, group, resource) the stand-in saw from the
+    Manager (its store's bearer token; the kubelet's store has its own)
+    must be granted by the chart's Role. Returns (numbers, launch counts);
+    the incident's numbers are under "incidents"."""
     import torch
 
     from kubeai_tpu_torch.api import model_types as mt
-    from kubeai_tpu_torch.config.system import System
     from kubeai_tpu_torch.manager import Manager
     from kubeai_tpu_torch.metrics import default_registry
     from kubeai_tpu_torch.models.base import llama_3_1_8b
     from kubeai_tpu_torch.runtime.k8s import KubeStore
-    from kubeai_tpu_torch.tools.kube_standin import APIServer, Kubelet
+    from kubeai_tpu_torch.tools.kube_standin import APIServer, Kubelet, refused_by_role
 
     t_start = time.monotonic()
     work = os.path.dirname(run["cache"])
     counts_dir = os.path.join(work, "launch_counts")
     api = APIServer()
     models_url = f"{api.url}/apis/kubeai.org/v1/namespaces/default/models"
-    system = System()
-    system.autoscaling.interval_seconds = 1.0
-    system.autoscaling.time_window_seconds = 3.0
+    # The System and the Role as the port's operator chart renders them.
+    system, role = _chart_system(KUBE_CHART_SETS)
+    state_name = f"rec-autoscalerstate-{system.autoscaling.state_config_map_name}"
     os.environ["KUBEAI_POD_LOGS"] = os.path.join(work, "kube_pod_logs")
     with _env(KUBEAI_CANARY="1", KUBEAI_CANARY_INTERVAL="1",
               KUBEAI_FORECAST_SEASON_SECONDS=str(KUBE_SEASON_S),
               KUBEAI_FORECAST_HORIZON=str(KUBE_SEASON_S), KUBEAI_FORECAST_INTERVAL="1",
               KUBEAI_FORECAST_LEAD=str(lead_s)):
-        mgr = Manager(system, store=KubeStore(api_server=api.url), host="127.0.0.1", port=0)
-    kubelet = Kubelet(api, KubeStore(api_server=api.url), extra_env={
+        # Each client's bearer token names it to the stand-in.
+        mgr = Manager(system, store=KubeStore(api_server=api.url, token=KUBE_OPERATOR),
+                      host="127.0.0.1", port=0)
+    kubelet = Kubelet(api, KubeStore(api_server=api.url, token="kubelet"), extra_env={
         **run["env"], "PATH": os.path.join(work, "pod_bin") + os.pathsep + run["env"]["PATH"],
         "PYTHONPATH": os.path.join(work, "pod_site"), "KUBEAI_COMPILE_CACHE": run["cache"],
         "KUBEAI_COLDSTART_OVERLAP": "1", "SMOKE_LAUNCH_COUNTS": counts_dir})
@@ -5251,7 +5291,7 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
         slo = _http(mgr.api.port, "/debug/slo")[2]
         canary = _http(mgr.api.port, "/debug/canary")[2]
         lease = api.get("leases", "kubeai-tpu.kubeai.org")
-        state = api.get("configmaps", "rec-autoscalerstate-kubeai-autoscaler-state")
+        state = api.get("configmaps", state_name)
         # The canary's checks are done: a probe during the kill below
         # would meet the dead pod.
         mgr.canary.stop()
@@ -5270,6 +5310,10 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
         _until(lambda: all(p.poll() is not None for p in live),
                "kube: a pod's process outlived it", 60)
         res["teardown_s"] = time.monotonic() - t_del
+        # Every request the Manager sent, as the apiserver's authorizer
+        # reads it, must be one the chart's Role grants.
+        sent = api.requests_of(KUBE_OPERATOR)
+        refused = refused_by_role(role, sent)
         time.sleep(0.5)
         free1 = torch.cuda.mem_get_info()[0]
     finally:
@@ -5281,6 +5325,10 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
         os.environ.pop("KUBEAI_POD_LOGS", None)
         api.stop()
     res["wall_s"] = time.monotonic() - t_start
+    log("kube[rbac] the Manager's requests (verb, group, resource, namespaced):",
+        json.dumps(sorted(sent)))
+    if refused:
+        raise AssertionError(f"kube: the chart's Role refuses the Manager's requests {refused}")
     if res["built"] or res["missing"] or sorted(res["loaded"]) != sorted(res["libraries"]):
         raise AssertionError(f"kube: the replica on the warmed cache built: {res}")
     if lease is None or lease["spec"].get("holderIdentity") != mgr.election.identity:
@@ -5313,6 +5361,10 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
     res.update({
         "tokens_equal": not diverged, "diverged_at_near_ties": diverged,
         "apiserver": {"requests_by_verb": dict(sorted(api.requests.items())),
+                      "requests_by_user": {u or "(none)": sum(
+                          n for k, n in api.requests_by.items() if k[0] == u)
+                          for u in sorted({k[0] for k in api.requests_by})},
+                      "operator_requests": len(sent), "refused_by_role": refused,
                       "conflicts": api.conflicts, "watch_events": api.watch_events,
                       "pods_at_delete": sorted(pods_before)},
         "lease": {"spec": lease["spec"], "resourceVersion": lease["metadata"]["resourceVersion"]},
@@ -6627,6 +6679,109 @@ def phase_gang() -> dict:
     return {"gang": run}
 
 
+def _charts_and_native() -> dict:
+    """The port's two charts rendered by the port's helmlite (kinds and
+    document counts; the models chart at its defaults and with every
+    entry enabled), the operator chart's ConfigMap loaded through
+    load_system_config (nvidia-gpu-h100 must be among its profiles), and
+    the native fasthash library built and loaded (native.load() must not
+    be None)."""
+    from collections import Counter
+
+    import kubeai_tpu_torch
+    from kubeai_tpu_torch.catalog import CATALOG
+    from kubeai_tpu_torch.utils import helmlite, native
+
+    t0 = time.monotonic()
+    charts = os.path.join(os.path.dirname(kubeai_tpu_torch.__file__), "charts")
+    enable_all = {"catalog." + n.replace(".", "\\.") + ".enabled": "true" for n in CATALOG}
+    out = {}
+    for label, chart, sets in (("operator", "kubeai-tpu-torch", {}), ("models", "models", {}),
+                               ("models_all_enabled", "models", enable_all)):
+        docs = helmlite.render_chart(os.path.join(charts, chart), sets=sets)
+        out[label] = {"documents": len(docs),
+                      "kinds": dict(sorted(Counter(d["kind"] for d in docs).items()))}
+    if out["models_all_enabled"]["kinds"] != {"Model": len(CATALOG)}:
+        raise AssertionError(f"charts: the models chart is not the catalog: {out}")
+    system, role = _chart_system(KUBE_CHART_SETS)
+    if "nvidia-gpu-h100" not in system.resource_profiles:
+        raise AssertionError(f"charts: no nvidia-gpu-h100 profile: {sorted(system.resource_profiles)}")
+    out.update({"profiles": sorted(system.resource_profiles), "role_rules": len(role["rules"]),
+                "render_s": time.monotonic() - t0})
+    t1 = time.monotonic()
+    if native.load() is None:
+        raise AssertionError("charts: the native fasthash library did not build or load")
+    out["native"] = {"library": os.path.relpath(native.library_path()),
+                     "build_and_load_s": time.monotonic() - t1}
+    return out
+
+
+def start_charts() -> dict:
+    """_charts_and_native in a thread: it needs no card and runs beside
+    phase 1's nvcc build (which waits on child processes)."""
+    run: dict = {}
+
+    def body():
+        try:
+            run["result"] = _charts_and_native()
+        except BaseException as e:  # re-raised by phase_charts
+            run["error"] = e
+
+    run["thread"] = threading.Thread(target=body, name="charts", daemon=True)
+    run["thread"].start()
+    return run
+
+
+def _per_call_us(fn, calls: int, repeats: int = 5) -> float:
+    """The least over *repeats* batches of *calls* calls of fn, in µs a call."""
+    best = math.inf
+    for _ in range(repeats):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, time.perf_counter() - t)
+    return best / calls * 1e6
+
+
+def phase_charts(run: dict) -> dict:
+    """The charts line: start_charts' result, and on the card's host the
+    CHWBL ring build of one endpoint (HashRing(256).add: 256 xxh64 calls
+    and the inserts) and the xxh64 of a 100-byte key, each with the native
+    library (the port's xxh64 dispatch) and with _xxh64_py patched in, in
+    µs; the card's name and power limit beside them."""
+    from kubeai_tpu_torch.loadbalancer.chwbl import HashRing
+    from kubeai_tpu_torch.utils import xxh
+
+    run["thread"].join()
+    if "error" in run:
+        raise run["error"]
+    out = run["result"]
+    key = (KUBE_MID * 2)[:100]
+    want = xxh._xxh64_py(key.encode())
+    if xxh.xxh64(key) != want or xxh._impl is xxh._xxh64_py:
+        raise AssertionError("charts: xxh64 does not dispatch to the native library")
+
+    def ring():
+        r = HashRing(256)
+        r.add("10.0.0.1:8000")
+        return r._sorted
+
+    native_ring = ring()
+    times = {"ring_256_native_us": _per_call_us(ring, 20),
+             "key_100B_native_us": _per_call_us(lambda: xxh.xxh64(key), 2000)}
+    impl, xxh._impl = xxh._impl, xxh._xxh64_py
+    try:
+        if ring() != native_ring:
+            raise AssertionError("charts: the ring differs between the backends")
+        times.update({"ring_256_python_us": _per_call_us(ring, 20),
+                      "key_100B_python_us": _per_call_us(lambda: xxh.xxh64(key), 2000)})
+    finally:
+        xxh._impl = impl
+    out["native"].update(times)
+    log("charts", gpu_line(), json.dumps(out))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6645,12 +6800,16 @@ def main() -> int:
     faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
     t0 = time.monotonic()
     sharded = start_sharded_train()
+    charts = start_charts()
     try:
         phase_env()
     except BaseException:
         sharded["proc"].kill()
         raise
     phase_sharded_train(sharded)
+    charts["thread"].join()
+    if "error" in charts:
+        raise charts["error"]
     log(f"elapsed after phases 1 and 10: {time.monotonic() - t0:.1f}s")
     # The chaos campaign's child imports beside phase 2 and runs on the
     # card beside phase 3, which times nothing.
@@ -6691,6 +6850,9 @@ def main() -> int:
     serving.update(phase_gang())
     log(f"gang phase: {time.monotonic() - t9:.1f}s")
     serving["chaos"] = chaos_counts
+    t_charts = time.monotonic()
+    phase_charts(charts)
+    log(f"charts phase: {time.monotonic() - t_charts:.1f}s past its thread")
     log(f"total: {time.monotonic() - t0:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a

@@ -20,9 +20,14 @@ apiserver holds as local processes.
   background cascade over ``ownerReferences``;
 - a Secret's ``stringData`` stored base64-encoded in ``data``.
 
-It counts requests by verb (``get``, ``list``, ``watch``, ``create``,
-``update``, ``delete``), the 409 answers (``conflicts``) and the events
-written to watch streams.
+It counts requests as an authorizer reads them (``requests_by``): by
+(user, verb, API group, resource or ``resource/subresource``,
+namespaced or not), the user being the request's bearer token ("" without
+one); ``requests`` sums them by verb (``get``, ``list``, ``watch``,
+``create``, ``update``, ``delete``). It also counts the 409 answers
+(``conflicts``) and the events written to watch streams. Give each client's KubeStore its own token (the
+Manager's one, the kubelet's another) and :func:`refused_by_role` tells
+which of a user's requests a rendered RBAC Role would have refused.
 
 ``Kubelet`` is LocalRuntime over a KubeStore on that apiserver: each Pod
 it is told of runs from the manifest the apiserver holds (the decoded
@@ -36,11 +41,12 @@ Pods only: a Job is left to a real cluster.
 Usage (a Python caller; chip_smoke's ``kube`` run)::
 
     api = APIServer()
-    mgr = Manager(system, store=KubeStore(api_server=api.url))
-    kubelet = Kubelet(api, KubeStore(api_server=api.url))
+    mgr = Manager(system, store=KubeStore(api_server=api.url, token="operator"))
+    kubelet = Kubelet(api, KubeStore(api_server=api.url, token="kubelet"))
     mgr.start(); kubelet.start()
     ...
     kubelet.stop(); mgr.stop(); api.stop()
+    refused_by_role(role, api.requests_of("operator"))  # [] under the chart's Role
 """
 
 from __future__ import annotations
@@ -78,6 +84,41 @@ def _route(path: str) -> tuple[str | None, str, str | None, str | None]:
     return ns, plural, name, sub
 
 
+_VERBS = {"POST": "create", "PUT": "update", "DELETE": "delete"}
+
+
+def request_key(method: str, path: str) -> tuple[str, str, str, bool]:
+    """(verb, API group, resource or ``resource/subresource``, namespaced)
+    of a request, as an RBAC authorizer reads it: a GET is ``get`` with a
+    name, else ``watch`` with ``watch=true``, else ``list``."""
+    ns, plural, name, sub = _route(path)
+    parts = path.split("?")[0].strip("/").split("/")
+    group = "" if parts[0] == "api" else parts[1]
+    if method == "GET":
+        watch = parse_qs(urlparse(path).query).get("watch") == ["true"]
+        verb = "get" if name else "watch" if watch else "list"
+    else:
+        verb = _VERBS[method]
+    return verb, group, plural + (f"/{sub}" if sub else ""), ns is not None
+
+
+def refused_by_role(role: dict, keys) -> list[tuple[str, str, str, bool]]:
+    """The request keys (:func:`request_key`) among *keys* that no rule of
+    the RBAC Role document *role* grants. A Role grants namespaced
+    requests only (in its own namespace); ``*`` matches any group,
+    resource or verb."""
+    out = []
+    for verb, group, resource, namespaced in sorted(set(keys)):
+        ok = namespaced and any(
+            ({group, "*"} & set(rule.get("apiGroups") or ()))
+            and ({resource, "*"} & set(rule.get("resources") or ()))
+            and ({verb, "*"} & set(rule.get("verbs") or ()))
+            for rule in role.get("rules") or ())
+        if not ok:
+            out.append((verb, group, resource, namespaced))
+    return out
+
+
 class APIServer:
     """The REST subset and the watch stream (see the module docstring)."""
 
@@ -88,7 +129,8 @@ class APIServer:
         # plural -> [(rv, type, document)]; compact() drops it.
         self.history: dict[str, list[tuple[int, str, dict]]] = {}
         self.min_rv = 0
-        self.requests: Counter = Counter()
+        # (user, verb, group, resource, namespaced) -> count
+        self.requests_by: Counter = Counter()
         self.conflicts = 0
         self.watch_events = 0
         self._watchers: list[tuple[str, str | None, queue.Queue]] = []
@@ -100,6 +142,20 @@ class APIServer:
         self._thread = threading.Thread(target=self.httpd.serve_forever, args=(0.05,),
                                         name="apiserver", daemon=True)
         self._thread.start()
+
+    @property
+    def requests(self) -> Counter:
+        """Every user's requests counted by verb."""
+        out: Counter = Counter()
+        with self._lock:
+            for (_, verb, *_), n in self.requests_by.items():
+                out[verb] += n
+        return out
+
+    def requests_of(self, user: str) -> set[tuple[str, str, str, bool]]:
+        """The (verb, group, resource, namespaced) keys *user* sent."""
+        with self._lock:
+            return {k[1:] for k in self.requests_by if k[0] == user}
 
     # -- the store ---------------------------------------------------------
 
@@ -265,6 +321,12 @@ def _handler(api: APIServer):
             self.end_headers()
             self.wfile.write(body)
 
+        def _count(self) -> None:
+            auth = self.headers.get("Authorization") or ""
+            user = auth[len("Bearer "):] if auth.startswith("Bearer ") else ""
+            with api._lock:
+                api.requests_by[(user, *request_key(self.command, self.path))] += 1
+
         def _body(self) -> dict:
             return json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))) or b"{}")
 
@@ -309,21 +371,19 @@ def _handler(api: APIServer):
             self.close_connection = True
 
         def do_GET(self):
+            self._count()
             ns, plural, name, _ = _route(self.path)
             qs = parse_qs(urlparse(self.path).query)
             if qs.get("watch") == ["true"]:
-                api.requests["watch"] += 1
                 rv = int((qs.get("resourceVersion") or ["0"])[0] or 0)
                 return self._watch(ns, plural, rv)
             with api._lock:
                 if name:
-                    api.requests["get"] += 1
                     doc = api.objects.get((ns, plural), {}).get(name)
                     if doc is None:
                         return self._send(404, {"kind": "Status", "reason": "NotFound",
                                                 "code": 404})
                     return self._send(200, doc)
-                api.requests["list"] += 1
                 sel = {}
                 for part in (qs.get("labelSelector") or [""])[0].split(","):
                     if "=" in part:
@@ -333,25 +393,25 @@ def _handler(api: APIServer):
             self._send(200, out)
 
         def do_POST(self):
+            self._count()
             ns, plural, _, _ = _route(self.path)
             doc = self._body()
             with api._lock:
-                api.requests["create"] += 1
                 code, out = api._create(ns or "default", plural, doc)
             self._send(code, out)
 
         def do_PUT(self):
+            self._count()
             ns, plural, name, sub = _route(self.path)
             doc = self._body()
             with api._lock:
-                api.requests["update"] += 1
                 code, out = api._update(ns or "default", plural, name, sub, doc)
             self._send(code, out)
 
         def do_DELETE(self):
+            self._count()
             ns, plural, name, _ = _route(self.path)
             with api._lock:
-                api.requests["delete"] += 1
                 code, out = api._delete(ns or "default", plural, name)
             self._send(code, out)
 

@@ -1,10 +1,15 @@
-"""xxHash64 in pure Python (port of kubeai_tpu/utils/xxh.py).
+"""xxHash64 (port of kubeai_tpu/utils/xxh.py): the hash behind the CHWBL
+consistent-hash ring, the pod-spec and adapter hashes, and the loader's
+staging directory names (a staging volume shared with the JAX engine
+names the same download alike).
 
-The loader keys a staged remote source's directory by the xxh64 of its
-URL, so a staging volume shared with the JAX engine names the same
-download alike. The JAX package's C++ accelerator (utils/native.py) is a
-speed-up of the same function; staging hashes one URL, so the port keeps
-the Python version alone.
+``xxh64`` calls the port's C++ library (``csrc/fasthash.cc``, built and
+bound by ``utils/native.py``) when it builds, as the JAX package does;
+without g++ the pure-Python ``_xxh64_py`` answers, bit for bit the same,
+and stays the tests' reference. The library's ``ring_hashes`` hashes a
+ring's virtual nodes in one call but truncates names past 480 bytes, so
+the CHWBL ring (``loadbalancer/chwbl.py``), like the JAX one, hashes each
+``"<name>/<i>"`` through ``xxh64`` instead.
 """
 
 from __future__ import annotations
@@ -31,11 +36,27 @@ def _merge_round(h: int, v: int) -> int:
     return (h * _P1 + _P4) & _M
 
 
+# Resolved once on first use: either the raw ctypes function (direct C
+# call, no lock on the steady-state path) or the Python fallback.
+_impl = None
+
+
 def xxh64(data: bytes | str, seed: int = 0) -> int:
     """xxHash64 of *data* (a str is hashed as UTF-8) with *seed*: an
-    unsigned 64-bit int."""
+    unsigned 64-bit int. Uses the native library when it builds; the
+    Python version is the fallback and the test reference."""
     if isinstance(data, str):
         data = data.encode("utf-8")
+    global _impl
+    if _impl is None:
+        from kubeai_tpu_torch.utils.native import load
+
+        lib = load()  # one-time (compiles the library if needed)
+        _impl = (lambda d, s: lib.xxh64(d, len(d), s)) if lib is not None else _xxh64_py
+    return _impl(data, seed)
+
+
+def _xxh64_py(data: bytes, seed: int = 0) -> int:
     n = len(data)
     i = 0
 

@@ -17,8 +17,10 @@ obs/incident_report.py) against the JAX package's, on the CPU.
   routes 404.
 - A Manager answers ``/debug/incidents`` and ``/debug/forecast`` 200,
   persists under ``KUBEAI_INCIDENT_DIR`` and ``KUBEAI_HISTORY_DIR``
-  (``obs_dirs``: the test's own), writes nothing into the shared default
-  directories, and uninstalls what it installed at stop.
+  (``obs_dirs``: the test's own), writes nothing into its default
+  directories (under a temporary directory of the test's own, so no
+  other process's writes can reach them), and uninstalls what it
+  installed at stop.
 """
 
 import contextlib
@@ -410,29 +412,19 @@ def test_standard_sources_over_the_port_stack(tmp_path):
     assert treport.render_incident(doc) == jreport.render_incident(doc)
 
 
-def _tree(root):
-    """{path: mtime} of every file under *root*."""
-    out = {}
-    for base, _, files in os.walk(root):
-        for f in files:
-            p = os.path.join(base, f)
-            try:
-                out[p] = os.stat(p).st_mtime_ns
-            except OSError:
-                pass
-    return out
-
-
-def test_manager_serves_and_isolates_its_rings(obs_dirs, monkeypatch):
+def test_manager_serves_and_isolates_its_rings(obs_dirs, monkeypatch, tmp_path):
     from kubeai_tpu_torch.config.system import System
     from kubeai_tpu_torch.manager import Manager
     from kubeai_tpu_torch.obs import canary, history as hist
 
     monkeypatch.setenv("KUBEAI_CANARY", "0")
     monkeypatch.setenv("KUBEAI_INCIDENT_SETTLE", "0")
-    shared = sorted({os.path.join(d, n) for d in ("/tmp", tempfile.gettempdir())
-                     for n in ("kubeai-history", "kubeai-incidents")})
-    before = {d: _tree(d) for d in shared}
+    # The default directories resolve through the temporary directory:
+    # this test's own, which no other process writes.
+    own_tmp = tmp_path / "tempdir"
+    own_tmp.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(own_tmp))
+    defaults = [os.path.join(own_tmp, n) for n in ("kubeai-history", "kubeai-incidents")]
     # No loop ticks within the test: an SLO tick would leave its gauges in
     # the process's registry for the next test file on this worker.
     system = System()
@@ -464,4 +456,4 @@ def test_manager_serves_and_isolates_its_rings(obs_dirs, monkeypatch):
     assert os.listdir(obs_dirs["incidents"]) == [f"incident-{iid}.json"]
     assert any(f.startswith("history-")
                for f in os.listdir(os.path.join(obs_dirs["history"], "operator")))
-    assert {d: _tree(d) for d in shared} == before
+    assert not [(d, os.listdir(d)) for d in defaults if os.path.exists(d) and os.listdir(d)]
