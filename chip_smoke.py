@@ -9,10 +9,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      instances in libraries of their own, built beside the others),
      nvcc's per-kernel resource report and the HGMMA / HMMA (tensor-core)
      instruction count of each library (the three attention kernels'
-     bf16 instances at head dim 256, Gemma's, also in libraries of their
-     own); the dedicated decode kernel (its head-dim-256 library too) and
-     the W8A16 kernels must use HMMA and spill nothing, and the W8A16
-     library must show HGMMA (its wgmma tile);
+     instances at head dim 256, Gemma's, also in libraries of their own:
+     bf16 in "_d256", float32 in "_f32d256"); the dedicated decode kernel
+     (its head-dim-256 library too) and the W8A16 kernels must use HMMA
+     and spill nothing, the float32 head-dim-256 libraries (CUDA cores)
+     must spill nothing, and the W8A16 library must show HGMMA (its wgmma
+     tile);
   2. kernels: each hand-written CUDA kernel at the main path's shapes
      against its plain PyTorch version (float32 math on the same bf16
      inputs), timed beside the plain version, one PyTorch library call
@@ -40,8 +42,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      pools, an 8-token verify, a 1024 chunk at 1024) and at G = 7
      (decode, verify at 56 rows on split KV and 70 on the prefill tile,
      the chunk); W8A16 at Qwen's and Gemma's projections and heads
-     (Gemma's tied 256000 x 2048 head as qmatT); the decode grid must
-     cover every SM with 8, 4 and 1 KV heads;
+     (Gemma's tied 256000 x 2048 head as qmatT); float32 at head dim
+     256 (a float32 Gemma-2B, every kernel on its CUDA-core path): flash
+     at B=1 S=1024 and both paged kernels at decode B=8 kv 512 and an
+     8-token verify over float32, int8 and fp8 pools, each within
+     compare_f32 of its plain version; the decode grid must cover every
+     SM with 8, 4 and 1 KV heads;
   3. model parity: a 2-layer Llama-3.1-8B-width model, kernel path vs
      plain path on the same weights (bf16: gather attention; int8: also
      the W8A16 product in float32 math; an fp8 pool: the same gates with
@@ -102,8 +108,17 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      at 26, bf16, with zero flash and paged launches; Mixtral-8x7B at 16
      of its 32 layers, full width, bf16 ragged), no CUDA-core tile in any
      of them, and a step profile of each (decode, 8-token verify, cold
-     512 prefill). Then the loader: a 2-layer checkpoint at 8B width
-     written by the port's save_hf_checkpoint, with a Llama-3-style
+     512 prefill). Then Gemma-2B at full width and depth in float32
+     (GEMMA_F32_RUNS: the float32 pool on the ragged kernel, an fp8 pool
+     on the dedicated one; ~10 GB of weights built once): flash, ragged
+     and (dedicated run) the dedicated kernel launch on the "_f32d256"
+     libraries' CUDA-core tiles alone, and the run's engine (graphed) and
+     the other decode kernel (eager) give identical greedy tokens up to a
+     top-2 gap within 1e-4. Then the loader: a 2-layer checkpoint at 8B
+     width (written with its tokenizers and expected int8 leaves by the
+     host-prep thread, which starts at the top of main and writes once
+     phase 10 has ended, beside phases 2-4, as it writes the PEFT
+     adapters) by the port's save_hf_checkpoint, with a Llama-3-style
      tokenizer.json and chat template built here, is served through
      --model <dir> --quantization int8; its int8 leaves must equal
      quantize_model_params of the written weights, and a chat completion's
@@ -114,8 +129,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      id) instead of the tokenizer.json, served through --model <dir>
      --quantization int8 (path "spm": W8A16, flash and ragged must launch;
      the chat text equal to the decode of the greedy ids; the encode time
-     beside the tokenizer.json run's). Last, the JAX
-     package's float32 test config serves through the server's command
+     beside the tokenizer.json run's). The JAX
+     package's float32 test config (run right after phase 3, beside the
+     chaos child's tail) serves through the server's command
      line with --quantization int8 --kv-cache-dtype fp8 and then with
      --speculate-tokens 3, its greedy tokens equal to the same engine's on
      the CPU;
@@ -135,16 +151,18 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      /debug/profile naming the decode kernel (the decode step timed
      before and after it), and the drain (/readyz 200 -> 503, the stream
      in flight completes, new work gets 429);
-  7. cold start (phase_coldstart, budget 120 s): a spawned server over a
-     4-layer checkpoint at Llama-3.1-8B width into an empty library
+  7. cold start (phase_coldstart, budget 120 s; phase 8 runs in a thread
+     beside its cold spawn): a spawned server over a
+     4-layer checkpoint at Llama-3.1-8B width (written by the host-prep
+     thread) into an empty library
      directory (KUBEAI_COMPILE_CACHE, the build overlapped with the
      weight stream, --warmup): spawn -> /readyz 200 and each phase; then
      a parked server warmed for preset:llama-3.1-8b and attached with
      the same args (the park engine adopted, weights in place): park
      warm and attach -> ready seconds, capture seconds by part, 8 greedy
      requests equal to a directly built engine's (path "parked"). Beside
-     the parked part and phase 8, the cache loader Job's command runs in
-     a child process (``python -m kubeai_tpu_torch.loader
+     the cold spawn, phase 8 and the parked part, the cache loader Job's
+     command runs in a child process (``python -m kubeai_tpu_torch.loader
      --warm-compile-cache s3://...`` through a stand-in aws, into an
      empty KUBEAI_COMPILE_CACHE); after phase 8, phase_loader (budget
      240 s) prints its staging and build seconds and the seconds waited
@@ -190,11 +208,15 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      ticks at KUBEAI_CANARY_INTERVAL=1 all ok with one fingerprint,
      /debug/slo over the fleet's scrapes, the Lease and the
      AutoscalerState ConfigMap in the apiserver, request counts by verb;
-     the Model DELETEd through the REST API takes the Pod out of the
-     apiserver, ends the process and returns the card's memory. The
-     Manager's System is the port's operator chart's rendered ConfigMap,
-     and every request it sent must be granted by the chart's Role;
-  8. fine-tune (phase_finetune, budget 90 s): the LoRA fine-tune CLI
+     the Model scaled to zero through the REST API (the autoscaler
+     stopped) has its pods deleted by the Manager, then its DELETE takes
+     it out of the apiserver, every process ends and the card's memory
+     comes back. The Manager's System is the port's operator chart's
+     rendered ConfigMap, every request it sent must be granted by the
+     chart's Role, and a pod delete must be among them;
+  8. fine-tune (phase_finetune, budget 90 s; in a thread beside phase
+     7's cold spawn, whose library build leaves the card idle): the LoRA
+     fine-tune CLI
      (train/finetune.py's main) over a 4-layer checkpoint at
      Llama-3.1-8B width (64 seeded JSONL rows, --seq-len 256, rank 16 on
      q and v, batch 4, 30 steps): the loss must drop; median step,
@@ -249,9 +271,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
      card's host, the CHWBL ring build of one endpoint (256 nodes) and
      the xxh64 of a 100-byte key, native against _xxh64_py, in µs (the
      "charts" line, with the card's name and power limit).
-The last two lines are the kernels summary (each kernel's launches in
-the run of its own path, and per path; every entry must have launched
-there) and {"ok": true, ...}.
+Before them, the "walls" line: the total, each phase's seconds and phase
+4's parts (each serving run, the graph turns, the LoRA runs, each
+profile, each family, the float32 Gemma, the checkpoint, the tiny runs,
+the wait for the host-prep thread). The last two lines are the kernels
+summary (each kernel's launches in the run of its own path, and per
+path; every entry must have launched there) and {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -293,9 +318,27 @@ DEADLINE_S = 1140
 KERNELS = ("flash_attention", "paged_attention", "paged_decode_attention", "w8a16_matmul")
 # Libraries built beside them: the paged kernels' one-byte instances at
 # head dim 32 (the float32 test configuration's pools), and the three
-# attention kernels' bf16 instances at head dim 256 (Gemma's).
+# attention kernels' instances at head dim 256 (Gemma's): bf16 in the
+# "_d256" libraries, float32 in the "_f32d256" ones.
 VARIANTS = ("paged_attention_q8d32", "paged_decode_attention_q8d32", "flash_attention_d256",
-            "paged_attention_d256", "paged_decode_attention_d256")
+            "paged_attention_d256", "paged_decode_attention_d256", "flash_attention_f32d256",
+            "paged_attention_f32d256", "paged_decode_attention_f32d256")
+F32_WIDE = ("flash_attention_f32d256", "paged_attention_f32d256", "paged_decode_attention_f32d256")
+
+# Seconds of each phase and of phase 4's parts (the "walls" line, printed
+# before the kernels summary; each part is also logged as it ends, so a
+# run cut at the deadline shows where its time went).
+WALLS: dict = {}
+
+
+@contextlib.contextmanager
+def walled(key: str):
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        WALLS[key] = round(time.monotonic() - t0, 1)
+        log(f"wall[{key}] {WALLS[key]:.1f}s")
 
 
 def log(*a):
@@ -427,17 +470,30 @@ def phase_env() -> dict:
     # Whether the tensor cores are used: Hopper's warpgroup products show
     # as HGMMA in the SASS, mma.sync as HMMA. Logged; the dedicated
     # kernel's bf16 instances must use them and no instance may spill.
+    # One cuobjdump a library, all started together (as the builds are),
+    # each writing to a file of its own so that none waits on a pipe.
     tool = _cuobjdump()
     hmma, hgmma = {}, {}
+    t1 = time.monotonic()
+    dumps = {}
     for name, r in res.items():
+        if tool is not None:
+            out = tempfile.TemporaryFile("w+")
+            dumps[name] = (out, subprocess.Popen([tool, "-sass", str(r.path)], stdout=out,
+                                                 stderr=subprocess.DEVNULL, text=True))
+    for name in res:
         if tool is None:
             log(f"  sass[{name}] not inspected: no cuobjdump")
             continue
-        sass = subprocess.run([tool, "-sass", str(r.path)], capture_output=True, text=True)
-        lines = sass.stdout.splitlines()
+        out, proc = dumps[name]
+        proc.wait()
+        out.seek(0)
+        lines = out.read().splitlines()
+        out.close()
         hgmma[name] = sum("HGMMA" in line for line in lines)
         hmma[name] = sum("HMMA" in line and "HGMMA" not in line for line in lines)
         log(f"  sass[{name}] HGMMA instructions: {hgmma[name]}, HMMA: {hmma[name]}")
+    log(f"sass: {len(dumps)} libraries inspected in {time.monotonic() - t1:.1f}s")
     log("spill_bytes", json.dumps(spills))
     # The W8A16 library: mma.sync (decode) and wgmma (verify, prefill).
     for name in ("paged_decode_attention", "paged_decode_attention_d256", "w8a16_matmul"):
@@ -447,6 +503,11 @@ def phase_env() -> dict:
             raise AssertionError(f"no HMMA in {name}'s SASS")
     if tool is not None and not hgmma.get("w8a16_matmul"):
         raise AssertionError("no HGMMA in w8a16_matmul's SASS")
+    # The float32 instances at head dim 256 run on the CUDA cores (no
+    # HMMA by design) and must not spill either.
+    for name in F32_WIDE:
+        if spills.get(name, 0):
+            raise AssertionError(f"{name} spills: {spills}")
     return {"build_s": build_s}
 
 
@@ -629,6 +690,7 @@ def phase_kernels() -> dict:
     _verify_cases(record)
     _w8a16_cases(record)
     _family_cases(record)
+    _f32_h256_cases(record)
     _tp2_cases(record)
     _chaos_cases(record)
     for name, r in results.items():
@@ -984,6 +1046,84 @@ def _family_cases(record) -> None:
                err, ms, plain_ms, nbytes, 2.0 * M * N * K, lib_ms, (name, M) == ("qwen wg", 8),
                cold)
         del x, w, wb, got
+    torch.cuda.empty_cache()
+
+
+# float32 at head dim 256 (a float32 Gemma-2B: 8 heads over 1; the
+# "_f32d256" libraries), every kernel on its CUDA-core path: (case, B, S,
+# kv_lens, headline) of both paged kernels over a float32, an int8 and an
+# fp8 pool (decode, and a verify step of 8 tokens: 64 rows, which the
+# dedicated kernel takes in two groups of 32), timed cold-L2; flash at B=1
+# S=1024. Each against its plain version with compare_f32, timed beside the
+# plain version, one library call (float32 SDPA, or gather + SDPA; TF32 is
+# off) and its bound at the float32 CUDA-core rate.
+F32_H256_PAGED = (
+    ("decode B=8 kv_len=512", 8, 1, [512] * 8, True),
+    ("verify B=8 S=8 kv_len=512", 8, 8, [512] * 8, False),
+)
+
+
+def _f32_h256_cases(record) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from kubeai_tpu_torch.ops import paged_attention as pa
+    from kubeai_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        flash_regime,
+    )
+    from kubeai_tpu_torch.ops.paged_decode_attention import paged_decode_attention
+
+    H, Kv, h = GEMMA_ATTN
+    S = 1024
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (torch.randn((1, S, n, h), generator=g, device="cuda") for n in (H, Kv, Kv))
+    if flash_regime(q, k) != "cuda_core":
+        raise AssertionError("flash_attention[f32 h256] not on the CUDA-core tile")
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = compare_f32(got, flash_attention_plain(q, k, v, causal=True), "flash_attention[f32 h256]")
+    ms = timed_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain_ms = timed_ms(lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+    lib_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True))
+    record("flash_attention[f32 h256]", f"B=1 S={S} H={H} Kv={Kv} h={h} causal", err, ms,
+           plain_ms, 4 * (2 * S * H * h + 2 * S * Kv * h), 4.0 * h * H * S * (S + 1) / 2,
+           lib_ms, True, False, kind="f32", extra={"tile": "cuda_core"})
+    del q, k, v, got
+
+    for kv in (None, "int8", "fp8"):
+        tag = "f32 h256" + (f" {kv} pool" if kv else "")
+        for case, B, S, lens, headline in F32_H256_PAGED:
+            if kv is None:
+                q, pool, table, lens_t = _paged_case(B, S, lens, H=H, Kv=Kv, h=h, seed=S + 77)
+                q, pool = q.float(), pool.float()
+                ks = vs = None
+            else:
+                q, pool, table, lens_t, ks, vs = _quant_case(
+                    B, S, lens, kv, H=H, Kv=Kv, h=h, qdtype=torch.float32, seed=S + 77)
+            want = pa.paged_attention_plain(q, pool, table, lens_t, None, 0.0, ks, vs)
+            kw = {} if kv is None else {"k_scale": ks, "v_scale": vs}
+            nbytes, flops = _paged_cost(B, S, lens, H, Kv, h, 64, 4, 1 if kv else 4)
+            plain_ms = timed_ms(lambda: pa.paged_attention_plain(
+                q, pool, table, lens_t, None, 0.0, ks, vs), iters=5, cold_l2=True)
+            lib_ms = timed_ms(lambda: _sdpa_paged(q, pool, table, lens_t, ks, vs), iters=5,
+                              cold_l2=True)
+            if pa.ragged_regime(q, pool) != "cuda_core":
+                raise AssertionError(f"paged_attention[{tag}] {case}: not on the CUDA-core tile")
+            for name, fn in (("paged_attention", pa.paged_attention_ragged),
+                             ("paged_decode_attention", paged_decode_attention)):
+                got = fn(q, pool, table, lens_t, **kw)
+                torch.cuda.synchronize()
+                err = compare_f32(got, want, f"{name}[{tag}] {case}")
+                ms = timed_ms(lambda: fn(q, pool, table, lens_t, **kw), cold_l2=True)
+                record(f"{name}[{tag}]", case, err, ms, plain_ms, nbytes, flops, lib_ms,
+                       headline, True, kind="f32",
+                       extra={"rows": S * (H // Kv), "H": H, "Kv": Kv, "h": h})
+                del got
+            del q, pool, table, lens_t, want
     torch.cuda.empty_cache()
 
 
@@ -1605,8 +1745,13 @@ def _serve_once(params, decode_kernel: str, int8: bool = False, kv_cache_dtype: 
     if windowed and any(launches[fn.__name__] for fn in attention):
         raise AssertionError(f"{run} run: a sliding-window model launched attention "
                              f"kernels: {launches}")
-    # Every bf16 shape of these models takes a tensor-core tile (G <= 64).
-    if flash_by_regime.get("cuda_core") or by_regime.get("cuda_core"):
+    # Every bf16 shape of these models takes a tensor-core tile (G <= 64);
+    # float32 (a float32 Gemma) takes the CUDA-core tiles alone.
+    if eng.model_config.dtype == "float32":
+        if set(flash_by_regime) - {"cuda_core"} or set(by_regime) - {"cuda_core"}:
+            raise AssertionError(f"{run} run: float32 off the CUDA-core tiles: "
+                                 f"{flash_by_regime}, {by_regime}")
+    elif flash_by_regime.get("cuda_core") or by_regime.get("cuda_core"):
         raise AssertionError(f"{run} run: CUDA-core tiles launched: {flash_by_regime}, "
                              f"{by_regime}")
     # A model step calls its attention kernel once per layer, and the W8A16
@@ -1866,7 +2011,9 @@ def _calibrate_int8_pool(qparams) -> tuple[float, float]:
     return sk, sv
 
 
-def phase_serving() -> dict:
+def phase_serving(host_prep: dict) -> dict:
+    """Phase 4 (the module docstring); *host_prep* is start_host_prep's
+    thread, whose checkpoint the loader's run serves."""
     import torch
 
     from kubeai_tpu_torch.engine.weights import quantize_model_params
@@ -1880,38 +2027,43 @@ def phase_serving() -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     out = {}
     for dk in ("ragged", "dedicated"):
-        out[dk] = _serve_once(params, dk)
-    t0 = time.monotonic()
-    _graph_turns(params)
-    log(f"graph turns: {time.monotonic() - t0:.1f}s")
+        with walled(f"4.serve[{dk}]"):
+            out[dk] = _serve_once(params, dk)
+    with walled("4.graph_turns"):
+        _graph_turns(params)
     t0 = time.monotonic()
     qparams = quantize_model_params(params, llama_3_1_8b())
     torch.cuda.synchronize()
     log(f"weights: quantized to int8 on the card in {time.monotonic() - t0:.1f}s")
-    out["int8"] = _serve_once(qparams, "ragged", int8=True)
+    with walled("4.serve[int8]"):
+        out["int8"] = _serve_once(qparams, "ragged", int8=True)
     # The fp8 pool through the server's command line, as a user starts it
     # (its own seed-0 weights: the same as *params*).
     # It starts with --warmup: every step shape, the decode chunk's capture
     # included, before the first request.
-    out["fp8_pool"] = _serve_once(None, "ragged", run="fp8_pool", cli=[
-        "--model", "preset:llama-3.1-8b", "--kv-cache-dtype", "fp8", "--decode-kernel", "ragged",
-        "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64", "--warmup"])
+    with walled("4.serve[fp8_pool]"):
+        out["fp8_pool"] = _serve_once(None, "ragged", run="fp8_pool", cli=[
+            "--model", "preset:llama-3.1-8b", "--kv-cache-dtype", "fp8", "--decode-kernel",
+            "ragged", "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64",
+            "--warmup"])
     warm = out["fp8_pool"]["warmup"]
     if not warm or warm["shapes"] != 1 + 3 * 6 + 3:
         raise AssertionError(f"fp8_pool: --warmup ran {warm}")
     log("warmup[fp8_pool]", gpu_line(), json.dumps(
         {**warm, "capture_s": out["fp8_pool"]["capture_s"]}))
-    sk, sv = _calibrate_int8_pool(qparams)
-    out["int8_pool"] = _serve_once(qparams, "dedicated", int8=True, kv_cache_dtype="int8",
-                                   model_config=llama_3_1_8b(kv_scale_k=sk, kv_scale_v=sv),
-                                   run="int8_pool")
+    with walled("4.serve[int8_pool]"):
+        sk, sv = _calibrate_int8_pool(qparams)
+        out["int8_pool"] = _serve_once(qparams, "dedicated", int8=True, kv_cache_dtype="int8",
+                                       model_config=llama_3_1_8b(kv_scale_k=sk, kv_scale_v=sv),
+                                       run="int8_pool")
     # Speculative decoding through the server's command line (its own
     # seed-0 weights, the same as *params*): 7 drafts a step, verify steps
     # of 8 tokens on each decode kernel.
     for dk in ("ragged", "dedicated"):
-        out[f"spec_{dk}"] = _serve_once(None, dk, run=f"spec_{dk}", cli=[
-            "--model", "preset:llama-3.1-8b", "--speculate-tokens", "7", "--decode-kernel", dk,
-            "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"])
+        with walled(f"4.serve[spec_{dk}]"):
+            out[f"spec_{dk}"] = _serve_once(None, dk, run=f"spec_{dk}", cli=[
+                "--model", "preset:llama-3.1-8b", "--speculate-tokens", "7", "--decode-kernel",
+                dk, "--max-slots", "8", "--max-seq-len", "2048", "--page-size", "64"])
     out.update(_serve_lora(params, qparams))
     bf16_bytes = out["ragged"]["pool"]["bytes"]
     for run in ("fp8_pool", "int8_pool"):
@@ -1923,17 +2075,20 @@ def phase_serving() -> dict:
                                    "speculative")}
          for k, v in out.items()}))
     # Profiler sessions after every timed serving run.
-    _graph_profiles(params)
-    _step_profile(params, qparams)
-    _lora_step_profile(params)
+    with walled("4.graph_profiles"):
+        _graph_profiles(params)
+    with walled("4.step_profile"):
+        _step_profile(params, qparams)
+    with walled("4.lora_step_profile"):
+        _lora_step_profile(params)
     shutil.rmtree(os.path.dirname(_ADAPTERS[0]), ignore_errors=True)
     del params, qparams
     torch.cuda.empty_cache()
     out.update(_serve_families())
-    out.update(_serve_checkpoint())
-    out["tiny_int8_fp8"] = _serve_tiny("tiny_int8_fp8", ["--quantization", "int8",
-                                                         "--kv-cache-dtype", "fp8"])
-    out["tiny_spec"] = _serve_tiny("tiny_spec", ["--speculate-tokens", "3"])
+    with walled("4.gemma_f32"):
+        out.update(_serve_gemma_f32())
+    with walled("4.checkpoint"):
+        out.update(_serve_checkpoint(host_prep_result(host_prep)))
     return out
 
 
@@ -1941,26 +2096,31 @@ def phase_serving() -> dict:
 # LoRA adapters (phase 3's parity, phase 4's serving runs and step profile)
 
 _ADAPTERS: list = []
+_ADAPTERS_LOCK = threading.Lock()
 
 
 def _adapter_dirs() -> list:
     """Three PEFT adapters (a, b, c) for Llama-3.1-8B, written once by the
-    port's writer under build/: rank 16 on all seven targets of all 32
-    layers, alpha 32, N(0, 0.02) A and B from seeds 1-3 (each delta a
-    fraction of its projection)."""
-    if not _ADAPTERS:
-        from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
-        from kubeai_tpu_torch.models.base import llama_3_1_8b
+    port's writer under build/ (by the host-prep thread, or by the first
+    caller; a second waits for the first): rank 16 on all seven targets
+    of all 32 layers, alpha 32, N(0, 0.02) A and B from seeds 1-3 (each
+    delta a fraction of its projection)."""
+    with _ADAPTERS_LOCK:
+        if not _ADAPTERS:
+            from kubeai_tpu_torch.engine.lora import write_peft_checkpoint
+            from kubeai_tpu_torch.models.base import llama_3_1_8b
 
-        t0 = time.monotonic()
-        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "lora_adapters")
-        for i, name in enumerate("abc"):
-            path = os.path.join(root, name)
-            write_peft_checkpoint(path, llama_3_1_8b(), rank=16, alpha=32, seed=i + 1, std=0.02)
-            _ADAPTERS.append(path)
-        log(f"adapters: 3 PEFT checkpoints (rank 16, 7 targets, 32 layers) written in "
-            f"{time.monotonic() - t0:.1f}s")
-    return _ADAPTERS
+            t0 = time.monotonic()
+            root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                "lora_adapters")
+            paths = [os.path.join(root, name) for name in "abc"]
+            for i, path in enumerate(paths):
+                write_peft_checkpoint(path, llama_3_1_8b(), rank=16, alpha=32, seed=i + 1,
+                                      std=0.02)
+            _ADAPTERS.extend(paths)
+            log(f"adapters: 3 PEFT checkpoints (rank 16, 7 targets, 32 layers) written in "
+                f"{time.monotonic() - t0:.1f}s")
+        return _ADAPTERS
 
 
 LORA_PROMPTS = tuple(f"Adapter request {i}: write two lines about the {w}."
@@ -2120,6 +2280,7 @@ def _serve_lora(params, qparams) -> dict:
     mc = llama_3_1_8b(num_layers=LORA_LAYERS)
     out = {}
     for run, dk, int8, G in LORA_RUNS:
+        t_run = time.monotonic()
         ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=dk,
                           speculate_tokens=G)
         w = _first_layers(qparams if int8 else params, LORA_LAYERS)
@@ -2193,6 +2354,9 @@ def _serve_lora(params, qparams) -> dict:
         del eng, eager, srv, bank
         gc.collect()
         torch.cuda.empty_cache()
+        key = f"4.lora[{run}]"
+        WALLS[key] = round(time.monotonic() - t_run, 1)
+        log(f"wall[{key}] {WALLS[key]:.1f}s")
     return out
 
 
@@ -2339,22 +2503,111 @@ def _serve_families() -> dict:
 
     out = {}
     for run, preset, layers, dk, quant, kv in FAMILY_RUNS:
-        t0 = time.monotonic()
-        ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=dk,
-                          kv_cache_dtype=kv)
-        eng = build_engine(preset, "cuda", ec, seed=0, quantization=quant, num_layers=layers)
-        torch.cuda.synchronize()
-        mc = eng.model_config
-        log(f"weights[{run}]: {preset} {mc.num_layers} of {PRESETS[preset]().num_layers} layers, "
-            f"{'int8' if quant else mc.dtype}, built in {time.monotonic() - t0:.1f}s, "
-            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-        out[run] = _serve_once(None, dk, int8=bool(quant), run=run, engine=eng)
+        with walled(f"4.family[{run}]"):
+            t0 = time.monotonic()
+            ec = EngineConfig(max_slots=8, max_seq_len=2048, page_size=64, decode_kernel=dk,
+                              kv_cache_dtype=kv)
+            eng = build_engine(preset, "cuda", ec, seed=0, quantization=quant,
+                               num_layers=layers)
+            torch.cuda.synchronize()
+            mc = eng.model_config
+            log(f"weights[{run}]: {preset} {mc.num_layers} of {PRESETS[preset]().num_layers} "
+                f"layers, {'int8' if quant else mc.dtype}, built in "
+                f"{time.monotonic() - t0:.1f}s, "
+                f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+            out[run] = _serve_once(None, dk, int8=bool(quant), run=run, engine=eng)
+            out[run]["layers"] = mc.num_layers
+            _family_step_profile(run, eng.params, mc, dk)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+# Gemma-2B in float32 (head dim 256: the "_f32d256" libraries, every
+# kernel on its CUDA-core path): (run, decode kernel, KV pool dtype), the
+# float32 pool on the ragged kernel and an fp8 pool on the dedicated one,
+# as gemma_bf16 and gemma_fp8 serve bf16.
+GEMMA_F32_RUNS = (("gemma_f32", "ragged", ""), ("gemma_f32_fp8", "dedicated", "fp8"))
+# Greedy tokens a prompt of the decode kernels' comparison.
+GEMMA_F32_TOKENS = 48
+
+
+def _serve_gemma_f32() -> dict:
+    """Gemma-2B at its full width and depth (18 layers) in float32: random
+    weights from seed 0 (init_params in float32, ~10 GB), built once for
+    both GEMMA_F32_RUNS entries. Each run's engine serves _serve_once's
+    request set through the server (the counts zeroed before it: flash on
+    its cold buckets, the ragged kernel and, in the dedicated run, the
+    dedicated kernel must launch, on the CUDA-core tiles alone). Then,
+    with the counts zeroed again (path "<run>_greedy"), the run's engine
+    configuration (graphed) and the same configuration on the other
+    decode kernel (eager) complete SPEC_PROMPTS greedily over the run's
+    pool: their tokens must be identical up to the first step whose top-2
+    logprobs are within 1e-4 (float32 summation order alone separates
+    them), and the eager engine must replay no graph."""
+    import torch
+
+    from kubeai_tpu_torch.engine.core import Engine, EngineConfig
+    from kubeai_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kubeai_tpu_torch.models import llama
+    from kubeai_tpu_torch.models.base import gemma_2b
+
+    t0 = time.monotonic()
+    mc = gemma_2b(dtype="float32")
+    params = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda", dtype=torch.float32)
+    torch.cuda.synchronize()
+    log(f"weights[gemma_f32]: gemma-2b {mc.num_layers} layers, float32, built in "
+        f"{time.monotonic() - t0:.1f}s, {torch.cuda.memory_allocated() / 2**30:.1f} GiB on "
+        f"the card")
+    out = {}
+    for run, dk, kv in GEMMA_F32_RUNS:
+        def config(kernel):
+            return EngineConfig(max_slots=8, max_seq_len=2048, page_size=64,
+                                decode_kernel=kernel, kv_cache_dtype=kv)
+
+        out[run] = _serve_once(None, dk, run=run, engine=Engine(
+            mc, params, ByteTokenizer(), config(dk), device="cuda"))
         out[run]["layers"] = mc.num_layers
-        _family_step_profile(run, eng.params, mc, dk)
-        del eng
+        other = "dedicated" if dk == "ragged" else "ragged"
+        graphed = Engine(mc, params, ByteTokenizer(), config(dk), device="cuda")
+        eager = Engine(mc, params, ByteTokenizer(), config(other), device="cuda",
+                       cuda_graphs=False)
+        _zero_launches()
+        res = {}
+        for name, eng in (("graphed", graphed), ("eager", eager)):
+            eng.start()
+            try:
+                res[name] = _greedy_batch(eng, SPEC_PROMPTS, n=GEMMA_F32_TOKENS)
+            finally:
+                eng.stop()
+        out[f"{run}_greedy"] = _read_launches()
+        replays = _check_graphed(graphed, f"{run} greedy")
+        if any(c["graph"] for c in eager.chunk_log):
+            raise AssertionError(f"{run}: the eager engine replayed a graph")
+        compared = 0
+        for i, ((want, gaps), (got, _)) in enumerate(zip(res["graphed"], res["eager"])):
+            upto = next((j for j, gap in enumerate(gaps) if gap < 1e-4), len(want))
+            if got[:upto] != want[:upto]:
+                raise AssertionError(f"{run}: prompt {i}'s greedy tokens on the {other} "
+                                     f"kernel (eager) {got} differ from the {dk} kernel's "
+                                     f"(graphed) {want} (compared {upto})")
+            compared += upto
+        n = out[f"{run}_greedy"]["launches"]
+        if not (n["paged_attention_ragged"] and n["paged_decode_attention"]):
+            raise AssertionError(f"{run}: both decode kernels must launch in the greedy "
+                                 f"comparison: {n}")
+        log(f"serving[{run}_greedy]", gpu_line(), json.dumps({
+            "kernels": {"graphed": dk, "eager": other}, "prompts": len(SPEC_PROMPTS),
+            "tokens_compared": compared, "of": len(SPEC_PROMPTS) * GEMMA_F32_TOKENS,
+            "graph_replays": replays, **out[f"{run}_greedy"]}))
+        del graphed, eager
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"family[{run}]: {time.monotonic() - t0:.1f}s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2759,15 +3012,32 @@ def _write_spm(path: str, vocab_size: int, merges: int = 300) -> dict:
             "unused_pieces": vocab_size - n_real}
 
 
-def _serve_spm(ckpt: str, json_stats: dict) -> dict:
-    """The tokenizer.model run (path "spm"): a sibling of the checkpoint
+def _write_spm_dir(ckpt: str) -> dict:
+    """The tokenizer.model run's directory: a sibling of the checkpoint
     directory *ckpt* whose weights and config are links to *ckpt*'s and
-    whose tokenizer is _write_spm's, served through --model <dir>
-    --quantization int8: a completion, _tokenizer_checks (a chat
-    completion's text equal to decode of the greedy ids) and a
-    300-token completion (a flash prefill), the launch
-    counts zeroed just before the first request and read after the last.
-    Returns the counts; W8A16, flash and ragged must launch."""
+    whose tokenizer is _write_spm's. Host work alone (the host-prep
+    thread)."""
+    from kubeai_tpu_torch.models.base import llama_3_1_8b
+
+    d = ckpt + "_spm"
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for name in os.listdir(ckpt):
+        if not name.startswith(("tokenizer", "special_tokens_map", "chat_template")):
+            os.symlink(os.path.join(ckpt, name), os.path.join(d, name))
+    t0 = time.monotonic()
+    files = _write_spm(d, llama_3_1_8b().vocab_size)
+    return {"dir": d, "files": files, "write_s": time.monotonic() - t0}
+
+
+def _serve_spm(spm_dir: dict, json_stats: dict) -> dict:
+    """The tokenizer.model run (path "spm"): _write_spm_dir's directory
+    *spm_dir*, served through --model <dir> --quantization int8: a
+    completion, _tokenizer_checks (a chat completion's text equal to
+    decode of the greedy ids) and a 300-token completion (a flash
+    prefill), the launch counts zeroed just before the first request and
+    read after the last. Returns the counts; W8A16, flash and ragged must
+    launch."""
     import torch
 
     from kubeai_tpu_torch.engine.server import (
@@ -2775,18 +3045,9 @@ def _serve_spm(ckpt: str, json_stats: dict) -> dict:
         build_engine_from_args,
         make_arg_parser,
     )
-    from kubeai_tpu_torch.models.base import llama_3_1_8b
 
-    d = ckpt + "_spm"
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
+    d, files, write_s = spm_dir["dir"], spm_dir["files"], spm_dir["write_s"]
     try:
-        for name in os.listdir(ckpt):
-            if not name.startswith(("tokenizer", "special_tokens_map", "chat_template")):
-                os.symlink(os.path.join(ckpt, name), os.path.join(d, name))
-        t0 = time.monotonic()
-        files = _write_spm(d, llama_3_1_8b().vocab_size)
-        write_s = time.monotonic() - t0
         args = make_arg_parser().parse_args([
             "--model", d, "--quantization", "int8", "--host", "127.0.0.1", "--port", "0",
             "--max-slots", "2", "--max-seq-len", "512"])
@@ -2869,25 +3130,16 @@ def _tokenizer_checks(eng, path, port, chat_start="<|begin_of_text|><|start_head
             "chat_text": text, **timings}
 
 
-def _serve_checkpoint() -> dict:
-    """The loader: a 2-layer checkpoint at Llama-3.1-8B width (random bf16
-    weights from seed 1, HF names and [out, in] layouts) written by the
+def _write_checkpoint() -> dict:
+    """The loader's checkpoint, host work alone (the host-prep thread): a
+    2-layer model at Llama-3.1-8B width, random bf16 weights drawn on the
+    host from seed 1, written with HF names and [out, in] layouts by the
     port's save_hf_checkpoint under build/, with a tokenizer.json and chat
-    template built here (_write_tokenizer), served through the server's
-    own argument path with --model <dir> --quantization int8 (a completion
-    and a chat completion through the checkpoint's tokenizer); its int8
-    leaves must equal quantize_model_params of the written weights, and
-    its config the written one. Then the same weights with a SentencePiece
-    tokenizer.model instead (_serve_spm). Returns {"spm": its launch
-    counts}."""
-
+    template built here (_write_tokenizer); the int8 leaves the loader
+    must give (quantize_model_params of the written weights, on the
+    host); and the tokenizer.model run's directory (_write_spm_dir)."""
     import torch
 
-    from kubeai_tpu_torch.engine.server import (
-        EngineServer,
-        build_engine_from_args,
-        make_arg_parser,
-    )
     from kubeai_tpu_torch.engine.weights import (
         hf_state_dict,
         quantize_model_params,
@@ -2897,9 +3149,10 @@ def _serve_checkpoint() -> dict:
     from kubeai_tpu_torch.models.base import llama_3_1_8b
 
     mc = llama_3_1_8b(num_layers=2)
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ckpt_8b_width_2_layers")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "ckpt_8b_width_2_layers")
     t0 = time.monotonic()
-    p = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    p = llama.init_params(mc, torch.Generator().manual_seed(1), device="cpu")
     sd = hf_state_dict(p, mc)
     shutil.rmtree(path, ignore_errors=True)
     save_hf_checkpoint(path, mc, sd)
@@ -2907,29 +3160,52 @@ def _serve_checkpoint() -> dict:
     del sd
     write_s = time.monotonic() - t0
     t0 = time.monotonic()
+    want = quantize_model_params(p, mc)
+    return {"path": path, "config": mc, "write_s": write_s, "tokenizer": tok_files,
+            "want": want, "quantize_s": time.monotonic() - t0, "spm": _write_spm_dir(path)}
+
+
+def _serve_checkpoint(ckpt: dict) -> dict:
+    """The loader: _write_checkpoint's checkpoint *ckpt*, served through
+    the server's own argument path with --model <dir> --quantization int8
+    (a completion and a chat completion through the checkpoint's
+    tokenizer); its int8 leaves must equal quantize_model_params of the
+    written weights, and its config the written one. Then the same
+    weights with a SentencePiece tokenizer.model instead (_serve_spm).
+    Returns {"spm": its launch counts}."""
+
+    import torch
+
+    from kubeai_tpu_torch.engine.server import (
+        EngineServer,
+        build_engine_from_args,
+        make_arg_parser,
+    )
+
+    path, mc, want = ckpt["path"], ckpt["config"], ckpt.pop("want")
+    t0 = time.monotonic()
     args = make_arg_parser().parse_args([
         "--model", path, "--quantization", "int8", "--host", "127.0.0.1", "--port", "0",
         "--max-slots", "2", "--max-seq-len", "512"])
-    eng, name = build_engine_from_args(args)
-    torch.cuda.synchronize()
-    load_s = time.monotonic() - t0
     try:
+        eng, name = build_engine_from_args(args)
+        torch.cuda.synchronize()
+        load_s = time.monotonic() - t0
         if eng.model_config.replace(use_flash_prefill=False, use_paged_kernel=False) != mc:
             raise AssertionError(f"loaded config differs: {eng.model_config}")
-        want = quantize_model_params(p, mc)
         bad = []
 
         def same(a, b, where):
             if isinstance(b, dict):
                 for k in b:
                     same(a[k], b[k], f"{where}/{k}")
-            elif a.dtype != b.dtype or not torch.equal(a, b):
+            elif a.dtype != b.dtype or not torch.equal(a.cpu(), b):
                 bad.append(where)
 
         same(eng.params, want, "")
         if bad or set(eng.params) != set(want):
             raise AssertionError(f"loaded leaves differ from quantize_model_params: {bad}")
-        del want, p
+        del want
         srv = EngineServer(eng, name, host=args.host, port=args.port)
         srv.start()
         try:
@@ -2939,15 +3215,17 @@ def _serve_checkpoint() -> dict:
         finally:
             srv.stop()
         log("loader", json.dumps({"checkpoint": "2 layers at Llama-3.1-8B width, bf16 safetensors",
-                                  "write_s": write_s, "load_quantize_s": load_s,
+                                  "write_s": ckpt["write_s"], "quantize_s": ckpt["quantize_s"],
+                                  "written_on": "host-prep thread", "load_quantize_s": load_s,
                                   "completion": text}))
-        log("tokenizer", gpu_line(), json.dumps({**tok_files, **tok_stats}))
+        log("tokenizer", gpu_line(), json.dumps({**ckpt["tokenizer"], **tok_stats}))
         del eng, srv
         gc.collect()
         torch.cuda.empty_cache()
-        return {"spm": _serve_spm(path, tok_stats)}
+        return {"spm": _serve_spm(ckpt["spm"], tok_stats)}
     finally:
         shutil.rmtree(path, ignore_errors=True)
+        shutil.rmtree(ckpt["spm"]["dir"], ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3937,10 +4215,11 @@ def _greedy_batch(eng, prompts, n=32, bias=((257, -100.0),), chosen=False) -> li
     return out
 
 
-def _write_width_checkpoint(path: str) -> float:
+def _write_width_checkpoint(path: str, device: str = "cuda") -> float:
     """Seconds to write an HF checkpoint of Llama-3.1-8B's widths at
-    COLDSTART_LAYERS layers (bf16 weights drawn from seed 3 on the card,
-    no tokenizer: the byte tokenizer serves it) to *path*."""
+    COLDSTART_LAYERS layers (bf16 weights drawn from seed 3 on *device*:
+    the card, or the host in the host-prep thread; no tokenizer: the byte
+    tokenizer serves it) to *path*."""
     import torch
 
     from kubeai_tpu_torch.engine.weights import hf_state_dict, save_hf_checkpoint
@@ -3949,11 +4228,12 @@ def _write_width_checkpoint(path: str) -> float:
 
     mc = llama_3_1_8b(num_layers=COLDSTART_LAYERS)
     t0 = time.monotonic()
-    p = llama.init_params(mc, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    p = llama.init_params(mc, torch.Generator(device=device).manual_seed(3), device=device)
     shutil.rmtree(path, ignore_errors=True)
     save_hf_checkpoint(path, mc, hf_state_dict(p, mc))
     del p
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return time.monotonic() - t0
 
 
@@ -5302,14 +5582,35 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
         free_up = torch.cuda.mem_get_info()[0]
         # The crashed pod's relaunch is starting: every process must end.
         live = [procs[name]] + [lp.proc for lp in list(kubelet._procs.values())]
+        # A user scales the Model to zero through the REST API (its
+        # replicas set to 0, as kubectl scale does), the autoscaler
+        # stopped first so that nothing raises it again: the Manager
+        # deletes the Model's pods itself, a request the chart's Role must
+        # grant (checked below).
+        mgr.autoscaler.stop()
+        t_zero = time.monotonic()
+        for _ in range(10):
+            doc = api.get("models", KUBE_MODEL)
+            doc["spec"]["replicas"] = 0
+            try:
+                _kube_post(f"{models_url}/{KUBE_MODEL}", doc, method="PUT")
+                break
+            except urllib.error.HTTPError as e:
+                if e.code != 409:  # another writer got in first: read again
+                    raise
+        else:
+            raise AssertionError("kube: the scale to zero conflicted 10 times")
+        _until(lambda: not api.objects.get(("default", "pods")),
+               "kube: the Model's pods outlived its scale to zero in the apiserver", 60)
+        res["scale_to_zero_s"] = time.monotonic() - t_zero
         t_del = time.monotonic()
         _kube_post(f"{models_url}/{KUBE_MODEL}", method="DELETE")
-        _until(lambda: not api.objects.get(("default", "pods")),
-               "kube: the Pods outlived their Model in the apiserver", 30)
-        res["delete_to_pod_gone_s"] = time.monotonic() - t_del
+        _until(lambda: api.get("models", KUBE_MODEL) is None,
+               "kube: the Model outlived its DELETE in the apiserver", 30)
+        res["delete_to_model_gone_s"] = time.monotonic() - t_del
         _until(lambda: all(p.poll() is not None for p in live),
                "kube: a pod's process outlived it", 60)
-        res["teardown_s"] = time.monotonic() - t_del
+        res["teardown_s"] = time.monotonic() - t_zero
         # Every request the Manager sent, as the apiserver's authorizer
         # reads it, must be one the chart's Role grants.
         sent = api.requests_of(KUBE_OPERATOR)
@@ -5329,6 +5630,8 @@ def _serve_kube(run, direct, lead_s) -> tuple[dict, dict]:
         json.dumps(sorted(sent)))
     if refused:
         raise AssertionError(f"kube: the chart's Role refuses the Manager's requests {refused}")
+    if ("delete", "", "pods", True) not in sent:
+        raise AssertionError("kube: the Manager deleted no pod on the scale to zero")
     if res["built"] or res["missing"] or sorted(res["loaded"]) != sorted(res["libraries"]):
         raise AssertionError(f"kube: the replica on the warmed cache built: {res}")
     if lease is None or lease["spec"].get("holderIdentity") != mgr.election.identity:
@@ -5619,15 +5922,18 @@ def _parked_attach() -> tuple[dict, dict]:
     return res, launches
 
 
-def phase_coldstart() -> tuple[dict, dict]:
-    """Cold start on Llama-3.1-8B's widths: (a) a cold spawn of the
-    server over a 4-layer checkpoint into an empty library directory
-    (KUBEAI_COMPILE_CACHE) with the background warm overlapped
+def phase_coldstart(host_prep: dict) -> tuple[dict, dict, dict]:
+    """Cold start on Llama-3.1-8B's widths. The cache loader Job's command
+    starts first, in a child process over the 4-layer checkpoint the
+    host-prep thread wrote (_start_loader; phase_loader waits for it), and
+    phase 8 (phase_finetune) in a thread: both run beside the cold spawn,
+    whose library build leaves the card idle (the launch counts stay
+    phase 8's: phase 7 zeroes none until the thread has ended). (a) A
+    cold spawn of the server over that checkpoint into an empty library
+    directory (KUBEAI_COMPILE_CACHE) with the background warm overlapped
     (KUBEAI_COLDSTART_OVERLAP=1) and --warmup: spawn -> /readyz 200, each
     phase, overlap_s and the libraries built; compile must start before
-    load ends, and /metrics must carry every phase; then the cache loader
-    Job's command starts in a child process over the same checkpoint
-    (_start_loader; phase_loader waits for it); (b) a parked server
+    load ends, and /metrics must carry every phase; (b) a parked server
     warmed for preset:llama-3.1-8b (the libraries, then a zero-weight
     engine whose decode graph is captured), attached with the same
     args: park warm and attach -> ready seconds, the adoption, capture
@@ -5635,21 +5941,37 @@ def phase_coldstart() -> tuple[dict, dict]:
     engine built directly from the same args and seed (up to near-ties
     within 2 bf16 ulps) and a 300-byte request, with the launch counts of
     that run (path "parked"); flash and ragged must launch there. Returns
-    ({"parked": counts}, the loader's run for phase_loader)."""
+    ({"parked": counts}, the loader's run for phase_loader, phase 8's
+    result)."""
     t0 = time.monotonic()
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    ckpt = os.path.join(build, f"ckpt_8b_width_{COLDSTART_LAYERS}_layers")
+    ckpt, write_s = host_prep_result(host_prep)["width"]
     work = os.path.join(build, "loader_run")
     shutil.rmtree(work, ignore_errors=True)
     run = None
+    finetune: dict = {}
+
+    def phase8():
+        try:
+            with walled("8"):
+                finetune["result"] = phase_finetune()
+        except BaseException as e:  # re-raised below
+            finetune["error"] = e
+
+    thread = threading.Thread(target=phase8, name="phase-8", daemon=True)
     try:
-        write_s = _write_width_checkpoint(ckpt)
-        spawn = _spawn_cold(ckpt)
+        run = _start_loader(ckpt, work)
+        run["ckpt"] = ckpt
+        thread.start()
+        run["spawn"] = spawn = _spawn_cold(ckpt)
         log("coldstart[spawn]", gpu_line(), json.dumps(
             {"checkpoint": f"{COLDSTART_LAYERS} layers at Llama-3.1-8B width, bf16",
-             "write_s": write_s, **spawn}))
-        run = _start_loader(ckpt, work)
-        run.update(ckpt=ckpt, spawn=spawn)
+             "write_s": write_s, "written_on": "host-prep thread",
+             "beside": ["phase 8", "the cache loader"], **spawn}))
+        with walled("7.wait_for_8"):
+            thread.join()
+        if "error" in finetune:
+            raise finetune["error"]
         parked, launches = _parked_attach()
         log("coldstart[parked]", gpu_line(), json.dumps(parked))
     except BaseException:
@@ -5658,13 +5980,14 @@ def phase_coldstart() -> tuple[dict, dict]:
         shutil.rmtree(ckpt, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
         raise
-    log(f"coldstart phase: {time.monotonic() - t0:.1f}s (budget 120 s)")
-    return {"parked": launches}, run
+    log(f"coldstart phase: {time.monotonic() - t0:.1f}s (budget 120 s; phase 8 beside it)")
+    return {"parked": launches}, run, finetune["result"]
 
 
 def phase_loader(run) -> dict:
     """Phase 7b, after phase 8 (budget 240 s): the cache loader Job that
-    phase_coldstart started beside the parked part and phase 8 (``python
+    phase_coldstart started beside the cold spawn, phase 8 and the parked
+    part (``python
     -m kubeai_tpu_torch.loader --warm-compile-cache LOADER_URL <dest>
     COLDSTART_ARGS`` through a stand-in aws, into an empty
     KUBEAI_COMPILE_CACHE): its staging seconds, the libraries it built and
@@ -5708,7 +6031,7 @@ def phase_loader(run) -> dict:
         shutil.rmtree(run["ckpt"], ignore_errors=True)
         shutil.rmtree(os.path.dirname(run["cache"]), ignore_errors=True)
     log(f"loader phase: {time.monotonic() - t0:.1f}s (budget 240 s; the loader's child added "
-        f"{loader['waited_s']:.1f} s past phases 7, 8 and the reference engine; "
+        f"{loader['waited_s']:.1f} s past phases 7 and 8 and the reference engine; "
         f"operator_loops {loops['wall_s']:.1f} s, kube {kube['wall_s']:.1f} s)")
     return {**launches, "operator_loops": loops_launches, "kube": kube_launches}
 
@@ -6055,6 +6378,28 @@ SOURCES = {
                                    "paged_decode_attention", "qwen_int8", "bfloat16"),
     "w8a16_matmul[families]": ("kubeai_tpu_torch/csrc/w8a16_matmul.cu",
                                "kubeai_tpu/ops/quant.py:50", "qdot", "qwen_int8", None),
+    # float32 at head dim 256 (Gemma-2B in float32, the _f32d256 libraries;
+    # GEMMA_F32_RUNS), on the CUDA-core tiles: flash and ragged over the
+    # float32 pool, both paged kernels over the fp8 pool, and the dedicated
+    # kernel over the float32 pool in that run's greedy comparison.
+    "flash_attention[f32 h256]": ("kubeai_tpu_torch/csrc/flash_attention.cu",
+                                  "kubeai_tpu/ops/flash_attention.py:27", "flash_attention",
+                                  "gemma_f32", None, "cuda_core"),
+    "paged_attention[f32 h256]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                  "kubeai_tpu/ops/paged_attention.py:55",
+                                  "paged_attention_ragged", "gemma_f32", "float32"),
+    "paged_decode_attention[f32 h256]": ("kubeai_tpu_torch/csrc/paged_decode_attention.cu",
+                                         "kubeai_tpu/ops/paged_decode_attention.py:66",
+                                         "paged_decode_attention", "gemma_f32_greedy",
+                                         "float32"),
+    "paged_attention[f32 h256 fp8 pool]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
+                                           "kubeai_tpu/ops/paged_attention.py:31",
+                                           "paged_attention_ragged", "gemma_f32_fp8",
+                                           "float8_e4m3fn"),
+    "paged_decode_attention[f32 h256 fp8 pool]": (
+        "kubeai_tpu_torch/csrc/paged_decode_attention.cu",
+        "kubeai_tpu/ops/paged_decode_attention.py:111", "paged_decode_attention",
+        "gemma_f32_fp8", "float8_e4m3fn"),
     # The chaos campaign's test:tiny engines (float32 pool, head dim 32).
     "paged_attention[float32 h32]": ("kubeai_tpu_torch/csrc/paged_attention.cu",
                                      "kubeai_tpu/ops/paged_attention.py:55",
@@ -6732,6 +7077,48 @@ def start_charts() -> dict:
     return run
 
 
+def start_host_prep(after: threading.Event) -> dict:
+    """Phase 4's host-only inputs in a thread, started at the top of main
+    beside start_charts, which does its work once *after* is set (phase
+    10's end: until then its eight rank threads and phase 1's nvcc
+    processes hold the host's cores, and phase 10 has a budget): the PEFT
+    adapters (_adapter_dirs; phase 3 and the LoRA runs wait for them if
+    they come first), the loader's checkpoint, tokenizers and expected
+    int8 leaves (_write_checkpoint), and phase 7's 4-layer checkpoint
+    (_write_width_checkpoint on the host, under "width"). The card takes
+    no part; phases 2-4 run on while it writes."""
+    run: dict = {}
+
+    def body():
+        try:
+            after.wait()
+            t0 = time.monotonic()
+            _adapter_dirs()
+            run["checkpoint"] = _write_checkpoint()
+            width = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 f"ckpt_8b_width_{COLDSTART_LAYERS}_layers")
+            run["checkpoint"]["width"] = (width, _write_width_checkpoint(width, "cpu"))
+            run["s"] = time.monotonic() - t0
+            log(f"host prep: adapters and checkpoint written in {run['s']:.1f}s "
+                f"(a thread beside phases 2-4)")
+        except BaseException as e:  # re-raised by host_prep_result
+            run["error"] = e
+
+    run["thread"] = threading.Thread(target=body, name="host-prep", daemon=True)
+    run["thread"].start()
+    return run
+
+
+def host_prep_result(run: dict) -> dict:
+    """The checkpoints of the host-prep thread *run*, once it has ended
+    (the seconds waited for it go to the "host_prep_wait" wall)."""
+    with walled("host_prep_wait"):
+        run["thread"].join()
+    if "error" in run:
+        raise run["error"]
+    return run["checkpoint"]
+
+
 def _per_call_us(fn, calls: int, repeats: int = 5) -> float:
     """The least over *repeats* batches of *calls* calls of fn, in µs a call."""
     best = math.inf
@@ -6801,59 +7188,68 @@ def main() -> int:
     t0 = time.monotonic()
     sharded = start_sharded_train()
     charts = start_charts()
-    try:
-        phase_env()
-    except BaseException:
-        sharded["proc"].kill()
-        raise
-    phase_sharded_train(sharded)
-    charts["thread"].join()
-    if "error" in charts:
-        raise charts["error"]
+    sharded_done = threading.Event()
+    host_prep = start_host_prep(sharded_done)
+    with walled("1+10"):
+        try:
+            with walled("1"):
+                phase_env()
+        except BaseException:
+            sharded["proc"].kill()
+            raise
+        phase_sharded_train(sharded)
+        sharded_done.set()
+        charts["thread"].join()
+        if "error" in charts:
+            raise charts["error"]
     log(f"elapsed after phases 1 and 10: {time.monotonic() - t0:.1f}s")
     # The chaos campaign's child imports beside phase 2 and runs on the
     # card beside phase 3, which times nothing.
     chaos = start_chaos()
     try:
-        kern = phase_kernels()
-        check_decode_grid()
+        with walled("2"):
+            kern = phase_kernels()
+            check_decode_grid()
         log(f"elapsed after phases 1-2: {time.monotonic() - t0:.1f}s")
         release_chaos(chaos)
-        t3 = time.monotonic()
-        phase_model_parity()
-        log(f"elapsed after phase 3: {time.monotonic() - t0:.1f}s (phase 3 "
-            f"{time.monotonic() - t3:.1f}s)")
+        with walled("3"):
+            phase_model_parity()
+        log(f"elapsed after phase 3: {time.monotonic() - t0:.1f}s")
+        # The tiny runs (phase 4's last, correctness alone) beside the
+        # chaos child's tail: it outlasts phase 3.
+        tiny = {}
+        with walled("4.tiny[int8_fp8]"):
+            tiny["tiny_int8_fp8"] = _serve_tiny("tiny_int8_fp8", ["--quantization", "int8",
+                                                                  "--kv-cache-dtype", "fp8"])
+        with walled("4.tiny[spec]"):
+            tiny["tiny_spec"] = _serve_tiny("tiny_spec", ["--speculate-tokens", "3"])
     except BaseException:
         chaos["proc"].kill()
         raise
-    t_chaos = time.monotonic()
-    chaos_counts = phase_chaos(chaos)
-    log(f"chaos path: waited {time.monotonic() - t_chaos:.1f}s past phase 3")
-    serving = phase_serving()
+    with walled("chaos_wait"):
+        chaos_counts = phase_chaos(chaos)
+    with walled("4"):
+        serving = phase_serving(host_prep)
+    serving.update(tiny)
     log(f"elapsed after phase 4: {time.monotonic() - t0:.1f}s")
-    t5 = time.monotonic()
-    serving.update(phase_handoff())
-    log(f"handoff phase: {time.monotonic() - t5:.1f}s")
-    t6 = time.monotonic()
-    ops = phase_serving_ops()
+    with walled("5"):
+        serving.update(phase_handoff())
+    with walled("6"):
+        ops = phase_serving_ops()
     serving["telemetry"] = ops["bf16"]["telemetry"]["launches"]
-    log(f"serving_ops phase: {time.monotonic() - t6:.1f}s")
-    cold, loader_run = phase_coldstart()
+    with walled("7"):
+        cold, loader_run, finetune = phase_coldstart(host_prep)
     serving.update(cold)
-    try:
-        serving.update(phase_finetune())
-    except BaseException:
-        _stop(loader_run["proc"])
-        raise
-    serving.update(phase_loader(loader_run))
-    t9 = time.monotonic()
-    serving.update(phase_gang())
-    log(f"gang phase: {time.monotonic() - t9:.1f}s")
+    serving.update(finetune)
+    with walled("7.loader"):
+        serving.update(phase_loader(loader_run))
+    with walled("9"):
+        serving.update(phase_gang())
     serving["chaos"] = chaos_counts
-    t_charts = time.monotonic()
-    phase_charts(charts)
-    log(f"charts phase: {time.monotonic() - t_charts:.1f}s past its thread")
-    log(f"total: {time.monotonic() - t0:.1f}s")
+    with walled("11"):
+        phase_charts(charts)
+    total = time.monotonic() - t0
+    log(f"total: {total:.1f}s")
     # Each serving path is its own run with the counts zeroed before it:
     # `launches` is the count from the run of the kernel's own path (a
     # paged kernel's on its entry's pool dtype), and `launches_by_path`
@@ -6879,6 +7275,8 @@ def main() -> int:
     idle = [e["name"] for e in summary if not e["launches"]]
     if idle:
         raise AssertionError(f"kernels never launched on their own serving path: {idle}")
+    log("walls", gpu_line(), json.dumps({"total_s": round(total, 1), "deadline_s": DEADLINE_S,
+                                         "host_prep_s": host_prep.get("s"), **WALLS}))
     log(gpu_line())
     log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {

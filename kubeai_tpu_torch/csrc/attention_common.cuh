@@ -33,14 +33,21 @@ constexpr float NEG_INF = -1e30f;
 
 // Returns LAUNCH<T, D>(args...) for a runtime (dtype, head dim) pair:
 // dtype 0 = float32, 1 = bfloat16; head dims 32, 64 and 128. Head dim 256
-// (Gemma's) is bf16 only and lives in a library of its own: the same
-// source built with KATTN_D256 holds those instances alone
-// (ops/_build.py: the "_d256" libraries, built beside the others, so the
-// other models' build time does not grow).
-#ifdef KATTN_D256
+// (Gemma's) lives in libraries of its own, one per dtype: the same source
+// built with KATTN_D256 holds the bf16 instances alone, built with
+// KATTN_F32D256 the float32 ones (ops/_build.py: the "_d256" and
+// "_f32d256" libraries, built beside the others, so the other models'
+// build time does not grow).
+#if defined(KATTN_D256)
 #define KATTN_DISPATCH(LAUNCH, dtype, D, ...)                                       \
   do {                                                                             \
     if ((dtype) == 1 && (D) == 256) return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__); \
+    return (int)cudaErrorInvalidValue;                                             \
+  } while (0)
+#elif defined(KATTN_F32D256)
+#define KATTN_DISPATCH(LAUNCH, dtype, D, ...)                                       \
+  do {                                                                             \
+    if ((dtype) == 0 && (D) == 256) return LAUNCH<float, 256>(__VA_ARGS__);         \
     return (int)cudaErrorInvalidValue;                                             \
   } while (0)
 #else
@@ -64,13 +71,13 @@ constexpr float NEG_INF = -1e30f;
 // second library built from the same source with KATTN_ONE_BYTE_D32
 // holds them alone (ops/_build.py: the "_q8d32" libraries, built beside
 // the others). The KATTN_D256 library holds bf16 at head dim 256 over
-// every pool element type.
+// every pool element type, the KATTN_F32D256 library float32 at 256.
 #define KATTN_DISPATCH_D(LAUNCH, T, KT, D, ...)                \
   do {                                                         \
     if ((D) == 128) return LAUNCH<T, KT, 128>(__VA_ARGS__);    \
     if ((D) == 64) return LAUNCH<T, KT, 64>(__VA_ARGS__);      \
   } while (0)
-#if defined(KATTN_D256)
+#if defined(KATTN_D256) || defined(KATTN_F32D256)
 #define KATTN_DISPATCH_KV_T(LAUNCH, T, kv, D, ...)                                    \
   do {                                                                              \
     if ((kv) == 0 && (D) == 256) return LAUNCH<T, T, 256>(__VA_ARGS__);             \
@@ -92,10 +99,16 @@ constexpr float NEG_INF = -1e30f;
     if ((kv) == 2) KATTN_DISPATCH_D(LAUNCH, T, __nv_fp8_e4m3, D, __VA_ARGS__);     \
   } while (0)
 #endif
-#ifdef KATTN_D256
+#if defined(KATTN_D256)
 #define KATTN_DISPATCH_KV(LAUNCH, dtype, kv, D, ...)                                  \
   do {                                                                              \
     if ((dtype) == 1) KATTN_DISPATCH_KV_T(LAUNCH, __nv_bfloat16, kv, D, __VA_ARGS__); \
+    return (int)cudaErrorInvalidValue;                                              \
+  } while (0)
+#elif defined(KATTN_F32D256)
+#define KATTN_DISPATCH_KV(LAUNCH, dtype, kv, D, ...)                                  \
+  do {                                                                              \
+    if ((dtype) == 0) KATTN_DISPATCH_KV_T(LAUNCH, float, kv, D, __VA_ARGS__);         \
     return (int)cudaErrorInvalidValue;                                              \
   } while (0)
 #else

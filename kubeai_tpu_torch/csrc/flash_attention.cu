@@ -23,7 +23,10 @@
 // float32 stays on the CUDA-core tile of attention_common.cuh: the card
 // tests hold f32 kernels to summation order alone, which the tensor
 // cores' TF32 would break, and f32 is not on the main path. So does bf16
-// with more than 64 query heads per KV head.
+// with more than 64 query heads per KV head. float32 at head dim 256 (a
+// float32 Gemma; the KATTN_F32D256 library) is the same tile: 140,928
+// bytes of shared memory a block, past the 48 KB default, so every
+// CUDA-core launch sets the opt-in attribute first (launch_core).
 #include "attention_common.cuh"
 #include "hopper_attention.cuh"
 #include "preload.cuh"
@@ -114,14 +117,17 @@ static int launch_tc(const void* q, const void* k, const void* v, void* out, int
 template <typename T, int D>
 static int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
                   int Kv, int causal, float scale, cudaStream_t stream) {
-  const int G = H / Kv;
-  if (sizeof(T) == 2 && G <= hop::TQ)
-    return launch_tc<D>(q, k, v, out, B, S, H, Kv, causal, scale, stream);
+  // Compile-time on the dtype: a float32 library holds no tensor-core tile.
+  if constexpr (sizeof(T) == 2) {
+    if (H / Kv <= hop::TQ)
+      return launch_tc<D>(q, k, v, out, B, S, H, Kv, causal, scale, stream);
+  }
   return launch_core<T, D>(q, k, v, out, B, S, H, Kv, causal, scale, stream);
 }
 
-// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128 (bf16 at 256: the
-// KATTN_D256 build). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; D: 32, 64 or 128 (at 256: bf16 in the
+// KATTN_D256 build, float32 in the KATTN_F32D256 one). Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, int B, int S, int H, int Kv,
                                       int D, int causal, int dtype, float scale,

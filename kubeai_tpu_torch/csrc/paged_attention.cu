@@ -37,9 +37,12 @@
 // divide 64. Head dim 256 (Gemma's) runs every regime at 4 swizzle
 // chunks of 64 columns (the KATTN_D256 library).
 //
-// float32 keeps the CUDA-core tile of attention_common.cuh: its card
-// tests hold float32 to summation order alone, which the tensor cores'
-// TF32 would break. bf16 takes it only where neither Hopper path does
+// float32 keeps the CUDA-core tile of attention_common.cuh in every
+// regime (prefill, decode, verify): its card tests hold float32 to
+// summation order alone, which the tensor cores' TF32 would break. At
+// head dim 256 (a float32 Gemma: the KATTN_F32D256 library, float32 q
+// over float32, int8 and fp8 pools) the tile takes 140,928 bytes of
+// shared memory, which launch_core opts into on every launch path. bf16 takes it only where neither Hopper path does
 // (more than 64 rows that the prefill tile cannot take: more than 64
 // query heads per KV head, or pages off TMA's grid).
 //
@@ -211,8 +214,9 @@ static int launch(const PagedArgs& a, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same type
 // (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale; D: 32,
-// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build; bf16 at
-// 256: the KATTN_D256 build). P: pages in the pool.
+// 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build; at 256
+// bf16 in the KATTN_D256 build, float32 in the KATTN_F32D256 one). P:
+// pages in the pool.
 // n_splits > 0 takes bf16's split-KV regime (S*G <= 64): each slot's keys
 // in n_splits (1..64) splits, with the wrapper's scratch: part_o
 // [B*Kv*n_splits*S*G*D] f32, part_ml [B*Kv*n_splits*S*G] float2, counters

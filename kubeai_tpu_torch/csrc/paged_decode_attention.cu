@@ -37,7 +37,18 @@
 // float32 keeps the simple CUDA-core kernel below (one block per (KV head,
 // slot, row group), f32 shared tiles): its card tests hold it to
 // summation order alone, which the tensor cores' reduced-precision
-// products would break.
+// products would break. Its shared memory grows with the rows of a group
+// and the head dim (decode_smem_bytes): at head dim 256 (a float32 Gemma;
+// the KATTN_F32D256 library) a group of 64 rows needs 280,064 bytes, past
+// the card's 232,448, so float32 at 256 takes groups of at most 32 rows
+// (205,952 bytes; ops/paged_decode_attention.py::max_group_rows). Smaller
+// key tiles would fit as well, but the softmax's two keys a lane and the
+// 64-key tile of every other instance stay as they are: a group of 32
+// rows changes only the wrapper, and costs a second read of the slot's
+// K/V only where a (slot, KV head) has more than 32 rows (a verify step
+// of 8 tokens at Gemma's G = 8), on a path that is not the bf16 serving
+// one. A decode step (8 rows at G = 8) needs 150,368 bytes: every
+// float32 launch sets the opt-in attribute at the per-block limit.
 //
 // A quantized pool (one byte per element, int8 or fp8 e4m3; the Pallas
 // kernel's k_scale / v_scale branch) is read at one byte per element by
@@ -223,7 +234,7 @@ extern "C" int paged_decode_smem_bytes(int group_rows, int D, int n_splits, int 
 // dtype: 0 = float32, 1 = bfloat16; kv_code: the pool holds the same
 // type (0), int8 (1) or fp8 e4m3 (2), dequantized with k_scale / v_scale;
 // D: 32, 64 or 128 (a one-byte pool at 32: the KATTN_ONE_BYTE_D32 build;
-// bf16 at 256: the KATTN_D256 build).
+// at 256 bf16 in the KATTN_D256 build, float32 in the KATTN_F32D256 one).
 // The R = S*G rows of a (slot, KV head) go in groups of group_rows
 // (1..64) consecutive rows, one set of blocks each. bf16 cuts each slot's
 // keys into n_splits (1..64) splits and takes the wrapper's scratch, per

@@ -46,24 +46,30 @@ NVCC_FLAGS = (
 # name -> (source under csrc/, nvcc flags). The paged kernels' one-byte
 # instances at head dim 32 would double their libraries' build time, so
 # they build apart (in parallel) and load at first use of head dim 32;
-# so do the three attention kernels' bf16 instances at head dim 256
-# (Gemma's), the "_d256" libraries.
+# so do the three attention kernels' instances at head dim 256 (Gemma's):
+# bf16 in the "_d256" libraries, float32 in the "_f32d256" ones (a
+# float32 Gemma), so that neither grows the other's build.
 VARIANTS = {
     "paged_attention_q8d32": ("paged_attention", ("-DKATTN_ONE_BYTE_D32",)),
     "paged_decode_attention_q8d32": ("paged_decode_attention", ("-DKATTN_ONE_BYTE_D32",)),
     "flash_attention_d256": ("flash_attention", ("-DKATTN_D256",)),
     "paged_attention_d256": ("paged_attention", ("-DKATTN_D256",)),
     "paged_decode_attention_d256": ("paged_decode_attention", ("-DKATTN_D256",)),
+    "flash_attention_f32d256": ("flash_attention", ("-DKATTN_F32D256",)),
+    "paged_attention_f32d256": ("paged_attention", ("-DKATTN_F32D256",)),
+    "paged_decode_attention_f32d256": ("paged_decode_attention", ("-DKATTN_F32D256",)),
 }
-# The head dim whose instances are the "_d256" libraries (bf16 only).
+# The head dim whose instances are the "_d256" and "_f32d256" libraries.
 WIDE_HEAD_DIM = 256
 
 
-def attention_library(name: str, head_dim: int) -> str:
+def attention_library(name: str, head_dim: int, float32: bool = False) -> str:
     """The library holding attention kernel *name*'s instances at
-    *head_dim* (the one-byte pools at head dim 32 are the paged wrappers'
-    own choice)."""
-    return f"{name}_d256" if head_dim == WIDE_HEAD_DIM else name
+    *head_dim* for float32 (*float32*) or bf16 inputs (the one-byte pools
+    at head dim 32 are the paged wrappers' own choice)."""
+    if head_dim != WIDE_HEAD_DIM:
+        return name
+    return f"{name}_f32d256" if float32 else f"{name}_d256"
 
 
 def serving_libraries(model_config, engine_config, quantization: str = "") -> list[str]:
@@ -72,25 +78,27 @@ def serving_libraries(model_config, engine_config, quantization: str = "") -> li
     by the wrappers' own choices: flash when a prefill bucket takes it
     (a multiple of 256, no softcap, no window), the ragged paged kernel
     without a window, the dedicated one where the decode step resolves
-    to it, each at the model's head dim and pool (``_d256``,
-    ``_q8d32``), and the W8A16 library under int8 weights."""
+    to it, each at the model's head dim, dtype and pool (``_d256``,
+    ``_f32d256``, ``_q8d32``), and the W8A16 library under int8
+    weights."""
     from kubeai_tpu_torch.ops.paged_attention import library
     from kubeai_tpu_torch.ops.paged_decode_attention import resolve_decode_kernel
 
     h = model_config.head_dim_
+    f32 = model_config.dtype == "float32"
     windowed = model_config.sliding_window > 0
     one_byte = (engine_config.kv_cache_dtype or model_config.kv_cache_dtype) in ("fp8", "int8")
     pool_code = POOL_INT8 if one_byte else POOL_SAME  # either one-byte code picks alike
     names = []
     if (not windowed and model_config.attn_softcap == 0.0
             and any(b >= 256 and b % 256 == 0 for b in engine_config.prefill_buckets)):
-        names.append(attention_library("flash_attention", h))
+        names.append(attention_library("flash_attention", h, f32))
     if not windowed:
-        names.append(library("paged_attention", h, pool_code))
+        names.append(library("paged_attention", h, pool_code, f32))
         mode = resolve_decode_kernel(engine_config.decode_kernel,
                                      1 + engine_config.speculate_tokens)
         if mode == "dedicated":
-            names.append(library("paged_decode_attention", h, pool_code))
+            names.append(library("paged_decode_attention", h, pool_code, f32))
     if quantization == "int8":
         names.append("w8a16_matmul")
     return names
@@ -345,8 +353,7 @@ def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None 
     """Validate a kernel's tensors before their pointers reach native
     code: all on one CUDA device, contiguous, 16-byte aligned; the float
     tensors all float32 or all bfloat16, the index tensors int32; head
-    dim 32, 64 or 128, or 256 in bfloat16 (float32 at 256 is refused:
-    ROADMAP queue 3, "float32 attention at head dim 256"). *pool* (one named tensor) may share the floats'
+    dim 32, 64, 128 or 256. *pool* (one named tensor) may share the floats'
     dtype or hold one byte per element (int8 or float8_e4m3fn) beside
     them; any other mix raises. Returns (the kernel's dtype code, 0 f32
     or 1 bf16; the pool's element code, POOL_SAME, POOL_INT8 or
@@ -381,11 +388,6 @@ def check_cuda_inputs(what: str, head_dim: int, floats: dict, ints: dict | None 
     for name, t in (ints or {}).items():
         if t.dtype != torch.int32:
             raise ValueError(f"{what}: {name} must be int32, got {t.dtype}")
-    if head_dim == WIDE_HEAD_DIM and dtype != torch.bfloat16:
-        raise ValueError(
-            f"{what}: head_dim {WIDE_HEAD_DIM} runs in bfloat16 only, got {dtype} "
-            f"(ROADMAP queue 3: float32 attention at head dim 256)"
-        )
     if head_dim not in (32, 64, 128, WIDE_HEAD_DIM):
         raise ValueError(f"{what}: head_dim {head_dim} unsupported (32, 64, 128 or 256)")
     return (1 if dtype == torch.bfloat16 else 0), pool_code

@@ -12,7 +12,7 @@ bounds it. bf16 runs on the tensor cores (wgmma, TMA-fed K/V tiles; one
 block per 64/G whole positions of one KV head, G*floor(64/G) query rows,
 each K/V tile read once for the G heads sharing it; head dims 32 to 256,
 256 in a library of its own); float32 keeps the CUDA-core tile (head dims
-32 to 128). The source describes both.
+32 to 256, 256 in a library of its own). The source describes both.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors; there is no fallback between the two.
@@ -62,7 +62,7 @@ def flash_attention(q, k, v, causal: bool = True, sm_scale: float | None = None)
     dtype, _ = _build.check_cuda_inputs("flash_attention", h, {"q": q, "k": k, "v": v})
     scale = h**-0.5 if sm_scale is None else sm_scale
     out = torch.empty_like(q)
-    lib = _build.load(_build.attention_library("flash_attention", h), _SIG)
+    lib = _build.load(_build.attention_library("flash_attention", h, dtype == 0), _SIG)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, S, H, Kv, h, int(causal), dtype, float(scale), _build.stream_of(q),

@@ -19,7 +19,8 @@ of up to 15 tokens at 4 query heads per KV head), whose number of splits
 :func:`split_kv_plan` chooses so that the grid fills the card, and from
 64 rows the prefill tile (the flash kernel's, keys found through the
 page table).
-float32 keeps a CUDA-core tile. Its source says what each design does.
+float32 keeps a CUDA-core tile in every regime (head dims 32 to 256).
+Its source says what each design does.
 
 A pool in one byte per element (int8 or float8_e4m3fn, the JAX
 package's ``--kv-cache-dtype int8|fp8``) holds K/V divided by the static
@@ -58,13 +59,14 @@ QUANT_POOL_DTYPES = (torch.int8, torch.float8_e4m3fn)
 SMALL_QUANT_HEAD_DIM = 32
 
 
-def library(name: str, h: int, pool_code: int) -> str:
-    """The library of paged kernel *name* for head dim *h* and a pool of
-    element code *pool_code* (_build.POOL_*): the "_q8d32" one for a
-    one-byte pool at head dim 32, the "_d256" one at head dim 256."""
+def library(name: str, h: int, pool_code: int, float32: bool = False) -> str:
+    """The library of paged kernel *name* for head dim *h*, a pool of
+    element code *pool_code* (_build.POOL_*) and float32 (*float32*) or
+    bf16 q: the "_q8d32" one for a one-byte pool at head dim 32, the
+    "_d256" (bf16) or "_f32d256" (float32) one at head dim 256."""
     if pool_code != _build.POOL_SAME and h == SMALL_QUANT_HEAD_DIM:
         return f"{name}_q8d32"
-    return _build.attention_library(name, h)
+    return _build.attention_library(name, h, float32)
 
 # bf16 launches with at most this many query rows per (slot, KV head),
 # S*G, take the split-KV decode regime (up to four m16 tiles of mma.sync).
@@ -228,7 +230,7 @@ def _launch_ragged(q, kv_pages, page_table, kv_lengths, scale, softcap, n_splits
     if split_kv is None:
         split_kv = ragged_regime(q, kv_pages) == "split_kv"
     part = ml = cnt = lens  # used by the split-KV regime alone
-    lib = _build.load(library("paged_attention", h, pool_code), _SIG)
+    lib = _build.load(library("paged_attention", h, pool_code, dtype == 0), _SIG)
     if q.dtype != torch.bfloat16 or not split_kv:
         n_splits = 0  # the prefill tile or the CUDA-core tile
     else:

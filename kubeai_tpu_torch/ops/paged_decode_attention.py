@@ -14,7 +14,8 @@ regime): each slot's keys are cut into the splits that
 and the S*G query rows of a (slot, KV head) go in groups of at most 64
 (:func:`row_groups`), each group one, two or four 16-row tiles. float32
 keeps a simple CUDA-core kernel, one block per (KV head, slot, row
-group). The source says what each design does.
+group), in groups of at most 32 rows at head dim 256
+(:func:`max_group_rows`). The source says what each design does.
 
 Bound on the H100: memory (every valid K/V byte read once; ~5 us per
 layer call at B=8, kv_len 512; half that for a one-byte pool, int8 or
@@ -48,6 +49,11 @@ MAX_DECODE_QUERY_LEN = 8
 # Query rows per block: four 16-row tiles (S = 16 at G = 4). A (slot, KV
 # head) with more rows takes several groups of blocks.
 MAX_ROWS = 64
+# float32 at head dim 256 keeps its query rows, scores and sums in shared
+# memory: 64 rows need 280,064 bytes, past the card's 232,448, and 32
+# rows 205,952 (csrc/paged_decode_attention.cu says why groups shrink
+# rather than key tiles).
+F32_WIDE_MAX_ROWS = 32
 
 _SIG = {
     "paged_decode_attention_launch": [_build.PTR] * 8
@@ -67,10 +73,18 @@ def resolve_decode_kernel(mode: str, query_len: int) -> str:
     return "ragged"
 
 
-def row_groups(R: int) -> tuple[int, int]:
+def max_group_rows(dtype: torch.dtype, h: int) -> int:
+    """Query rows one block of the kernel takes for q of *dtype* at head
+    dim *h*: MAX_ROWS, or F32_WIDE_MAX_ROWS for float32 at head dim 256."""
+    if dtype == torch.float32 and h == _build.WIDE_HEAD_DIM:
+        return F32_WIDE_MAX_ROWS
+    return MAX_ROWS
+
+
+def row_groups(R: int, max_rows: int = MAX_ROWS) -> tuple[int, int]:
     """(groups, rows per group) of a (slot, KV head)'s R query rows: runs
-    of MAX_ROWS consecutive rows, the last one shorter."""
-    rows = min(R, MAX_ROWS)
+    of *max_rows* consecutive rows, the last one shorter."""
+    rows = min(R, max_rows)
     return -(-R // rows), rows
 
 
@@ -82,14 +96,14 @@ def _launch_dedicated(q, kv_pages, page_table, kv_lengths, scale, softcap, n_spl
     lens, dtype, pool_code = check_paged_inputs(
         "paged_decode_attention", q, kv_pages, page_table, kv_lengths)
     page, Kv, max_pages = kv_pages.shape[1], kv_pages.shape[2] // 2, page_table.shape[1]
-    groups, rows = row_groups(S * (H // Kv))
+    groups, rows = row_groups(S * (H // Kv), max_group_rows(q.dtype, h))
     part = ml = cnt = lens  # used by the bf16 kernel alone
     if q.dtype != torch.bfloat16:
         n_splits = 1
     else:
         n_splits, part, ml, cnt = _split_kv_setup(q, Kv, max_pages, page, rows, n_splits,
                                                   groups)
-    lib = _build.load(library("paged_decode_attention", h, pool_code), _SIG)
+    lib = _build.load(library("paged_decode_attention", h, pool_code, dtype == 0), _SIG)
     smem = lib.paged_decode_smem_bytes(rows, h, n_splits, dtype, pool_code)
     if smem > MAX_SMEM:
         raise ValueError(

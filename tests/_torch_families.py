@@ -90,8 +90,8 @@ def model(family: str, seed: int = 0, **kw):
     return jc, tc, jp, params_from_jax(jax.tree.map(np.asarray, jp), tc, "cpu")
 
 
-def check_paged_forward(family: str, kernels: bool) -> None:
-    jc, tc, jp, tp = model(family)
+def check_paged_forward(family: str, kernels: bool, **kw) -> None:
+    jc, tc, jp, tp = model(family, **kw)
     flags = dict(use_flash_prefill=kernels, use_paged_kernel=kernels)
     jc, tc = jc.replace(**flags), tc.replace(**flags)
     B, ps, mp = 2, 16, 20

@@ -5,8 +5,11 @@ on the CPU, rendered by the port's helmlite.
   ``load_system_config`` with ``default_gpu_profiles()`` and the CUDA
   engine's image; its Deployment runs ``python -m
   kubeai_tpu_torch.manager`` with ``CONFIG_PATH`` at the mounted
-  ConfigMap; its kinds are the JAX chart's, and its Ingress and
-  PodMonitor render as the JAX chart's do under the same values.
+  ConfigMap; its kinds are the JAX chart's, and its Ingress renders as
+  the JAX chart's does under the same values. Its PodMonitor selects the
+  port's engine pods (the ``model`` label) and scrapes their unnamed
+  container port 8000; the JAX chart's selects a label and a port name
+  its pods do not have (the reference's to decide).
 - The models chart renders nothing by default and, with every entry
   enabled, the port's ``CATALOG``: each Model's whole spec.
 - The Role grants every request the port's KubeStore sends: each
@@ -99,6 +102,14 @@ def test_deployment_runs_the_port_manager():
 
 
 def test_ingress_and_pod_monitor_render_as_the_jax_chart():
+    """The Ingress renders as the JAX chart's. The PodMonitor keeps the
+    JAX chart's metadata and path, and selects what the port's controller
+    puts on an engine pod: the ``model`` label and container port 8000,
+    which has no name (tests/test_torch_k8s_manifests.py's planned pod)."""
+    from test_torch_k8s_manifests import _planned_pod
+
+    from kubeai_tpu_torch.runtime import k8s_manifests as tman
+
     sets = {"ingress.enabled": "true", "ingress.className": "nginx",
             "ingress.rules": '[{"host": "a.example.com", "path": "/", "pathType": "Prefix"}]',
             "ingress.tls": '[{"hosts": ["a.example.com"], "secretName": "t"}]',
@@ -111,9 +122,25 @@ def test_ingress_and_pod_monitor_render_as_the_jax_chart():
         # The chart's name is the one label that differs.
         return json.loads(json.dumps(out).replace('"kubeai-tpu-torch"', '"kubeai-tpu"'))
 
-    got = docs(OPERATOR_CHART, render_chart)
+    got, jax = docs(OPERATOR_CHART, render_chart), docs(JAX_OPERATOR_CHART, jax_render_chart)
     assert set(got) == {"Ingress", "PodMonitor"}
-    assert got == docs(JAX_OPERATOR_CHART, jax_render_chart)
+    assert got["Ingress"] == jax["Ingress"]
+    mon, jmon = got["PodMonitor"], jax["PodMonitor"]
+    assert {k: v for k, v in mon.items() if k != "spec"} == \
+        {k: v for k, v in jmon.items() if k != "spec"}
+    assert mon["spec"] == {
+        "selector": {"matchExpressions": [{"key": "model", "operator": "Exists"}]},
+        "podMetricsEndpoints": [{"targetPort": 8000, "path": "/metrics"}],
+    }
+    # The JAX chart's selector and port name, which no port engine pod has.
+    assert jmon["spec"]["selector"] == {"matchLabels": {"app.kubernetes.io/managed-by":
+                                                        "kubeai-tpu"}}
+    assert jmon["spec"]["podMetricsEndpoints"][0]["port"] == "http"
+    pod = tman.pod_manifest(_planned_pod()[1])
+    assert "model" in pod["metadata"]["labels"]
+    assert "app.kubernetes.io/managed-by" not in pod["metadata"]["labels"]
+    ports = [p for c in pod["spec"]["containers"] for p in c.get("ports", [])]
+    assert ports == [{"containerPort": 8000}]
 
 
 def test_models_chart_equals_the_catalog():

@@ -868,8 +868,8 @@ def test_live_engines_never_share_a_stream(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Head dim 256 (Gemma's; the "_d256" libraries) and query groups that do not
-# divide 64 (Qwen2.5's G = 7): -k h256, -k g7.
+# Head dim 256 (Gemma's; the "_d256" libraries, and "_f32d256" for float32)
+# and query groups that do not divide 64 (Qwen2.5's G = 7): -k h256, -k g7.
 
 
 @pytest.mark.gpu
@@ -925,12 +925,59 @@ def test_h256_paged_kernels_match_plain(cuda, kv, B, S, H, Kv, page, lens, regim
             _assert_close(got, want, torch.bfloat16)
 
 
+# float32 at head dim 256 (a float32 Gemma; the "_f32d256" libraries):
+# every kernel on its CUDA-core path, held to summation order alone.
+
+
 @pytest.mark.gpu
-def test_h256_float32_is_refused(cuda):
-    q = torch.zeros((1, 256, 8, 256), device=cuda)
-    k = torch.zeros((1, 256, 1, 256), device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP queue 3"):
-        flash_attention(q, k, k)
+@pytest.mark.parametrize(
+    "B,S,H,Kv,causal",
+    [(1, 1024, 8, 1, True), (2, 300, 8, 1, True), (1, 256, 8, 4, True), (2, 64, 8, 1, False)],
+)
+def test_h256_float32_flash_matches_plain(cuda, B, S, H, Kv, causal):
+    """Flash in float32 at head dim 256 on the CUDA-core tile (140,928
+    bytes of shared memory a block, past the 48 KB default)."""
+    from kubeai_tpu_torch.ops.flash_attention import flash_regime
+
+    g = torch.Generator(device=cuda).manual_seed(23)
+    q, k, v = (torch.randn((B, S, n, 256), generator=g, device=cuda) for n in (H, Kv, Kv))
+    assert flash_regime(q, k) == "cuda_core"
+    before = flash_attention.launches_by_regime["cuda_core"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_regime["cuda_core"] == before + 1
+    _assert_close(got, flash_attention_plain(q, k, v, causal), torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [None, "fp8", "int8"], ids=["float32", "fp8", "int8"])
+@pytest.mark.parametrize(
+    "B,S,H,Kv,page,lens",
+    [
+        (8, 1, 8, 1, 64, [1, 63, 64, 65, 300, 511, 700, 2048]),  # decode, 8 rows
+        (8, 8, 8, 1, 64, [8, 70, 300, 512, 1024, 1500, 2000, 2048]),  # verify: 64 rows
+        (2, 9, 8, 1, 64, [9, 700]),  # 72 rows: three groups of the dedicated kernel
+        (1, 1024, 8, 1, 64, [2048]),  # a 1024 chunk at 1024
+        (2, 64, 8, 4, 16, [300, 77]),  # Gemma2's G = 2, page 16
+    ],
+)
+def test_h256_float32_paged_kernels_match_plain(cuda, kv, B, S, H, Kv, page, lens):
+    """Both paged kernels in float32 at head dim 256 over float32, fp8 and
+    int8 pools: the ragged kernel's CUDA-core tile in every regime, the
+    dedicated kernel (up to S = 16) in row groups of at most 32 (64 rows
+    would need 280,064 bytes of shared memory)."""
+    from kubeai_tpu_torch.ops.paged_attention import ragged_regime
+
+    q, pool, table, kv_lens, ks, vs, want = _verify_case(
+        cuda, torch.float32, kv, B, S, H, Kv, 256, page, lens, seed=S + Kv + 3)
+    assert ragged_regime(q, pool) == "cuda_core"
+    fns = [paged_attention_ragged] + ([paged_decode_attention] if S <= 16 else [])
+    for fn in fns:
+        before = fn.launches_by_pool[str(pool.dtype).removeprefix("torch.")]
+        got = fn(q, pool, table, kv_lens, k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert fn.launches_by_pool[str(pool.dtype).removeprefix("torch.")] == before + 1
+        _assert_close(got, want, torch.float32)
 
 
 @pytest.mark.gpu

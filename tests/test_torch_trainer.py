@@ -150,7 +150,11 @@ def test_refusals_name_their_roadmap_items():
             ttrainer.init_sharded_training(moe, mesh, device="cpu")
         return True
 
-    assert all(run_local_mesh(dict(ep=3), rank, "cpu"))
+    # The ranks exchange nothing before the refusal, so they meet over the
+    # in-process exchange: a gloo full mesh of three thread ranks over
+    # loopback failed to connect ("Connection closed by peer") beside the
+    # other test workers' groups.
+    assert all(run_local_mesh(dict(ep=3), rank, "cpu", backend="threads"))
     params, _, _ = ttrainer.init_sharded_training(tc, mesh=_MeshShape(dp=1, sp=1), device="cpu")
     assert isinstance(params["embed"], torch.Tensor)
 
